@@ -23,9 +23,21 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            image, s/step, decode ms, peak memory;
   phase 5  the bf16 VAE decode of phase 2's latents at batch 4, against
            their f32 decode;
-  phase 6  img2img (DDIM, strength 0.75) of a phase-2 image at batch 1.
+  phase 6  img2img (DDIM, strength 0.75) of a phase-2 image at batch 1;
+  phase 7  the k-diffusion render: txt2img at 512x512, batch 4, DPM++ 2M on
+           the Karras schedule, 20 steps, CFG 7.5, the UNet's channel-major
+           attention route on (``attn_route="cm"``: K5 at levels 1 and 2),
+           f32 decode; and one UNet eval with that route held against the
+           same eval without it;
+  phase 8  k-family img2img at batch 1 (Euler Ancestral, strength 0.75: 6 of
+           20 steps) with the canonical-K attention route switched on for
+           the phase (K5 at every self-attention site), bf16 VAE;
+  phase 9  the Winograd probe (K6), which no layer dispatches, called as
+           its user would call it: on the weights of the UNet's 20 ResBlock
+           convs of the 32x32 and 16x16 planes at UNet batch 2, each held
+           against the same conv through ``layers.conv2d`` (K4).
 
-Each path of phases 2, 4, 5 and 6 runs with every launch count set to 0
+Each path of phases 2 and 4 to 9 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched. Any failure exits non-zero before the result lines. On
 success the last three lines are the kernels JSON, the card's name and
@@ -66,11 +78,24 @@ KERNELS = {
         f"{PKG}/csrc/conv3x3.cu",
         "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel",
     ),
+    "attention_cm": (
+        f"{PKG}/csrc/attention_cm.cu",
+        "complex_prompt_diffusion_tpu/ops/attention.py:187 _onepass_kernel_hdbs; "
+        "complex_prompt_diffusion_tpu/ops/attention.py:378 _onepass_kernel_kcanon",
+    ),
+    "winograd": (
+        f"{PKG}/csrc/winograd.cu",
+        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel",
+    ),
 }
 
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |a - b| / max |b|
 
+DDIM_PATH_KERNELS = ("attention", "geglu_ff", "group_norm", "conv3x3")  # phases 4 and 6
 UNET_CONVS_PER_CALL_B1 = 22  # 3x3 convs on the 16^2/32^2 planes at UNet batch 2
+K_STEPS = 20  # steps of the k-diffusion paths (phases 7 and 8)
+UNET_SELF_ATTN_SITES = 15  # self-attention sites above S = 128 at 512x512: 5 a level
+UNET_CM_SITES = 10  # of them inside the cm gate (levels 1 and 2: C = 640, 1280)
 
 
 class SmokeFailure(Exception):
@@ -123,6 +148,7 @@ def phase1(dev, card: str) -> dict:
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                       "library_ms": 0.0, "by": {"bytes": 0.0, "operations": 0.0}}
                for name in KERNELS}
+    conv_ms = {}  # K4's time by case label, printed beside K6's at the same shape
     print(f"phase1: kernel vs plain twin on {card} (times: CUDA events, mean of "
           f"5 after 2 warm-up; bound = max(flops / peak, bytes / 3.35 TB/s))")
     for case in kernel_cases(dev):
@@ -138,6 +164,11 @@ def phase1(dev, card: str) -> dict:
         tol = TOL[case.dtype]
         ok = rel <= tol
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        if case.kernel == "conv3x3":
+            conv_ms[case.label] = ms
+        elif case.kernel == "winograd":
+            k4 = conv_ms.get(case.label)
+            lib_txt += f" K4={k4:.4f} ms" if k4 is not None else " K4=no case at this shape"
         print(f"  {case.kernel:10s} {case.label:30s} max_abs_err={abs_err:.3e} rel={rel:.3e} "
               f"(tol {tol:.0e}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
               f"library={lib_txt} bound={bound_ms:.4f} ms ({by}) ({card}) "
@@ -332,8 +363,8 @@ def phase4(bundle, dev, card: str, steps: int) -> dict:
 
     check_image(images, (1, 512, 512, 3))
     check_latents(latents, (1, 64, 64, 4))
-    for name, n in launches.items():
-        if n <= 0:
+    for name in DDIM_PATH_KERNELS:
+        if launches[name] <= 0:
             raise SmokeFailure(f"kernel {name} was not launched in the batch-1 render")
     want = UNET_CONVS_PER_CALL_B1 * steps
     if launches["conv3x3"] != want:
@@ -408,8 +439,8 @@ def phase6(bundle, image, card: str, steps: int) -> dict:
 
     check_image(images, (1, 512, 512, 3))
     check_latents(latents, (1, 64, 64, 4))
-    for name, n in launches.items():
-        if n <= 0:
+    for name in DDIM_PATH_KERNELS:
+        if launches[name] <= 0:
             raise SmokeFailure(f"kernel {name} was not launched in img2img")
     if launches["conv3x3"] != UNET_CONVS_PER_CALL_B1 * t_enc:
         raise SmokeFailure(f"img2img ran conv3x3 {launches['conv3x3']} times, want "
@@ -417,6 +448,192 @@ def phase6(bundle, image, card: str, steps: int) -> dict:
     print(f"phase6: img2img 512x512 b1 strength 0.75 DDIM {steps} ({t_enc} steps run) CFG "
           f"7.5, bf16 VAE encode and decode, on {card}: {t1 - t0:.3f} s end to end; "
           f"launches {json.dumps(launches)}; image mean {float(images.mean()):.2f}")
+    return launches
+
+
+def phase7(bundle, dev, card: str, steps: int) -> dict:
+    """The k-diffusion render at full width with the UNet's channel-major
+    attention route on, then one UNet eval with that route against the same
+    eval without it; returns the render's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch.pipeline import RenderConfig, decode_latents, txt2img
+
+    cm = dataclasses.replace(
+        bundle, unet_cfg=dataclasses.replace(bundle.unet_cfg, attn_route="cm"))
+    cfg = RenderConfig(steps=steps, sampler="DPM++ 2m", sigma_schedule="karras",
+                       guidance_scale=7.5, width=512, height=512, batch_size=4, seed=3)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, latents = txt2img(cm, "a castle on a cliff above the sea, oil on canvas", cfg=cfg,
+                         decode=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    images = decode_latents(cm, latents)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches()
+
+    check_image(images, (4, 512, 512, 3))
+    check_latents(latents, (4, 64, 64, 4))
+    if launches["attention_cm"] != UNET_CM_SITES * steps:
+        raise SmokeFailure(f"K5 launched {launches['attention_cm']} times in the k-diffusion "
+                           f"render, want {UNET_CM_SITES} sites x {steps} steps")
+    if launches["attention"] < (UNET_SELF_ATTN_SITES - UNET_CM_SITES) * steps:
+        raise SmokeFailure(f"K1 launched {launches['attention']} times, want the level-0 "
+                           f"sites of {steps} steps at least")
+    for name in ("geglu_ff", "group_norm"):
+        if launches[name] <= 0:
+            raise SmokeFailure(f"kernel {name} was not launched in the k-diffusion render")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"phase7: txt2img 512x512 b4 DPM++ 2M Karras {steps} steps CFG 7.5, cm attention "
+          f"route, on {card}: sampling {t1 - t0:.3f} s = {(t1 - t0) / steps:.4f} s/step "
+          f"(incl. prompt encode), f32 decode {1000 * (t2 - t1) / 4:.2f} ms/img, end to end "
+          f"{4 / (t2 - t0):.4f} img/s, peak memory {peak_gb:.2f} GiB")
+    print(f"phase7: launches {json.dumps(launches)}; latents mean "
+          f"{float(latents.mean()):.5f} std {float(latents.std()):.5f}; "
+          f"image mean {float(images.mean()):.2f}")
+
+    # one UNet eval at the render's plane (UNet batch 2): cm route vs default
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((2, 64, 64, 4), generator=gen, device=dev)
+    t = torch.tensor([601.5, 601.5], device=dev)  # a fractional timestep, as the denoiser gives
+    ctx = torch.randn((2, 77, 768), generator=gen, device=dev)
+    reset_launches()
+    with torch.inference_mode():
+        got = M.unet_apply(cm.unet_cfg, cm.unet_params, x, t, ctx)
+        n_cm = read_launches()
+        want = M.unet_apply(bundle.unet_cfg, bundle.unet_params, x, t, ctx)
+    n_all = read_launches()
+    n_k1 = n_all["attention"] - n_cm["attention"]
+    if (n_cm["attention_cm"] != UNET_CM_SITES or n_all["attention_cm"] != UNET_CM_SITES
+            or n_cm["attention"] != UNET_SELF_ATTN_SITES - UNET_CM_SITES
+            or n_k1 != UNET_SELF_ATTN_SITES):
+        raise SmokeFailure(f"the cm UNet eval launched {n_cm}, the two evals together {n_all}: "
+                           f"want K5 at {UNET_CM_SITES} sites of the first and K1 at all "
+                           f"{UNET_SELF_ATTN_SITES} of the second")
+    rel = float((got - want).norm() / want.norm())
+    # K5 runs K1's arithmetic in K1's order on transposed tiles, so the two
+    # routes may agree to the bit; the tolerance is bf16's
+    print(f"phase7: UNet eps 64x64 latent b2, cm route (K5 at {n_cm['attention_cm']} sites, K1 "
+          f"at {n_cm['attention']}) vs default route (K1 at {n_k1}), bf16: rel L2 {rel:.3e} "
+          f"(tol 2e-2), max |eps| {float(want.abs().max()):.3f} ({card})")
+    if not rel <= 2e-2:
+        raise SmokeFailure(f"the cm route disagrees with the default route: rel L2 {rel:.3e}")
+    return launches
+
+
+def phase8(bundle, image, card: str, steps: int) -> dict:
+    """k-family img2img (Euler Ancestral, strength 0.75) of one phase-2
+    image at batch 1, with the canonical-K attention route on for the phase;
+    returns its launch counts."""
+    import importlib
+
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch.pipeline import RenderConfig, img2img, img2img_t_enc
+
+    attn = importlib.import_module(f"{PKG}.ops.attention")
+    cfg = RenderConfig(steps=steps, sampler="Euler Ancestral", guidance_scale=7.5, width=512,
+                       height=512, batch_size=1, seed=4, denoising_strength=0.75)
+    n_run = min(steps, img2img_t_enc(cfg.denoising_strength, steps, "k") + 1)
+    flag = attn._USE_KCANON
+    attn._USE_KCANON = True
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images, latents = img2img(bundle, image, "a pencil sketch of an astronaut", cfg=cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = read_launches()
+    finally:
+        attn._USE_KCANON = flag
+
+    check_image(images, (1, 512, 512, 3))
+    check_latents(latents, (1, 64, 64, 4))
+    if launches["attention_cm"] != UNET_SELF_ATTN_SITES * n_run:
+        raise SmokeFailure(f"K5 launched {launches['attention_cm']} times in the k-family "
+                           f"img2img, want {UNET_SELF_ATTN_SITES} sites x {n_run} steps")
+    if launches["attention"] != 2:  # the encoder's and the decoder's d = 512 mid-blocks
+        raise SmokeFailure(f"K1 launched {launches['attention']} times under the kcanon "
+                           "route, want the two d = 512 VAE mid-blocks")
+    if launches["conv3x3"] < UNET_CONVS_PER_CALL_B1 * n_run:
+        raise SmokeFailure(f"conv3x3 launched {launches['conv3x3']} times, want at least "
+                           f"{UNET_CONVS_PER_CALL_B1} x {n_run} steps")
+    for name in ("geglu_ff", "group_norm"):
+        if launches[name] <= 0:
+            raise SmokeFailure(f"kernel {name} was not launched in the k-family img2img")
+    print(f"phase8: img2img 512x512 b1 strength 0.75 Euler Ancestral {steps} ({n_run} steps "
+          f"run) CFG 7.5, kcanon attention route, bf16 VAE encode and decode, on {card}: "
+          f"{t1 - t0:.3f} s end to end; launches {json.dumps(launches)}; image mean "
+          f"{float(images.mean()):.2f}")
+    return launches
+
+
+def phase9(bundle, dev, card: str) -> dict:
+    """The Winograd probe on the UNet's own ResBlock conv weights at the
+    batch-1 render's planes, against the same convs through K4; returns its
+    launch counts."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch.models import layers as L
+    from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3, winograd_weights
+
+    # (plane side, conv params) of every ResBlock conv, walking the plan from
+    # a 64x64 latent
+    convs, hw = [], 64
+    input_plan, _, output_plan = M.build_plan(bundle.unet_cfg)
+    blocks = list(zip(input_plan, bundle.unet_params["input_blocks"])) + list(
+        zip(output_plan, bundle.unet_params["output_blocks"]))
+    for plan, params in blocks:
+        for desc, p in zip(plan, params):
+            if desc[0] == "res":
+                convs += [(hw, p["in_conv"]), (hw, p["out_conv"])]
+            elif desc[0] == "down":
+                hw //= 2
+            elif desc[0] == "up":
+                hw *= 2
+    convs = [(side, p) for side, p in convs if side in (16, 32)]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = []
+    for side, p in convs:
+        co, c = p["weight"].shape[:2]
+        x = torch.randn((2, side, side, c), generator=gen, device=dev).to(torch.bfloat16)
+        cases.append((x, p, p["weight"].permute(2, 3, 1, 0)))  # HWIO view of the weight
+
+    reset_launches()
+    worst = 0.0
+    with torch.inference_mode():
+        for x, p, k_hwio in cases:
+            got = wino3x3(x, k_hwio, p["bias"])
+            want = L.conv2d(p, x)
+            rel = float((got.float() - want.float()).norm() / want.float().norm())
+            if not (rel <= TOL["bfloat16"]) or not bool(torch.isfinite(got).all()):
+                raise SmokeFailure(f"the Winograd probe disagrees with K4 on a "
+                                   f"{tuple(k_hwio.shape)} conv: rel L2 {rel:.3e}")
+            worst = max(worst, rel)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches["winograd"] != len(cases) or launches["conv3x3"] != len(cases) or not cases:
+        raise SmokeFailure(f"the probe phase launched {launches} for {len(cases)} convs")
+    with torch.inference_mode():
+        us = [winograd_weights(k).to(x.dtype) for x, _, k in cases]
+        ms_w = cuda_ms(lambda: [wino3x3(x, k, p["bias"]) for x, p, k in cases], 3)
+        ms_u = cuda_ms(lambda: [wino3x3(x, k, p["bias"], u=u)
+                                for (x, p, k), u in zip(cases, us)], 3)
+        ms_k4 = cuda_ms(lambda: [L.conv2d(p, x) for x, p, _ in cases], 3)
+    print(f"phase9: Winograd probe on the UNet's {len(cases)} ResBlock convs of the 32^2 and "
+          f"16^2 planes (UNet batch 2, bf16), on {card}: worst rel L2 vs K4 {worst:.3e} (tol "
+          f"2e-2); all {len(cases)} convs {ms_u:.3f} ms through K6 with U made ahead, "
+          f"{ms_w:.3f} ms with the weight transform in each call, {ms_k4:.3f} ms through K4; "
+          f"launches {json.dumps(launches)}")
     return launches
 
 
@@ -453,7 +670,12 @@ def main(argv=None) -> int:
     paths = {"txt2img_b4": main_launches,
              "txt2img_b1_bf16_decode": phase4(bundle16, dev, card, args.steps),
              "bf16_decode_b4": phase5(bundle16, latents, images, card),
-             "img2img_b1": phase6(bundle16, images[0], card, args.steps)}
+             "img2img_b1": phase6(bundle16, images[0], card, args.steps),
+             "txt2img_b4_dpmpp2m_cm": phase7(bundle, dev, card, K_STEPS),
+             "img2img_b1_euler_a_kcanon": phase8(bundle16, images[0], card, K_STEPS)}
+    if any(p["winograd"] for p in paths.values()):
+        raise SmokeFailure("the Winograd probe was launched in a render: no layer dispatches it")
+    paths["winograd_probe_unet_convs"] = phase9(bundle, dev, card)
 
     kernels = []
     for name, (src, rep) in KERNELS.items():

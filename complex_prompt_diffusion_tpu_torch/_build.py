@@ -51,6 +51,18 @@ _SIGNATURES = {
                            _L, _L, _L, _L, _L, _L, _F, _P),
     "cpd_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _L, _L, _L, _L, _L, _L, _F, _P),
+    # q, k, v, o, B, H, Sq, Skv, D, then the element strides (batch, head,
+    # d; for a canonical k: batch, head, key row) of q, k, v and o,
+    # k_canonical, scale, stream
+    "cpd_attention_cm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                              _I, _F, _P),
+    "cpd_attention_cm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                             _I, _F, _P),
+    # x, u, bias, y, B, H, W, C, Co, stream
+    "cpd_wino3x3_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cpd_wino3x3_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w1, b1, hidden, M, C, H4, stream
     "cpd_geglu_gemm1_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
     # hidden, w2, b2, out, M, H4, C, stream

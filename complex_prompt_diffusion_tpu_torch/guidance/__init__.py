@@ -4,7 +4,9 @@ from complex_prompt_diffusion_tpu_torch.guidance.cfg import (
     GuidanceConfig,
     GuidanceSpec,
     cfg_epsilon,
+    make_denoiser,
     make_uc_scale_schedule,
+    sigma_to_t_cont,
     stacked_context,
 )
 
@@ -14,4 +16,6 @@ __all__ = [
     "cfg_epsilon",
     "make_uc_scale_schedule",
     "stacked_context",
+    "sigma_to_t_cont",
+    "make_denoiser",
 ]

@@ -5,11 +5,15 @@ Counterpart of ``complex_prompt_diffusion_tpu/guidance/cfg.py``:
   * the uncond and all K prompt factors go through ONE UNet call;
   * eps = e_uncond + scale_t * sum_k mask_k * scale_k * (e_k - e_uncond),
     with negative scales for "not" factors;
-  * optional per-step scale decay (:func:`make_uc_scale_schedule`).
+  * optional per-step scale decay (:func:`make_uc_scale_schedule`);
+  * :func:`make_denoiser` wraps the eps model for the sigma-space
+    (k-diffusion) samplers: input scaled by c_in, sigma mapped to a
+    fractional timestep (:func:`sigma_to_t_cont`), output x - sigma * eps.
 
 Unconditional blur, eps thresholding, the dynamic scale clip and
 attention-saliency guidance are not ported yet and raise
-NotImplementedError; depth conditioning is not ported yet.
+NotImplementedError, as does the v-parameterization of the denoiser; depth
+conditioning is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ __all__ = [
     "cfg_epsilon",
     "make_uc_scale_schedule",
     "stacked_context",
+    "sigma_to_t_cont",
+    "make_denoiser",
 ]
 
 
@@ -158,3 +164,54 @@ def cfg_epsilon(
     weights = spec.scales.reshape(k, 1, 1, 1, 1) * spec.masks[:, None]
     e_sum = torch.sum(weights * (out[1:] - e_uncond[None]), dim=0)
     return e_uncond + uc_scale * e_sum
+
+
+def sigma_to_t_cont(sigma, model_sigmas) -> np.ndarray:
+    """Continuous sigma -> fractional trained timestep, linear interpolation
+    against the ascending model sigma table, in f32. Host-side numpy: the
+    samplers keep their per-step sigmas on the host, so the sampling loop
+    never waits for the device."""
+    table = np.asarray(model_sigmas, dtype=np.float32)
+    sigma = np.asarray(sigma, dtype=np.float32)
+    hi = np.clip(np.searchsorted(table, sigma), 1, table.shape[0] - 1)
+    lo = hi - 1
+    w = (sigma - table[lo]) / (table[hi] - table[lo])
+    return lo.astype(np.float32) + np.clip(w, np.float32(0.0), np.float32(1.0))
+
+
+def make_denoiser(
+    unet_eps: Callable,
+    spec: GuidanceSpec,
+    *,
+    gcfg: GuidanceConfig = GuidanceConfig(),
+    model_sigmas=None,
+    parameterization: str = "eps",
+):
+    """Build the two denoising closures the samplers consume.
+
+    Returns (eps_fn, denoised_fn):
+      * eps_fn(x, t, uc_scale) — t-space (DDIM family).
+      * denoised_fn(x, sigma, uc_scale) — sigma-space (k-diffusion family):
+        scales the input by c_in = 1/sqrt(sigma^2+1), converts sigma to a
+        fractional timestep, and returns x - sigma * eps. ``sigma`` is a
+        host scalar (the samplers keep their schedules on the host); the
+        arithmetic on it is f32, as in the JAX package.
+    """
+    if parameterization != "eps":
+        raise NotImplementedError(
+            f"parameterization {parameterization!r} is not ported yet (eps only)"
+        )
+
+    def eps_fn(x, t, uc_scale):
+        return cfg_epsilon(unet_eps, x, t, spec, uc_scale, gcfg=gcfg)
+
+    def denoised_fn(x, sigma, uc_scale):
+        if model_sigmas is None:
+            raise ValueError("denoised_fn requires model_sigmas")
+        sigma = np.float32(sigma)
+        c_in = np.float32(1.0) / np.sqrt(sigma**2 + np.float32(1.0))
+        t = sigma_to_t_cont(sigma, model_sigmas)
+        e_t = cfg_epsilon(unet_eps, x * float(c_in), t, spec, uc_scale, gcfg=gcfg)
+        return x - float(sigma) * e_t
+
+    return eps_fn, denoised_fn

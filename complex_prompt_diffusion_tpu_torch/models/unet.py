@@ -3,7 +3,9 @@
 Counterpart of ``complex_prompt_diffusion_tpu/models/unet.py``: the same
 static plan (:func:`build_plan`), the same parameter tree, NHWC activations,
 compute in ``cfg.dtype`` with f32 norm statistics. Self-attention, the GEGLU
-MLP and every GroupNorm go through the port's kernels (``ops``).
+MLP and every GroupNorm go through the port's kernels (``ops``); with
+``UNetConfig.attn_route == "cm"`` the self-attention sites the JAX gate
+admits run the fused channel-major block (K5).
 
 The up-path skip concat is a plain ``torch.cat``: the JAX package's split
 GroupNorm+conv over a virtual concat is gated to its TPU matmul-stats GN
@@ -20,7 +22,7 @@ import torch
 
 from complex_prompt_diffusion_tpu_torch.models import layers as L
 from complex_prompt_diffusion_tpu_torch.ops import attention as mha
-from complex_prompt_diffusion_tpu_torch.ops import geglu_ff
+from complex_prompt_diffusion_tpu_torch.ops import geglu_ff, self_attention_cm
 
 __all__ = ["UNetConfig", "build_plan", "init_unet", "unet_apply", "precompute_cross_kv"]
 
@@ -41,6 +43,16 @@ class UNetConfig:
     use_scale_shift_norm: bool = False
     num_classes: Optional[int] = None
     dtype: str = "bfloat16"
+    # Route of the self-attention sites: "bsc" (default) splits one fused
+    # qkv projection in the [B, S, C] layout and calls ops.attention; "cm"
+    # mirrors the JAX package's ``UNetConfig.use_pallas="cm"``: sites with
+    # S > 128, S % 128 == 0 and C % 128 == 0 run the fused channel-major
+    # block ``ops.self_attention_cm`` (K5), the others stay on "bsc".
+    attn_route: str = "bsc"
+
+    def __post_init__(self):
+        if self.attn_route not in ("bsc", "cm"):
+            raise ValueError(f"unknown attn_route {self.attn_route!r} (bsc|cm)")
 
     @staticmethod
     def sd15() -> "UNetConfig":
@@ -296,11 +308,23 @@ def precompute_cross_kv(cfg: UNetConfig, params, context):
     return tuple(cache)
 
 
-def _cross_attention(p, x, context, heads: int, kv=None):
+def _cross_attention(p, x, context, heads: int, kv=None, attn_route: str = "bsc"):
     if kv is not None and context is not None:
         q = L.linear(p["to_q"], x)
         k, v = kv
     elif context is None:
+        if "hyper_k" in p or "hyper_v" in p:
+            raise NotImplementedError("hypernetworks are not ported yet")
+        s_len, c_dim = x.shape[1], x.shape[2]
+        if attn_route == "cm" and s_len > 128 and s_len % 128 == 0 and c_dim % 128 == 0:
+            # fused channel-major block: the qkv projection writes K5's
+            # [3C, B, S] layout and the out-projection reads it back
+            return self_attention_cm(
+                x,
+                p["to_q"]["kernel"], p["to_k"]["kernel"], p["to_v"]["kernel"],
+                p["to_out"]["kernel"], p["to_out"]["bias"],
+                heads,
+            )
         # self-attention: one fused [C, 3C] projection; q/k/v stay strided
         # views of it (the attention kernel reads row strides)
         w = torch.cat(
@@ -323,7 +347,7 @@ def _apply_attn(p, cfg: UNetConfig, h, context, heads, dim_head, kv_iter=None):
         x = L.conv2d(p["proj_in"], x).reshape(n, hh_ * ww_, inner)
     for blk in p["blocks"]:
         xa = L.layer_norm(blk["norm1"], x)
-        x = x + _cross_attention(blk["attn1"], xa, None, heads)
+        x = x + _cross_attention(blk["attn1"], xa, None, heads, attn_route=cfg.attn_route)
         kv = next(kv_iter) if (kv_iter is not None and context is not None) else None
         xc = L.layer_norm(blk["norm2"], x)
         x = x + _cross_attention(blk["attn2"], xc, context, heads, kv=kv)

@@ -1,4 +1,5 @@
-"""Softmax attention over the [B, S, H*D] layout, with the K1 CUDA kernel.
+"""Softmax attention over the [B, S, H*D] layout, with the K1 and K5 CUDA
+kernels.
 
 Counterpart of ``complex_prompt_diffusion_tpu/ops/attention.py``. The
 dispatch copies the JAX rule (``attention``: Pallas only for KV > 128):
@@ -9,12 +10,28 @@ dispatch copies the JAX rule (``attention``: Pallas only for KV > 128):
     device;
   * longer KV runs :func:`flash_attention`: the hand-written kernel
     ``csrc/attention.cu`` (K1) for CUDA tensors, its plain PyTorch twin
-    :func:`attention_plain` for CPU tensors.
+    :func:`attention_plain` for CPU tensors;
+  * with ``CPD_ATTN_KCANON=1`` in the environment at import (the JAX
+    module's switch, read into ``_USE_KCANON``), KV lengths in (128, 16384]
+    with head dim <= 256 run :func:`attention_kcanon` instead: q and v are
+    copied sequence-major-last ([B, H, D, S]), k is read where it lies, and
+    K5 (``csrc/attention_cm.cu``) computes on those operands — the port of
+    ``_onepass_kernel_kcanon``.
+
+:func:`self_attention_cm` is the fused channel-major self-attention block
+(``UNetConfig.attn_route == "cm"``): the qkv projection is written straight
+into ``[3C, B, S]``, K5 reads its ``[H, D, B, S]`` slices in place, and the
+output projection contracts the channel-major result — the port of
+``self_attention_cm`` / ``_onepass_kernel_hdbs``.
+
+K5's wrapper is :func:`attention_dmajor`; its plain twin is
+:func:`attention_dmajor_plain`.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -25,10 +42,24 @@ __all__ = [
     "attention",
     "flash_attention",
     "attention_plain",
+    "attention_dmajor",
+    "attention_dmajor_plain",
+    "attention_kcanon",
+    "self_attention_cm",
+    "self_attention_cm_plain",
     "SHORT_KV",
 ]
 
 SHORT_KV = 128  # KV lengths up to this take the plain path on every device
+
+# Above this KV length (or head dim) the JAX package's one-pass kernels hand
+# over to its streaming kernel; the kcanon route keeps the same range.
+_ONEPASS_MAX_KV = 16384
+_ONEPASS_MAX_D = 256
+
+# Canonical-K route of attention() (see attention_kcanon): read once at
+# import, like the JAX module's flag of the same name.
+_USE_KCANON = os.environ.get("CPD_ATTN_KCANON", "0") == "1"
 
 _ATTN_BF16_DP = (16, 32, 48, 64, 80, 96, 128, 160, 256)  # padded head dims K1 has
 _ATTN_MAX_D = 512  # bf16 256 < d <= 512 takes K1's split-d kernel
@@ -117,11 +148,162 @@ def flash_attention(q, k, v, num_heads: int, scale: Optional[float] = None):
 flash_attention.launches = 0
 
 
+def attention_dmajor_plain(q, k, v, scale: float, k_canonical: bool = False,
+                           out_hdbs: bool = False):
+    """Plain PyTorch twin of K5: q, v [B, H, D, S]; k [B, H, D, Skv], or
+    [B, H, Skv, D] with ``k_canonical``. f32 scores and softmax,
+    probabilities cast to v's dtype for the PV product, output [B, H, D, Sq]
+    in q's dtype (with ``out_hdbs`` a view of a contiguous [H, D, B, Sq])."""
+    kt = k.transpose(-1, -2) if k_canonical else k  # [B, H, D, Skv]
+    s = torch.matmul(q.float().transpose(-1, -2), kt.float()) * scale
+    p = torch.softmax(s, dim=-1)
+    out = torch.matmul(v, p.to(v.dtype).transpose(-1, -2)).to(q.dtype)
+    if out_hdbs:
+        out = out.permute(1, 2, 0, 3).contiguous().permute(2, 0, 1, 3)
+    return out
+
+
+def attention_dmajor(q, k, v, scale: float, k_canonical: bool = False,
+                     out_hdbs: bool = False):
+    """K5 wrapper: softmax(scale * Q K^T) V on operands whose sequence axis
+    is contiguous.
+
+    q, v: [B, H, D, S] views with unit stride along S and any other strides
+    (so the ``[H, D, B, S]`` slices of a ``[3C, B, S]`` projection and a
+    contiguous ``[B, H, D, S]`` both fit); k: the same form, or, with
+    ``k_canonical``, a [B, H, Skv, D] view with unit stride along D (read in
+    place from a ``[B, S, H*D]`` projection). Returns [B, H, D, Sq]: a fresh
+    contiguous tensor, or with ``out_hdbs`` a view of a fresh ``[H, D, B,
+    Sq]`` tensor (the ``[C, B, S]`` layout the cm block's output projection
+    contracts).
+
+    CPU tensors run :func:`attention_dmajor_plain`. CUDA tensors launch
+    ``csrc/attention_cm.cu`` (bf16 with a padded head dim K5 has, or f32
+    with d <= 256; Sq, Skv and every stride a multiple of 16 bytes) or raise;
+    there is no fallback. ``attention_dmajor.launches`` counts launches."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("attention_dmajor expects 4-D [B, H, D, S] operands")
+    b, h, d, sq = q.shape
+    skv = v.shape[3]
+    k_want = (b, h, skv, d) if k_canonical else (b, h, d, skv)
+    if tuple(v.shape) != (b, h, d, skv) or tuple(k.shape) != k_want:
+        raise ValueError(
+            f"attention shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+            f"v{tuple(v.shape)} (k_canonical={k_canonical}) are inconsistent"
+        )
+    if not q.is_cuda:
+        return attention_dmajor_plain(q, k, v, scale, k_canonical, out_hdbs)
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("q, k and v must share one dtype")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    if q.dtype == torch.bfloat16:
+        if d % 8 or (d + 15) // 16 * 16 not in _ATTN_BF16_DP:
+            raise ValueError(f"K5 bf16 supports head dims d % 8 == 0, d <= 256; got {d}")
+        fn, vec = _build.kernel_library().cpd_attention_cm_bf16, 8
+    elif q.dtype == torch.float32:
+        if d % 4 or d > _ONEPASS_MAX_D:
+            raise ValueError(f"K5 f32 supports head dims d % 4 == 0, d <= 256; got {d}")
+        fn, vec = _build.kernel_library().cpd_attention_cm_f32, 4
+    else:
+        raise TypeError(f"K5 supports bfloat16 and float32, got {q.dtype}")
+    if sq % vec or skv % vec:
+        raise ValueError(
+            f"K5 needs sequence lengths that are multiples of {vec} "
+            f"(16-byte loads along S); got Sq={sq}, Skv={skv}"
+        )
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.stride(3) != 1 or any(t.stride(i) % vec for i in range(3))
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"K5 needs {name} with unit stride along its last axis and "
+                f"16-byte aligned strides; got strides {t.stride()}"
+            )
+    if out_hdbs:
+        out = torch.empty((h, d, b, sq), dtype=q.dtype, device=q.device).permute(2, 0, 1, 3)
+    else:
+        out = torch.empty((b, h, d, sq), dtype=q.dtype, device=q.device)
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, sq, skv, d,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
+        int(k_canonical), float(scale), _build.stream_ptr(q.device),
+    )
+    _build.check(err, "attention over channel-major operands (K5)")
+    attention_dmajor.launches += 1
+    return out
+
+
+attention_dmajor.launches = 0
+
+
+def attention_kcanon(q, k, v, num_heads: int, scale: Optional[float] = None):
+    """The canonical-K route over [B, S, H*D] operands: d-major copies of q
+    and v (the JAX wrapper's transposes), k read in place, K5, and the
+    result transposed back to [B, Sq, H*D]."""
+    b, sq, inner = q.shape
+    skv = k.shape[1]
+    d = inner // num_heads
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+
+    def t(x):  # [B, S, H*D] -> contiguous [B, H, D, S]
+        return x.reshape(b, x.shape[1], num_heads, d).permute(0, 2, 3, 1).contiguous()
+
+    k_n = k.reshape(b, skv, num_heads, d).permute(0, 2, 1, 3)  # a view of k
+    out_t = attention_dmajor(t(q), k_n, t(v), scale, k_canonical=True)
+    return out_t.permute(0, 3, 1, 2).reshape(b, sq, inner)
+
+
+def _self_attention_cm(attn, x, wq, wk, wv, wo, bo, num_heads, scale):
+    b, s, c = x.shape
+    d = c // num_heads
+    if s % 128:
+        raise ValueError(
+            f"the channel-major path requires self-attention with 128-aligned S; got {s}"
+        )
+    if scale is None:
+        scale = d**-0.5
+    w = torch.cat([wq, wk, wv], dim=1).to(x.dtype)  # [C, 3C]
+    # [3C, C] x [C, B*S]: the projection lands in [3C, B, S] with no relayout
+    qkv = torch.matmul(w.t(), x.reshape(b * s, c).t()).view(3, num_heads, d, b, s)
+    q, k, v = (qkv[i].permute(2, 0, 1, 3) for i in range(3))  # [B, H, D, S] views
+    out = attn(q, k, v, scale, out_hdbs=True)  # a view of [H, D, B, S]
+    out = out.permute(1, 2, 0, 3).reshape(c, b * s)  # [C, B*S], no copy
+    y = torch.matmul(out.t(), wo.to(x.dtype)).view(b, s, c)
+    return y + bo.to(y.dtype)
+
+
+def self_attention_cm(x, wq, wk, wv, wo, bo, num_heads: int,
+                      scale: Optional[float] = None):
+    """Self-attention block on the [B, S, C] stream with channel-major
+    internals: q/k/v projection (no bias) into ``[3C, B, S]``, K5 on its
+    ``[H, D, B, S]`` slices, output projection (+ ``bo``) from ``[C, B, S]``.
+    The two projections are plain matrix products, as they are XLA products
+    outside the kernel in the JAX package. Weights are cast to x's dtype."""
+    return _self_attention_cm(attention_dmajor, x, wq, wk, wv, wo, bo, num_heads, scale)
+
+
+def self_attention_cm_plain(x, wq, wk, wv, wo, bo, num_heads: int,
+                            scale: Optional[float] = None):
+    """:func:`self_attention_cm` with K5 replaced by its plain twin on every
+    device."""
+    return _self_attention_cm(attention_dmajor_plain, x, wq, wk, wv, wo, bo, num_heads, scale)
+
+
 def attention(q, k, v, num_heads: int, scale: Optional[float] = None):
     """Attention over [B, S, H*D] tensors (the SpatialTransformer layout).
 
     KV <= 128 takes the plain f32-softmax path on every device (it is
-    bandwidth-trivial there); longer KV goes through K1."""
-    if k.shape[1] <= SHORT_KV:
+    bandwidth-trivial there); longer KV goes through K1, or, when the
+    kcanon flag is set, through K5 in the range the JAX package's one-pass
+    kernels cover."""
+    skv = k.shape[1]
+    if skv <= SHORT_KV:
         return attention_plain(q, k, v, num_heads, scale)
+    if _USE_KCANON and skv <= _ONEPASS_MAX_KV and q.shape[2] // num_heads <= _ONEPASS_MAX_D:
+        return attention_kcanon(q, k, v, num_heads, scale)
     return flash_attention(q, k, v, num_heads, scale)

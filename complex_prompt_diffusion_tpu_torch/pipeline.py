@@ -1,19 +1,21 @@
-"""End-to-end txt2img and img2img: model bundle, prompt encoding, DDIM
+"""End-to-end txt2img and img2img: model bundle, prompt encoding,
 sampling, VAE encode and decode.
 
 Counterpart of ``complex_prompt_diffusion_tpu/pipeline.py``: ``txt2img`` ->
 ``make_guidance_spec`` -> ``encode_prompt`` (tokenizer + CLIP) ->
-``sample_latents`` (DDIM, CFG with uncond and cond in ONE UNet call,
-cross-attention k/v hoisted out of the step loop) -> ``decode_latents``
-(VAE decode to uint8); ``img2img`` encodes the image (``encode_image``),
-noises it to the DDIM timestep ``img2img_t_enc`` picks and runs the last
-part of the chain. Where the JAX package jits one scan, the port runs an
-eager Python loop on the device. Entry points run on the bundle's device,
-which is the GPU unless the caller asks for the CPU.
+``sample_latents`` (the sampler ``cfg.sampler`` names: DDIM over the
+inference tables, or a k-diffusion sampler over a sigma schedule; CFG with
+uncond and cond in ONE UNet call, cross-attention k/v hoisted out of the
+step loop) -> ``decode_latents`` (VAE decode to uint8); ``img2img`` encodes
+the image (``encode_image``), noises it to the step ``img2img_t_enc`` picks
+(a DDIM timestep, or a sigma of the schedule) and runs the last part of the
+chain. Where the JAX package jits one scan, the port runs an eager Python
+loop on the device. Entry points run on the bundle's device, which is the
+GPU unless the caller asks for the CPU.
 
-Other samplers (and so the k-family img2img), tiled UNet, ToMe, DeepCache,
-CLIP and attention-saliency guidance are not ported yet: they raise
-NotImplementedError.
+The samplers outside DDIM and ``samplers/kdiff.py``, tiled UNet, ToMe,
+DeepCache, CLIP and attention-saliency guidance are not ported yet: they
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,12 +32,12 @@ from complex_prompt_diffusion_tpu_torch import schedules as S
 from complex_prompt_diffusion_tpu_torch.guidance import (
     GuidanceConfig,
     GuidanceSpec,
-    cfg_epsilon,
+    make_denoiser,
     make_uc_scale_schedule,
     stacked_context,
 )
 from complex_prompt_diffusion_tpu_torch.prompts.tokenizer import get_tokenizer
-from complex_prompt_diffusion_tpu_torch.samplers import sample_ddim
+from complex_prompt_diffusion_tpu_torch.samplers import get_sampler
 
 __all__ = [
     "ModelBundle",
@@ -320,10 +322,9 @@ def make_guidance_spec(
 
 
 def _check_ported(bundle: ModelBundle, cfg: RenderConfig) -> None:
-    if cfg.sampler.lower() != "ddim":
-        raise NotImplementedError(
-            f"sampler {cfg.sampler!r} is not ported yet (DDIM only)"
-        )
+    _, sample_fn = get_sampler(cfg.sampler)
+    if getattr(sample_fn, "not_ported", False):
+        raise NotImplementedError(f"sampler {cfg.sampler!r} is not ported yet")
     unported = [
         name for name, on in (
             ("unet_tile", cfg.unet_tile),
@@ -338,6 +339,44 @@ def _check_ported(bundle: ModelBundle, cfg: RenderConfig) -> None:
         raise NotImplementedError(f"not ported yet: {unported}")
 
 
+def _sigma_schedule(bundle: ModelBundle, cfg: RenderConfig) -> np.ndarray:
+    kwargs = {}
+    if cfg.sigma_min is not None:
+        kwargs["sigma_min"] = cfg.sigma_min
+    if cfg.sigma_max is not None:
+        kwargs["sigma_max"] = cfg.sigma_max
+    if cfg.sigma_schedule == "karras":
+        kwargs.setdefault("sigma_min", float(bundle.tables.sigmas[0]))
+        kwargs.setdefault("sigma_max", float(bundle.tables.sigmas[-1]))
+        kwargs["rho"] = cfg.rho
+    return S.make_sigma_schedule(
+        cfg.sigma_schedule, cfg.steps, model_sigmas=bundle.tables.sigmas, **kwargs
+    )
+
+
+def _run_sigma_sampler(sample_fn, den_fn, x, bundle, cfg, t_start, generator, noises):
+    """The sigma-family call: the schedule cut to its last ``t_start``
+    steps, the per-step scales, churn arguments for euler/heun/dpm2 and eta
+    for the ancestral samplers; x_T is scaled by the first sigma unless the
+    caller gave its own start."""
+    sigmas = _sigma_schedule(bundle, cfg)
+    if t_start is not None:
+        sigmas = sigmas[len(sigmas) - 1 - t_start:]
+    kw = {}
+    name = cfg.sampler.lower()
+    if name in ("euler", "huen", "heun", "dpm2"):
+        kw.update(s_churn=cfg.s_churn, s_tmin=cfg.s_tmin, s_tmax=cfg.s_tmax,
+                  s_noise=cfg.s_noise)
+    if "ancestral" in name:
+        kw["eta"] = cfg.eta if cfg.eta else 1.0
+    if x is None:
+        shape = (cfg.batch_size,) + cfg.latent_shape
+        x = torch.randn(shape, generator=generator, device=bundle.device) * float(sigmas[0])
+    uc_scales = make_uc_scale_schedule(cfg.guidance, len(sigmas) - 1)
+    x0, _ = sample_fn(den_fn, x, sigmas, uc_scales, generator=generator, noises=noises, **kw)
+    return x0
+
+
 @torch.inference_mode()
 def sample_latents(
     bundle: ModelBundle,
@@ -349,12 +388,15 @@ def sample_latents(
     noises: Optional[torch.Tensor] = None,
     t_start: Optional[int] = None,
 ) -> torch.Tensor:
-    """Run DDIM with CFG; returns final latents f32 [B, h, w, 4] (unscaled
-    model space). ``generator`` (default: seeded from ``cfg.seed``) draws
-    x_T unless ``x_init`` is given, then the per-step noises unless
-    ``noises`` is given. ``t_start``: run only the first ``t_start``
-    timesteps of the DDIM table (img2img)."""
+    """Run the configured sampler with CFG; returns final latents f32
+    [B, h, w, 4] (unscaled model space). ``generator`` (default: seeded from
+    ``cfg.seed``) draws x_T unless ``x_init`` is given (a sigma-family
+    sampler scales the draw by its first sigma), then the per-step noises
+    unless ``noises`` is given. ``t_start`` (img2img): run only the first
+    ``t_start`` timesteps of the DDIM table, or the last ``t_start`` steps
+    of the sigma schedule."""
     _check_ported(bundle, cfg)
+    family, sample_fn = get_sampler(cfg.sampler)
     shape = (cfg.batch_size,) + cfg.latent_shape
     div = 2 ** (len(bundle.unet_cfg.channel_mult) - 1)
     lh, lw = cfg.latent_shape[0], cfg.latent_shape[1]
@@ -367,18 +409,16 @@ def sample_latents(
     device = bundle.device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    x_T = None
     if x_init is not None:
         x_T = torch.as_tensor(x_init, dtype=torch.float32, device=device)
-    else:
+    elif family == "t":
         x_T = torch.randn(shape, generator=generator, device=device)
 
-    itables = S.make_inference_tables(
-        bundle.tables, cfg.steps, eta=cfg.eta, discretize=cfg.discretize
-    )
-    uc_scales = make_uc_scale_schedule(cfg.guidance, itables.num_steps)
     # cross-attention k/v are loop-invariant: compute them once per render
+    batch = shape[0] if x_T is None else x_T.shape[0]
     cross_kv = M.precompute_cross_kv(
-        bundle.unet_cfg, bundle.unet_params, stacked_context(spec, x_T.shape[0])
+        bundle.unet_cfg, bundle.unet_params, stacked_context(spec, batch)
     )
 
     def unet_eps(x, t, ctx):
@@ -386,10 +426,19 @@ def sample_latents(
             bundle.unet_cfg, bundle.unet_params, x, t, ctx, cross_kv=cross_kv
         )
 
-    def eps_fn(x, t, uc_scale):
-        return cfg_epsilon(unet_eps, x, t, spec, uc_scale, gcfg=cfg.guidance)
-
-    x0, _ = sample_ddim(
+    eps_fn, den_fn = make_denoiser(
+        unet_eps, spec, gcfg=cfg.guidance, model_sigmas=bundle.tables.sigmas,
+        parameterization=bundle.parameterization,
+    )
+    if family == "sigma":
+        return _run_sigma_sampler(
+            sample_fn, den_fn, x_T, bundle, cfg, t_start, generator, noises
+        )
+    itables = S.make_inference_tables(
+        bundle.tables, cfg.steps, eta=cfg.eta, discretize=cfg.discretize
+    )
+    uc_scales = make_uc_scale_schedule(cfg.guidance, itables.num_steps)
+    x0, _ = sample_fn(
         eps_fn, x_T, itables, uc_scales,
         generator=generator, noises=noises, temperature=cfg.temperature,
         t_start=t_start,
@@ -488,14 +537,20 @@ def img2img(
     noises=None,
     decode: bool = True,
 ):
-    """Image to image (DDIM): sample the encoder's posterior, noise the
-    latents to DDIM step ``t_enc = img2img_t_enc(cfg.denoising_strength,
-    steps, "t")`` with x_t = sqrt(a_t) z0 + sqrt(1 - a_t) noise, and run the
-    first ``t_enc`` steps of the reverse chain. ``generator`` (default:
-    seeded from ``cfg.seed``) draws the posterior noise, the forward noise
-    and the per-step noises, each unless given (``encode_noise``,
-    ``noise``, ``noises``). Returns (images_uint8 | None, latents)."""
-    _check_ported(bundle, cfg)  # DDIM only: the k-family img2img raises here
+    """Image to image: sample the encoder's posterior, noise the latents and
+    run the last part of the reverse chain.
+
+    DDIM: to step ``t_enc = img2img_t_enc(cfg.denoising_strength, steps,
+    "t")`` with x_t = sqrt(a_t) z0 + sqrt(1 - a_t) noise, then the first
+    ``t_enc`` steps of the table. k-diffusion samplers: x_t = z0 + noise *
+    sigmas[idx] with ``idx = max(0, steps - t_enc - 1)`` and ``t_enc =
+    img2img_t_enc(..., "k")`` (the opposite convention), then the schedule
+    from ``idx`` on. ``generator`` (default: seeded from ``cfg.seed``)
+    draws the posterior noise, the forward noise and the per-step noises,
+    each unless given (``encode_noise``, ``noise``, ``noises``). Returns
+    (images_uint8 | None, latents)."""
+    _check_ported(bundle, cfg)
+    family, _ = get_sampler(cfg.sampler)
     spec = (
         prompt
         if isinstance(prompt, GuidanceSpec)
@@ -504,14 +559,22 @@ def img2img(
     if generator is None:
         generator = torch.Generator(device=bundle.device).manual_seed(cfg.seed)
     z0 = encode_image(bundle, image, generator=generator, noise=encode_noise)
-    itables = S.make_inference_tables(
-        bundle.tables, cfg.steps, eta=cfg.eta, discretize=cfg.discretize
-    )
-    t_enc = img2img_t_enc(cfg.denoising_strength, itables.num_steps, "t")
-    a_t = float(itables.alphas_cumprod_t[t_enc - 1])
     if noise is None:
         noise = torch.randn(z0.shape, generator=generator, device=bundle.device)
-    x_t = np.sqrt(a_t) * z0 + np.sqrt(1.0 - a_t) * _as_device_tensor(noise, bundle)
+    noise = _as_device_tensor(noise, bundle)
+    if family == "t":
+        itables = S.make_inference_tables(
+            bundle.tables, cfg.steps, eta=cfg.eta, discretize=cfg.discretize
+        )
+        t_enc = img2img_t_enc(cfg.denoising_strength, itables.num_steps, "t")
+        a_t = float(itables.alphas_cumprod_t[t_enc - 1])
+        x_t = np.sqrt(a_t) * z0 + np.sqrt(1.0 - a_t) * noise
+    else:
+        sigmas = _sigma_schedule(bundle, cfg)
+        # start index into the sigma schedule
+        idx = max(0, cfg.steps - img2img_t_enc(cfg.denoising_strength, cfg.steps, "k") - 1)
+        x_t = z0 + noise * float(sigmas[idx])
+        t_enc = len(sigmas) - 1 - idx
     latents = sample_latents(
         bundle, spec, cfg, x_init=x_t, generator=generator, noises=noises,
         t_start=t_enc,

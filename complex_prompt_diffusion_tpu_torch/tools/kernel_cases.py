@@ -1,6 +1,7 @@
 """The kernel cases that ``chip_smoke.py`` (phase 1) and ``tree_ab`` run.
 
-Each case is one kernel call at a shape its paths use, with its plain
+Each case is one kernel call at a shape its paths use (for the Winograd
+probe, which no path uses: at shapes K4's cases have), with its plain
 PyTorch twin, the one PyTorch call that computes the same function where
 there is one (timed beside the kernel as a yardstick, never used by the
 port), and the flops and bytes the function needs, from which
@@ -51,7 +52,9 @@ def kernel_cases(dev, kernels=None) -> list:
     C = importlib.import_module(f"{_PKG}.ops.conv")
     G = importlib.import_module(f"{_PKG}.ops.groupnorm")
     F2 = importlib.import_module(f"{_PKG}.ops.mlp")
-    want = set(kernels) if kernels else {"attention", "geglu_ff", "group_norm", "conv3x3"}
+    W = importlib.import_module(f"{_PKG}.ops.probes.winograd")
+    want = set(kernels) if kernels else {"attention", "geglu_ff", "group_norm", "conv3x3",
+                                         "attention_cm", "winograd"}
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -150,4 +153,71 @@ def kernel_cases(dev, kernels=None) -> list:
                 lambda a=a: F.conv2d(a[0].permute(0, 3, 1, 2), a[1], a[2], padding=1),
                 "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 9 * c,
                 x.element_size() * (m * c + 9 * c * co + m * co + co)))
+    if "attention_cm" in want:
+        # K5, hdbs mode: the cm block's [H, D, B, S] slices of one [3C, B, S]
+        # projection at the levels the gate admits (UNet batch 8, and 2 for
+        # batch 1). The library call is SDPA on canonical copies.
+        def sdpa4(q, k, v, k_canonical):
+            qc, vc = (t.transpose(-1, -2).contiguous() for t in (q, v))
+            kc = k.contiguous() if k_canonical else k.transpose(-1, -2).contiguous()
+            return lambda: F.scaled_dot_product_attention(qc, kc, vc)
+
+        def cm_case(label, q, k, v, k_canonical, dt, **kw):
+            b, h, d, sq = q.shape
+            skv = v.shape[3]
+            scale = d**-0.5
+            cases.append(Case(
+                "attention_cm", label,
+                lambda: A.attention_dmajor(q, k, v, scale, k_canonical=k_canonical, **kw),
+                lambda: A.attention_dmajor_plain(q, k, v, scale, k_canonical),
+                sdpa4(q, k, v, k_canonical), dt, 4.0 * b * h * sq * skv * d,
+                2.0 * b * h * (sq + skv) * d * q.element_size()))
+
+        def hdbs(b, s_, c, dt):
+            qkv = randn(3, 8, c // 8, b, s_, dtype=dt)
+            return tuple(qkv[i].permute(2, 0, 1, 3) for i in range(3))
+
+        def kcanon(b, sq, skv, c, dt):
+            # q and v as the route's d-major copies, k a view of the fused
+            # [B, S, 3C] projection
+            d = c // 8
+            q, v = (randn(b, 8, d, s_, dtype=dt) for s_ in (sq, skv))
+            k = randn(b, skv, 3 * c, dtype=dt)[..., c:2 * c]
+            return q, k.reshape(b, skv, 8, d).permute(0, 2, 1, 3), v
+
+        for b in (8, 2):
+            for s_, c in ((1024, 640), (256, 1280)):
+                cm_case(f"hdbs bf16 B{b} S{s_} H8 d{c // 8}", *hdbs(b, s_, c, bf16), False,
+                        "bfloat16", out_hdbs=True)
+        cm_case("hdbs f32 B2 S256 H8 d160", *hdbs(2, 256, 1280, f32), False, "float32",
+                out_hdbs=True)
+        # kcanon mode: every self-attention level (UNet batch 8; level 0 at 2)
+        for b, s_, c in ((8, 4096, 320), (8, 1024, 640), (8, 256, 1280), (2, 4096, 320)):
+            cm_case(f"kcanon bf16 B{b} S{s_} H8 d{c // 8}", *kcanon(b, s_, s_, c, bf16), True,
+                    "bfloat16")
+        cm_case("kcanon f32 B2 S1024 H8 d80", *kcanon(2, 1024, 1024, 640, f32), True, "float32")
+        cm_case("kcanon bf16 B2 Sq1000 Skv1336 H8 d40 (ragged)",
+                *kcanon(2, 1000, 1336, 320, bf16), True, "bfloat16")
+    if "winograd" in want:
+        # K6 at the batch-1 render's square convs (UNet batch 2), one
+        # batch-8 shape and an f32 one; U is made once, outside the timed
+        # call, as a caller with fixed weights would. The library call is the
+        # direct conv (cuDNN); K4's cases above time the same shapes.
+        shapes = [(2, 32, 640, 640, bf16), (2, 32, 1280, 1280, bf16), (2, 16, 1280, 1280, bf16),
+                  (8, 32, 640, 640, bf16), (1, 32, 512, 512, f32)]
+        for b, hw, c, co, dt in shapes:
+            x = randn(b, hw, hw, c, dtype=dt)
+            k = uniform(3, 3, c, co, bound=(9 * c) ** -0.5, dtype=dt)
+            bias = uniform(co, bound=0.1, dtype=dt)
+            u = W.winograd_weights(k).to(dt)
+            w_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            a = (x, k, bias, u)
+            m = b * hw * hw
+            cases.append(Case(
+                "winograd", f"{'bf16' if dt == bf16 else 'f32'} B{b} {hw}x{hw} {c}->{co}",
+                lambda a=a: W.wino3x3(*a), lambda a=a: W.wino3x3_plain(a[0], a[3], a[2]),
+                lambda x=x, w=w_oihw, bias=bias: F.conv2d(x.permute(0, 3, 1, 2), w, bias,
+                                                          padding=1),
+                "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 4 * c,
+                x.element_size() * (m * c + 16 * c * co + m * co) + 4 * co))
     return cases

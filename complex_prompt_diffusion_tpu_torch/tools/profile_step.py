@@ -3,18 +3,24 @@
 Run from the repository root on a machine with the GPU::
 
     python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --batch 1 --vae bfloat16
+    python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --batch 4 --attn-route cm
 
 Builds the SD-1.5 bundle with random weights (seed 0), renders 512x512 at
 ``--batch`` with DDIM and CFG 7.5 for a few warm-up steps, then times
 ``--steps`` steady CFG steps (host clock, synchronised) without the
 profiler, profiles the same steps and one decode with ``torch.profiler``,
 and prints the device time by kernel family, the device busy time and the
-idle share of each, beside the card's name and power limit.
+idle share of each, beside the card's name and power limit. ``--attn-route``
+takes the UNet's self-attention through the default route (``bsc``: K1), the
+channel-major block (``cm``: K5 at levels 1 and 2) or the canonical-K route
+(``kcanon``: K5 at every site, behind its d-major copies).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import importlib
 import subprocess
 import time
 from collections import defaultdict
@@ -32,6 +38,7 @@ from complex_prompt_diffusion_tpu_torch.pipeline import (
 
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
+    ("attention_cm", "K5 attention (channel-major)"),
     ("attention_bf16_wide", "K1 attention bf16 d512"),
     ("attention_bf16", "K1 attention bf16"),
     ("attention_f32", "K1 attention f32"),
@@ -80,6 +87,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--vae", default="bfloat16", help="VAE dtype (float32 or bfloat16)")
     ap.add_argument("--steps", type=int, default=3, help="steady CFG steps timed and profiled")
+    ap.add_argument("--attn-route", default="bsc", choices=("bsc", "cm", "kcanon"),
+                    help="route of the UNet's self-attention sites")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -89,6 +98,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     bundle = ModelBundle.random("sd15", seed=0, device=dev).cast_vae(args.vae)
+    if args.attn_route == "cm":
+        bundle = dataclasses.replace(
+            bundle, unet_cfg=dataclasses.replace(bundle.unet_cfg, attn_route="cm"))
+    elif args.attn_route == "kcanon":
+        importlib.import_module(
+            "complex_prompt_diffusion_tpu_torch.ops.attention")._USE_KCANON = True
     cfg = RenderConfig(steps=50, width=512, height=512, batch_size=args.batch, seed=0)
     spec = make_guidance_spec(bundle, "a photograph of an astronaut riding a horse")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -121,7 +136,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         decode_ms = 1e3 * (time.perf_counter() - t0)
         print(f"profile_step: SD-1.5 512x512 batch {args.batch} (UNet batch "
-              f"{2 * args.batch}), VAE {args.vae}: {step_ms:.2f} ms per steady CFG step, "
+              f"{2 * args.batch}), VAE {args.vae}, attention route {args.attn_route}: "
+              f"{step_ms:.2f} ms per steady CFG step, "
               f"{decode_ms:.2f} ms per decode, without the profiler ({card})")
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]

@@ -15,7 +15,15 @@ counts that are not multiples of the kernels' tiles). Tolerances: max
 import pytest
 import torch
 
-from complex_prompt_diffusion_tpu_torch.ops.attention import attention_plain, flash_attention
+from complex_prompt_diffusion_tpu_torch.ops.attention import (
+    attention_dmajor,
+    attention_dmajor_plain,
+    attention_kcanon,
+    attention_plain,
+    flash_attention,
+    self_attention_cm,
+    self_attention_cm_plain,
+)
 from complex_prompt_diffusion_tpu_torch.ops.conv import conv3x3, conv3x3_plain
 from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     gn_splits,
@@ -23,6 +31,11 @@ from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     group_norm_plain,
 )
 from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_ff, geglu_ff_plain
+from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import (
+    wino3x3,
+    wino3x3_plain,
+    winograd_weights,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -281,4 +294,137 @@ def test_tiny_slice_on_card_matches_plain_path(dev):
     images, latents = txt2img(bundle, "a cat", cfg=RenderConfig(
         steps=3, width=128, height=128, batch_size=2))
     assert images.shape == (2, 32, 32, 3) and torch.isfinite(latents).all()
-    assert all(w.launches > 0 for w in ops.KERNEL_WRAPPERS.values())
+    # K5 and K6 are not on this path (the default attention route, no probe)
+    for name in ("attention", "geglu_ff", "group_norm", "conv3x3"):
+        assert ops.KERNEL_WRAPPERS[name].launches > 0
+    assert ops.KERNEL_WRAPPERS["attention_cm"].launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 40, 64, 80, 160, 256])
+def test_attention_cm_hdbs(dev, dtype, d):
+    """K5 on [H, D, B, S] slices of one [3C, B, S] projection (the cm
+    block's layout), S = 200: three full 64-key tiles and a ragged one."""
+    g = _gen(dev, d)
+    b, h, s = 2, 3, 200
+    qkv = torch.randn((3, h, d, b, s), generator=g, device=dev).to(dtype)
+    q, k, v = (qkv[i].permute(2, 0, 1, 3) for i in range(3))
+    before = attention_dmajor.launches
+    got = attention_dmajor(q, k, v, d**-0.5, out_hdbs=True)
+    assert attention_dmajor.launches == before + 1
+    assert got.shape == (b, h, d, s) and got.permute(1, 2, 0, 3).is_contiguous()
+    assert _rel(got, attention_dmajor_plain(q, k, v, d**-0.5)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 40, 80, 160, 256])
+def test_attention_cm_kcanon(dev, dtype, d):
+    """K5 with K read in place from a [B, S, 3*H*D] projection, Sq != Skv,
+    neither a multiple of the 64-wide tiles; and the whole kcanon route
+    against the plain attention."""
+    g = _gen(dev, 3 * d)
+    b, h, sq, skv = 2, 3, 104, 328
+    qkv = torch.randn((b, skv, 3 * h * d), generator=g, device=dev).to(dtype)
+    _, k, v = qkv.chunk(3, dim=-1)
+    q = torch.randn((b, sq, h * d), generator=g, device=dev).to(dtype)
+    q_t = q.reshape(b, sq, h, d).permute(0, 2, 3, 1).contiguous()
+    v_t = v.reshape(b, skv, h, d).permute(0, 2, 3, 1).contiguous()
+    k_n = k.reshape(b, skv, h, d).permute(0, 2, 1, 3)
+    before = attention_dmajor.launches
+    got = attention_dmajor(q_t, k_n, v_t, 0.2, k_canonical=True)
+    assert attention_dmajor.launches == before + 1
+    assert got.is_contiguous()
+    assert _rel(got, attention_dmajor_plain(q_t, k_n, v_t, 0.2, k_canonical=True)) <= TOL[dtype]
+    assert _rel(attention_kcanon(q, k, v, h), attention_plain(q, k, v, h)) <= TOL[dtype]
+
+
+def test_attention_cm_raises_on_what_it_does_not_take(dev):
+    g = _gen(dev, 1)
+    q = torch.randn((1, 2, 40, 136), generator=g, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError):  # S % 8 != 0
+        attention_dmajor(q[..., :130], q[..., :130], q[..., :130], 0.1)
+    with pytest.raises(ValueError):  # the sequence axis is not the contiguous one
+        t = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+        attention_dmajor(t, t, t, 0.1)
+    with pytest.raises(TypeError):
+        attention_dmajor(q.half(), q.half(), q.half(), 0.1)
+    with pytest.raises(ValueError):  # d = 200 pads to 208, a width K5 does not have
+        w = torch.randn((1, 2, 200, 136), generator=g, device=dev).to(torch.bfloat16)
+        attention_dmajor(w, w, w, 0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_self_attention_cm_block(dev, dtype):
+    """The fused cm block (projections + K5) against its plain twin."""
+    g = _gen(dev, 5)
+    b, s, c, h = 2, 256, 256, 4
+    x = torch.randn((b, s, c), generator=g, device=dev).to(dtype)
+    ws = [(torch.randn((c, c), generator=g, device=dev) * c**-0.5).to(dtype) for _ in range(4)]
+    bo = (torch.randn(c, generator=g, device=dev) * 0.1).to(dtype)
+    before = attention_dmajor.launches
+    got = self_attention_cm(x, *ws, bo, h)
+    assert attention_dmajor.launches == before + 1
+    assert _rel(got, self_attention_cm_plain(x, *ws, bo, h)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,c,co", [(1, 8, 8, 128, 128), (2, 16, 16, 256, 128),
+                                        (1, 32, 32, 128, 256), (3, 10, 12, 40, 24),
+                                        (1, 8, 8, 8, 8)])
+def test_wino3x3(dev, dtype, b, h, w, c, co):
+    """K6 at the JAX test's sizes and on ragged ones (tiles, C and Co that
+    are not multiples of the block's 32 x 64 tile and 32-channel chunk)."""
+    g = _gen(dev, c + co)
+    x = torch.randn((b, h, w, c), generator=g, device=dev).to(dtype)
+    k = (torch.randn((3, 3, c, co), generator=g, device=dev) * 0.05).to(dtype)
+    bias = torch.randn(co, generator=g, device=dev).to(dtype)
+    before = wino3x3.launches
+    got = wino3x3(x, k, bias)
+    assert wino3x3.launches == before + 1
+    assert got.shape == (b, h, w, co) and got.dtype == dtype
+    u = winograd_weights(k).to(dtype)
+    assert _rel(got, wino3x3_plain(x, u, bias)) <= TOL[dtype]
+    # and the direct conv, at the documented bf16 deviation
+    ref = torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2), k.float().permute(3, 2, 0, 1),
+                                     bias.float(), padding=1).permute(0, 2, 3, 1)
+    assert _rel(got, ref) <= (2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+def test_wino3x3_raises_on_what_it_does_not_take(dev):
+    g = _gen(dev, 2)
+    x = torch.randn((1, 8, 8, 12), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((3, 3, 12, 16), generator=g, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError):  # bf16 needs C % 8 == 0
+        wino3x3(x, k, torch.zeros(16, device=dev))
+    with pytest.raises(TypeError):
+        wino3x3(x.half(), k.half(), torch.zeros(16, device=dev))
+    with pytest.raises(ValueError):  # f32 needs Co % 4 == 0
+        wino3x3(x.float(), k.float()[..., :6], torch.zeros(6, device=dev))
+
+
+def test_cm_unet_on_card_matches_default_route(dev):
+    """A one-level C = 128 UNet at a 16x16 latent: with attn_route="cm" its
+    four self-attention sites go through K5 and the result stays with the
+    default route's (bf16, relative L2 <= 2e-2)."""
+    import dataclasses
+
+    from complex_prompt_diffusion_tpu_torch import convert
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch.pipeline import _unzero_kernels
+
+    cfg = dataclasses.replace(M.UNetConfig.tiny(context_dim=32), model_channels=128,
+                              channel_mult=(1,), attention_resolutions=(1,), num_heads=2,
+                              attn_route="cm")
+    g = _gen(dev, 4)
+    params = convert.unet_params(_unzero_kernels(g, M.init_unet(g, cfg, dev)), dev,
+                                 torch.bfloat16)
+    x = torch.randn((2, 16, 16, 4), generator=g, device=dev)
+    ctx = torch.randn((2, 77, 32), generator=g, device=dev)
+    t = torch.tensor([900, 40], device=dev)
+    before = attention_dmajor.launches
+    with torch.inference_mode():
+        got = M.unet_apply(cfg, params, x, t, ctx)
+        assert attention_dmajor.launches == before + 4
+        want = M.unet_apply(dataclasses.replace(cfg, attn_route="bsc"), params, x, t, ctx)
+    assert attention_dmajor.launches == before + 4
+    assert float((got - want).norm() / want.norm()) <= 2e-2

@@ -7,10 +7,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
   phase 0  builds the hand-written CUDA kernels from ``csrc/`` (nvcc, one
            process per source, in parallel);
   phase 1  runs each kernel at its paths' shapes against its plain PyTorch
-           twin on the card (TF32 off): error, CUDA-event times of the
-           kernel, the twin and the one PyTorch call that computes the same
-           function (where there is one), and the bound from this case's
-           bytes and flops;
+           twin on the card (TF32 off): error, the times (CUDA-graph
+           replays, ``tools/hotcold.py``, one input repeated) of the kernel,
+           the twin and the one PyTorch call that computes the same function
+           (where there is one), and the bound from this case's bytes and
+           flops;
   phase 2  the main path: SD-1.5 at full width with random weights from a
            seed, txt2img at 512x512, batch 4, DDIM eta=0, CFG 7.5, then the
            exact-f32 VAE decode to uint8;
@@ -35,9 +36,18 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
   phase 9  the Winograd probe (K6), which no layer dispatches, called as
            its user would call it: on the weights of the UNet's 20 ResBlock
            convs of the 32x32 and 16x16 planes at UNet batch 2, each held
-           against the same conv through ``layers.conv2d`` (K4).
+           against the same conv through ``layers.conv2d`` (K4);
+  phase 10 the probes of the TPU tuning scripts (``scripts/perf_attn8..12``,
+           ``perf_gn4..8``), which no layer dispatches: every mode and flag
+           of K7 (attention ablations), K8 (GroupNorm modes, tensor-core
+           statistics, forced splits) and K9 (streaming copy) against its
+           plain twin at small shapes; the SASS MMA count of every ablated
+           attention mode and the statistics of every GroupNorm mode
+           (``cuobjdump``); then every script variant timed
+           at the scripts' shapes with the L2 hot and cold
+           (``tools/probe_attention.py``, ``tools/probe_groupnorm.py``).
 
-Each path of phases 2 and 4 to 9 runs with every launch count set to 0
+Each path of phases 2 and 4 to 10 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched. Any failure exits non-zero before the result lines. On
 success the last three lines are the kernels JSON, the card's name and
@@ -87,7 +97,24 @@ KERNELS = {
         f"{PKG}/csrc/winograd.cu",
         "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel",
     ),
+    "probe_attention": (
+        f"{PKG}/csrc/probe_attention.cu",
+        "scripts/perf_attn8.py:88 flash_t; scripts/perf_attn9.py:81 onepass; "
+        "scripts/perf_attn10.py:84 run_mode; scripts/perf_attn11.py:92 h2; "
+        "scripts/perf_attn12.py:51 v3_call, :105 h1_call (QK-only forms); "
+        "scripts/perf_attn11.py:56 h1 is K5 (attention_cm)",
+    ),
+    "probe_groupnorm": (
+        f"{PKG}/csrc/probe_groupnorm.cu",
+        "scripts/perf_gn4.py:43,63 chunked, :96 flat_onepass; scripts/perf_gn5.py:111 make; "
+        "scripts/perf_gn6.py:73 make",
+    ),
+    "probe_copy": (
+        f"{PKG}/csrc/probe_copy.cu",
+        "scripts/perf_gn7.py:36 make; scripts/perf_gn8.py:29 make",
+    ),
 }
+PROBES = ("winograd", "probe_attention", "probe_groupnorm", "probe_copy")  # no layer calls them
 
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |a - b| / max |b|
 
@@ -112,22 +139,6 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def rel_err(got, want) -> tuple:
     """(max |got - want|, that over max |want|); non-finite output fails."""
     import torch
@@ -143,23 +154,25 @@ def phase1(dev, card: str) -> dict:
     """Each kernel against its plain twin at its paths' shapes."""
     import torch
 
+    from complex_prompt_diffusion_tpu_torch.tools.hotcold import L2_BYTES, METHOD, graph_ms
     from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import kernel_cases
 
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                       "library_ms": 0.0, "by": {"bytes": 0.0, "operations": 0.0}}
                for name in KERNELS}
     conv_ms = {}  # K4's time by case label, printed beside K6's at the same shape
-    print(f"phase1: kernel vs plain twin on {card} (times: CUDA events, mean of "
-          f"5 after 2 warm-up; bound = max(flops / peak, bytes / 3.35 TB/s))")
+    print(f"phase1: kernel vs plain twin on {card} (times: {METHOD}, one input repeated, "
+          f"L2 hot; bound = max(flops / peak, bytes / 3.35 TB/s); working set = those bytes, "
+          f"'< L2' where it fits the 50 MB L2)")
     for case in kernel_cases(dev):
         got = case.run()
         want = case.plain()
         torch.cuda.synchronize()
         abs_err, rel = rel_err(got, want)
         del got, want
-        ms = cuda_ms(case.run, 5)
-        plain_ms = cuda_ms(case.plain, 5)
-        lib_ms = cuda_ms(case.library, 5) if case.library is not None else None
+        ms = graph_ms(case.run)
+        plain_ms = graph_ms(case.plain)
+        lib_ms = graph_ms(case.library) if case.library is not None else None
         bound_ms, by = case.bound()
         tol = TOL[case.dtype]
         ok = rel <= tol
@@ -169,10 +182,11 @@ def phase1(dev, card: str) -> dict:
         elif case.kernel == "winograd":
             k4 = conv_ms.get(case.label)
             lib_txt += f" K4={k4:.4f} ms" if k4 is not None else " K4=no case at this shape"
+        l2 = " < L2" if case.nbytes < L2_BYTES else ""
         print(f"  {case.kernel:10s} {case.label:30s} max_abs_err={abs_err:.3e} rel={rel:.3e} "
               f"(tol {tol:.0e}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-              f"library={lib_txt} bound={bound_ms:.4f} ms ({by}) ({card}) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"library={lib_txt} bound={bound_ms:.4f} ms ({by}) working set "
+              f"{case.nbytes / 1e6:.1f} MB{l2} ({card}) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SmokeFailure(f"{case.kernel} {case.label}: relative error {rel:.3e} > {tol}")
         sm = summary[case.kernel]
@@ -585,6 +599,7 @@ def phase9(bundle, dev, card: str) -> dict:
     from complex_prompt_diffusion_tpu_torch import models as M
     from complex_prompt_diffusion_tpu_torch.models import layers as L
     from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3, winograd_weights
+    from complex_prompt_diffusion_tpu_torch.tools.hotcold import METHOD, graph_ms
 
     # (plane side, conv params) of every ResBlock conv, walking the plan from
     # a 64x64 latent
@@ -625,15 +640,60 @@ def phase9(bundle, dev, card: str) -> dict:
         raise SmokeFailure(f"the probe phase launched {launches} for {len(cases)} convs")
     with torch.inference_mode():
         us = [winograd_weights(k).to(x.dtype) for x, _, k in cases]
-        ms_w = cuda_ms(lambda: [wino3x3(x, k, p["bias"]) for x, p, k in cases], 3)
-        ms_u = cuda_ms(lambda: [wino3x3(x, k, p["bias"], u=u)
-                                for (x, p, k), u in zip(cases, us)], 3)
-        ms_k4 = cuda_ms(lambda: [L.conv2d(p, x) for x, p, _ in cases], 3)
+        ms_w = graph_ms(lambda: [wino3x3(x, k, p["bias"]) for x, p, k in cases])
+        ms_u = graph_ms(lambda: [wino3x3(x, k, p["bias"], u=u)
+                                 for (x, p, k), u in zip(cases, us)])
+        ms_k4 = graph_ms(lambda: [L.conv2d(p, x) for x, p, _ in cases])
     print(f"phase9: Winograd probe on the UNet's {len(cases)} ResBlock convs of the 32^2 and "
           f"16^2 planes (UNet batch 2, bf16), on {card}: worst rel L2 vs K4 {worst:.3e} (tol "
           f"2e-2); all {len(cases)} convs {ms_u:.3f} ms through K6 with U made ahead, "
-          f"{ms_w:.3f} ms with the weight transform in each call, {ms_k4:.3f} ms through K4; "
-          f"launches {json.dumps(launches)}")
+          f"{ms_w:.3f} ms with the weight transform in each call, {ms_k4:.3f} ms through K4 "
+          f"({METHOD}); launches {json.dumps(launches)}")
+    return launches
+
+
+def phase10(dev, card: str) -> dict:
+    """The probes of the TPU tuning scripts: every mode and flag against its
+    plain twin at small shapes, the SASS MMA counts of the attention
+    ablations, then every script variant at the scripts' shapes; returns the
+    timed run's launch counts."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch.tools import probe_attention as PA
+    from complex_prompt_diffusion_tpu_torch.tools import probe_groupnorm as PG
+    from complex_prompt_diffusion_tpu_torch.tools.hotcold import METHOD
+
+    checks = PA.check_small(dev) + PG.check_small(dev)
+    for label, err, tol in checks:
+        print(f"phase10: {label}: error {err:.3e} (tol {tol:.0e}) ({card})")
+    bad = [c for c in checks if not c[1] <= c[2]]
+    if bad:
+        raise SmokeFailure(f"{len(bad)} probe variants disagree with their plain twins: {bad}")
+    counts = PA.sass_counts()
+    lines, ok = PA.check_sass(counts)
+    gn_lines, gn_ok = PG.check_sass(counts)
+    for ln in lines + gn_lines:
+        print(f"phase10: SASS {ln}")
+    if not ok:
+        raise SmokeFailure("an ablated attention mode lost MMAs of the steps it keeps")
+    if not gn_ok:
+        raise SmokeFailure("an ablated GroupNorm mode lost the statistics it keeps")
+
+    print(f"phase10: the TPU probe scripts' variants at their shapes on {card}: {METHOD}, "
+          f"L2 hot (one input) and cold (inputs rotated past 2 x 50 MB); bound = "
+          f"max(flops / peak, bytes / 3.35 TB/s)", flush=True)
+    reset_launches()
+    rows = PA.run(dev, card) + PG.run(dev, card)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    rate, best = PG.streaming_rate(rows)
+    print(f"phase10: {len(rows)} probe rows; K9 streaming rate {rate:.3f} TB/s (cold, "
+          f"{best.script} {best.variant} {best.shape}) against the nominal 3.35 TB/s of the "
+          f"bytes bounds ({card})")
+    for name in PROBES[1:]:
+        if launches[name] <= 0:
+            raise SmokeFailure(f"probe kernel {name} was not launched in phase 10")
+    print(f"phase10: launches {json.dumps(launches)}")
     return launches
 
 
@@ -673,9 +733,12 @@ def main(argv=None) -> int:
              "img2img_b1": phase6(bundle16, images[0], card, args.steps),
              "txt2img_b4_dpmpp2m_cm": phase7(bundle, dev, card, K_STEPS),
              "img2img_b1_euler_a_kcanon": phase8(bundle16, images[0], card, K_STEPS)}
-    if any(p["winograd"] for p in paths.values()):
-        raise SmokeFailure("the Winograd probe was launched in a render: no layer dispatches it")
+    for name in PROBES:
+        if any(p[name] for p in paths.values()):
+            raise SmokeFailure(f"the probe {name} was launched in a render: no layer "
+                               "dispatches it")
     paths["winograd_probe_unet_convs"] = phase9(bundle, dev, card)
+    paths["tpu_probe_scripts"] = phase10(dev, card)
 
     kernels = []
     for name, (src, rep) in KERNELS.items():

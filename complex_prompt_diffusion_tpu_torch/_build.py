@@ -74,6 +74,21 @@ _SIGNATURES = {
     "cpd_conv3x3_bf16": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     # x, w, bias, y, B, H, W, C, Co, stream
     "cpd_conv3x3_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the probes. K7: cpd_attention_bf16's arguments up to scale, then mode,
+    # denom, use_exp2, unnormalized, kv_tile, stream
+    "cpd_probe_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _L, _L, _L, _L, _L, _L, _F, _I, _I, _I, _I, _I, _P),
+    # cpd_attention_f32's arguments up to scale, then mode, stream
+    "cpd_probe_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, _F, _I, _P),
+    # cpd_attention_cm_bf16's arguments up to scale, then mode, stream
+    "cpd_probe_attention_cm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                    _I, _F, _I, _P),
+    # K8: x, gamma, beta, y, part, N, HW, C, G, splits, eps, mode, mma, stream
+    "cpd_probe_group_norm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # K9: x, y, N, HW, C, rows, convert, stages, stream
+    "cpd_probe_copy_bf16": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

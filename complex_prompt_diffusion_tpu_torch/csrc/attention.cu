@@ -38,194 +38,16 @@
 //     in registers (d <= 512). Q^T stays in shared memory for the block's
 //     life; K and V are staged in head-dim slices.
 // Not yet: wgmma, TMA, warp specialisation.
+//
+// The d <= 256 bf16 kernel and the f32 kernel live in attention_bf16.cuh and
+// attention_f32.cuh, which the probe kernel K7 (probe_attention.cu) also
+// instantiates, with pieces of the work removed; this file launches their
+// full attention.
 
-#include "common.cuh"
+#include "attention_bf16.cuh"
+#include "attention_f32.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int kBM = 64;       // query rows per block (4 warps x 16)
-constexpr int kBN = 64;       // keys per KV tile
-constexpr int kThreads = 128;
-
-// Issue the copies of a rows x DP tile of a [rows_valid, D] strided bf16
-// matrix into shared memory with row stride LD, spread over NT threads;
-// rows >= rows_valid and columns >= D are zero-filled.
-template <int DP, int LD, int NT = kThreads>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, long long rstride,
-                                                int row0, int rows_valid, int D, int rows) {
-  constexpr int kChunks = DP / 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += NT) {
-    const int r = idx / kChunks;
-    const int c = (idx - r * kChunks) * 8;
-    const int gr = row0 + r;
-    const bool ok = gr < rows_valid && c < D;
-    cpd::cp_async16(dst + r * LD + c, ok ? src + (long long)gr * rstride + c : src, ok);
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Sq,
-                      int Skv, int D, long long qbs, long long qrs, long long kbs,
-                      long long krs, long long vbs, long long vrs, float scale_log2) {
-  constexpr int LD = DP + 8;   // padded row: ldmatrix rows hit distinct banks
-  constexpr int NT = DP / 8;   // n-tiles of the O accumulator
-  constexpr int KT = kBN / 8;  // n-tiles of the score accumulator
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kBM * LD;  // [2][kBN][LD]
-  bf16* sV = sK + 2 * kBN * LD;
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * kBM;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // accumulator row (and row + 8)
-  const int t4 = lane & 3;  // accumulator column pair
-  const bf16* qb = q + b * qbs + (long long)h * D;
-  const bf16* kb = k + b * kbs + (long long)h * D;
-  const bf16* vb = v + b * vbs + (long long)h * D;
-  const int ntiles = (Skv + kBN - 1) / kBN;
-
-  load_tile_async<DP, LD>(sQ, qb, qrs, q0, Sq, D, kBM);
-  cpd::cp_async_commit();
-  load_tile_async<DP, LD>(sK, kb, krs, 0, Skv, D, kBN);
-  load_tile_async<DP, LD>(sV, vb, vrs, 0, Skv, D, kBN);
-  cpd::cp_async_commit();
-
-  float acc[NT][4];
-#pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8
-  float l0 = 0.f, l1 = 0.f;              // this thread's part of the running sums
-
-  // ldmatrix lane addressing
-  const int a_row = warp * 16 + (lane & 15);  // Q (A operand)
-  const int a_col = (lane >> 4) * 8;
-  const int b_row = ((lane >> 4) << 3) + (lane & 7);  // K (B operand, non-trans)
-  const int b_col = ((lane >> 3) & 1) * 8;
-  const int v_row = (((lane >> 3) & 1) << 3) + (lane & 7);  // V (B operand, trans)
-  const int v_col = (lane >> 4) * 8;
-
-  for (int j = 0; j < ntiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < ntiles) {
-      const int nb = buf ^ 1;
-      load_tile_async<DP, LD>(sK + nb * kBN * LD, kb, krs, (j + 1) * kBN, Skv, D, kBN);
-      load_tile_async<DP, LD>(sV + nb * kBN * LD, vb, vrs, (j + 1) * kBN, Skv, D, kBN);
-      cpd::cp_async_commit();
-      cpd::cp_async_wait<1>();
-    } else {
-      cpd::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* tK = sK + buf * kBN * LD;
-    const bf16* tV = sV + buf * kBN * LD;
-
-    // S = Q K^T: 16 rows x 64 keys per warp
-    float s[KT][4];
-#pragma unroll
-    for (int i = 0; i < KT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t qa[4];
-      cpd::ldmatrix_x4(qa, sQ + a_row * LD + kk * 16 + a_col);
-#pragma unroll
-      for (int np = 0; np < KT / 2; ++np) {
-        uint32_t kf[4];
-        cpd::ldmatrix_x4(kf, tK + (np * 16 + b_row) * LD + kk * 16 + b_col);
-        cpd::mma_16816(s[2 * np], qa, kf[0], kf[1]);
-        cpd::mma_16816(s[2 * np + 1], qa, kf[2], kf[3]);
-      }
-    }
-
-    // online softmax in registers (rows g and g + 8 of this warp)
-    const int key0 = j * kBN + 2 * t4;
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int i = 0; i < KT; ++i) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = key0 + i * 8 + e < Skv;
-        s[i][e] = ok ? s[i][e] * scale_log2 : -INFINITY;
-        s[i][2 + e] = ok ? s[i][2 + e] * scale_log2 : -INFINITY;
-        mx0 = fmaxf(mx0, s[i][e]);
-        mx1 = fmaxf(mx1, s[i][2 + e]);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float alpha0 = exp2f(m0 - mx0);
-    const float alpha1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float ps0 = 0.f, ps1 = 0.f;
-    uint32_t pa[KT / 2][4];  // P as the A operand of the PV product
-#pragma unroll
-    for (int i = 0; i < KT; ++i) {
-      const float p0 = exp2f(s[i][0] - mx0);
-      const float p1 = exp2f(s[i][1] - mx0);
-      const float p2 = exp2f(s[i][2] - mx1);
-      const float p3 = exp2f(s[i][3] - mx1);
-      ps0 += p0 + p1;
-      ps1 += p2 + p3;
-      pa[i / 2][(i & 1) * 2 + 0] = cpd::pack_bf16(p0, p1);
-      pa[i / 2][(i & 1) * 2 + 1] = cpd::pack_bf16(p2, p3);
-    }
-    l0 = l0 * alpha0 + ps0;
-    l1 = l1 * alpha1 + ps1;
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      acc[i][0] *= alpha0;
-      acc[i][1] *= alpha0;
-      acc[i][2] *= alpha1;
-      acc[i][3] *= alpha1;
-    }
-
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t vf[4];
-        cpd::ldmatrix_x4_trans(vf, tV + (kk * 16 + v_row) * LD + np * 16 + v_col);
-        cpd::mma_16816(acc[2 * np], pa[kk], vf[0], vf[1]);
-        cpd::mma_16816(acc[2 * np + 1], pa[kk], vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two tiles later
-  }
-
-  // out = O / l, with l summed over the quad that shares a row
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0;
-  const float inv1 = 1.f / l1;
-  const long long ors = (long long)H * D;
-  bf16* ob = o + (long long)b * Sq * ors + (long long)h * D;
-  const int r0 = q0 + warp * 16 + g;
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    const int col = i * 8 + 2 * t4;
-    if (col < D) {
-      if (r0 < Sq)
-        *reinterpret_cast<uint32_t*>(ob + (long long)r0 * ors + col) =
-            cpd::pack_bf16(acc[i][0] * inv0, acc[i][1] * inv0);
-      if (r0 + 8 < Sq)
-        *reinterpret_cast<uint32_t*>(ob + (long long)(r0 + 8) * ors + col) =
-            cpd::pack_bf16(acc[i][2] * inv1, acc[i][3] * inv1);
-    }
-  }
-}
 
 // ---- bf16, 256 < d <= 512: the VAE mid-block (one head, d = 512) ----
 //
@@ -461,205 +283,6 @@ int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, int B
   return (int)cudaGetLastError();
 }
 
-constexpr int kFB = 64;           // f32 kernel: query rows and keys per tile
-constexpr int kFThreads = 256;    // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kFMaxD = 512;
-constexpr int kFDChunk = 32;      // head-dim slice of K staged per step
-constexpr int kFVChunk = 128;     // head-dim slice of V staged per step
-constexpr int kFCol = kFMaxD / 64;  // 64-column slices of O per thread
-constexpr int kFLdP = kFB + 4;      // padded rows of the transposed P tile
-constexpr int kFLdV = kFVChunk + 4;
-
-// Shared memory (floats): Q^T [D][kFB], K^T chunk [kFDChunk][kFB],
-// P^T [kFB][kFLdP], V chunk [kFB][kFLdV].
-__host__ __device__ constexpr int f32_smem_floats(int D) {
-  return D * kFB + kFDChunk * kFB + kFB * kFLdP + kFB * kFLdV;
-}
-
-__global__ void __launch_bounds__(kFThreads)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int H, int Sq,
-                     int Skv, int D, long long qbs, long long qrs, long long kbs,
-                     long long krs, long long vbs, long long vrs, float scale_log2) {
-  extern __shared__ __align__(16) float fsm[];
-  float* sQt = fsm;                     // [D][kFB]: Q transposed
-  float* sKt = sQt + D * kFB;           // [kFDChunk][kFB]: K chunk transposed
-  float* sPt = sKt + kFDChunk * kFB;    // [kFB keys][kFLdP]: P transposed
-  float* sV = sPt + kFB * kFLdP;        // [kFB keys][kFLdV]: V chunk
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * kFB;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // columns tx*4.. of S, and of each 64-wide O slice
-  const int ty = tid >> 4;  // rows ty*4..ty*4+3
-  const float* qb = q + b * qbs + (long long)h * D;
-  const float* kb = k + b * kbs + (long long)h * D;
-  const float* vb = v + b * vbs + (long long)h * D;
-  const int d4 = D / 4;
-
-  // Q tile, transposed so that one float4 holds 4 query rows of one dim
-  // (consecutive threads take consecutive rows: conflict-free stores)
-  for (int idx = tid; idx < kFB * d4; idx += kFThreads) {
-    const int r = idx % kFB;
-    const int c = (idx / kFB) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Sq) val = *reinterpret_cast<const float4*>(qb + (long long)(q0 + r) * qrs + c);
-    sQt[(c + 0) * kFB + r] = val.x;
-    sQt[(c + 1) * kFB + r] = val.y;
-    sQt[(c + 2) * kFB + r] = val.z;
-    sQt[(c + 3) * kFB + r] = val.w;
-  }
-
-  float acc[4][kFCol][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int kk = 0; kk < kFCol; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][kk][j] = 0.f;
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += kFB) {
-    // S = Q K^T for this thread's 4 x 4 block, K staged kFDChunk dims at a time
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kFDChunk) {
-      __syncthreads();  // previous readers of sKt are done (and sQt is complete)
-      for (int idx = tid; idx < kFB * (kFDChunk / 4); idx += kFThreads) {
-        const int r = idx % kFB;
-        const int c = (idx / kFB) * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (kv0 + r < Skv && d0 + c < D)
-          val = *reinterpret_cast<const float4*>(kb + (long long)(kv0 + r) * krs + d0 + c);
-        sKt[(c + 0) * kFB + r] = val.x;
-        sKt[(c + 1) * kFB + r] = val.y;
-        sKt[(c + 2) * kFB + r] = val.z;
-        sKt[(c + 3) * kFB + r] = val.w;
-      }
-      __syncthreads();
-      const int dn = min(kFDChunk, D - d0);
-      for (int dd = 0; dd < dn; ++dd) {
-        const float4 qa = *reinterpret_cast<const float4*>(sQt + (d0 + dd) * kFB + ty * 4);
-        const float4 ka = *reinterpret_cast<const float4*>(sKt + dd * kFB + tx * 4);
-        const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-        const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
-      }
-    }
-
-    // online softmax; the 16 threads of a row group are lanes xor 1..8
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = kv0 + tx * 4 + j < Skv ? s[i][j] * scale_log2 : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      alpha[i] = exp2f(m[i] - mx);
-      m[i] = mx;
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = exp2f(s[i][j] - mx);
-        ps += s[i][j];
-      }
-      l[i] = l[i] * alpha[i] + ps;
-#pragma unroll
-      for (int kk = 0; kk < kFCol; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][kk][j] *= alpha[i];
-    }
-    // P^T to shared memory: one float4 holds 4 query rows of one key
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(sPt + (tx * 4 + j) * kFLdP + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-
-    // O += P V, V staged kFVChunk dims at a time
-#pragma unroll
-    for (int vc = 0; vc < kFMaxD; vc += kFVChunk) {
-      if (vc < D) {
-        __syncthreads();  // sPt written; previous readers of sV are done
-        for (int idx = tid; idx < kFB * (kFVChunk / 4); idx += kFThreads) {
-          const int r = idx / (kFVChunk / 4);
-          const int c = (idx - r * (kFVChunk / 4)) * 4;
-          float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (kv0 + r < Skv && vc + c < D)
-            val = *reinterpret_cast<const float4*>(vb + (long long)(kv0 + r) * vrs + vc + c);
-          *reinterpret_cast<float4*>(sV + r * kFLdV + c) = val;
-        }
-        __syncthreads();
-        for (int key = 0; key < kFB; ++key) {
-          const float4 pa = *reinterpret_cast<const float4*>(sPt + key * kFLdP + ty * 4);
-          const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-#pragma unroll
-          for (int k2 = 0; k2 < kFVChunk / 64; ++k2) {
-            const float4 va = *reinterpret_cast<const float4*>(sV + key * kFLdV + k2 * 64 + tx * 4);
-            const float vv[4] = {va.x, va.y, va.z, va.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[i][vc / 64 + k2][j] += pv[i] * vv[j];
-          }
-        }
-      }
-    }
-  }
-
-  // out = O / l, l summed over the row group
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float li = l[i];
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    const float inv = 1.f / li;
-    float* orow = o + (long long)b * Sq * H * D + (long long)row * H * D + (long long)h * D;
-#pragma unroll
-    for (int kk = 0; kk < kFCol; ++kk) {
-      const int col = kk * 64 + tx * 4;
-      if (col < D)
-        *reinterpret_cast<float4*>(orow + col) =
-            make_float4(acc[i][kk][0] * inv, acc[i][kk][1] * inv, acc[i][kk][2] * inv,
-                        acc[i][kk][3] * inv);
-    }
-  }
-}
-
-template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
-                int Skv, int D, long long qbs, long long qrs, long long kbs, long long krs,
-                long long vbs, long long vrs, float scale, cudaStream_t stream) {
-  const int smem = 5 * kBM * (DP + 8) * (int)sizeof(bf16);  // Q + 2 x (K, V)
-  cudaError_t err = cudaFuncSetAttribute(attention_bf16_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + kBM - 1) / kBM, B * H);
-  attention_bf16_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, Sq, Skv, D, qbs, qrs, kbs, krs, vbs, vrs,
-      scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int cpd_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
@@ -673,7 +296,9 @@ extern "C" int cpd_attention_bf16(const void* q, const void* k, const void* v, v
   const int dp = (D + 15) / 16 * 16;
 #define CPD_ATTN_CASE(DPV) \
   case DPV:                \
-    return launch_bf16<DPV>(q, k, v, o, B, H, Sq, Skv, D, qbs, qrs, kbs, krs, vbs, vrs, scale, s);
+    return launch_bf16_body<DPV, DPV, kBN, kFull, kSumRows, true, false>(                 \
+        q, k, v, o, B, H, Sq, Skv, D, qbs, qrs, kbs, krs, vbs, vrs,                     \
+        scale * 1.4426950408889634f, s);
   switch (dp) {
     CPD_ATTN_CASE(16)
     CPD_ATTN_CASE(32)
@@ -694,15 +319,6 @@ extern "C" int cpd_attention_f32(const void* q, const void* k, const void* v, vo
                                  int H, int Sq, int Skv, int D, long long qbs, long long qrs,
                                  long long kbs, long long krs, long long vbs, long long vrs,
                                  float scale, void* stream) {
-  if (D > kFMaxD || D % 4 != 0) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(float) * f32_smem_floats(D);
-  cudaError_t err = cudaFuncSetAttribute(attention_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + kFB - 1) / kFB, B * H);
-  attention_f32_kernel<<<grid, kFThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, Sq, Skv, D, qbs, qrs, kbs, krs, vbs, vrs,
-      scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+  return launch_f32_body<kFull>(q, k, v, o, B, H, Sq, Skv, D, qbs, qrs, kbs, krs, vbs, vrs,
+                                scale * 1.4426950408889634f, static_cast<cudaStream_t>(stream));
 }

@@ -41,184 +41,13 @@
 //     split in f32, merged with Chan's formula M2 = sum M2_i + n_i (mean_i -
 //     mean)^2, so the f32 variance is still centered — and
 //     group_norm_apply_kernel merges the S partials and normalizes its part.
+//
+// The kernels live in groupnorm.cuh, which the probe kernel K8
+// (probe_groupnorm.cu) also instantiates; this file launches K3.
 
-#include "common.cuh"
+#include "groupnorm.cuh"
 
 namespace {
-
-constexpr int kThreads = 512;
-constexpr int kUnroll = 4;
-
-// VEC consecutive elements, loaded and stored as one access
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-// The packs [i0, i1) of one (sample, group) slice: pack i is pixel i / nv,
-// channels (i % nv) * VEC ..
-template <typename T, int VEC>
-struct Slice {
-  const T* xs;  // x at (n, pixel 0, group's first channel)
-  unsigned i0, i1, nv;
-  int C;
-
-  __device__ __forceinline__ long long offset(unsigned i) const {
-    const unsigned p = i / nv;
-    return (long long)p * C + (long long)(i - p * nv) * VEC;
-  }
-};
-
-template <typename T, int VEC>
-__device__ __forceinline__ Slice<T, VEC> make_slice(const T* x, int n, int g, int HW, int C,
-                                                    int G, int p0, int p1) {
-  const int cg = C / G;
-  const unsigned nv = cg / VEC;
-  return Slice<T, VEC>{x + (long long)n * HW * C + (long long)g * cg, p0 * nv, p1 * nv, nv, C};
-}
-
-// This thread's (sum of x - c, sum of (x - c)^2) over the slice
-template <typename T, int VEC>
-__device__ __forceinline__ float2 sums(const Slice<T, VEC>& sl, float c) {
-  typedef Pack<T, VEC> P;
-  float s = 0.f, s2 = 0.f;
-  for (unsigned i0 = sl.i0 + threadIdx.x; i0 < sl.i1; i0 += kThreads * kUnroll) {
-    P pk[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const unsigned i = i0 + u * kThreads;
-      if (i < sl.i1) pk[u] = *reinterpret_cast<const P*>(sl.xs + sl.offset(i));
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (i0 + u * kThreads < sl.i1)
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          const float d = cpd::to_f32(pk[u].v[e]) - c;
-          s += d;
-          s2 += d * d;
-        }
-  }
-  return make_float2(s, s2);
-}
-
-// y = silu?((x - mean) * rstd * gamma + beta) over the slice
-template <typename T, int VEC>
-__device__ __forceinline__ void apply(const Slice<T, VEC>& sl, T* ys, const T* gamma,
-                                      const T* beta, int c0, float mean, float rstd, int silu) {
-  typedef Pack<T, VEC> P;
-  for (unsigned i0 = sl.i0 + threadIdx.x; i0 < sl.i1; i0 += kThreads * kUnroll) {
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const unsigned i = i0 + u * kThreads;
-      if (i < sl.i1) {
-        const long long off = sl.offset(i);
-        const int c = c0 + (int)(i % sl.nv) * VEC;
-        const P in = *reinterpret_cast<const P*>(sl.xs + off);
-        P out;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          float v = (cpd::to_f32(in.v[e]) - mean) * rstd;
-          v = v * cpd::to_f32(gamma[c + e]) + cpd::to_f32(beta[c + e]);
-          if (silu) v = v / (1.f + expf(-v));
-          out.v[e] = cpd::from_f32<T>(v);
-        }
-        *reinterpret_cast<P*>(ys + off) = out;
-      }
-    }
-  }
-}
-
-// The statistics of the pixels [p0, p1) of (n, g) on every thread: bf16
-// (sum, sum of squares); f32 (mean, centered sum of squares) of the range.
-template <typename T, int VEC>
-__device__ __forceinline__ float2 range_stats(const Slice<T, VEC>& sl, float count,
-                                              float* scratch) {
-  const float2 a = sums(sl, 0.f);
-  const float s = cpd::block_sum(a.x, scratch);
-  if constexpr (sizeof(T) <= 2) {
-    return make_float2(s, cpd::block_sum(a.y, scratch));
-  } else {
-    const float mean = s / count;
-    return make_float2(mean, cpd::block_sum(sums(sl, mean).y, scratch));
-  }
-}
-
-// (mean, rstd) from one statistics pair over `count` elements
-template <typename T>
-__device__ __forceinline__ float2 finish(float2 st, float count, float eps) {
-  float mean, var;
-  if constexpr (sizeof(T) <= 2) {
-    mean = st.x / count;
-    var = fmaxf(st.y / count - mean * mean, 0.f);
-  } else {
-    mean = st.x;
-    var = st.y / count;
-  }
-  return make_float2(mean, rsqrtf(var + eps));
-}
-
-// S = 1: one block per (sample, group) does both.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-group_norm_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                  const T* __restrict__ beta, T* __restrict__ y, int HW, int C, int G,
-                  float eps, int silu) {
-  __shared__ float scratch[33];
-  const int g = blockIdx.x, n = blockIdx.y, cg = C / G;
-  const Slice<T, VEC> sl = make_slice<T, VEC>(x, n, g, HW, C, G, 0, HW);
-  const float count = (float)HW * (float)cg;
-  const float2 mr = finish<T>(range_stats(sl, count, scratch), count, eps);
-  apply(sl, y + (sl.xs - x), gamma, beta, g * cg, mr.x, mr.y, silu);
-}
-
-__device__ __forceinline__ int split_begin(int HW, int S, int s) {
-  return (int)((long long)HW * s / S);
-}
-
-// S > 1, kernel 1: partial statistics of split blockIdx.z
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-group_norm_stats_kernel(const T* __restrict__ x, float2* __restrict__ part, int HW, int C,
-                        int G, int S) {
-  __shared__ float scratch[33];
-  const int g = blockIdx.x, n = blockIdx.y, sp = blockIdx.z;
-  const int p0 = split_begin(HW, S, sp), p1 = split_begin(HW, S, sp + 1);
-  const Slice<T, VEC> sl = make_slice<T, VEC>(x, n, g, HW, C, G, p0, p1);
-  const float2 st = range_stats(sl, (float)(p1 - p0) * (float)(C / G), scratch);
-  if (threadIdx.x == 0) part[((long long)n * G + g) * S + sp] = st;
-}
-
-// S > 1, kernel 2: merge the S partials, normalize split blockIdx.z
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-group_norm_apply_kernel(const T* __restrict__ x, const float2* __restrict__ part,
-                        const T* __restrict__ gamma, const T* __restrict__ beta,
-                        T* __restrict__ y, int HW, int C, int G, int S, float eps, int silu) {
-  const int g = blockIdx.x, n = blockIdx.y, sp = blockIdx.z, cg = C / G;
-  const float2* pp = part + ((long long)n * G + g) * S;
-  const float count = (float)HW * (float)cg;
-  float2 st = make_float2(0.f, 0.f);
-  if constexpr (sizeof(T) <= 2) {
-    for (int i = 0; i < S; ++i) {
-      st.x += pp[i].x;
-      st.y += pp[i].y;
-    }
-  } else {  // Chan: mean = sum n_i mean_i / n, M2 = sum M2_i + n_i (mean_i - mean)^2
-    for (int i = 0; i < S; ++i)
-      st.x += pp[i].x * (float)(split_begin(HW, S, i + 1) - split_begin(HW, S, i)) * cg;
-    st.x /= count;
-    for (int i = 0; i < S; ++i) {
-      const float ni = (float)(split_begin(HW, S, i + 1) - split_begin(HW, S, i)) * cg;
-      const float d = pp[i].x - st.x;
-      st.y += pp[i].y + ni * d * d;
-    }
-  }
-  const float2 mr = finish<T>(st, count, eps);
-  const int p0 = split_begin(HW, S, sp), p1 = split_begin(HW, S, sp + 1);
-  const Slice<T, VEC> sl = make_slice<T, VEC>(x, n, g, HW, C, G, p0, p1);
-  apply(sl, y + (sl.xs - x), gamma, beta, g * cg, mr.x, mr.y, silu);
-}
 
 template <typename T, int VEC>
 void launch_vec(const T* x, const T* gamma, const T* beta, T* y, float2* part, int N, int HW,
@@ -227,33 +56,22 @@ void launch_vec(const T* x, const T* gamma, const T* beta, T* y, float2* part, i
     group_norm_kernel<T, VEC><<<dim3(G, N), kThreads, 0, s>>>(x, gamma, beta, y, HW, C, G, eps,
                                                                 silu);
   } else {
-    group_norm_stats_kernel<T, VEC><<<dim3(G, N, S), kThreads, 0, s>>>(x, part, HW, C, G, S);
-    group_norm_apply_kernel<T, VEC><<<dim3(G, N, S), kThreads, 0, s>>>(x, part, gamma, beta, y,
-                                                                        HW, C, G, S, eps, silu);
+    launch_split<T, VEC>(x, gamma, beta, y, part, N, HW, C, G, S, eps, silu, s);
   }
 }
 
 template <typename T>
 int launch(const void* x, const void* gamma, const void* beta, void* y, void* part, int N,
            int HW, int C, int G, int S, float eps, int silu, void* stream) {
-  if (G <= 0 || C % G != 0 || S < 1 || S > HW || (S > 1 && part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if ((long long)HW * (C / G) >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const int cg = C / G;
-  constexpr int kMaxVec = 16 / (int)sizeof(T);  // 16-byte accesses at most
-  // The widest aligned access that divides C/G and still leaves two per
-  // pixel: with one (f32, C/G = 4) each warp load touches 32 pixels 512
-  // bytes apart, and the H100 ran that plane 2.2x slower than with two.
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
-  int vec = kMaxVec;
-  while (vec > 1 && (cg % vec != 0 || cg / vec < 2 || addr % (vec * sizeof(T)) != 0)) vec /= 2;
+  if (!gn_shape_ok(HW, C, G, S, part)) return (int)cudaErrorInvalidValue;
+  constexpr int kMaxVec = 16 / (int)sizeof(T);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xp = static_cast<const T*>(x);
   const T* gp = static_cast<const T*>(gamma);
   const T* bp = static_cast<const T*>(beta);
   T* yp = static_cast<T*>(y);
   float2* pp = static_cast<float2*>(part);
-  switch (vec) {
+  switch (pick_vec<T>(x, y, C / G)) {
     case kMaxVec:
       launch_vec<T, kMaxVec>(xp, gp, bp, yp, pp, N, HW, C, G, S, eps, silu, s);
       break;

@@ -14,6 +14,11 @@ and a plain PyTorch twin:
     (``csrc/attention_cm.cu``, wrapper :func:`attention_dmajor`).
   * ``probes.winograd.wino3x3`` — the Winograd F(2x2,3x3) conv through K6
     (``csrc/winograd.cu``), an opt-in probe that no layer dispatches.
+  * ``probes.attention``, ``probes.groupnorm``, ``probes.stream`` — the
+    probes of the TPU tuning scripts: K1's and K5's loops with pieces of
+    the work removed (K7, ``csrc/probe_attention.cu``), K3's kernels in the
+    scripts' forms (K8, ``csrc/probe_groupnorm.cu``) and a streaming copy
+    (K9, ``csrc/probe_copy.cu``). No layer dispatches them.
 
 A wrapper runs the plain twin only for CPU tensors; for a CUDA tensor it
 launches its kernel or raises.
@@ -32,6 +37,9 @@ from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     group_norm_silu,
 )
 from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_ff
+from complex_prompt_diffusion_tpu_torch.ops.probes.attention import attention_probe
+from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_probe
+from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy
 from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3
 
 # the wrapper of each kernel, whose ``launches`` attribute counts launches
@@ -42,6 +50,9 @@ KERNEL_WRAPPERS = {
     "conv3x3": conv3x3,
     "attention_cm": attention_dmajor,
     "winograd": wino3x3,
+    "probe_attention": attention_probe,
+    "probe_groupnorm": group_norm_probe,
+    "probe_copy": stream_copy,
 }
 
 __all__ = [
@@ -50,6 +61,9 @@ __all__ = [
     "attention_dmajor",
     "self_attention_cm",
     "wino3x3",
+    "attention_probe",
+    "group_norm_probe",
+    "stream_copy",
     "conv3x3",
     "geglu_ff",
     "group_norm",

@@ -35,9 +35,14 @@ _G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
 _AT = ((1.0, 1.0, 1.0, 0.0), (0.0, 1.0, -1.0, -1.0))
 
 
+_G_ON = {}  # device -> G, copied to a device once, so a CUDA graph can capture the transform
+
+
 def winograd_weights(kernel):
     """[3, 3, C, Co] -> U = G g G^T as [16, C, Co] (f32 math)."""
-    g = torch.tensor(_G, dtype=torch.float32, device=kernel.device)
+    g = _G_ON.get(kernel.device)
+    if g is None:
+        g = _G_ON[kernel.device] = torch.tensor(_G, dtype=torch.float32, device=kernel.device)
     u = torch.einsum("ik,klcf->ilcf", g, kernel.float())
     u = torch.einsum("ilcf,jl->ijcf", u, g)
     return u.reshape(16, kernel.shape[2], kernel.shape[3])

@@ -54,7 +54,8 @@ def kernel_cases(dev, kernels=None) -> list:
     F2 = importlib.import_module(f"{_PKG}.ops.mlp")
     W = importlib.import_module(f"{_PKG}.ops.probes.winograd")
     want = set(kernels) if kernels else {"attention", "geglu_ff", "group_norm", "conv3x3",
-                                         "attention_cm", "winograd"}
+                                         "attention_cm", "winograd", "probe_attention",
+                                         "probe_groupnorm", "probe_copy"}
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -220,4 +221,52 @@ def kernel_cases(dev, kernels=None) -> list:
                                                           padding=1),
                 "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 4 * c,
                 x.element_size() * (m * c + 16 * c * co + m * co) + 4 * co))
+    # the probes (imported here: a source tree without them runs the cases
+    # above); each at a shape of its TPU script, the tools/probe_*.py rows
+    # time every variant
+    if "probe_attention" in want:
+        PA = importlib.import_module(f"{_PKG}.ops.probes.attention")
+        # the scores mode (perf_attn10 A, and F on K1's f32 loop) has no
+        # library call
+        for s_, c, kw, lib, dt in ((4096, 320, dict(denom="ones"), True, bf16),
+                                   (1024, 640, dict(kv_tile=128), True, bf16),
+                                   (4096, 320, dict(mode="scores"), False, bf16),
+                                   (4096, 320, dict(mode="scores"), False, f32)):
+            q, k, v = (randn(8, s_, c, dtype=dt) for _ in range(3))
+            flops = 4.0 * 8 * s_ * s_ * c / (1 if lib else 2)
+            tag = " ".join(f"{key}={val}" for key, val in kw.items())
+            name = "bf16" if dt == bf16 else "f32"
+            cases.append(Case(
+                "probe_attention", f"{name} B8 S{s_} H8 d{c // 8} {tag}",
+                lambda q=q, k=k, v=v, kw=kw, d=c // 8: PA.attention_probe(q, k, v, 8, d**-0.5,
+                                                                          **kw),
+                lambda q=q, k=k, v=v, kw=kw, d=c // 8: PA.attention_probe_plain(
+                    q, k, v, 8, d**-0.5, **kw),
+                sdpa(q, k, v, 8) if lib else None, "bfloat16" if dt == bf16 else "float32",
+                flops, 4.0 * 8 * s_ * c * q.element_size()))
+    if "probe_groupnorm" in want:
+        PG = importlib.import_module(f"{_PKG}.ops.probes.groupnorm")
+        for shape, kw in (((8, 64, 64, 320), dict(mma=True)), ((8, 64, 64, 320), dict(splits=16)),
+                          ((8, 32, 32, 1280), dict(mode="bf16sig"))):
+            x = randn(*shape, dtype=bf16, scale=2.0) + 0.5
+            gamma = randn(shape[-1], dtype=bf16, scale=0.5) + 1.0
+            beta = randn(shape[-1], dtype=bf16, scale=0.5)
+            a = (x, gamma, beta)
+            tag = " ".join(f"{key}={val}" for key, val in kw.items())
+            cases.append(Case(
+                "probe_groupnorm", f"bf16 {'x'.join(map(str, shape))} {tag}",
+                lambda a=a, kw=kw: PG.group_norm_probe(*a, **kw),
+                lambda a=a, kw=kw: PG.group_norm_probe_plain(*a, **kw),
+                lambda a=a: F.silu(F.group_norm(a[0].permute(0, 3, 1, 2), 32, a[1], a[2])),
+                "bfloat16", 10.0 * x.numel(), (2 * x.numel() + 2 * shape[-1]) * 2))
+    if "probe_copy" in want:
+        PS = importlib.import_module(f"{_PKG}.ops.probes.stream")
+        x = randn(8, 4096, 320, dtype=bf16)
+        y = torch.empty_like(x)
+        for rows, convert, stages in ((64, False, 4), (4096, True, 1)):
+            a = (x, rows, convert, stages)
+            cases.append(Case(
+                "probe_copy", f"bf16 [8,4096,320] rows={rows} convert={convert} stages={stages}",
+                lambda a=a: PS.stream_copy(*a), lambda a=a: PS.stream_copy_plain(*a),
+                lambda: y.copy_(x), "bfloat16", 0.0, 2.0 * x.numel() * 2))
     return cases

@@ -18,9 +18,12 @@ and back over the trees (A B B A for two, A B C C B A for three), repeated
 
 * ``kernels:NAME[,NAME]``: the phase-1 cases of ``chip_smoke.py`` (the
   ``kernel_cases`` beside this file, calling each tree's wrappers), each
-  checked against its plain twin, then the mean ms of ``--iters`` launches
-  (CUDA events) after two warm-ups; a case whose dtype a tree's wrapper
-  rejects is left out of the comparison;
+  checked against its plain twin, then timed as phase 1 times it
+  (``hotcold.graph_ms`` beside this file: a CUDA graph of 20 launches
+  replayed after two eager warm-ups); a case whose dtype a tree's wrapper
+  rejects is left out of the comparison. The cases' inputs come from one
+  seed, so each output's SHA-256 is compared across trees too: the line
+  says whether every tree wrote the same bits;
 * ``render_b1``: phase 4 of ``chip_smoke.py`` after a 3-step warm-up render:
   SD-1.5 with random weights (seed 0), txt2img 512x512, batch 1, DDIM 50,
   CFG 7.5, bf16 VAE decode; seconds to first image and s/step as phase 4
@@ -56,41 +59,30 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(fn, iters: int) -> float:
+def _kernels(names) -> tuple:
+    import hashlib
+
     import torch
+    from hotcold import graph_ms  # beside this file, on sys.path[0]
+    from kernel_cases import kernel_cases
 
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _kernels(names, iters: int) -> dict:
-    import torch
-    from kernel_cases import kernel_cases  # beside this file, on sys.path[0]
-
-    out = {}
+    out, hashes = {}, {}
     for case in kernel_cases(torch.device("cuda"), names):
         try:
             got = case.run().float()
         except TypeError as e:  # a dtype this tree's kernel does not take
             print(f"{case.kernel} {case.label}: not run ({e})", flush=True)
             continue
+        hashes[f"{case.kernel} {case.label}"] = hashlib.sha256(
+            got.cpu().numpy().tobytes()).hexdigest()
         want = case.plain().float()
         rel = float((got - want).abs().max() / want.abs().max())
         if not rel <= TOL[case.dtype]:
             raise SystemExit(f"{case.kernel} {case.label}: relative error {rel:.3e}")
         del got, want
-        out[f"{case.kernel} {case.label} ms"] = _cuda_ms(case.run, iters)
+        out[f"{case.kernel} {case.label} ms"] = graph_ms(case.run)
         torch.cuda.empty_cache()
-    return out
+    return out, hashes
 
 
 def _render_b1(iters: int) -> dict:
@@ -164,13 +156,14 @@ def _child(args) -> int:
         raise SystemExit("tree_ab needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    hashes = {}
     if args.what == "render_b1":
         out = _render_b1(args.iters)
     elif args.what.startswith("kernels:"):
-        out = _kernels(args.what.split(":", 1)[1].split(","), args.iters)
+        out, hashes = _kernels(args.what.split(":", 1)[1].split(","))
     else:
         raise SystemExit(f"unknown workload {args.what!r}")
-    print(_TAG + json.dumps(out), flush=True)
+    print(_TAG + json.dumps({"numbers": out, "hashes": hashes}), flush=True)
     return 0
 
 
@@ -180,7 +173,7 @@ def main(argv=None) -> int:
                     help="a checkout to run (two or more)")
     ap.add_argument("--what", default="render_b1", help="render_b1 or kernels:NAME[,NAME]")
     ap.add_argument("--rounds", type=int, default=2, help="forward-and-back passes")
-    ap.add_argument("--iters", type=int, default=10, help="launches or steps a timing")
+    ap.add_argument("--iters", type=int, default=10, help="steady steps a timing (render_b1)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
@@ -195,9 +188,9 @@ def main(argv=None) -> int:
     card = _card()
     names = list(trees)
     order = (names + names[::-1]) * args.rounds
-    print(f"tree_ab {args.what} on {card}: runs {' '.join(order)}, {args.iters} "
-          f"launches or steps a timing", flush=True)
+    print(f"tree_ab {args.what} on {card}: runs {' '.join(order)}", flush=True)
     results = {n: [] for n in names}
+    hashes = {n: [] for n in names}
     for name in order:
         root = str(Path(trees[name]).resolve())
         proc = subprocess.run(
@@ -210,6 +203,8 @@ def main(argv=None) -> int:
         if proc.returncode != 0 or not lines:
             raise SystemExit(f"run of {name} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
         res = json.loads(lines[-1][len(_TAG):])
+        hashes[name].append(res["hashes"])
+        res = res["numbers"]
         results[name].append(res)
         print(f"  {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in res.items()), flush=True)
     print(f"tree_ab {args.what}: min / median over {2 * args.rounds} runs of each tree ({card})")
@@ -220,6 +215,11 @@ def main(argv=None) -> int:
             vals = [r[key] for r in results[n]]
             cells.append(f"{n} {min(vals):.4f} / {statistics.median(vals):.4f}")
         print(f"  {key:40s} " + "   ".join(cells))
+    runs = [h for n in names for h in hashes[n]]
+    for key in (k for k in runs[0] if all(k in h for h in runs)):
+        same = len({h[key] for h in runs}) == 1
+        print(f"  {key:40s} output bits {'identical in every run' if same else 'DIFFER'} "
+              f"({runs[0][key][:16]})")
     return 0
 
 

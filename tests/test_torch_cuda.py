@@ -428,3 +428,128 @@ def test_cm_unet_on_card_matches_default_route(dev):
         want = M.unet_apply(dataclasses.replace(cfg, attn_route="bsc"), params, x, t, ctx)
     assert attention_dmajor.launches == before + 4
     assert float((got - want).norm() / want.norm()) <= 2e-2
+
+
+# ---- the probes of the TPU tuning scripts: K7, K8, K9 ----
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("mode", ["full", "scores", "max", "exp", "pv", "rowsum", "loads"])
+def test_attention_probe_modes(dev, mode, d):
+    from complex_prompt_diffusion_tpu_torch.ops.probes.attention import (
+        attention_probe,
+        attention_probe_plain,
+    )
+
+    g = _gen(dev, d)
+    q = torch.randn((2, 136, 2 * d), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((2, 200, 2 * d), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    before = attention_probe.launches
+    got = attention_probe(q, k, v, 2, d**-0.5, mode)
+    assert attention_probe.launches == before + 1
+    assert _rel(got, attention_probe_plain(q, k, v, 2, d**-0.5, mode)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("denom,exp,unnorm,tile", [("sum", "exp", False, 64),
+                                                   ("ones", "exp2", False, 64),
+                                                   ("ones", "exp", False, 64),
+                                                   ("ones", "exp2", True, 64),
+                                                   ("sum", "exp2", False, 128)])
+def test_attention_probe_flags(dev, d, denom, exp, unnorm, tile):
+    from complex_prompt_diffusion_tpu_torch.ops.probes.attention import (
+        attention_probe,
+        attention_probe_plain,
+    )
+
+    g = _gen(dev, d + 1)
+    q = torch.randn((2, 72, 8 * d), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((2, 264, 8 * d), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    args = (q, k, v, 8, d**-0.5, "full", denom, exp, unnorm, tile)
+    got = attention_probe(*args)
+    assert got.dtype == (torch.float32 if unnorm else torch.bfloat16)
+    assert _rel(got, attention_probe_plain(*args)) <= TOL[torch.bfloat16]
+
+
+def test_attention_probe_f32_scores_and_k5_scores(dev):
+    from complex_prompt_diffusion_tpu_torch.ops.probes import attention as PA
+
+    g = _gen(dev, 31)
+    q, k, v = (torch.randn((2, s, 2 * 40), generator=g, device=dev) for s in (136, 200, 200))
+    got = PA.attention_probe(q, k, v, 2, 40**-0.5, "scores")
+    assert _rel(got, PA.attention_probe_plain(q, k, v, 2, 40**-0.5, "scores")) <= 1e-4
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    qd, kd, vd = (PA.to_dmajor(t, 2) for t in (q, k, v))
+    kc = k.view(2, 200, 2, 40).permute(0, 2, 1, 3)
+    for kk, canon in ((kd, False), (kc, True)):
+        got = PA.attention_dmajor_scores(qd, kk, vd, 40**-0.5, canon)
+        want = PA.attention_dmajor_scores_plain(qd, kk, vd, 40**-0.5, canon)
+        assert _rel(got, want) <= TOL[torch.bfloat16]
+    # the UNet-interface forms hold to K1
+    want = flash_attention(q, k[:, :136], v[:, :136], 2, 40**-0.5)
+    for fn in (PA.v3_attention, PA.h2_attention):
+        assert _rel(fn(q, k[:, :136], v[:, :136], 2, 40**-0.5), want) <= TOL[torch.bfloat16]
+
+
+def test_attention_probe_raises_on_what_it_was_not_built_for(dev):
+    from complex_prompt_diffusion_tpu_torch.ops.probes.attention import attention_probe
+
+    q = torch.zeros((1, 64, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # d = 64 pads to 64: not a UNet level
+        attention_probe(q, q, q, 1, 0.125)
+    q = torch.zeros((1, 64, 48), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # the ones column needs d in 40, 80, 160
+        attention_probe(q, q, q, 1, 0.125, denom="ones")
+    q = torch.zeros((1, 64, 40), device=dev)
+    with pytest.raises(ValueError):  # f32 operands: the scores mode only
+        attention_probe(q, q, q, 1, 0.125)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (2, 12, 12, 320), (1, 8, 8, 1280)])
+@pytest.mark.parametrize("mode,splits,mma", [("full", None, False), ("copy", None, False),
+                                             ("stats", None, False), ("norm", None, False),
+                                             ("bf16sig", None, False), ("full", None, True),
+                                             ("full", 1, False), ("full", 5, False)])
+def test_group_norm_probe(dev, shape, mode, splits, mma):
+    from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import (
+        group_norm_probe,
+        group_norm_probe_plain,
+    )
+
+    g = _gen(dev, shape[-1])
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+    gamma = (torch.randn(shape[-1], generator=g, device=dev) * 0.5 + 1).to(torch.bfloat16)
+    beta = (torch.randn(shape[-1], generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    before = group_norm_probe.launches
+    got = group_norm_probe(x, gamma, beta, mode, splits=splits, mma=mma)
+    assert group_norm_probe.launches == before + (1 if splits is None else 2)
+    want = group_norm_probe_plain(x, gamma, beta, mode, splits=splits, mma=mma)
+    if mode in ("copy", "stats"):
+        assert torch.equal(got, want)
+    else:
+        assert _rel(got, want) <= TOL[torch.bfloat16]
+
+
+def test_group_norm_probe_full_is_k3(dev):
+    """The fused kernel's full mode is K3's kernel: the same bits."""
+    from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_probe
+
+    g = _gen(dev, 77)
+    x = torch.randn((8, 32, 32, 640), generator=g, device=dev).to(torch.bfloat16)
+    gamma = torch.randn(640, generator=g, device=dev).to(torch.bfloat16)
+    beta = torch.randn(640, generator=g, device=dev).to(torch.bfloat16)
+    assert torch.equal(group_norm_probe(x, gamma, beta), group_norm_nhwc(x, gamma, beta, 32, 1e-5,
+                                                                         True))
+
+
+@pytest.mark.parametrize("stages", [1, 3, 4, 8])
+@pytest.mark.parametrize("convert", [False, True])
+@pytest.mark.parametrize("rows", [4, 64, 1024])
+def test_stream_copy(dev, rows, convert, stages):
+    from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy
+
+    x = torch.randn((3, 1024, 40), generator=_gen(dev, rows), device=dev).to(torch.bfloat16)
+    before = stream_copy.launches
+    assert torch.equal(stream_copy(x, rows, convert, stages), x)
+    assert stream_copy.launches == before + 1

@@ -51,6 +51,8 @@ _SIGNATURES = {
                            _L, _L, _L, _L, _L, _L, _F, _P),
     "cpd_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _L, _L, _L, _L, _L, _L, _F, _P),
+    "cpd_attention_sm90_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, _F, _P),
     # q, k, v, o, B, H, Sq, Skv, D, then the element strides (batch, head,
     # d; for a canonical k: batch, head, key row) of q, k, v and o,
     # k_canonical, scale, stream
@@ -74,6 +76,12 @@ _SIGNATURES = {
     "cpd_conv3x3_bf16": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     # x, w, bias, y, B, H, W, C, Co, stream
     "cpd_conv3x3_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, bias, bias_is_f32, y, workspace, B, H, W, C, Co, then the plan
+    # (wt, ht, splits, steps_per_split), stream
+    "cpd_conv3x3_sm90_bf16": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _P),
+    # iters, double* ns per encode, a device address to map
+    "cpd_tmap_encode_bench": (_I, _P, _P),
     # the probes. K7: cpd_attention_bf16's arguments up to scale, then mode,
     # denom, use_exp2, unnormalized, kv_tile, stream
     "cpd_probe_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -1,34 +1,21 @@
-// K1: non-causal softmax attention, out = softmax(scale * Q K^T) V.
+// K1: non-causal softmax attention, out = softmax(scale * Q K^T) V: the
+// bf16 body for 256 < d <= 512 and the f32 body.
 //
-// Replaces the TPU kernels complex_prompt_diffusion_tpu/ops/attention.py::
-// _onepass_kernel (UNet self-attention, 128 < S_kv <= 16384, d <= 256) and
-// ::_attn_kernel (streaming kernel; the VAE mid-block, one head, d = 512,
+// Replaces the TPU kernel complex_prompt_diffusion_tpu/ops/attention.py::
+// _attn_kernel (streaming kernel; the VAE mid-block, one head, d = 512,
 // S = 4096: f32 in the exact decode, bf16 in the bf16 decode and encode).
+// bf16 with d <= 256 (the UNet self-attention, _onepass_kernel) runs the
+// TMA + wgmma body in attention_sm90.cu; the mma.sync body for those
+// head dims (attention_bf16.cuh) is launched only by the probe K7.
 //
 // Operands are read straight from the [B, S, H*D] layout the port's
 // attention() receives (any batch/row stride, unit column stride), so no
 // head split or transpose is materialised; the output is a fresh
 // contiguous [B, Sq, H*D].
 //
-// What bounds it on the H100: at the UNet shapes (S = 4096/1024/256,
-// d = 40/80/160, BH = 64) the work is 2 * 2 * BH * S^2 * d flops over
-// only 4 * BH * S * d * 2 bytes, so it is compute bound; the TPU kernel
-// kept a whole K/V row in VMEM, which does not fit a Hopper SM's 227 KB of
-// shared memory at S = 4096. Design: FlashAttention-2 style tiling with an
-// online softmax (running max m, running sum l, f32 accumulator O that is
-// rescaled by exp2(m_old - m_new) at each KV tile), so shared memory holds
-// one Q tile and two K/V tiles only.
-//   * bf16: 4 warps x 16 query rows, KV tiles of 64 keys, K/V tiles
-//     double-buffered with cp.async (the next tile loads while this one
-//     computes). Both products run on the tensor cores as mma.sync
-//     m16n8k16 (bf16 in, f32 accumulate) with operands fetched by ldmatrix
-//     (V through ldmatrix.trans). Scores, probabilities and the O
-//     accumulator stay in registers: the score accumulator's layout is the
-//     A-operand layout of the PV product, so P never touches shared memory,
-//     and the per-row max/sum need only two quad shuffles. Head dims that
-//     are not a multiple of the 16-wide k-step (d = 40) are zero-padded to
-//     DP (48) in shared memory. P is rounded to bf16 before the PV product,
-//     as in the TPU kernels.
+// Design: FlashAttention-2 style tiling with an online softmax (running max
+// m, running sum l, f32 accumulator O that is rescaled by exp2(m_old -
+// m_new) at each KV tile).
 //   * bf16 with 256 < d <= 512 (the bf16 VAE mid-block): the head dim is
 //     split across 8 warps; see attention_bf16_wide_kernel below.
 //   * f32 (the exact VAE decode): no TF32 — CUDA-core FMAs, tiled like an
@@ -37,12 +24,11 @@
 //     FMAs per two shared-memory loads) and keeps 4 rows x 32 columns of O
 //     in registers (d <= 512). Q^T stays in shared memory for the block's
 //     life; K and V are staged in head-dim slices.
-// Not yet: wgmma, TMA, warp specialisation.
+// Not yet for these two: wgmma, TMA, warp specialisation.
 //
-// The d <= 256 bf16 kernel and the f32 kernel live in attention_bf16.cuh and
-// attention_f32.cuh, which the probe kernel K7 (probe_attention.cu) also
-// instantiates, with pieces of the work removed; this file launches their
-// full attention.
+// The f32 kernel lives in attention_f32.cuh, which the probe kernel K7
+// (probe_attention.cu) also instantiates with pieces of the work removed;
+// attention_bf16.cuh provides the tile loader the wide kernel shares.
 
 #include "attention_bf16.cuh"
 #include "attention_f32.cuh"
@@ -290,29 +276,9 @@ extern "C" int cpd_attention_bf16(const void* q, const void* k, const void* v, v
                                   long long kbs, long long krs, long long vbs, long long vrs,
                                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (D > 256 && D <= kWD)
+  if (D % 8 == 0 && D > 256 && D <= kWD)
     return launch_bf16_wide(q, k, v, o, B, H, Sq, Skv, D, qbs, qrs, kbs, krs, vbs, vrs, scale, s);
-  const int dp = (D + 15) / 16 * 16;
-#define CPD_ATTN_CASE(DPV) \
-  case DPV:                \
-    return launch_bf16_body<DPV, DPV, kBN, kFull, kSumRows, true, false>(                 \
-        q, k, v, o, B, H, Sq, Skv, D, qbs, qrs, kbs, krs, vbs, vrs,                     \
-        scale * 1.4426950408889634f, s);
-  switch (dp) {
-    CPD_ATTN_CASE(16)
-    CPD_ATTN_CASE(32)
-    CPD_ATTN_CASE(48)
-    CPD_ATTN_CASE(64)
-    CPD_ATTN_CASE(80)
-    CPD_ATTN_CASE(96)
-    CPD_ATTN_CASE(128)
-    CPD_ATTN_CASE(160)
-    CPD_ATTN_CASE(256)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef CPD_ATTN_CASE
+  return (int)cudaErrorInvalidValue;  // d <= 256: attention_sm90.cu
 }
 
 extern "C" int cpd_attention_f32(const void* q, const void* k, const void* v, void* o, int B,

@@ -1,11 +1,11 @@
-// The bf16 body of K1 (csrc/attention.cu): non-causal softmax attention over
-// the [B, S, H*D] layout, 64 query rows a block, online softmax over KV
-// tiles, both products on the tensor cores (mma.sync m16n8k16). attention.cu
-// instantiates the attention itself (MODE kFull, row-sum denominator, exp2,
-// 64-key tiles); the probe kernel K7 (csrc/probe_attention.cu) instantiates
-// the same loop with pieces removed or one design choice changed. The
-// template parameters are compile-time, so the kFull instantiation is the
-// code K1 always ran.
+// The mma.sync bf16 body of K1: non-causal softmax attention over the
+// [B, S, H*D] layout, 64 query rows a block, online softmax over KV tiles,
+// both products on the tensor cores (mma.sync m16n8k16). K1 now runs the
+// TMA + wgmma body of attention_sm90.cu for these head dims; this loop is
+// the subject of the probe kernel K7 (csrc/probe_attention.cu), which
+// instantiates it whole (MODE kFull, row-sum denominator, exp2, 64-key
+// tiles: the code K1 ran until then) and with pieces removed or one design
+// choice changed. attention.cu's d = 512 kernel shares its tile loader.
 //
 //   DP      head dim padded to the 16-wide k-step of the score product
 //   DV      width of the PV product: DP, or D + 8 for a ones column past DP

@@ -4,10 +4,13 @@
 // Replaces the TPU kernel complex_prompt_diffusion_tpu/ops/conv.py::_kernel
 // (nine shifted [M, C] x [C, Co] matmuls over an H-padded flat plane with
 // row masks). The port sends it the same convs as the JAX dispatch
-// (models/layers.py: batch <= 4 on 16^2..32^2 planes): in bf16 the 22 3x3
-// convs per UNet call of the batch-1 render and the bf16 VAE's convs on
-// those planes; in f32 the exact VAE decode's convs there (a 16x16 or
-// 32x32 latent). Rounding matches the TPU kernel: products accumulated in
+// (models/layers.py: batch <= 4 on 16^2..32^2 planes), less the bf16 convs
+// with C % 64 == 0 and Co % 64 == 0, which ops/conv.py routes to the TMA +
+// wgmma body in conv3x3_sm90.cu (the 22 3x3 convs per UNet call of the
+// batch-1 render among them). This file keeps the rest: bf16 convs of other
+// widths (C = 4 at the UNet's and the VAE decoder's conv_in, Co = 4 at the
+// UNet's out conv) and, in f32, the exact VAE decode's convs on a 16x16 or
+// 32x32 latent. Rounding matches the TPU kernel: products accumulated in
 // f32, the bias added in f32, one rounding to the activation dtype.
 //
 // Layouts: x is NHWC [B, H, W, C]; the weight is the port's conv weight

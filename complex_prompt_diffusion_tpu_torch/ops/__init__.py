@@ -1,14 +1,17 @@
 """Compute ops of the port, each with a hand-written CUDA kernel for Hopper
 and a plain PyTorch twin:
 
-  * :func:`attention` — softmax attention; KV > 128 goes through K1
-    (``csrc/attention.cu``).
+  * :func:`attention` — softmax attention; KV > 128 goes through K1:
+    bf16 with d <= 256 its TMA + wgmma body (``csrc/attention_sm90.cu``,
+    :func:`attention_sm90`), the rest ``csrc/attention.cu``.
   * :func:`geglu_ff` — the transformer GEGLU MLP through K2
     (``csrc/geglu_ff.cu``).
   * :func:`group_norm` / :func:`group_norm_silu` — NHWC GroupNorm(+SiLU)
     through K3 (``csrc/groupnorm.cu``).
-  * :func:`conv3x3` — the 3x3 stride-1 conv through K4
-    (``csrc/conv3x3.cu``), for the convs ``models/layers.conv2d`` routes to it.
+  * :func:`conv3x3` — the 3x3 stride-1 conv through K4, for the convs
+    ``models/layers.conv2d`` routes to it: bf16 with C and Co multiples of
+    64 through its TMA + wgmma body (``csrc/conv3x3_sm90.cu``,
+    :func:`conv3x3_sm90`), the rest through ``csrc/conv3x3.cu``.
   * :func:`self_attention_cm` and the kcanon route of :func:`attention` —
     attention over operands whose sequence axis is contiguous, through K5
     (``csrc/attention_cm.cu``, wrapper :func:`attention_dmajor`).
@@ -27,10 +30,11 @@ launches its kernel or raises.
 from complex_prompt_diffusion_tpu_torch.ops.attention import (
     attention,
     attention_dmajor,
+    attention_sm90,
     flash_attention,
     self_attention_cm,
 )
-from complex_prompt_diffusion_tpu_torch.ops.conv import conv3x3
+from complex_prompt_diffusion_tpu_torch.ops.conv import conv3x3, conv3x3_sm90
 from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     group_norm,
     group_norm_nhwc,
@@ -42,12 +46,16 @@ from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_p
 from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy
 from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3
 
-# the wrapper of each kernel, whose ``launches`` attribute counts launches
+# the wrapper of each kernel, whose ``launches`` attribute counts launches;
+# "attention" and "conv3x3" count every body of K1 and K4, "attention_sm90"
+# and "conv3x3_sm90" their TMA + wgmma bodies alone
 KERNEL_WRAPPERS = {
     "attention": flash_attention,
+    "attention_sm90": attention_sm90,
     "geglu_ff": geglu_ff,
     "group_norm": group_norm_nhwc,
     "conv3x3": conv3x3,
+    "conv3x3_sm90": conv3x3_sm90,
     "attention_cm": attention_dmajor,
     "winograd": wino3x3,
     "probe_attention": attention_probe,
@@ -58,6 +66,7 @@ KERNEL_WRAPPERS = {
 __all__ = [
     "attention",
     "flash_attention",
+    "attention_sm90",
     "attention_dmajor",
     "self_attention_cm",
     "wino3x3",
@@ -65,6 +74,7 @@ __all__ = [
     "group_norm_probe",
     "stream_copy",
     "conv3x3",
+    "conv3x3_sm90",
     "geglu_ff",
     "group_norm",
     "group_norm_silu",

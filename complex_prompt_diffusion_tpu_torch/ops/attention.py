@@ -8,9 +8,12 @@ dispatch copies the JAX rule (``attention``: Pallas only for KV > 128):
     UNet middle block at S = 64 — runs :func:`attention_plain`, plain
     PyTorch with an f32 softmax (the port of ``_xla_attention``), on every
     device;
-  * longer KV runs :func:`flash_attention`: the hand-written kernel
-    ``csrc/attention.cu`` (K1) for CUDA tensors, its plain PyTorch twin
-    :func:`attention_plain` for CPU tensors;
+  * longer KV runs :func:`flash_attention` (K1): for CUDA tensors the
+    hand-written kernels, by dtype and head dim (:func:`k1_body`): bf16
+    with d <= 256 the TMA + wgmma body :func:`attention_sm90`
+    (``csrc/attention_sm90.cu``), bf16 with 256 < d <= 512 and f32 the
+    bodies of ``csrc/attention.cu``; for CPU tensors its plain PyTorch twin
+    :func:`attention_plain`;
   * with ``CPD_ATTN_KCANON=1`` in the environment at import (the JAX
     module's switch, read into ``_USE_KCANON``), KV lengths in (128, 16384]
     with head dim <= 256 run :func:`attention_kcanon` instead: q and v are
@@ -42,6 +45,8 @@ __all__ = [
     "attention",
     "flash_attention",
     "attention_plain",
+    "attention_sm90",
+    "k1_body",
     "attention_dmajor",
     "attention_dmajor_plain",
     "attention_kcanon",
@@ -96,17 +101,26 @@ def _rows_ok(t: torch.Tensor, vec_elems: int) -> bool:
     )
 
 
-def flash_attention(q, k, v, num_heads: int, scale: Optional[float] = None):
-    """K1 wrapper: softmax(scale * Q K^T) V over [B, S, H*D] operands.
+def k1_body(dtype, d: int) -> str:
+    """The K1 body a CUDA call of :func:`flash_attention` with head dim
+    ``d`` launches: ``"sm90"`` (bf16, d % 8 == 0, d <= 256 with a padded
+    width in ``_ATTN_BF16_DP``: ``csrc/attention_sm90.cu``), ``"bf16_wide"``
+    (bf16, d % 8 == 0, 256 < d <= 512) or ``"f32"`` (f32, d % 4 == 0,
+    d <= 512), both in ``csrc/attention.cu``. Anything else raises."""
+    if dtype == torch.bfloat16:
+        if d % 8 == 0 and 0 < d <= _ONEPASS_MAX_D and (d + 15) // 16 * 16 in _ATTN_BF16_DP:
+            return "sm90"
+        if d % 8 == 0 and _ONEPASS_MAX_D < d <= _ATTN_MAX_D:
+            return "bf16_wide"
+        raise ValueError(f"K1 bf16 supports head dims d % 8 == 0, d <= 512; got {d}")
+    if dtype == torch.float32:
+        if d % 4 == 0 and 0 < d <= _ATTN_MAX_D:
+            return "f32"
+        raise ValueError(f"K1 f32 supports head dims d % 4 == 0, d <= 512; got {d}")
+    raise TypeError(f"K1 supports bfloat16 and float32, got {dtype}")
 
-    CPU tensors run :func:`attention_plain`. CUDA tensors launch
-    ``csrc/attention.cu`` (bf16 with head dim d % 8 == 0, d <= 512 and, up
-    to 256, a padded width K1 has; or f32 with d % 4 == 0 and d <= 512) or
-    raise; there is no fallback.
-    ``flash_attention.launches`` counts kernel launches.
-    """
-    if not q.is_cuda:
-        return attention_plain(q, k, v, num_heads, scale)
+
+def _check_qkv(q, k, v, num_heads):
     b, sq, inner = q.shape
     bk, skv, inner_k = k.shape
     if v.shape != k.shape or bk != b or inner_k != inner or inner % num_heads:
@@ -118,34 +132,76 @@ def flash_attention(q, k, v, num_heads: int, scale: Optional[float] = None):
         raise TypeError("q, k and v must share one dtype")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
+
+
+def _launch(fn, what, q, k, v, num_heads, scale, vec):
+    b, sq, inner = q.shape
     d = inner // num_heads
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.dtype == torch.bfloat16:
-        if d % 8 or not (256 < d <= _ATTN_MAX_D or (d + 15) // 16 * 16 in _ATTN_BF16_DP):
-            raise ValueError(f"K1 bf16 supports head dims d % 8 == 0, d <= 512; got {d}")
-        fn, vec = _build.kernel_library().cpd_attention_bf16, 8
-    elif q.dtype == torch.float32:
-        if d % 4 or d > _ATTN_MAX_D:
-            raise ValueError(f"K1 f32 supports head dims d % 4 == 0, d <= 512; got {d}")
-        fn, vec = _build.kernel_library().cpd_attention_f32, 4
-    else:
-        raise TypeError(f"K1 supports bfloat16 and float32, got {q.dtype}")
     q, k, v = (t if _rows_ok(t, vec) else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, sq, inner), dtype=q.dtype, device=q.device)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, num_heads, sq, skv, d,
+        b, num_heads, sq, k.shape[1], d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1),
         float(scale), _build.stream_ptr(q.device),
     )
-    _build.check(err, "attention (K1)")
+    _build.check(err, what)
+    return out
+
+
+def flash_attention(q, k, v, num_heads: int, scale: Optional[float] = None):
+    """K1 wrapper: softmax(scale * Q K^T) V over [B, S, H*D] operands.
+
+    CPU tensors run :func:`attention_plain`. CUDA tensors launch the body
+    :func:`k1_body` names (bf16 with d <= 256: :func:`attention_sm90`; bf16
+    with 256 < d <= 512 and f32: ``csrc/attention.cu``) or raise; there is
+    no fallback. ``flash_attention.launches`` counts launches of every body.
+    """
+    if not q.is_cuda:
+        return attention_plain(q, k, v, num_heads, scale)
+    _check_qkv(q, k, v, num_heads)
+    body = k1_body(q.dtype, q.shape[2] // num_heads)
+    if body == "sm90":
+        out = _attention_sm90(q, k, v, num_heads, scale)
+    else:
+        lib = _build.kernel_library()
+        fn, vec = ((lib.cpd_attention_bf16, 8) if body == "bf16_wide"
+                   else (lib.cpd_attention_f32, 4))
+        out = _launch(fn, "attention (K1)", q, k, v, num_heads, scale, vec)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def attention_sm90(q, k, v, num_heads: int, scale: Optional[float] = None):
+    """K1's TMA + wgmma body (``csrc/attention_sm90.cu``): bf16 [B, S, H*D]
+    operands with a head dim :func:`k1_body` sends to ``"sm90"``; anything
+    else raises. Operands are read where they lie when their rows are
+    16-byte aligned with unit column stride (TMA's rule; views of one qkv
+    projection qualify), else from contiguous copies. CPU tensors run
+    :func:`attention_plain`. ``attention_sm90.launches`` counts launches."""
+    _check_qkv(q, k, v, num_heads)
+    if k1_body(q.dtype, q.shape[2] // num_heads) != "sm90":
+        raise ValueError(f"the sm90 attention takes bf16 with d <= 256 (K1's padded widths); "
+                         f"got {q.dtype}, d = {q.shape[2] // num_heads}")
+    if not q.is_cuda:
+        return attention_plain(q, k, v, num_heads, scale)
+    return _attention_sm90(q, k, v, num_heads, scale)
+
+
+def _attention_sm90(q, k, v, num_heads, scale):
+    out = _launch(_build.kernel_library().cpd_attention_sm90_bf16, "attention (K1, sm90 body)",
+                  q, k, v, num_heads, scale, 8)
+    attention_sm90.launches += 1
+    return out
+
+
+attention_sm90.launches = 0
 
 
 def attention_dmajor_plain(q, k, v, scale: float, k_canonical: bool = False,

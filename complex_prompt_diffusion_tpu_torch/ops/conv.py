@@ -1,20 +1,45 @@
-"""3x3 stride-1 'same' convolution over NHWC, with the K4 CUDA kernel.
+"""3x3 stride-1 'same' convolution over NHWC, with the K4 CUDA kernels.
 
 Counterpart of ``complex_prompt_diffusion_tpu/ops/conv.py``. The weight is
 the port's conv weight ``[Co, C, 3, 3]`` (``convert.py``; channels_last
-memory, so it is a row-major ``[Co, 9C]`` matrix that the kernel reads in
+memory, so it is a row-major ``[Co, 9C]`` matrix that the kernels read in
 place), the bias ``[Co]``. ``models/layers.conv2d`` decides which convs come
-here (the JAX package's batch and plane-size gate).
+here (the JAX package's batch and plane-size gate); :func:`conv3x3` then
+routes each by shape to one of K4's two bodies:
+
+  * bf16 with C % 64 == 0 and Co % 64 == 0 (every 3x3 conv of the batch-1
+    UNet): :func:`conv3x3_sm90`, TMA + wgmma (``csrc/conv3x3_sm90.cu``),
+    with the tile and split-K plan of :func:`conv3x3_plan`;
+  * every other shape and f32: :func:`conv3x3_generic`, the mma.sync / FMA
+    body (``csrc/conv3x3.cu``).
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from complex_prompt_diffusion_tpu_torch import _build
 
-__all__ = ["conv3x3", "conv3x3_plain", "conv3x3_supported"]
+__all__ = ["conv3x3", "conv3x3_plain", "conv3x3_supported", "conv3x3_sm90", "conv3x3_generic",
+           "conv3x3_plan", "Conv3x3Plan", "sm90_takes"]
+
+SM90_BM, SM90_BN, SM90_BK = 128, 128, 64  # the sm90 body's tile: pixels, channels, k-step
+SM90_SMS = 132  # H100 SXM; one block an SM (128 KB of shared memory each)
+# The split-K cost model of conv3x3_plan, in microseconds on an H100 80GB
+# HBM3 (700 W), fitted to a sweep of splits 1-8 over the ten batch-1 UNet
+# shapes (PERF.md section 6): a 128 x 128 x 64 k-step of one block
+# (2.1 MFLOP; 0.28 us at an SM's share of the 989 TFLOP/s peak), the reduce
+# kernel's launch, and the rate at which the f32 partials are written and
+# read back.
+_STEP_US = 0.45
+_REDUCE_US = 2.0
+_PARTIALS_BYTES_PER_US = 2.8e6
+_MAX_SPLITS = 16
 
 
 def conv3x3_supported(x_shape, w_shape, stride: int, padding) -> bool:
@@ -48,11 +73,12 @@ def conv3x3_plain(x, weight, bias):
 def conv3x3(x, weight, bias):
     """K4 wrapper: ``conv3x3(x, w) + b`` for NHWC ``x`` [B, H, W, C].
 
-    CPU tensors run :func:`conv3x3_plain`. CUDA tensors launch
-    ``csrc/conv3x3.cu`` (bf16 on the tensor cores, f32 with exact FMAs; any
-    C and Co) or raise. The weight is taken in x's dtype, the bias in f32
-    (or bf16, which the bf16 kernel widens itself), as the TPU kernel does.
-    ``conv3x3.launches`` counts kernel launches."""
+    CPU tensors run :func:`conv3x3_plain`. CUDA tensors go by shape to
+    :func:`conv3x3_sm90` where :func:`sm90_takes` says so, else to
+    :func:`conv3x3_generic`; each launches its kernel or raises. The weight
+    is taken in x's dtype, the bias in f32 (or bf16, which the bf16 kernels
+    widen themselves), as the TPU kernel does. ``conv3x3.launches`` counts
+    launches of both bodies."""
     if x.ndim != 4:
         raise ValueError(f"conv3x3 expects NHWC, got shape {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -62,6 +88,24 @@ def conv3x3(x, weight, bias):
             f"conv3x3 shapes x{tuple(x.shape)} weight{tuple(weight.shape)} "
             f"bias{tuple(bias.shape)} are inconsistent"
         )
+    if not x.is_cuda:
+        return conv3x3_plain(x, weight, bias)
+    body = conv3x3_sm90 if sm90_takes(x.dtype, c, co) else conv3x3_generic
+    y = body(x, weight, bias)
+    conv3x3.launches += 1
+    return y
+
+
+conv3x3.launches = 0
+
+
+def conv3x3_generic(x, weight, bias):
+    """K4's body for any C and Co (``csrc/conv3x3.cu``: bf16 on the tensor
+    cores with mma.sync, its first design; f32 with exact FMAs) for CUDA
+    tensors, :func:`conv3x3_plain` for CPU ones. ``conv3x3_generic.launches``
+    counts its launches."""
+    b, h, w, c = x.shape
+    co = weight.shape[0]
     if not x.is_cuda:
         return conv3x3_plain(x, weight, bias)
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -83,8 +127,120 @@ def conv3x3(x, weight, bias):
         err = lib.cpd_conv3x3_f32(x.data_ptr(), wt.data_ptr(), bias.data_ptr(), y.data_ptr(),
                                   *dims)
     _build.check(err, "conv3x3 (K4)")
-    conv3x3.launches += 1
+    conv3x3_generic.launches += 1
     return y
 
 
-conv3x3.launches = 0
+conv3x3_generic.launches = 0
+
+
+def sm90_takes(dtype, c: int, co: int) -> bool:
+    """The shape route of :func:`conv3x3`: bf16 with C and Co multiples of
+    64 (a k-step is one tap and 64 channels, one 128-byte TMA row)."""
+    return dtype == torch.bfloat16 and c % 64 == 0 and co % 64 == 0
+
+
+class Conv3x3Plan(NamedTuple):
+    """How the sm90 body covers a conv: output tiles of ``wt x ht = 128``
+    pixels of one image by 128 channels, ``ksteps = 9C / 64`` reduction
+    steps of (tap, 64 channels) cut into ``splits`` runs of
+    ``steps_per_split`` (the last may be shorter, none is empty)."""
+
+    wt: int
+    ht: int
+    tiles_w: int
+    tiles_h: int
+    m_tiles: int  # b * tiles_h * tiles_w
+    n_tiles: int
+    ksteps: int
+    splits: int
+    steps_per_split: int
+
+    def k_range(self, split: int) -> range:
+        lo = split * self.steps_per_split
+        return range(lo, min(self.ksteps, lo + self.steps_per_split))
+
+
+@functools.lru_cache(maxsize=1024)
+def conv3x3_plan(b: int, h: int, w: int, c: int, co: int,
+                 splits: Optional[int] = None) -> Conv3x3Plan:
+    """The tile and split-K plan the sm90 body runs for x [b, h, w, c] and
+    ``co`` output channels. Tiles are 32 x 4 pixels where W % 32 == 0, 16 x 8
+    where W % 16 == 0, else 8 x 16 (TMA zero-fills what falls outside the
+    plane). ``splits`` (default: chosen here) divides the k-steps among
+    blocks: the choice minimises the modelled time, waves of blocks on 132
+    SMs x k-steps a block, plus, with more than one split, the reduce pass
+    (a launch and the f32 partials written and read); the smaller count
+    wins a tie. Cached by shape: the batch-1 render asks for the same 22
+    plans every step, and its steps wait on the host."""
+    if c % SM90_BK or co % 64:
+        raise ValueError(f"the sm90 conv needs C % 64 == 0 and Co % 64 == 0; got C={c}, Co={co}")
+    wt = 32 if w % 32 == 0 else 16 if w % 16 == 0 else 8
+    ht = SM90_BM // wt
+    tiles_w, tiles_h = -(-w // wt), -(-h // ht)
+    m_tiles = b * tiles_h * tiles_w
+    n_tiles = -(-co // SM90_BN)
+    ksteps = 9 * c // SM90_BK
+    tiles = m_tiles * n_tiles
+    if splits is None:
+        partial_bytes = 4.0 * b * h * w * co
+
+        def cost(s):
+            waves = math.ceil(tiles * s / SM90_SMS)
+            t = waves * math.ceil(ksteps / s) * _STEP_US
+            if s > 1:
+                t += _REDUCE_US + 2 * s * partial_bytes / _PARTIALS_BYTES_PER_US
+            return t
+
+        splits = min(range(1, min(_MAX_SPLITS, ksteps) + 1), key=lambda s: (cost(s), s))
+    if not 1 <= splits <= ksteps:
+        raise ValueError(f"splits must lie in 1..{ksteps}; got {splits}")
+    per = -(-ksteps // splits)
+    return Conv3x3Plan(wt, ht, tiles_w, tiles_h, m_tiles, n_tiles, ksteps, -(-ksteps // per),
+                       per)
+
+
+def conv3x3_sm90(x, weight, bias, splits: Optional[int] = None):
+    """K4's TMA + wgmma body (``csrc/conv3x3_sm90.cu``) on a CUDA bf16 x
+    [B, H, W, C] with C % 64 == 0 and Co % 64 == 0; anything else raises.
+    ``splits`` forces the split-K count of :func:`conv3x3_plan` (the tests
+    compare counts). Bits do not depend on the run: the splits are summed
+    in a fixed order. CPU tensors run :func:`conv3x3_plain` after the same
+    checks. ``conv3x3_sm90.launches`` counts calls that launch it (one call
+    = the GEMM kernel, and the reduce kernel when split)."""
+    if x.ndim != 4 or x.dtype != torch.bfloat16:
+        raise ValueError(f"conv3x3_sm90 takes a bf16 NHWC tensor; got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    b, h, w, c = x.shape
+    co = weight.shape[0]
+    if tuple(weight.shape) != (co, c, 3, 3) or tuple(bias.shape) != (co,):
+        raise ValueError(
+            f"conv3x3 shapes x{tuple(x.shape)} weight{tuple(weight.shape)} "
+            f"bias{tuple(bias.shape)} are inconsistent"
+        )
+    plan = conv3x3_plan(b, h, w, c, co, splits)
+    if not x.is_cuda:
+        return conv3x3_plain(x, weight, bias)
+    x = x.contiguous()
+    wt = weight.to(torch.bfloat16).permute(0, 2, 3, 1)  # [Co, 3, 3, C]
+    if not wt.is_contiguous():
+        wt = wt.contiguous()
+    if bias.dtype != torch.bfloat16:
+        bias = bias.to(torch.float32)
+    bias = bias.contiguous()
+    for name, t in (("x", x), ("weight", wt)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"conv3x3_sm90 needs a 16-byte aligned {name} (TMA)")
+    y = torch.empty((b, h, w, co), dtype=torch.bfloat16, device=x.device)
+    ws = (torch.empty((plan.splits, b * h * w, co), dtype=torch.float32, device=x.device)
+          if plan.splits > 1 else y)
+    err = _build.kernel_library().cpd_conv3x3_sm90_bf16(
+        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), int(bias.dtype == torch.float32),
+        y.data_ptr(), ws.data_ptr(), b, h, w, c, co, plan.wt, plan.ht, plan.splits,
+        plan.steps_per_split, _build.stream_ptr(x.device))
+    _build.check(err, "conv3x3 (K4, sm90 body)")
+    conv3x3_sm90.launches += 1
+    return y
+
+
+conv3x3_sm90.launches = 0

@@ -1,0 +1,104 @@
+"""Write ``csrc/wgmma.cuh``: the Hopper ``wgmma.mma_async`` wrappers the sm90
+kernels call, one per output width N.
+
+PTX names every accumulator register of a ``wgmma`` in the instruction
+(N / 2 of them a thread for an m64nNk16 f32 product), and an inline-asm
+string is a literal, so each width needs its own text. This script writes
+it; run it from the repository root after changing the widths below::
+
+    python -m complex_prompt_diffusion_tpu_torch.tools.gen_wgmma
+
+``Wgmma<N>::ss`` multiplies two shared-memory operands, both K-major (the
+conv's pixels x weights, attention's Q K^T); ``Wgmma<N>::rs`` takes A from
+registers and B from shared memory MN-major (attention's P V, V read as it
+lies). bf16 inputs, f32 accumulators.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+# SS: attention's score tile (64 or 128 keys) and the conv's 128-channel tile
+SS_WIDTHS = (64, 128)
+# RS: attention's PV width, the head dim rounded up to 8, for every head dim
+# K1's bf16 body takes up to 256 (ops/attention.py: _ATTN_BF16_DP)
+RS_WIDTHS = (8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88, 96, 120, 128, 152, 160, 248, 256)
+
+OUT = Path(__file__).resolve().parents[1] / "csrc" / "wgmma.cuh"
+
+
+def _wrap(items, per_line, indent):
+    lines = [", ".join(items[i:i + per_line]) for i in range(0, len(items), per_line)]
+    return (",\n" + indent).join(lines)
+
+
+def _fn(n: int, rs: bool) -> str:
+    r = n // 2
+    regs = "{" + ", ".join(f"%{i}" for i in range(r)) + "}"
+    if rs:
+        a = "{" + ", ".join(f"%{r + i}" for i in range(4)) + "}"
+        ins = f"{regs}, {a}, %{r + 4}, p, 1, 1, 1;"
+        scale = r + 5
+        sig = f"float (&d)[{r}], const uint32_t (&a)[4], uint64_t db, int scale_d"
+        ins_ops = '"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)'
+    else:
+        ins = f"{regs}, %{r}, %{r + 1}, p, 1, 1, 0, 0;"
+        scale = r + 2
+        sig = f"float (&d)[{r}], uint64_t da, uint64_t db, int scale_d"
+        ins_ops = '"l"(da), "l"(db), "r"(scale_d)'
+    outs = _wrap([f'"+f"(d[{i}])' for i in range(r)], 8, "      ")
+    text = (f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 {ins}")
+    # split the long instruction string into literal pieces
+    pieces = [text[i:i + 88] for i in range(0, len(text), 88)]
+    body = "\n".join(f'      "{p}"' for p in pieces)
+    name = "rs" if rs else "ss"
+    return (f"  __device__ static __forceinline__ void {name}({sig}) {{\n"
+            f"    asm volatile(\n"
+            f'      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{scale}, 0;\\n"\n'
+            f"{body}\n"
+            f'      "\\n}}\\n"\n'
+            f"      : {outs}\n"
+            f"      : {ins_ops});\n"
+            f"  }}\n")
+
+
+def render() -> str:
+    widths = sorted(set(SS_WIDTHS) | set(RS_WIDTHS))
+    out = [
+        "// Generated by complex_prompt_diffusion_tpu_torch/tools/gen_wgmma.py; do not edit.",
+        "//",
+        "// Wgmma<N>::ss(d, da, db, scale_d): d += A B with A (64 x 16) and B (16 x N) in",
+        "// shared memory, both K-major, through wgmma descriptors da and db.",
+        "// Wgmma<N>::rs(d, a, db, scale_d): the same with A in registers (the m64k16",
+        "// fragment of mma.sync's A layout, a warp holding 16 rows) and B MN-major.",
+        "// scale_d == 0 overwrites d instead of adding to it. bf16 in, f32 out; d holds",
+        "// a thread's N / 2 accumulators in wgmma's m64nN layout.",
+        "#pragma once",
+        "",
+        "#include <stdint.h>",
+        "",
+        "namespace cpd {",
+        "",
+        "template <int N>",
+        "struct Wgmma;",
+        "",
+    ]
+    for n in widths:
+        out.append(f"template <>\nstruct Wgmma<{n}> {{")
+        if n in SS_WIDTHS:
+            out.append(_fn(n, rs=False).rstrip("\n"))
+        if n in RS_WIDTHS:
+            out.append(_fn(n, rs=True).rstrip("\n"))
+        out.append("};\n")
+    out.append("}  // namespace cpd\n")
+    return "\n".join(out)
+
+
+def main() -> int:
+    OUT.write_text(render())
+    print(f"wrote {OUT}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

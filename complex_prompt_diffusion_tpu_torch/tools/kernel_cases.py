@@ -16,7 +16,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Case", "kernel_cases", "PEAK_FLOPS", "HBM_BYTES_PER_S"]
+__all__ = ["Case", "kernel_cases", "PEAK_FLOPS", "HBM_BYTES_PER_S", "B1_UNET_CONVS",
+           "B1_UNET_CONV_COUNTS"]
 
 _PKG = "complex_prompt_diffusion_tpu_torch"
 
@@ -24,6 +25,13 @@ _PKG = "complex_prompt_diffusion_tpu_torch"
 # outside the tensor cores (K1's exact f32 path uses no TF32), HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+
+# (plane side, C, Co) of every distinct 3x3 conv of a batch-1 UNet call (UNet
+# batch 2) and how many of the 22 convs a call has that shape
+B1_UNET_CONVS = ((32, 320, 640), (32, 640, 640), (32, 960, 640), (32, 1280, 640),
+                 (32, 1920, 640), (32, 1280, 1280), (16, 640, 1280), (16, 1280, 1280),
+                 (16, 1920, 1280), (16, 2560, 1280))
+B1_UNET_CONV_COUNTS = (1, 6, 1, 1, 1, 1, 1, 7, 1, 2)
 
 
 class Case(NamedTuple):
@@ -35,6 +43,9 @@ class Case(NamedTuple):
     dtype: str
     flops: float
     nbytes: float  # each input read once, each output written once
+    # the body this kernel replaced (the mma.sync bodies of K1 and K4),
+    # timed beside it; None where there is none
+    prior: Optional[Callable] = None
 
     def bound(self):
         """(least ms the card could take, "bytes" or "operations")."""
@@ -53,7 +64,8 @@ def kernel_cases(dev, kernels=None) -> list:
     G = importlib.import_module(f"{_PKG}.ops.groupnorm")
     F2 = importlib.import_module(f"{_PKG}.ops.mlp")
     W = importlib.import_module(f"{_PKG}.ops.probes.winograd")
-    want = set(kernels) if kernels else {"attention", "geglu_ff", "group_norm", "conv3x3",
+    want = set(kernels) if kernels else {"attention", "attention_sm90", "geglu_ff",
+                                         "group_norm", "conv3x3", "conv3x3_sm90",
                                          "attention_cm", "winograd", "probe_attention",
                                          "probe_groupnorm", "probe_copy"}
 
@@ -76,23 +88,31 @@ def kernel_cases(dev, kernels=None) -> list:
 
         return lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
 
-    def attn_case(label, q, k, v, heads, dt):
+    def attn_case(label, q, k, v, heads, dt, kernel="attention", prior=None):
         b, sq, inner = q.shape
         skv = k.shape[1]
         nbytes = (2 * b * sq + 2 * b * skv) * inner * q.element_size()
-        cases.append(Case("attention", label,
+        cases.append(Case(kernel, label,
                           lambda: A.flash_attention(q, k, v, heads),
                           lambda: A.attention_plain(q, k, v, heads), sdpa(q, k, v, heads), dt,
-                          4.0 * b * sq * skv * inner, nbytes))
+                          4.0 * b * sq * skv * inner, nbytes, prior))
 
-    if "attention" in want:
+    if "attention_sm90" in want:
         # UNet self-attention at UNet batch 8 (q/k/v are views of one fused
-        # qkv projection, as in the UNet), the f32 VAE mid-block, and the
-        # bf16 mid-block of the batch-1 and batch-4 bf16 decode (and encode)
+        # qkv projection, as in the UNet), through K1's route (the sm90 body
+        # in this tree; tree_ab runs the same case on a parent's route), with
+        # the mma.sync body beside it: the probe K7's full mode, which is that
+        # body's code
+        PA = importlib.import_module(f"{_PKG}.ops.probes.attention")
         for s_, c in ((4096, 320), (1024, 640), (256, 1280)):
             qkv = randn(8, s_, 3 * c, dtype=bf16)
             q, k, v = qkv.chunk(3, dim=-1)
-            attn_case(f"bf16 B8 S{s_} H8 d{c // 8}", q, k, v, 8, "bfloat16")
+            d = c // 8
+            attn_case(f"bf16 B8 S{s_} H8 d{d}", q, k, v, 8, "bfloat16", "attention_sm90",
+                      lambda q=q, k=k, v=v, d=d: PA.attention_probe(q, k, v, 8, d**-0.5))
+    if "attention" in want:
+        # the f32 VAE mid-block, and the bf16 mid-block of the batch-1 and
+        # batch-4 bf16 decode (and encode)
         q, k, v = (randn(4, 4096, 512, dtype=f32) for _ in range(3))
         attn_case("f32 B4 S4096 H1 d512", q, k, v, 1, "float32")
         for b in (1, 4):
@@ -134,13 +154,15 @@ def kernel_cases(dev, kernels=None) -> list:
                                                 a[4])),
                 "bfloat16" if dt == bf16 else "float32", 10.0 * x.numel(),
                 (2 * x.numel() + 2 * shape[-1]) * x.element_size()))
+    shapes = []
+    if "conv3x3_sm90" in want:
+        # every distinct 3x3 conv of the batch-1 render (UNet batch 2), through
+        # K4's route (the sm90 body in this tree), with the mma.sync body beside it
+        shapes += [(2, hw, c, co, bf16) for hw, c, co in B1_UNET_CONVS]
     if "conv3x3" in want:
-        # every distinct 3x3 conv of the batch-1 render (UNet batch 2), and
         # the exact f32 decode's conv on a 32^2 plane (a 32x32 latent)
-        shapes = [(2, hw, c, co, bf16) for hw, c, co in (
-            (32, 320, 640), (32, 640, 640), (32, 960, 640), (32, 1280, 640), (32, 1920, 640),
-            (32, 1280, 1280), (16, 640, 1280), (16, 1280, 1280), (16, 1920, 1280),
-            (16, 2560, 1280))] + [(1, 32, 512, 512, f32)]
+        shapes += [(1, 32, 512, 512, f32)]
+    if shapes:
         for b, hw, c, co, dt in shapes:
             x = randn(b, hw, hw, c, dtype=dt)
             w = uniform(co, c, 3, 3, bound=(9 * c) ** -0.5, dtype=dt).contiguous(
@@ -148,12 +170,15 @@ def kernel_cases(dev, kernels=None) -> list:
             bias = uniform(co, bound=0.1, dtype=dt)
             a = (x, w, bias)
             m = b * hw * hw
+            generic = getattr(C, "conv3x3_generic", None)  # a parent tree may lack it
             cases.append(Case(
-                "conv3x3", f"{'bf16' if dt == bf16 else 'f32'} B{b} {hw}x{hw} {c}->{co}",
+                "conv3x3_sm90" if dt == bf16 else "conv3x3",
+                f"{'bf16' if dt == bf16 else 'f32'} B{b} {hw}x{hw} {c}->{co}",
                 lambda a=a: C.conv3x3(*a), lambda a=a: C.conv3x3_plain(*a),
                 lambda a=a: F.conv2d(a[0].permute(0, 3, 1, 2), a[1], a[2], padding=1),
                 "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 9 * c,
-                x.element_size() * (m * c + 9 * c * co + m * co + co)))
+                x.element_size() * (m * c + 9 * c * co + m * co + co),
+                (lambda a=a: generic(*a)) if dt == bf16 and generic else None))
     if "attention_cm" in want:
         # K5, hdbs mode: the cm block's [H, D, B, S] slices of one [3C, B, S]
         # projection at the levels the gate admits (UNet batch 8, and 2 for

@@ -181,7 +181,7 @@ def run(dev, card: str) -> list:
             dmk = derived(make, lambda q, k, v: tuple(PA.to_dmajor(t, h) for t in (q, k, v)))
             timed("perf_attn8", "flash_t: K5 d-major, 64-key tiles", shape, dmk, [],
                   lambda q, k, v: attention_dmajor(q, k, v, scale), full_flops, io, bf16, yard)
-            timed("perf_attn8", "K1, 64-key tiles", shape, make, sets,
+            timed("perf_attn8", "K1 (sm90 body)", shape, make, sets,
                   lambda q, k, v: flash_attention(q, k, v, h, scale), full_flops, io, bf16, yard)
             timed("perf_attn8", "K7 full, 128-key tiles", shape, make, sets,
                   probe(kv_tile=128), full_flops, io, bf16, yard)
@@ -265,7 +265,7 @@ def _tool(name: str) -> str:
     raise RuntimeError(f"{name} not found (not on PATH, not under CUDA_HOME/bin)")
 
 
-SASS_OPS = ("HMMA", "FFMA", "SHFL", "MUFU.RSQ")
+SASS_OPS = ("HMMA", "FFMA", "SHFL", "MUFU.RSQ", "HGMMA", "UTMALDG")
 
 
 def sass_counts() -> dict:

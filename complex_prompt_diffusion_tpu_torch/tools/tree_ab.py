@@ -30,7 +30,9 @@ and back over the trees (A B B A for two, A B C C B A for three), repeated
   times them, then ``--iters`` steady CFG steps: wall ms a step without the
   profiler, and device-busy ms a step (the sum of the kernels' device times
   under ``torch.profiler``), so wall minus busy is the time the card waits
-  for the host.
+  for the host;
+* ``render_b4``: the same for phase 2's render, batch 4 with the f32 VAE
+  decode.
 
 It prints every run's numbers, then for each number the minimum and median
 over each tree's runs, beside the card's name and power limit.
@@ -85,7 +87,7 @@ def _kernels(names) -> tuple:
     return out, hashes
 
 
-def _render_b1(iters: int) -> dict:
+def _render(batch: int, iters: int) -> dict:
     import torch
 
     from complex_prompt_diffusion_tpu_torch import models as M
@@ -99,12 +101,14 @@ def _render_b1(iters: int) -> dict:
     )
 
     dev = torch.device("cuda")
-    bundle = ModelBundle.random("sd15", seed=0, device=dev).cast_vae("bfloat16")
+    bundle = ModelBundle.random("sd15", seed=0, device=dev)
+    if batch == 1:
+        bundle = bundle.cast_vae("bfloat16")
     prompt = "a watercolor painting of a lighthouse at dusk"
 
     def render(steps):
         cfg = RenderConfig(steps=steps, sampler="DDIM", eta=0.0, guidance_scale=7.5,
-                           width=512, height=512, batch_size=1, seed=1)
+                           width=512, height=512, batch_size=batch, seed=1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, latents = txt2img(bundle, prompt, cfg=cfg, decode=False)
@@ -123,12 +127,13 @@ def _render_b1(iters: int) -> dict:
     scale = torch.tensor(7.5, device=dev)
     with torch.inference_mode():
         cross_kv = M.precompute_cross_kv(bundle.unet_cfg, bundle.unet_params,
-                                         stacked_context(spec, 1))
+                                         stacked_context(spec, batch))
 
         def step():
             return cfg_epsilon(lambda xx, tt, ctx: M.unet_apply(
                 bundle.unet_cfg, bundle.unet_params, xx, tt, ctx, cross_kv=cross_kv),
                 latents, t, spec, scale, gcfg=RenderConfig().guidance)
+
 
         for _ in range(3):
             step()
@@ -157,8 +162,8 @@ def _child(args) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hashes = {}
-    if args.what == "render_b1":
-        out = _render_b1(args.iters)
+    if args.what in ("render_b1", "render_b4"):
+        out = _render(int(args.what[-1]), args.iters)
     elif args.what.startswith("kernels:"):
         out, hashes = _kernels(args.what.split(":", 1)[1].split(","))
     else:
@@ -171,7 +176,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
                     help="a checkout to run (two or more)")
-    ap.add_argument("--what", default="render_b1", help="render_b1 or kernels:NAME[,NAME]")
+    ap.add_argument("--what", default="render_b1",
+                    help="render_b1, render_b4 or kernels:NAME[,NAME]")
     ap.add_argument("--rounds", type=int, default=2, help="forward-and-back passes")
     ap.add_argument("--iters", type=int, default=10, help="steady steps a timing (render_b1)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)

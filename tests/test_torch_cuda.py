@@ -20,11 +20,18 @@ from complex_prompt_diffusion_tpu_torch.ops.attention import (
     attention_dmajor_plain,
     attention_kcanon,
     attention_plain,
+    attention_sm90,
     flash_attention,
     self_attention_cm,
     self_attention_cm_plain,
 )
-from complex_prompt_diffusion_tpu_torch.ops.conv import conv3x3, conv3x3_plain
+from complex_prompt_diffusion_tpu_torch.ops.conv import (
+    conv3x3,
+    conv3x3_plain,
+    conv3x3_plan,
+    conv3x3_sm90,
+)
+from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import B1_UNET_CONVS
 from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     gn_splits,
     group_norm_nhwc,
@@ -220,6 +227,96 @@ def test_conv3x3_f32_ragged(dev, c, co):
     assert _rel(got, conv3x3_plain(x, w, b)) <= TOL[torch.float32]
     x16, w16 = x.to(torch.bfloat16), w.to(torch.bfloat16)
     assert _rel(conv3x3(x16, w16, b), conv3x3_plain(x16, w16, b)) <= TOL[torch.bfloat16]
+
+
+def _conv_inputs(dev, b, h, w, c, co, seed):
+    g = _gen(dev, seed)
+    x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    wt = ((torch.rand((co, c, 3, 3), generator=g, device=dev) * 2 - 1) * (9 * c) ** -0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bias = (torch.rand(co, generator=g, device=dev) * 0.2 - 0.1).to(torch.bfloat16)
+    return x, wt, bias
+
+
+@pytest.mark.parametrize("hw,c,co", B1_UNET_CONVS)
+def test_conv3x3_sm90_at_the_batch1_unet_shapes(dev, hw, c, co):
+    """K4's TMA + wgmma body at the ten conv shapes of a batch-1 UNet call
+    (UNet batch 2), through the route: the plain twin within bf16's
+    tolerance, and the same bits on a second run (splits summed in order)."""
+    x, wt, bias = _conv_inputs(dev, 2, hw, hw, c, co, hw + c + co)
+    before, before_sm90 = conv3x3.launches, conv3x3_sm90.launches
+    got = conv3x3(x, wt, bias)
+    assert conv3x3.launches == before + 1 and conv3x3_sm90.launches == before_sm90 + 1
+    assert _rel(got, conv3x3_plain(x, wt, bias)) <= TOL[torch.bfloat16]
+    assert torch.equal(got, conv3x3(x, wt, bias))
+
+
+@pytest.mark.parametrize("b,hw,c,co", [(1, 8, 64, 64), (2, 24, 128, 192), (3, 40, 64, 64),
+                                       (4, 8, 192, 128), (2, 40, 128, 192)])
+def test_conv3x3_sm90_ragged_planes_and_split_counts(dev, b, hw, c, co):
+    """Planes that are not a multiple of the tile (8, 24, 40), Co = 192 (half
+    an n-tile), batch 1-4, with an f32 bias too; every split count the plan
+    can be forced to gives split 1's result within one bf16 rounding, and
+    each the same bits twice."""
+    x, wt, bias = _conv_inputs(dev, b, hw, hw, c, co, b * hw + c + co)
+    want = conv3x3_plain(x, wt, bias)
+    one = conv3x3_sm90(x, wt, bias, splits=1)
+    assert _rel(one, want) <= TOL[torch.bfloat16]
+    ksteps = conv3x3_plan(b, hw, hw, c, co).ksteps
+    for s in sorted({2, 3, 4, 7, ksteps}):
+        got = conv3x3_sm90(x, wt, bias, splits=s)
+        assert torch.equal(got, conv3x3_sm90(x, wt, bias, splits=s))
+        assert float((got.float() - one.float()).abs().max()) <= 2 ** -7 * float(
+            one.float().abs().max())
+    f32_bias = bias.float() + 0.01
+    assert _rel(conv3x3_sm90(x, wt, f32_bias), conv3x3_plain(x, wt, f32_bias)) <= TOL[
+        torch.bfloat16]
+
+
+def test_conv3x3_sm90_raises_on_what_it_does_not_take(dev):
+    x, wt, bias = _conv_inputs(dev, 1, 8, 8, 64, 64, 1)
+    with pytest.raises(ValueError):  # f32
+        conv3x3_sm90(x.float(), wt.float(), bias.float())
+    x40, w40, b40 = _conv_inputs(dev, 1, 8, 8, 40, 64, 2)
+    with pytest.raises(ValueError):  # C % 64 != 0
+        conv3x3_sm90(x40, w40, b40)
+    flat = torch.empty(1 + x.numel(), dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(x.shape)  # 2 bytes past a 16-byte boundary
+    shifted.copy_(x)
+    with pytest.raises(ValueError):  # TMA needs a 16-byte aligned base
+        conv3x3_sm90(shifted, wt, bias)
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_attention_sm90_ragged_on_projection_views(dev, d):
+    """K1's TMA + wgmma body on q, k, v that are strided views of one
+    [B, S, 3*H*D] projection, with ragged Sq = 136 and Skv = 200 (k, v from
+    a second projection); the plain twin within bf16's tolerance, and the
+    same bits twice."""
+    g = _gen(dev, 100 + d)
+    heads = 3
+    q = torch.randn((2, 136, 3 * heads * d), generator=g, device=dev).to(torch.bfloat16)
+    q = q[..., :heads * d]
+    _, k, v = torch.randn((2, 200, 3 * heads * d), generator=g, device=dev).to(
+        torch.bfloat16).chunk(3, dim=-1)
+    before, before_sm90 = flash_attention.launches, attention_sm90.launches
+    got = flash_attention(q, k, v, heads)
+    assert flash_attention.launches == before + 1
+    assert attention_sm90.launches == before_sm90 + 1
+    assert _rel(got, attention_plain(q, k, v, heads)) <= TOL[torch.bfloat16]
+    assert torch.equal(got, attention_sm90(q, k, v, heads))
+
+
+def test_attention_sm90_raises_on_what_it_does_not_take(dev):
+    x = torch.zeros((1, 256, 64), device=dev)
+    with pytest.raises(ValueError):  # f32 runs attention.cu's f32 body
+        attention_sm90(x, x, x, 1)
+    y = torch.zeros((1, 256, 512), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # d = 512 runs the split-d body
+        attention_sm90(y, y, y, 1)
+    z = torch.zeros((1, 256, 104), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # d = 104: no padded width
+        attention_sm90(z, z, z, 1)
 
 
 def test_unet_conv_launches(dev):

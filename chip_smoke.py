@@ -6,17 +6,22 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
 
   phase 0  builds the hand-written CUDA kernels from ``csrc/`` (nvcc, one
            process per source, in parallel), and checks in their SASS
-           (``cuobjdump``) that K1's and K4's Hopper bodies
-           (``attention_sm90.cu``, ``conv3x3_sm90.cu``) hold wgmma (HGMMA)
-           and TMA load (UTMALDG) instructions;
+           (``cuobjdump``) that the Hopper bodies of K1, K2 and K4
+           (``attention_sm90.cu``, ``attention_f32_sm90.cu``,
+           ``geglu_ff_sm90.cu``, ``conv3x3_sm90.cu``) hold wgmma (HGMMA)
+           and TMA load (UTMALDG) instructions in every instantiation;
   phase 1  runs each kernel at its paths' shapes against its plain PyTorch
            twin on the card (TF32 off): error, the times (CUDA-graph
            replays, ``tools/hotcold.py``, one input repeated) of the kernel,
-           the body it replaced (K1's and K4's mma.sync bodies), the
-           twin and the one PyTorch call that computes the same function
-           (where there is one), and the bound from this case's bytes and
-           flops; the sum over the 22 convs of a batch-1 UNet call; the
-           host cost of one TMA tensor-map encode;
+           the body it replaced where it is still built (K1's and K4's
+           mma.sync bodies, K1's f32 FMA body; held to the same twin), the
+           twin and the one
+           PyTorch call that computes the same function (where there is
+           one), and the bound from this case's bytes and flops, with the
+           bound's share of the kernel's time; the sums over the 22 convs
+           of a batch-1 UNet call and over the 16 GEGLU FF calls of a b4
+           step; the host cost of one TMA tensor-map encode and of one call
+           of the K1, K2 and K4 wrappers;
   phase 2  the main path: SD-1.5 at full width with random weights from a
            seed, txt2img at 512x512, batch 4, DDIM eta=0, CFG 7.5, then the
            exact-f32 VAE decode to uint8;
@@ -55,8 +60,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
 Each path of phases 2 and 4 to 10 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched: in phases 2, 4, 6 and 7 every UNet self-attention site
-on K1's sm90 body, in phases 4, 6, 8 and 9 every batch-1 UNet conv on
-K4's. Any failure exits non-zero before the result lines. On success the
+on K1's sm90 body, in phases 2, 4 and 6 every GEGLU FF call on K2 with the
+kernels its plan predicts (the library reports what it launched), in phase
+2 the f32 VAE mid-block on K1's 3xTF32 body (its split, scores, softmax and
+output kernels), in phases 4, 6, 8 and 9 every batch-1 UNet conv on K4's.
+Any failure exits non-zero before the result lines. On success the
 last three lines are the kernels JSON, the card's name and power limit
 (from nvidia-smi) and ``{"ok": true, "device": {...}}``.
 """
@@ -78,7 +86,12 @@ PKG = "complex_prompt_diffusion_tpu_torch"
 KERNELS = {
     "attention": (
         f"{PKG}/csrc/attention.cu",
-        "complex_prompt_diffusion_tpu/ops/attention.py:48 _attn_kernel (d = 512 bf16, f32)",
+        "complex_prompt_diffusion_tpu/ops/attention.py:48 _attn_kernel (bf16 d = 512; f32 "
+        "d <= 256)",
+    ),
+    "attention_f32_sm90": (
+        f"{PKG}/csrc/attention_f32_sm90.cu",
+        "complex_prompt_diffusion_tpu/ops/attention.py:48 _attn_kernel (f32, 256 < d <= 512)",
     ),
     "attention_sm90": (
         f"{PKG}/csrc/attention_sm90.cu",
@@ -86,7 +99,7 @@ KERNELS = {
         "complex_prompt_diffusion_tpu/ops/attention.py:48 _attn_kernel (bf16, d <= 256)",
     ),
     "geglu_ff": (
-        f"{PKG}/csrc/geglu_ff.cu",
+        f"{PKG}/csrc/geglu_ff_sm90.cu",
         "complex_prompt_diffusion_tpu/ops/mlp.py:51 _ff_kernel",
     ),
     "group_norm": (
@@ -132,7 +145,12 @@ KERNELS = {
 }
 PROBES = ("winograd", "probe_attention", "probe_groupnorm", "probe_copy")  # no layer calls them
 # K1's and K4's TMA + wgmma bodies, counted inside "attention" and "conv3x3"
-SM90 = {"attention_sm90": "attention", "conv3x3_sm90": "conv3x3"}
+SM90 = {"attention_sm90": "attention", "attention_f32_sm90": "attention",
+        "conv3x3_sm90": "conv3x3"}
+# the Hopper kernels phase 0 finds in the SASS: every instantiation must hold
+# wgmma (HGMMA) and TMA loads (UTMALDG)
+SM90_FUNCTIONS = ("attention_sm90_kernel", "tf32x3_gemm_kernel", "geglu_gemm_sm90_kernel",
+                  "conv3x3_sm90_kernel")
 
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |a - b| / max |b|
 
@@ -158,10 +176,13 @@ def card_line() -> str:
 
 
 def rel_err(got, want) -> tuple:
-    """(max |got - want|, that over max |want|); non-finite output fails."""
+    """(max |got - want|, that over max |want|); non-finite output, or
+    output of another shape, fails."""
     import torch
 
     got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise SmokeFailure(f"output of shape {list(got.shape)}, want {list(want.shape)}")
     if not bool(torch.isfinite(got).all()):
         raise SmokeFailure("kernel output has non-finite values")
     abs_err = float((got - want).abs().max())
@@ -169,12 +190,12 @@ def rel_err(got, want) -> tuple:
 
 
 def phase0_sass(card: str) -> None:
-    """The TMA + wgmma bodies of K1 and K4 as built: every instantiation must
-    hold HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions."""
+    """The TMA + wgmma bodies of K1, K2 and K4 as built: every instantiation
+    must hold HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions."""
     from complex_prompt_diffusion_tpu_torch.tools import probe_attention as PA
 
     counts = PA.sass_counts()
-    for body in ("attention_sm90_kernel", "conv3x3_sm90_kernel"):
+    for body in SM90_FUNCTIONS:
         fns = {n: c for n, c in counts.items() if body in n}
         bad = [n for n, c in fns.items() if c["HGMMA"] == 0 or c["UTMALDG"] == 0]
         hg = sorted(c["HGMMA"] for c in fns.values())
@@ -196,15 +217,19 @@ def phase1(dev, card: str) -> dict:
     from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import (
         B1_UNET_CONV_COUNTS,
         B1_UNET_CONVS,
+        GEGLU_B4_CALLS,
+        GEGLU_ROWS,
+        host_us,
         kernel_cases,
     )
 
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                      "library_ms": 0.0, "mma_sync_ms": None,
+                      "library_ms": 0.0, "replaced_ms": None,
                       "by": {"bytes": 0.0, "operations": 0.0}}
                for name in KERNELS}
     conv_ms = {}  # K4's time by case label, printed beside K6's at the same shape
     conv_rows = {}  # the sm90 K4 cases: label -> (kernel, mma.sync body, library, bound) ms
+    ff_rows = {}  # K2's cases: label -> (kernel, plain, bound) ms
     print(f"phase1: kernel vs plain twin on {card} (times: {METHOD}, one input repeated, "
           f"L2 hot; bound = max(flops / peak, bytes / 3.35 TB/s); working set = those bytes, "
           f"'< L2' where it fits the 50 MB L2)")
@@ -213,30 +238,38 @@ def phase1(dev, card: str) -> dict:
         want = case.plain()
         torch.cuda.synchronize()
         abs_err, rel = rel_err(got, want)
+        # the replaced body computes the same function on the same inputs:
+        # held to the same twin, so that its time is the same work's
+        prior_rel = rel_err(case.prior(), want)[1] if case.prior is not None else None
         del got, want
+        prior_ms = graph_ms(case.prior) if case.prior is not None else None
         ms = graph_ms(case.run)
         plain_ms = graph_ms(case.plain)
         lib_ms = graph_ms(case.library) if case.library is not None else None
-        prior_ms = graph_ms(case.prior) if case.prior is not None else None
         bound_ms, by = case.bound()
         tol = TOL[case.dtype]
-        ok = rel <= tol
+        ok = rel <= tol and (prior_rel is None or prior_rel <= tol)
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
         if case.kernel in ("conv3x3", "conv3x3_sm90"):
             conv_ms[case.label] = ms
         if case.kernel == "conv3x3_sm90":
             conv_rows[case.label] = (ms, prior_ms, lib_ms, bound_ms)
+        elif case.kernel == "geglu_ff":
+            ff_rows[case.label] = (ms, plain_ms, bound_ms)
         elif case.kernel == "winograd":
             k4 = conv_ms.get(case.label)
             lib_txt += f" K4={k4:.4f} ms" if k4 is not None else " K4=no case at this shape"
         l2 = " < L2" if case.nbytes < L2_BYTES else ""
-        prior_txt = f" mma.sync body={prior_ms:.4f} ms" if prior_ms is not None else ""
+        prior_txt = (f" replaced body={prior_ms:.4f} ms (rel {prior_rel:.3e})"
+                     if prior_ms is not None else "")
         print(f"  {case.kernel:10s} {case.label:30s} max_abs_err={abs_err:.3e} rel={rel:.3e} "
               f"(tol {tol:.0e}) kernel={ms:.4f} ms{prior_txt} plain={plain_ms:.4f} ms "
-              f"library={lib_txt} bound={bound_ms:.4f} ms ({by}) working set "
-              f"{case.nbytes / 1e6:.1f} MB{l2} ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+              f"library={lib_txt} bound={bound_ms:.4f} ms ({by}; {100 * bound_ms / ms:.1f}% "
+              f"of the kernel's time) working set {case.nbytes / 1e6:.1f} MB{l2} ({card}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise SmokeFailure(f"{case.kernel} {case.label}: relative error {rel:.3e} > {tol}")
+            raise SmokeFailure(f"{case.kernel} {case.label}: relative error {rel:.3e} (replaced "
+                               f"body {prior_rel}) > {tol}")
         sm = summary[case.kernel]
         sm["max_abs_err"] = max(sm["max_abs_err"], abs_err)
         sm["ms"] += ms
@@ -248,7 +281,7 @@ def phase1(dev, card: str) -> dict:
         elif sm["library_ms"] is not None:
             sm["library_ms"] += lib_ms
         if prior_ms is not None:
-            sm["mma_sync_ms"] = (sm["mma_sync_ms"] or 0.0) + prior_ms
+            sm["replaced_ms"] = (sm["replaced_ms"] or 0.0) + prior_ms
         torch.cuda.empty_cache()
     if conv_rows:
         # the 22 convs of one batch-1 UNet call, each shape times its count
@@ -259,6 +292,15 @@ def phase1(dev, card: str) -> dict:
         print(f"phase1: the {sum(B1_UNET_CONV_COUNTS)} convs of a batch-1 UNet call: sm90 K4 "
               f"{sums[0]:.4f} ms, mma.sync body {sums[1]:.4f} ms, cuDNN {sums[2]:.4f} ms, bound "
               f"{sums[3]:.4f} ms ({card})")
+    if ff_rows:
+        # the 16 GEGLU FF calls of one b4 CFG step (UNet batch 8), by level
+        sums = [0.0] * 3
+        for (m, c), n in zip(GEGLU_ROWS, GEGLU_B4_CALLS):
+            row = ff_rows[f"bf16 M{m} C{c} H4 {4 * c}"]
+            sums = [a + n * b for a, b in zip(sums, row)]
+        print(f"phase1: the {sum(GEGLU_B4_CALLS)} GEGLU FF calls of a b4 CFG step "
+              f"({'/'.join(map(str, GEGLU_B4_CALLS))} over M32768/8192/2048/512): K2 "
+              f"{sums[0]:.4f} ms, plain twin {sums[1]:.4f} ms, bound {sums[2]:.4f} ms ({card})")
     lib = _build.kernel_library()
     base = torch.empty(2 * 32 * 32 * 640, dtype=torch.bfloat16, device=dev)
     ns = ctypes.c_double()
@@ -267,39 +309,27 @@ def phase1(dev, card: str) -> dict:
     print(f"phase1: host cost of one TMA tensor-map encode (cuTensorMapEncodeTiled, a 4-D bf16 "
           f"map): {ns.value / 1e3:.3f} us, mean of 20000; a launch encodes 2 (K4) or 3 (K1)")
     print(f"phase1: host cost of one wrapper call, eager, at shapes where the card's work is a "
-          f"few us (so the loop runs at the host's pace): {host_costs(dev)} ({card})")
+          f"few us (so the loop runs at the host's pace): "
+          f"{', '.join(f'{n} {us:.1f} us' for n, us in host_us(dev).items())} ({card})")
     return summary
 
 
-def host_costs(dev) -> str:
-    """us a call of K4's and K1's wrappers, both bodies each, over 500 eager
-    calls at tiny shapes: the host's cost, which sets the batch-1 step."""
-    import importlib
+def geglu_launches_per_step(batch: int) -> int:
+    """K2's launches in one CFG step at 512x512 (UNet batch 2 x batch): 5
+    calls at each of the three levels with transformer blocks and 1 in the
+    middle block, each with the launches of its plan."""
+    from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_plan
 
-    import torch
+    ub = 2 * batch
+    sites = ((ub * 4096, 320, 5), (ub * 1024, 640, 5), (ub * 256, 1280, 5), (ub * 64, 1280, 1))
+    return sum(n * geglu_plan(m, c, 4 * c).launches for m, c, n in sites)
 
-    C = importlib.import_module(f"{PKG}.ops.conv")
-    A = importlib.import_module(f"{PKG}.ops.attention")
-    PA = importlib.import_module(f"{PKG}.ops.probes.attention")
-    x = torch.randn((1, 8, 8, 64), device=dev).to(torch.bfloat16)
-    w = torch.randn((64, 64, 3, 3), device=dev).to(torch.bfloat16).contiguous(
-        memory_format=torch.channels_last)
-    b = torch.zeros(64, device=dev, dtype=torch.bfloat16)
-    q = torch.randn((1, 256, 40), device=dev).to(torch.bfloat16)
-    calls = {"conv3x3 route (sm90 body)": lambda: C.conv3x3(x, w, b),
-             "conv3x3_generic (mma.sync body)": lambda: C.conv3x3_generic(x, w, b),
-             "flash_attention route (sm90 body)": lambda: A.flash_attention(q, q, q, 1),
-             "attention_probe full (mma.sync body)": lambda: PA.attention_probe(q, q, q, 1, 0.158)}
-    out = []
-    for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(500):
-            fn()
-        torch.cuda.synchronize()
-        out.append(f"{name} {1e6 * (time.perf_counter() - t0) / 500:.1f} us")
-    return ", ".join(out)
+
+def check_geglu(launches: dict, batch: int, steps: int, what: str) -> None:
+    want = geglu_launches_per_step(batch) * steps
+    if launches["geglu_ff"] != want:
+        raise SmokeFailure(f"K2 launched {launches['geglu_ff']} times in {what}, want {want} "
+                           f"({steps} steps of batch {batch}, by their plans)")
 
 
 def reset_launches() -> None:
@@ -334,6 +364,7 @@ def phase2(dev, card: str, steps: int):
     latents, images)."""
     import torch
 
+    from complex_prompt_diffusion_tpu_torch.ops.attention import f32_sm90_launches
     from complex_prompt_diffusion_tpu_torch.pipeline import (
         ModelBundle,
         RenderConfig,
@@ -370,12 +401,18 @@ def phase2(dev, card: str, steps: int):
     if launches["conv3x3"] != 0:  # UNet batch 8 is outside the conv gate
         raise SmokeFailure(f"conv3x3 launched {launches['conv3x3']} times on the main path")
     # every UNet self-attention site on K1's sm90 body; the f32 VAE mid-block
-    # (d = 512) on attention.cu
+    # (d = 512) on the 3xTF32 body, whose call launches the kernels its
+    # passes need
+    want_f32 = f32_sm90_launches(4, 1, 4096, 4096)
     if (launches["attention_sm90"] != UNET_SELF_ATTN_SITES * steps
-            or launches["attention"] - launches["attention_sm90"] != 1):
+            or launches["attention_f32_sm90"] != want_f32
+            or launches["attention"] - launches["attention_sm90"] != want_f32):
         raise SmokeFailure(f"K1 launched {launches['attention']} times, the sm90 body "
-                           f"{launches['attention_sm90']}: want {UNET_SELF_ATTN_SITES} x {steps} "
-                           f"on the sm90 body and the f32 d=512 decode on attention.cu")
+                           f"{launches['attention_sm90']}, the 3xTF32 body "
+                           f"{launches['attention_f32_sm90']}: want {UNET_SELF_ATTN_SITES} x "
+                           f"{steps} on the sm90 body and the f32 d=512 decode on the 3xTF32 "
+                           f"body ({want_f32} kernels)")
+    check_geglu(launches, 4, steps, "the main path")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"phase2: txt2img 512x512 b4 DDIM {steps} steps CFG 7.5 on {card}: "
           f"sampling {t1 - t0:.3f} s = {(t1 - t0) / steps:.4f} s/step (incl. prompt "
@@ -496,6 +533,7 @@ def phase4(bundle, dev, card: str, steps: int) -> dict:
     if launches["attention_sm90"] != UNET_SELF_ATTN_SITES * steps:
         raise SmokeFailure(f"K1's sm90 body launched {launches['attention_sm90']} times, want "
                            f"{UNET_SELF_ATTN_SITES} x {steps}")
+    check_geglu(launches, 1, steps, "the batch-1 render")
     decode_attn = launches["attention"] - before["attention"]
     if bundle.vae_cfg.dtype != "bfloat16" or decode_attn != 1:
         raise SmokeFailure(f"the bf16 decode launched K1 {decode_attn} times (VAE "
@@ -577,6 +615,7 @@ def phase6(bundle, image, card: str, steps: int) -> dict:
     if launches["attention_sm90"] != UNET_SELF_ATTN_SITES * t_enc:
         raise SmokeFailure(f"K1's sm90 body launched {launches['attention_sm90']} times in "
                            f"img2img, want {UNET_SELF_ATTN_SITES} x {t_enc}")
+    check_geglu(launches, 1, t_enc, "img2img")
     print(f"phase6: img2img 512x512 b1 strength 0.75 DDIM {steps} ({t_enc} steps run) CFG "
           f"7.5, bf16 VAE encode and decode, on {card}: {t1 - t0:.3f} s end to end; "
           f"launches {json.dumps(launches)}; image mean {float(images.mean()):.2f}")
@@ -878,8 +917,8 @@ def main(argv=None) -> int:
             "bound_by": max(sm["by"], key=sm["by"].get),
             "library_ms": sm["library_ms"],
         }
-        if sm["mma_sync_ms"] is not None:
-            entry["mma_sync_body_ms"] = sm["mma_sync_ms"]
+        if sm["replaced_ms"] is not None:
+            entry["replaced_body_ms"] = sm["replaced_ms"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -27,7 +27,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["KernelBuildError", "kernel_library", "check", "stream_ptr"]
+__all__ = ["KernelBuildError", "kernel_library", "check", "stream_ptr", "refuse_grad"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -53,6 +53,10 @@ _SIGNATURES = {
                           _L, _L, _L, _L, _L, _L, _F, _P),
     "cpd_attention_sm90_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _F, _P),
+    # q, k, v, o, workspace, workspace floats, B, H, Sq, Skv, D, the strides as
+    # above, scale, query rows a pass, int* kernels launched, stream
+    "cpd_attention_f32_sm90": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _F, _I, _P, _P),
     # q, k, v, o, B, H, Sq, Skv, D, then the element strides (batch, head,
     # d; for a canonical k: batch, head, key row) of q, k, v and o,
     # k_canonical, scale, stream
@@ -65,10 +69,10 @@ _SIGNATURES = {
     # x, u, bias, y, B, H, W, C, Co, stream
     "cpd_wino3x3_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cpd_wino3x3_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, w1, b1, hidden, M, C, H4, stream
-    "cpd_geglu_gemm1_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # hidden, w2, b2, out, M, H4, C, stream
-    "cpd_geglu_gemm2_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, hidden, out, ws1, ws2, M, C, H4, then the plan (bn1,
+    # splits1, steps1, bn2, splits2, steps2), int* kernels launched, stream
+    "cpd_geglu_ff_sm90_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _P, _P),
     # x, gamma, beta, y, part, N, HW, C, G, S, eps, silu, stream
     "cpd_group_norm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "cpd_group_norm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
@@ -185,6 +189,24 @@ def check(err: int, what: str) -> None:
     """Raise if a launcher returned a non-zero cudaError_t."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {err}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise before a kernel launch that autograd would need to see through.
+
+    The CUDA kernels write into fresh buffers through ctypes, so their
+    outputs carry no ``grad_fn``: under grad mode, with an argument that
+    requires grad, a result would silently cut the graph. The backward
+    kernels are not written yet (ROADMAP.md, "Backward passes"); the plain
+    twins, which CPU tensors take, stay differentiable."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward kernel yet (ROADMAP.md, \"Backward passes\"): its "
+            "CUDA output would carry no gradient. Call it under torch.no_grad() or "
+            "torch.inference_mode(), or on CPU tensors (the differentiable plain twin)")
 
 
 def stream_ptr(device) -> int:

@@ -74,12 +74,38 @@ def clip_params(tree, device="cpu", dtype: Optional[torch.dtype] = None):
 
 def config_from(cls, cfg, **overrides):
     """The port's config dataclass ``cls`` from any config object (e.g. the
-    JAX package's) with same-named fields; fields ``cls`` lacks are
-    dropped, tuples are kept as tuples."""
-    kw = {
-        f.name: getattr(cfg, f.name)
-        for f in dataclasses.fields(cls)
-        if hasattr(cfg, f.name)
-    }
+    JAX package's) with same-named fields; tuples are kept as tuples.
+
+    A field of ``cfg`` that ``cls`` lacks must hold its own class's default
+    (read from ``dataclasses.fields(type(cfg))`` when ``cfg`` is a
+    dataclass): anything else is a mode the port does not have (ToMe's
+    ``tome_ratio > 0``, say), and raises ValueError rather than convert to
+    a different model. ``use_pallas`` is the exception: its value maps to
+    ``attn_route`` (``"cm"`` -> ``"cm"``; None, True and False pick a route
+    with the same result and map to nothing). ``overrides`` win."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    kw = {name: getattr(cfg, name) for name in names if hasattr(cfg, name)}
+    if dataclasses.is_dataclass(cfg):
+        for f in dataclasses.fields(type(cfg)):
+            if f.name in names:
+                continue
+            value = getattr(cfg, f.name)
+            if f.name == "use_pallas" and "attn_route" in names:
+                if isinstance(value, str) and value == "cm":
+                    kw["attn_route"] = "cm"
+                elif not (value is None or value is True or value is False):
+                    raise ValueError(f"use_pallas={value!r} has no counterpart in the port "
+                                     f"(None, True, False or 'cm')")
+                continue
+            if f.default is not dataclasses.MISSING:
+                default = f.default
+            elif f.default_factory is not dataclasses.MISSING:
+                default = f.default_factory()
+            else:
+                default = dataclasses.MISSING
+            if default is dataclasses.MISSING or value != default:
+                raise ValueError(
+                    f"{type(cfg).__name__}.{f.name}={value!r} (default {default!r}) has no "
+                    f"counterpart in the port's {cls.__name__}: converting would drop it")
     kw.update(overrides)
     return cls(**kw)

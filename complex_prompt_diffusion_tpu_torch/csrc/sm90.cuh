@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels
-// (conv3x3_sm90.cu, attention_sm90.cu): mbarriers, TMA tensor loads, wgmma
-// descriptors and fences, register reallocation, and on the host the
+// (conv3x3_sm90.cu, attention_sm90.cu, geglu_ff_sm90.cu,
+// attention_f32_sm90.cu): mbarriers, TMA tensor loads, wgmma descriptors and
+// fences, register reallocation, TMA tensor stores, and on the host the
 // encoding of TMA tensor maps.
 //
 // cuTensorMapEncodeTiled is a driver-API function. The library links only
@@ -67,6 +68,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -75,6 +85,43 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// ---- TMA: tiled tensor stores from shared memory, in bulk groups ----
+
+// make this thread's writes to shared memory visible to the async proxy,
+// before a TMA store reads them
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the box at (c0, c1) of `map` from shared memory; the parts of the box
+// outside the tensor are not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
+                   "l"(reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's committed stores have read their shared memory (READ) or
+// completed, all but the newest N groups
+template <int N, bool READ>
+__device__ __forceinline__ void tma_store_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
@@ -148,13 +195,15 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of rank R (dims innermost first, byte strides of dims
-// 1..R-1) with 128-byte swizzle and zero fill outside the tensor. Returns a
-// cudaError_t: cudaErrorInvalidValue when the map cannot be encoded (an
-// address or stride that is not a multiple of 16 bytes, a box too large).
+// A tensor map of rank R over elements of `dtype` (dims innermost first, byte
+// strides of dims 1..R-1) with 128-byte swizzle and zero fill outside the
+// tensor. Returns a cudaError_t: cudaErrorInvalidValue when the map cannot be
+// encoded (an address or stride that is not a multiple of 16 bytes, a box
+// too large).
 template <int R>
-inline int encode_bf16_map(CUtensorMap* map, const void* base, const uint64_t (&dims)[R],
-                           const uint64_t (&strides)[R - 1], const uint32_t (&box)[R]) {
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
+                      const uint64_t (&dims)[R], const uint64_t (&strides)[R - 1],
+                      const uint32_t (&box)[R]) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorInitializationError;
   cuuint64_t d[R], s[R > 1 ? R - 1 : 1];
@@ -165,10 +214,22 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, const uint64_t (&
     e[i] = 1;
     if (i < R - 1) s[i] = strides[i];
   }
-  CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(base), d, s, b, e,
+  CUresult res = fn(map, dtype, R, const_cast<void*>(base), d, s, b, e,
                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int R>
+inline int encode_bf16_map(CUtensorMap* map, const void* base, const uint64_t (&dims)[R],
+                           const uint64_t (&strides)[R - 1], const uint32_t (&box)[R]) {
+  return encode_map<R>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box);
+}
+
+template <int R>
+inline int encode_f32_map(CUtensorMap* map, const void* base, const uint64_t (&dims)[R],
+                          const uint64_t (&strides)[R - 1], const uint32_t (&box)[R]) {
+  return encode_map<R>(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, dims, strides, box);
 }
 
 }  // namespace cpd

@@ -3,9 +3,11 @@ and a plain PyTorch twin:
 
   * :func:`attention` — softmax attention; KV > 128 goes through K1:
     bf16 with d <= 256 its TMA + wgmma body (``csrc/attention_sm90.cu``,
-    :func:`attention_sm90`), the rest ``csrc/attention.cu``.
-  * :func:`geglu_ff` — the transformer GEGLU MLP through K2
-    (``csrc/geglu_ff.cu``).
+    :func:`attention_sm90`), f32 with 256 < d <= 512 its 3xTF32 body
+    (``csrc/attention_f32_sm90.cu``, :func:`attention_f32_sm90`), the rest
+    ``csrc/attention.cu``.
+  * :func:`geglu_ff` — the transformer GEGLU MLP through K2, two TMA +
+    wgmma GEMMs (``csrc/geglu_ff_sm90.cu``).
   * :func:`group_norm` / :func:`group_norm_silu` — NHWC GroupNorm(+SiLU)
     through K3 (``csrc/groupnorm.cu``).
   * :func:`conv3x3` — the 3x3 stride-1 conv through K4, for the convs
@@ -24,12 +26,14 @@ and a plain PyTorch twin:
     (K9, ``csrc/probe_copy.cu``). No layer dispatches them.
 
 A wrapper runs the plain twin only for CPU tensors; for a CUDA tensor it
-launches its kernel or raises.
+launches its kernel or raises, and raises under grad mode when an argument
+requires grad (``_build.refuse_grad``: no backward kernels yet).
 """
 
 from complex_prompt_diffusion_tpu_torch.ops.attention import (
     attention,
     attention_dmajor,
+    attention_f32_sm90,
     attention_sm90,
     flash_attention,
     self_attention_cm,
@@ -47,11 +51,12 @@ from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy
 from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3
 
 # the wrapper of each kernel, whose ``launches`` attribute counts launches;
-# "attention" and "conv3x3" count every body of K1 and K4, "attention_sm90"
-# and "conv3x3_sm90" their TMA + wgmma bodies alone
+# "attention" and "conv3x3" count every body of K1 and K4, "attention_sm90",
+# "attention_f32_sm90" and "conv3x3_sm90" their Hopper bodies alone
 KERNEL_WRAPPERS = {
     "attention": flash_attention,
     "attention_sm90": attention_sm90,
+    "attention_f32_sm90": attention_f32_sm90,
     "geglu_ff": geglu_ff,
     "group_norm": group_norm_nhwc,
     "conv3x3": conv3x3,
@@ -67,6 +72,7 @@ __all__ = [
     "attention",
     "flash_attention",
     "attention_sm90",
+    "attention_f32_sm90",
     "attention_dmajor",
     "self_attention_cm",
     "wino3x3",

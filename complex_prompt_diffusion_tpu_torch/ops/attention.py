@@ -11,8 +11,10 @@ dispatch copies the JAX rule (``attention``: Pallas only for KV > 128):
   * longer KV runs :func:`flash_attention` (K1): for CUDA tensors the
     hand-written kernels, by dtype and head dim (:func:`k1_body`): bf16
     with d <= 256 the TMA + wgmma body :func:`attention_sm90`
-    (``csrc/attention_sm90.cu``), bf16 with 256 < d <= 512 and f32 the
-    bodies of ``csrc/attention.cu``; for CPU tensors its plain PyTorch twin
+    (``csrc/attention_sm90.cu``), f32 with 256 < d <= 512 the 3xTF32 body
+    :func:`attention_f32_sm90` (``csrc/attention_f32_sm90.cu``), bf16 with
+    256 < d <= 512 and f32 with d <= 256 the bodies of
+    ``csrc/attention.cu``; for CPU tensors its plain PyTorch twin
     :func:`attention_plain`;
   * with ``CPD_ATTN_KCANON=1`` in the environment at import (the JAX
     module's switch, read into ``_USE_KCANON``), KV lengths in (128, 16384]
@@ -33,6 +35,7 @@ K5's wrapper is :func:`attention_dmajor`; its plain twin is
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 from typing import Optional
@@ -46,6 +49,9 @@ __all__ = [
     "flash_attention",
     "attention_plain",
     "attention_sm90",
+    "attention_f32_sm90",
+    "attention_f32_fma",
+    "f32_sm90_launches",
     "k1_body",
     "attention_dmajor",
     "attention_dmajor_plain",
@@ -68,6 +74,10 @@ _USE_KCANON = os.environ.get("CPD_ATTN_KCANON", "0") == "1"
 
 _ATTN_BF16_DP = (16, 32, 48, 64, 80, 96, 128, 160, 256)  # padded head dims K1 has
 _ATTN_MAX_D = 512  # bf16 256 < d <= 512 takes K1's split-d kernel
+# f32 256 < d <= 512 (the VAE mid-block) takes the 3xTF32 body, whose
+# workspace holds f32 scores and P (hi and lo) for a pass of query rows: at
+# most this many bytes of them (B4 S4096 one head: 512 MiB, one pass)
+_F32_SM90_SP_BYTES = 1 << 30
 
 
 def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -106,7 +116,9 @@ def k1_body(dtype, d: int) -> str:
     ``d`` launches: ``"sm90"`` (bf16, d % 8 == 0, d <= 256 with a padded
     width in ``_ATTN_BF16_DP``: ``csrc/attention_sm90.cu``), ``"bf16_wide"``
     (bf16, d % 8 == 0, 256 < d <= 512) or ``"f32"`` (f32, d % 4 == 0,
-    d <= 512), both in ``csrc/attention.cu``. Anything else raises."""
+    d <= 256), both in ``csrc/attention.cu``, or ``"f32_sm90"`` (f32,
+    d % 4 == 0, 256 < d <= 512: ``csrc/attention_f32_sm90.cu``). Anything
+    else raises."""
     if dtype == torch.bfloat16:
         if d % 8 == 0 and 0 < d <= _ONEPASS_MAX_D and (d + 15) // 16 * 16 in _ATTN_BF16_DP:
             return "sm90"
@@ -114,8 +126,10 @@ def k1_body(dtype, d: int) -> str:
             return "bf16_wide"
         raise ValueError(f"K1 bf16 supports head dims d % 8 == 0, d <= 512; got {d}")
     if dtype == torch.float32:
-        if d % 4 == 0 and 0 < d <= _ATTN_MAX_D:
+        if d % 4 == 0 and 0 < d <= _ONEPASS_MAX_D:
             return "f32"
+        if d % 4 == 0 and _ONEPASS_MAX_D < d <= _ATTN_MAX_D:
+            return "f32_sm90"
         raise ValueError(f"K1 f32 supports head dims d % 4 == 0, d <= 512; got {d}")
     raise TypeError(f"K1 supports bfloat16 and float32, got {dtype}")
 
@@ -139,6 +153,7 @@ def _launch(fn, what, q, k, v, num_heads, scale, vec):
     d = inner // num_heads
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    _build.refuse_grad(what, q, k, v)
     q, k, v = (t if _rows_ok(t, vec) else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, sq, inner), dtype=q.dtype, device=q.device)
     err = fn(
@@ -156,9 +171,11 @@ def flash_attention(q, k, v, num_heads: int, scale: Optional[float] = None):
     """K1 wrapper: softmax(scale * Q K^T) V over [B, S, H*D] operands.
 
     CPU tensors run :func:`attention_plain`. CUDA tensors launch the body
-    :func:`k1_body` names (bf16 with d <= 256: :func:`attention_sm90`; bf16
-    with 256 < d <= 512 and f32: ``csrc/attention.cu``) or raise; there is
-    no fallback. ``flash_attention.launches`` counts launches of every body.
+    :func:`k1_body` names (bf16 with d <= 256: :func:`attention_sm90`; f32
+    with 256 < d <= 512: :func:`attention_f32_sm90`; the rest
+    ``csrc/attention.cu``) or raise; there is no fallback.
+    ``flash_attention.launches`` counts the kernels of every body: one a
+    call, or the 3xTF32 body's split, scores, softmax and output kernels.
     """
     if not q.is_cuda:
         return attention_plain(q, k, v, num_heads, scale)
@@ -166,6 +183,10 @@ def flash_attention(q, k, v, num_heads: int, scale: Optional[float] = None):
     body = k1_body(q.dtype, q.shape[2] // num_heads)
     if body == "sm90":
         out = _attention_sm90(q, k, v, num_heads, scale)
+    elif body == "f32_sm90":
+        out, n = _attention_f32_sm90(q, k, v, num_heads, scale)
+        flash_attention.launches += n
+        return out
     else:
         lib = _build.kernel_library()
         fn, vec = ((lib.cpd_attention_bf16, 8) if body == "bf16_wide"
@@ -202,6 +223,100 @@ def _attention_sm90(q, k, v, num_heads, scale):
 
 
 attention_sm90.launches = 0
+
+
+def attention_f32_fma(q, k, v, num_heads: int, scale: Optional[float] = None):
+    """K1's FMA body for f32 (``csrc/attention.cu``, ``attention_f32.cuh``)
+    at any head dim it takes (d % 4 == 0, d <= 512): the body K1 runs for
+    f32 with d <= 256, and the one the 3xTF32 body replaced above that,
+    kept callable so that the two can be timed and checked side by side.
+    CPU tensors run :func:`attention_plain`. Its launches are counted by
+    no wrapper: :func:`flash_attention` counts the route's."""
+    _check_qkv(q, k, v, num_heads)
+    d = q.shape[2] // num_heads
+    if q.dtype != torch.float32 or d % 4 or not 0 < d <= _ATTN_MAX_D:
+        raise ValueError(f"the FMA body takes f32 with d % 4 == 0, d <= 512; got {q.dtype}, "
+                         f"d = {d}")
+    if not q.is_cuda:
+        return attention_plain(q, k, v, num_heads, scale)
+    return _launch(_build.kernel_library().cpd_attention_f32, "attention (K1, FMA body)",
+                   q, k, v, num_heads, scale, 4)
+
+
+def _f32_sm90_rows(b, h, sq, skv) -> int:
+    """Query rows a pass of the 3xTF32 body: all of them while their scores
+    and P (hi and lo, f32) fit ``_F32_SM90_SP_BYTES``, else a multiple of
+    128 that does."""
+    per_row = b * h * (-(-skv // 4) * 4) * 8
+    if sq * per_row <= _F32_SM90_SP_BYTES:
+        return sq
+    return max(128, _F32_SM90_SP_BYTES // per_row // 128 * 128)
+
+
+def f32_sm90_launches(b, h, sq, skv, rows: Optional[int] = None) -> int:
+    """Kernels a call of the 3xTF32 body launches: three that split Q, K and
+    V, then the scores, softmax and output kernels of each pass of
+    ``rows`` query rows (by default as many as the call takes)."""
+    rows = min(sq, rows or _f32_sm90_rows(b, h, sq, skv))
+    return 3 + 3 * -(-sq // rows)
+
+
+def _f32_sm90_workspace(b, h, sq, skv, d, rows) -> int:
+    """Floats of the 3xTF32 body's workspace (``workspace_floats`` in
+    ``csrc/attention_f32_sm90.cu``, which checks it): hi and lo of Q, K and
+    V's transpose, of the scores and P of a pass, and the row sums."""
+    def r32(n):
+        return -(-n // 32) * 32
+
+    z, sp = b * h, -(-skv // 4) * 4
+    return (2 * r32(z * sq * d) + 2 * r32(z * skv * d) + 2 * r32(z * d * sp)
+            + 2 * r32(z * rows * sp) + r32(z * rows))
+
+
+def attention_f32_sm90(q, k, v, num_heads: int, scale: Optional[float] = None,
+                       rows: Optional[int] = None):
+    """K1's 3xTF32 body (``csrc/attention_f32_sm90.cu``): f32 [B, S, H*D]
+    operands with 256 < d <= 512 and d % 4 == 0; anything else raises. The
+    products run on the TF32 tensor cores as three products of TF32 high
+    and low parts, with the error of f32. ``rows`` forces the query rows a
+    pass (the tests cover several passes). CPU tensors run
+    :func:`attention_plain`. ``attention_f32_sm90.launches`` adds the
+    kernels the library reports it launched (what :func:`f32_sm90_launches`
+    predicts)."""
+    _check_qkv(q, k, v, num_heads)
+    if k1_body(q.dtype, q.shape[2] // num_heads) != "f32_sm90":
+        raise ValueError(f"the 3xTF32 attention takes f32 with 256 < d <= 512; got {q.dtype}, "
+                         f"d = {q.shape[2] // num_heads}")
+    if not q.is_cuda:
+        return attention_plain(q, k, v, num_heads, scale)
+    return _attention_f32_sm90(q, k, v, num_heads, scale, rows)[0]
+
+
+def _attention_f32_sm90(q, k, v, num_heads, scale, rows=None):
+    """Launch the 3xTF32 body; (its output, the kernels it launched)."""
+    b, sq, inner = q.shape
+    skv = k.shape[1]
+    d = inner // num_heads
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.refuse_grad("attention (K1, 3xTF32 body)", q, k, v)
+    q, k, v = (t if _rows_ok(t, 4) else t.contiguous() for t in (q, k, v))
+    rows = min(sq, rows or _f32_sm90_rows(b, num_heads, sq, skv))
+    n_ws = _f32_sm90_workspace(b, num_heads, sq, skv, d, rows)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+    out = torch.empty((b, sq, inner), dtype=q.dtype, device=q.device)
+    launched = ctypes.c_int(0)
+    err = _build.kernel_library().cpd_attention_f32_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(), n_ws,
+        b, num_heads, sq, skv, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), float(scale), rows, ctypes.addressof(launched),
+        _build.stream_ptr(q.device))
+    attention_f32_sm90.launches += launched.value
+    _build.check(err, "attention (K1, 3xTF32 body)")
+    return out, launched.value
+
+
+attention_f32_sm90.launches = 0
 
 
 def attention_dmajor_plain(q, k, v, scale: float, k_canonical: bool = False,
@@ -253,6 +368,7 @@ def attention_dmajor(q, k, v, scale: float, k_canonical: bool = False,
         raise TypeError("q, k and v must share one dtype")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
+    _build.refuse_grad("attention over channel-major operands (K5)", q, k, v)
     if q.dtype == torch.bfloat16:
         if d % 8 or (d + 15) // 16 * 16 not in _ATTN_BF16_DP:
             raise ValueError(f"K5 bf16 supports head dims d % 8 == 0, d <= 256; got {d}")

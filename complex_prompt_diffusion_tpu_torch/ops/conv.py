@@ -110,6 +110,7 @@ def conv3x3_generic(x, weight, bias):
         return conv3x3_plain(x, weight, bias)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K4 supports bfloat16 and float32 activations, got {x.dtype}")
+    _build.refuse_grad("conv3x3 (K4)", x, weight, bias)
     x = x.contiguous()
     wt = weight.to(x.dtype).permute(0, 2, 3, 1)  # [Co, 3, 3, C]
     if not wt.is_contiguous():
@@ -221,6 +222,7 @@ def conv3x3_sm90(x, weight, bias, splits: Optional[int] = None):
     plan = conv3x3_plan(b, h, w, c, co, splits)
     if not x.is_cuda:
         return conv3x3_plain(x, weight, bias)
+    _build.refuse_grad("conv3x3 (K4, sm90 body)", x, weight, bias)
     x = x.contiguous()
     wt = weight.to(torch.bfloat16).permute(0, 2, 3, 1)  # [Co, 3, 3, C]
     if not wt.is_contiguous():

@@ -81,6 +81,7 @@ def group_norm_nhwc(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
         return group_norm_plain(x, gamma, beta, num_groups, eps, silu)
     if x.dtype not in _GN_FNS:
         raise TypeError(f"K3 supports float32 and bfloat16, got {x.dtype}")
+    _build.refuse_grad("group_norm (K3)", x, gamma, beta)
     if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
         raise ValueError("gamma and beta must have shape [C]")
     x = x.contiguous()

@@ -3,16 +3,39 @@
 Counterpart of ``complex_prompt_diffusion_tpu/ops/mlp.py``:
 ``out = (split_half(x @ W1 + b1) -> v * gelu_erf(g)) @ W2 + b2`` with
 ``W1 [C, 2*H4]`` (value columns, then gate columns) and ``W2 [H4, C]``.
+For CUDA tensors K2 (``csrc/geglu_ff_sm90.cu``) runs it as two TMA + wgmma
+GEMMs, with the tile and split-K plan of :func:`geglu_plan`.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from complex_prompt_diffusion_tpu_torch import _build
 
-__all__ = ["geglu_ff", "geglu_ff_plain"]
+__all__ = ["geglu_ff", "geglu_ff_plain", "geglu_plan", "GemmPlan", "GegluPlan"]
+
+GEGLU_BM, GEGLU_BK = 128, 64  # K2's work-unit rows and k-step
+GEGLU1_WIDTHS = (64, 128)  # value columns of a GEMM1 tile (as many gate columns beside)
+GEGLU2_WIDTHS = (64, 128, 192, 256)  # output columns of a GEMM2 tile
+SMS = 132  # H100 SXM: the persistent grids' block count
+# The plan's cost model, in microseconds on an H100 80GB HBM3 (700 W): a
+# 128-row k-step of one block costs a fixed part and a part per output column
+# (fitted to GEMM2's widths in tools/geglu_plans.py's sweep at M2048 C1280), a
+# work unit's epilogue, and the split-K reduce's launch and the rate at which
+# it writes and reads the f32 partials (ops/conv.py's).
+_STEP_US = 0.24
+_STEP_US_PER_COLUMN = 0.00215
+_UNIT_US = 1.0
+_REDUCE_US = 2.0
+_PARTIALS_BYTES_PER_US = 2.8e6
+_MAX_SPLITS = 16
 
 
 def geglu_ff_plain(x, w1, b1, w2, b2):
@@ -24,14 +47,105 @@ def geglu_ff_plain(x, w1, b1, w2, b2):
     return torch.matmul(y, w2.to(dt)) + b2.to(dt)
 
 
-def geglu_ff(x, w1, b1, w2, b2):
+class GemmPlan(NamedTuple):
+    """How one of K2's GEMMs covers ``m x n`` outputs over a reduction of
+    ``k``: tiles of 128 rows by ``bn`` columns (GEMM1: ``bn`` value and
+    ``bn`` gate columns), ``ksteps = ceil(k / 64)`` k-steps cut into
+    ``splits`` runs of ``steps_per_split`` (the last may be shorter, none is
+    empty)."""
+
+    bn: int
+    m_tiles: int
+    n_tiles: int
+    ksteps: int
+    splits: int
+    steps_per_split: int
+
+    def k_range(self, split: int) -> range:
+        lo = split * self.steps_per_split
+        return range(lo, min(self.ksteps, lo + self.steps_per_split))
+
+
+class GegluPlan(NamedTuple):
+    gemm1: GemmPlan  # x W1 with the GEGLU epilogue: m x H4 over C
+    gemm2: GemmPlan  # hidden W2 + b2: m x C over H4
+
+    @property
+    def launches(self) -> int:
+        """Kernels a call launches: the two GEMMs and a reduce for each
+        split GEMM."""
+        return 2 + (self.gemm1.splits > 1) + (self.gemm2.splits > 1)
+
+
+def _gemm_plan(m: int, n: int, k: int, widths, gates: int, bn=None, splits=None) -> GemmPlan:
+    """Minimise the modelled time over tile widths and split counts: waves
+    of work units on 132 SMs x (k-steps a unit at the width's rate + the
+    epilogue), plus, when split, the reduce (a launch and the f32 partials
+    written and read). A tie goes to fewer splits, then the wider tile."""
+    ksteps = -(-k // GEGLU_BK)
+    m_tiles = -(-m // GEGLU_BM)
+    # a width more than one 64-column box past n only adds empty columns
+    cands = [w for w in widths if w - 64 < n] or [widths[0]]
+    if bn is not None:
+        if bn not in widths:
+            raise ValueError(f"bn must be one of {widths}; got {bn}")
+        cands = [bn]
+    split_cands = range(1, min(_MAX_SPLITS, ksteps) + 1)
+    if splits is not None:
+        if not 1 <= splits <= ksteps:
+            raise ValueError(f"splits must lie in 1..{ksteps}; got {splits}")
+        split_cands = [splits]
+
+    def cost(w, s):
+        units = m_tiles * -(-n // w) * s
+        step = _STEP_US + _STEP_US_PER_COLUMN * gates * w
+        t = math.ceil(units / SMS) * (math.ceil(ksteps / s) * step + _UNIT_US)
+        if s > 1:
+            t += _REDUCE_US + 2 * s * 4.0 * m * n * gates / _PARTIALS_BYTES_PER_US
+        return t
+
+    w, s = min(((w, s) for w in cands for s in split_cands),
+               key=lambda ws: (cost(*ws), ws[1], -ws[0]))
+    per = -(-ksteps // s)
+    return GemmPlan(w, m_tiles, -(-n // w), ksteps, -(-ksteps // per), per)
+
+
+@functools.lru_cache(maxsize=1024)
+def geglu_plan(m: int, c: int, h4: int) -> GegluPlan:
+    """The tiles and split-K counts K2 runs for ``m`` rows of width ``c``
+    and hidden width ``h4``. Pure Python, cached by shape: the render asks
+    for the same 4 plans every step."""
+    return _forced_plan(m, c, h4)
+
+
+def _forced_plan(m: int, c: int, h4: int, bn1: Optional[int] = None,
+                 splits1: Optional[int] = None, bn2: Optional[int] = None,
+                 splits2: Optional[int] = None) -> GegluPlan:
+    """:func:`geglu_plan` with the tile width or split count of either GEMM
+    forced (the tests and ``tools/geglu_plans.py`` pass the result to
+    ``geglu_ff(..., plan=)``)."""
+    if m <= 0 or c % 8 or h4 % 8 or c <= 0 or h4 <= 0:
+        raise ValueError(f"K2 needs M > 0 and C, H4 multiples of 8; got M={m} C={c} H4={h4}")
+    return GegluPlan(_gemm_plan(m, h4, c, GEGLU1_WIDTHS, 2, bn1, splits1),
+                     _gemm_plan(m, c, h4, GEGLU2_WIDTHS, 1, bn2, splits2))
+
+
+def _bf16(t):
+    return t if t.dtype == torch.bfloat16 and t.is_contiguous() else t.to(
+        torch.bfloat16).contiguous()
+
+
+def geglu_ff(x, w1, b1, w2, b2, plan: Optional[GegluPlan] = None):
     """K2 wrapper: GEGLU FF over x [..., C].
 
     CPU tensors run :func:`geglu_ff_plain`. CUDA tensors launch
-    ``csrc/geglu_ff.cu`` (two kernels: GEMM1 with the GEGLU epilogue, then
-    GEMM2 + b2) or raise: bf16 only, C and H4 multiples of 8.
-    ``geglu_ff.launches`` counts kernel launches (2 a call).
-    """
+    ``csrc/geglu_ff_sm90.cu`` (GEMM1 with the GEGLU epilogue, then GEMM2 +
+    b2, each followed by a reduce kernel when the plan splits its K) or
+    raise: bf16 activations, C and H4 multiples of 8, 16-byte aligned
+    operands. ``plan`` overrides :func:`geglu_plan`'s choice (the tests
+    force split counts). ``geglu_ff.launches`` adds the kernels the library
+    reports it launched: 2 a call, plus 1 for each split GEMM (what
+    ``GegluPlan.launches`` predicts)."""
     if not x.is_cuda:
         return geglu_ff_plain(x, w1, b1, w2, b2)
     c = x.shape[-1]
@@ -47,28 +161,34 @@ def geglu_ff(x, w1, b1, w2, b2):
         )
     if c % 8 or h4 % 8:
         raise ValueError(f"K2 needs C and H4 multiples of 8, got C={c} H4={h4}")
-    w1, b1, w2, b2 = (
-        t.to(torch.bfloat16).contiguous() for t in (w1, b1, w2, b2)
-    )
+    _build.refuse_grad("geglu_ff (K2)", x, w1, b1, w2, b2)
+    w1, b1, w2, b2 = _bf16(w1), _bf16(b1), _bf16(w2), _bf16(b2)
     shape = x.shape
-    x2 = x.reshape(-1, c).contiguous()
+    x2 = x.reshape(-1, c)
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
     m = x2.shape[0]
+    if m == 0:
+        return x.new_empty(shape)
+    for name, t in (("x", x2), ("w1", w1), ("w2", w2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"K2 needs a 16-byte aligned {name} (TMA)")
+    p = plan if plan is not None else geglu_plan(m, c, h4)
     hidden = torch.empty((m, h4), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((m, c), dtype=torch.bfloat16, device=x.device)
-    lib = _build.kernel_library()
-    stream = _build.stream_ptr(x.device)
-    err = lib.cpd_geglu_gemm1_bf16(
-        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), hidden.data_ptr(),
-        m, c, h4, stream,
-    )
-    _build.check(err, "geglu_gemm1 (K2)")
-    geglu_ff.launches += 1
-    err = lib.cpd_geglu_gemm2_bf16(
-        hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        m, h4, c, stream,
-    )
-    _build.check(err, "geglu_gemm2 (K2)")
-    geglu_ff.launches += 1
+    ws1 = (torch.empty((p.gemm1.splits, m, 2 * h4), dtype=torch.float32, device=x.device)
+           if p.gemm1.splits > 1 else hidden)
+    ws2 = (torch.empty((p.gemm2.splits, m, c), dtype=torch.float32, device=x.device)
+           if p.gemm2.splits > 1 else out)
+    g1, g2 = p.gemm1, p.gemm2
+    launched = ctypes.c_int(0)
+    err = _build.kernel_library().cpd_geglu_ff_sm90_bf16(
+        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        hidden.data_ptr(), out.data_ptr(), ws1.data_ptr(), ws2.data_ptr(), m, c, h4,
+        g1.bn, g1.splits, g1.steps_per_split, g2.bn, g2.splits, g2.steps_per_split,
+        ctypes.addressof(launched), _build.stream_ptr(x.device))
+    geglu_ff.launches += launched.value
+    _build.check(err, "geglu_ff (K2)")
     return out.reshape(shape)
 
 

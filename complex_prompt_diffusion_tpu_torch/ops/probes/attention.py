@@ -155,6 +155,7 @@ def attention_probe(q, k, v, num_heads: int, scale: float, mode: str = "full",
     if not q.is_cuda:
         return attention_probe_plain(q, k, v, num_heads, scale, mode, denom, exp,
                                      unnormalized, kv_tile)
+    _build.refuse_grad("attention probe (K7)", q, k, v)
     vec = 8 if q.dtype == torch.bfloat16 else 4
     q, k, v = (t if t.stride(2) == 1 and t.stride(1) % vec == 0 and t.stride(0) % vec == 0
                and t.data_ptr() % 16 == 0 else t.contiguous() for t in (q, k, v))
@@ -204,6 +205,7 @@ def attention_dmajor_scores(q, k, v, scale: float, k_canonical: bool = False):
         return attention_dmajor_scores_plain(q, k, v, scale, k_canonical)
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError("K5's scores mode takes bf16 operands")
+    _build.refuse_grad("attention probe (K7, K5's loop)", q, k, v)
     if d % 8 or (d + 15) // 16 * 16 not in _PROBE_DP or sq % 8 or skv % 8:
         raise ValueError(f"K5's scores mode takes d = 40 .. 160 and S % 8 == 0; got d={d}, "
                          f"Sq={sq}, Skv={skv}")

@@ -81,6 +81,7 @@ def group_norm_probe(x, gamma, beta, mode: str = "full", num_groups: int = 32,
         return group_norm_probe_plain(x, gamma, beta, mode, num_groups, eps, splits, mma)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"K8 takes bf16 activations (the TPU scripts'), got {x.dtype}")
+    _build.refuse_grad("group norm probe (K8)", x, gamma, beta)
     n, h, w, c = x.shape
     if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
         raise ValueError("gamma and beta must have shape [C]")

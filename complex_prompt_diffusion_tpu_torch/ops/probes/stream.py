@@ -48,6 +48,7 @@ def stream_copy(x, rows: int, convert: bool = False, stages: int = 1):
         return stream_copy_plain(x, rows, convert, stages)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"K9 copies bf16 tensors, got {x.dtype}")
+    _build.refuse_grad("streaming copy probe (K9)", x)
     x = x.contiguous()
     y = torch.empty_like(x)
     n, hw, c = x.shape

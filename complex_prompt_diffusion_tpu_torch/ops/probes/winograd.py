@@ -125,6 +125,7 @@ def wino3x3(x, kernel, bias, u=None):
         raise ValueError(f"u must be [16, {c}, {co}] in {x.dtype}")
     if not x.is_cuda:
         return wino3x3_plain(x, u, bias)
+    _build.refuse_grad("Winograd conv3x3 (K6)", x, kernel, bias, u)
     lib = _build.kernel_library()
     if x.dtype == torch.bfloat16:
         if c % 8 or co % 8:

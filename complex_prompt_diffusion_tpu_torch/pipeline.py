@@ -155,11 +155,18 @@ class ModelBundle:
     def from_jax_params(
         unet_cfg, unet_params, vae_cfg, vae_params, clip_cfg, clip_params,
         *, device="cuda", tokenizer=None, version: str = "sd1",
+        parameterization: str = "eps", clip_layer: Optional[str] = None,
     ) -> "ModelBundle":
         """Bundle from the JAX package's configs and parameter trees (any
         objects with the same fields; arrays as numpy or JAX arrays),
         through ``convert.py``, on ``device`` (the GPU unless asked
-        otherwise). Weights keep their dtypes."""
+        otherwise). Weights keep their dtypes. ``parameterization`` ("eps"
+        or "v") is the model's output, as the JAX bundle's field of that
+        name; ``clip_layer`` defaults to "last" for "sd1" and "penultimate"
+        otherwise, as the JAX package picks it. :meth:`from_jax_bundle`
+        takes all three from a JAX bundle."""
+        if parameterization not in ("eps", "v"):
+            raise ValueError(f"unknown parameterization {parameterization!r} (eps|v)")
         device = _device(device)
         ucfg = convert.config_from(M.UNetConfig, unet_cfg)
         vcfg = convert.config_from(M.VAEConfig, vae_cfg)
@@ -177,7 +184,22 @@ class ModelBundle:
             ),
             tables=S.make_diffusion_tables(),
             device=device,
-            clip_layer="last" if version == "sd1" else "penultimate",
+            parameterization=parameterization,
+            clip_layer=clip_layer or ("last" if version == "sd1" else "penultimate"),
+        )
+
+    @staticmethod
+    def from_jax_bundle(jax_bundle, *, device="cuda", tokenizer=None) -> "ModelBundle":
+        """:meth:`from_jax_params` on a JAX package bundle (any object with
+        its fields, read by attribute): configs, parameter trees,
+        ``version``, ``parameterization`` and ``clip_layer``. A v-model
+        stays "v", so the entry points refuse it (not ported yet) instead
+        of sampling it as eps."""
+        jb = jax_bundle
+        return ModelBundle.from_jax_params(
+            jb.unet_cfg, jb.unet_params, jb.vae_cfg, jb.vae_params, jb.clip_cfg,
+            jb.clip_params, device=device, tokenizer=tokenizer, version=jb.version,
+            parameterization=jb.parameterization, clip_layer=jb.clip_layer,
         )
 
     def cast(self, dtype: str) -> "ModelBundle":
@@ -494,18 +516,15 @@ def encode_image(
     noise=None,
 ) -> torch.Tensor:
     """uint8 or float HWC/NHWC image(s) -> scaled latents f32 [N, h, w, 4]
-    on the bundle's device. uint8 images (or floats above 2) are mapped
-    from [0, 255] to [-1, 1]. The posterior is sampled with ``noise`` if
-    given, else with a draw from ``generator``; with neither, its mode."""
-    if isinstance(image, torch.Tensor):
-        is_u8 = image.dtype == torch.uint8
-    else:
-        image = np.asarray(image)
-        is_u8 = image.dtype == np.uint8
+    on the bundle's device. The image is cast to f32 first and mapped from
+    [0, 255] to [-1, 1] when its maximum is above 2, whatever its dtype, as
+    the JAX package does (a uint8 image with max <= 2 therefore reaches the
+    VAE unscaled there, and here). The posterior is sampled with ``noise``
+    if given, else with a draw from ``generator``; with neither, its mode."""
     img = _as_device_tensor(image, bundle)
     if img.ndim == 3:
         img = img[None]
-    if is_u8 or float(img.max()) > 2.0:
+    if float(img.max()) > 2.0:
         img = img / 127.5 - 1.0
     post = M.vae_encode(bundle.vae_cfg, bundle.vae_params, img)
     if noise is None and generator is None:

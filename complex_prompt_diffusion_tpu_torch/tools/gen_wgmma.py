@@ -9,9 +9,13 @@ it; run it from the repository root after changing the widths below::
     python -m complex_prompt_diffusion_tpu_torch.tools.gen_wgmma
 
 ``Wgmma<N>::ss`` multiplies two shared-memory operands, both K-major (the
-conv's pixels x weights, attention's Q K^T); ``Wgmma<N>::rs`` takes A from
-registers and B from shared memory MN-major (attention's P V, V read as it
-lies). bf16 inputs, f32 accumulators.
+conv's pixels x weights, attention's Q K^T); ``Wgmma<N>::ss_bmn`` the same
+with B MN-major (the GEGLU FF's weights ``[C, 2 H4]`` and ``[H4, C]`` read
+as they lie); ``Wgmma<N>::rs`` takes A from registers and B from shared
+memory MN-major (attention's P V, V read as it lies). bf16 inputs, f32
+accumulators. ``WgmmaTf32<N>::ss`` multiplies two shared-memory f32
+operands on the TF32 tensor cores, both K-major (TF32 has no MN-major
+form): the three products of K1's f32 body.
 """
 
 from __future__ import annotations
@@ -20,6 +24,11 @@ from pathlib import Path
 
 # SS: attention's score tile (64 or 128 keys) and the conv's 128-channel tile
 SS_WIDTHS = (64, 128)
+# SS with B MN-major: K2's tiles (value and gate tiles of 64 or 128 columns,
+# the second GEMM's 64 .. 256)
+SS_BMN_WIDTHS = (64, 128, 192, 256)
+# TF32 SS: K1's f32 body, 128-wide tiles
+TF32_WIDTHS = (128,)
 # RS: attention's PV width, the head dim rounded up to 8, for every head dim
 # K1's bf16 body takes up to 256 (ops/attention.py: _ATTN_BF16_DP)
 RS_WIDTHS = (8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88, 96, 120, 128, 152, 160, 248, 256)
@@ -32,26 +41,32 @@ def _wrap(items, per_line, indent):
     return (",\n" + indent).join(lines)
 
 
-def _fn(n: int, rs: bool) -> str:
+def _fn(n: int, rs: bool, bmn: bool = False, tf32: bool = False) -> str:
     r = n // 2
     regs = "{" + ", ".join(f"%{i}" for i in range(r)) + "}"
-    if rs:
+    if tf32:  # no transpose immediates: both operands K-major
+        ins = f"{regs}, %{r}, %{r + 1}, p, 1, 1;"
+        scale = r + 2
+        sig = f"float (&d)[{r}], uint64_t da, uint64_t db, int scale_d"
+        ins_ops = '"l"(da), "l"(db), "r"(scale_d)'
+    elif rs:
         a = "{" + ", ".join(f"%{r + i}" for i in range(4)) + "}"
         ins = f"{regs}, {a}, %{r + 4}, p, 1, 1, 1;"
         scale = r + 5
         sig = f"float (&d)[{r}], const uint32_t (&a)[4], uint64_t db, int scale_d"
         ins_ops = '"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)'
     else:
-        ins = f"{regs}, %{r}, %{r + 1}, p, 1, 1, 0, 0;"
+        ins = f"{regs}, %{r}, %{r + 1}, p, 1, 1, 0, {int(bmn)};"
         scale = r + 2
         sig = f"float (&d)[{r}], uint64_t da, uint64_t db, int scale_d"
         ins_ops = '"l"(da), "l"(db), "r"(scale_d)'
     outs = _wrap([f'"+f"(d[{i}])' for i in range(r)], 8, "      ")
-    text = (f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 {ins}")
+    kind = "k8.f32.tf32.tf32" if tf32 else "k16.f32.bf16.bf16"
+    text = (f"wgmma.mma_async.sync.aligned.m64n{n}{kind} {ins}")
     # split the long instruction string into literal pieces
     pieces = [text[i:i + 88] for i in range(0, len(text), 88)]
     body = "\n".join(f'      "{p}"' for p in pieces)
-    name = "rs" if rs else "ss"
+    name = "rs" if rs else "ss_bmn" if bmn else "ss"
     return (f"  __device__ static __forceinline__ void {name}({sig}) {{\n"
             f"    asm volatile(\n"
             f'      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{scale}, 0;\\n"\n'
@@ -63,16 +78,20 @@ def _fn(n: int, rs: bool) -> str:
 
 
 def render() -> str:
-    widths = sorted(set(SS_WIDTHS) | set(RS_WIDTHS))
+    widths = sorted(set(SS_WIDTHS) | set(RS_WIDTHS) | set(SS_BMN_WIDTHS))
     out = [
         "// Generated by complex_prompt_diffusion_tpu_torch/tools/gen_wgmma.py; do not edit.",
         "//",
         "// Wgmma<N>::ss(d, da, db, scale_d): d += A B with A (64 x 16) and B (16 x N) in",
         "// shared memory, both K-major, through wgmma descriptors da and db.",
+        "// Wgmma<N>::ss_bmn(d, da, db, scale_d): the same with B MN-major.",
         "// Wgmma<N>::rs(d, a, db, scale_d): the same with A in registers (the m64k16",
         "// fragment of mma.sync's A layout, a warp holding 16 rows) and B MN-major.",
         "// scale_d == 0 overwrites d instead of adding to it. bf16 in, f32 out; d holds",
         "// a thread's N / 2 accumulators in wgmma's m64nN layout.",
+        "// WgmmaTf32<N>::ss(d, da, db, scale_d): d += A B, A (64 x 8) and B (8 x N) f32",
+        "// in shared memory, both K-major, on the TF32 tensor cores (the low 13",
+        "// mantissa bits of each operand are ignored).",
         "#pragma once",
         "",
         "#include <stdint.h>",
@@ -87,8 +106,15 @@ def render() -> str:
         out.append(f"template <>\nstruct Wgmma<{n}> {{")
         if n in SS_WIDTHS:
             out.append(_fn(n, rs=False).rstrip("\n"))
+        if n in SS_BMN_WIDTHS:
+            out.append(_fn(n, rs=False, bmn=True).rstrip("\n"))
         if n in RS_WIDTHS:
             out.append(_fn(n, rs=True).rstrip("\n"))
+        out.append("};\n")
+    out.append("template <int N>\nstruct WgmmaTf32;\n")
+    for n in TF32_WIDTHS:
+        out.append(f"template <>\nstruct WgmmaTf32<{n}> {{")
+        out.append(_fn(n, rs=False, tf32=True).rstrip("\n"))
         out.append("};\n")
     out.append("}  // namespace cpd\n")
     return "\n".join(out)

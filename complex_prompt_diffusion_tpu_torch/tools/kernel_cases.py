@@ -11,19 +11,21 @@ port), and the flops and bytes the function needs, from which
 from __future__ import annotations
 
 import importlib
+import time
 from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Case", "kernel_cases", "PEAK_FLOPS", "HBM_BYTES_PER_S", "B1_UNET_CONVS",
-           "B1_UNET_CONV_COUNTS"]
+__all__ = ["Case", "kernel_cases", "host_us", "PEAK_FLOPS", "HBM_BYTES_PER_S", "B1_UNET_CONVS",
+           "B1_UNET_CONV_COUNTS", "GEGLU_ROWS", "GEGLU_B4_CALLS"]
 
 _PKG = "complex_prompt_diffusion_tpu_torch"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores, f32
-# outside the tensor cores (K1's exact f32 path uses no TF32), HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# outside the tensor cores (the FMA bodies), and f32 products done as three
+# TF32 tensor-core products (495e12 / 3: K1's 3xTF32 body); HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 
 # (plane side, C, Co) of every distinct 3x3 conv of a batch-1 UNet call (UNet
@@ -32,6 +34,13 @@ B1_UNET_CONVS = ((32, 320, 640), (32, 640, 640), (32, 960, 640), (32, 1280, 640)
                  (32, 1920, 640), (32, 1280, 1280), (16, 640, 1280), (16, 1280, 1280),
                  (16, 1920, 1280), (16, 2560, 1280))
 B1_UNET_CONV_COUNTS = (1, 6, 1, 1, 1, 1, 1, 7, 1, 2)
+
+
+# (M, C) of K2's calls: the four levels of a b4 CFG step (UNet batch 8; 5,
+# 5, 5 and 1 calls a step), then the b1 step's (UNet batch 2) other three
+GEGLU_ROWS = ((32768, 320), (8192, 640), (2048, 1280), (512, 1280),
+              (8192, 320), (2048, 640), (128, 1280))
+GEGLU_B4_CALLS = (5, 5, 5, 1)  # calls a b4 step of each of the first four rows
 
 
 class Case(NamedTuple):
@@ -43,13 +52,17 @@ class Case(NamedTuple):
     dtype: str
     flops: float
     nbytes: float  # each input read once, each output written once
-    # the body this kernel replaced (the mma.sync bodies of K1 and K4),
-    # timed beside it; None where there is none
+    # the body this kernel replaced, where it is still built (the mma.sync
+    # bodies of K1 and K4, K1's f32 FMA body), timed beside it; None where
+    # there is none
     prior: Optional[Callable] = None
+    # the PEAK_FLOPS entry of the units that do the work, where it is not
+    # the dtype's
+    rate: Optional[str] = None
 
     def bound(self):
         """(least ms the card could take, "bytes" or "operations")."""
-        t_ops = self.flops / PEAK_FLOPS[self.dtype] * 1e3
+        t_ops = self.flops / PEAK_FLOPS[self.rate or self.dtype] * 1e3
         t_bytes = self.nbytes / HBM_BYTES_PER_S * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -64,7 +77,8 @@ def kernel_cases(dev, kernels=None) -> list:
     G = importlib.import_module(f"{_PKG}.ops.groupnorm")
     F2 = importlib.import_module(f"{_PKG}.ops.mlp")
     W = importlib.import_module(f"{_PKG}.ops.probes.winograd")
-    want = set(kernels) if kernels else {"attention", "attention_sm90", "geglu_ff",
+    want = set(kernels) if kernels else {"attention", "attention_sm90",
+                                         "attention_f32_sm90", "geglu_ff",
                                          "group_norm", "conv3x3", "conv3x3_sm90",
                                          "attention_cm", "winograd", "probe_attention",
                                          "probe_groupnorm", "probe_copy"}
@@ -88,14 +102,14 @@ def kernel_cases(dev, kernels=None) -> list:
 
         return lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
 
-    def attn_case(label, q, k, v, heads, dt, kernel="attention", prior=None):
+    def attn_case(label, q, k, v, heads, dt, kernel="attention", prior=None, rate=None):
         b, sq, inner = q.shape
         skv = k.shape[1]
         nbytes = (2 * b * sq + 2 * b * skv) * inner * q.element_size()
         cases.append(Case(kernel, label,
                           lambda: A.flash_attention(q, k, v, heads),
                           lambda: A.attention_plain(q, k, v, heads), sdpa(q, k, v, heads), dt,
-                          4.0 * b * sq * skv * inner, nbytes, prior))
+                          4.0 * b * sq * skv * inner, nbytes, prior, rate))
 
     if "attention_sm90" in want:
         # UNet self-attention at UNet batch 8 (q/k/v are views of one fused
@@ -110,18 +124,26 @@ def kernel_cases(dev, kernels=None) -> list:
             d = c // 8
             attn_case(f"bf16 B8 S{s_} H8 d{d}", q, k, v, 8, "bfloat16", "attention_sm90",
                       lambda q=q, k=k, v=v, d=d: PA.attention_probe(q, k, v, 8, d**-0.5))
-    if "attention" in want:
-        # the f32 VAE mid-block, and the bf16 mid-block of the batch-1 and
-        # batch-4 bf16 decode (and encode)
+    if "attention_f32_sm90" in want:
+        # the f32 VAE mid-block of the exact b4 decode, through K1's route
+        # (the 3xTF32 body in this tree, bound at the TF32 tensor cores' rate
+        # for three products), with the FMA body beside it (a parent tree
+        # may lack its wrapper)
+        fma = getattr(A, "attention_f32_fma", None)
         q, k, v = (randn(4, 4096, 512, dtype=f32) for _ in range(3))
-        attn_case("f32 B4 S4096 H1 d512", q, k, v, 1, "float32")
+        attn_case("f32 B4 S4096 H1 d512", q, k, v, 1, "float32", "attention_f32_sm90",
+                  (lambda q=q, k=k, v=v: fma(q, k, v, 1)) if fma else None, "tf32x3")
+    if "attention" in want:
+        # the bf16 mid-block of the batch-1 and batch-4 bf16 decode (and
+        # encode)
         for b in (1, 4):
             q, k, v = (randn(b, 4096, 512, dtype=bf16) for _ in range(3))
             attn_case(f"bf16 B{b} S4096 H1 d512", q, k, v, 1, "bfloat16")
     if "geglu_ff" in want:
-        # every UNet level at UNet batch 8; no single PyTorch call computes
-        # the GEGLU FF, so it has no library time
-        for m, c in ((32768, 320), (8192, 640), (2048, 1280), (512, 1280)):
+        # every UNet level at UNet batch 8 (the b4 render), then the rows of
+        # UNet batch 2 (the b1 render) that batch 8 lacks; no single PyTorch
+        # call computes the GEGLU FF, so it has no library time
+        for m, c in GEGLU_ROWS:
             x = randn(m, c, dtype=bf16)
             w1 = uniform(c, 8 * c, bound=c ** -0.5, dtype=bf16)
             b1 = uniform(8 * c, bound=c ** -0.5, dtype=bf16)
@@ -295,3 +317,38 @@ def kernel_cases(dev, kernels=None) -> list:
                 lambda a=a: PS.stream_copy(*a), lambda a=a: PS.stream_copy_plain(*a),
                 lambda: y.copy_(x), "bfloat16", 0.0, 2.0 * x.numel() * 2))
     return cases
+
+
+def host_us(dev, calls: int = 500) -> dict:
+    """Microseconds a call of K2's, K4's and K1's wrappers (K4 and K1 both
+    bodies each) take over ``calls`` eager calls at shapes where the card's
+    work is a few microseconds, so the loop runs at the host's pace: the
+    cost that sets the batch-1 step, which waits on the host."""
+    C = importlib.import_module(f"{_PKG}.ops.conv")
+    A = importlib.import_module(f"{_PKG}.ops.attention")
+    F2 = importlib.import_module(f"{_PKG}.ops.mlp")
+    PA = importlib.import_module(f"{_PKG}.ops.probes.attention")
+    x = torch.randn((1, 8, 8, 64), device=dev).to(torch.bfloat16)
+    w = torch.randn((64, 64, 3, 3), device=dev).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    b = torch.zeros(64, device=dev, dtype=torch.bfloat16)
+    q = torch.randn((1, 256, 40), device=dev).to(torch.bfloat16)
+    ff = [torch.randn(shape, device=dev).to(torch.bfloat16) * 0.05
+          for shape in ((1, 64, 320), (320, 2560), (2560,), (1280, 320), (320,))]
+    fns = {"geglu_ff (K2)": lambda: F2.geglu_ff(*ff),
+           "conv3x3 route (sm90 body)": lambda: C.conv3x3(x, w, b),
+           "conv3x3_generic (mma.sync body)": lambda: C.conv3x3_generic(x, w, b),
+           "flash_attention route (sm90 body)": lambda: A.flash_attention(q, q, q, 1),
+           "attention_probe full (mma.sync body)": lambda: PA.attention_probe(q, q, q, 1,
+                                                                              0.158)}
+    out = {}
+    with torch.inference_mode():
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            out[name] = 1e6 * (time.perf_counter() - t0) / calls
+    return out

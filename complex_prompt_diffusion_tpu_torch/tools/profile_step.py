@@ -39,11 +39,16 @@ from complex_prompt_diffusion_tpu_torch.pipeline import (
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
     ("attention_sm90", "K1 attention bf16 (sm90 body)"),
+    ("tf32x3_gemm", "K1 attention f32 (3xTF32 body)"),
+    ("split_rows", "K1 attention f32 (3xTF32 body)"),
+    ("split_transpose", "K1 attention f32 (3xTF32 body)"),
+    ("softmax_rows", "K1 attention f32 (3xTF32 body)"),
     ("attention_cm", "K5 attention (channel-major)"),
     ("attention_bf16_wide", "K1 attention bf16 d512"),
     ("attention_bf16", "K1 attention bf16"),
     ("attention_f32", "K1 attention f32"),
-    ("gemm_bf16_kernel", "K2 GEGLU GEMMs"),
+    ("geglu_gemm_sm90", "K2 GEGLU GEMMs"),
+    ("geglu_splitk", "K2 GEGLU GEMMs"),
     ("group_norm", "K3 GroupNorm"),
     ("conv3x3_sm90", "K4 conv3x3 (sm90 body)"),
     ("conv3x3_splitk", "K4 conv3x3 (sm90 body)"),

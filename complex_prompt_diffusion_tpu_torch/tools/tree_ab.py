@@ -32,7 +32,10 @@ and back over the trees (A B B A for two, A B C C B A for three), repeated
   under ``torch.profiler``), so wall minus busy is the time the card waits
   for the host;
 * ``render_b4``: the same for phase 2's render, batch 4 with the f32 VAE
-  decode.
+  decode;
+* ``host``: microseconds of host time a call of the K2, K4 and K1 wrappers
+  take at tiny shapes (``kernel_cases.host_us``, as ``chip_smoke.py``
+  phase 1 prints them).
 
 It prints every run's numbers, then for each number the minimum and median
 over each tree's runs, beside the card's name and power limit.
@@ -164,6 +167,10 @@ def _child(args) -> int:
     hashes = {}
     if args.what in ("render_b1", "render_b4"):
         out = _render(int(args.what[-1]), args.iters)
+    elif args.what == "host":
+        from kernel_cases import host_us  # beside this file, on sys.path[0]
+
+        out = {f"{k} us": v for k, v in host_us(torch.device("cuda")).items()}
     elif args.what.startswith("kernels:"):
         out, hashes = _kernels(args.what.split(":", 1)[1].split(","))
     else:
@@ -177,7 +184,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
                     help="a checkout to run (two or more)")
     ap.add_argument("--what", default="render_b1",
-                    help="render_b1, render_b4 or kernels:NAME[,NAME]")
+                    help="render_b1, render_b4, host or kernels:NAME[,NAME]")
     ap.add_argument("--rounds", type=int, default=2, help="forward-and-back passes")
     ap.add_argument("--iters", type=int, default=10, help="steady steps a timing (render_b1)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)

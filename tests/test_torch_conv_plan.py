@@ -197,7 +197,7 @@ def test_plan_emulation_split_counts_agree():
     (torch.bfloat16, 160, "sm90"), (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 256, "sm90"),
     (torch.bfloat16, 120, "sm90"), (torch.bfloat16, 248, "sm90"),
     (torch.bfloat16, 264, "bf16_wide"), (torch.bfloat16, 512, "bf16_wide"),
-    (torch.float32, 40, "f32"), (torch.float32, 160, "f32"), (torch.float32, 512, "f32"),
+    (torch.float32, 40, "f32"), (torch.float32, 160, "f32"), (torch.float32, 512, "f32_sm90"),
     (torch.float32, 4, "f32"),
 ])
 def test_attention_route_by_dtype_and_head_dim(dtype, d, body):

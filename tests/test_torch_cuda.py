@@ -18,9 +18,11 @@ import torch
 from complex_prompt_diffusion_tpu_torch.ops.attention import (
     attention_dmajor,
     attention_dmajor_plain,
+    attention_f32_sm90,
     attention_kcanon,
     attention_plain,
     attention_sm90,
+    f32_sm90_launches,
     flash_attention,
     self_attention_cm,
     self_attention_cm_plain,
@@ -37,7 +39,17 @@ from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     group_norm_nhwc,
     group_norm_plain,
 )
-from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_ff, geglu_ff_plain
+from complex_prompt_diffusion_tpu_torch.ops.mlp import (
+    GEGLU1_WIDTHS,
+    GEGLU2_WIDTHS,
+    _forced_plan,
+    geglu_ff,
+    geglu_ff_plain,
+    geglu_plan,
+)
+from complex_prompt_diffusion_tpu_torch.ops.probes.attention import attention_probe
+from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_probe
+from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy
 from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import (
     wino3x3,
     wino3x3_plain,
@@ -129,11 +141,156 @@ def test_geglu_bf16_ragged(dev, c):
         u(h4, c, bound=h4**-0.5), u(c, bound=0.1))]
     before = geglu_ff.launches
     got = geglu_ff(*args)
-    assert geglu_ff.launches == before + 2  # GEMM1 with the GEGLU epilogue, GEMM2
+    # GEMM1 with the GEGLU epilogue, GEMM2, and a reduce for each split GEMM
+    assert geglu_ff.launches == before + geglu_plan(3 * 37, c, h4).launches
     assert got.shape == x.shape and got.dtype == torch.bfloat16
     assert _rel(got, geglu_ff_plain(*args)) <= TOL[torch.bfloat16]
     with pytest.raises(TypeError):
         geglu_ff(x.float(), *args[1:])
+
+
+def _geglu_args(dev, m, c, seed):
+    g = _gen(dev, seed)
+    h4 = 4 * c
+
+    def u(*shape, bound):
+        return torch.empty(shape, device=dev).uniform_(-bound, bound, generator=g)
+
+    x = torch.randn((m, c), generator=g, device=dev).to(torch.bfloat16)
+    return [x] + [t.to(torch.bfloat16) for t in (
+        u(c, 2 * h4, bound=c**-0.5), u(2 * h4, bound=0.1),
+        u(h4, c, bound=h4**-0.5), u(c, bound=0.1))]
+
+
+# the eight (M, C) of the SD-1.5 512x512 render: UNet batch 8, then 2
+GEGLU_SD_SHAPES = [(32768, 320), (8192, 640), (2048, 1280), (512, 1280),
+                   (8192, 320), (2048, 640), (512, 1280), (128, 1280)]
+
+
+@pytest.mark.parametrize("m,c", GEGLU_SD_SHAPES)
+def test_geglu_sm90_at_the_sd_shapes(dev, m, c):
+    """K2 at the render's shapes: right, the same bits on two calls, and the
+    plan's launch count."""
+    args = _geglu_args(dev, m, c, m + c)
+    before = geglu_ff.launches
+    got = geglu_ff(*args)
+    assert geglu_ff.launches == before + geglu_plan(m, c, 4 * c).launches
+    assert _rel(got, geglu_ff_plain(*args)) <= TOL[torch.bfloat16]
+    assert torch.equal(geglu_ff(*args), got)
+
+
+@pytest.mark.parametrize("m", [1, 77, 200, 4097])
+@pytest.mark.parametrize("c", [320, 1280])
+def test_geglu_sm90_ragged_rows_at_every_split_count_and_width(dev, m, c):
+    """Rows that are not multiples of the 128-row tile, every split count the
+    plan can pick for each GEMM (1 .. 16, or the k-steps) and every tile
+    width; each within bf16 of the plain twin and the same bits twice."""
+    h4 = 4 * c
+    args = _geglu_args(dev, m, c, m * c)
+    want = geglu_ff_plain(*args)
+    k1, k2 = -(-c // 64), -(-h4 // 64)
+    plans = [_forced_plan(m, c, h4, splits1=min(s, k1), splits2=min(s, k2))
+             for s in range(1, min(16, max(k1, k2)) + 1)]
+    plans += [_forced_plan(m, c, h4, bn1=b1, bn2=b2)
+              for b1 in GEGLU1_WIDTHS for b2 in GEGLU2_WIDTHS]
+    for plan in plans:
+        before = geglu_ff.launches
+        got = geglu_ff(*args, plan=plan)
+        assert geglu_ff.launches == before + plan.launches
+        assert _rel(got, want) <= TOL[torch.bfloat16], plan
+        assert torch.equal(geglu_ff(*args, plan=plan), got), plan
+
+
+def test_geglu_sm90_takes_strided_rows_and_raises_on_what_it_does_not_take(dev):
+    args = _geglu_args(dev, 300, 320, 5)
+    x3 = args[0].reshape(3, 100, 320)
+    got = geglu_ff(x3, *args[1:])
+    assert got.shape == x3.shape
+    assert _rel(got, geglu_ff_plain(x3, *args[1:])) <= TOL[torch.bfloat16]
+    with pytest.raises(ValueError):
+        geglu_ff(torch.zeros((4, 36), device=dev, dtype=torch.bfloat16),
+                 *[a[..., :1] for a in args[1:]])
+
+
+@pytest.mark.parametrize("d", [64, 384, 512])
+@pytest.mark.parametrize("s", [1, 100, 4095])
+def test_attention_f32_exact_against_the_no_tf32_plain_twin(dev, d, s):
+    """K1 in f32 (d = 64: the FMA body; 384 and 512: the 3xTF32 body) against
+    the plain twin with TF32 off (the ``dev`` fixture sets
+    ``torch.backends.cuda.matmul.allow_tf32 = False``): max |kernel - plain|
+    <= 1e-5 of max |plain|, which one-pass TF32 (~1e-3) would miss."""
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    g = _gen(dev, d + s)
+    kv = torch.randn((2, s, 2 * d), generator=g, device=dev)
+    k, v = kv.chunk(2, dim=-1)  # strided views
+    q = torch.randn((2, s, d), generator=g, device=dev)
+    before = attention_f32_sm90.launches
+    got = flash_attention(q, k, v, 1)
+    assert attention_f32_sm90.launches == before + (
+        f32_sm90_launches(2, 1, s, s) if d > 256 else 0)
+    assert _rel(got, attention_plain(q, k, v, 1)) <= 1e-5
+
+
+def test_attention_f32_sm90_in_several_passes_and_heads(dev):
+    """Query rows in passes of 128 (the workspace cap's path), two heads,
+    ragged Sq and Skv, against the plain twin at 1e-5; the same bits as one
+    pass, and on a second call."""
+    g = _gen(dev, 9)
+    q = torch.randn((2, 300, 2 * 384), generator=g, device=dev)
+    k = torch.randn((2, 333, 2 * 384), generator=g, device=dev)
+    v = torch.randn((2, 333, 2 * 384), generator=g, device=dev)
+    one = attention_f32_sm90(q, k, v, 2)
+    before = attention_f32_sm90.launches
+    passes = attention_f32_sm90(q, k, v, 2, rows=128)
+    assert attention_f32_sm90.launches == before + 3 + 3 * 3  # split, then 3 passes
+    assert _rel(passes, attention_plain(q, k, v, 2)) <= 1e-5
+    assert torch.equal(passes, one) and torch.equal(attention_f32_sm90(q, k, v, 2), one)
+    with pytest.raises(ValueError):
+        attention_f32_sm90(q[..., :512], k[..., :512], v[..., :512], 2)  # d = 256
+
+
+def _grad_cases(dev):
+    bf, f32 = torch.bfloat16, torch.float32
+    q8 = torch.randn((1, 256, 64), device=dev, dtype=bf, requires_grad=True)
+    qf = torch.randn((1, 256, 64), device=dev, requires_grad=True)
+    qw = torch.randn((1, 256, 512), device=dev, requires_grad=True)
+    qwb = torch.randn((1, 256, 512), device=dev, dtype=bf, requires_grad=True)
+    dm = torch.randn((1, 1, 64, 256), device=dev, dtype=bf, requires_grad=True)
+    x = torch.randn((1, 16, 16, 64), device=dev, dtype=bf, requires_grad=True)
+    xf = torch.randn((1, 16, 16, 64), device=dev, dtype=f32, requires_grad=True)
+    w = torch.randn((64, 64, 3, 3), device=dev, dtype=bf).contiguous(
+        memory_format=torch.channels_last)
+    bias = torch.zeros(64, device=dev, dtype=bf)
+    gam = torch.ones(64, device=dev, dtype=bf)
+    x320 = torch.randn((1, 8, 8, 320), device=dev, dtype=bf, requires_grad=True)
+    g320 = torch.ones(320, device=dev, dtype=bf)
+    ff = _geglu_args(dev, 16, 64, 3)
+    ff[1].requires_grad_(True)  # a weight that requires grad is refused too
+    return {
+        "K1 sm90": lambda: flash_attention(q8, q8, q8, 1),
+        "K1 f32": lambda: flash_attention(qf, qf, qf, 1),
+        "K1 f32 3xTF32": lambda: flash_attention(qw, qw, qw, 1),
+        "K1 bf16 d512": lambda: flash_attention(qwb, qwb, qwb, 1),
+        "K5": lambda: attention_dmajor(dm, dm, dm, 0.125),
+        "K2": lambda: geglu_ff(*ff),
+        "K3": lambda: group_norm_nhwc(x, gam, gam, 32),
+        "K4 sm90": lambda: conv3x3(x, w, bias),
+        "K4 f32": lambda: conv3x3(xf, w.float(), bias.float()),
+        "K6": lambda: wino3x3(x, w.permute(2, 3, 1, 0), bias),
+        "K7": lambda: attention_probe(q8[..., :40], q8[..., :40], q8[..., :40], 1, 0.158),
+        "K8": lambda: group_norm_probe(x320, g320, g320),
+        "K9": lambda: stream_copy(x.reshape(1, 256, 64), 64),
+    }
+
+
+@pytest.mark.parametrize("name", ["K1 sm90", "K1 f32", "K1 f32 3xTF32", "K1 bf16 d512", "K5",
+                                  "K2", "K3", "K4 sm90", "K4 f32", "K6", "K7", "K8", "K9"])
+def test_each_wrapper_raises_under_grad_and_runs_without_it(dev, name):
+    call = _grad_cases(dev)[name]
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        call()
+    with torch.no_grad():
+        assert torch.isfinite(call().float()).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -47,6 +47,21 @@ def test_geglu_matches_pallas_ff_kernel():
     np.testing.assert_allclose(got.numpy(), want, rtol=FF_RTOL, atol=FF_ATOL)
 
 
+@pytest.mark.parametrize("c", [320, 640, 1280])
+def test_geglu_matches_pallas_ff_kernel_at_the_sd_widths(c):
+    """K2's plain twin against the Pallas ``_ff_kernel`` in interpret mode at
+    the UNet's three widths (H4 = 4C), small M; f32, the FF tolerance above
+    (sums over C and 4C = 5120 terms at most). C = 320 is below the JAX
+    wrapper's lane gate (C % 128), so ``_ff_pallas`` is called directly."""
+    from complex_prompt_diffusion_tpu.ops.mlp import _ff_pallas
+
+    args = _ff_inputs(16, c, seed=c)
+    x2 = args[0].reshape(-1, c)
+    want = np.asarray(_ff_pallas(x2, *args[1:], block_m=8, block_j=4 * c, interpret=True))
+    got = geglu_ff(*map(torch.from_numpy, args)).reshape(-1, c)
+    np.testing.assert_allclose(got.numpy(), want, rtol=FF_RTOL, atol=FF_ATOL)
+
+
 def test_geglu_small_width_matches_xla_path():
     """Widths below the Pallas kernel's lane gate (the tiny UNet's C=32)."""
     args = _ff_inputs(16, 32, seed=1)

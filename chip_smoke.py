@@ -7,20 +7,25 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
   phase 0  builds the hand-written CUDA kernels from ``csrc/`` (nvcc, one
            process per source, in parallel), and checks in their SASS
            (``cuobjdump``) that the Hopper bodies of K1, K2 and K4
-           (``attention_sm90.cu``, ``attention_f32_sm90.cu``,
-           ``geglu_ff_sm90.cu``, ``conv3x3_sm90.cu``) hold wgmma (HGMMA)
-           and TMA load (UTMALDG) instructions in every instantiation;
+           (``attention_sm90.cu``, ``attention_bf16_wide_sm90.cu``,
+           ``attention_f32_sm90.cu``, ``geglu_ff_sm90.cu``,
+           ``conv3x3_sm90.cu``) hold wgmma (HGMMA) and TMA load (UTMALDG)
+           instructions in every instantiation, and K3's
+           (``groupnorm_sm90.cu``) a TMA or bulk-copy load (UTMALDG or
+           UBLKCP) in every one;
   phase 1  runs each kernel at its paths' shapes against its plain PyTorch
            twin on the card (TF32 off): error, the times (CUDA-graph
            replays, ``tools/hotcold.py``, one input repeated) of the kernel,
            the body it replaced where it is still built (K1's and K4's
-           mma.sync bodies, K1's f32 FMA body; held to the same twin), the
+           mma.sync bodies, K1's f32 FMA body, K3's first body; held to
+           the same twin), the
            twin and the one
            PyTorch call that computes the same function (where there is
            one), and the bound from this case's bytes and flops, with the
            bound's share of the kernel's time; the sums over the 22 convs
-           of a batch-1 UNet call and over the 16 GEGLU FF calls of a b4
-           step; the host cost of one TMA tensor-map encode and of one call
+           of a batch-1 UNet call, over the 16 GEGLU FF calls of a b4 step
+           and over the 61 GroupNorms of a b4 and of a b1 step; the host
+           cost of one TMA tensor-map encode and of one call
            of the K1, K2 and K4 wrappers;
   phase 2  the main path: SD-1.5 at full width with random weights from a
            seed, txt2img at 512x512, batch 4, DDIM eta=0, CFG 7.5, then the
@@ -63,7 +68,12 @@ run were launched: in phases 2, 4, 6 and 7 every UNet self-attention site
 on K1's sm90 body, in phases 2, 4 and 6 every GEGLU FF call on K2 with the
 kernels its plan predicts (the library reports what it launched), in phase
 2 the f32 VAE mid-block on K1's 3xTF32 body (its split, scores, softmax and
-output kernels), in phases 4, 6, 8 and 9 every batch-1 UNet conv on K4's.
+output kernels), in phases 4, 6, 8 and 9 every batch-1 UNet conv on K4's,
+in phases 2 to 8 every GroupNorm (61 a UNet call, 30 a decode, 22 an
+encode) on K3's Hopper body with the kernels its plans predict (the library
+reports what it launched) and none on its replaced body, and in phases 3 to
+6 and 8 every bf16 VAE mid-block attention on K1's wgmma wide body (its
+scores, softmax and output kernels).
 Any failure exits non-zero before the result lines. On success the
 last three lines are the kernels JSON, the card's name and power limit
 (from nvidia-smi) and ``{"ok": true, "device": {...}}``.
@@ -86,8 +96,11 @@ PKG = "complex_prompt_diffusion_tpu_torch"
 KERNELS = {
     "attention": (
         f"{PKG}/csrc/attention.cu",
-        "complex_prompt_diffusion_tpu/ops/attention.py:48 _attn_kernel (bf16 d = 512; f32 "
-        "d <= 256)",
+        "complex_prompt_diffusion_tpu/ops/attention.py:48 _attn_kernel (f32 d <= 256)",
+    ),
+    "attention_bf16_wide_sm90": (
+        f"{PKG}/csrc/attention_bf16_wide_sm90.cu",
+        "complex_prompt_diffusion_tpu/ops/attention.py:48 _attn_kernel (bf16, 256 < d <= 512)",
     ),
     "attention_f32_sm90": (
         f"{PKG}/csrc/attention_f32_sm90.cu",
@@ -103,7 +116,7 @@ KERNELS = {
         "complex_prompt_diffusion_tpu/ops/mlp.py:51 _ff_kernel",
     ),
     "group_norm": (
-        f"{PKG}/csrc/groupnorm.cu",
+        f"{PKG}/csrc/groupnorm_sm90.cu",
         "complex_prompt_diffusion_tpu/ops/groupnorm.py:59 _gn_kernel; "
         "complex_prompt_diffusion_tpu/ops/groupnorm.py:142 _gn_stats_kernel; "
         "complex_prompt_diffusion_tpu/ops/groupnorm.py:175 _gn_stats2_kernel; "
@@ -146,11 +159,14 @@ KERNELS = {
 PROBES = ("winograd", "probe_attention", "probe_groupnorm", "probe_copy")  # no layer calls them
 # K1's and K4's TMA + wgmma bodies, counted inside "attention" and "conv3x3"
 SM90 = {"attention_sm90": "attention", "attention_f32_sm90": "attention",
-        "conv3x3_sm90": "conv3x3"}
+        "attention_bf16_wide_sm90": "attention", "conv3x3_sm90": "conv3x3"}
 # the Hopper kernels phase 0 finds in the SASS: every instantiation must hold
 # wgmma (HGMMA) and TMA loads (UTMALDG)
-SM90_FUNCTIONS = ("attention_sm90_kernel", "tf32x3_gemm_kernel", "geglu_gemm_sm90_kernel",
-                  "conv3x3_sm90_kernel")
+SM90_FUNCTIONS = ("attention_sm90_kernel", "tf32x3_gemm_kernel", "wide_gemm_kernel",
+                  "geglu_gemm_sm90_kernel", "conv3x3_sm90_kernel")
+# K3's kernels: every instantiation must load by TMA (UTMALDG) or bulk copy
+# (UBLKCP)
+BULK_FUNCTIONS = ("gn_slab_kernel", "gn_stats_kernel", "gn_apply_kernel")
 
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |a - b| / max |b|
 
@@ -159,6 +175,9 @@ UNET_CONVS_PER_CALL_B1 = 22  # 3x3 convs on the 16^2/32^2 planes at UNet batch 2
 K_STEPS = 20  # steps of the k-diffusion paths (phases 7 and 8)
 UNET_SELF_ATTN_SITES = 15  # self-attention sites above S = 128 at 512x512: 5 a level
 UNET_CM_SITES = 10  # of them inside the cm gate (levels 1 and 2: C = 640, 1280)
+UNET_GN_CALLS = 61  # GroupNorms a UNet call (tools/kernel_cases.py: GN_B4_CALLS)
+VAE_DECODE_GN_CALLS = 30  # GroupNorms a VAE decode: mid-block 5, up levels 24, out 1
+VAE_ENCODE_GN_CALLS = 22  # a VAE encode: down levels 16, mid-block 5, out 1
 
 
 class SmokeFailure(Exception):
@@ -191,7 +210,8 @@ def rel_err(got, want) -> tuple:
 
 def phase0_sass(card: str) -> None:
     """The TMA + wgmma bodies of K1, K2 and K4 as built: every instantiation
-    must hold HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions."""
+    must hold HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions; K3's
+    kernels a TMA or bulk-copy load (UTMALDG or UBLKCP)."""
     from complex_prompt_diffusion_tpu_torch.tools import probe_attention as PA
 
     counts = PA.sass_counts()
@@ -206,6 +226,14 @@ def phase0_sass(card: str) -> None:
         if not fns or bad:
             raise SmokeFailure(f"{body}: no instantiation, or one without HGMMA or UTMALDG: "
                                f"{bad or 'none built'}")
+    for body in BULK_FUNCTIONS:
+        fns = {n: c["UTMALDG"] + c["UBLKCP"] for n, c in counts.items() if body in n}
+        bad = [n for n, c in fns.items() if c == 0]
+        print(f"phase0: SASS (cuobjdump) of {body}: {len(fns)} instantiations, UTMALDG + UBLKCP "
+              f"{sorted(fns.values())} ({card})")
+        if not fns or bad:
+            raise SmokeFailure(f"{body}: no instantiation, or one without a TMA or bulk-copy "
+                               f"load: {bad or 'none built'}")
 
 
 def phase1(dev, card: str) -> dict:
@@ -219,6 +247,8 @@ def phase1(dev, card: str) -> dict:
         B1_UNET_CONVS,
         GEGLU_B4_CALLS,
         GEGLU_ROWS,
+        GN_B4_CALLS,
+        GN_UNET_PLANES,
         host_us,
         kernel_cases,
     )
@@ -230,6 +260,7 @@ def phase1(dev, card: str) -> dict:
     conv_ms = {}  # K4's time by case label, printed beside K6's at the same shape
     conv_rows = {}  # the sm90 K4 cases: label -> (kernel, mma.sync body, library, bound) ms
     ff_rows = {}  # K2's cases: label -> (kernel, plain, bound) ms
+    gn_rows = {}  # K3's cases: label -> (kernel, replaced body, library, bound) ms
     print(f"phase1: kernel vs plain twin on {card} (times: {METHOD}, one input repeated, "
           f"L2 hot; bound = max(flops / peak, bytes / 3.35 TB/s); working set = those bytes, "
           f"'< L2' where it fits the 50 MB L2)")
@@ -256,6 +287,8 @@ def phase1(dev, card: str) -> dict:
             conv_rows[case.label] = (ms, prior_ms, lib_ms, bound_ms)
         elif case.kernel == "geglu_ff":
             ff_rows[case.label] = (ms, plain_ms, bound_ms)
+        elif case.kernel == "group_norm":
+            gn_rows[case.label] = (ms, prior_ms, lib_ms, bound_ms)
         elif case.kernel == "winograd":
             k4 = conv_ms.get(case.label)
             lib_txt += f" K4={k4:.4f} ms" if k4 is not None else " K4=no case at this shape"
@@ -301,6 +334,19 @@ def phase1(dev, card: str) -> dict:
         print(f"phase1: the {sum(GEGLU_B4_CALLS)} GEGLU FF calls of a b4 CFG step "
               f"({'/'.join(map(str, GEGLU_B4_CALLS))} over M32768/8192/2048/512): K2 "
               f"{sums[0]:.4f} ms, plain twin {sums[1]:.4f} ms, bound {sums[2]:.4f} ms ({card})")
+    for ub, step in ((8, "b4"), (2, "b1")):
+        # the 61 GroupNorms of one CFG step (UNet batch 2 x batch), by shape
+        sums = [0.0] * 4
+        for (side, c), n in zip(GN_UNET_PLANES, GN_B4_CALLS):
+            row = gn_rows.get(f"bf16 {ub}x{side}x{side}x{c} silu")
+            if row is None:
+                break
+            sums = [a + n * (b or 0.0) for a, b in zip(sums, row)]
+        else:
+            print(f"phase1: the {sum(GN_B4_CALLS)} GroupNorms of a {step} CFG step (UNet batch "
+                  f"{ub}): K3 {sums[0]:.4f} ms, replaced body {sums[1]:.4f} ms, F.group_norm + "
+                  f"F.silu {sums[2]:.4f} ms, bound {sums[3]:.4f} ms ("
+                  f"{100 * sums[3] / sums[0]:.1f}% of K3's time; {card})")
     lib = _build.kernel_library()
     base = torch.empty(2 * 32 * 32 * 640, dtype=torch.bfloat16, device=dev)
     ns = ctypes.c_double()
@@ -334,15 +380,57 @@ def check_geglu(launches: dict, batch: int, steps: int, what: str) -> None:
 
 def reset_launches() -> None:
     from complex_prompt_diffusion_tpu_torch import ops
+    from complex_prompt_diffusion_tpu_torch.ops import groupnorm as G
 
     for w in ops.KERNEL_WRAPPERS.values():
         w.launches = 0
+    G.group_norm_nhwc.calls = G.group_norm_nhwc.planned = G.group_norm_prior.launches = 0
 
 
 def read_launches() -> dict:
+    """Each wrapper's launches; and K3's calls, the kernels its plans
+    predicted, and the launches of its replaced body (which no path may
+    reach)."""
     from complex_prompt_diffusion_tpu_torch import ops
+    from complex_prompt_diffusion_tpu_torch.ops import groupnorm as G
 
-    return {name: w.launches for name, w in ops.KERNEL_WRAPPERS.items()}
+    out = {name: w.launches for name, w in ops.KERNEL_WRAPPERS.items()}
+    out["group_norm calls"] = G.group_norm_nhwc.calls
+    out["group_norm planned"] = G.group_norm_nhwc.planned
+    out["group_norm_prior"] = G.group_norm_prior.launches
+    return out
+
+
+def check_gn(launches: dict, unet_calls: int, decodes: int, encodes: int, what: str) -> None:
+    """Every GroupNorm of a path on K3's Hopper body: as many calls as its
+    UNet calls, VAE decodes and encodes have, the kernels the library
+    reported equal to what the calls' plans predict, none on the replaced
+    body."""
+    want = (UNET_GN_CALLS * unet_calls + VAE_DECODE_GN_CALLS * decodes
+            + VAE_ENCODE_GN_CALLS * encodes)
+    if (launches["group_norm calls"] != want or launches["group_norm"] <= 0
+            or launches["group_norm"] != launches["group_norm planned"]
+            or launches["group_norm_prior"]):
+        raise SmokeFailure(f"K3 in {what}: {launches['group_norm calls']} calls (want {want}: "
+                           f"{unet_calls} UNet calls, {decodes} decodes, {encodes} encodes), "
+                           f"{launches['group_norm']} kernels launched against "
+                           f"{launches['group_norm planned']} planned, the replaced body "
+                           f"{launches['group_norm_prior']}")
+
+
+def check_wide(launches: dict, calls: int, batch: int, what: str, s: int = 4096) -> None:
+    """Every bf16 VAE mid-block attention of a path (``calls`` of them, at
+    ``batch`` and S = ``s``) on K1's wgmma wide body, with the kernels its
+    passes need; no other K1 launch outside the Hopper bodies."""
+    from complex_prompt_diffusion_tpu_torch.ops.attention import bf16_wide_launches
+
+    want = calls * bf16_wide_launches(batch, 1, s, s)
+    own = (launches["attention"] - launches["attention_sm90"] - launches["attention_f32_sm90"])
+    if launches["attention_bf16_wide_sm90"] != want or own != want:
+        raise SmokeFailure(f"K1 in {what}: the bf16 wide body launched "
+                           f"{launches['attention_bf16_wide_sm90']} kernels and K1 {own} outside "
+                           f"its sm90 and 3xTF32 bodies; want {want} on the wide body ({calls} "
+                           f"bf16 d=512 mid-blocks at batch {batch})")
 
 
 def check_image(images, shape) -> None:
@@ -413,6 +501,8 @@ def phase2(dev, card: str, steps: int):
                            f"{steps} on the sm90 body and the f32 d=512 decode on the 3xTF32 "
                            f"body ({want_f32} kernels)")
     check_geglu(launches, 4, steps, "the main path")
+    check_gn(launches, steps, 1, 0, "the main path")
+    check_wide(launches, 0, 4, "the main path")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"phase2: txt2img 512x512 b4 DDIM {steps} steps CFG 7.5 on {card}: "
           f"sampling {t1 - t0:.3f} s = {(t1 - t0) / steps:.4f} s/step (incl. prompt "
@@ -488,8 +578,10 @@ def phase3(bundle, dev, card: str) -> None:
         launches = read_launches()
         want = M.vae_decode(vae16.vae_cfg, cpu16, z)
         want_enc = M.vae_encode(vae16.vae_cfg, cpu16, img)
-    if launches["conv3x3"] <= 0 or launches["attention"] != 2:
+    if launches["conv3x3"] <= 0:
         raise SmokeFailure(f"the small bf16 VAE decode and encode launched {launches}")
+    check_wide(launches, 2, 1, "the small bf16 VAE decode and encode", s=256)
+    check_gn(launches, 0, 1, 1, "the small bf16 VAE decode and encode")
     compare("VAE decode 16x16 latent bf16", got, want, 5e-2)
     compare("VAE encode 128x128 image bf16 (posterior mean)", got_enc.mean.cpu(),
             want_enc.mean, 5e-2)
@@ -534,8 +626,10 @@ def phase4(bundle, dev, card: str, steps: int) -> dict:
         raise SmokeFailure(f"K1's sm90 body launched {launches['attention_sm90']} times, want "
                            f"{UNET_SELF_ATTN_SITES} x {steps}")
     check_geglu(launches, 1, steps, "the batch-1 render")
+    check_gn(launches, steps, 1, 0, "the batch-1 render")
+    check_wide(launches, 1, 1, "the batch-1 render")
     decode_attn = launches["attention"] - before["attention"]
-    if bundle.vae_cfg.dtype != "bfloat16" or decode_attn != 1:
+    if bundle.vae_cfg.dtype != "bfloat16" or decode_attn != launches["attention_bf16_wide_sm90"]:
         raise SmokeFailure(f"the bf16 decode launched K1 {decode_attn} times (VAE "
                            f"{bundle.vae_cfg.dtype}), want the one bf16 d=512 mid-block")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -545,7 +639,7 @@ def phase4(bundle, dev, card: str, steps: int) -> dict:
           f"{1000 * (t2 - t1):.2f} ms (first call), {1000 * (t3 - t2):.2f} ms (second), "
           f"peak memory {peak_gb:.2f} GiB")
     print(f"phase4: launches {json.dumps(launches)} (conv3x3 = {UNET_CONVS_PER_CALL_B1} x "
-          f"{steps} steps; attention in the decode: {decode_attn}, bf16 d=512)")
+          f"{steps} steps; attention in the decode: {decode_attn} kernels, bf16 d=512)")
     return launches
 
 
@@ -569,9 +663,8 @@ def phase5(bundle, latents, images_f32, card: str) -> dict:
     t2 = time.perf_counter()
 
     check_image(images, (4, 512, 512, 3))
-    for name in ("attention", "group_norm"):
-        if launches[name] <= 0:
-            raise SmokeFailure(f"kernel {name} was not launched in the bf16 decode")
+    check_wide(launches, 1, 4, "the b4 bf16 decode")
+    check_gn(launches, 0, 1, 0, "the b4 bf16 decode")
     diff = images.astype(np.float64) - images_f32.astype(np.float64)
     max_u8 = int(np.abs(diff).max())
     rel = float(np.linalg.norm(diff) / np.linalg.norm(images_f32.astype(np.float64)))
@@ -616,6 +709,8 @@ def phase6(bundle, image, card: str, steps: int) -> dict:
         raise SmokeFailure(f"K1's sm90 body launched {launches['attention_sm90']} times in "
                            f"img2img, want {UNET_SELF_ATTN_SITES} x {t_enc}")
     check_geglu(launches, 1, t_enc, "img2img")
+    check_gn(launches, t_enc, 1, 1, "img2img")
+    check_wide(launches, 2, 1, "img2img")
     print(f"phase6: img2img 512x512 b1 strength 0.75 DDIM {steps} ({t_enc} steps run) CFG "
           f"7.5, bf16 VAE encode and decode, on {card}: {t1 - t0:.3f} s end to end; "
           f"launches {json.dumps(launches)}; image mean {float(images.mean()):.2f}")
@@ -658,9 +753,10 @@ def phase7(bundle, dev, card: str, steps: int) -> dict:
     if launches["attention_sm90"] != (UNET_SELF_ATTN_SITES - UNET_CM_SITES) * steps:
         raise SmokeFailure(f"K1's sm90 body launched {launches['attention_sm90']} times, want "
                            f"the level-0 sites of {steps} steps")
-    for name in ("geglu_ff", "group_norm"):
-        if launches[name] <= 0:
-            raise SmokeFailure(f"kernel {name} was not launched in the k-diffusion render")
+    if launches["geglu_ff"] <= 0:
+        raise SmokeFailure("kernel geglu_ff was not launched in the k-diffusion render")
+    check_gn(launches, steps, 1, 0, "the k-diffusion render")
+    check_wide(launches, 0, 4, "the k-diffusion render")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"phase7: txt2img 512x512 b4 DPM++ 2M Karras {steps} steps CFG 7.5, cm attention "
           f"route, on {card}: sampling {t1 - t0:.3f} s = {(t1 - t0) / steps:.4f} s/step "
@@ -732,16 +828,15 @@ def phase8(bundle, image, card: str, steps: int) -> dict:
     if launches["attention_cm"] != UNET_SELF_ATTN_SITES * n_run:
         raise SmokeFailure(f"K5 launched {launches['attention_cm']} times in the k-family "
                            f"img2img, want {UNET_SELF_ATTN_SITES} sites x {n_run} steps")
-    if launches["attention"] != 2:  # the encoder's and the decoder's d = 512 mid-blocks
-        raise SmokeFailure(f"K1 launched {launches['attention']} times under the kcanon "
-                           "route, want the two d = 512 VAE mid-blocks")
+    # K1: the encoder's and the decoder's d = 512 mid-blocks, nothing else
+    check_wide(launches, 2, 1, "the k-family img2img under the kcanon route")
+    check_gn(launches, n_run, 1, 1, "the k-family img2img")
     if launches["conv3x3_sm90"] < UNET_CONVS_PER_CALL_B1 * n_run or launches["attention_sm90"]:
         raise SmokeFailure(f"conv3x3's sm90 body launched {launches['conv3x3_sm90']} times (want "
                            f"at least {UNET_CONVS_PER_CALL_B1} x {n_run} steps), K1's "
                            f"{launches['attention_sm90']} (want 0: K5 takes the UNet)")
-    for name in ("geglu_ff", "group_norm"):
-        if launches[name] <= 0:
-            raise SmokeFailure(f"kernel {name} was not launched in the k-family img2img")
+    if launches["geglu_ff"] <= 0:
+        raise SmokeFailure("kernel geglu_ff was not launched in the k-family img2img")
     print(f"phase8: img2img 512x512 b1 strength 0.75 Euler Ancestral {steps} ({n_run} steps "
           f"run) CFG 7.5, kcanon attention route, bf16 VAE encode and decode, on {card}: "
           f"{t1 - t0:.3f} s end to end; launches {json.dumps(launches)}; image mean "

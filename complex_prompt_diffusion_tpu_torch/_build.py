@@ -57,6 +57,9 @@ _SIGNATURES = {
     # above, scale, query rows a pass, int* kernels launched, stream
     "cpd_attention_f32_sm90": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _F, _I, _P, _P),
+    # q, k, v, o, workspace, workspace bytes, then as cpd_attention_f32_sm90
+    "cpd_attention_bf16_wide_sm90": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                                     _L, _L, _L, _L, _L, _L, _F, _I, _P, _P),
     # q, k, v, o, B, H, Sq, Skv, D, then the element strides (batch, head,
     # d; for a canonical k: batch, head, key row) of q, k, v and o,
     # k_canonical, scale, stream
@@ -76,6 +79,11 @@ _SIGNATURES = {
     # x, gamma, beta, y, part, N, HW, C, G, S, eps, silu, stream
     "cpd_group_norm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "cpd_group_norm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # x, gamma, beta, y, parts, is_f32, N, HW, C, G, eps, silu, form, tiles,
+    # int* kernels launched, stream
+    "cpd_group_norm_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P),
+    # int* bytes of a sample a slab block holds
+    "cpd_group_norm_sm90_tile_max": (_P,),
     # x, w, bias, bias_is_f32, y, B, H, W, C, Co, stream
     "cpd_conv3x3_bf16": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     # x, w, bias, y, B, H, W, C, Co, stream

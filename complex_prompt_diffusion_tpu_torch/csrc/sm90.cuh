@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels
 // (conv3x3_sm90.cu, attention_sm90.cu, geglu_ff_sm90.cu,
-// attention_f32_sm90.cu): mbarriers, TMA tensor loads, wgmma descriptors and
-// fences, register reallocation, TMA tensor stores, and on the host the
-// encoding of TMA tensor maps.
+// attention_f32_sm90.cu, attention_bf16_wide_sm90.cu) and of K3
+// (groupnorm_sm90.cu): mbarriers, TMA tensor loads, bulk copies, wgmma
+// descriptors and fences, register reallocation, TMA tensor stores, and on
+// the host the encoding of TMA tensor maps.
 //
 // cuTensorMapEncodeTiled is a driver-API function. The library links only
 // the CUDA runtime, so it is reached through the runtime's driver entry
@@ -128,6 +129,19 @@ __device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// ---- bulk copies (non-tensor TMA): contiguous bytes into shared memory ----
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned; completion on `bar` (which must expect them)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // ---- wgmma ----
 
 // Shared-memory matrix descriptor of a tile in the 128-byte swizzle layout
@@ -196,14 +210,15 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A tensor map of rank R over elements of `dtype` (dims innermost first, byte
-// strides of dims 1..R-1) with 128-byte swizzle and zero fill outside the
-// tensor. Returns a cudaError_t: cudaErrorInvalidValue when the map cannot be
-// encoded (an address or stride that is not a multiple of 16 bytes, a box
-// too large).
+// strides of dims 1..R-1) with 128-byte swizzle (or `swizzle`) and zero fill
+// outside the tensor. Returns a cudaError_t: cudaErrorInvalidValue when the
+// map cannot be encoded (an address or stride that is not a multiple of 16
+// bytes, a box too large).
 template <int R>
 inline int encode_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
                       const uint64_t (&dims)[R], const uint64_t (&strides)[R - 1],
-                      const uint32_t (&box)[R]) {
+                      const uint32_t (&box)[R],
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorInitializationError;
   cuuint64_t d[R], s[R > 1 ? R - 1 : 1];
@@ -215,7 +230,7 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* b
     if (i < R - 1) s[i] = strides[i];
   }
   CUresult res = fn(map, dtype, R, const_cast<void*>(base), d, s, b, e,
-                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

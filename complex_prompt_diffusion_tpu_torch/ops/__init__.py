@@ -3,13 +3,16 @@ and a plain PyTorch twin:
 
   * :func:`attention` — softmax attention; KV > 128 goes through K1:
     bf16 with d <= 256 its TMA + wgmma body (``csrc/attention_sm90.cu``,
-    :func:`attention_sm90`), f32 with 256 < d <= 512 its 3xTF32 body
-    (``csrc/attention_f32_sm90.cu``, :func:`attention_f32_sm90`), the rest
-    ``csrc/attention.cu``.
+    :func:`attention_sm90`), bf16 with 256 < d <= 512 its wgmma body
+    (``csrc/attention_bf16_wide_sm90.cu``, :func:`attention_bf16_wide_sm90`),
+    f32 with 256 < d <= 512 its 3xTF32 body (``csrc/attention_f32_sm90.cu``,
+    :func:`attention_f32_sm90`), f32 with d <= 256 ``csrc/attention.cu``.
   * :func:`geglu_ff` — the transformer GEGLU MLP through K2, two TMA +
     wgmma GEMMs (``csrc/geglu_ff_sm90.cu``).
   * :func:`group_norm` / :func:`group_norm_silu` — NHWC GroupNorm(+SiLU)
-    through K3 (``csrc/groupnorm.cu``).
+    through K3 (``csrc/groupnorm_sm90.cu``: whole groups a block by TMA, or
+    statistics and apply kernels over bulk-copied pixel rows; plan
+    :func:`group_norm_plan`).
   * :func:`conv3x3` — the 3x3 stride-1 conv through K4, for the convs
     ``models/layers.conv2d`` routes to it: bf16 with C and Co multiples of
     64 through its TMA + wgmma body (``csrc/conv3x3_sm90.cu``,
@@ -32,6 +35,7 @@ requires grad (``_build.refuse_grad``: no backward kernels yet).
 
 from complex_prompt_diffusion_tpu_torch.ops.attention import (
     attention,
+    attention_bf16_wide_sm90,
     attention_dmajor,
     attention_f32_sm90,
     attention_sm90,
@@ -42,6 +46,7 @@ from complex_prompt_diffusion_tpu_torch.ops.conv import conv3x3, conv3x3_sm90
 from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     group_norm,
     group_norm_nhwc,
+    group_norm_plan,
     group_norm_silu,
 )
 from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_ff
@@ -52,11 +57,13 @@ from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3
 
 # the wrapper of each kernel, whose ``launches`` attribute counts launches;
 # "attention" and "conv3x3" count every body of K1 and K4, "attention_sm90",
-# "attention_f32_sm90" and "conv3x3_sm90" their Hopper bodies alone
+# "attention_f32_sm90", "attention_bf16_wide_sm90" and "conv3x3_sm90" their
+# Hopper bodies alone
 KERNEL_WRAPPERS = {
     "attention": flash_attention,
     "attention_sm90": attention_sm90,
     "attention_f32_sm90": attention_f32_sm90,
+    "attention_bf16_wide_sm90": attention_bf16_wide_sm90,
     "geglu_ff": geglu_ff,
     "group_norm": group_norm_nhwc,
     "conv3x3": conv3x3,
@@ -73,6 +80,7 @@ __all__ = [
     "flash_attention",
     "attention_sm90",
     "attention_f32_sm90",
+    "attention_bf16_wide_sm90",
     "attention_dmajor",
     "self_attention_cm",
     "wino3x3",
@@ -85,5 +93,6 @@ __all__ = [
     "group_norm",
     "group_norm_silu",
     "group_norm_nhwc",
+    "group_norm_plan",
     "KERNEL_WRAPPERS",
 ]

@@ -11,9 +11,10 @@ dispatch copies the JAX rule (``attention``: Pallas only for KV > 128):
   * longer KV runs :func:`flash_attention` (K1): for CUDA tensors the
     hand-written kernels, by dtype and head dim (:func:`k1_body`): bf16
     with d <= 256 the TMA + wgmma body :func:`attention_sm90`
-    (``csrc/attention_sm90.cu``), f32 with 256 < d <= 512 the 3xTF32 body
-    :func:`attention_f32_sm90` (``csrc/attention_f32_sm90.cu``), bf16 with
-    256 < d <= 512 and f32 with d <= 256 the bodies of
+    (``csrc/attention_sm90.cu``), bf16 with 256 < d <= 512 the wgmma body
+    :func:`attention_bf16_wide_sm90` (``csrc/attention_bf16_wide_sm90.cu``),
+    f32 with 256 < d <= 512 the 3xTF32 body :func:`attention_f32_sm90`
+    (``csrc/attention_f32_sm90.cu``), f32 with d <= 256 the body of
     ``csrc/attention.cu``; for CPU tensors its plain PyTorch twin
     :func:`attention_plain`;
   * with ``CPD_ATTN_KCANON=1`` in the environment at import (the JAX
@@ -52,6 +53,9 @@ __all__ = [
     "attention_f32_sm90",
     "attention_f32_fma",
     "f32_sm90_launches",
+    "attention_bf16_wide_sm90",
+    "attention_bf16_wide_mma",
+    "bf16_wide_launches",
     "k1_body",
     "attention_dmajor",
     "attention_dmajor_plain",
@@ -73,7 +77,7 @@ _ONEPASS_MAX_D = 256
 _USE_KCANON = os.environ.get("CPD_ATTN_KCANON", "0") == "1"
 
 _ATTN_BF16_DP = (16, 32, 48, 64, 80, 96, 128, 160, 256)  # padded head dims K1 has
-_ATTN_MAX_D = 512  # bf16 256 < d <= 512 takes K1's split-d kernel
+_ATTN_MAX_D = 512  # bf16 256 < d <= 512 takes K1's wide body
 # f32 256 < d <= 512 (the VAE mid-block) takes the 3xTF32 body, whose
 # workspace holds f32 scores and P (hi and lo) for a pass of query rows: at
 # most this many bytes of them (B4 S4096 one head: 512 MiB, one pass)
@@ -115,10 +119,10 @@ def k1_body(dtype, d: int) -> str:
     """The K1 body a CUDA call of :func:`flash_attention` with head dim
     ``d`` launches: ``"sm90"`` (bf16, d % 8 == 0, d <= 256 with a padded
     width in ``_ATTN_BF16_DP``: ``csrc/attention_sm90.cu``), ``"bf16_wide"``
-    (bf16, d % 8 == 0, 256 < d <= 512) or ``"f32"`` (f32, d % 4 == 0,
-    d <= 256), both in ``csrc/attention.cu``, or ``"f32_sm90"`` (f32,
-    d % 4 == 0, 256 < d <= 512: ``csrc/attention_f32_sm90.cu``). Anything
-    else raises."""
+    (bf16, d % 8 == 0, 256 < d <= 512: ``csrc/attention_bf16_wide_sm90.cu``),
+    ``"f32"`` (f32, d % 4 == 0, d <= 256: ``csrc/attention.cu``) or
+    ``"f32_sm90"`` (f32, d % 4 == 0, 256 < d <= 512:
+    ``csrc/attention_f32_sm90.cu``). Anything else raises."""
     if dtype == torch.bfloat16:
         if d % 8 == 0 and 0 < d <= _ONEPASS_MAX_D and (d + 15) // 16 * 16 in _ATTN_BF16_DP:
             return "sm90"
@@ -171,11 +175,13 @@ def flash_attention(q, k, v, num_heads: int, scale: Optional[float] = None):
     """K1 wrapper: softmax(scale * Q K^T) V over [B, S, H*D] operands.
 
     CPU tensors run :func:`attention_plain`. CUDA tensors launch the body
-    :func:`k1_body` names (bf16 with d <= 256: :func:`attention_sm90`; f32
-    with 256 < d <= 512: :func:`attention_f32_sm90`; the rest
+    :func:`k1_body` names (bf16 with d <= 256: :func:`attention_sm90`; bf16
+    with 256 < d <= 512: :func:`attention_bf16_wide_sm90`; f32 with
+    256 < d <= 512: :func:`attention_f32_sm90`; f32 with d <= 256
     ``csrc/attention.cu``) or raise; there is no fallback.
     ``flash_attention.launches`` counts the kernels of every body: one a
-    call, or the 3xTF32 body's split, scores, softmax and output kernels.
+    call, or the kernels the wide bodies report (scores, softmax and output
+    a pass; the 3xTF32 body's three split kernels first).
     """
     if not q.is_cuda:
         return attention_plain(q, k, v, num_heads, scale)
@@ -183,15 +189,14 @@ def flash_attention(q, k, v, num_heads: int, scale: Optional[float] = None):
     body = k1_body(q.dtype, q.shape[2] // num_heads)
     if body == "sm90":
         out = _attention_sm90(q, k, v, num_heads, scale)
-    elif body == "f32_sm90":
-        out, n = _attention_f32_sm90(q, k, v, num_heads, scale)
+    elif body in ("f32_sm90", "bf16_wide"):
+        out, n = (_attention_f32_sm90 if body == "f32_sm90" else _attention_bf16_wide_sm90)(
+            q, k, v, num_heads, scale)
         flash_attention.launches += n
         return out
     else:
-        lib = _build.kernel_library()
-        fn, vec = ((lib.cpd_attention_bf16, 8) if body == "bf16_wide"
-                   else (lib.cpd_attention_f32, 4))
-        out = _launch(fn, "attention (K1)", q, k, v, num_heads, scale, vec)
+        out = _launch(_build.kernel_library().cpd_attention_f32, "attention (K1)", q, k, v,
+                      num_heads, scale, 4)
     flash_attention.launches += 1
     return out
 
@@ -317,6 +322,96 @@ def _attention_f32_sm90(q, k, v, num_heads, scale, rows=None):
 
 
 attention_f32_sm90.launches = 0
+
+
+def _bf16_wide_rows(b, h, sq, skv) -> int:
+    """Query rows a pass of the bf16 wide body: all of them while their
+    scores (f32) and P (bf16) fit ``_F32_SM90_SP_BYTES``, else a multiple
+    of 128 that does."""
+    per_row = b * h * (-(-skv // 8) * 8) * 6
+    if sq * per_row <= _F32_SM90_SP_BYTES:
+        return sq
+    return max(128, _F32_SM90_SP_BYTES // per_row // 128 * 128)
+
+
+def bf16_wide_launches(b, h, sq, skv, rows: Optional[int] = None) -> int:
+    """Kernels a call of the bf16 wide body launches: the scores, softmax
+    and output kernels of each pass of ``rows`` query rows (by default as
+    many as the call takes)."""
+    rows = min(sq, rows or _bf16_wide_rows(b, h, sq, skv))
+    return 3 * -(-sq // rows)
+
+
+def _bf16_wide_workspace(b, h, skv, rows) -> int:
+    """Bytes of the bf16 wide body's workspace (``workspace_bytes`` in
+    ``csrc/attention_bf16_wide_sm90.cu``, which checks it): S (f32), P
+    (bf16) and 1 / sum (f32) of a pass."""
+    def r256(n):
+        return -(-n // 256) * 256
+
+    z, ld = b * h, -(-skv // 8) * 8
+    return r256(z * rows * ld * 4) + r256(z * rows * ld * 2) + r256(z * rows * 4)
+
+
+def attention_bf16_wide_sm90(q, k, v, num_heads: int, scale: Optional[float] = None,
+                             rows: Optional[int] = None):
+    """K1's bf16 body for 256 < d <= 512 (``csrc/attention_bf16_wide_sm90.cu``:
+    scores, softmax and output kernels on TMA + wgmma): bf16 [B, S, H*D]
+    operands with d % 8 == 0; anything else raises. ``rows`` forces the
+    query rows a pass (the tests cover several passes). CPU tensors run
+    :func:`attention_plain`. ``attention_bf16_wide_sm90.launches`` adds the
+    kernels the library reports it launched (what
+    :func:`bf16_wide_launches` predicts)."""
+    _check_qkv(q, k, v, num_heads)
+    if k1_body(q.dtype, q.shape[2] // num_heads) != "bf16_wide":
+        raise ValueError(f"the bf16 wide attention takes bf16 with 256 < d <= 512; got "
+                         f"{q.dtype}, d = {q.shape[2] // num_heads}")
+    if not q.is_cuda:
+        return attention_plain(q, k, v, num_heads, scale)
+    return _attention_bf16_wide_sm90(q, k, v, num_heads, scale, rows)[0]
+
+
+def _attention_bf16_wide_sm90(q, k, v, num_heads, scale, rows=None):
+    """Launch the bf16 wide body; (its output, the kernels it launched)."""
+    b, sq, inner = q.shape
+    skv = k.shape[1]
+    d = inner // num_heads
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.refuse_grad("attention (K1, bf16 wide body)", q, k, v)
+    q, k, v = (t if _rows_ok(t, 8) else t.contiguous() for t in (q, k, v))
+    rows = min(sq, rows or _bf16_wide_rows(b, num_heads, sq, skv))
+    n_ws = _bf16_wide_workspace(b, num_heads, skv, rows)
+    ws = torch.empty(n_ws, dtype=torch.uint8, device=q.device)
+    out = torch.empty((b, sq, inner), dtype=q.dtype, device=q.device)
+    launched = ctypes.c_int(0)
+    err = _build.kernel_library().cpd_attention_bf16_wide_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(), n_ws,
+        b, num_heads, sq, skv, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), float(scale), rows, ctypes.addressof(launched),
+        _build.stream_ptr(q.device))
+    attention_bf16_wide_sm90.launches += launched.value
+    _build.check(err, "attention (K1, bf16 wide body)")
+    return out, launched.value
+
+
+attention_bf16_wide_sm90.launches = 0
+
+
+def attention_bf16_wide_mma(q, k, v, num_heads: int, scale: Optional[float] = None):
+    """K1's mma.sync body for bf16 with 256 < d <= 512 (``csrc/attention.cu``,
+    ``attention_bf16_wide_kernel``: the head dim split over 8 warps of a
+    64-row query tile), the body :func:`attention_bf16_wide_sm90` replaced,
+    kept so that the two can be timed and checked side by side. CPU tensors
+    run :func:`attention_plain`. Its launches are counted by no wrapper."""
+    _check_qkv(q, k, v, num_heads)
+    if k1_body(q.dtype, q.shape[2] // num_heads) != "bf16_wide":
+        raise ValueError(f"the mma.sync wide body takes bf16 with 256 < d <= 512; got "
+                         f"{q.dtype}, d = {q.shape[2] // num_heads}")
+    if not q.is_cuda:
+        return attention_plain(q, k, v, num_heads, scale)
+    return _launch(_build.kernel_library().cpd_attention_bf16,
+                   "attention (K1, mma.sync wide body)", q, k, v, num_heads, scale, 8)
 
 
 def attention_dmajor_plain(q, k, v, scale: float, k_canonical: bool = False,

@@ -2,23 +2,28 @@
 
 Counterpart of ``complex_prompt_diffusion_tpu/ops/groupnorm.py``. One
 dispatch rule, no TPU gates carried over: every CUDA tensor goes through
-``csrc/groupnorm.cu`` (the bf16 UNet sites, the bf16 VAE planes and the f32
-VAE-decode planes alike); CPU tensors go through the plain twin
-:func:`group_norm_plain`. Statistics are f32, with the JAX package's rule by
-dtype: one pass (E[x^2] - E[x]^2, clamped at 0) for <= 16-bit inputs, as in
-``_gn_xla_mm`` and ``_gn_stats_kernel``; two passes (centered variance) for
-f32, as in ``_gn_stats2_kernel``.
+``csrc/groupnorm_sm90.cu`` (the bf16 UNet sites, the bf16 VAE planes and the
+f32 VAE-decode planes alike), in the form :func:`group_norm_plan` picks; CPU
+tensors go through the plain twin :func:`group_norm_plain`. Statistics are
+f32, with the JAX package's rule by dtype: one pass (E[x^2] - E[x]^2,
+clamped at 0) for <= 16-bit inputs, as in ``_gn_xla_mm`` and
+``_gn_stats_kernel``; centered (two-pass) for f32, as in
+``_gn_stats2_kernel``. The body this replaced (``csrc/groupnorm.cu``) stays
+callable as :func:`group_norm_prior`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from complex_prompt_diffusion_tpu_torch import _build
 
-__all__ = ["group_norm", "group_norm_silu", "group_norm_nhwc", "group_norm_plain", "gn_splits"]
+__all__ = ["group_norm", "group_norm_silu", "group_norm_nhwc", "group_norm_plain",
+           "group_norm_plan", "GnPlan", "slab_groups", "group_norm_prior", "gn_splits"]
 
 
 def group_norm_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
@@ -41,13 +46,73 @@ def group_norm_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
     return y.to(x.dtype)
 
 
-_GN_FNS = {torch.float32: "cpd_group_norm_f32", torch.bfloat16: "cpd_group_norm_bf16"}
-_GN_THREADS = 512  # threads of a K3 block
+_PRIOR_FNS = {torch.float32: "cpd_group_norm_f32", torch.bfloat16: "cpd_group_norm_bf16"}
+_GN_THREADS = 512  # threads of a block of the replaced body
 _GN_MIN_SPLIT_ELEMS = 32 * _GN_THREADS  # elements a split block handles at least
+
+# csrc/groupnorm_sm90.cu: the bytes of a sample one block of the slab form
+# holds (kTileMax), a slab's widest channels and most TMA boxes (of 256
+# pixels), its widest C and G
+_TILE_BYTES = 192896
+_SLAB_MAX_C = 256
+_SLAB_MAX_BOXES = 32
+_MAX_C = 4096
+_MAX_GROUPS = 256
+
+
+class GnPlan(NamedTuple):
+    """How K3 runs one call: ``form`` "slab" (one launch: a block holds
+    ``tiles`` whole groups of a sample) or "split" (a statistics and an
+    apply launch over ``tiles`` tiles a sample), and the kernels it
+    launches."""
+
+    form: str
+    tiles: int
+    launches: int
+
+
+_FORMS = {"split": 0, "slab": 1}  # the C entry's form codes
+
+
+@functools.lru_cache(maxsize=1024)
+def group_norm_plan(n: int, hw: int, c: int, groups: int, dtype, sms: int) -> GnPlan:
+    """The form and its blocks K3 runs for ``n`` samples of ``hw`` pixels x
+    ``c`` channels in ``groups`` groups (``dtype`` float32 or bfloat16) on a
+    card of ``sms`` SMs.
+
+    Slab where whole groups of a sample fit a block: the fewest groups a
+    block (the most blocks) whose n x groups / k blocks still run in one
+    wave (one block an SM: 544 threads of 96 registers), else the most
+    groups a block. Otherwise split, over ``sms // n`` tiles a sample: one
+    wave. Pure Python, cached by shape."""
+    if n <= 0 or hw <= 0 or c % groups or c % 8 or c > _MAX_C or not 0 < groups <= _MAX_GROUPS:
+        raise ValueError(f"K3 takes C % 8 == 0, C <= {_MAX_C}, C % G == 0, G <= {_MAX_GROUPS}; "
+                         f"got N={n} HW={hw} C={c} G={groups}")
+    slab = slab_groups(hw, c, groups, 2 if dtype == torch.bfloat16 else 4)
+    if slab:
+        k = next((k for k in slab if n * groups // k <= sms), slab[-1])
+        return GnPlan("slab", k, 1)
+    return GnPlan("split", max(1, min(sms // n, hw)), 2)
+
+
+def slab_groups(hw: int, c: int, groups: int, esize: int) -> list:
+    """The group counts k a block of the slab form can hold at this shape,
+    fewest first: k divides the groups, its k C/G channels are a multiple of
+    8 and at most 256, and its HW pixels, in TMA boxes of up to 256 pixels
+    (at most 32 of them, each 128-byte aligned), fit a block's shared
+    memory."""
+    cg = c // groups
+    box = min(hw, 256)
+    nbox = -(-hw // box)
+    return [k for k in range(1, groups + 1)
+            if groups % k == 0 and k * cg % 8 == 0 and k * cg <= _SLAB_MAX_C
+            and nbox <= _SLAB_MAX_BOXES
+            and nbox * -(-box * k * cg * esize // 128) * 128 <= _TILE_BYTES]
 
 
 def gn_splits(n: int, hw: int, c: int, num_groups: int, sms: int) -> int:
-    """HW splits per (sample, group) for K3. 1 (the fused kernel) where the
+    """HW splits per (sample, group) of the replaced body
+    (:func:`group_norm_prior`). 1 (the fused kernel) where the
     n * num_groups blocks keep at least half the SMs busy (the VAE planes
     at batch 4, where splitting measured slower) or the slices are small
     (the UNet planes but level 0 at UNet batch 2); else enough splits for
@@ -65,13 +130,43 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+_PARTS = {}  # (device index, stream) -> the split form's partials buffer
+
+
+def _split_parts(rows: int, device, stream: int):
+    """A [>= rows, 2] f32 buffer for the split form's per-(sample, tile,
+    group) partials: one a (device, stream), which every split call on that
+    stream reuses (its kernels run in stream order), grown when a call needs
+    more; a call then allocates nothing but y (the allocation cost 3.5-4.9
+    us of host time a call on the H100, PERF.md section 5)."""
+    key = (device.index, stream)
+    buf = _PARTS.get(key)
+    if buf is None or buf.shape[0] < rows:
+        buf = torch.empty((rows, 2), dtype=torch.float32, device=device)
+        _PARTS[key] = buf
+    return buf
+
+
+def _nhwc_args(x, gamma, beta):
+    """x contiguous and 16-byte aligned; gamma and beta [C] contiguous in
+    x's dtype."""
+    c = x.shape[-1]
+    if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
+        raise ValueError("gamma and beta must have shape [C]")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return x, gamma.to(x.dtype).contiguous(), beta.to(x.dtype).contiguous()
+
+
 def group_norm_nhwc(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
-                    silu: bool = False):
+                    silu: bool = False, plan: Optional[GnPlan] = None):
     """K3 wrapper. CPU tensors run :func:`group_norm_plain`; CUDA tensors
-    launch ``csrc/groupnorm.cu`` (f32 or bf16, NHWC; one fused kernel, or a
-    statistics and an apply kernel over :func:`gn_splits` HW splits) or
-    raise. ``group_norm_nhwc.launches`` counts kernel launches (1 or 2 a
-    call)."""
+    (f32 or bf16, NHWC, C % 8 == 0, C <= 4096, G <= 256) launch
+    ``csrc/groupnorm_sm90.cu`` in the form :func:`group_norm_plan` picks
+    (``plan`` runs another: the tests and ``tools/gn_plans.py``) or raise.
+    ``group_norm_nhwc.launches`` adds the kernels the library reports it
+    launched, ``.planned`` the plan's count and ``.calls`` one a call."""
     if x.ndim != 4:
         raise ValueError(f"group norm expects NHWC, got shape {tuple(x.shape)}")
     n, h, w, c = x.shape
@@ -79,32 +174,68 @@ def group_norm_nhwc(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
         raise ValueError(f"channels {c} not divisible by {num_groups} groups")
     if not x.is_cuda:
         return group_norm_plain(x, gamma, beta, num_groups, eps, silu)
-    if x.dtype not in _GN_FNS:
+    if x.dtype not in _PRIOR_FNS:
         raise TypeError(f"K3 supports float32 and bfloat16, got {x.dtype}")
     _build.refuse_grad("group_norm (K3)", x, gamma, beta)
-    if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
-        raise ValueError("gamma and beta must have shape [C]")
-    x = x.contiguous()
-    gamma = gamma.to(x.dtype).contiguous()
-    beta = beta.to(x.dtype).contiguous()
+    x, gamma, beta = _nhwc_args(x, gamma, beta)
+    if plan is None:
+        dev = x.device.index
+        plan = group_norm_plan(n, h * w, c, num_groups, x.dtype, _sm_count(dev))
+    y = torch.empty_like(x)
+    stream = _build.stream_ptr(x.device)
+    parts = None
+    if plan.form == "split":
+        parts = _split_parts(n * plan.tiles * num_groups, x.device, stream)
+    launched = ctypes.c_int(0)
+    err = _build.kernel_library().cpd_group_norm_sm90(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+        None if parts is None else parts.data_ptr(), int(x.dtype == torch.float32),
+        n, h * w, c, num_groups, float(eps), int(silu), _FORMS[plan.form], plan.tiles,
+        ctypes.addressof(launched), stream)
+    group_norm_nhwc.launches += launched.value
+    group_norm_nhwc.planned += plan.launches
+    group_norm_nhwc.calls += 1
+    _build.check(err, "group_norm (K3)")
+    return y
+
+
+group_norm_nhwc.launches = 0
+group_norm_nhwc.planned = 0
+group_norm_nhwc.calls = 0
+
+
+def group_norm_prior(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
+                     silu: bool = False):
+    """The body K3 ran until the Hopper redesign (``csrc/groupnorm.cu``,
+    ``groupnorm.cuh``: one block a (sample, group) slice, or the
+    :func:`gn_splits` statistics and apply kernels), kept so that the two
+    can be timed and checked side by side; no layer calls it. CPU tensors
+    run :func:`group_norm_plain`. ``group_norm_prior.launches`` counts its
+    launches."""
+    if x.ndim != 4 or x.shape[-1] % num_groups:
+        raise ValueError(f"group norm expects NHWC with C % groups == 0, got {tuple(x.shape)}")
+    if not x.is_cuda:
+        return group_norm_plain(x, gamma, beta, num_groups, eps, silu)
+    n, h, w, c = x.shape
+    if x.dtype not in _PRIOR_FNS:
+        raise TypeError(f"K3 supports float32 and bfloat16, got {x.dtype}")
+    _build.refuse_grad("group_norm (K3, replaced body)", x, gamma, beta)
+    x, gamma, beta = _nhwc_args(x, gamma, beta)
     y = torch.empty_like(x)
     splits = gn_splits(n, h * w, c, num_groups, _sm_count(x.device.index))
     part = None  # per-split partial statistics, [n * num_groups * splits, 2] f32
     if splits > 1:
         part = torch.empty((n * num_groups * splits, 2), dtype=torch.float32, device=x.device)
-    fn = getattr(_build.kernel_library(), _GN_FNS[x.dtype])
-    err = fn(
+    err = getattr(_build.kernel_library(), _PRIOR_FNS[x.dtype])(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
         None if part is None else part.data_ptr(),
-        n, h * w, c, num_groups, splits, float(eps), int(silu),
-        _build.stream_ptr(x.device),
-    )
-    _build.check(err, "group_norm (K3)")
-    group_norm_nhwc.launches += 1 if splits == 1 else 2
+        n, h * w, c, num_groups, splits, float(eps), int(silu), _build.stream_ptr(x.device))
+    _build.check(err, "group_norm (K3, replaced body)")
+    group_norm_prior.launches += 1 if splits == 1 else 2
     return y
 
 
-group_norm_nhwc.launches = 0
+group_norm_prior.launches = 0
 
 
 def group_norm(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5):

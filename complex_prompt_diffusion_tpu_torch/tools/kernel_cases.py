@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["Case", "kernel_cases", "host_us", "PEAK_FLOPS", "HBM_BYTES_PER_S", "B1_UNET_CONVS",
-           "B1_UNET_CONV_COUNTS", "GEGLU_ROWS", "GEGLU_B4_CALLS"]
+           "B1_UNET_CONV_COUNTS", "GEGLU_ROWS", "GEGLU_B4_CALLS", "GN_UNET_PLANES",
+           "GN_B4_CALLS", "GN_DECODE_PLANES"]
 
 _PKG = "complex_prompt_diffusion_tpu_torch"
 
@@ -42,6 +43,19 @@ GEGLU_ROWS = ((32768, 320), (8192, 640), (2048, 1280), (512, 1280),
               (8192, 320), (2048, 640), (128, 1280))
 GEGLU_B4_CALLS = (5, 5, 5, 1)  # calls a b4 step of each of the first four rows
 
+# (plane side, C) of every distinct GroupNorm of a UNet call (models/unet.py:
+# the ResBlocks' in_norm and out_norm, the transformers' norm, the out norm;
+# the up path's in_norm takes the input concatenated with its skip, C = 960
+# .. 2560), and how many of the 61 calls of a step have that shape: the b4
+# step at UNet batch 8 and the b1 step at UNet batch 2 alike
+GN_UNET_PLANES = ((64, 320), (64, 640), (64, 960), (32, 320), (32, 640), (32, 960), (32, 1280),
+                  (32, 1920), (16, 640), (16, 1280), (16, 1920), (16, 2560), (8, 1280),
+                  (8, 2560))
+GN_B4_CALLS = (13, 2, 1, 1, 11, 1, 1, 1, 1, 11, 1, 2, 12, 3)
+# (plane side, C) of the VAE decoder's planes: the mid-block and the four up
+# levels (30 GroupNorms a decode, over these shapes)
+GN_DECODE_PLANES = ((64, 512), (128, 512), (256, 256), (512, 256), (512, 128))
+
 
 class Case(NamedTuple):
     kernel: str  # the name in ops.KERNEL_WRAPPERS
@@ -53,8 +67,8 @@ class Case(NamedTuple):
     flops: float
     nbytes: float  # each input read once, each output written once
     # the body this kernel replaced, where it is still built (the mma.sync
-    # bodies of K1 and K4, K1's f32 FMA body), timed beside it; None where
-    # there is none
+    # bodies of K1 and K4, K1's f32 FMA body, K3's first body), timed
+    # beside it; None where there is none
     prior: Optional[Callable] = None
     # the PEAK_FLOPS entry of the units that do the work, where it is not
     # the dtype's
@@ -78,7 +92,8 @@ def kernel_cases(dev, kernels=None) -> list:
     F2 = importlib.import_module(f"{_PKG}.ops.mlp")
     W = importlib.import_module(f"{_PKG}.ops.probes.winograd")
     want = set(kernels) if kernels else {"attention", "attention_sm90",
-                                         "attention_f32_sm90", "geglu_ff",
+                                         "attention_f32_sm90", "attention_bf16_wide_sm90",
+                                         "geglu_ff",
                                          "group_norm", "conv3x3", "conv3x3_sm90",
                                          "attention_cm", "winograd", "probe_attention",
                                          "probe_groupnorm", "probe_copy"}
@@ -133,12 +148,21 @@ def kernel_cases(dev, kernels=None) -> list:
         q, k, v = (randn(4, 4096, 512, dtype=f32) for _ in range(3))
         attn_case("f32 B4 S4096 H1 d512", q, k, v, 1, "float32", "attention_f32_sm90",
                   (lambda q=q, k=k, v=v: fma(q, k, v, 1)) if fma else None, "tf32x3")
-    if "attention" in want:
+    if "attention_bf16_wide_sm90" in want:
         # the bf16 mid-block of the batch-1 and batch-4 bf16 decode (and
-        # encode)
+        # encode), through K1's route (the wgmma body in this tree), with the
+        # mma.sync body beside it (a parent tree may lack its wrapper)
+        wide = getattr(A, "attention_bf16_wide_mma", None)
         for b in (1, 4):
             q, k, v = (randn(b, 4096, 512, dtype=bf16) for _ in range(3))
-            attn_case(f"bf16 B{b} S4096 H1 d512", q, k, v, 1, "bfloat16")
+            attn_case(f"bf16 B{b} S4096 H1 d512", q, k, v, 1, "bfloat16",
+                      "attention_bf16_wide_sm90",
+                      (lambda q=q, k=k, v=v: wide(q, k, v, 1)) if wide else None)
+    if "attention" in want:
+        # attention.cu's f32 body (d <= 256): an f32 UNet's level-1
+        # self-attention at UNet batch 2
+        q, k, v = (randn(2, 1024, 640, dtype=f32) for _ in range(3))
+        attn_case("f32 B2 S1024 H8 d80", q, k, v, 8, "float32")
     if "geglu_ff" in want:
         # every UNet level at UNet batch 8 (the b4 render), then the rows of
         # UNet batch 2 (the b1 render) that batch 8 lacks; no single PyTorch
@@ -155,14 +179,14 @@ def kernel_cases(dev, kernels=None) -> list:
                               None, "bfloat16", 24.0 * m * c * c,
                               2.0 * (2 * m * c + 12 * c * c + 9 * c)))
     if "group_norm" in want:
-        # bf16 UNet sites (eps 1e-5), the f32 VAE-decode planes and the bf16
-        # planes of the b4 and the b1 bf16 decode (eps 1e-6)
-        shapes = [((8, 64, 64, 320), bf16, 1e-5), ((8, 32, 32, 640), bf16, 1e-5),
-                  ((8, 16, 16, 1280), bf16, 1e-5), ((8, 8, 8, 1280), bf16, 1e-5)]
+        # every GroupNorm shape of a UNet call at UNet batch 8 (the b4 step)
+        # and 2 (the b1 step), bf16, eps 1e-5; the f32 VAE-decode planes and
+        # the bf16 planes of the b4 and the b1 bf16 decode (eps 1e-6). The
+        # replaced body beside each (a parent tree may lack its wrapper)
+        prior = getattr(G, "group_norm_prior", None)
+        shapes = [((b, side, side, c), bf16, 1e-5) for b in (8, 2) for side, c in GN_UNET_PLANES]
         for b, dt in ((4, f32), (4, bf16), (1, bf16)):
-            shapes += [((b, 64, 64, 512), dt, 1e-6), ((b, 128, 128, 512), dt, 1e-6),
-                       ((b, 256, 256, 256), dt, 1e-6), ((b, 512, 512, 256), dt, 1e-6),
-                       ((b, 512, 512, 128), dt, 1e-6)]
+            shapes += [((b, side, side, c), dt, 1e-6) for side, c in GN_DECODE_PLANES]
         for shape, dt, eps in shapes:
             x = randn(*shape, dtype=dt, scale=2.0) + 0.5
             gamma = randn(shape[-1], dtype=dt, scale=0.5) + 1.0
@@ -175,7 +199,8 @@ def kernel_cases(dev, kernels=None) -> list:
                 lambda a=a: F.silu(F.group_norm(a[0].permute(0, 3, 1, 2), 32, a[1], a[2],
                                                 a[4])),
                 "bfloat16" if dt == bf16 else "float32", 10.0 * x.numel(),
-                (2 * x.numel() + 2 * shape[-1]) * x.element_size()))
+                (2 * x.numel() + 2 * shape[-1]) * x.element_size(),
+                (lambda a=a: prior(*a)) if prior else None))
     shapes = []
     if "conv3x3_sm90" in want:
         # every distinct 3x3 conv of the batch-1 render (UNet batch 2), through
@@ -320,10 +345,12 @@ def kernel_cases(dev, kernels=None) -> list:
 
 
 def host_us(dev, calls: int = 500) -> dict:
-    """Microseconds a call of K2's, K4's and K1's wrappers (K4 and K1 both
-    bodies each) take over ``calls`` eager calls at shapes where the card's
-    work is a few microseconds, so the loop runs at the host's pace: the
-    cost that sets the batch-1 step, which waits on the host."""
+    """Microseconds a call of K2's, K3's, K4's and K1's wrappers (K3, K4 and
+    K1 both bodies each, where the tree has them) take over ``calls`` eager
+    calls at shapes where the card's work is a few microseconds, so the loop
+    runs at the host's pace: the cost that sets the batch-1 step, which
+    waits on the host. Then K3's route at a split-form shape of the b4 step
+    and the allocation of that form's partials, by the host clock alone."""
     C = importlib.import_module(f"{_PKG}.ops.conv")
     A = importlib.import_module(f"{_PKG}.ops.attention")
     F2 = importlib.import_module(f"{_PKG}.ops.mlp")
@@ -335,12 +362,19 @@ def host_us(dev, calls: int = 500) -> dict:
     q = torch.randn((1, 256, 40), device=dev).to(torch.bfloat16)
     ff = [torch.randn(shape, device=dev).to(torch.bfloat16) * 0.05
           for shape in ((1, 64, 320), (320, 2560), (2560,), (1280, 320), (320,))]
+    G = importlib.import_module(f"{_PKG}.ops.groupnorm")
+    gx = torch.randn((2, 8, 8, 640), device=dev).to(torch.bfloat16)
+    gg = torch.ones(640, device=dev, dtype=torch.bfloat16)
     fns = {"geglu_ff (K2)": lambda: F2.geglu_ff(*ff),
+           "group_norm_nhwc (K3 route)": lambda: G.group_norm_nhwc(gx, gg, gg, 32, 1e-5, True),
            "conv3x3 route (sm90 body)": lambda: C.conv3x3(x, w, b),
            "conv3x3_generic (mma.sync body)": lambda: C.conv3x3_generic(x, w, b),
            "flash_attention route (sm90 body)": lambda: A.flash_attention(q, q, q, 1),
            "attention_probe full (mma.sync body)": lambda: PA.attention_probe(q, q, q, 1,
                                                                               0.158)}
+    if hasattr(G, "group_norm_prior"):  # a parent tree lacks it
+        fns["group_norm_prior (K3's replaced body)"] = (
+            lambda: G.group_norm_prior(gx, gg, gg, 32, 1e-5, True))
     out = {}
     with torch.inference_mode():
         for name, fn in fns.items():
@@ -351,4 +385,24 @@ def host_us(dev, calls: int = 500) -> dict:
                 fn()
             torch.cuda.synchronize()
             out[name] = 1e6 * (time.perf_counter() - t0) / calls
+        # a b4 step's 64^2 x 320 GroupNorm, where K3 plans its split form (two
+        # launches and a partials buffer): the card's work outlasts the
+        # host's, so the host clock is read before the sync, over few enough
+        # calls that the launch queue never fills; and the allocation of the
+        # split form's partials alone
+        sx = torch.randn((8, 64, 64, 320), device=dev).to(torch.bfloat16)
+        sg = torch.ones(320, device=dev, dtype=torch.bfloat16)
+        host_only = {
+            "group_norm_nhwc (K3 route) 8x64x64x320, before the sync":
+                lambda: G.group_norm_nhwc(sx, sg, sg, 32, 1e-5, True),
+            "torch.empty of the split form's partials (8 x 16 x 32 float2)":
+                lambda: torch.empty((8 * 16 * 32, 2), dtype=torch.float32, device=dev)}
+        for name, fn in host_only.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fn()
+            out[name] = 1e6 * (time.perf_counter() - t0) / 100
+            torch.cuda.synchronize()
     return out

@@ -265,7 +265,7 @@ def _tool(name: str) -> str:
     raise RuntimeError(f"{name} not found (not on PATH, not under CUDA_HOME/bin)")
 
 
-SASS_OPS = ("HMMA", "FFMA", "SHFL", "MUFU.RSQ", "HGMMA", "UTMALDG")
+SASS_OPS = ("HMMA", "FFMA", "SHFL", "MUFU.RSQ", "HGMMA", "UTMALDG", "UBLKCP")
 
 
 def sass_counts() -> dict:

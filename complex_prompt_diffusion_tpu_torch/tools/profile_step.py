@@ -39,6 +39,8 @@ from complex_prompt_diffusion_tpu_torch.pipeline import (
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
     ("attention_sm90", "K1 attention bf16 (sm90 body)"),
+    ("wide_gemm", "K1 attention bf16 d512 (wgmma body)"),
+    ("wide_softmax", "K1 attention bf16 d512 (wgmma body)"),
     ("tf32x3_gemm", "K1 attention f32 (3xTF32 body)"),
     ("split_rows", "K1 attention f32 (3xTF32 body)"),
     ("split_transpose", "K1 attention f32 (3xTF32 body)"),
@@ -49,7 +51,10 @@ FAMILIES = (
     ("attention_f32", "K1 attention f32"),
     ("geglu_gemm_sm90", "K2 GEGLU GEMMs"),
     ("geglu_splitk", "K2 GEGLU GEMMs"),
-    ("group_norm", "K3 GroupNorm"),
+    ("gn_slab", "K3 GroupNorm"),
+    ("gn_stats", "K3 GroupNorm"),
+    ("gn_apply", "K3 GroupNorm"),
+    ("group_norm", "K3 GroupNorm (replaced body)"),
     ("conv3x3_sm90", "K4 conv3x3 (sm90 body)"),
     ("conv3x3_splitk", "K4 conv3x3 (sm90 body)"),
     ("conv3x3", "K4 conv3x3"),
@@ -59,11 +64,14 @@ FAMILIES = (
     ("nchw", "cuDNN layout transposes"),
     ("nhwc", "cuDNN layout transposes"),
     ("gemm", "cuBLAS GEMMs"),
+    ("nvjet", "cuBLAS GEMMs"),  # cuBLASLt's Hopper GEMM kernels
     ("layer_norm", "LayerNorm"),
     ("softmax", "softmax"),
     ("elementwise", "elementwise / misc"),
     ("reduce", "elementwise / misc"),
     ("copy", "copies / casts"),
+    ("memcpy", "copies / casts"),
+    ("memset", "copies / casts"),
 )
 
 
@@ -77,17 +85,23 @@ def _family(name: str) -> str:
 
 def _breakdown(prof, label: str, wall_ms: float, card: str) -> None:
     by = defaultdict(float)
+    others = defaultdict(float)  # kernels of no family, by name
     n = 0
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", 0.0)
         if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            by[_family(evt.key)] += dev_us / 1e3
+            fam = _family(evt.key)
+            by[fam] += dev_us / 1e3
+            if fam == "other":
+                others[evt.key] += dev_us / 1e3
             n += evt.count
     busy = sum(by.values())
     print(f"{label}: {busy:.2f} ms device busy over {wall_ms:.2f} ms wall with the profiler "
           f"on, {n} kernels, idle {100 * (1 - busy / wall_ms):.1f}% ({card})")
     for fam, ms in sorted(by.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:28s} {ms:9.3f} ms  {100 * ms / busy:5.1f}%")
+    for name, ms in sorted(others.items(), key=lambda kv: -kv[1])[:4]:
+        print(f"    other: {ms:9.3f} ms  {name[:100]}")
 
 
 def main(argv=None) -> int:

@@ -28,13 +28,20 @@ and back over the trees (A B B A for two, A B C C B A for three), repeated
   SD-1.5 with random weights (seed 0), txt2img 512x512, batch 1, DDIM 50,
   CFG 7.5, bf16 VAE decode; seconds to first image and s/step as phase 4
   times them, then ``--iters`` steady CFG steps: wall ms a step without the
-  profiler, and device-busy ms a step (the sum of the kernels' device times
-  under ``torch.profiler``), so wall minus busy is the time the card waits
-  for the host;
+  profiler, host-issue ms a step (the host clock over one step's calls,
+  each step started on an idle card, so nothing waits on the card: the
+  host's own cost of a step), and device-busy ms a step (the sum of the
+  kernels' device times under ``torch.profiler``), so wall minus busy is
+  the time the card waits for the host;
 * ``render_b4``: the same for phase 2's render, batch 4 with the f32 VAE
   decode;
-* ``host``: microseconds of host time a call of the K2, K4 and K1 wrappers
-  take at tiny shapes (``kernel_cases.host_us``, as ``chip_smoke.py``
+* ``decode_b1``, ``decode_b4``: the bf16 VAE decode of random 64x64
+  latents at batch 1 (phase 4's) and 4 (phase 5's), after two warm-up
+  decodes: wall ms a decode over ``--iters`` decodes, and device-busy ms a
+  decode under ``torch.profiler``;
+* ``host``: microseconds of host time a call of the K1-K4 wrappers take at
+  tiny shapes, and K3's at a split-form shape of the b4 step
+  (``kernel_cases.host_us``, as ``chip_smoke.py``
   phase 1 prints them).
 
 It prints every run's numbers, then for each number the minimum and median
@@ -146,6 +153,14 @@ def _render(batch: int, iters: int) -> dict:
             step()
         torch.cuda.synchronize()
         out["steady wall ms/step"] = 1e3 * (time.perf_counter() - t0) / iters
+        issue = 0.0
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            issue += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out["host issue ms/step"] = 1e3 * issue / iters
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
@@ -154,6 +169,34 @@ def _render(batch: int, iters: int) -> dict:
     busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     out["device busy ms/step"] = busy_us / 1e3 / iters
+    return out
+
+
+def _decode(batch: int, iters: int) -> dict:
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch.pipeline import ModelBundle, decode_latents
+
+    dev = torch.device("cuda")
+    bundle = ModelBundle.random("sd15", seed=0, device=dev).cast_vae("bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    latents = torch.randn((batch, 64, 64, 4), generator=gen, device=dev)
+    for _ in range(2):
+        decode_latents(bundle, latents)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        decode_latents(bundle, latents)
+    torch.cuda.synchronize()
+    out = {"decode wall ms": 1e3 * (time.perf_counter() - t0) / iters}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            decode_latents(bundle, latents)
+        torch.cuda.synchronize()
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    out["decode device busy ms"] = busy_us / 1e3 / iters
     return out
 
 
@@ -167,6 +210,8 @@ def _child(args) -> int:
     hashes = {}
     if args.what in ("render_b1", "render_b4"):
         out = _render(int(args.what[-1]), args.iters)
+    elif args.what in ("decode_b1", "decode_b4"):
+        out = _decode(int(args.what[-1]), args.iters)
     elif args.what == "host":
         from kernel_cases import host_us  # beside this file, on sys.path[0]
 
@@ -184,7 +229,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
                     help="a checkout to run (two or more)")
     ap.add_argument("--what", default="render_b1",
-                    help="render_b1, render_b4, host or kernels:NAME[,NAME]")
+                    help="render_b1, render_b4, decode_b1, decode_b4, host or "
+                         "kernels:NAME[,NAME]")
     ap.add_argument("--rounds", type=int, default=2, help="forward-and-back passes")
     ap.add_argument("--iters", type=int, default=10, help="steady steps a timing (render_b1)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)

@@ -16,12 +16,15 @@ import pytest
 import torch
 
 from complex_prompt_diffusion_tpu_torch.ops.attention import (
+    attention_bf16_wide_mma,
+    attention_bf16_wide_sm90,
     attention_dmajor,
     attention_dmajor_plain,
     attention_f32_sm90,
     attention_kcanon,
     attention_plain,
     attention_sm90,
+    bf16_wide_launches,
     f32_sm90_launches,
     flash_attention,
     self_attention_cm,
@@ -35,9 +38,13 @@ from complex_prompt_diffusion_tpu_torch.ops.conv import (
 )
 from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import B1_UNET_CONVS
 from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
-    gn_splits,
+    _TILE_BYTES,
+    GnPlan,
     group_norm_nhwc,
     group_norm_plain,
+    group_norm_plan,
+    group_norm_prior,
+    slab_groups,
 )
 from complex_prompt_diffusion_tpu_torch.ops.mlp import (
     GEGLU1_WIDTHS,
@@ -105,17 +112,49 @@ def test_attention_f32_ragged(dev, d):
 
 @pytest.mark.parametrize("d", [384, 512])
 def test_attention_bf16_wide_ragged(dev, d):
-    """The split-d kernel (256 < d <= 512, the VAE mid-block): query and
-    key counts that are not multiples of its 64-row and 32-key tiles, and
-    k/v as strided views."""
+    """K1's bf16 route for 256 < d <= 512 (the VAE mid-block; the wgmma
+    body): query and key counts that are not multiples of its 128-row and
+    128-key tiles, and k/v as strided views; the route adds the kernels
+    the body reports, and the replaced mma.sync body agrees too."""
     g = _gen(dev, d)
     kv = torch.randn((2, 300, 2 * d), generator=g, device=dev).to(torch.bfloat16)
     k, v = kv.chunk(2, dim=-1)
     q = torch.randn((2, 100, d), generator=g, device=dev).to(torch.bfloat16)
     before = flash_attention.launches
     got = flash_attention(q, k, v, 1)
-    assert flash_attention.launches == before + 1
+    assert flash_attention.launches == before + bf16_wide_launches(2, 1, 100, 300)
+    want = attention_plain(q, k, v, 1)
+    assert _rel(got, want) <= TOL[torch.bfloat16]
+    assert _rel(attention_bf16_wide_mma(q, k, v, 1), want) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("s", [1, 100, 4095, 4096])
+@pytest.mark.parametrize("d", [384, 512])
+def test_attention_bf16_wide_sm90(dev, d, s, b):
+    """The wgmma body at the VAE mid-block's lengths and ragged ones, batch 1
+    and 4, against the plain twin within 2e-2; launches as predicted."""
+    g = _gen(dev, 7 * d + s)
+    q, k, v = (torch.randn((b, s, d), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    before = attention_bf16_wide_sm90.launches
+    got = attention_bf16_wide_sm90(q, k, v, 1)
+    assert attention_bf16_wide_sm90.launches == before + bf16_wide_launches(b, 1, s, s)
     assert _rel(got, attention_plain(q, k, v, 1)) <= TOL[torch.bfloat16]
+
+
+def test_attention_bf16_wide_sm90_in_several_passes_and_heads(dev):
+    """Query rows in passes of 128 (the workspace cap's schedule), two heads
+    of d = 384, unequal Sq and Skv."""
+    g = _gen(dev, 21)
+    q = torch.randn((2, 300, 768), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((2, 520, 768), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    before = attention_bf16_wide_sm90.launches
+    got = attention_bf16_wide_sm90(q, k, v, 2, rows=128)
+    assert attention_bf16_wide_sm90.launches == before + bf16_wide_launches(2, 2, 300, 520, 128)
+    assert bf16_wide_launches(2, 2, 300, 520, 128) == 9
+    assert _rel(got, attention_plain(q, k, v, 2)) <= TOL[torch.bfloat16]
 
 
 def test_attention_rejects_unsupported(dev):
@@ -300,21 +339,121 @@ def test_each_wrapper_raises_under_grad_and_runs_without_it(dev, name):
               (1, 40, 24, 256), (2, 6, 7, 512)]
 )
 def test_group_norm_ragged(dev, dtype, silu, shape):
-    """Channels per group 3, 10, 4, 8 and 16 (every vector width K3 picks,
-    in both dtypes), on small planes and on one whose group slices span
-    many loop trips."""
+    """Channels per group 3, 10, 4, 8 and 16, in both dtypes, on small
+    planes and on one whose ranges span many chunks; the wrapper adds the
+    kernels the library reports, which are the plan's."""
     g = _gen(dev, 3)
     x = (2 * torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
     c = shape[-1]
     gamma = (1 + 0.5 * torch.randn(c, generator=g, device=dev)).to(dtype)
     beta = (0.5 * torch.randn(c, generator=g, device=dev)).to(dtype)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    kernels = 1 if gn_splits(shape[0], shape[1] * shape[2], c, 32, sms) == 1 else 2
-    before = group_norm_nhwc.launches
+    before, planned = group_norm_nhwc.launches, group_norm_nhwc.planned
     got = group_norm_nhwc(x, gamma, beta, 32, 1e-6, silu)
-    assert group_norm_nhwc.launches == before + kernels
+    assert group_norm_nhwc.launches - before == group_norm_nhwc.planned - planned
+    assert group_norm_nhwc.launches - before in (1, 2)
     assert got.dtype == dtype
     assert _rel(got, group_norm_plain(x, gamma, beta, 32, 1e-6, silu)) <= TOL[dtype]
+
+
+def _gn_forced(form, hw, c, dtype):
+    """A plan of ``form``: the split form over 5 tiles (ragged), or the slab
+    form's fewest groups a block."""
+    if form == "split":
+        return GnPlan("split", 5, 2)
+    return GnPlan("slab", slab_groups(hw, c, 32, 2 if dtype == torch.bfloat16 else 4)[0], 1)
+
+
+@pytest.mark.parametrize("form", ["split", "slab"])
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [96, 128, 256, 320, 512, 960, 1280, 1920, 2560])
+def test_group_norm_sm90_forms(dev, c, dtype, silu, form):
+    """Both forms of K3 at C/G = 3, 4, 8, 10, 16, 30, 40, 60 and 80 (32
+    groups), both dtypes, with and without SiLU, on a ragged 7 x 13 plane
+    at batch 2: the split form's tiles take unequal pixel ranges, the slab
+    form's TMA box is 91 pixels."""
+    g = _gen(dev, c)
+    x = (2 * torch.randn((2, 7, 13, c), generator=g, device=dev) + 0.5).to(dtype)
+    gamma = (1 + 0.5 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    beta = (0.5 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    plan = _gn_forced(form, 91, c, dtype)
+    before = group_norm_nhwc.launches
+    got = group_norm_nhwc(x, gamma, beta, 32, 1e-6, silu, plan=plan)
+    assert group_norm_nhwc.launches == before + plan.launches
+    assert _rel(got, group_norm_plain(x, gamma, beta, 32, 1e-6, silu)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("groups,dtype", [(1, torch.bfloat16), (2, torch.bfloat16),
+                                          (4, torch.bfloat16), (1, torch.float32),
+                                          (2, torch.float32)])
+def test_group_norm_slab_in_several_boxes(dev, groups, dtype):
+    """The slab form over 300 pixels (a 256-pixel TMA box and a ragged one
+    whose rows past the sample are zero-filled on load and clipped on
+    store), 1, 2 and 4 groups a block (as many as two boxes fit), C/G =
+    40."""
+    assert groups in slab_groups(300, 1280, 32, 2 if dtype == torch.bfloat16 else 4)
+    g = _gen(dev, 31 + groups)
+    x = (2 * torch.randn((3, 20, 15, 1280), generator=g, device=dev) + 0.5).to(dtype)
+    gamma = (1 + 0.5 * torch.randn(1280, generator=g, device=dev)).to(dtype)
+    beta = (0.5 * torch.randn(1280, generator=g, device=dev)).to(dtype)
+    got = group_norm_nhwc(x, gamma, beta, 32, 1e-5, True, plan=GnPlan("slab", groups, 1))
+    assert _rel(got, group_norm_plain(x, gamma, beta, 32, 1e-5, True)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("form", ["slab", "split"])
+def test_group_norm_f32_centered_at_mean_1e3_on_a_decode_plane(dev, form):
+    """An f32 plane (C/G = 4; the split form's at a decode plane's size,
+    C/G = 8, as its plan) with a common offset of 1e3: the centered
+    statistics (per-thread chunks merged by Chan, then the block's or the
+    tiles') keep the f32 tolerance where E[x^2] - mean^2 would cancel."""
+    g = _gen(dev, 17)
+    shape = (1, 64, 64, 128) if form != "split" else (1, 256, 256, 256)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device=dev) + 1000.0
+    gamma = 1 + 0.5 * torch.randn(c, generator=g, device=dev)
+    beta = 0.5 * torch.randn(c, generator=g, device=dev)
+    if form == "split":
+        plan = group_norm_plan(1, shape[1] * shape[2], c, 32, torch.float32, 132)
+        assert plan.form == "split"
+    else:
+        plan = _gn_forced(form, shape[1] * shape[2], c, torch.float32)
+    got = group_norm_nhwc(x, gamma, beta, 32, 1e-6, True, plan=plan)
+    assert _rel(got, group_norm_plain(x, gamma, beta, 32, 1e-6, True)) <= TOL[torch.float32]
+
+
+def test_group_norm_tile_bytes_match_the_plan(dev):
+    """The plan's bytes of a slab block are the kernel's."""
+    import ctypes
+
+    from complex_prompt_diffusion_tpu_torch import _build
+
+    got = ctypes.c_int(0)
+    _build.check(_build.kernel_library().cpd_group_norm_sm90_tile_max(ctypes.addressof(got)),
+                 "tile max")
+    assert got.value == _TILE_BYTES
+
+
+def test_group_norm_split_calls_share_one_partials_buffer(dev):
+    """Split-form calls on one stream reuse one partials buffer, grown when
+    a call needs more: a small plan, a larger one, then the small one again
+    each match the plain twin, and the stream's buffer is allocated once a
+    size."""
+    from complex_prompt_diffusion_tpu_torch.ops import groupnorm as G
+
+    g = _gen(dev, 23)
+    x = (2 * torch.randn((2, 24, 24, 256), generator=g, device=dev) + 0.5).to(torch.bfloat16)
+    gamma = (1 + 0.5 * torch.randn(256, generator=g, device=dev)).to(torch.bfloat16)
+    beta = (0.5 * torch.randn(256, generator=g, device=dev)).to(torch.bfloat16)
+    want = group_norm_plain(x, gamma, beta, 32, 1e-6, True)
+    key = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    G._PARTS.pop(key, None)
+    ptrs = []
+    for tiles in (3, 40, 3):
+        got = group_norm_nhwc(x, gamma, beta, 32, 1e-6, True, plan=GnPlan("split", tiles, 2))
+        assert _rel(got, want) <= TOL[torch.bfloat16]
+        assert G._PARTS[key].shape[0] >= 2 * tiles * 32
+        ptrs.append(G._PARTS[key].data_ptr())
+    assert ptrs[1] == ptrs[2]
 
 
 def test_group_norm_bf16_one_pass_on_an_offset_decode_plane(dev):
@@ -330,13 +469,13 @@ def test_group_norm_bf16_one_pass_on_an_offset_decode_plane(dev):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_group_norm_split_planes(dev, dtype):
-    """A batch-1 plane whose 32 (sample, group) blocks leave SMs idle: K3
-    splits each group's pixels over 8 blocks (statistics kernel, then apply
-    kernel). The f32 partials merge as centered sums (Chan), so a large
-    common offset keeps the f32 tolerance."""
+    """A batch-1 plane too large for a slab: K3's plan splits it over
+    one tile an SM (statistics kernel, then apply kernel). The f32 partials
+    merge as centered sums (Chan), so a large common offset keeps the f32
+    tolerance. The replaced body agrees too."""
     shape = (1, 256, 256, 64)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert gn_splits(1, 256 * 256, 64, 32, sms) > 1
+    assert group_norm_plan(1, 256 * 256, 64, 32, dtype, sms) == GnPlan("split", sms, 2)
     g = _gen(dev, 11)
     x = (torch.randn(shape, generator=g, device=dev) + (1000.0 if dtype == torch.float32
                                                         else 4.0)).to(dtype)
@@ -345,7 +484,9 @@ def test_group_norm_split_planes(dev, dtype):
     before = group_norm_nhwc.launches
     got = group_norm_nhwc(x, gamma, beta, 32, 1e-6, True)
     assert group_norm_nhwc.launches == before + 2  # statistics, then apply
-    assert _rel(got, group_norm_plain(x, gamma, beta, 32, 1e-6, True)) <= TOL[dtype]
+    want = group_norm_plain(x, gamma, beta, 32, 1e-6, True)
+    assert _rel(got, want) <= TOL[dtype]
+    assert _rel(group_norm_prior(x, gamma, beta, 32, 1e-6, True), want) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("co", [4, 320, 640, 1280])
@@ -786,15 +927,17 @@ def test_group_norm_probe(dev, shape, mode, splits, mma):
 
 
 def test_group_norm_probe_full_is_k3(dev):
-    """The fused kernel's full mode is K3's kernel: the same bits."""
+    """The fused kernel's full mode is the kernel of K3's replaced body
+    (``group_norm_prior``, which the probe script rows compare against):
+    the same bits."""
     from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_probe
 
     g = _gen(dev, 77)
     x = torch.randn((8, 32, 32, 640), generator=g, device=dev).to(torch.bfloat16)
     gamma = torch.randn(640, generator=g, device=dev).to(torch.bfloat16)
     beta = torch.randn(640, generator=g, device=dev).to(torch.bfloat16)
-    assert torch.equal(group_norm_probe(x, gamma, beta), group_norm_nhwc(x, gamma, beta, 32, 1e-5,
-                                                                         True))
+    assert torch.equal(group_norm_probe(x, gamma, beta), group_norm_prior(x, gamma, beta, 32,
+                                                                          1e-5, True))
 
 
 @pytest.mark.parametrize("stages", [1, 3, 4, 8])

@@ -67,6 +67,8 @@ _LAUNCHERS = [
     (A.attention_dmajor, "_build.kernel_library()"),
     (F2.geglu_ff, "_build.kernel_library()"),
     (G.group_norm_nhwc, "_build.kernel_library()"),
+    (G.group_norm_prior, "_build.kernel_library()"),
+    (A._attention_bf16_wide_sm90, "_build.kernel_library()"),
     (C.conv3x3_generic, "_build.kernel_library()"),
     (C.conv3x3_sm90, "_build.kernel_library()"),
     (PW.wino3x3, "_build.kernel_library()"),

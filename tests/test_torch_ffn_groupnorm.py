@@ -14,10 +14,14 @@ import torch
 from complex_prompt_diffusion_tpu.ops import groupnorm as jax_gn
 from complex_prompt_diffusion_tpu.ops.mlp import geglu_ff as jax_geglu_ff
 from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
+    GnPlan,
     gn_splits,
     group_norm,
     group_norm_nhwc,
+    group_norm_plan,
+    group_norm_prior,
     group_norm_silu,
+    slab_groups,
 )
 from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_ff
 
@@ -132,5 +136,77 @@ def test_group_norm_rejects_bad_groups_and_counts_no_cpu_launch():
     ],
 )
 def test_group_norm_split_count(n, hw, c, want):
-    """How many blocks share one (sample, group) slice on a 132-SM card."""
+    """How many blocks share one (sample, group) slice on a 132-SM card, in
+    the replaced body's schedule (``group_norm_prior``)."""
     assert gn_splits(n, hw, c, 32, 132) == want
+
+
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize(
+    "n,hw,c,dtype,want",
+    [
+        # UNet batch 8 (the b4 step): 64^2 planes hold no whole group in a
+        # block's 188 KB (4096 pixels x 8 channels x 2 bytes = 64 KB is the
+        # least, but 8 channels are not whole groups at C/G = 10, 20, 30):
+        # split, 16 tiles a sample, 128 blocks
+        (8, 64 * 64, 320, _BF16, GnPlan("split", 16, 2)),
+        (8, 64 * 64, 960, _BF16, GnPlan("split", 16, 2)),
+        # 32^2 x 320: 4 groups (40 channels) a block, 64 blocks
+        (8, 32 * 32, 320, _BF16, GnPlan("slab", 4, 1)),
+        # 32^2 x 1280: one group a block would be 256 blocks, two waves on
+        # 132 SMs; two groups a block, 128 blocks, one wave
+        (8, 32 * 32, 1280, _BF16, GnPlan("slab", 2, 1)),
+        # 32^2 x 960 and 1920: the fewest whole groups of 8k channels (120)
+        # over 1024 pixels do not fit a block
+        (8, 32 * 32, 1920, _BF16, GnPlan("split", 16, 2)),
+        (8, 8 * 8, 2560, _BF16, GnPlan("slab", 2, 1)),
+        # UNet batch 2 (the b1 step): one group a block fits one wave
+        (2, 32 * 32, 1280, _BF16, GnPlan("slab", 1, 1)),
+        (2, 16 * 16, 640, _BF16, GnPlan("slab", 2, 1)),
+        (2, 64 * 64, 640, _BF16, GnPlan("split", 66, 2)),
+        # the decode planes at batch 1 and 4, bf16 and f32
+        (1, 64 * 64, 512, _BF16, GnPlan("slab", 1, 1)),
+        (1, 512 * 512, 128, _BF16, GnPlan("split", 132, 2)),
+        (4, 64 * 64, 512, _F32, GnPlan("split", 33, 2)),
+        (4, 512 * 512, 256, _F32, GnPlan("split", 33, 2)),
+        # more samples than SMs: the most groups a block that fit
+        (200, 8 * 8, 320, _BF16, GnPlan("slab", 16, 1)),
+    ],
+)
+def test_group_norm_plan(n, hw, c, dtype, want):
+    """K3's form and blocks at the UNet's and the decode's shapes on a
+    132-SM card, and the kernels a call launches."""
+    plan = group_norm_plan(n, hw, c, 32, dtype, 132)
+    assert plan == want
+    assert plan.launches == (1 if plan.form == "slab" else 2)
+
+
+@pytest.mark.parametrize("hw,c,esize,want", [
+    (1024, 320, 2, [4, 8]),          # C/G = 10: 40 channels at least; 160 x 1024 x 2 > 188 KB
+    (64, 2560, 2, [1, 2]),           # C/G = 80: 80 and 160 channels; 320 > 256
+    (300, 1280, 4, [1, 2]),          # two 256-pixel boxes: 4 x 40 f32 channels exceed 188 KB
+    (4096, 320, 2, []),              # 40 channels x 4096 pixels: 320 KB
+])
+def test_slab_groups(hw, c, esize, want):
+    """The group counts a slab block can hold: whole groups of a multiple of
+    8 channels, at most 256, and their pixels in 128-byte aligned boxes
+    within a block's shared memory."""
+    assert slab_groups(hw, c, 32, esize) == want
+
+
+@pytest.mark.parametrize("c,groups", [(36, 4), (8192, 32), (512, 512)])
+def test_group_norm_plan_raises_on_what_k3_does_not_take(c, groups):
+    """C % 8 != 0, C > 4096, more than 256 groups."""
+    with pytest.raises(ValueError):
+        group_norm_plan(1, 64, c, groups, _BF16, 132)
+
+
+def test_group_norm_prior_runs_the_plain_twin_on_the_cpu():
+    x, gamma, beta = _gn_inputs((1, 4, 4, 64), seed=4)
+    args = [torch.from_numpy(a) for a in (x, gamma, beta)]
+    before = group_norm_prior.launches
+    got = group_norm_prior(*args, 32, 1e-6, True)
+    assert group_norm_prior.launches == before
+    torch.testing.assert_close(got, group_norm_silu(*args, 32, 1e-6))

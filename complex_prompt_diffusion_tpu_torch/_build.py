@@ -69,6 +69,19 @@ _SIGNATURES = {
     "cpd_attention_cm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                              _I, _F, _P),
+    # K5's Hopper bodies: bf16 takes cpd_attention_cm_bf16's arguments
+    "cpd_attention_cm_sm90_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                   _I, _F, _P),
+    # q, k, v, o, workspace, workspace floats, B, H, Sq, Skv, D, the 12
+    # strides, k_canonical, scale, query rows a pass (unfused), int* kernels
+    # launched, stream
+    "cpd_attention_cm_f32_sm90": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                                  _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                  _I, _F, _I, _P, _P),
+    # D, k_canonical, int[5]: query rows, key tile, stages, smem bytes, fused
+    "cpd_attention_cm_sm90_bf16_config": (_I, _I, _P),
+    "cpd_attention_cm_f32_sm90_config": (_I, _I, _P),
     # x, u, bias, y, B, H, W, C, Co, stream
     "cpd_wino3x3_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cpd_wino3x3_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

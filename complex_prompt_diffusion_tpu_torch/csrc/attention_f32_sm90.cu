@@ -42,8 +42,11 @@
 // on the H100). The workspace holds S and P for `rows` query rows at a time
 // (the host's choice, all of them at the decode's shapes), so the memory
 // does not grow with S^2 past its cap. Rounding as the plain twin: f32
-// scores and softmax, f32 P V, one division by the row sum.
+// scores and softmax, f32 P V, one division by the row sum. Steps 2-4
+// (cpd::f32x3_passes) also run K5's f32 head dims above 160
+// (attention_cm_f32_sm90.cu), with the output written d-major.
 
+#include "attention_f32x3.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -130,6 +133,10 @@ struct GemmArgs {
   long long ldc;
   const float* inv_l;  // EPI_OUT: [z][M]
   int H, Sq, row0, D;  // EPI_OUT
+  // EPI_OUT with dmajor: o d-major (K5's layouts), element (b, h, d, q) at
+  // b osb + h osh + d osd + q
+  int dmajor;
+  long long osb, osh, osd;
 };
 
 // C[z] = A[z] B[z]^T with A [M, K] and B [N, K] (K contiguous) given as TF32
@@ -251,6 +258,18 @@ tf32x3_gemm_kernel(const __grid_constant__ CUtensorMap tah, const __grid_constan
           row[col] = v0;
         }
       }
+    } else if (a.dmajor) {
+      const float il = a.inv_l[(long long)z * a.M + m];
+      const int b = z / a.H, h = z - (z / a.H) * a.H;
+      float* col0 = a.c + b * a.osb + h * a.osh + a.row0 + m;
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j) {
+        const int col = n0 + j * 8 + 2 * t4;
+        if (col < a.N) {  // N = D is even
+          col0[col * a.osd] = acc[4 * j + 2 * half] * il;
+          col0[(col + 1) * a.osd] = acc[4 * j + 2 * half + 1] * il;
+        }
+      }
     } else {
       const float il = a.inv_l[(long long)z * a.M + m];
       const int b = z / a.H, h = z - (z / a.H) * a.H;
@@ -331,62 +350,38 @@ int launch_gemm(const CUtensorMap& ah, const CUtensorMap& al, const CUtensorMap&
 
 long long round32(long long n) { return (n + 31) / 32 * 32; }
 
-// floats of workspace with `rows` query rows a pass (ops/attention.py:
-// _f32_sm90_workspace computes the same)
-long long workspace_floats(int B, int H, int Sq, int Skv, int D, int rows) {
-  const long long Z = (long long)B * H, Sp = (Skv + 3) / 4 * 4;
-  return 2 * round32(Z * Sq * D) + 2 * round32(Z * Skv * D) + 2 * round32(Z * D * Sp) +
-         2 * round32(Z * rows * Sp) + round32(Z * rows);
-}
-
 }  // namespace
 
-// q [B, Sq, H*D], k and v [B, Skv, H*D] f32 with unit column stride, batch
-// and row strides in elements (multiples of 4, 16-byte aligned bases); o a
-// fresh contiguous [B, Sq, H*D]; ws: workspace_floats() floats (ws_floats
-// of them), 16-byte aligned. D % 4 == 0, D <= 512.
-// Query rows go through the scores, softmax and output kernels `rows` at a
-// time. Sets *launched to the number of kernels it launched: the three
-// split kernels, then three a pass.
-extern "C" int cpd_attention_f32_sm90(const void* q, const void* k, const void* v, void* o,
-                                      void* ws, long long ws_floats, int B, int H, int Sq,
-                                      int Skv, int D, long long qbs, long long qrs,
-                                      long long kbs, long long krs, long long vbs,
-                                      long long vrs, float scale, int rows, int* launched,
-                                      void* stream) {
-  *launched = 0;
-  if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || D % 4 || D > 512 || rows <= 0 ||
-      (long long)B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  rows = rows < Sq ? rows : Sq;
-  if (ws_floats < workspace_floats(B, H, Sq, Skv, D, rows)) return (int)cudaErrorInvalidValue;
+namespace cpd {
+
+// The workspace's parts with `rows` query rows a pass, from ws on, and its
+// floats (ops/attention.py: _f32_sm90_workspace computes the same): hi and
+// lo of Q and K [B*H, S, D] and of V's transpose [B*H, D, Sp]; S (then P
+// hi), P lo [B*H, rows, Sp]; 1 / sum [B*H, rows]. Each part 32-float aligned.
+F32x3Ws f32x3_workspace(void* ws, int B, int H, int Sq, int Skv, int D, int rows) {
+  const long long Z = (long long)B * H, Sp = (Skv + 3) / 4 * 4;
+  const long long sizes[9] = {Z * Sq * D, Z * Sq * D, Z * Skv * D, Z * Skv * D, Z * D * Sp,
+                              Z * D * Sp, Z * rows * Sp, Z * rows * Sp, Z * rows};
+  float* parts[9];
+  long long off = 0;
+  for (int i = 0; i < 9; ++i) {
+    parts[i] = static_cast<float*>(ws) + off;
+    off += round32(sizes[i]);
+  }
+  return {parts[0], parts[1], parts[2], parts[3], parts[4], parts[5], parts[6], parts[7],
+          parts[8], off};
+}
+
+// Steps 2-4 over the split operands in w into its S, P and 1 / sum, `rows`
+// query rows a pass; the output [B, Sq, H*D], or d-major when dmajor (K5's
+// unfused route, attention_cm_f32_sm90.cu). Adds the kernels it launched to
+// *launched.
+int f32x3_passes(const F32x3Ws& w, void* o, int B, int H, int Sq, int Skv, int D, float scale,
+                 int rows, int dmajor, long long osb, long long osh, long long osd,
+                 int* launched, cudaStream_t st) {
   const int Z = B * H, Sp = (Skv + 3) / 4 * 4;
-  float* p = static_cast<float*>(ws);
-  float* qh = p;
-  float* ql = qh + round32((long long)Z * Sq * D);
-  float* kh = ql + round32((long long)Z * Sq * D);
-  float* kl = kh + round32((long long)Z * Skv * D);
-  float* vh = kl + round32((long long)Z * Skv * D);
-  float* vl = vh + round32((long long)Z * D * Sp);
-  float* sc = vl + round32((long long)Z * D * Sp);  // S, then P hi
-  float* pl = sc + round32((long long)Z * rows * Sp);
-  float* il = pl + round32((long long)Z * rows * Sp);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-
-  // 1. the split
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const long long nq4 = (long long)Z * Sq * D / 4, nk4 = (long long)Z * Skv * D / 4;
-  split_rows_kernel<<<(int)min((nq4 + 255) / 256, 132LL * 16), 256, 0, st>>>(
-      qf, qh, ql, H, Sq, D, qbs, qrs, nq4);
-  split_rows_kernel<<<(int)min((nk4 + 255) / 256, 132LL * 16), 256, 0, st>>>(
-      kf, kh, kl, H, Skv, D, kbs, krs, nk4);
-  split_transpose_kernel<<<dim3((Sp + 31) / 32, (D + 31) / 32, Z), dim3(32, 8), 0, st>>>(
-      static_cast<const float*>(v), vh, vl, H, Skv, D, Sp, vbs, vrs);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  *launched += 3;
-
+  const float *qh = w.qh, *ql = w.ql, *kh = w.kh, *kl = w.kl, *vh = w.vh, *vl = w.vl;
+  float *sc = w.sc, *pl = w.pl, *il = w.il;
   CUtensorMap tkh, tkl, tph, tpl, tvh, tvl;
   int err = encode3(&tkh, kh, D, Skv, Z, D);
   if (!err) err = encode3(&tkl, kl, D, Skv, Z, D);
@@ -411,20 +406,67 @@ extern "C" int cpd_attention_f32_sm90(const void* q, const void* k, const void* 
     if (!err) err = encode3(&tpl, pl, Skv, R, Z, Sp);
     if (err) return err;
     GemmArgs g1{R, Skv, (D + TK - 1) / TK, scale * 1.4426950408889634f, sc, Sp,
-                nullptr, H, Sq, row0, D};
+                nullptr, H, Sq, row0, D, 0, 0, 0, 0};
     err = launch_gemm<EPI_SCORES>(tqch, tqcl, tkh, tkl, g1, Z, st);
     if (err) return err;
     ++*launched;
     // 3. softmax
     softmax_rows_kernel<<<Z * R, 256, 0, st>>>(sc, pl, il, Skv, Sp);
-    e = cudaGetLastError();
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     ++*launched;
     // 4. out
-    GemmArgs g2{R, D, (Skv + TK - 1) / TK, 1.f, static_cast<float*>(o), 0, il, H, Sq, row0, D};
+    GemmArgs g2{R,     D,  (Skv + TK - 1) / TK, 1.f, static_cast<float*>(o), 0, il, H, Sq,
+                row0,  D,  dmajor, osb, osh, osd};
     err = launch_gemm<EPI_OUT>(tph, tpl, tvh, tvl, g2, Z, st);
     if (err) return err;
     ++*launched;
   }
   return 0;
+}
+
+}  // namespace cpd
+
+// q [B, Sq, H*D], k and v [B, Skv, H*D] f32 with unit column stride, batch
+// and row strides in elements (multiples of 4, 16-byte aligned bases); o a
+// fresh contiguous [B, Sq, H*D]; ws: f32x3_workspace()'s floats (ws_floats
+// of them), 16-byte aligned. D % 4 == 0, D <= 512.
+// Query rows go through the scores, softmax and output kernels `rows` at a
+// time. Sets *launched to the number of kernels it launched: the three
+// split kernels, then three a pass.
+extern "C" int cpd_attention_f32_sm90(const void* q, const void* k, const void* v, void* o,
+                                      void* ws, long long ws_floats, int B, int H, int Sq,
+                                      int Skv, int D, long long qbs, long long qrs,
+                                      long long kbs, long long krs, long long vbs,
+                                      long long vrs, float scale, int rows, int* launched,
+                                      void* stream) {
+  *launched = 0;
+  if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || D % 4 || D > 512 || rows <= 0 ||
+      (long long)B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  rows = rows < Sq ? rows : Sq;
+  const cpd::F32x3Ws w = cpd::f32x3_workspace(ws, B, H, Sq, Skv, D, rows);
+  if (ws_floats < w.floats) return (int)cudaErrorInvalidValue;
+  const int Z = B * H, Sp = (Skv + 3) / 4 * 4;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  // 1. the split
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const long long nq4 = (long long)Z * Sq * D / 4, nk4 = (long long)Z * Skv * D / 4;
+  split_rows_kernel<<<(int)min((nq4 + 255) / 256, 132LL * 16), 256, 0, st>>>(
+      qf, w.qh, w.ql, H, Sq, D, qbs, qrs, nq4);
+  split_rows_kernel<<<(int)min((nk4 + 255) / 256, 132LL * 16), 256, 0, st>>>(
+      kf, w.kh, w.kl, H, Skv, D, kbs, krs, nk4);
+  split_transpose_kernel<<<dim3((Sp + 31) / 32, (D + 31) / 32, Z), dim3(32, 8), 0, st>>>(
+      static_cast<const float*>(v), w.vh, w.vl, H, Skv, D, Sp, vbs, vrs);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  *launched += 3;
+
+  int passes = 0;
+  const int err = cpd::f32x3_passes(w, o, B, H, Sq, Skv, D, scale, rows, 0, 0, 0, 0, &passes,
+                                    st);
+  *launched += passes;
+  return err;
 }

@@ -19,7 +19,9 @@ and a plain PyTorch twin:
     :func:`conv3x3_sm90`), the rest through ``csrc/conv3x3.cu``.
   * :func:`self_attention_cm` and the kcanon route of :func:`attention` —
     attention over operands whose sequence axis is contiguous, through K5
-    (``csrc/attention_cm.cu``, wrapper :func:`attention_dmajor`).
+    (wrapper :func:`attention_dmajor`): bf16 on its TMA + wgmma body
+    (``csrc/attention_cm_sm90.cu``), f32 on its 3xTF32 body
+    (``csrc/attention_cm_f32_sm90.cu``).
   * ``probes.winograd.wino3x3`` — the Winograd F(2x2,3x3) conv through K6
     (``csrc/winograd.cu``), an opt-in probe that no layer dispatches.
   * ``probes.attention``, ``probes.groupnorm``, ``probes.stream`` — the
@@ -36,6 +38,8 @@ requires grad (``_build.refuse_grad``: no backward kernels yet).
 from complex_prompt_diffusion_tpu_torch.ops.attention import (
     attention,
     attention_bf16_wide_sm90,
+    attention_cm_f32_sm90_count,
+    attention_cm_sm90_count,
     attention_dmajor,
     attention_f32_sm90,
     attention_sm90,
@@ -55,10 +59,13 @@ from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_p
 from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy
 from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3
 
-# the wrapper of each kernel, whose ``launches`` attribute counts launches;
+# the wrapper of each kernel (or a count of its own where no wrapper function
+# carries one), whose ``launches`` attribute counts launches;
 # "attention" and "conv3x3" count every body of K1 and K4, "attention_sm90",
 # "attention_f32_sm90", "attention_bf16_wide_sm90" and "conv3x3_sm90" their
-# Hopper bodies alone
+# Hopper bodies alone; "attention_cm" counts every K5 kernel,
+# "attention_cm_sm90" those of its Hopper bodies (both dtypes),
+# "attention_cm_f32_sm90" those of the f32 one (counts attention_dmajor keeps)
 KERNEL_WRAPPERS = {
     "attention": flash_attention,
     "attention_sm90": attention_sm90,
@@ -69,6 +76,8 @@ KERNEL_WRAPPERS = {
     "conv3x3": conv3x3,
     "conv3x3_sm90": conv3x3_sm90,
     "attention_cm": attention_dmajor,
+    "attention_cm_sm90": attention_cm_sm90_count,
+    "attention_cm_f32_sm90": attention_cm_f32_sm90_count,
     "winograd": wino3x3,
     "probe_attention": attention_probe,
     "probe_groupnorm": group_norm_probe,
@@ -82,6 +91,8 @@ __all__ = [
     "attention_f32_sm90",
     "attention_bf16_wide_sm90",
     "attention_dmajor",
+    "attention_cm_sm90_count",
+    "attention_cm_f32_sm90_count",
     "self_attention_cm",
     "wino3x3",
     "attention_probe",

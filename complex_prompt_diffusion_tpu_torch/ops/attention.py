@@ -21,8 +21,7 @@ dispatch copies the JAX rule (``attention``: Pallas only for KV > 128):
     module's switch, read into ``_USE_KCANON``), KV lengths in (128, 16384]
     with head dim <= 256 run :func:`attention_kcanon` instead: q and v are
     copied sequence-major-last ([B, H, D, S]), k is read where it lies, and
-    K5 (``csrc/attention_cm.cu``) computes on those operands — the port of
-    ``_onepass_kernel_kcanon``.
+    K5 computes on those operands — the port of ``_onepass_kernel_kcanon``.
 
 :func:`self_attention_cm` is the fused channel-major self-attention block
 (``UNetConfig.attn_route == "cm"``): the qkv projection is written straight
@@ -31,7 +30,13 @@ output projection contracts the channel-major result — the port of
 ``self_attention_cm`` / ``_onepass_kernel_hdbs``.
 
 K5's wrapper is :func:`attention_dmajor`; its plain twin is
-:func:`attention_dmajor_plain`.
+:func:`attention_dmajor_plain`. For CUDA tensors it launches the Hopper
+body :func:`k5_body` names by dtype and head dim (blocks as
+:func:`k5_config` gives them): bf16 the TMA + wgmma body
+``csrc/attention_cm_sm90.cu``; f32 with d <= 160 the fused 3xTF32 body
+``csrc/attention_cm_f32_sm90.cu``, above that its unfused 3xTF32 kernels.
+The bodies they replaced (``csrc/attention_cm.cu``) stay callable as
+:func:`attention_dmajor_prior`.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -59,6 +64,12 @@ __all__ = [
     "k1_body",
     "attention_dmajor",
     "attention_dmajor_plain",
+    "attention_dmajor_prior",
+    "attention_cm_sm90_count",
+    "attention_cm_f32_sm90_count",
+    "k5_body",
+    "k5_config",
+    "K5Config",
     "attention_kcanon",
     "self_attention_cm",
     "self_attention_cm_plain",
@@ -82,6 +93,14 @@ _ATTN_MAX_D = 512  # bf16 256 < d <= 512 takes K1's wide body
 # workspace holds f32 scores and P (hi and lo) for a pass of query rows: at
 # most this many bytes of them (B4 S4096 one head: 512 MiB, one pass)
 _F32_SM90_SP_BYTES = 1 << 30
+
+# K5's Hopper bodies: the head-dim widths each instantiates (width_of in
+# csrc/attention_cm_sm90.cu and csrc/attention_cm_f32_sm90.cu); a head dim
+# runs at the first width >= d
+_K5_BF16_DV = (16, 32, 40, 48, 64, 80, 96, 128, 160, 256)
+_K5_F32_DV = (16, 32, 40, 48, 64, 80, 96, 128, 160)
+_K5_F32_FUSED_MAX_D = 160  # above: the unfused 3xTF32 kernels
+_SMEM_MAX = 232448  # shared memory a block may use on the H100
 
 
 def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -267,7 +286,7 @@ def f32_sm90_launches(b, h, sq, skv, rows: Optional[int] = None) -> int:
 
 
 def _f32_sm90_workspace(b, h, sq, skv, d, rows) -> int:
-    """Floats of the 3xTF32 body's workspace (``workspace_floats`` in
+    """Floats of the 3xTF32 body's workspace (``cpd::f32x3_workspace`` in
     ``csrc/attention_f32_sm90.cu``, which checks it): hi and lo of Q, K and
     V's transpose, of the scores and P of a pass, and the row sums."""
     def r32(n):
@@ -429,6 +448,124 @@ def attention_dmajor_plain(q, k, v, scale: float, k_canonical: bool = False,
     return out
 
 
+class K5Config(NamedTuple):
+    """A K5 Hopper body's block for one dtype and head dim: the body
+    (:func:`k5_body`), the width it instantiates (0 for the unfused
+    kernels), query rows a block, keys a K/V tile, K/V stages (the bf16
+    ring; 1 for the f32 body's one split tile and one landed tile) and the
+    shared memory a block takes (0 for the unfused kernels, whose GEMM has
+    its own)."""
+
+    body: str
+    width: int
+    query_rows: int
+    key_tile: int
+    stages: int
+    smem_bytes: int
+
+
+def k5_body(dtype, d: int) -> str:
+    """The body a CUDA call of :func:`attention_dmajor` with head dim ``d``
+    launches: ``"sm90"`` (bf16, d % 8 == 0 with ceil(d / 16) * 16 in
+    ``_ATTN_BF16_DP``: ``csrc/attention_cm_sm90.cu``), ``"f32_sm90"`` (f32,
+    d % 4 == 0, d <= 160: the fused 3xTF32 kernel of
+    ``csrc/attention_cm_f32_sm90.cu``) or ``"f32_unfused"`` (f32, d % 4 ==
+    0, 160 < d <= 256: its split kernels, then the scores, softmax and
+    output kernels of K1's 3xTF32 body, since no fused block of Q's hi and
+    lo, a split K and V tile and a landed K and V tile fits 227 KB there).
+    Anything else raises."""
+    if dtype == torch.bfloat16:
+        if d % 8 == 0 and 0 < d and (d + 15) // 16 * 16 in _ATTN_BF16_DP:
+            return "sm90"
+        raise ValueError(f"K5 bf16 supports head dims d % 8 == 0, d <= 256; got {d}")
+    if dtype == torch.float32:
+        if d % 4 or not 0 < d <= _ONEPASS_MAX_D:
+            raise ValueError(f"K5 f32 supports head dims d % 4 == 0, d <= 256; got {d}")
+        return "f32_sm90" if d <= _K5_F32_FUSED_MAX_D else "f32_unfused"
+    raise TypeError(f"K5 supports bfloat16 and float32, got {dtype}")
+
+
+def k5_config(dtype, d: int, k_canonical: bool = False) -> K5Config:
+    """The block :func:`k5_body`'s body runs for head dim ``d`` (the
+    ``Cfg`` / ``CfgF`` of the CUDA sources, which a card test holds this
+    mirror to). bf16: 128 query rows, 128-key tiles at widths up to 128 and
+    64 above, as many K/V stages (up to 4) as 227 KB holds beside Q. f32
+    fused: 128 query rows and 64-key tiles up to width 80, 128 rows and 32
+    keys up to 128, 64 rows and 32 keys up to 160."""
+    body = k5_body(dtype, d)
+    if body == "f32_unfused":
+        return K5Config(body, 0, 0, 0, 0, 0)
+    if body == "sm90":
+        dv = next(w for w in _K5_BF16_DV if w >= d)
+        dr = -(-dv // 16) * 16
+        bkv = 128 if dv <= 128 else 64
+        nsb, ndb = bkv // 64, -(-dv // 64)
+        k_bytes = ndb * bkv * 128 if k_canonical else nsb * dr * 128
+        v_bytes = nsb * dv * 128
+        q_bytes = 2 * dr * 128
+        stages = min(4, (_SMEM_MAX - 1024 - q_bytes - 8) // (k_bytes + v_bytes + 24))
+        smem = 1024 + q_bytes + stages * (k_bytes + v_bytes) + (1 + 3 * stages) * 8
+        return K5Config(body, dv, 128, bkv, stages, smem)
+    dv = next(w for w in _K5_F32_DV if w >= d)
+    nkb = -(-dv // 32)
+    bq = 128 if dv <= 128 else 64
+    bkv = 64 if dv <= 80 else 32
+    smem = (1024 + 2 * nkb * bq * 128 + 2 * nkb * bkv * 128 + 2 * (bkv // 32) * dv * 128
+            + 2 * bkv * dv * 4 + 3 * 8)
+    return K5Config(body, dv, bq, bkv, 1, smem)
+
+
+def _check_dmajor(q, k, v, k_canonical):
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("attention_dmajor expects 4-D [B, H, D, S] operands")
+    b, h, d, sq = q.shape
+    skv = v.shape[3]
+    k_want = (b, h, skv, d) if k_canonical else (b, h, d, skv)
+    if tuple(v.shape) != (b, h, d, skv) or tuple(k.shape) != k_want:
+        raise ValueError(
+            f"attention shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+            f"v{tuple(v.shape)} (k_canonical={k_canonical}) are inconsistent"
+        )
+
+
+_K5_WHAT = "attention over channel-major operands (K5)"
+
+
+def _check_dmajor_cuda(q, k, v):
+    """dtype, device and the layout rules both K5 bodies share: sequence
+    lengths, strides and bases in 16-byte units, unit stride along the last
+    axis."""
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("q, k and v must share one dtype")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    vec = 8 if q.dtype == torch.bfloat16 else 4
+    sq, skv = q.shape[3], v.shape[3]
+    if sq % vec or skv % vec:
+        raise ValueError(
+            f"K5 needs sequence lengths that are multiples of {vec} "
+            f"(16-byte loads along S); got Sq={sq}, Skv={skv}"
+        )
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.stride(3) != 1 or any(t.stride(i) % vec for i in range(3))
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"K5 needs {name} with unit stride along its last axis and "
+                f"16-byte aligned strides; got strides {t.stride()}"
+            )
+
+
+def _dmajor_out(q, out_hdbs):
+    b, h, d, sq = q.shape
+    if out_hdbs:
+        return torch.empty((h, d, b, sq), dtype=q.dtype, device=q.device).permute(2, 0, 1, 3)
+    return torch.empty((b, h, d, sq), dtype=q.dtype, device=q.device)
+
+
+def _strides(*ts):
+    return [t.stride(i) for t in ts for i in range(3)]
+
+
 def attention_dmajor(q, k, v, scale: float, k_canonical: bool = False,
                      out_hdbs: bool = False):
     """K5 wrapper: softmax(scale * Q K^T) V on operands whose sequence axis
@@ -443,68 +580,89 @@ def attention_dmajor(q, k, v, scale: float, k_canonical: bool = False,
     Sq]`` tensor (the ``[C, B, S]`` layout the cm block's output projection
     contracts).
 
-    CPU tensors run :func:`attention_dmajor_plain`. CUDA tensors launch
-    ``csrc/attention_cm.cu`` (bf16 with a padded head dim K5 has, or f32
-    with d <= 256; Sq, Skv and every stride a multiple of 16 bytes) or raise;
-    there is no fallback. ``attention_dmajor.launches`` counts launches."""
-    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError("attention_dmajor expects 4-D [B, H, D, S] operands")
-    b, h, d, sq = q.shape
-    skv = v.shape[3]
-    k_want = (b, h, skv, d) if k_canonical else (b, h, d, skv)
-    if tuple(v.shape) != (b, h, d, skv) or tuple(k.shape) != k_want:
-        raise ValueError(
-            f"attention shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-            f"v{tuple(v.shape)} (k_canonical={k_canonical}) are inconsistent"
-        )
+    CPU tensors run :func:`attention_dmajor_plain`. CUDA tensors launch the
+    Hopper body :func:`k5_body` names (bf16 with a padded head dim K1 has,
+    f32 with d <= 256; Sq, Skv and every stride a multiple of 16 bytes) or
+    raise; there is no fallback. ``attention_dmajor.launches`` counts the
+    kernels launched: one a call, or what the f32 unfused kernels report
+    (3 + 3 a pass); ``attention_cm_sm90_count`` counts them too (the Hopper
+    bodies, both dtypes) and ``attention_cm_f32_sm90_count`` those of f32
+    calls."""
+    _check_dmajor(q, k, v, k_canonical)
     if not q.is_cuda:
         return attention_dmajor_plain(q, k, v, scale, k_canonical, out_hdbs)
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError("q, k and v must share one dtype")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k and v must be on one device")
-    _build.refuse_grad("attention over channel-major operands (K5)", q, k, v)
-    if q.dtype == torch.bfloat16:
-        if d % 8 or (d + 15) // 16 * 16 not in _ATTN_BF16_DP:
-            raise ValueError(f"K5 bf16 supports head dims d % 8 == 0, d <= 256; got {d}")
-        fn, vec = _build.kernel_library().cpd_attention_cm_bf16, 8
-    elif q.dtype == torch.float32:
-        if d % 4 or d > _ONEPASS_MAX_D:
-            raise ValueError(f"K5 f32 supports head dims d % 4 == 0, d <= 256; got {d}")
-        fn, vec = _build.kernel_library().cpd_attention_cm_f32, 4
+    _build.refuse_grad(_K5_WHAT, q, k, v)
+    b, h, d, sq = q.shape
+    skv = v.shape[3]
+    body = k5_body(q.dtype, d)
+    _check_dmajor_cuda(q, k, v)
+    out = _dmajor_out(q, out_hdbs)
+    lib = _build.kernel_library()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    strides = _strides(q, k, v, out)
+    if body == "sm90":
+        err = lib.cpd_attention_cm_sm90_bf16(*ptrs, b, h, sq, skv, d, *strides,
+                                             int(k_canonical), float(scale),
+                                             _build.stream_ptr(q.device))
+        n = 1
     else:
-        raise TypeError(f"K5 supports bfloat16 and float32, got {q.dtype}")
-    if sq % vec or skv % vec:
-        raise ValueError(
-            f"K5 needs sequence lengths that are multiples of {vec} "
-            f"(16-byte loads along S); got Sq={sq}, Skv={skv}"
-        )
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.stride(3) != 1 or any(t.stride(i) % vec for i in range(3))
-                or t.data_ptr() % 16):
-            raise ValueError(
-                f"K5 needs {name} with unit stride along its last axis and "
-                f"16-byte aligned strides; got strides {t.stride()}"
-            )
-    if out_hdbs:
-        out = torch.empty((h, d, b, sq), dtype=q.dtype, device=q.device).permute(2, 0, 1, 3)
-    else:
-        out = torch.empty((b, h, d, sq), dtype=q.dtype, device=q.device)
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, sq, skv, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-        int(k_canonical), float(scale), _build.stream_ptr(q.device),
-    )
-    _build.check(err, "attention over channel-major operands (K5)")
-    attention_dmajor.launches += 1
+        rows, n_ws, ws = 0, 0, None
+        if body == "f32_unfused":
+            rows = _f32_sm90_rows(b, h, sq, skv)
+            n_ws = _f32_sm90_workspace(b, h, sq, skv, d, rows)
+            ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+        launched = ctypes.c_int(0)
+        err = lib.cpd_attention_cm_f32_sm90(*ptrs, ws.data_ptr() if ws is not None else None,
+                                            n_ws, b, h, sq, skv, d, *strides, int(k_canonical),
+                                            float(scale), rows, ctypes.addressof(launched),
+                                            _build.stream_ptr(q.device))
+        n = launched.value
+        attention_cm_f32_sm90_count.launches += n
+    attention_dmajor.launches += n
+    attention_cm_sm90_count.launches += n
+    _build.check(err, _K5_WHAT)
     return out
 
 
 attention_dmajor.launches = 0
+
+
+class LaunchCount:
+    """A count of kernel launches kept beside a wrapper's own ``.launches``
+    (``ops.KERNEL_WRAPPERS`` reads that attribute of each entry)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+# the kernels attention_dmajor launched on K5's Hopper bodies, and on the f32 one
+attention_cm_sm90_count = LaunchCount()
+attention_cm_f32_sm90_count = LaunchCount()
+
+
+def attention_dmajor_prior(q, k, v, scale: float, k_canonical: bool = False,
+                           out_hdbs: bool = False):
+    """The K5 bodies the Hopper ones replaced (``csrc/attention_cm.cu``:
+    bf16 on mma.sync with cp.async, f32 on CUDA-core FMAs), on
+    :func:`attention_dmajor`'s operands, kept so that the two can be timed
+    and checked side by side. CPU tensors run :func:`attention_dmajor_plain`.
+    Its launches are counted by no wrapper."""
+    _check_dmajor(q, k, v, k_canonical)
+    if not q.is_cuda:
+        return attention_dmajor_plain(q, k, v, scale, k_canonical, out_hdbs)
+    b, h, d, sq = q.shape
+    k5_body(q.dtype, d)  # the same head dims as the Hopper bodies
+    what = "attention over channel-major operands (K5, replaced body)"
+    _build.refuse_grad(what, q, k, v)
+    _check_dmajor_cuda(q, k, v)
+    lib = _build.kernel_library()
+    fn = lib.cpd_attention_cm_bf16 if q.dtype == torch.bfloat16 else lib.cpd_attention_cm_f32
+    out = _dmajor_out(q, out_hdbs)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, v.shape[3], d,
+             *_strides(q, k, v, out), int(k_canonical), float(scale),
+             _build.stream_ptr(q.device))
+    _build.check(err, what)
+    return out
 
 
 def attention_kcanon(q, k, v, num_heads: int, scale: Optional[float] = None):

@@ -67,8 +67,8 @@ class Case(NamedTuple):
     flops: float
     nbytes: float  # each input read once, each output written once
     # the body this kernel replaced, where it is still built (the mma.sync
-    # bodies of K1 and K4, K1's f32 FMA body, K3's first body), timed
-    # beside it; None where there is none
+    # bodies of K1 and K4, K1's f32 FMA body, K3's first body, K5's first
+    # bodies), timed beside it; None where there is none
     prior: Optional[Callable] = None
     # the PEAK_FLOPS entry of the units that do the work, where it is not
     # the dtype's
@@ -229,7 +229,11 @@ def kernel_cases(dev, kernels=None) -> list:
     if "attention_cm" in want:
         # K5, hdbs mode: the cm block's [H, D, B, S] slices of one [3C, B, S]
         # projection at the levels the gate admits (UNet batch 8, and 2 for
-        # batch 1). The library call is SDPA on canonical copies.
+        # batch 1). The library call is SDPA on canonical copies; the prior
+        # is the body the Hopper ones replaced (a parent tree may lack it).
+        # f32 is bound at the rate of three TF32 products (its Hopper body's).
+        cm_prior = getattr(A, "attention_dmajor_prior", None)
+
         def sdpa4(q, k, v, k_canonical):
             qc, vc = (t.transpose(-1, -2).contiguous() for t in (q, v))
             kc = k.contiguous() if k_canonical else k.transpose(-1, -2).contiguous()
@@ -244,7 +248,10 @@ def kernel_cases(dev, kernels=None) -> list:
                 lambda: A.attention_dmajor(q, k, v, scale, k_canonical=k_canonical, **kw),
                 lambda: A.attention_dmajor_plain(q, k, v, scale, k_canonical),
                 sdpa4(q, k, v, k_canonical), dt, 4.0 * b * h * sq * skv * d,
-                2.0 * b * h * (sq + skv) * d * q.element_size()))
+                2.0 * b * h * (sq + skv) * d * q.element_size(),
+                ((lambda: cm_prior(q, k, v, scale, k_canonical=k_canonical, **kw)) if cm_prior
+                 else None),
+                "tf32x3" if dt == "float32" else None))
 
         def hdbs(b, s_, c, dt):
             qkv = randn(3, 8, c // 8, b, s_, dtype=dt)
@@ -264,8 +271,10 @@ def kernel_cases(dev, kernels=None) -> list:
                         "bfloat16", out_hdbs=True)
         cm_case("hdbs f32 B2 S256 H8 d160", *hdbs(2, 256, 1280, f32), False, "float32",
                 out_hdbs=True)
-        # kcanon mode: every self-attention level (UNet batch 8; level 0 at 2)
-        for b, s_, c in ((8, 4096, 320), (8, 1024, 640), (8, 256, 1280), (2, 4096, 320)):
+        # kcanon mode: every self-attention level (UNet batch 8), and at UNet
+        # batch 2 (phase 8's b1 render) every level too
+        for b, s_, c in ((8, 4096, 320), (8, 1024, 640), (8, 256, 1280), (2, 4096, 320),
+                         (2, 1024, 640), (2, 256, 1280)):
             cm_case(f"kcanon bf16 B{b} S{s_} H8 d{c // 8}", *kcanon(b, s_, s_, c, bf16), True,
                     "bfloat16")
         cm_case("kcanon f32 B2 S1024 H8 d80", *kcanon(2, 1024, 1024, 640, f32), True, "float32")
@@ -345,8 +354,8 @@ def kernel_cases(dev, kernels=None) -> list:
 
 
 def host_us(dev, calls: int = 500) -> dict:
-    """Microseconds a call of K2's, K3's, K4's and K1's wrappers (K3, K4 and
-    K1 both bodies each, where the tree has them) take over ``calls`` eager
+    """Microseconds a call of K2's, K3's, K4's, K1's and K5's wrappers (K3,
+    K4, K1 and K5 both bodies each, where the tree has them) take over ``calls`` eager
     calls at shapes where the card's work is a few microseconds, so the loop
     runs at the host's pace: the cost that sets the batch-1 step, which
     waits on the host. Then K3's route at a split-form shape of the b4 step
@@ -360,6 +369,7 @@ def host_us(dev, calls: int = 500) -> dict:
         memory_format=torch.channels_last)
     b = torch.zeros(64, device=dev, dtype=torch.bfloat16)
     q = torch.randn((1, 256, 40), device=dev).to(torch.bfloat16)
+    qd = q.reshape(1, 1, 40, 256)  # K5's d-major form of the same 256 x 40
     ff = [torch.randn(shape, device=dev).to(torch.bfloat16) * 0.05
           for shape in ((1, 64, 320), (320, 2560), (2560,), (1280, 320), (320,))]
     G = importlib.import_module(f"{_PKG}.ops.groupnorm")
@@ -371,7 +381,11 @@ def host_us(dev, calls: int = 500) -> dict:
            "conv3x3_generic (mma.sync body)": lambda: C.conv3x3_generic(x, w, b),
            "flash_attention route (sm90 body)": lambda: A.flash_attention(q, q, q, 1),
            "attention_probe full (mma.sync body)": lambda: PA.attention_probe(q, q, q, 1,
-                                                                              0.158)}
+                                                                              0.158),
+           "attention_dmajor route (K5)": lambda: A.attention_dmajor(qd, qd, qd, 0.158)}
+    if hasattr(A, "attention_dmajor_prior"):  # a parent tree lacks it
+        fns["attention_dmajor_prior (K5's replaced body)"] = (
+            lambda: A.attention_dmajor_prior(qd, qd, qd, 0.158))
     if hasattr(G, "group_norm_prior"):  # a parent tree lacks it
         fns["group_norm_prior (K3's replaced body)"] = (
             lambda: G.group_norm_prior(gx, gg, gg, 32, 1e-5, True))

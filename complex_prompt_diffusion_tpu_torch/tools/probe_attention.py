@@ -300,7 +300,7 @@ def check_sass(counts: dict) -> tuple:
         elif (m := _F32_RE.search(name)):
             f32[int(m.group(1))] = c
     lines = [f"{len(counts)} kernels in the library's SASS; {len(k1)} instantiations of K1's "
-             f"bf16 loop, {len(k5)} of K5's, {len(f32)} of K1's f32 loop"]
+             f"bf16 loop, {len(k5)} of K5's prior loop, {len(f32)} of K1's f32 loop"]
     ok = True
     mode_names = {v: k for k, v in PA.MODES.items()}
     for dp in (48, 80, 160):
@@ -323,8 +323,9 @@ def check_sass(counts: dict) -> tuple:
                 lines.append(f"K5 DP{dp} k_canonical={bool(canon)}: an instantiation is missing")
                 continue
             ok &= cs["HMMA"] == qk and cf["HMMA"] == qk + pv
-            lines.append(f"K5's loop DP{dp} k_canonical={bool(canon)}: scores {cs['HMMA']} HMMA, "
-                         f"full {cf['HMMA']} (QK {qk}, PV {pv})")
+            lines.append(f"K5's prior loop (attention_dmajor_prior; K7's K5 scores) DP{dp} "
+                         f"k_canonical={bool(canon)}: scores {cs['HMMA']} HMMA, full "
+                         f"{cf['HMMA']} (QK {qk}, PV {pv})")
     if 0 in f32 and 1 in f32:
         ok &= f32[1]["FFMA"] > 0
         lines.append(f"K1's f32 loop: scores {f32[1]['FFMA']} FFMA, full {f32[0]['FFMA']} FFMA "

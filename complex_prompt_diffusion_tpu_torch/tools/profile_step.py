@@ -45,7 +45,10 @@ FAMILIES = (
     ("split_rows", "K1 attention f32 (3xTF32 body)"),
     ("split_transpose", "K1 attention f32 (3xTF32 body)"),
     ("softmax_rows", "K1 attention f32 (3xTF32 body)"),
-    ("attention_cm", "K5 attention (channel-major)"),
+    ("attention_cm_f32_sm90", "K5 attention f32 (3xTF32 body)"),
+    ("attention_cm_split", "K5 attention f32 (3xTF32 body)"),
+    ("attention_cm_sm90", "K5 attention bf16 (sm90 body)"),
+    ("attention_cm", "K5 attention (replaced body)"),
     ("attention_bf16_wide", "K1 attention bf16 d512"),
     ("attention_bf16", "K1 attention bf16"),
     ("attention_f32", "K1 attention f32"),

@@ -35,11 +35,14 @@ and back over the trees (A B B A for two, A B C C B A for three), repeated
   the time the card waits for the host;
 * ``render_b4``: the same for phase 2's render, batch 4 with the f32 VAE
   decode;
+* ``render_b4_cm``: the same for phase 7's render: batch 4, DPM++ 2M on the
+  Karras schedule, 20 steps, the UNet's channel-major attention route
+  (``attn_route="cm"``: K5 at levels 1 and 2), f32 VAE decode;
 * ``decode_b1``, ``decode_b4``: the bf16 VAE decode of random 64x64
   latents at batch 1 (phase 4's) and 4 (phase 5's), after two warm-up
   decodes: wall ms a decode over ``--iters`` decodes, and device-busy ms a
   decode under ``torch.profiler``;
-* ``host``: microseconds of host time a call of the K1-K4 wrappers take at
+* ``host``: microseconds of host time a call of the K1-K5 wrappers take at
   tiny shapes, and K3's at a split-form shape of the b4 step
   (``kernel_cases.host_us``, as ``chip_smoke.py``
   phase 1 prints them).
@@ -97,7 +100,9 @@ def _kernels(names) -> tuple:
     return out, hashes
 
 
-def _render(batch: int, iters: int) -> dict:
+def _render(batch: int, iters: int, cm: bool = False) -> dict:
+    import dataclasses
+
     import torch
 
     from complex_prompt_diffusion_tpu_torch import models as M
@@ -114,11 +119,18 @@ def _render(batch: int, iters: int) -> dict:
     bundle = ModelBundle.random("sd15", seed=0, device=dev)
     if batch == 1:
         bundle = bundle.cast_vae("bfloat16")
+    sampler = dict(sampler="DDIM", eta=0.0)
+    n_steps = 50
+    if cm:  # phase 7's render
+        bundle = dataclasses.replace(
+            bundle, unet_cfg=dataclasses.replace(bundle.unet_cfg, attn_route="cm"))
+        sampler = dict(sampler="DPM++ 2m", sigma_schedule="karras")
+        n_steps = 20
     prompt = "a watercolor painting of a lighthouse at dusk"
 
     def render(steps):
-        cfg = RenderConfig(steps=steps, sampler="DDIM", eta=0.0, guidance_scale=7.5,
-                           width=512, height=512, batch_size=batch, seed=1)
+        cfg = RenderConfig(steps=steps, guidance_scale=7.5, width=512, height=512,
+                           batch_size=batch, seed=1, **sampler)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, latents = txt2img(bundle, prompt, cfg=cfg, decode=False)
@@ -129,8 +141,8 @@ def _render(batch: int, iters: int) -> dict:
         return t0, t1, time.perf_counter(), latents
 
     render(3)
-    t0, t1, t2, latents = render(50)
-    out = {"s to first image": t2 - t0, "s/step": (t1 - t0) / 50}
+    t0, t1, t2, latents = render(n_steps)
+    out = {"s to first image": t2 - t0, "s/step": (t1 - t0) / n_steps}
 
     spec = make_guidance_spec(bundle, prompt)
     t = torch.tensor(801, device=dev)
@@ -208,8 +220,8 @@ def _child(args) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hashes = {}
-    if args.what in ("render_b1", "render_b4"):
-        out = _render(int(args.what[-1]), args.iters)
+    if args.what in ("render_b1", "render_b4", "render_b4_cm"):
+        out = _render(int(args.what.split("_")[1][1:]), args.iters, args.what.endswith("_cm"))
     elif args.what in ("decode_b1", "decode_b4"):
         out = _decode(int(args.what[-1]), args.iters)
     elif args.what == "host":
@@ -229,7 +241,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
                     help="a checkout to run (two or more)")
     ap.add_argument("--what", default="render_b1",
-                    help="render_b1, render_b4, decode_b1, decode_b4, host or "
+                    help="render_b1, render_b4, render_b4_cm, decode_b1, decode_b4, host or "
                          "kernels:NAME[,NAME]")
     ap.add_argument("--rounds", type=int, default=2, help="forward-and-back passes")
     ap.add_argument("--iters", type=int, default=10, help="steady steps a timing (render_b1)")

@@ -18,8 +18,11 @@ import torch
 from complex_prompt_diffusion_tpu_torch.ops.attention import (
     attention_bf16_wide_mma,
     attention_bf16_wide_sm90,
+    attention_cm_f32_sm90_count,
+    attention_cm_sm90_count,
     attention_dmajor,
     attention_dmajor_plain,
+    attention_dmajor_prior,
     attention_f32_sm90,
     attention_kcanon,
     attention_plain,
@@ -27,6 +30,8 @@ from complex_prompt_diffusion_tpu_torch.ops.attention import (
     bf16_wide_launches,
     f32_sm90_launches,
     flash_attention,
+    k5_body,
+    k5_config,
     self_attention_cm,
     self_attention_cm_plain,
 )
@@ -695,6 +700,12 @@ def test_tiny_slice_on_card_matches_plain_path(dev):
     assert ops.KERNEL_WRAPPERS["attention_cm"].launches == 0
 
 
+def _k5_kernels(dtype, b, h, sq, skv, d):
+    """Kernels a K5 call launches: one, or the f32 unfused route's split
+    kernels and three a pass (d > 160)."""
+    return f32_sm90_launches(b, h, sq, skv) if k5_body(dtype, d) == "f32_unfused" else 1
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [16, 40, 64, 80, 160, 256])
 def test_attention_cm_hdbs(dev, dtype, d):
@@ -706,7 +717,7 @@ def test_attention_cm_hdbs(dev, dtype, d):
     q, k, v = (qkv[i].permute(2, 0, 1, 3) for i in range(3))
     before = attention_dmajor.launches
     got = attention_dmajor(q, k, v, d**-0.5, out_hdbs=True)
-    assert attention_dmajor.launches == before + 1
+    assert attention_dmajor.launches == before + _k5_kernels(dtype, b, h, s, s, d)
     assert got.shape == (b, h, d, s) and got.permute(1, 2, 0, 3).is_contiguous()
     assert _rel(got, attention_dmajor_plain(q, k, v, d**-0.5)) <= TOL[dtype]
 
@@ -727,7 +738,7 @@ def test_attention_cm_kcanon(dev, dtype, d):
     k_n = k.reshape(b, skv, h, d).permute(0, 2, 1, 3)
     before = attention_dmajor.launches
     got = attention_dmajor(q_t, k_n, v_t, 0.2, k_canonical=True)
-    assert attention_dmajor.launches == before + 1
+    assert attention_dmajor.launches == before + _k5_kernels(dtype, b, h, sq, skv, d)
     assert got.is_contiguous()
     assert _rel(got, attention_dmajor_plain(q_t, k_n, v_t, 0.2, k_canonical=True)) <= TOL[dtype]
     assert _rel(attention_kcanon(q, k, v, h), attention_plain(q, k, v, h)) <= TOL[dtype]
@@ -746,6 +757,109 @@ def test_attention_cm_raises_on_what_it_does_not_take(dev):
     with pytest.raises(ValueError):  # d = 200 pads to 208, a width K5 does not have
         w = torch.randn((1, 2, 200, 136), generator=g, device=dev).to(torch.bfloat16)
         attention_dmajor(w, w, w, 0.1)
+
+
+# K5's Hopper bodies: bf16 at every padded width K1 has (and d = 40), f32
+# at the SD head dims, the narrowest, and the unfused route's 256
+K5_CASES = ([(torch.bfloat16, d) for d in (16, 32, 40, 48, 64, 80, 96, 128, 160, 256)]
+            + [(torch.float32, d) for d in (4, 40, 80, 160, 256)])
+K5_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # f32: 3xTF32, TF32 off in the twin
+
+
+def _k5_operands(dev, dtype, d, k_canonical, b, h, sq, skv, seed):
+    """hdbs: q, k, v the [H, D, B, S] slices of one [3, H, D, B, S]
+    projection; kcanon: q and v contiguous d-major, k read in place from a
+    [B, Skv, 3 H D] projection."""
+    g = _gen(dev, seed)
+    if k_canonical:
+        q = torch.randn((b, h, d, sq), generator=g, device=dev).to(dtype)
+        kv = torch.randn((b, skv, 3 * h * d), generator=g, device=dev).to(dtype)
+        k = kv[..., h * d:2 * h * d].reshape(b, skv, h, d).permute(0, 2, 1, 3)
+        v = torch.randn((b, h, d, skv), generator=g, device=dev).to(dtype)
+        return q, k, v
+    qkv = torch.randn((3, h, d, b, max(sq, skv)), generator=g, device=dev).to(dtype)
+    return (qkv[0, ..., :sq].permute(2, 0, 1, 3), qkv[1, ..., :skv].permute(2, 0, 1, 3),
+            qkv[2, ..., :skv].permute(2, 0, 1, 3))
+
+
+@pytest.mark.parametrize("k_canonical", [False, True])
+@pytest.mark.parametrize("dtype,d", K5_CASES)
+def test_attention_cm_sm90_ragged_at_every_width(dev, dtype, d, k_canonical):
+    """K5's Hopper bodies on ragged Sq != Skv (1000 / 1336: a ragged query
+    tile and key tile), both layouts, against the plain twin; each call
+    counted on attention_dmajor and the Hopper bodies' counts (and the f32
+    body's)."""
+    b, h, sq, skv = 2, 3, 1000, 1336
+    q, k, v = _k5_operands(dev, dtype, d, k_canonical, b, h, sq, skv, d + 7 * k_canonical)
+    n = _k5_kernels(dtype, b, h, sq, skv, d)
+    before = (attention_dmajor.launches, attention_cm_sm90_count.launches)
+    before32 = attention_cm_f32_sm90_count.launches
+    got = attention_dmajor(q, k, v, d**-0.5, k_canonical=k_canonical, out_hdbs=not k_canonical)
+    assert (attention_dmajor.launches, attention_cm_sm90_count.launches) == (before[0] + n,
+                                                                              before[1] + n)
+    assert attention_cm_f32_sm90_count.launches == before32 + (n if dtype == torch.float32 else 0)
+    assert got.shape == (b, h, d, sq)
+    want = attention_dmajor_plain(q, k, v, d**-0.5, k_canonical)
+    assert _rel(got, want) <= K5_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h", [(1, 2), (8, 20)])
+def test_attention_cm_sm90_below_and_above_one_block_an_sm(dev, dtype, b, h):
+    """B*H = 2 and 160 (x 2 query tiles) blocks against the card's 132 SMs,
+    at S = 256, d = 80, both layouts."""
+    for k_canonical in (False, True):
+        q, k, v = _k5_operands(dev, dtype, 80, k_canonical, b, h, 256, 256, b * h)
+        got = attention_dmajor(q, k, v, 80**-0.5, k_canonical=k_canonical)
+        want = attention_dmajor_plain(q, k, v, 80**-0.5, k_canonical)
+        assert _rel(got, want) <= K5_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,sq", [(torch.bfloat16, 8), (torch.float32, 4)])
+def test_attention_cm_sm90_takes_fewer_queries_than_a_box(dev, dtype, sq):
+    """Sq below one 64-query box (the second box wholly past Sq), both layouts."""
+    for k_canonical in (False, True):
+        q, k, v = _k5_operands(dev, dtype, 40, k_canonical, 2, 3, sq, 136, sq)
+        got = attention_dmajor(q, k, v, 0.1, k_canonical=k_canonical)
+        assert _rel(got, attention_dmajor_plain(q, k, v, 0.1, k_canonical)) <= K5_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k_canonical", [False, True])
+def test_attention_dmajor_prior_still_matches(dev, dtype, k_canonical):
+    """The replaced bodies (csrc/attention_cm.cu) against the same twin;
+    their launches count on no wrapper."""
+    q, k, v = _k5_operands(dev, dtype, 80, k_canonical, 2, 3, 200, 328, 5)
+    before = (attention_dmajor.launches, attention_cm_sm90_count.launches)
+    got = attention_dmajor_prior(q, k, v, 0.1, k_canonical=k_canonical, out_hdbs=True)
+    assert (attention_dmajor.launches, attention_cm_sm90_count.launches) == before
+    assert got.permute(1, 2, 0, 3).is_contiguous()
+    assert _rel(got, attention_dmajor_plain(q, k, v, 0.1, k_canonical)) <= TOL[dtype]
+
+
+def test_k5_config_mirror_matches_the_c_entries(dev):
+    """ops.attention.k5_config against the Cfg / CfgF the kernels compile
+    (query rows, key tile, stages, shared-memory bytes, fused or not), at
+    every head dim each dtype takes."""
+    import ctypes
+
+    from complex_prompt_diffusion_tpu_torch import _build
+
+    lib = _build.kernel_library()
+    for dtype, ds, fn in ((torch.bfloat16, range(8, 257, 8), lib.cpd_attention_cm_sm90_bf16_config),
+                          (torch.float32, range(4, 257, 4), lib.cpd_attention_cm_f32_sm90_config)):
+        for d in ds:
+            for kc in (0, 1):
+                buf = (ctypes.c_int * 5)()
+                err = fn(d, kc, ctypes.addressof(buf))
+                try:
+                    c = k5_config(dtype, d, bool(kc))
+                except ValueError:
+                    assert err != 0, (dtype, d)
+                    continue
+                assert err == 0
+                assert tuple(buf) == (c.query_rows, c.key_tile, c.stages, c.smem_bytes,
+                                      int(c.body != "f32_unfused")), (dtype, d, kc)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -65,6 +65,7 @@ def test_refuse_grad_raises_under_grad_and_lets_the_rest_through():
 _LAUNCHERS = [
     (A._launch, "fn("),
     (A.attention_dmajor, "_build.kernel_library()"),
+    (A.attention_dmajor_prior, "_build.kernel_library()"),
     (F2.geglu_ff, "_build.kernel_library()"),
     (G.group_norm_nhwc, "_build.kernel_library()"),
     (G.group_norm_prior, "_build.kernel_library()"),

@@ -10,16 +10,17 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            (``attention_sm90.cu``, ``attention_bf16_wide_sm90.cu``,
            ``attention_f32_sm90.cu``, ``geglu_ff_sm90.cu``,
            ``conv3x3_sm90.cu``, ``attention_cm_sm90.cu``,
-           ``attention_cm_f32_sm90.cu``) hold wgmma (HGMMA) and TMA load
-           (UTMALDG) instructions in every instantiation, and K3's
-           (``groupnorm_sm90.cu``) a TMA or bulk-copy load (UTMALDG or
+           ``attention_cm_f32_sm90.cu``) and of K6 (``winograd_sm90.cu``)
+           hold wgmma (HGMMA) and TMA load (UTMALDG) instructions in every
+           instantiation, and K3's (``groupnorm_sm90.cu``) and K9's
+           (``probe_copy_sm90.cu``) a TMA or bulk-copy load (UTMALDG or
            UBLKCP) in every one;
   phase 1  runs each kernel at its paths' shapes against its plain PyTorch
            twin on the card (TF32 off): error, the times (CUDA-graph
            replays, ``tools/hotcold.py``, one input repeated) of the kernel,
            the body it replaced where it is still built (K1's and K4's
-           mma.sync bodies, K1's f32 FMA body, K3's and K5's first bodies;
-           held to the same twin), the
+           mma.sync bodies, K1's f32 FMA body, K3's, K5's, K6's and K9's
+           first bodies; held to the same twin), the
            twin and the one
            PyTorch call that computes the same function (where there is
            one), and the bound from this case's bytes and flops, with the
@@ -59,16 +60,21 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
   phase 9  the Winograd probe (K6), which no layer dispatches, called as
            its user would call it: on the weights of the UNet's 20 ResBlock
            convs of the 32x32 and 16x16 planes at UNet batch 2, each held
-           against the same conv through ``layers.conv2d`` (K4);
+           against the same conv through ``layers.conv2d`` (K4): in bf16 on
+           K6's Hopper body (the kernels its plans predict), in f32 on its
+           first body; then the 20 bf16 convs timed on the Hopper body, on
+           the first body and through K4;
   phase 10 the probes of the TPU tuning scripts (``scripts/perf_attn8..12``,
            ``perf_gn4..8``), which no layer dispatches: every mode and flag
            of K7 (attention ablations), K8 (GroupNorm modes, tensor-core
            statistics, forced splits) and K9 (streaming copy) against its
-           plain twin at small shapes; the SASS MMA count of every ablated
-           attention mode and the statistics of every GroupNorm mode
-           (``cuobjdump``); then every script variant timed
-           at the scripts' shapes with the L2 hot and cold
-           (``tools/probe_attention.py``, ``tools/probe_groupnorm.py``).
+           plain twin at small shapes, and every K9 mode at the copy
+           scripts' shapes bit-exact on both of K9's bodies; the SASS MMA
+           count of every ablated attention mode and the statistics of
+           every GroupNorm mode (``cuobjdump``); then every script variant
+           timed at the scripts' shapes with the L2 hot and cold, K9's
+           replaced body beside each K9 row (``tools/probe_attention.py``,
+           ``tools/probe_groupnorm.py``).
 
 Each path of phases 2 and 4 to 10 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
@@ -150,7 +156,13 @@ KERNELS = {
     ),
     "winograd": (
         f"{PKG}/csrc/winograd.cu",
-        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel",
+        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel (f32; bf16 with C "
+        "or Co % 64 != 0)",
+    ),
+    "winograd_sm90": (
+        f"{PKG}/csrc/winograd_sm90.cu",
+        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel (bf16, C % 64 == "
+        "Co % 64 == 0)",
     ),
     "probe_attention": (
         f"{PKG}/csrc/probe_attention.cu",
@@ -165,26 +177,32 @@ KERNELS = {
         "scripts/perf_gn6.py:73 make",
     ),
     "probe_copy": (
-        f"{PKG}/csrc/probe_copy.cu",
+        f"{PKG}/csrc/probe_copy_sm90.cu",
         "scripts/perf_gn7.py:36 make; scripts/perf_gn8.py:29 make",
     ),
 }
-PROBES = ("winograd", "probe_attention", "probe_groupnorm", "probe_copy")  # no layer calls them
-# K1's, K4's and K5's Hopper bodies, counted inside "attention", "conv3x3"
-# and "attention_cm" (K5's f32 body inside its Hopper count)
+# the probes: no layer calls them; phase 10 runs the last three
+PROBES = ("winograd", "winograd_sm90", "probe_attention", "probe_groupnorm", "probe_copy")
+PHASE10_PROBES = PROBES[2:]
+# K1's, K4's, K5's and K6's Hopper bodies, counted inside "attention",
+# "conv3x3", "attention_cm" (K5's f32 body inside its Hopper count) and
+# "winograd"
 SM90 = {"attention_sm90": "attention", "attention_f32_sm90": "attention",
         "attention_bf16_wide_sm90": "attention", "conv3x3_sm90": "conv3x3",
-        "attention_cm_sm90": "attention_cm", "attention_cm_f32_sm90": "attention_cm_sm90"}
-# phase 1's K5 cases (kernel "attention_cm", the route) by the body they run
+        "attention_cm_sm90": "attention_cm", "attention_cm_f32_sm90": "attention_cm_sm90",
+        "winograd_sm90": "winograd"}
+# phase 1's K5 and K6 cases (kernels "attention_cm" and "winograd", the
+# routes) by the body they run
 K5_BODY = {"bfloat16": "attention_cm_sm90", "float32": "attention_cm_f32_sm90"}
+K6_BODY = {"bfloat16": "winograd_sm90", "float32": "winograd"}
 # the Hopper kernels phase 0 finds in the SASS: every instantiation must hold
 # wgmma (HGMMA) and TMA loads (UTMALDG)
 SM90_FUNCTIONS = ("attention_sm90_kernel", "tf32x3_gemm_kernel", "wide_gemm_kernel",
                   "geglu_gemm_sm90_kernel", "conv3x3_sm90_kernel", "attention_cm_sm90_kernel",
-                  "attention_cm_f32_sm90_kernel")
-# K3's kernels: every instantiation must load by TMA (UTMALDG) or bulk copy
-# (UBLKCP)
-BULK_FUNCTIONS = ("gn_slab_kernel", "gn_stats_kernel", "gn_apply_kernel")
+                  "attention_cm_f32_sm90_kernel", "wino3x3_sm90_kernel")
+# K3's and K9's kernels: every instantiation must load by TMA (UTMALDG) or
+# bulk copy (UBLKCP)
+BULK_FUNCTIONS = ("gn_slab_kernel", "gn_stats_kernel", "gn_apply_kernel", "copy_bulk_kernel")
 
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |a - b| / max |b|
 
@@ -227,9 +245,10 @@ def rel_err(got, want) -> tuple:
 
 
 def phase0_sass(card: str) -> None:
-    """The TMA + wgmma bodies of K1, K2 and K4 as built: every instantiation
-    must hold HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions; K3's
-    kernels a TMA or bulk-copy load (UTMALDG or UBLKCP)."""
+    """The TMA + wgmma bodies of K1, K2, K4, K5 and K6 as built: every
+    instantiation must hold HGMMA (wgmma) and UTMALDG (TMA tensor load)
+    instructions; K3's and K9's kernels a TMA or bulk-copy load (UTMALDG or
+    UBLKCP)."""
     from complex_prompt_diffusion_tpu_torch.tools import probe_attention as PA
 
     counts = PA.sass_counts()
@@ -328,7 +347,8 @@ def phase1(dev, card: str) -> dict:
         if not ok:
             raise SmokeFailure(f"{case.kernel} {case.label}: relative error {rel:.3e} (replaced "
                                f"body {prior_rel}) > {tol}")
-        sm = summary[K5_BODY[case.dtype] if case.kernel == "attention_cm" else case.kernel]
+        body = {"attention_cm": K5_BODY, "winograd": K6_BODY}.get(case.kernel)
+        sm = summary[body[case.dtype] if body else case.kernel]
         sm["max_abs_err"] = max(sm["max_abs_err"], abs_err)
         sm["ms"] += ms
         sm["plain_ms"] += plain_ms
@@ -944,13 +964,18 @@ def phase8(bundle, image, card: str, steps: int) -> dict:
 
 def phase9(bundle, dev, card: str) -> dict:
     """The Winograd probe on the UNet's own ResBlock conv weights at the
-    batch-1 render's planes, against the same convs through K4; returns its
-    launch counts."""
+    batch-1 render's planes, against the same convs through K4: in bf16 on
+    K6's Hopper body, in f32 on its first body; returns its launch counts."""
     import torch
 
     from complex_prompt_diffusion_tpu_torch import models as M
     from complex_prompt_diffusion_tpu_torch.models import layers as L
-    from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3, winograd_weights
+    from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import (
+        wino3x3,
+        wino3x3_plan,
+        wino3x3_prior,
+        winograd_weights,
+    )
     from complex_prompt_diffusion_tpu_torch.tools.hotcold import METHOD, graph_ms
 
     # (plane side, conv params) of every ResBlock conv, walking the plan from
@@ -974,34 +999,42 @@ def phase9(bundle, dev, card: str) -> dict:
         co, c = p["weight"].shape[:2]
         x = torch.randn((2, side, side, c), generator=gen, device=dev).to(torch.bfloat16)
         cases.append((x, p, p["weight"].permute(2, 3, 1, 0)))  # HWIO view of the weight
+    want_sm90 = sum(wino3x3_plan(*x.shape, k.shape[3]).launches for x, _, k in cases)
 
     reset_launches()
-    worst = 0.0
+    worst = {"bf16": 0.0, "f32": 0.0}
     with torch.inference_mode():
         for x, p, k_hwio in cases:
-            got = wino3x3(x, k_hwio, p["bias"])
             want = L.conv2d(p, x)
-            rel = float((got.float() - want.float()).norm() / want.float().norm())
-            if not (rel <= TOL["bfloat16"]) or not bool(torch.isfinite(got).all()):
-                raise SmokeFailure(f"the Winograd probe disagrees with K4 on a "
-                                   f"{tuple(k_hwio.shape)} conv: rel L2 {rel:.3e}")
-            worst = max(worst, rel)
+            for dt, got in (("bf16", wino3x3(x, k_hwio, p["bias"])),
+                            ("f32", wino3x3(x.float(), k_hwio.float(), p["bias"].float()))):
+                rel = float((got.float() - want.float()).norm() / want.float().norm())
+                if not (rel <= TOL["bfloat16"]) or not bool(torch.isfinite(got).all()):
+                    raise SmokeFailure(f"the Winograd probe ({dt}) disagrees with K4 on a "
+                                       f"{tuple(k_hwio.shape)} conv: rel L2 {rel:.3e}")
+                worst[dt] = max(worst[dt], rel)
     torch.cuda.synchronize()
     launches = read_launches()
-    if (launches["winograd"] != len(cases) or launches["conv3x3"] != len(cases)
-            or launches["conv3x3_sm90"] != len(cases) or not cases):
-        raise SmokeFailure(f"the probe phase launched {launches} for {len(cases)} convs")
+    n = len(cases)
+    if (launches["winograd_sm90"] != want_sm90 or launches["winograd"] != want_sm90 + n
+            or launches["conv3x3"] != n or launches["conv3x3_sm90"] != n or not cases):
+        raise SmokeFailure(f"the probe phase launched {launches} for {n} convs (want "
+                           f"{want_sm90} kernels of K6's Hopper body by their plans, {n} of its "
+                           f"first body, {n} of K4's sm90 body)")
     with torch.inference_mode():
         us = [winograd_weights(k).to(x.dtype) for x, _, k in cases]
         ms_w = graph_ms(lambda: [wino3x3(x, k, p["bias"]) for x, p, k in cases])
         ms_u = graph_ms(lambda: [wino3x3(x, k, p["bias"], u=u)
                                  for (x, p, k), u in zip(cases, us)])
+        ms_prior = graph_ms(lambda: [wino3x3_prior(x, k, p["bias"], u=u)
+                                     for (x, p, k), u in zip(cases, us)])
         ms_k4 = graph_ms(lambda: [L.conv2d(p, x) for x, p, _ in cases])
-    print(f"phase9: Winograd probe on the UNet's {len(cases)} ResBlock convs of the 32^2 and "
-          f"16^2 planes (UNet batch 2, bf16), on {card}: worst rel L2 vs K4 {worst:.3e} (tol "
-          f"2e-2); all {len(cases)} convs {ms_u:.3f} ms through K6 with U made ahead, "
-          f"{ms_w:.3f} ms with the weight transform in each call, {ms_k4:.3f} ms through K4 "
-          f"({METHOD}); launches {json.dumps(launches)}")
+    print(f"phase9: Winograd probe on the UNet's {n} ResBlock convs of the 32^2 and 16^2 "
+          f"planes (UNet batch 2), on {card}: worst rel L2 vs K4 {worst['bf16']:.3e} (bf16, "
+          f"Hopper body), {worst['f32']:.3e} (f32, first body) (tol 2e-2); all {n} bf16 "
+          f"convs with U made ahead: K6 Hopper body {ms_u:.3f} ms, K6 first body "
+          f"{ms_prior:.3f} ms, K4 {ms_k4:.3f} ms; K6 with the weight transform in each call "
+          f"{ms_w:.3f} ms ({METHOD}); launches {json.dumps(launches)}")
     return launches
 
 
@@ -1019,7 +1052,10 @@ def phase10(dev, card: str) -> dict:
     checks = PA.check_small(dev) + PG.check_small(dev)
     for label, err, tol in checks:
         print(f"phase10: {label}: error {err:.3e} (tol {tol:.0e}) ({card})")
-    bad = [c for c in checks if not c[1] <= c[2]]
+    copies = PG.check_copies(dev)
+    print(f"phase10: every K9 mode at the copy scripts' shapes, both bodies: {len(copies)} "
+          f"copies, {sum(1 for c in copies if c[1])} with a differing element (tol 0) ({card})")
+    bad = [c for c in checks + copies if not c[1] <= c[2]]
     if bad:
         raise SmokeFailure(f"{len(bad)} probe variants disagree with their plain twins: {bad}")
     counts = PA.sass_counts()
@@ -1043,7 +1079,7 @@ def phase10(dev, card: str) -> dict:
     print(f"phase10: {len(rows)} probe rows; K9 streaming rate {rate:.3f} TB/s (cold, "
           f"{best.script} {best.variant} {best.shape}) against the nominal 3.35 TB/s of the "
           f"bytes bounds ({card})")
-    for name in PROBES[1:]:
+    for name in PHASE10_PROBES:
         if launches[name] <= 0:
             raise SmokeFailure(f"probe kernel {name} was not launched in phase 10")
     print(f"phase10: launches {json.dumps(launches)}")

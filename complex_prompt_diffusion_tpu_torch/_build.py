@@ -85,6 +85,9 @@ _SIGNATURES = {
     # x, u, bias, y, B, H, W, C, Co, stream
     "cpd_wino3x3_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cpd_wino3x3_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, u, bias, y, workspace, B, H, W, C, Co, then the plan (tw, splits,
+    # chunks_per_split), int* kernels launched, stream
+    "cpd_wino3x3_sm90_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # x, w1, b1, w2, b2, hidden, out, ws1, ws2, M, C, H4, then the plan (bn1,
     # splits1, steps1, bn2, splits2, steps2), int* kernels launched, stream
     "cpd_geglu_ff_sm90_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -122,6 +125,9 @@ _SIGNATURES = {
     "cpd_probe_group_norm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # K9: x, y, N, HW, C, rows, convert, stages, stream
     "cpd_probe_copy_bf16": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # K9's Hopper body: x, y, tiles, tile bytes, then the plan (split, slot,
+    # chunks, grid), stages, convert, int* kernels launched, stream
+    "cpd_probe_copy_sm90_bf16": (_P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 

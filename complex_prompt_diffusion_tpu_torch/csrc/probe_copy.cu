@@ -15,7 +15,10 @@
 // A tile is `rows` whole rows, so it is contiguous: 16-byte accesses,
 // consecutive threads on consecutive addresses.
 //
-// What bounds it: bytes, one read and one write of the tensor.
+// What bounds it: bytes, one read and one write of the tensor. The probe now
+// runs probe_copy_sm90.cu (shares of each tile over a persistent grid, bulk
+// copies through a ring); this first body stays as its replaced body
+// (ops/probes/stream.py: stream_copy_prior), timed beside it.
 
 #include "common.cuh"
 

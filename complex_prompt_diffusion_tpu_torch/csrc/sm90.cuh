@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels
 // (conv3x3_sm90.cu, attention_sm90.cu, geglu_ff_sm90.cu,
-// attention_f32_sm90.cu, attention_bf16_wide_sm90.cu) and of K3
-// (groupnorm_sm90.cu): mbarriers, TMA tensor loads, bulk copies, wgmma
-// descriptors and fences, register reallocation, TMA tensor stores, and on
-// the host the encoding of TMA tensor maps.
+// attention_f32_sm90.cu, attention_bf16_wide_sm90.cu, attention_cm*_sm90.cu,
+// winograd_sm90.cu) and of the bulk-copy ones (groupnorm_sm90.cu,
+// probe_copy_sm90.cu): mbarriers, TMA tensor loads, bulk copies in and out,
+// wgmma descriptors and fences, register reallocation, TMA tensor stores,
+// and on the host the encoding of TMA tensor maps.
 //
 // cuTensorMapEncodeTiled is a driver-API function. The library links only
 // the CUDA runtime, so it is reached through the runtime's driver entry
@@ -140,6 +141,15 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           "r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared `src` to global `dst`, both 16-byte
+// aligned, in this thread's current bulk group (tma_store_commit /
+// tma_store_wait track it)
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
 }
 
 // ---- wgmma ----

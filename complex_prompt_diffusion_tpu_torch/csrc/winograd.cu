@@ -39,8 +39,11 @@
 // block, chunks of 16 input channels, the 256 threads as 16 positions x 16
 // threads of 4 tiles x 16 channels each; same gather, transform and
 // epilogue. Single-buffered.
-// Not yet: wgmma, TMA, sharing a patch between neighbouring tiles, a
-// transform that is not repeated for every 64-channel slab of outputs.
+// This first body keeps f32 and the bf16 shapes outside the Hopper body's
+// rule (ops/probes/winograd.py: sm90_takes); for bf16 with C and Co
+// multiples of 64, winograd_sm90.cu (TMA + wgmma, the patch shared between
+// neighbouring tiles, each transform serving 128 output channels) replaced
+// it, and it stays callable there as wino3x3_prior.
 
 #include "common.cuh"
 

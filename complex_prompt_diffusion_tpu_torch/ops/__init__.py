@@ -22,13 +22,18 @@ and a plain PyTorch twin:
     (wrapper :func:`attention_dmajor`): bf16 on its TMA + wgmma body
     (``csrc/attention_cm_sm90.cu``), f32 on its 3xTF32 body
     (``csrc/attention_cm_f32_sm90.cu``).
-  * ``probes.winograd.wino3x3`` — the Winograd F(2x2,3x3) conv through K6
-    (``csrc/winograd.cu``), an opt-in probe that no layer dispatches.
+  * ``probes.winograd.wino3x3`` — the Winograd F(2x2,3x3) conv through K6,
+    an opt-in probe that no layer dispatches: bf16 with C and Co multiples
+    of 64 through its TMA + wgmma body (``csrc/winograd_sm90.cu``,
+    ``wino3x3_sm90``), the rest through ``csrc/winograd.cu``
+    (``wino3x3_prior``).
   * ``probes.attention``, ``probes.groupnorm``, ``probes.stream`` — the
     probes of the TPU tuning scripts: K1's and K5's loops with pieces of
     the work removed (K7, ``csrc/probe_attention.cu``), K3's kernels in the
     scripts' forms (K8, ``csrc/probe_groupnorm.cu``) and a streaming copy
-    (K9, ``csrc/probe_copy.cu``). No layer dispatches them.
+    by bulk copies (K9, ``csrc/probe_copy_sm90.cu``; its replaced body
+    ``csrc/probe_copy.cu`` is ``stream_copy_prior``). No layer dispatches
+    them.
 
 A wrapper runs the plain twin only for CPU tensors; for a CUDA tensor it
 launches its kernel or raises, and raises under grad mode when an argument
@@ -57,7 +62,7 @@ from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_ff
 from complex_prompt_diffusion_tpu_torch.ops.probes.attention import attention_probe
 from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_probe
 from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy
-from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3
+from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3, wino3x3_sm90
 
 # the wrapper of each kernel (or a count of its own where no wrapper function
 # carries one), whose ``launches`` attribute counts launches;
@@ -65,7 +70,8 @@ from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3
 # "attention_f32_sm90", "attention_bf16_wide_sm90" and "conv3x3_sm90" their
 # Hopper bodies alone; "attention_cm" counts every K5 kernel,
 # "attention_cm_sm90" those of its Hopper bodies (both dtypes),
-# "attention_cm_f32_sm90" those of the f32 one (counts attention_dmajor keeps)
+# "attention_cm_f32_sm90" those of the f32 one (counts attention_dmajor keeps);
+# "winograd" counts every K6 kernel, "winograd_sm90" those of its Hopper body
 KERNEL_WRAPPERS = {
     "attention": flash_attention,
     "attention_sm90": attention_sm90,
@@ -79,6 +85,7 @@ KERNEL_WRAPPERS = {
     "attention_cm_sm90": attention_cm_sm90_count,
     "attention_cm_f32_sm90": attention_cm_f32_sm90_count,
     "winograd": wino3x3,
+    "winograd_sm90": wino3x3_sm90,
     "probe_attention": attention_probe,
     "probe_groupnorm": group_norm_probe,
     "probe_copy": stream_copy,
@@ -95,6 +102,7 @@ __all__ = [
     "attention_cm_f32_sm90_count",
     "self_attention_cm",
     "wino3x3",
+    "wino3x3_sm90",
     "attention_probe",
     "group_norm_probe",
     "stream_copy",

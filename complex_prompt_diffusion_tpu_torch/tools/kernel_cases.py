@@ -67,8 +67,8 @@ class Case(NamedTuple):
     flops: float
     nbytes: float  # each input read once, each output written once
     # the body this kernel replaced, where it is still built (the mma.sync
-    # bodies of K1 and K4, K1's f32 FMA body, K3's first body, K5's first
-    # bodies), timed beside it; None where there is none
+    # bodies of K1 and K4, K1's f32 FMA body, K3's first body, K5's, K6's
+    # and K9's first bodies), timed beside it; None where there is none
     prior: Optional[Callable] = None
     # the PEAK_FLOPS entry of the units that do the work, where it is not
     # the dtype's
@@ -281,12 +281,18 @@ def kernel_cases(dev, kernels=None) -> list:
         cm_case("kcanon bf16 B2 Sq1000 Skv1336 H8 d40 (ragged)",
                 *kcanon(2, 1000, 1336, 320, bf16), True, "bfloat16")
     if "winograd" in want:
-        # K6 at the batch-1 render's square convs (UNet batch 2), one
-        # batch-8 shape and an f32 one; U is made once, outside the timed
-        # call, as a caller with fixed weights would. The library call is the
-        # direct conv (cuDNN); K4's cases above time the same shapes.
+        # K6 at the batch-1 render's square convs (UNet batch 2), two with C
+        # != Co, one batch-8 shape and an f32 one; U is made once, outside
+        # the timed call, as a caller with fixed weights would. The library
+        # call is the direct conv (cuDNN); K4's cases above time the same
+        # shapes. The bf16 cases run the Hopper body with the first body beside
+        # them; the f32 case runs the first body. (A parent tree may lack the
+        # Hopper body and its wrappers; the labels are the parent's, so that
+        # tree_ab compares the same cases.)
+        wino_prior = getattr(W, "wino3x3_prior", None)
         shapes = [(2, 32, 640, 640, bf16), (2, 32, 1280, 1280, bf16), (2, 16, 1280, 1280, bf16),
-                  (8, 32, 640, 640, bf16), (1, 32, 512, 512, f32)]
+                  (8, 32, 640, 640, bf16), (2, 32, 960, 640, bf16), (2, 16, 2560, 1280, bf16),
+                  (1, 32, 512, 512, f32)]
         for b, hw, c, co, dt in shapes:
             x = randn(b, hw, hw, c, dtype=dt)
             k = uniform(3, 3, c, co, bound=(9 * c) ** -0.5, dtype=dt)
@@ -295,13 +301,15 @@ def kernel_cases(dev, kernels=None) -> list:
             w_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             a = (x, k, bias, u)
             m = b * hw * hw
+            sm90 = wino_prior is not None and W.sm90_takes(dt, c, co)
             cases.append(Case(
                 "winograd", f"{'bf16' if dt == bf16 else 'f32'} B{b} {hw}x{hw} {c}->{co}",
                 lambda a=a: W.wino3x3(*a), lambda a=a: W.wino3x3_plain(a[0], a[3], a[2]),
                 lambda x=x, w=w_oihw, bias=bias: F.conv2d(x.permute(0, 3, 1, 2), w, bias,
                                                           padding=1),
                 "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 4 * c,
-                x.element_size() * (m * c + 16 * c * co + m * co) + 4 * co))
+                x.element_size() * (m * c + 16 * c * co + m * co) + 4 * co,
+                (lambda a=a: wino_prior(*a[:3], u=a[3])) if sm90 else None))
     # the probes (imported here: a source tree without them runs the cases
     # above); each at a shape of its TPU script, the tools/probe_*.py rows
     # time every variant
@@ -341,15 +349,22 @@ def kernel_cases(dev, kernels=None) -> list:
                 lambda a=a: F.silu(F.group_norm(a[0].permute(0, 3, 1, 2), 32, a[1], a[2])),
                 "bfloat16", 10.0 * x.numel(), (2 * x.numel() + 2 * shape[-1]) * 2))
     if "probe_copy" in want:
+        # K9 at the three COPY_SHAPES of tools/probe_groupnorm.py, each in a
+        # 64-row 4-stage mode and a whole-plane f32 mode, the replaced body
+        # beside it (a parent tree may lack it)
         PS = importlib.import_module(f"{_PKG}.ops.probes.stream")
-        x = randn(8, 4096, 320, dtype=bf16)
-        y = torch.empty_like(x)
-        for rows, convert, stages in ((64, False, 4), (4096, True, 1)):
-            a = (x, rows, convert, stages)
-            cases.append(Case(
-                "probe_copy", f"bf16 [8,4096,320] rows={rows} convert={convert} stages={stages}",
-                lambda a=a: PS.stream_copy(*a), lambda a=a: PS.stream_copy_plain(*a),
-                lambda: y.copy_(x), "bfloat16", 0.0, 2.0 * x.numel() * 2))
+        copy_prior = getattr(PS, "stream_copy_prior", None)
+        for hw, c in ((4096, 320), (4096, 640), (1024, 1280)):
+            x = randn(8, hw, c, dtype=bf16)
+            y = torch.empty_like(x)
+            for rows, convert, stages in ((64, False, 4), (hw, True, 1)):
+                a = (x, rows, convert, stages)
+                cases.append(Case(
+                    "probe_copy",
+                    f"bf16 [8,{hw},{c}] rows={rows} convert={convert} stages={stages}",
+                    lambda a=a: PS.stream_copy(*a), lambda a=a: PS.stream_copy_plain(*a),
+                    lambda x=x, y=y: y.copy_(x), "bfloat16", 0.0, 2.0 * x.numel() * 2,
+                    (lambda a=a: copy_prior(*a)) if copy_prior else None))
     return cases
 
 

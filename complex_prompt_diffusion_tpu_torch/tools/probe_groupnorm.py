@@ -1,20 +1,23 @@
 """The GroupNorm and streaming probes on the card: the counterparts of the TPU
 scripts ``scripts/perf_gn4.py`` .. ``perf_gn8.py``, through K3, K8
-(``csrc/probe_groupnorm.cu``) and K9 (``csrc/probe_copy.cu``).
+(``csrc/probe_groupnorm.cu``) and K9 (``csrc/probe_copy_sm90.cu``, with its
+replaced body ``csrc/probe_copy.cu`` beside it).
 
 Run from the repository root on a machine with the GPU and nvcc::
 
     python -m complex_prompt_diffusion_tpu_torch.tools.probe_groupnorm
 
 It checks in the built library's SASS (``cuobjdump``) that K8's ablated
-modes keep their statistics, and every mode, split and copy variant
-against its plain twin at small shapes, then prints one row per script variant at the scripts'
-shapes (batch 8, bf16): the time with the L2 hot and cold
+modes keep their statistics, every mode, split and copy variant against
+its plain twin at small shapes, and every copy mode at the copy scripts'
+shapes bit-exact on both K9 bodies, then prints one row per script variant
+at the scripts' shapes (batch 8, bf16; each K9 row followed by its replaced
+body's): the time with the L2 hot and cold
 (``tools/hotcold.py``), the bound (one read and one write of the plane over
 3.35 TB/s), the bound's share of the cold time, and the library call on the
 same inputs (``F.group_norm`` + ``F.silu`` on the channels_last view, or
 ``Tensor.copy_``). Its last line is the card's streaming rate: the best
-cold K9 row's bytes over its time.
+cold row of K9's shipped body, its bytes over its time.
 """
 
 from __future__ import annotations
@@ -36,12 +39,13 @@ from complex_prompt_diffusion_tpu_torch.ops.probes.stream import (
     STAGES,
     stream_copy,
     stream_copy_plain,
+    stream_copy_prior,
 )
 from complex_prompt_diffusion_tpu_torch.tools.hotcold import hot_cold_ms
 from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import HBM_BYTES_PER_S
 from complex_prompt_diffusion_tpu_torch.tools.probe_attention import ProbeRow, sass_counts
 
-__all__ = ["check_sass", "check_small", "run", "streaming_rate"]
+__all__ = ["check_copies", "check_sass", "check_small", "run", "streaming_rate"]
 
 GN4_PLANES = ((64, 320), (64, 640), (32, 640), (32, 1280), (16, 1280), (16, 2560), (8, 1280))
 GN5_PLANES = ((64, 320), (64, 640), (32, 1280), (16, 1280))
@@ -81,6 +85,36 @@ def check_small(dev) -> list:
                 want = stream_copy_plain(x, rows, convert, stages)
                 out.append((f"K9 [2,256,64] rows={rows} convert={convert} stages={stages}",
                             float((got != want).sum()), 0.0))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def copy_modes(hw: int) -> list:
+    """(script, rows, convert, stages) of every K9 variant ``run`` times on a
+    plane of ``hw`` rows: perf_gn7's tiles plain and through f32 (one
+    stage), perf_gn8's rings (plain)."""
+    gn7 = [("perf_gn7", ch, cv, 1) for ch in dict.fromkeys((hw, 2048, 1024, 512, 256, 64, 16))
+           if ch <= hw and hw % ch == 0 for cv in (False, True)]
+    return gn7 + [("perf_gn8", ch, False, st) for ch in (2048, 1024, 512, 64)
+                  if ch <= hw and hw % ch == 0 for st in STAGES]
+
+
+def check_copies(dev) -> list:
+    """Every K9 mode (each tile size of ``run``, plain and through f32, at
+    every depth) at the copy scripts' shapes, on the shipped body and the
+    replaced one: [(label, differing elements, 0)]."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = []
+    for hw, c in COPY_SHAPES:
+        x = torch.randn((BATCH, hw, c), generator=gen, device=dev).to(torch.bfloat16)
+        for rows in dict.fromkeys(m[1] for m in copy_modes(hw)):
+            for convert in (False, True):
+                for stages in STAGES:
+                    for name, fn in (("K9", stream_copy), ("K9 replaced body", stream_copy_prior)):
+                        got = fn(x, rows, convert, stages)
+                        out.append((f"{name} [{BATCH},{hw},{c}] rows={rows} convert={convert} "
+                                    f"stages={stages}", float((got != x).sum()), 0.0))
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return out
@@ -199,27 +233,24 @@ def run(dev, card: str) -> list:
 
         sets = []
         yard = hot_cold_ms(make, lambda x, y: y.copy_(x), nbytes, sets).cold_ms
-        for ch in dict.fromkeys((hw, 2048, 1024, 512, 256, 64, 16)):
-            if ch <= hw and hw % ch == 0:
-                for convert in (False, True):
-                    timed("perf_gn7", f"{'f' if convert else 'p'}{ch}: K9 {ch}-row tiles", shape,
-                          make, sets, lambda x, y, r=ch, cv=convert: stream_copy(x, r, cv),
-                          nbytes, yard, "copy_")
-        for ch in (2048, 1024, 512, 64):
-            if ch <= hw and hw % ch == 0:
-                for stages in STAGES:
-                    timed("perf_gn8", f"c{ch}b{stages}: K9 {stages}-stage ring", shape, make,
-                          sets, lambda x, y, r=ch, st=stages: stream_copy(x, r, False, st),
-                          nbytes, yard, "copy_")
+        for script, ch, convert, stages in copy_modes(hw):
+            for body, fn in (("K9", stream_copy), ("K9 replaced body", stream_copy_prior)):
+                variant = (f"{'f' if convert else 'p'}{ch}: {body} {ch}-row tiles"
+                           if script == "perf_gn7" else
+                           f"c{ch}b{stages}: {body} {stages}-stage ring")
+                timed(script, variant, shape, make, sets,
+                      lambda x, y, r=ch, cv=convert, st=stages, f=fn: f(x, r, cv, st),
+                      nbytes, yard, "copy_")
         sets.clear()
         torch.cuda.empty_cache()
     return rows
 
 
 def streaming_rate(rows) -> tuple:
-    """(TB/s, row) of the fastest cold K9 row: bytes read and written over
-    its cold time."""
-    best = min((r for r in rows if r.script in ("perf_gn7", "perf_gn8")),
+    """(TB/s, row) of the fastest cold row of K9's shipped body: bytes read
+    and written over its cold time."""
+    best = min((r for r in rows if r.script in ("perf_gn7", "perf_gn8")
+                and "replaced" not in r.variant),
                key=lambda r: r.cold_ms / r.bound_ms)
     return best.bound_ms / best.cold_ms * HBM_BYTES_PER_S / 1e12, best
 

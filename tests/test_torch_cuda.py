@@ -61,12 +61,17 @@ from complex_prompt_diffusion_tpu_torch.ops.mlp import (
 )
 from complex_prompt_diffusion_tpu_torch.ops.probes.attention import attention_probe
 from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_probe
-from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy
+from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy, stream_copy_prior
 from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import (
+    sm90_takes,
     wino3x3,
     wino3x3_plain,
+    wino3x3_plan,
+    wino3x3_prior,
+    wino3x3_sm90,
     winograd_weights,
 )
+from complex_prompt_diffusion_tpu_torch.tools.probe_groupnorm import COPY_SHAPES
 
 pytestmark = pytest.mark.cuda
 
@@ -889,7 +894,9 @@ def test_wino3x3(dev, dtype, b, h, w, c, co):
     bias = torch.randn(co, generator=g, device=dev).to(dtype)
     before = wino3x3.launches
     got = wino3x3(x, k, bias)
-    assert wino3x3.launches == before + 1
+    # the Hopper body launches its reduction too where its plan splits C
+    want_launches = (wino3x3_plan(b, h, w, c, co).launches if sm90_takes(dtype, c, co) else 1)
+    assert wino3x3.launches == before + want_launches
     assert got.shape == (b, h, w, co) and got.dtype == dtype
     u = winograd_weights(k).to(dtype)
     assert _rel(got, wino3x3_plain(x, u, bias)) <= TOL[dtype]
@@ -909,6 +916,63 @@ def test_wino3x3_raises_on_what_it_does_not_take(dev):
         wino3x3(x.half(), k.half(), torch.zeros(16, device=dev))
     with pytest.raises(ValueError):  # f32 needs Co % 4 == 0
         wino3x3(x.float(), k.float()[..., :6], torch.zeros(6, device=dev))
+
+
+def _wino_case(dev, b, h, w, c, co, seed):
+    g = _gen(dev, seed)
+    x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    k = ((torch.rand((3, 3, c, co), generator=g, device=dev) * 2 - 1) * (9 * c) ** -0.5).to(
+        torch.bfloat16)
+    bias = ((torch.rand(co, generator=g, device=dev) * 2 - 1) * 0.1).to(torch.bfloat16)
+    return x, k, bias, winograd_weights(k).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("hw,c,co", B1_UNET_CONVS)
+def test_wino3x3_sm90_at_the_unet_resblock_shapes(dev, hw, c, co):
+    """K6's Hopper body at every ResBlock conv of phase 9 (UNet batch 2),
+    through the route, with the kernels its plan predicts."""
+    x, k, bias, u = _wino_case(dev, 2, hw, hw, c, co, hw + c + co)
+    before = (wino3x3.launches, wino3x3_sm90.launches, wino3x3_prior.launches)
+    got = wino3x3(x, k, bias, u=u)
+    n = wino3x3_plan(2, hw, hw, c, co).launches
+    assert (wino3x3.launches, wino3x3_sm90.launches, wino3x3_prior.launches) == (
+        before[0] + n, before[1] + n, before[2])
+    assert _rel(got, wino3x3_plain(x, u, bias)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("b,h,w,c,co", [(1, 20, 12, 64, 192), (3, 10, 14, 128, 64),
+                                        (1, 36, 20, 192, 128), (1, 8, 8, 128, 128),
+                                        (2, 64, 64, 320, 320)])
+def test_wino3x3_sm90_ragged_tiles_at_every_split_count(dev, b, h, w, c, co):
+    """Tile rectangles that overhang the plane (20 x 12: 10 x 6 tiles in
+    8 x 8 and 4 x 16 rectangles), Co not a multiple of the block's 128, and
+    every split count of C; the splits are summed in a fixed order, so a
+    second run writes the same bits."""
+    x, k, bias, u = _wino_case(dev, b, h, w, c, co, h * w)
+    want = wino3x3_plain(x, u, bias)
+    kchunks = c // 64
+    for splits in sorted({1, 2, kchunks} & set(range(1, kchunks + 1))):
+        got = wino3x3_sm90(x, k, bias, u=u, splits=splits)
+        assert _rel(got, want) <= TOL[torch.bfloat16], splits
+        assert torch.equal(got, wino3x3_sm90(x, k, bias, u=u, splits=splits))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wino3x3_prior_still_matches(dev, dtype):
+    x, k, bias, u = _wino_case(dev, 2, 16, 16, 128, 64, 5)
+    x, k, bias, u = (t.to(dtype) for t in (x, k, bias, u))
+    before = wino3x3_prior.launches
+    got = wino3x3_prior(x, k, bias, u=u)
+    assert wino3x3_prior.launches == before + 1
+    assert _rel(got, wino3x3_plain(x, u, bias)) <= TOL[dtype]
+
+
+def test_wino3x3_sm90_raises_on_what_it_does_not_take(dev):
+    x, k, bias, _ = _wino_case(dev, 1, 8, 8, 64, 64, 3)
+    with pytest.raises(ValueError):  # f32: the first body's
+        wino3x3_sm90(x.float(), k.float(), bias.float())
+    with pytest.raises(ValueError):  # C % 64 != 0
+        wino3x3_sm90(x[..., :32], k[:, :, :32], bias)
 
 
 def test_cm_unet_on_card_matches_default_route(dev):
@@ -1064,3 +1128,18 @@ def test_stream_copy(dev, rows, convert, stages):
     before = stream_copy.launches
     assert torch.equal(stream_copy(x, rows, convert, stages), x)
     assert stream_copy.launches == before + 1
+    assert torch.equal(stream_copy_prior(x, rows, convert, stages), x)
+
+
+@pytest.mark.parametrize("stages", [1, 3, 4, 8])
+@pytest.mark.parametrize("convert", [False, True])
+@pytest.mark.parametrize("hw,c", COPY_SHAPES)
+def test_stream_copy_at_the_script_shapes(dev, hw, c, convert, stages):
+    """K9's Hopper body at the copy scripts' shapes, every tile size of
+    tools/probe_groupnorm.py: bit-exact, one launch a call."""
+    x = torch.randn((8, hw, c), generator=_gen(dev, hw + c), device=dev).to(torch.bfloat16)
+    for rows in dict.fromkeys((hw, 2048, 1024, 512, 256, 64, 16)):
+        if rows <= hw:
+            before = stream_copy.launches
+            assert torch.equal(stream_copy(x, rows, convert, stages), x), rows
+            assert stream_copy.launches == before + 1

@@ -73,10 +73,13 @@ _LAUNCHERS = [
     (C.conv3x3_generic, "_build.kernel_library()"),
     (C.conv3x3_sm90, "_build.kernel_library()"),
     (PW.wino3x3, "_build.kernel_library()"),
+    (PW.wino3x3_sm90, "_build.kernel_library()"),
+    (PW.wino3x3_prior, "_build.kernel_library()"),
     (PA.attention_probe, "_build.kernel_library()"),
     (PA.attention_dmajor_scores, "_build.kernel_library()"),
     (PG.group_norm_probe, "_build.kernel_library()"),
     (PS.stream_copy, "_build.kernel_library()"),
+    (PS.stream_copy_prior, "_build.kernel_library()"),
 ]
 
 

@@ -8,19 +8,22 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            process per source, in parallel), and checks in their SASS
            (``cuobjdump``) that the Hopper bodies of K1, K2, K4 and K5
            (``attention_sm90.cu``, ``attention_bf16_wide_sm90.cu``,
-           ``attention_f32_sm90.cu``, ``geglu_ff_sm90.cu``,
-           ``conv3x3_sm90.cu``, ``attention_cm_sm90.cu``,
-           ``attention_cm_f32_sm90.cu``) and of K6 (``winograd_sm90.cu``)
-           hold wgmma (HGMMA) and TMA load (UTMALDG) instructions in every
-           instantiation, and K3's (``groupnorm_sm90.cu``) and K9's
+           ``attention_f32_sm90.cu``, ``attention_f32_fused_sm90.cu``,
+           ``geglu_ff_sm90.cu``, ``conv3x3_sm90.cu``,
+           ``attention_cm_sm90.cu``, ``attention_cm_f32_sm90.cu``), of K6
+           (``winograd_sm90.cu``) and of K7 (``probe_attention*.cu``: K1's
+           and K5's Hopper loops and the fused f32 body in its modes) hold
+           wgmma (HGMMA) and TMA load (UTMALDG) instructions in every
+           instantiation (K7's loads-only mode, which computes nothing, TMA
+           loads alone), and K3's (``groupnorm_sm90.cu``) and K9's
            (``probe_copy_sm90.cu``) a TMA or bulk-copy load (UTMALDG or
            UBLKCP) in every one;
   phase 1  runs each kernel at its paths' shapes against its plain PyTorch
            twin on the card (TF32 off): error, the times (CUDA-graph
            replays, ``tools/hotcold.py``, one input repeated) of the kernel,
            the body it replaced where it is still built (K1's and K4's
-           mma.sync bodies, K1's f32 FMA body, K3's, K5's, K6's and K9's
-           first bodies; held to the same twin), the
+           mma.sync bodies, K1's f32 FMA body, K3's, K5's, K6's, K7's and
+           K9's first bodies; held to the same twin), the
            twin and the one
            PyTorch call that computes the same function (where there is
            one), and the bound from this case's bytes and flops, with the
@@ -50,9 +53,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            held against the same eval without it; then the UNet's 10 cm
            sites, each through the cm block against the default route on
            one input: in bf16 (K5's bf16 body against K1's sm90 body) and
-           with the weights cast to f32 (K5's f32 body against K1's f32
-           body; an f32 UNet cannot run whole on the card, since K2 takes
-           bf16 only);
+           with the weights cast to f32 (K5's f32 body against K1's fused
+           3xTF32 body; an f32 UNet cannot run whole on the card, since K2
+           takes bf16 only); the sites' launches count as a path of their
+           own;
   phase 8  k-family img2img at batch 1 (Euler Ancestral, strength 0.75: 6 of
            20 steps) with the canonical-K attention route switched on for
            the phase (K5's bf16 body at every self-attention site), bf16
@@ -67,13 +71,16 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
   phase 10 the probes of the TPU tuning scripts (``scripts/perf_attn8..12``,
            ``perf_gn4..8``), which no layer dispatches: every mode and flag
            of K7 (attention ablations), K8 (GroupNorm modes, tensor-core
-           statistics, forced splits) and K9 (streaming copy) against its
-           plain twin at small shapes, and every K9 mode at the copy
-           scripts' shapes bit-exact on both of K9's bodies; the SASS MMA
-           count of every ablated attention mode and the statistics of
-           every GroupNorm mode (``cuobjdump``); then every script variant
-           timed at the scripts' shapes with the L2 hot and cold, K9's
-           replaced body beside each K9 row (``tools/probe_attention.py``,
+           statistics, forced splits) and K9 (streaming copy), and of K7's
+           and K9's replaced bodies, against its plain twin at small shapes,
+           K7's full mode at K1's choices bit-exact against K1, and every K9
+           mode at the copy scripts' shapes bit-exact on both of K9's
+           bodies; the SASS wgmma count of every K7 mode (and the replaced
+           loops' HMMA) and the statistics of every GroupNorm mode
+           (``cuobjdump``); then every script variant timed at the scripts'
+           shapes with the L2 hot and cold, K7's and K9's replaced bodies
+           beside their rows, and each K7 mode's share of the full mode's
+           time at every UNet level (``tools/probe_attention.py``,
            ``tools/probe_groupnorm.py``).
 
 Each path of phases 2 and 4 to 10 runs with every launch count set to 0
@@ -82,7 +89,8 @@ run were launched: in phases 2, 4, 6 and 7 every UNet self-attention site
 on K1's sm90 body, in phases 2, 4 and 6 every GEGLU FF call on K2 with the
 kernels its plan predicts (the library reports what it launched), in phase
 2 the f32 VAE mid-block on K1's 3xTF32 body (its split, scores, softmax and
-output kernels), in phases 4, 6, 8 and 9 every batch-1 UNet conv on K4's,
+output kernels), in phase 7's f32 cm sites K1's fused 3xTF32 body and K5's
+f32 body once a site, in phases 4, 6, 8 and 9 every batch-1 UNet conv on K4's,
 in phases 2 to 8 every GroupNorm (61 a UNet call, 30 a decode, 22 an
 encode) on K3's Hopper body with the kernels its plans predict (the library
 reports what it launched) and none on its replaced body, and in phases 3 to
@@ -98,6 +106,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -108,17 +117,18 @@ PKG = "complex_prompt_diffusion_tpu_torch"
 
 # kernel -> (source, the TPU kernel(s) it replaces)
 KERNELS = {
-    "attention": (
-        f"{PKG}/csrc/attention.cu",
-        "complex_prompt_diffusion_tpu/ops/attention.py:48 _attn_kernel (f32 d <= 256)",
-    ),
     "attention_bf16_wide_sm90": (
         f"{PKG}/csrc/attention_bf16_wide_sm90.cu",
         "complex_prompt_diffusion_tpu/ops/attention.py:48 _attn_kernel (bf16, 256 < d <= 512)",
     ),
     "attention_f32_sm90": (
         f"{PKG}/csrc/attention_f32_sm90.cu",
-        "complex_prompt_diffusion_tpu/ops/attention.py:48 _attn_kernel (f32, 256 < d <= 512)",
+        "complex_prompt_diffusion_tpu/ops/attention.py:48 _attn_kernel (f32, 160 < d <= 512)",
+    ),
+    "attention_f32_fused_sm90": (
+        f"{PKG}/csrc/attention_f32_fused_sm90.cu",
+        "complex_prompt_diffusion_tpu/ops/attention.py:48 _attn_kernel; "
+        "complex_prompt_diffusion_tpu/ops/attention.py:152 _onepass_kernel (f32, d <= 160)",
     ),
     "attention_sm90": (
         f"{PKG}/csrc/attention_sm90.cu",
@@ -165,7 +175,7 @@ KERNELS = {
         "Co % 64 == 0)",
     ),
     "probe_attention": (
-        f"{PKG}/csrc/probe_attention.cu",
+        f"{PKG}/csrc/probe_attention.cu",  # with the sources in PROBE_ATTENTION_SOURCES
         "scripts/perf_attn8.py:88 flash_t; scripts/perf_attn9.py:81 onepass; "
         "scripts/perf_attn10.py:84 run_mode; scripts/perf_attn11.py:92 h2; "
         "scripts/perf_attn12.py:51 v3_call, :105 h1_call (QK-only forms); "
@@ -181,6 +191,12 @@ KERNELS = {
         "scripts/perf_gn7.py:36 make; scripts/perf_gn8.py:29 make",
     ),
 }
+# K7's sources: its entries, its instantiations of K1's Hopper loop (one
+# file a head dim) and the loops it runs
+PROBE_ATTENTION_SOURCES = tuple(f"{PKG}/csrc/{f}" for f in (
+    "probe_attention.cu", "probe_attention_w40.cu", "probe_attention_w80.cu",
+    "probe_attention_w160.cu", "probe_attention_sm90.cuh", "attention_sm90.cuh",
+    "attention_cm_sm90.cuh", "attention_f32_fused.cuh"))
 # the probes: no layer calls them; phase 10 runs the last three
 PROBES = ("winograd", "winograd_sm90", "probe_attention", "probe_groupnorm", "probe_copy")
 PHASE10_PROBES = PROBES[2:]
@@ -188,18 +204,25 @@ PHASE10_PROBES = PROBES[2:]
 # "conv3x3", "attention_cm" (K5's f32 body inside its Hopper count) and
 # "winograd"
 SM90 = {"attention_sm90": "attention", "attention_f32_sm90": "attention",
+        "attention_f32_fused_sm90": "attention",
         "attention_bf16_wide_sm90": "attention", "conv3x3_sm90": "conv3x3",
         "attention_cm_sm90": "attention_cm", "attention_cm_f32_sm90": "attention_cm_sm90",
         "winograd_sm90": "winograd"}
-# phase 1's K5 and K6 cases (kernels "attention_cm" and "winograd", the
-# routes) by the body they run
+# phase 1's K1 f32, K5 and K6 cases (kernels "attention", "attention_cm" and
+# "winograd", the routes) by the body they run
+K1_BODY = {"float32": "attention_f32_fused_sm90"}
 K5_BODY = {"bfloat16": "attention_cm_sm90", "float32": "attention_cm_f32_sm90"}
 K6_BODY = {"bfloat16": "winograd_sm90", "float32": "winograd"}
 # the Hopper kernels phase 0 finds in the SASS: every instantiation must hold
-# wgmma (HGMMA) and TMA loads (UTMALDG)
+# wgmma (HGMMA) and TMA loads (UTMALDG). attention_sm90_kernel is K1's and
+# K7's (K1's loop in K7's modes), attention_cm_sm90_kernel K5's bf16 and
+# K7's, attention_f32x3_kernel the fused 3xTF32 body of K1, K5 and K7
 SM90_FUNCTIONS = ("attention_sm90_kernel", "tf32x3_gemm_kernel", "wide_gemm_kernel",
                   "geglu_gemm_sm90_kernel", "conv3x3_sm90_kernel", "attention_cm_sm90_kernel",
-                  "attention_cm_f32_sm90_kernel", "wino3x3_sm90_kernel")
+                  "attention_f32x3_kernel", "wino3x3_sm90_kernel")
+# K7's loads-only mode of K1's loop (MODE 6 of attention_sm90_kernel<DV, BKV,
+# MODE, ...>) computes nothing: TMA loads, no wgmma
+LOADS_ONLY = re.compile(r"attention_sm90_kernelILi\d+ELi\d+ELi6E")
 # K3's and K9's kernels: every instantiation must load by TMA (UTMALDG) or
 # bulk copy (UBLKCP)
 BULK_FUNCTIONS = ("gn_slab_kernel", "gn_stats_kernel", "gn_apply_kernel", "copy_bulk_kernel")
@@ -245,16 +268,17 @@ def rel_err(got, want) -> tuple:
 
 
 def phase0_sass(card: str) -> None:
-    """The TMA + wgmma bodies of K1, K2, K4, K5 and K6 as built: every
+    """The TMA + wgmma bodies of K1, K2, K4, K5, K6 and K7 as built: every
     instantiation must hold HGMMA (wgmma) and UTMALDG (TMA tensor load)
-    instructions; K3's and K9's kernels a TMA or bulk-copy load (UTMALDG or
-    UBLKCP)."""
+    instructions (K7's loads-only mode UTMALDG alone); K3's and K9's
+    kernels a TMA or bulk-copy load (UTMALDG or UBLKCP)."""
     from complex_prompt_diffusion_tpu_torch.tools import probe_attention as PA
 
     counts = PA.sass_counts()
     for body in SM90_FUNCTIONS:
         fns = {n: c for n, c in counts.items() if body in n}
-        bad = [n for n, c in fns.items() if c["HGMMA"] == 0 or c["UTMALDG"] == 0]
+        bad = [n for n, c in fns.items()
+               if (c["HGMMA"] == 0 and not LOADS_ONLY.search(n)) or c["UTMALDG"] == 0]
         hg = sorted(c["HGMMA"] for c in fns.values())
         tm = sorted(c["UTMALDG"] for c in fns.values())
         print(f"phase0: SASS (cuobjdump) of {body}: {len(fns)} instantiations, HGMMA "
@@ -317,9 +341,9 @@ def phase1(dev, card: str) -> dict:
         plain_ms = graph_ms(case.plain)
         lib_ms = graph_ms(case.library) if case.library is not None else None
         bound_ms, by = case.bound()
-        # K5's f32 body (3xTF32) is held to 1e-5, as K1's 3xTF32 body is in the
-        # card tests: one TF32 product (~1e-3) would miss it
-        tol = 1e-5 if (case.kernel, case.dtype) == ("attention_cm", "float32") else TOL[case.dtype]
+        # K1's and K5's f32 bodies (3xTF32) are held to 1e-5, as the card tests
+        # hold them: one TF32 product (~1e-3) would miss it
+        tol = 1e-5 if case.rate == "tf32x3" else TOL[case.dtype]
         ok = rel <= tol and (prior_rel is None or prior_rel <= tol)
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
         if case.kernel in ("conv3x3", "conv3x3_sm90"):
@@ -347,7 +371,8 @@ def phase1(dev, card: str) -> dict:
         if not ok:
             raise SmokeFailure(f"{case.kernel} {case.label}: relative error {rel:.3e} (replaced "
                                f"body {prior_rel}) > {tol}")
-        body = {"attention_cm": K5_BODY, "winograd": K6_BODY}.get(case.kernel)
+        body = {"attention": K1_BODY, "attention_cm": K5_BODY, "winograd": K6_BODY}.get(
+            case.kernel)
         sm = summary[body[case.dtype] if body else case.kernel]
         sm["max_abs_err"] = max(sm["max_abs_err"], abs_err)
         sm["ms"] += ms
@@ -470,7 +495,8 @@ def check_wide(launches: dict, calls: int, batch: int, what: str, s: int = 4096)
     from complex_prompt_diffusion_tpu_torch.ops.attention import bf16_wide_launches
 
     want = calls * bf16_wide_launches(batch, 1, s, s)
-    own = (launches["attention"] - launches["attention_sm90"] - launches["attention_f32_sm90"])
+    own = (launches["attention"] - launches["attention_sm90"] - launches["attention_f32_sm90"]
+           - launches["attention_f32_fused_sm90"])
     if launches["attention_bf16_wide_sm90"] != want or own != want:
         raise SmokeFailure(f"K1 in {what}: the bf16 wide body launched "
                            f"{launches['attention_bf16_wide_sm90']} kernels and K1 {own} outside "
@@ -772,10 +798,11 @@ def phase6(bundle, image, card: str, steps: int) -> dict:
     return launches
 
 
-def phase7(bundle, dev, card: str, steps: int) -> dict:
+def phase7(bundle, dev, card: str, steps: int) -> tuple:
     """The k-diffusion render at full width with the UNet's channel-major
     attention route on, then one UNet eval with that route against the same
-    eval without it; returns the render's launch counts."""
+    eval without it, then the cm sites in bf16 and f32; returns the render's
+    launch counts and the sites' (both dtypes together)."""
     import dataclasses
 
     import torch
@@ -848,17 +875,17 @@ def phase7(bundle, dev, card: str, steps: int) -> dict:
           f"(tol 2e-2), max |eps| {float(want.abs().max()):.3f} ({card})")
     if not rel <= 2e-2:
         raise SmokeFailure(f"the cm route disagrees with the default route: rel L2 {rel:.3e}")
-    phase7_sites(bundle, dev, card, "bfloat16")
-    phase7_sites(bundle, dev, card, "float32")
-    return launches
+    sites = phase7_sites(bundle, dev, card, "bfloat16")
+    sites_f32 = phase7_sites(bundle, dev, card, "float32")
+    return launches, {k: sites[k] + sites_f32[k] for k in sites}
 
 
-def phase7_sites(bundle, dev, card: str, dtype: str) -> None:
+def phase7_sites(bundle, dev, card: str, dtype: str) -> dict:
     """The UNet's cm sites (levels 1 and 2 of the input and output blocks)
     with their weights in ``dtype`` (the bundle's bf16, or cast to f32), each
     through the cm block (K5's bf16 or f32 Hopper body) and through the
-    default route (K1's sm90 or f32 body) on the same input at the render's
-    plane (UNet batch 2)."""
+    default route (K1's sm90 or fused 3xTF32 body) on the same input at the
+    render's plane (UNet batch 2); returns the launch counts."""
     import torch
 
     from complex_prompt_diffusion_tpu_torch import models as M
@@ -902,7 +929,8 @@ def phase7_sites(bundle, dev, card: str, dtype: str) -> None:
         if launches["attention_cm"] != n or not k5_ok:
             raise SmokeFailure(f"the f32 cm sites launched {launches}: want K5's f32 body once "
                                f"at each of the {n} sites")
-        k1_body, k1_ok = "K1's f32 body", not launches["attention_sm90"]
+        k1_body = "K1's fused 3xTF32 body"
+        k1_ok = launches["attention_f32_fused_sm90"] == n and not launches["attention_sm90"]
     if launches["attention"] != n or not k1_ok or launches["attention_f32_sm90"]:
         raise SmokeFailure(f"the {dtype} cm sites launched {launches}: want {k1_body} once at "
                            f"each of the {n} sites")
@@ -914,6 +942,7 @@ def phase7_sites(bundle, dev, card: str, dtype: str) -> None:
     if not worst <= TOL[dtype]:
         raise SmokeFailure(f"a {dtype} cm site disagrees with the default route: rel L2 "
                            f"{worst:.3e}")
+    return launches
 
 
 def phase8(bundle, image, card: str, steps: int) -> dict:
@@ -1120,9 +1149,10 @@ def main(argv=None) -> int:
     paths = {"txt2img_b4": main_launches,
              "txt2img_b1_bf16_decode": phase4(bundle16, dev, card, args.steps),
              "bf16_decode_b4": phase5(bundle16, latents, images, card),
-             "img2img_b1": phase6(bundle16, images[0], card, args.steps),
-             "txt2img_b4_dpmpp2m_cm": phase7(bundle, dev, card, K_STEPS),
-             "img2img_b1_euler_a_kcanon": phase8(bundle16, images[0], card, K_STEPS)}
+             "img2img_b1": phase6(bundle16, images[0], card, args.steps)}
+    paths["txt2img_b4_dpmpp2m_cm"], paths["unet_cm_sites_bf16_f32"] = phase7(
+        bundle, dev, card, K_STEPS)
+    paths["img2img_b1_euler_a_kcanon"] = phase8(bundle16, images[0], card, K_STEPS)
     for name in PROBES:
         if any(p[name] for p in paths.values()):
             raise SmokeFailure(f"the probe {name} was launched in a render: no layer "
@@ -1148,6 +1178,8 @@ def main(argv=None) -> int:
         }
         if sm["replaced_ms"] is not None:
             entry["replaced_body_ms"] = sm["replaced_ms"]
+        if name == "probe_attention":
+            entry["sources"] = list(PROBE_ATTENTION_SOURCES)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -53,6 +53,10 @@ _SIGNATURES = {
                           _L, _L, _L, _L, _L, _L, _F, _P),
     "cpd_attention_sm90_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _F, _P),
+    "cpd_attention_f32_fused_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _L, _L, _L, _L, _L, _L, _F, _P),
+    # D, int[4]: query rows, key tile, 1, smem bytes of the fused f32 block
+    "cpd_attention_f32_fused_sm90_config": (_I, _P),
     # q, k, v, o, workspace, workspace floats, B, H, Sq, Skv, D, the strides as
     # above, scale, query rows a pass, int* kernels launched, stream
     "cpd_attention_f32_sm90": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
@@ -111,16 +115,24 @@ _SIGNATURES = {
     # iters, double* ns per encode, a device address to map
     "cpd_tmap_encode_bench": (_I, _P, _P),
     # the probes. K7: cpd_attention_bf16's arguments up to scale, then mode,
-    # denom, use_exp2, unnormalized, kv_tile, stream
+    # denom, use_exp2, unnormalized, kv_tile, stream (its replaced loop,
+    # _prior, the same)
     "cpd_probe_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _L, _L, _L, _L, _L, _L, _F, _I, _I, _I, _I, _I, _P),
+    "cpd_probe_attention_prior_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _L, _L, _L, _L, _L, _L, _F, _I, _I, _I, _I, _I, _P),
     # cpd_attention_f32's arguments up to scale, then mode, stream
     "cpd_probe_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _F, _I, _P),
+    "cpd_probe_attention_prior_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _L, _L, _L, _L, _L, _L, _F, _I, _P),
     # cpd_attention_cm_bf16's arguments up to scale, then mode, stream
     "cpd_probe_attention_cm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                     _I, _F, _I, _P),
+    "cpd_probe_attention_prior_cm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                          _I, _F, _I, _P),
     # K8: x, gamma, beta, y, part, N, HW, C, G, splits, eps, mode, mma, stream
     "cpd_probe_group_norm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # K9: x, y, N, HW, C, rows, convert, stages, stream

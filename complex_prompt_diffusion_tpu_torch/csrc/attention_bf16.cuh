@@ -1,16 +1,18 @@
 // The mma.sync bf16 body of K1: non-causal softmax attention over the
 // [B, S, H*D] layout, 64 query rows a block, online softmax over KV tiles,
 // both products on the tensor cores (mma.sync m16n8k16). K1 now runs the
-// TMA + wgmma body of attention_sm90.cu for these head dims; this loop is
-// the subject of the probe kernel K7 (csrc/probe_attention.cu), which
-// instantiates it whole (MODE kFull, row-sum denominator, exp2, 64-key
-// tiles: the code K1 ran until then) and with pieces removed or one design
-// choice changed. attention.cu's d = 512 kernel shares its tile loader.
+// TMA + wgmma body of attention_sm90.cu for these head dims, and the probe
+// K7 runs that body's loop (attention_sm90.cuh); this loop stays built as
+// K7's replaced loop (csrc/probe_attention_prior.cu, ops.probes.attention.
+// attention_probe_prior), which instantiates it whole (MODE kFull, row-sum
+// denominator, exp2, 64-key tiles: the code K1 ran before its Hopper body) and with
+// pieces removed or one design choice changed. attention.cu's d = 512
+// kernel shares its tile loader.
 //
 //   DP      head dim padded to the 16-wide k-step of the score product
 //   DV      width of the PV product: DP, or D + 8 for a ones column past DP
 //   BN      keys per KV tile (64 as K1; 128 for the probe's wider tiles)
-//   MODE    what the instantiation computes (enum Mode below)
+//   MODE    what the instantiation computes (enum Mode, attention_modes.cuh)
 //   DENOM   the softmax denominator: row sums of P in registers (K1), or a
 //           ones column in the V tile at column D, so that the PV product
 //           yields l in its column D (the TPU kernels' ones-row)
@@ -20,32 +22,18 @@
 //           column D) instead of O / l
 //
 // Every mode streams Q, K and V tiles exactly as the attention does; only
-// arithmetic is removed. nvcc deletes an MMA or an exp whose result is never
-// used, and an empty asm statement emits no PTX instruction that would use
-// it, so an ablated mode hands what it computed to sink(): a store behind a
-// branch on a pointer the compiler cannot see through (null at every
-// launch).
+// arithmetic is removed; an ablated mode hands what it computed to sink()
+// (attention_modes.cuh).
 #pragma once
 
 #include <type_traits>
 
+#include "attention_modes.cuh"
 #include "common.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
-
-enum Mode : int {
-  kFull = 0,    // out = softmax(scale * Q K^T) V
-  kScores = 1,  // S = Q K^T only; out = sc * S[:, key 0] on every column
-  kMax = 2,     // + the running row max; out = m, the final max of sc * S
-  kExp = 3,     // + P = exp(sc * S - m) rounded to bf16; out = P[:, key 0] for the final m
-  kPv = 4,      // P V only, with P[q, key] = Q[q, 0]; out = Q[:, 0] * sum_keys V
-  kRowsum = 5,  // scores, max, exp and the row sum l; out = l
-  kLoads = 6,   // the Q, K and V tiles only, no arithmetic; out = Q[:, 0] on every column
-};
-
-enum Denom : int { kSumRows = 0, kOnesColumn = 1 };
 
 constexpr int kBM = 64;       // query rows per block (4 warps x 16)
 constexpr int kBN = 64;       // keys per KV tile (K1)
@@ -66,21 +54,6 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, long
     const int gr = row0 + r;
     const bool ok = gr < rows_valid && c < D;
     cpd::cp_async16(dst + r * LD + c, ok ? src + (long long)gr * rstride + c : src, ok);
-  }
-}
-
-// Hand values an ablated mode computed but does not output to a store the
-// compiler must keep (p is null at every launch; the asm makes it opaque at
-// each call, so the test cannot be hoisted out of the KV loop).
-template <typename T, int N>
-__device__ __forceinline__ void sink(const T (&a)[N][4], float* p) {
-  asm volatile("" : "+l"(p));
-  if (p != nullptr) {
-    T* d = reinterpret_cast<T*>(p) + (long long)threadIdx.x * N * 4;
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) d[i * 4 + e] = a[i][e];
   }
 }
 

@@ -5,8 +5,9 @@ and a plain PyTorch twin:
     bf16 with d <= 256 its TMA + wgmma body (``csrc/attention_sm90.cu``,
     :func:`attention_sm90`), bf16 with 256 < d <= 512 its wgmma body
     (``csrc/attention_bf16_wide_sm90.cu``, :func:`attention_bf16_wide_sm90`),
-    f32 with 256 < d <= 512 its 3xTF32 body (``csrc/attention_f32_sm90.cu``,
-    :func:`attention_f32_sm90`), f32 with d <= 256 ``csrc/attention.cu``.
+    f32 with d <= 160 its fused 3xTF32 body (``csrc/attention_f32_fused_sm90.cu``,
+    :func:`attention_f32_fused_sm90`), f32 with 160 < d <= 512 its unfused
+    3xTF32 body (``csrc/attention_f32_sm90.cu``, :func:`attention_f32_sm90`).
   * :func:`geglu_ff` — the transformer GEGLU MLP through K2, two TMA +
     wgmma GEMMs (``csrc/geglu_ff_sm90.cu``).
   * :func:`group_norm` / :func:`group_norm_silu` — NHWC GroupNorm(+SiLU)
@@ -28,8 +29,10 @@ and a plain PyTorch twin:
     ``wino3x3_sm90``), the rest through ``csrc/winograd.cu``
     (``wino3x3_prior``).
   * ``probes.attention``, ``probes.groupnorm``, ``probes.stream`` — the
-    probes of the TPU tuning scripts: K1's and K5's loops with pieces of
-    the work removed (K7, ``csrc/probe_attention.cu``), K3's kernels in the
+    probes of the TPU tuning scripts: K1's and K5's Hopper loops and the
+    fused f32 body with pieces of the work removed (K7,
+    ``csrc/probe_attention.cu``; its replaced loops
+    ``csrc/probe_attention_prior.cu`` are ``attention_probe_prior``), K3's kernels in the
     scripts' forms (K8, ``csrc/probe_groupnorm.cu``) and a streaming copy
     by bulk copies (K9, ``csrc/probe_copy_sm90.cu``; its replaced body
     ``csrc/probe_copy.cu`` is ``stream_copy_prior``). No layer dispatches
@@ -46,6 +49,7 @@ from complex_prompt_diffusion_tpu_torch.ops.attention import (
     attention_cm_f32_sm90_count,
     attention_cm_sm90_count,
     attention_dmajor,
+    attention_f32_fused_sm90,
     attention_f32_sm90,
     attention_sm90,
     flash_attention,
@@ -67,14 +71,15 @@ from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3, wino
 # the wrapper of each kernel (or a count of its own where no wrapper function
 # carries one), whose ``launches`` attribute counts launches;
 # "attention" and "conv3x3" count every body of K1 and K4, "attention_sm90",
-# "attention_f32_sm90", "attention_bf16_wide_sm90" and "conv3x3_sm90" their
-# Hopper bodies alone; "attention_cm" counts every K5 kernel,
+# "attention_f32_fused_sm90", "attention_f32_sm90", "attention_bf16_wide_sm90"
+# and "conv3x3_sm90" their Hopper bodies alone; "attention_cm" counts every K5 kernel,
 # "attention_cm_sm90" those of its Hopper bodies (both dtypes),
 # "attention_cm_f32_sm90" those of the f32 one (counts attention_dmajor keeps);
 # "winograd" counts every K6 kernel, "winograd_sm90" those of its Hopper body
 KERNEL_WRAPPERS = {
     "attention": flash_attention,
     "attention_sm90": attention_sm90,
+    "attention_f32_fused_sm90": attention_f32_fused_sm90,
     "attention_f32_sm90": attention_f32_sm90,
     "attention_bf16_wide_sm90": attention_bf16_wide_sm90,
     "geglu_ff": geglu_ff,
@@ -95,6 +100,7 @@ __all__ = [
     "attention",
     "flash_attention",
     "attention_sm90",
+    "attention_f32_fused_sm90",
     "attention_f32_sm90",
     "attention_bf16_wide_sm90",
     "attention_dmajor",

@@ -13,9 +13,10 @@ dispatch copies the JAX rule (``attention``: Pallas only for KV > 128):
     with d <= 256 the TMA + wgmma body :func:`attention_sm90`
     (``csrc/attention_sm90.cu``), bf16 with 256 < d <= 512 the wgmma body
     :func:`attention_bf16_wide_sm90` (``csrc/attention_bf16_wide_sm90.cu``),
-    f32 with 256 < d <= 512 the 3xTF32 body :func:`attention_f32_sm90`
-    (``csrc/attention_f32_sm90.cu``), f32 with d <= 256 the body of
-    ``csrc/attention.cu``; for CPU tensors its plain PyTorch twin
+    f32 with d <= 160 the fused 3xTF32 body :func:`attention_f32_fused_sm90`
+    (``csrc/attention_f32_fused_sm90.cu``), f32 with 160 < d <= 512 the
+    unfused 3xTF32 body :func:`attention_f32_sm90`
+    (``csrc/attention_f32_sm90.cu``); for CPU tensors its plain PyTorch twin
     :func:`attention_plain`;
   * with ``CPD_ATTN_KCANON=1`` in the environment at import (the JAX
     module's switch, read into ``_USE_KCANON``), KV lengths in (128, 16384]
@@ -55,6 +56,7 @@ __all__ = [
     "flash_attention",
     "attention_plain",
     "attention_sm90",
+    "attention_f32_fused_sm90",
     "attention_f32_sm90",
     "attention_f32_fma",
     "f32_sm90_launches",
@@ -62,6 +64,8 @@ __all__ = [
     "attention_bf16_wide_mma",
     "bf16_wide_launches",
     "k1_body",
+    "k1_bf16_key_tile",
+    "k1_f32_config",
     "attention_dmajor",
     "attention_dmajor_plain",
     "attention_dmajor_prior",
@@ -139,9 +143,12 @@ def k1_body(dtype, d: int) -> str:
     ``d`` launches: ``"sm90"`` (bf16, d % 8 == 0, d <= 256 with a padded
     width in ``_ATTN_BF16_DP``: ``csrc/attention_sm90.cu``), ``"bf16_wide"``
     (bf16, d % 8 == 0, 256 < d <= 512: ``csrc/attention_bf16_wide_sm90.cu``),
-    ``"f32"`` (f32, d % 4 == 0, d <= 256: ``csrc/attention.cu``) or
-    ``"f32_sm90"`` (f32, d % 4 == 0, 256 < d <= 512:
-    ``csrc/attention_f32_sm90.cu``). Anything else raises."""
+    ``"f32_fused"`` (f32, d % 4 == 0, d <= 160: the fused 3xTF32 kernel of
+    ``csrc/attention_f32_fused_sm90.cu``) or ``"f32_sm90"`` (f32, d % 4 ==
+    0, 160 < d <= 512: the unfused 3xTF32 kernels of
+    ``csrc/attention_f32_sm90.cu``, since no fused block of Q's hi and lo, a
+    split K and V tile and a landed K and V tile fits 227 KB above 160).
+    Anything else raises."""
     if dtype == torch.bfloat16:
         if d % 8 == 0 and 0 < d <= _ONEPASS_MAX_D and (d + 15) // 16 * 16 in _ATTN_BF16_DP:
             return "sm90"
@@ -149,12 +156,19 @@ def k1_body(dtype, d: int) -> str:
             return "bf16_wide"
         raise ValueError(f"K1 bf16 supports head dims d % 8 == 0, d <= 512; got {d}")
     if dtype == torch.float32:
-        if d % 4 == 0 and 0 < d <= _ONEPASS_MAX_D:
-            return "f32"
-        if d % 4 == 0 and _ONEPASS_MAX_D < d <= _ATTN_MAX_D:
+        if d % 4 == 0 and 0 < d <= _K5_F32_FUSED_MAX_D:
+            return "f32_fused"
+        if d % 4 == 0 and _K5_F32_FUSED_MAX_D < d <= _ATTN_MAX_D:
             return "f32_sm90"
         raise ValueError(f"K1 f32 supports head dims d % 4 == 0, d <= 512; got {d}")
     raise TypeError(f"K1 supports bfloat16 and float32, got {dtype}")
+
+
+def k1_bf16_key_tile(d: int) -> int:
+    """Keys a K/V tile of K1's bf16 Hopper body at head dim ``d`` (``k1_bkv``
+    in ``csrc/attention_sm90.cuh``): 128 where the head dim takes at most
+    two 64-column boxes (d <= 128), 64 above."""
+    return 128 if -(-d // 64) <= 2 else 64
 
 
 def _check_qkv(q, k, v, num_heads):
@@ -195,12 +209,12 @@ def flash_attention(q, k, v, num_heads: int, scale: Optional[float] = None):
 
     CPU tensors run :func:`attention_plain`. CUDA tensors launch the body
     :func:`k1_body` names (bf16 with d <= 256: :func:`attention_sm90`; bf16
-    with 256 < d <= 512: :func:`attention_bf16_wide_sm90`; f32 with
-    256 < d <= 512: :func:`attention_f32_sm90`; f32 with d <= 256
-    ``csrc/attention.cu``) or raise; there is no fallback.
+    with 256 < d <= 512: :func:`attention_bf16_wide_sm90`; f32 with d <= 160:
+    :func:`attention_f32_fused_sm90`; f32 with 160 < d <= 512:
+    :func:`attention_f32_sm90`) or raise; there is no fallback.
     ``flash_attention.launches`` counts the kernels of every body: one a
-    call, or the kernels the wide bodies report (scores, softmax and output
-    a pass; the 3xTF32 body's three split kernels first).
+    call, or the kernels the unfused bodies report (scores, softmax and
+    output a pass; the 3xTF32 body's three split kernels first).
     """
     if not q.is_cuda:
         return attention_plain(q, k, v, num_heads, scale)
@@ -208,14 +222,13 @@ def flash_attention(q, k, v, num_heads: int, scale: Optional[float] = None):
     body = k1_body(q.dtype, q.shape[2] // num_heads)
     if body == "sm90":
         out = _attention_sm90(q, k, v, num_heads, scale)
-    elif body in ("f32_sm90", "bf16_wide"):
+    elif body == "f32_fused":
+        out = _attention_f32_fused_sm90(q, k, v, num_heads, scale)
+    else:
         out, n = (_attention_f32_sm90 if body == "f32_sm90" else _attention_bf16_wide_sm90)(
             q, k, v, num_heads, scale)
         flash_attention.launches += n
         return out
-    else:
-        out = _launch(_build.kernel_library().cpd_attention_f32, "attention (K1)", q, k, v,
-                      num_heads, scale, 4)
     flash_attention.launches += 1
     return out
 
@@ -249,13 +262,53 @@ def _attention_sm90(q, k, v, num_heads, scale):
 attention_sm90.launches = 0
 
 
+def attention_f32_fused_sm90(q, k, v, num_heads: int, scale: Optional[float] = None):
+    """K1's fused 3xTF32 body (``csrc/attention_f32_fused_sm90.cu``, the
+    kernel of ``csrc/attention_f32_fused.cuh`` in its row layout): f32
+    [B, S, H*D] operands with d % 4 == 0 and d <= 160; anything else raises.
+    Products on the TF32 tensor cores as three products of TF32 high and
+    low parts, with the error of f32; blocks as :func:`k1_f32_config` gives
+    them. Operands are read where they lie when their rows are 16-byte
+    aligned with unit column stride, else from contiguous copies. CPU
+    tensors run :func:`attention_plain`. ``attention_f32_fused_sm90.launches``
+    counts launches (one a call)."""
+    _check_qkv(q, k, v, num_heads)
+    if k1_body(q.dtype, q.shape[2] // num_heads) != "f32_fused":
+        raise ValueError(f"the fused 3xTF32 attention takes f32 with d <= 160; got {q.dtype}, "
+                         f"d = {q.shape[2] // num_heads}")
+    if not q.is_cuda:
+        return attention_plain(q, k, v, num_heads, scale)
+    return _attention_f32_fused_sm90(q, k, v, num_heads, scale)
+
+
+def _attention_f32_fused_sm90(q, k, v, num_heads, scale):
+    out = _launch(_build.kernel_library().cpd_attention_f32_fused_sm90,
+                  "attention (K1, fused 3xTF32 body)", q, k, v, num_heads, scale, 4)
+    attention_f32_fused_sm90.launches += 1
+    return out
+
+
+attention_f32_fused_sm90.launches = 0
+
+
+def k1_f32_config(d: int) -> "K5Config":
+    """The block of K1's fused f32 body for head dim ``d`` (``CfgF`` of
+    ``csrc/attention_f32_fused.cuh``, which K5's f32 body shares; a card
+    test holds this mirror to the C entry): 128 query rows and 64-key tiles
+    up to width 80, 128 rows and 32 keys up to 128, 64 rows and 32 keys up
+    to 160. Head dims the fused body does not take raise."""
+    if k1_body(torch.float32, d) != "f32_fused":
+        raise ValueError(f"K1's fused f32 body takes d % 4 == 0, d <= 160; got {d}")
+    return K5Config("f32_fused", *_f32_fused_block(d))
+
+
 def attention_f32_fma(q, k, v, num_heads: int, scale: Optional[float] = None):
     """K1's FMA body for f32 (``csrc/attention.cu``, ``attention_f32.cuh``)
-    at any head dim it takes (d % 4 == 0, d <= 512): the body K1 runs for
-    f32 with d <= 256, and the one the 3xTF32 body replaced above that,
-    kept callable so that the two can be timed and checked side by side.
-    CPU tensors run :func:`attention_plain`. Its launches are counted by
-    no wrapper: :func:`flash_attention` counts the route's."""
+    at any head dim it takes (d % 4 == 0, d <= 512): the body the 3xTF32
+    bodies replaced (fused at d <= 160, unfused above), kept callable so
+    that they can be timed and checked side by side. CPU tensors run
+    :func:`attention_plain`. Its launches are counted by no wrapper:
+    :func:`flash_attention` counts the route's."""
     _check_qkv(q, k, v, num_heads)
     d = q.shape[2] // num_heads
     if q.dtype != torch.float32 or d % 4 or not 0 < d <= _ATTN_MAX_D:
@@ -299,8 +352,9 @@ def _f32_sm90_workspace(b, h, sq, skv, d, rows) -> int:
 
 def attention_f32_sm90(q, k, v, num_heads: int, scale: Optional[float] = None,
                        rows: Optional[int] = None):
-    """K1's 3xTF32 body (``csrc/attention_f32_sm90.cu``): f32 [B, S, H*D]
-    operands with 256 < d <= 512 and d % 4 == 0; anything else raises. The
+    """K1's unfused 3xTF32 body (``csrc/attention_f32_sm90.cu``): f32
+    [B, S, H*D] operands with 160 < d <= 512 and d % 4 == 0; anything else
+    raises. The
     products run on the TF32 tensor cores as three products of TF32 high
     and low parts, with the error of f32. ``rows`` forces the query rows a
     pass (the tests cover several passes). CPU tensors run
@@ -309,7 +363,7 @@ def attention_f32_sm90(q, k, v, num_heads: int, scale: Optional[float] = None,
     predicts)."""
     _check_qkv(q, k, v, num_heads)
     if k1_body(q.dtype, q.shape[2] // num_heads) != "f32_sm90":
-        raise ValueError(f"the 3xTF32 attention takes f32 with 256 < d <= 512; got {q.dtype}, "
+        raise ValueError(f"the 3xTF32 attention takes f32 with 160 < d <= 512; got {q.dtype}, "
                          f"d = {q.shape[2] // num_heads}")
     if not q.is_cuda:
         return attention_plain(q, k, v, num_heads, scale)
@@ -506,13 +560,20 @@ def k5_config(dtype, d: int, k_canonical: bool = False) -> K5Config:
         stages = min(4, (_SMEM_MAX - 1024 - q_bytes - 8) // (k_bytes + v_bytes + 24))
         smem = 1024 + q_bytes + stages * (k_bytes + v_bytes) + (1 + 3 * stages) * 8
         return K5Config(body, dv, 128, bkv, stages, smem)
+    return K5Config(body, *_f32_fused_block(d))
+
+
+def _f32_fused_block(d: int) -> tuple:
+    """(width, query rows, key tile, 1, shared-memory bytes) of the fused
+    3xTF32 block (``CfgF``) for head dim ``d`` <= 160: Q's hi and lo, one
+    split K and V tile, one landed K and V tile."""
     dv = next(w for w in _K5_F32_DV if w >= d)
     nkb = -(-dv // 32)
     bq = 128 if dv <= 128 else 64
     bkv = 64 if dv <= 80 else 32
     smem = (1024 + 2 * nkb * bq * 128 + 2 * nkb * bkv * 128 + 2 * (bkv // 32) * dv * 128
             + 2 * bkv * dv * 4 + 3 * 8)
-    return K5Config(body, dv, bq, bkv, 1, smem)
+    return dv, bq, bkv, 1, smem
 
 
 def _check_dmajor(q, k, v, k_canonical):

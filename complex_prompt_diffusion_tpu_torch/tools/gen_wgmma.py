@@ -39,8 +39,9 @@ SS_BMN_WIDTHS = (64, 128, 192, 256)
 # TF32 SS: K1's f32 body, 128-wide tiles; K5's f32 score tiles (64 or 32 keys)
 TF32_WIDTHS = (32, 64, 128)
 # RS: attention's PV width, the head dim rounded up to 8, for every head dim
-# K1's bf16 body takes up to 256 (ops/attention.py: _ATTN_BF16_DP)
-RS_WIDTHS = (8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88, 96, 120, 128, 152, 160, 248, 256)
+# K1's bf16 body takes up to 256 (ops/attention.py: _ATTN_BF16_DP), and the
+# probe K7's ones column at d = 160 (d + 8; at 40 and 80 the list has it)
+RS_WIDTHS = (8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88, 96, 120, 128, 152, 160, 168, 248, 256)
 # K5's bf16 body (ops/attention.py: _K5_BF16_DV): score tiles of 128 or 64
 # keys (SS with A MN-major, B K-major or MN-major), PV widths (RS, B K-major)
 K5_SS_WIDTHS = (64, 128)

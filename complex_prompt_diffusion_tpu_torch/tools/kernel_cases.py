@@ -67,8 +67,8 @@ class Case(NamedTuple):
     flops: float
     nbytes: float  # each input read once, each output written once
     # the body this kernel replaced, where it is still built (the mma.sync
-    # bodies of K1 and K4, K1's f32 FMA body, K3's first body, K5's, K6's
-    # and K9's first bodies), timed beside it; None where there is none
+    # bodies of K1 and K4, K1's f32 FMA body, K3's first body, K5's, K6's,
+    # K7's and K9's first bodies), timed beside it; None where there is none
     prior: Optional[Callable] = None
     # the PEAK_FLOPS entry of the units that do the work, where it is not
     # the dtype's
@@ -130,15 +130,17 @@ def kernel_cases(dev, kernels=None) -> list:
         # UNet self-attention at UNet batch 8 (q/k/v are views of one fused
         # qkv projection, as in the UNet), through K1's route (the sm90 body
         # in this tree; tree_ab runs the same case on a parent's route), with
-        # the mma.sync body beside it: the probe K7's full mode, which is that
-        # body's code
+        # the mma.sync body beside it: the full mode of K7's replaced loop,
+        # which is that body's code (a parent tree without it: K7's full
+        # mode, which was that loop there)
         PA = importlib.import_module(f"{_PKG}.ops.probes.attention")
+        mma = getattr(PA, "attention_probe_prior", PA.attention_probe)
         for s_, c in ((4096, 320), (1024, 640), (256, 1280)):
             qkv = randn(8, s_, 3 * c, dtype=bf16)
             q, k, v = qkv.chunk(3, dim=-1)
             d = c // 8
             attn_case(f"bf16 B8 S{s_} H8 d{d}", q, k, v, 8, "bfloat16", "attention_sm90",
-                      lambda q=q, k=k, v=v, d=d: PA.attention_probe(q, k, v, 8, d**-0.5))
+                      lambda q=q, k=k, v=v, d=d: mma(q, k, v, 8, d**-0.5))
     if "attention_f32_sm90" in want:
         # the f32 VAE mid-block of the exact b4 decode, through K1's route
         # (the 3xTF32 body in this tree, bound at the TF32 tensor cores' rate
@@ -159,10 +161,15 @@ def kernel_cases(dev, kernels=None) -> list:
                       "attention_bf16_wide_sm90",
                       (lambda q=q, k=k, v=v: wide(q, k, v, 1)) if wide else None)
     if "attention" in want:
-        # attention.cu's f32 body (d <= 256): an f32 UNet's level-1
-        # self-attention at UNet batch 2
-        q, k, v = (randn(2, 1024, 640, dtype=f32) for _ in range(3))
-        attn_case("f32 B2 S1024 H8 d80", q, k, v, 8, "float32")
+        # K1 f32 with d <= 160 (the fused 3xTF32 body in this tree, bound at
+        # the rate of three TF32 products): an f32 UNet's self-attention at
+        # UNet batch 2, level 1, then levels 0 and 2; the FMA body it replaced
+        # beside each (a parent tree may lack its wrapper)
+        fma = getattr(A, "attention_f32_fma", None)
+        for s_, c in ((1024, 640), (4096, 320), (256, 1280)):
+            q, k, v = (randn(2, s_, c, dtype=f32) for _ in range(3))
+            attn_case(f"f32 B2 S{s_} H8 d{c // 8}", q, k, v, 8, "float32", "attention",
+                      (lambda q=q, k=k, v=v: fma(q, k, v, 8)) if fma else None, "tf32x3")
     if "geglu_ff" in want:
         # every UNet level at UNet batch 8 (the b4 render), then the rows of
         # UNet batch 2 (the b1 render) that batch 8 lacks; no single PyTorch
@@ -183,7 +190,7 @@ def kernel_cases(dev, kernels=None) -> list:
         # and 2 (the b1 step), bf16, eps 1e-5; the f32 VAE-decode planes and
         # the bf16 planes of the b4 and the b1 bf16 decode (eps 1e-6). The
         # replaced body beside each (a parent tree may lack its wrapper)
-        prior = getattr(G, "group_norm_prior", None)
+        gn_prior = getattr(G, "group_norm_prior", None)
         shapes = [((b, side, side, c), bf16, 1e-5) for b in (8, 2) for side, c in GN_UNET_PLANES]
         for b, dt in ((4, f32), (4, bf16), (1, bf16)):
             shapes += [((b, side, side, c), dt, 1e-6) for side, c in GN_DECODE_PLANES]
@@ -200,7 +207,7 @@ def kernel_cases(dev, kernels=None) -> list:
                                                 a[4])),
                 "bfloat16" if dt == bf16 else "float32", 10.0 * x.numel(),
                 (2 * x.numel() + 2 * shape[-1]) * x.element_size(),
-                (lambda a=a: prior(*a)) if prior else None))
+                (lambda a=a: gn_prior(*a)) if gn_prior else None))
     shapes = []
     if "conv3x3_sm90" in want:
         # every distinct 3x3 conv of the batch-1 render (UNet batch 2), through
@@ -315,8 +322,11 @@ def kernel_cases(dev, kernels=None) -> list:
     # time every variant
     if "probe_attention" in want:
         PA = importlib.import_module(f"{_PKG}.ops.probes.attention")
-        # the scores mode (perf_attn10 A, and F on K1's f32 loop) has no
-        # library call
+        # the replaced loops beside K7 (a parent tree may lack them), with the
+        # same flags at their 64-key tiles unless the case asks for 128
+        probe_prior = getattr(PA, "attention_probe_prior", None)
+        # the scores mode (perf_attn10 A, and F on K1's fused f32 body, bound
+        # at the rate of three TF32 products) has no library call
         for s_, c, kw, lib, dt in ((4096, 320, dict(denom="ones"), True, bf16),
                                    (1024, 640, dict(kv_tile=128), True, bf16),
                                    (4096, 320, dict(mode="scores"), False, bf16),
@@ -332,7 +342,9 @@ def kernel_cases(dev, kernels=None) -> list:
                 lambda q=q, k=k, v=v, kw=kw, d=c // 8: PA.attention_probe_plain(
                     q, k, v, 8, d**-0.5, **kw),
                 sdpa(q, k, v, 8) if lib else None, "bfloat16" if dt == bf16 else "float32",
-                flops, 4.0 * 8 * s_ * c * q.element_size()))
+                flops, 4.0 * 8 * s_ * c * q.element_size(),
+                (lambda q=q, k=k, v=v, kw=kw, d=c // 8: probe_prior(q, k, v, 8, d**-0.5, **kw))
+                if probe_prior else None, "tf32x3" if dt == f32 else None))
     if "probe_groupnorm" in want:
         PG = importlib.import_module(f"{_PKG}.ops.probes.groupnorm")
         for shape, kw in (((8, 64, 64, 320), dict(mma=True)), ((8, 64, 64, 320), dict(splits=16)),
@@ -395,8 +407,7 @@ def host_us(dev, calls: int = 500) -> dict:
            "conv3x3 route (sm90 body)": lambda: C.conv3x3(x, w, b),
            "conv3x3_generic (mma.sync body)": lambda: C.conv3x3_generic(x, w, b),
            "flash_attention route (sm90 body)": lambda: A.flash_attention(q, q, q, 1),
-           "attention_probe full (mma.sync body)": lambda: PA.attention_probe(q, q, q, 1,
-                                                                              0.158),
+           "attention_probe full (K7)": lambda: PA.attention_probe(q, q, q, 1, 0.158),
            "attention_dmajor route (K5)": lambda: A.attention_dmajor(qd, qd, qd, 0.158)}
     if hasattr(A, "attention_dmajor_prior"):  # a parent tree lacks it
         fns["attention_dmajor_prior (K5's replaced body)"] = (

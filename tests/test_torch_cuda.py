@@ -23,6 +23,8 @@ from complex_prompt_diffusion_tpu_torch.ops.attention import (
     attention_dmajor,
     attention_dmajor_plain,
     attention_dmajor_prior,
+    attention_f32_fma,
+    attention_f32_fused_sm90,
     attention_f32_sm90,
     attention_kcanon,
     attention_plain,
@@ -30,6 +32,8 @@ from complex_prompt_diffusion_tpu_torch.ops.attention import (
     bf16_wide_launches,
     f32_sm90_launches,
     flash_attention,
+    k1_bf16_key_tile,
+    k1_f32_config,
     k5_body,
     k5_config,
     self_attention_cm,
@@ -264,10 +268,10 @@ def test_geglu_sm90_takes_strided_rows_and_raises_on_what_it_does_not_take(dev):
 @pytest.mark.parametrize("d", [64, 384, 512])
 @pytest.mark.parametrize("s", [1, 100, 4095])
 def test_attention_f32_exact_against_the_no_tf32_plain_twin(dev, d, s):
-    """K1 in f32 (d = 64: the FMA body; 384 and 512: the 3xTF32 body) against
-    the plain twin with TF32 off (the ``dev`` fixture sets
-    ``torch.backends.cuda.matmul.allow_tf32 = False``): max |kernel - plain|
-    <= 1e-5 of max |plain|, which one-pass TF32 (~1e-3) would miss."""
+    """K1 in f32 (d = 64: the fused 3xTF32 body; 384 and 512: the unfused
+    3xTF32 body) against the plain twin with TF32 off (the ``dev`` fixture
+    sets ``torch.backends.cuda.matmul.allow_tf32 = False``): max |kernel -
+    plain| <= 1e-5 of max |plain|, which one-pass TF32 (~1e-3) would miss."""
     assert torch.backends.cuda.matmul.allow_tf32 is False
     g = _gen(dev, d + s)
     kv = torch.randn((2, s, 2 * d), generator=g, device=dev)
@@ -278,6 +282,60 @@ def test_attention_f32_exact_against_the_no_tf32_plain_twin(dev, d, s):
     assert attention_f32_sm90.launches == before + (
         f32_sm90_launches(2, 1, s, s) if d > 256 else 0)
     assert _rel(got, attention_plain(q, k, v, 1)) <= 1e-5
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+@pytest.mark.parametrize("sq,skv", [(1, 1), (100, 300), (1000, 1336), (4095, 257)])
+def test_attention_f32_fused_sm90_ragged(dev, d, sq, skv):
+    """K1's fused 3xTF32 body (f32, d <= 160) at ragged lengths, on strided
+    k and v views, against the plain twin with TF32 off at 1e-5; one launch
+    a call, on its own count and K1's."""
+    g = _gen(dev, d + sq)
+    heads = 2
+    q = torch.randn((2, sq, heads * d), generator=g, device=dev)
+    kv = torch.randn((2, skv, 2 * heads * d), generator=g, device=dev)
+    k, v = kv.chunk(2, dim=-1)
+    before = (flash_attention.launches, attention_f32_fused_sm90.launches,
+              attention_f32_sm90.launches)
+    got = flash_attention(q, k, v, heads)
+    assert (flash_attention.launches, attention_f32_fused_sm90.launches,
+            attention_f32_sm90.launches) == (before[0] + 1, before[1] + 1, before[2])
+    assert _rel(got, attention_plain(q, k, v, heads)) <= 1e-5
+    assert torch.equal(attention_f32_fused_sm90(q, k, v, heads), got)
+
+
+@pytest.mark.parametrize("d", [164, 200, 256])
+def test_attention_f32_above_160_takes_the_unfused_body(dev, d):
+    g = _gen(dev, d)
+    q, k, v = (torch.randn((1, s, 2 * d), generator=g, device=dev) for s in (130, 250, 250))
+    before = attention_f32_sm90.launches
+    got = flash_attention(q, k, v, 2)
+    assert attention_f32_sm90.launches == before + f32_sm90_launches(1, 2, 130, 250)
+    assert _rel(got, attention_plain(q, k, v, 2)) <= 1e-5
+
+
+def test_attention_f32_fma_still_matches(dev):
+    g = _gen(dev, 5)
+    q, k, v = (torch.randn((2, s, 2 * 80), generator=g, device=dev) for s in (70, 300, 300))
+    assert _rel(attention_f32_fma(q, k, v, 2), attention_plain(q, k, v, 2)) <= 1e-5
+
+
+def test_k1_f32_config_mirror_matches_the_c_entry(dev):
+    """ops.attention.k1_f32_config against the CfgF the fused kernel
+    compiles, at every head dim it takes; the C entry refuses the rest."""
+    import ctypes
+
+    from complex_prompt_diffusion_tpu_torch import _build
+
+    fn = _build.kernel_library().cpd_attention_f32_fused_sm90_config
+    for d in range(1, 261):
+        buf = (ctypes.c_int * 4)()
+        err = fn(d, ctypes.addressof(buf))
+        if d % 4 or d > 160:
+            assert err != 0, d
+            continue
+        c = k1_f32_config(d)
+        assert err == 0 and tuple(buf) == (c.query_rows, c.key_tile, 1, c.smem_bytes), d
 
 
 def test_attention_f32_sm90_in_several_passes_and_heads(dev):
@@ -295,7 +353,7 @@ def test_attention_f32_sm90_in_several_passes_and_heads(dev):
     assert _rel(passes, attention_plain(q, k, v, 2)) <= 1e-5
     assert torch.equal(passes, one) and torch.equal(attention_f32_sm90(q, k, v, 2), one)
     with pytest.raises(ValueError):
-        attention_f32_sm90(q[..., :512], k[..., :512], v[..., :512], 2)  # d = 256
+        attention_f32_sm90(q[..., :320], k[..., :320], v[..., :320], 2)  # d = 160: fused
 
 
 def _grad_cases(dev):
@@ -1024,12 +1082,14 @@ def test_attention_probe_modes(dev, mode, d):
 
 
 @pytest.mark.parametrize("d", [40, 80, 160])
-@pytest.mark.parametrize("denom,exp,unnorm,tile", [("sum", "exp", False, 64),
-                                                   ("ones", "exp2", False, 64),
-                                                   ("ones", "exp", False, 64),
-                                                   ("ones", "exp2", True, 64),
-                                                   ("sum", "exp2", False, 128)])
+@pytest.mark.parametrize("denom,exp,unnorm,tile", [("sum", "exp", False, None),
+                                                   ("ones", "exp2", False, None),
+                                                   ("ones", "exp", False, None),
+                                                   ("ones", "exp2", True, None),
+                                                   ("sum", "exp2", False, 64)])
 def test_attention_probe_flags(dev, d, denom, exp, unnorm, tile):
+    """Each flag at K1's key tile (None), and 64-key tiles at K1's other
+    choices (K1's own tile at d = 160)."""
     from complex_prompt_diffusion_tpu_torch.ops.probes.attention import (
         attention_probe,
         attention_probe_plain,
@@ -1049,6 +1109,10 @@ def test_attention_probe_f32_scores_and_k5_scores(dev):
     from complex_prompt_diffusion_tpu_torch.ops.probes import attention as PA
 
     g = _gen(dev, 31)
+    for d in (80, 160):  # the fused f32 body's scores mode at the other levels
+        q, k, v = (torch.randn((2, s, 2 * d), generator=g, device=dev) for s in (136, 200, 200))
+        got = PA.attention_probe(q, k, v, 2, d**-0.5, "scores")
+        assert _rel(got, PA.attention_probe_plain(q, k, v, 2, d**-0.5, "scores")) <= 1e-5
     q, k, v = (torch.randn((2, s, 2 * 40), generator=g, device=dev) for s in (136, 200, 200))
     got = PA.attention_probe(q, k, v, 2, 40**-0.5, "scores")
     assert _rel(got, PA.attention_probe_plain(q, k, v, 2, 40**-0.5, "scores")) <= 1e-4
@@ -1069,14 +1133,77 @@ def test_attention_probe_raises_on_what_it_was_not_built_for(dev):
     from complex_prompt_diffusion_tpu_torch.ops.probes.attention import attention_probe
 
     q = torch.zeros((1, 64, 64), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # d = 64 pads to 64: not a UNet level
+    with pytest.raises(ValueError):  # d = 64: not a UNet level
         attention_probe(q, q, q, 1, 0.125)
     q = torch.zeros((1, 64, 48), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # the ones column needs d in 40, 80, 160
+    with pytest.raises(ValueError):  # K7 takes d in 40, 80, 160
         attention_probe(q, q, q, 1, 0.125, denom="ones")
     q = torch.zeros((1, 64, 40), device=dev)
     with pytest.raises(ValueError):  # f32 operands: the scores mode only
         attention_probe(q, q, q, 1, 0.125)
+    q = torch.zeros((1, 64, 160), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # 128-key tiles do not fit at d = 160
+        attention_probe(q, q, q, 1, 0.125, kv_tile=128)
+
+
+def test_attention_probe_c_entry_refuses_what_it_has_no_instantiation_for(dev):
+    """The C entry returns an error (and launches nothing) for combinations
+    the wrapper's check refuses: 128-key tiles at d = 160, an ablated mode
+    at 64 keys where K1 takes 128, exp with the unnormalized output."""
+    from complex_prompt_diffusion_tpu_torch import _build
+
+    lib = _build.kernel_library()
+    for d, mode, denom, exp2, unnorm, tile in ((160, 0, 0, 1, 0, 128), (40, 1, 0, 1, 0, 64),
+                                               (80, 0, 1, 0, 1, 128), (48, 0, 0, 1, 0, 128)):
+        q = torch.zeros((1, 64, d), device=dev, dtype=torch.bfloat16)
+        o = torch.empty_like(q)
+        err = lib.cpd_probe_attention_bf16(q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(),
+                                           1, 1, 64, 64, d, 64 * d, d, 64 * d, d, 64 * d, d, 0.1,
+                                           mode, denom, exp2, unnorm, tile,
+                                           _build.stream_ptr(q.device))
+        assert err != 0, (d, mode, denom, exp2, unnorm, tile)
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_attention_probe_full_at_k1_choices_writes_k1_bits(dev, d):
+    """K7's full mode at K1's choices (row sums, exp2, K1's key tile) is
+    K1's own instantiation of the loop: the same bits as flash_attention, on
+    strided views and ragged lengths."""
+    from complex_prompt_diffusion_tpu_torch.ops.probes.attention import attention_probe
+
+    g = _gen(dev, 3 * d)
+    qkv = torch.randn((2, 333, 3 * 4 * d), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    assert torch.equal(attention_probe(q, k, v, 4, d**-0.5), flash_attention(q, k, v, 4, d**-0.5))
+    assert torch.equal(attention_probe(q, k, v, 4, d**-0.5, kv_tile=k1_bf16_key_tile(d)),
+                       flash_attention(q, k, v, 4, d**-0.5))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kv_tile=128), dict(mode="scores"),
+                                dict(mode="pv"), dict(denom="ones", unnormalized=True)],
+                         ids=["full", "full128", "scores", "pv", "h2"])
+def test_attention_probe_prior_still_matches(dev, kw):
+    """K7's replaced loops (the mma.sync loop at its 64-key tiles, K5's,
+    K1's f32 FMA loop) against the plain twin, counted on their own count."""
+    from complex_prompt_diffusion_tpu_torch.ops.probes import attention as PA
+
+    g = _gen(dev, 17)
+    q = torch.randn((2, 136, 2 * 80), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((2, 200, 2 * 80), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    before = (PA.attention_probe_prior.launches, PA.attention_probe.launches)
+    got = PA.attention_probe_prior(q, k, v, 2, 80**-0.5, **kw)
+    assert (PA.attention_probe_prior.launches, PA.attention_probe.launches) == (
+        before[0] + 1, before[1])
+    want = PA._plain(q, k, v, 2, 80**-0.5, kw.get("mode", "full"), kw.get("denom", "sum"),
+                     "exp2", kw.get("unnormalized", False))
+    assert _rel(got, want) <= TOL[torch.bfloat16]
+    qd, kd, vd = (PA.to_dmajor(t, 2) for t in (q, k, v))
+    assert _rel(PA.attention_dmajor_scores_prior(qd, kd, vd, 80**-0.5),
+                PA.attention_dmajor_scores_plain(qd, kd, vd, 80**-0.5)) <= TOL[torch.bfloat16]
+    q, k, v = (t.float() for t in (q, k, v))
+    assert _rel(PA.attention_probe_prior(q, k, v, 2, 80**-0.5, "scores"),
+                PA.attention_probe_plain(q, k, v, 2, 80**-0.5, "scores")) <= 1e-4
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 16, 64), (2, 12, 12, 320), (1, 8, 8, 1280)])

@@ -9,13 +9,15 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            (``cuobjdump``) that the Hopper bodies of K1, K2, K4 and K5
            (``attention_sm90.cu``, ``attention_bf16_wide_sm90.cu``,
            ``attention_f32_sm90.cu``, ``attention_f32_fused_sm90.cu``,
-           ``geglu_ff_sm90.cu``, ``conv3x3_sm90.cu``,
-           ``attention_cm_sm90.cu``, ``attention_cm_f32_sm90.cu``), of K6
+           ``geglu_ff_sm90.cu``, ``geglu_ff_f32_sm90.cu``, ``conv3x3_sm90.cu``,
+           ``conv3x3_f32_sm90.cu``, ``attention_cm_sm90.cu``,
+           ``attention_cm_f32_sm90.cu``), of K6
            (``winograd_sm90.cu``) and of K7 (``probe_attention*.cu``: K1's
            and K5's Hopper loops and the fused f32 body in its modes) hold
            wgmma (HGMMA) and TMA load (UTMALDG) instructions in every
            instantiation (K7's loads-only mode, which computes nothing, TMA
-           loads alone), and K3's (``groupnorm_sm90.cu``) and K9's
+           loads alone; K2's and K4's f32 bodies TF32 wgmma only), and K3's
+           (``groupnorm_sm90.cu``) and K9's
            (``probe_copy_sm90.cu``) a TMA or bulk-copy load (UTMALDG or
            UBLKCP) in every one;
   phase 1  runs each kernel at its paths' shapes against its plain PyTorch
@@ -29,10 +31,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            one), and the bound from this case's bytes and flops, with the
            bound's share of the kernel's time (for the 3xTF32 bodies the
            FMA rate's bound beside it); the sums over the 22 convs
-           of a batch-1 UNet call, over the 16 GEGLU FF calls of a b4 step
-           and over the 61 GroupNorms of a b4 and of a b1 step; the host
-           cost of one TMA tensor-map encode and of one call
-           of the K1, K2, K4 and K5 wrappers;
+           of a batch-1 UNet call (bf16 and f32), over the 16 GEGLU FF
+           calls of a b4 step (bf16 and f32) and of a b1 step (f32), and
+           over the 61 GroupNorms of a b4 and of a b1 step; the host cost
+           of one TMA tensor-map encode and of one call of the K1, K2, K4
+           and K5 wrappers;
   phase 2  the main path: SD-1.5 at full width with random weights from a
            seed, txt2img at 512x512, batch 4, DDIM eta=0, CFG 7.5, then the
            exact-f32 VAE decode to uint8;
@@ -54,9 +57,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            sites, each through the cm block against the default route on
            one input: in bf16 (K5's bf16 body against K1's sm90 body) and
            with the weights cast to f32 (K5's f32 body against K1's fused
-           3xTF32 body; an f32 UNet cannot run whole on the card, since K2
-           takes bf16 only); the sites' launches count as a path of their
-           own;
+           3xTF32 body); the sites' launches count as a path of their own;
   phase 8  k-family img2img at batch 1 (Euler Ancestral, strength 0.75: 6 of
            20 steps) with the canonical-K attention route switched on for
            the phase (K5's bf16 body at every self-attention site), bf16
@@ -81,17 +82,28 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            shapes with the L2 hot and cold, K7's and K9's replaced bodies
            beside their rows, and each K7 mode's share of the full mode's
            time at every UNet level (``tools/probe_attention.py``,
-           ``tools/probe_groupnorm.py``).
+           ``tools/probe_groupnorm.py``);
+  phase 11 the exact-f32 render: one SD-1.5 UNet eval cast to f32 on a
+           16x16 latent against the plain twins on CPU copies (TF32 off);
+           txt2img at 512x512, batch 1, DDIM, CFG 7.5 with the UNet in f32
+           (``bundle.cast("float32")``: K2's and K4's 3xTF32 bodies, K1's
+           fused 3xTF32 body), then the f32 decode: seconds to image,
+           s/step, decode ms, peak memory; and a short txt2img of the
+           default bundle, ``ModelBundle.random()`` with no arguments (the
+           tiny config, f32 UNet: K4's FMA body at its narrow widths), a
+           path of its own.
 
-Each path of phases 2 and 4 to 10 runs with every launch count set to 0
+Each path of phases 2 and 4 to 11 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched: in phases 2, 4, 6 and 7 every UNet self-attention site
-on K1's sm90 body, in phases 2, 4 and 6 every GEGLU FF call on K2 with the
-kernels its plan predicts (the library reports what it launched), in phase
-2 the f32 VAE mid-block on K1's 3xTF32 body (its split, scores, softmax and
-output kernels), in phase 7's f32 cm sites K1's fused 3xTF32 body and K5's
-f32 body once a site, in phases 4, 6, 8 and 9 every batch-1 UNet conv on K4's,
-in phases 2 to 8 every GroupNorm (61 a UNet call, 30 a decode, 22 an
+on K1's sm90 body (phase 11: its fused 3xTF32 body), in phases 2, 4 and 6
+every GEGLU FF call on K2's bf16 body with the kernels its plan predicts
+(the library reports what it launched; phase 11: its f32 body, none on the
+bf16 one), in phases 2 and 11 the f32 VAE mid-block on K1's 3xTF32 body
+(its split, scores, softmax and output kernels), in phase 7's f32 cm sites
+K1's fused 3xTF32 body and K5's f32 body once a site, in phases 4, 6, 8 and
+9 every batch-1 UNet conv on K4's sm90 body (phase 11: its f32 body, none
+on the bf16 one), in phases 2 to 8 and 11 every GroupNorm (61 a UNet call, 30 a decode, 22 an
 encode) on K3's Hopper body with the kernels its plans predict (the library
 reports what it launched) and none on its replaced body, and in phases 3 to
 6 and 8 every bf16 VAE mid-block attention on K1's wgmma wide body (its
@@ -137,7 +149,11 @@ KERNELS = {
     ),
     "geglu_ff": (
         f"{PKG}/csrc/geglu_ff_sm90.cu",
-        "complex_prompt_diffusion_tpu/ops/mlp.py:51 _ff_kernel",
+        "complex_prompt_diffusion_tpu/ops/mlp.py:51 _ff_kernel (bf16)",
+    ),
+    "geglu_ff_f32_sm90": (
+        f"{PKG}/csrc/geglu_ff_f32_sm90.cu",
+        "complex_prompt_diffusion_tpu/ops/mlp.py:51 _ff_kernel (f32)",
     ),
     "group_norm": (
         f"{PKG}/csrc/groupnorm_sm90.cu",
@@ -148,11 +164,16 @@ KERNELS = {
     ),
     "conv3x3": (
         f"{PKG}/csrc/conv3x3.cu",
-        "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel (f32; bf16 with C or Co % 64 != 0)",
+        "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel (f32 with C % 32 or Co % 64 != 0; "
+        "bf16 with C or Co % 64 != 0)",
     ),
     "conv3x3_sm90": (
         f"{PKG}/csrc/conv3x3_sm90.cu",
         "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel (bf16, C % 64 == Co % 64 == 0)",
+    ),
+    "conv3x3_f32_sm90": (
+        f"{PKG}/csrc/conv3x3_f32_sm90.cu",
+        "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel (f32, C % 32 == Co % 64 == 0)",
     ),
     "attention_cm_sm90": (
         f"{PKG}/csrc/attention_cm_sm90.cu",
@@ -200,12 +221,13 @@ PROBE_ATTENTION_SOURCES = tuple(f"{PKG}/csrc/{f}" for f in (
 # the probes: no layer calls them; phase 10 runs the last three
 PROBES = ("winograd", "winograd_sm90", "probe_attention", "probe_groupnorm", "probe_copy")
 PHASE10_PROBES = PROBES[2:]
-# K1's, K4's, K5's and K6's Hopper bodies, counted inside "attention",
-# "conv3x3", "attention_cm" (K5's f32 body inside its Hopper count) and
-# "winograd"
+# K1's, K2's f32, K4's, K5's and K6's Hopper bodies, counted inside
+# "attention", "geglu_ff", "conv3x3", "attention_cm" (K5's f32 body inside
+# its Hopper count) and "winograd"
 SM90 = {"attention_sm90": "attention", "attention_f32_sm90": "attention",
         "attention_f32_fused_sm90": "attention",
         "attention_bf16_wide_sm90": "attention", "conv3x3_sm90": "conv3x3",
+        "conv3x3_f32_sm90": "conv3x3", "geglu_ff_f32_sm90": "geglu_ff",
         "attention_cm_sm90": "attention_cm", "attention_cm_f32_sm90": "attention_cm_sm90",
         "winograd_sm90": "winograd"}
 # phase 1's K1 f32, K5 and K6 cases (kernels "attention", "attention_cm" and
@@ -216,10 +238,14 @@ K6_BODY = {"bfloat16": "winograd_sm90", "float32": "winograd"}
 # the Hopper kernels phase 0 finds in the SASS: every instantiation must hold
 # wgmma (HGMMA) and TMA loads (UTMALDG). attention_sm90_kernel is K1's and
 # K7's (K1's loop in K7's modes), attention_cm_sm90_kernel K5's bf16 and
-# K7's, attention_f32x3_kernel the fused 3xTF32 body of K1, K5 and K7
+# K7's, attention_f32x3_kernel the fused 3xTF32 body of K1, K5 and K7;
+# geglu_gemm_f32_sm90_kernel and conv3x3_f32_sm90_kernel K2's and K4's f32
+# bodies, whose wgmma must be TF32 ones (TF32_FUNCTIONS)
 SM90_FUNCTIONS = ("attention_sm90_kernel", "tf32x3_gemm_kernel", "wide_gemm_kernel",
                   "geglu_gemm_sm90_kernel", "conv3x3_sm90_kernel", "attention_cm_sm90_kernel",
-                  "attention_f32x3_kernel", "wino3x3_sm90_kernel")
+                  "attention_f32x3_kernel", "wino3x3_sm90_kernel", "geglu_gemm_f32_sm90_kernel",
+                  "conv3x3_f32_sm90_kernel")
+TF32_FUNCTIONS = ("geglu_gemm_f32_sm90_kernel", "conv3x3_f32_sm90_kernel")
 # K7's loads-only mode of K1's loop (MODE 6 of attention_sm90_kernel<DV, BKV,
 # MODE, ...>) computes nothing: TMA loads, no wgmma
 LOADS_ONLY = re.compile(r"attention_sm90_kernelILi\d+ELi\d+ELi6E")
@@ -231,6 +257,8 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |a - b| / max |b|
 
 DDIM_PATH_KERNELS = ("attention", "geglu_ff", "group_norm", "conv3x3")  # phases 4 and 6
 UNET_CONVS_PER_CALL_B1 = 22  # 3x3 convs on the 16^2/32^2 planes at UNet batch 2
+UNET_CONVS_16_LATENT = 13  # of a UNet call on a 16x16 latent: conv_in, out conv and 11 more
+UNET_FF_SITES = 16  # GEGLU FF calls a UNet call: 5 at each of three levels, 1 in the middle
 K_STEPS = 20  # steps of the k-diffusion paths (phases 7 and 8)
 UNET_SELF_ATTN_SITES = 15  # self-attention sites above S = 128 at 512x512: 5 a level
 UNET_CM_SITES = 10  # of them inside the cm gate (levels 1 and 2: C = 640, 1280)
@@ -270,8 +298,9 @@ def rel_err(got, want) -> tuple:
 def phase0_sass(card: str) -> None:
     """The TMA + wgmma bodies of K1, K2, K4, K5, K6 and K7 as built: every
     instantiation must hold HGMMA (wgmma) and UTMALDG (TMA tensor load)
-    instructions (K7's loads-only mode UTMALDG alone); K3's and K9's
-    kernels a TMA or bulk-copy load (UTMALDG or UBLKCP)."""
+    instructions (K7's loads-only mode UTMALDG alone), K2's and K4's f32
+    bodies TF32 wgmma only; K3's and K9's kernels a TMA or bulk-copy load
+    (UTMALDG or UBLKCP)."""
     from complex_prompt_diffusion_tpu_torch.tools import probe_attention as PA
 
     counts = PA.sass_counts()
@@ -287,6 +316,12 @@ def phase0_sass(card: str) -> None:
         if not fns or bad:
             raise SmokeFailure(f"{body}: no instantiation, or one without HGMMA or UTMALDG: "
                                f"{bad or 'none built'}")
+        if body in TF32_FUNCTIONS:
+            not_tf32 = [n for n, c in fns.items() if c["HGMMA.TF32"] != c["HGMMA"]]
+            print(f"phase0: {body}: HGMMA on TF32 operands "
+                  f"{sorted(c['HGMMA.TF32'] for c in fns.values())} a function ({card})")
+            if not_tf32:
+                raise SmokeFailure(f"{body}: wgmma other than TF32 in {not_tf32}")
     for body in BULK_FUNCTIONS:
         fns = {n: c["UTMALDG"] + c["UBLKCP"] for n, c in counts.items() if body in n}
         bad = [n for n, c in fns.items() if c == 0]
@@ -306,6 +341,7 @@ def phase1(dev, card: str) -> dict:
     from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import (
         B1_UNET_CONV_COUNTS,
         B1_UNET_CONVS,
+        GEGLU_B1_ROWS,
         GEGLU_B4_CALLS,
         GEGLU_ROWS,
         GN_B4_CALLS,
@@ -341,16 +377,20 @@ def phase1(dev, card: str) -> dict:
         plain_ms = graph_ms(case.plain)
         lib_ms = graph_ms(case.library) if case.library is not None else None
         bound_ms, by = case.bound()
-        # K1's and K5's f32 bodies (3xTF32) are held to 1e-5, as the card tests
-        # hold them: one TF32 product (~1e-3) would miss it
+        # the 3xTF32 bodies (K1's, K2's, K4's and K5's f32 ones) are held to
+        # 1e-5, as the card tests hold them: one TF32 product (~1e-3) would
+        # miss it. K4's replaced FMA body keeps the f32 tolerance it was held
+        # to as the kernel: its sequential f32 sums over K = 9C (up to 23040)
+        # differ from the twin's by up to ~1e-5
         tol = 1e-5 if case.rate == "tf32x3" else TOL[case.dtype]
-        ok = rel <= tol and (prior_rel is None or prior_rel <= tol)
+        prior_tol = TOL[case.dtype] if case.kernel == "conv3x3_f32_sm90" else tol
+        ok = rel <= tol and (prior_rel is None or prior_rel <= prior_tol)
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
         if case.kernel in ("conv3x3", "conv3x3_sm90"):
             conv_ms[case.label] = ms
-        if case.kernel == "conv3x3_sm90":
+        if case.kernel in ("conv3x3_sm90", "conv3x3_f32_sm90"):
             conv_rows[case.label] = (ms, prior_ms, lib_ms, bound_ms)
-        elif case.kernel == "geglu_ff":
+        elif case.kernel in ("geglu_ff", "geglu_ff_f32_sm90"):
             ff_rows[case.label] = (ms, plain_ms, bound_ms)
         elif case.kernel == "group_norm":
             gn_rows[case.label] = (ms, prior_ms, lib_ms, bound_ms)
@@ -369,8 +409,8 @@ def phase1(dev, card: str) -> dict:
               f"of the kernel's time) working set {case.nbytes / 1e6:.1f} MB{l2} ({card}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise SmokeFailure(f"{case.kernel} {case.label}: relative error {rel:.3e} (replaced "
-                               f"body {prior_rel}) > {tol}")
+            raise SmokeFailure(f"{case.kernel} {case.label}: relative error {rel:.3e} (tol "
+                               f"{tol}; replaced body {prior_rel}, tol {prior_tol})")
         body = {"attention": K1_BODY, "attention_cm": K5_BODY, "winograd": K6_BODY}.get(
             case.kernel)
         sm = summary[body[case.dtype] if body else case.kernel]
@@ -386,24 +426,35 @@ def phase1(dev, card: str) -> dict:
         if prior_ms is not None:
             sm["replaced_ms"] = (sm["replaced_ms"] or 0.0) + prior_ms
         torch.cuda.empty_cache()
-    if conv_rows:
+    for dt, body, prior in (("bf16", "sm90 K4", "mma.sync body"),
+                            ("f32", "K4's 3xTF32 body", "FMA body it replaced")):
         # the 22 convs of one batch-1 UNet call, each shape times its count
         sums = [0.0] * 4
         for (hw, c, co), n in zip(B1_UNET_CONVS, B1_UNET_CONV_COUNTS):
-            row = conv_rows[f"bf16 B2 {hw}x{hw} {c}->{co}"]
+            row = conv_rows.get(f"{dt} B2 {hw}x{hw} {c}->{co}")
+            if row is None:
+                break
             sums = [a + n * (b or 0.0) for a, b in zip(sums, row)]
-        print(f"phase1: the {sum(B1_UNET_CONV_COUNTS)} convs of a batch-1 UNet call: sm90 K4 "
-              f"{sums[0]:.4f} ms, mma.sync body {sums[1]:.4f} ms, cuDNN {sums[2]:.4f} ms, bound "
-              f"{sums[3]:.4f} ms ({card})")
-    if ff_rows:
-        # the 16 GEGLU FF calls of one b4 CFG step (UNet batch 8), by level
+        else:
+            print(f"phase1: the {sum(B1_UNET_CONV_COUNTS)} {dt} convs of a batch-1 UNet call: "
+                  f"{body} {sums[0]:.4f} ms, {prior} {sums[1]:.4f} ms, cuDNN {sums[2]:.4f} ms, "
+                  f"bound {sums[3]:.4f} ms ({100 * sums[3] / sums[0]:.1f}% of the kernel's "
+                  f"time; {card})")
+    for dt, step, rows in (("bf16", "b4", GEGLU_ROWS[:4]), ("f32", "b4", GEGLU_ROWS[:4]),
+                           ("f32", "b1", GEGLU_B1_ROWS)):
+        # the 16 GEGLU FF calls of one CFG step (UNet batch 8 or 2), by level
         sums = [0.0] * 3
-        for (m, c), n in zip(GEGLU_ROWS, GEGLU_B4_CALLS):
-            row = ff_rows[f"bf16 M{m} C{c} H4 {4 * c}"]
+        for (m, c), n in zip(rows, GEGLU_B4_CALLS):
+            row = ff_rows.get(f"{dt} M{m} C{c} H4 {4 * c}")
+            if row is None:
+                break
             sums = [a + n * b for a, b in zip(sums, row)]
-        print(f"phase1: the {sum(GEGLU_B4_CALLS)} GEGLU FF calls of a b4 CFG step "
-              f"({'/'.join(map(str, GEGLU_B4_CALLS))} over M32768/8192/2048/512): K2 "
-              f"{sums[0]:.4f} ms, plain twin {sums[1]:.4f} ms, bound {sums[2]:.4f} ms ({card})")
+        else:
+            print(f"phase1: the {sum(GEGLU_B4_CALLS)} {dt} GEGLU FF calls of a {step} CFG step "
+                  f"({'/'.join(map(str, GEGLU_B4_CALLS))} over "
+                  f"{'/'.join(f'M{m}' for m, _ in rows)}): K2 {sums[0]:.4f} ms, plain twin "
+                  f"{sums[1]:.4f} ms, bound {sums[2]:.4f} ms ({100 * sums[2] / sums[0]:.1f}% of "
+                  f"K2's time; {card})")
     for ub, step in ((8, "b4"), (2, "b1")):
         # the 61 GroupNorms of one CFG step (UNet batch 2 x batch), by shape
         sums = [0.0] * 4
@@ -430,22 +481,32 @@ def phase1(dev, card: str) -> dict:
     return summary
 
 
-def geglu_launches_per_step(batch: int) -> int:
-    """K2's launches in one CFG step at 512x512 (UNet batch 2 x batch): 5
-    calls at each of the three levels with transformer blocks and 1 in the
-    middle block, each with the launches of its plan."""
+def geglu_launches_per_step(batch: int, dtype: str = "bfloat16", latent: int = 64) -> int:
+    """K2's launches in one CFG step at a ``latent`` x ``latent`` latent
+    (512x512: 64; UNet batch 2 x batch) in ``dtype``: 5 calls at each of the
+    three levels with transformer blocks and 1 in the middle block, each with
+    the launches of its plan."""
+    import torch
+
     from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_plan
 
-    ub = 2 * batch
-    sites = ((ub * 4096, 320, 5), (ub * 1024, 640, 5), (ub * 256, 1280, 5), (ub * 64, 1280, 1))
-    return sum(n * geglu_plan(m, c, 4 * c).launches for m, c, n in sites)
+    ub, s = 2 * batch, latent * latent
+    sites = ((ub * s, 320, 5), (ub * s // 4, 640, 5), (ub * s // 16, 1280, 5),
+             (ub * s // 64, 1280, 1))
+    return sum(n * geglu_plan(m, c, 4 * c, getattr(torch, dtype)).launches
+               for m, c, n in sites)
 
 
-def check_geglu(launches: dict, batch: int, steps: int, what: str) -> None:
-    want = geglu_launches_per_step(batch) * steps
-    if launches["geglu_ff"] != want:
-        raise SmokeFailure(f"K2 launched {launches['geglu_ff']} times in {what}, want {want} "
-                           f"({steps} steps of batch {batch}, by their plans)")
+def check_geglu(launches: dict, batch: int, steps: int, what: str,
+                dtype: str = "bfloat16") -> None:
+    """Every GEGLU FF call of a path's ``steps`` CFG steps on K2's body for
+    ``dtype``, with the kernels its plans predict; none on the other body."""
+    want = geglu_launches_per_step(batch, dtype) * steps
+    f32 = launches["geglu_ff_f32_sm90"]
+    if launches["geglu_ff"] != want or f32 != (want if dtype == "float32" else 0):
+        raise SmokeFailure(f"K2 launched {launches['geglu_ff']} kernels in {what}, {f32} on its "
+                           f"f32 body: want {want} ({steps} steps of batch {batch}, by their "
+                           f"plans), all on its {dtype} body")
 
 
 def reset_launches() -> None:
@@ -1115,10 +1176,134 @@ def phase10(dev, card: str) -> dict:
     return launches
 
 
+def phase11(dev, card: str, steps: int) -> dict:
+    """The exact-f32 render: (a) one SD-1.5 UNet eval cast to f32 on a 16x16
+    latent, kernels against the plain twins on CPU copies (TF32 off); (b)
+    txt2img at 512x512, batch 1, DDIM, CFG 7.5 with the UNet in f32, then the
+    f32 decode; (c) the default bundle, ``ModelBundle.random()`` with no
+    arguments (the tiny config on the card, f32 UNet), renders a short
+    txt2img. Returns (b)'s and (c)'s launch counts."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch.ops.attention import f32_sm90_launches
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        ModelBundle,
+        RenderConfig,
+        _tree_map,
+        decode_latents,
+        txt2img,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bundle = ModelBundle.random("sd15", seed=0, device=dev).cast("float32")
+    if bundle.unet_cfg.dtype != "float32" or bundle.vae_cfg.dtype != "float32":
+        raise SmokeFailure(f"the f32 bundle runs its UNet in {bundle.unet_cfg.dtype}, its VAE "
+                           f"in {bundle.vae_cfg.dtype}")
+
+    # (a) one UNet eval on a 16x16 latent (S = 256 self-attention reaches K1;
+    # level 0 on the 16^2 plane, inside the conv gate)
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=cpu).manual_seed(17)
+    x = torch.randn((2, 16, 16, 4), generator=gen)
+    t = torch.tensor([801, 801])
+    ctx = torch.randn((2, 77, 768), generator=gen)
+    reset_launches()
+    with torch.inference_mode():
+        got = M.unet_apply(bundle.unet_cfg, bundle.unet_params, x.to(dev), t.to(dev),
+                           ctx.to(dev)).cpu()
+        n = read_launches()
+        want = M.unet_apply(bundle.unet_cfg, _tree_map(lambda a: a.to(cpu), bundle.unet_params),
+                            x, t, ctx)
+    want_ff = geglu_launches_per_step(1, "float32", latent=16)
+    if (n["conv3x3"] != UNET_CONVS_16_LATENT or n["conv3x3_f32_sm90"] != UNET_CONVS_16_LATENT - 2
+            or n["conv3x3_sm90"] or n["geglu_ff"] != want_ff
+            or n["geglu_ff_f32_sm90"] != want_ff or n["attention_sm90"]):
+        raise SmokeFailure(f"the f32 16x16 UNet eval launched {n}: want K4 {UNET_CONVS_16_LATENT} "
+                           f"times, all but conv_in (C = 4) and the out conv (Co = 4) on its f32 "
+                           f"body, K2's f32 body {want_ff} kernels for its {UNET_FF_SITES} calls "
+                           f"(by their plans), no bf16 body")
+    rel = float((got - want).norm() / want.norm())
+    print(f"phase11: f32 UNet eps 16x16 latent b2 (TF32 off), CUDA kernels vs CPU plain twins: "
+          f"rel L2 {rel:.3e} (tol 1e-4); K4 {n['conv3x3']} convs, {n['conv3x3_f32_sm90']} on "
+          f"its 3xTF32 body; K2 {UNET_FF_SITES} calls, {n['geglu_ff_f32_sm90']} kernels on its "
+          f"f32 body ({card})", flush=True)
+    if not rel <= 1e-4:
+        raise SmokeFailure(f"the f32 UNet's kernel path disagrees with the plain path: {rel:.3e}")
+
+    # (b) the exact-f32 batch-1 render
+    cfg = RenderConfig(steps=steps, sampler="DDIM", eta=0.0, guidance_scale=7.5,
+                       width=512, height=512, batch_size=1, seed=5)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, latents = txt2img(bundle, "a lighthouse on a rocky coast, exact f32", cfg=cfg,
+                         decode=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    before = read_launches()
+    images = decode_latents(bundle, latents)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches()
+
+    check_image(images, (1, 512, 512, 3))
+    check_latents(latents, (1, 64, 64, 4))
+    check_geglu(launches, 1, steps, "the f32 render", "float32")
+    want_conv = UNET_CONVS_PER_CALL_B1 * steps
+    if (launches["conv3x3"] != want_conv or launches["conv3x3_f32_sm90"] != want_conv
+            or launches["conv3x3_sm90"]):
+        raise SmokeFailure(f"the f32 render ran K4 {launches['conv3x3']} times, its f32 body "
+                           f"{launches['conv3x3_f32_sm90']}, its bf16 body "
+                           f"{launches['conv3x3_sm90']}: want {want_conv}, all on the f32 body")
+    want_dec = f32_sm90_launches(1, 1, 4096, 4096)
+    if (launches["attention_f32_fused_sm90"] != UNET_SELF_ATTN_SITES * steps
+            or launches["attention_f32_sm90"] != want_dec or launches["attention_sm90"]
+            or launches["attention"] != UNET_SELF_ATTN_SITES * steps + want_dec):
+        raise SmokeFailure(f"K1 in the f32 render: {launches}; want every UNet self-attention "
+                           f"site on the fused 3xTF32 body ({UNET_SELF_ATTN_SITES} x {steps}) and "
+                           f"the decode's mid-block on the unfused one ({want_dec} kernels)")
+    check_gn(launches, steps, 1, 0, "the f32 render")
+    check_wide(launches, 0, 1, "the f32 render")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"phase11: exact-f32 txt2img 512x512 b1 DDIM {steps} steps CFG 7.5 (UNet f32, TF32 "
+          f"off; f32 decode) on {card}: seconds to image {t2 - t0:.3f} s end to end (incl. "
+          f"prompt encode and first-call warm-up), {(t1 - t0) / steps:.4f} s/step, decode "
+          f"{1000 * (t2 - t1):.2f} ms, peak memory {peak_gb:.2f} GiB; K2 "
+          f"{launches['geglu_ff_f32_sm90']} kernels on its f32 body "
+          f"({geglu_launches_per_step(1, 'float32')} a step), K4 {launches['conv3x3_f32_sm90']} "
+          f"convs on its f32 body; decode K1 kernels "
+          f"{launches['attention'] - before['attention']}", flush=True)
+    print(f"phase11: launches {json.dumps(launches)}; latents mean {float(latents.mean()):.5f} "
+          f"std {float(latents.std()):.5f}; image mean {float(images.mean()):.2f}")
+
+    # (c) the default bundle: ModelBundle.random() with no arguments
+    default = ModelBundle.random()
+    reset_launches()
+    images, latents = txt2img(default, "a cat", cfg=RenderConfig(
+        steps=4, width=128, height=128, batch_size=2, seed=6))
+    torch.cuda.synchronize()
+    n = read_launches()
+    check_image(images, (2, 32, 32, 3))
+    check_latents(latents, (2, 16, 16, 4))
+    if (default.unet_cfg.dtype != "float32" or n["geglu_ff_f32_sm90"] <= 0
+            or n["geglu_ff"] != n["geglu_ff_f32_sm90"] or n["conv3x3_f32_sm90"] <= 0
+            or n["conv3x3"] <= n["conv3x3_f32_sm90"] or n["conv3x3_sm90"]):
+        raise SmokeFailure(f"the default bundle (UNet {default.unet_cfg.dtype}) rendered with "
+                           f"launches {n}: want K2 on its f32 body and K4 on its f32 bodies "
+                           f"(the 3xTF32 one, and the FMA one at the narrow widths)")
+    print(f"phase11: ModelBundle.random() (no arguments: tiny, UNet {default.unet_cfg.dtype}, on "
+          f"{default.device}) txt2img 128x128 b2 4 steps: images {tuple(images.shape)} "
+          f"{images.dtype}; launches {json.dumps(n)} ({card})")
+    return launches, n
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
-                    help="DDIM steps of the renders (phases 2, 4 and 6)")
+                    help="DDIM steps of the renders (phases 2, 4, 6 and 11)")
     args = ap.parse_args(argv)
 
     if not (ROOT / PKG / "csrc").is_dir():
@@ -1159,6 +1344,9 @@ def main(argv=None) -> int:
                                "dispatches it")
     paths["winograd_probe_unet_convs"] = phase9(bundle, dev, card)
     paths["tpu_probe_scripts"] = phase10(dev, card)
+    del bundle, bundle16
+    torch.cuda.empty_cache()
+    paths["txt2img_b1_f32"], paths["txt2img_default_bundle"] = phase11(dev, card, args.steps)
 
     kernels = []
     # "attention" and "conv3x3" count every body of K1 and K4: their own

@@ -96,6 +96,11 @@ _SIGNATURES = {
     # splits1, steps1, bn2, splits2, steps2), int* kernels launched, stream
     "cpd_geglu_ff_sm90_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _P, _P),
+    # K2's f32 body: x, w1, b1, w2, b2, hidden, out, ws1, ws2, M, C, H4, then
+    # the plan (splits1, steps1, splits2, steps2), int* kernels launched,
+    # stream
+    "cpd_geglu_ff_f32_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _P, _P),
     # x, gamma, beta, y, part, N, HW, C, G, S, eps, silu, stream
     "cpd_group_norm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "cpd_group_norm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
@@ -112,6 +117,10 @@ _SIGNATURES = {
     # (wt, ht, splits, steps_per_split), stream
     "cpd_conv3x3_sm90_bf16": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P),
+    # K4's f32 body: x, w, bias, y, workspace, B, H, W, C, Co, then the plan
+    # (wt, ht, splits, steps_per_split), stream
+    "cpd_conv3x3_f32_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _P),
     # iters, double* ns per encode, a device address to map
     "cpd_tmap_encode_bench": (_I, _P, _P),
     # the probes. K7: cpd_attention_bf16's arguments up to scale, then mode,

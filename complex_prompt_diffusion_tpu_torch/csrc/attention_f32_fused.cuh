@@ -57,12 +57,13 @@
 
 #include "attention_modes.cuh"
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 namespace f32x3 {
 
 constexpr int SMEM_MAX = 232448;
-constexpr int KB = 32;  // f32 elements of a 128-byte row: a K-major box's width
+constexpr int KB = cpd::tf32x3::KB;  // f32 elements of a 128-byte row: a K-major box's width
 constexpr int FUSED_MAX_D = 160;
 
 enum Layout : int { kDmajorK = 0, kCanonK = 1, kRows = 2 };
@@ -92,39 +93,11 @@ struct CfgF {
   static_assert(DV * BQ * 4 <= Q_BYTES, "the output is staged in Q's space");
 };
 
-__device__ __forceinline__ uint32_t tf32_bits(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_bits(x);
-  lo = tf32_bits(x - __uint_as_float(hi));
-}
-
-// hi and lo of 4 consecutive K-major elements (row r, columns 4 c4 ..) into
-// 32-column boxes of `part` bytes, 128-byte rows, chunk c at c ^ (r % 8); the
-// lo tile starts `lo_off` bytes after the hi tile
-__device__ __forceinline__ void store_split(unsigned char* base, int part, int lo_off, int r,
-                                            int c4, float4 x) {
-  const int off = (c4 >> 3) * part + r * 128 + (((c4 & 7) ^ (r & 7)) << 4);
-  uint4 hi, lo;
-  split(x.x, hi.x, lo.x);
-  split(x.y, hi.y, lo.y);
-  split(x.z, hi.z, lo.z);
-  split(x.w, hi.w, lo.w);
-  *reinterpret_cast<uint4*>(base + off) = hi;
-  *reinterpret_cast<uint4*>(base + lo_off + off) = lo;
-}
-
-template <int N>
-__device__ __forceinline__ void fence_pregs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
-}
+// the split, the K-major swizzled store and the fragment fence: tf32x3.cuh
+using cpd::tf32x3::fence_pregs;
+using cpd::tf32x3::split;
+using cpd::tf32x3::store_split;
+using cpd::tf32x3::tf32_bits;
 
 // element strides of the output: batch, head, and the head dim (d-major
 // layouts) or the query row (kRows)

@@ -48,6 +48,7 @@
 
 #include "attention_f32x3.cuh"
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -64,15 +65,13 @@ static_assert(TSMEM <= 232448, "shared memory of one block");
 constexpr int EPI_SCORES = 0;  // c[z][m][n] = scale * acc
 constexpr int EPI_OUT = 1;     // o[b, row0 + m, h D + n] = acc * inv_l[z][m]
 
-__device__ __forceinline__ float tf32_round(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
+// the 3xTF32 split (tf32x3.cuh), as floats: the split operands go to global
+// memory and the TMA loads them back as f32 tiles
 __device__ __forceinline__ void split(float x, float& hi, float& lo) {
-  hi = tf32_round(x);
-  lo = tf32_round(x - hi);
+  uint32_t h, l;
+  cpd::tf32x3::split(x, h, l);
+  hi = __uint_as_float(h);
+  lo = __uint_as_float(l);
 }
 
 // rows of a [B, S, H*D] operand (any batch and row stride, 16-byte aligned)

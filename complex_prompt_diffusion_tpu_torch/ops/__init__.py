@@ -9,7 +9,8 @@ and a plain PyTorch twin:
     :func:`attention_f32_fused_sm90`), f32 with 160 < d <= 512 its unfused
     3xTF32 body (``csrc/attention_f32_sm90.cu``, :func:`attention_f32_sm90`).
   * :func:`geglu_ff` — the transformer GEGLU MLP through K2, two TMA +
-    wgmma GEMMs (``csrc/geglu_ff_sm90.cu``).
+    wgmma GEMMs: bf16 ``csrc/geglu_ff_sm90.cu``, f32 (three TF32 products a
+    product) ``csrc/geglu_ff_f32_sm90.cu``, :func:`geglu_ff_f32_sm90`.
   * :func:`group_norm` / :func:`group_norm_silu` — NHWC GroupNorm(+SiLU)
     through K3 (``csrc/groupnorm_sm90.cu``: whole groups a block by TMA, or
     statistics and apply kernels over bulk-copied pixel rows; plan
@@ -17,7 +18,9 @@ and a plain PyTorch twin:
   * :func:`conv3x3` — the 3x3 stride-1 conv through K4, for the convs
     ``models/layers.conv2d`` routes to it: bf16 with C and Co multiples of
     64 through its TMA + wgmma body (``csrc/conv3x3_sm90.cu``,
-    :func:`conv3x3_sm90`), the rest through ``csrc/conv3x3.cu``.
+    :func:`conv3x3_sm90`), f32 with C % 32 == 0 and Co % 64 == 0 through its
+    3xTF32 body (``csrc/conv3x3_f32_sm90.cu``, :func:`conv3x3_f32_sm90`),
+    the rest through ``csrc/conv3x3.cu``.
   * :func:`self_attention_cm` and the kcanon route of :func:`attention` —
     attention over operands whose sequence axis is contiguous, through K5
     (wrapper :func:`attention_dmajor`): bf16 on its TMA + wgmma body
@@ -55,14 +58,14 @@ from complex_prompt_diffusion_tpu_torch.ops.attention import (
     flash_attention,
     self_attention_cm,
 )
-from complex_prompt_diffusion_tpu_torch.ops.conv import conv3x3, conv3x3_sm90
+from complex_prompt_diffusion_tpu_torch.ops.conv import conv3x3, conv3x3_f32_sm90, conv3x3_sm90
 from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     group_norm,
     group_norm_nhwc,
     group_norm_plan,
     group_norm_silu,
 )
-from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_ff
+from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_ff, geglu_ff_f32_sm90
 from complex_prompt_diffusion_tpu_torch.ops.probes.attention import attention_probe
 from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_probe
 from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy
@@ -71,8 +74,10 @@ from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3, wino
 # the wrapper of each kernel (or a count of its own where no wrapper function
 # carries one), whose ``launches`` attribute counts launches;
 # "attention" and "conv3x3" count every body of K1 and K4, "attention_sm90",
-# "attention_f32_fused_sm90", "attention_f32_sm90", "attention_bf16_wide_sm90"
-# and "conv3x3_sm90" their Hopper bodies alone; "attention_cm" counts every K5 kernel,
+# "attention_f32_fused_sm90", "attention_f32_sm90", "attention_bf16_wide_sm90",
+# "conv3x3_sm90" and "conv3x3_f32_sm90" their Hopper bodies alone; "geglu_ff"
+# counts the kernels of both K2 bodies, "geglu_ff_f32_sm90" those of the f32
+# one; "attention_cm" counts every K5 kernel,
 # "attention_cm_sm90" those of its Hopper bodies (both dtypes),
 # "attention_cm_f32_sm90" those of the f32 one (counts attention_dmajor keeps);
 # "winograd" counts every K6 kernel, "winograd_sm90" those of its Hopper body
@@ -83,9 +88,11 @@ KERNEL_WRAPPERS = {
     "attention_f32_sm90": attention_f32_sm90,
     "attention_bf16_wide_sm90": attention_bf16_wide_sm90,
     "geglu_ff": geglu_ff,
+    "geglu_ff_f32_sm90": geglu_ff_f32_sm90,
     "group_norm": group_norm_nhwc,
     "conv3x3": conv3x3,
     "conv3x3_sm90": conv3x3_sm90,
+    "conv3x3_f32_sm90": conv3x3_f32_sm90,
     "attention_cm": attention_dmajor,
     "attention_cm_sm90": attention_cm_sm90_count,
     "attention_cm_f32_sm90": attention_cm_f32_sm90_count,
@@ -114,7 +121,9 @@ __all__ = [
     "stream_copy",
     "conv3x3",
     "conv3x3_sm90",
+    "conv3x3_f32_sm90",
     "geglu_ff",
+    "geglu_ff_f32_sm90",
     "group_norm",
     "group_norm_silu",
     "group_norm_nhwc",

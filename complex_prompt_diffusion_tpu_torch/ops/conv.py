@@ -5,13 +5,17 @@ the port's conv weight ``[Co, C, 3, 3]`` (``convert.py``; channels_last
 memory, so it is a row-major ``[Co, 9C]`` matrix that the kernels read in
 place), the bias ``[Co]``. ``models/layers.conv2d`` decides which convs come
 here (the JAX package's batch and plane-size gate); :func:`conv3x3` then
-routes each by shape to one of K4's two bodies:
+routes each by dtype and shape (:func:`k4_body`) to one of K4's bodies:
 
   * bf16 with C % 64 == 0 and Co % 64 == 0 (every 3x3 conv of the batch-1
     UNet): :func:`conv3x3_sm90`, TMA + wgmma (``csrc/conv3x3_sm90.cu``),
     with the tile and split-K plan of :func:`conv3x3_plan`;
-  * every other shape and f32: :func:`conv3x3_generic`, the mma.sync / FMA
-    body (``csrc/conv3x3.cu``).
+  * f32 with C % 32 == 0 and Co % 64 == 0 (the same convs of an f32 UNet,
+    the exact decode's on small planes): :func:`conv3x3_f32_sm90`, the same
+    implicit GEMM of three TF32 products a product on wgmma
+    (``csrc/conv3x3_f32_sm90.cu``), with the plan's f32 form;
+  * every other shape: :func:`conv3x3_generic`, the mma.sync / FMA body
+    (``csrc/conv3x3.cu``).
 """
 
 from __future__ import annotations
@@ -25,10 +29,11 @@ import torch.nn.functional as F
 
 from complex_prompt_diffusion_tpu_torch import _build
 
-__all__ = ["conv3x3", "conv3x3_plain", "conv3x3_supported", "conv3x3_sm90", "conv3x3_generic",
-           "conv3x3_plan", "Conv3x3Plan", "sm90_takes"]
+__all__ = ["conv3x3", "conv3x3_plain", "conv3x3_supported", "conv3x3_sm90",
+           "conv3x3_f32_sm90", "conv3x3_generic", "conv3x3_plan", "Conv3x3Plan", "k4_body"]
 
 SM90_BM, SM90_BN, SM90_BK = 128, 128, 64  # the sm90 body's tile: pixels, channels, k-step
+F32_BK = 32  # the f32 body's k-step: one tap and 32 channels (a 128-byte row)
 SM90_SMS = 132  # H100 SXM; one block an SM (128 KB of shared memory each)
 # The split-K cost model of conv3x3_plan, in microseconds on an H100 80GB
 # HBM3 (700 W), fitted to a sweep of splits 1-8 over the ten batch-1 UNet
@@ -39,6 +44,12 @@ SM90_SMS = 132  # H100 SXM; one block an SM (128 KB of shared memory each)
 _STEP_US = 0.45
 _REDUCE_US = 2.0
 _PARTIALS_BYTES_PER_US = 2.8e6
+# f32: a 128 x 128 x 32 k-step of three TF32 products (3.1 MFLOP, 0.84 us
+# at an SM's share of the 495 TFLOP/s peak), fitted as the mean of the
+# unsplit runs (1.588-1.681 us) in tools/conv_splits.py --dtype float32's
+# sweep of splits 1-16 over the 11 f32 shapes (H100 80GB HBM3, 700 W); there
+# the plan is within 0.8% of the best split at every shape (PERF.md 6)
+_F32_STEP_US = 1.63
 _MAX_SPLITS = 16
 
 
@@ -73,24 +84,19 @@ def conv3x3_plain(x, weight, bias):
 def conv3x3(x, weight, bias):
     """K4 wrapper: ``conv3x3(x, w) + b`` for NHWC ``x`` [B, H, W, C].
 
-    CPU tensors run :func:`conv3x3_plain`. CUDA tensors go by shape to
-    :func:`conv3x3_sm90` where :func:`sm90_takes` says so, else to
+    CPU tensors run :func:`conv3x3_plain`. CUDA tensors go by
+    :func:`k4_body` to :func:`conv3x3_sm90`, :func:`conv3x3_f32_sm90` or
     :func:`conv3x3_generic`; each launches its kernel or raises. The weight
     is taken in x's dtype, the bias in f32 (or bf16, which the bf16 kernels
     widen themselves), as the TPU kernel does. ``conv3x3.launches`` counts
-    launches of both bodies."""
+    calls of every body."""
     if x.ndim != 4:
         raise ValueError(f"conv3x3 expects NHWC, got shape {tuple(x.shape)}")
-    b, h, w, c = x.shape
-    co = weight.shape[0]
-    if tuple(weight.shape) != (co, c, 3, 3) or tuple(bias.shape) != (co,):
-        raise ValueError(
-            f"conv3x3 shapes x{tuple(x.shape)} weight{tuple(weight.shape)} "
-            f"bias{tuple(bias.shape)} are inconsistent"
-        )
+    _, _, _, c, co = _check_shapes(x, weight, bias)
     if not x.is_cuda:
         return conv3x3_plain(x, weight, bias)
-    body = conv3x3_sm90 if sm90_takes(x.dtype, c, co) else conv3x3_generic
+    body = {"bf16_sm90": conv3x3_sm90, "f32_sm90": conv3x3_f32_sm90,
+            "generic": conv3x3_generic}[k4_body(x.dtype, c, co)]
     y = body(x, weight, bias)
     conv3x3.launches += 1
     return y
@@ -99,11 +105,45 @@ def conv3x3(x, weight, bias):
 conv3x3.launches = 0
 
 
+def _check_shapes(x, weight, bias):
+    """(B, H, W, C, Co) of a conv of NHWC x by a [Co, C, 3, 3] weight and a
+    [Co] bias; raises on shapes that do not fit together."""
+    b, h, w, c = x.shape
+    co = weight.shape[0]
+    if tuple(weight.shape) != (co, c, 3, 3) or tuple(bias.shape) != (co,):
+        raise ValueError(
+            f"conv3x3 shapes x{tuple(x.shape)} weight{tuple(weight.shape)} "
+            f"bias{tuple(bias.shape)} are inconsistent"
+        )
+    return b, h, w, c, co
+
+
+def _hopper_operands(x, weight, plan, what):
+    """A Hopper body's launch operands: x contiguous, the weight as the
+    row-major [Co, 9C] matrix in x's dtype (channels_last weights as they
+    lie), both 16-byte aligned (TMA), the output and the split-K partials
+    (f32) when the plan splits."""
+    x = x.contiguous()
+    wt = weight.to(x.dtype).permute(0, 2, 3, 1)  # [Co, 3, 3, C]
+    if not wt.is_contiguous():
+        wt = wt.contiguous()
+    for name, t in (("x", x), ("weight", wt)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} needs a 16-byte aligned {name} (TMA)")
+    b, h, w, _ = x.shape
+    co = wt.shape[0]
+    y = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
+    ws = (torch.empty((plan.splits, b * h * w, co), dtype=torch.float32, device=x.device)
+          if plan.splits > 1 else y)
+    return x, wt, y, ws
+
+
 def conv3x3_generic(x, weight, bias):
     """K4's body for any C and Co (``csrc/conv3x3.cu``: bf16 on the tensor
-    cores with mma.sync, its first design; f32 with exact FMAs) for CUDA
-    tensors, :func:`conv3x3_plain` for CPU ones. ``conv3x3_generic.launches``
-    counts its launches."""
+    cores with mma.sync, its first design; f32 with exact FMAs, the body
+    :func:`conv3x3_f32_sm90` replaced where it takes the shape) for CUDA
+    tensors, :func:`conv3x3_plain` for CPU ones.
+    ``conv3x3_generic.launches`` counts its launches."""
     b, h, w, c = x.shape
     co = weight.shape[0]
     if not x.is_cuda:
@@ -135,17 +175,25 @@ def conv3x3_generic(x, weight, bias):
 conv3x3_generic.launches = 0
 
 
-def sm90_takes(dtype, c: int, co: int) -> bool:
-    """The shape route of :func:`conv3x3`: bf16 with C and Co multiples of
-    64 (a k-step is one tap and 64 channels, one 128-byte TMA row)."""
-    return dtype == torch.bfloat16 and c % 64 == 0 and co % 64 == 0
+def k4_body(dtype, c: int, co: int) -> str:
+    """The route of :func:`conv3x3`: ``"bf16_sm90"`` for bf16 with C and Co
+    multiples of 64 (a k-step is one tap and 64 channels, one 128-byte TMA
+    row), ``"f32_sm90"`` for f32 with C % 32 == 0 (32 f32 channels a row)
+    and Co % 64 == 0, ``"generic"`` for the other bf16 and f32 shapes;
+    raises for any other dtype (f16)."""
+    if dtype == torch.bfloat16:
+        return "bf16_sm90" if c % 64 == 0 and co % 64 == 0 else "generic"
+    if dtype == torch.float32:
+        return "f32_sm90" if c % F32_BK == 0 and co % 64 == 0 else "generic"
+    raise TypeError(f"K4 supports bfloat16 and float32 activations, got {dtype}")
 
 
 class Conv3x3Plan(NamedTuple):
-    """How the sm90 body covers a conv: output tiles of ``wt x ht = 128``
+    """How a Hopper body covers a conv: output tiles of ``wt x ht = 128``
     pixels of one image by 128 channels, ``ksteps = 9C / 64`` reduction
-    steps of (tap, 64 channels) cut into ``splits`` runs of
-    ``steps_per_split`` (the last may be shorter, none is empty)."""
+    steps of (tap, 64 channels) (f32: ``9C / 32`` of 32 channels) cut into
+    ``splits`` runs of ``steps_per_split`` (the last may be shorter, none
+    is empty)."""
 
     wt: int
     ht: int
@@ -164,9 +212,10 @@ class Conv3x3Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=1024)
 def conv3x3_plan(b: int, h: int, w: int, c: int, co: int,
-                 splits: Optional[int] = None) -> Conv3x3Plan:
-    """The tile and split-K plan the sm90 body runs for x [b, h, w, c] and
-    ``co`` output channels. Tiles are 32 x 4 pixels where W % 32 == 0, 16 x 8
+                 splits: Optional[int] = None, dtype=torch.bfloat16) -> Conv3x3Plan:
+    """The tile and split-K plan a Hopper body runs for x [b, h, w, c] of
+    ``dtype`` (bf16: the sm90 body; f32: the f32 body) and ``co`` output
+    channels. Tiles are 32 x 4 pixels where W % 32 == 0, 16 x 8
     where W % 16 == 0, else 8 x 16 (TMA zero-fills what falls outside the
     plane). ``splits`` (default: chosen here) divides the k-steps among
     blocks: the choice minimises the modelled time, waves of blocks on 132
@@ -174,21 +223,24 @@ def conv3x3_plan(b: int, h: int, w: int, c: int, co: int,
     (a launch and the f32 partials written and read); the smaller count
     wins a tie. Cached by shape: the batch-1 render asks for the same 22
     plans every step, and its steps wait on the host."""
-    if c % SM90_BK or co % 64:
-        raise ValueError(f"the sm90 conv needs C % 64 == 0 and Co % 64 == 0; got C={c}, Co={co}")
+    f32 = dtype == torch.float32
+    bk = F32_BK if f32 else SM90_BK
+    if c % bk or co % 64:
+        raise ValueError(f"the {'f32' if f32 else 'sm90'} conv needs C % {bk} == 0 and Co % 64 "
+                         f"== 0; got C={c}, Co={co}")
     wt = 32 if w % 32 == 0 else 16 if w % 16 == 0 else 8
     ht = SM90_BM // wt
     tiles_w, tiles_h = -(-w // wt), -(-h // ht)
     m_tiles = b * tiles_h * tiles_w
     n_tiles = -(-co // SM90_BN)
-    ksteps = 9 * c // SM90_BK
+    ksteps = 9 * c // bk
     tiles = m_tiles * n_tiles
     if splits is None:
         partial_bytes = 4.0 * b * h * w * co
 
         def cost(s):
             waves = math.ceil(tiles * s / SM90_SMS)
-            t = waves * math.ceil(ksteps / s) * _STEP_US
+            t = waves * math.ceil(ksteps / s) * (_F32_STEP_US if f32 else _STEP_US)
             if s > 1:
                 t += _REDUCE_US + 2 * s * partial_bytes / _PARTIALS_BYTES_PER_US
             return t
@@ -212,30 +264,15 @@ def conv3x3_sm90(x, weight, bias, splits: Optional[int] = None):
     if x.ndim != 4 or x.dtype != torch.bfloat16:
         raise ValueError(f"conv3x3_sm90 takes a bf16 NHWC tensor; got {x.dtype} "
                          f"{tuple(x.shape)}")
-    b, h, w, c = x.shape
-    co = weight.shape[0]
-    if tuple(weight.shape) != (co, c, 3, 3) or tuple(bias.shape) != (co,):
-        raise ValueError(
-            f"conv3x3 shapes x{tuple(x.shape)} weight{tuple(weight.shape)} "
-            f"bias{tuple(bias.shape)} are inconsistent"
-        )
+    b, h, w, c, co = _check_shapes(x, weight, bias)
     plan = conv3x3_plan(b, h, w, c, co, splits)
     if not x.is_cuda:
         return conv3x3_plain(x, weight, bias)
     _build.refuse_grad("conv3x3 (K4, sm90 body)", x, weight, bias)
-    x = x.contiguous()
-    wt = weight.to(torch.bfloat16).permute(0, 2, 3, 1)  # [Co, 3, 3, C]
-    if not wt.is_contiguous():
-        wt = wt.contiguous()
     if bias.dtype != torch.bfloat16:
         bias = bias.to(torch.float32)
     bias = bias.contiguous()
-    for name, t in (("x", x), ("weight", wt)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"conv3x3_sm90 needs a 16-byte aligned {name} (TMA)")
-    y = torch.empty((b, h, w, co), dtype=torch.bfloat16, device=x.device)
-    ws = (torch.empty((plan.splits, b * h * w, co), dtype=torch.float32, device=x.device)
-          if plan.splits > 1 else y)
+    x, wt, y, ws = _hopper_operands(x, weight, plan, "conv3x3_sm90")
     err = _build.kernel_library().cpd_conv3x3_sm90_bf16(
         x.data_ptr(), wt.data_ptr(), bias.data_ptr(), int(bias.dtype == torch.float32),
         y.data_ptr(), ws.data_ptr(), b, h, w, c, co, plan.wt, plan.ht, plan.splits,
@@ -246,3 +283,34 @@ def conv3x3_sm90(x, weight, bias, splits: Optional[int] = None):
 
 
 conv3x3_sm90.launches = 0
+
+
+def conv3x3_f32_sm90(x, weight, bias, splits: Optional[int] = None):
+    """K4's f32 body (``csrc/conv3x3_f32_sm90.cu``: TMA + wgmma, three TF32
+    products a product, exact f32) on a CUDA f32 x [B, H, W, C] with C % 32
+    == 0 and Co % 64 == 0; anything else raises. ``splits`` forces the
+    split-K count of :func:`conv3x3_plan` (the tests and
+    ``tools/conv_splits.py``). Bits do not depend on the run: the splits are
+    summed in a fixed order. CPU tensors run :func:`conv3x3_plain` after
+    the same checks. ``conv3x3_f32_sm90.launches`` counts calls that launch
+    it (one call = the GEMM kernel, and the reduce kernel when split)."""
+    if x.ndim != 4 or x.dtype != torch.float32:
+        raise ValueError(f"conv3x3_f32_sm90 takes an f32 NHWC tensor; got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    b, h, w, c, co = _check_shapes(x, weight, bias)
+    plan = conv3x3_plan(b, h, w, c, co, splits, torch.float32)
+    if not x.is_cuda:
+        return conv3x3_plain(x, weight, bias)
+    _build.refuse_grad("conv3x3 (K4, f32 body)", x, weight, bias)
+    bias = bias.to(torch.float32).contiguous()
+    x, wt, y, ws = _hopper_operands(x, weight, plan, "conv3x3_f32_sm90")
+    err = _build.kernel_library().cpd_conv3x3_f32_sm90(
+        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(), b, h, w, c,
+        co, plan.wt, plan.ht, plan.splits, plan.steps_per_split,
+        _build.stream_ptr(x.device))
+    _build.check(err, "conv3x3 (K4, f32 body)")
+    conv3x3_f32_sm90.launches += 1
+    return y
+
+
+conv3x3_f32_sm90.launches = 0

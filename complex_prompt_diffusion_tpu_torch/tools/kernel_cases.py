@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["Case", "kernel_cases", "host_us", "PEAK_FLOPS", "HBM_BYTES_PER_S", "B1_UNET_CONVS",
-           "B1_UNET_CONV_COUNTS", "GEGLU_ROWS", "GEGLU_B4_CALLS", "GN_UNET_PLANES",
+           "B1_UNET_CONV_COUNTS", "GEGLU_ROWS", "GEGLU_B4_CALLS", "GEGLU_B1_ROWS", "GN_UNET_PLANES",
            "GN_B4_CALLS", "GN_DECODE_PLANES"]
 
 _PKG = "complex_prompt_diffusion_tpu_torch"
@@ -42,6 +42,8 @@ B1_UNET_CONV_COUNTS = (1, 6, 1, 1, 1, 1, 1, 7, 1, 2)
 GEGLU_ROWS = ((32768, 320), (8192, 640), (2048, 1280), (512, 1280),
               (8192, 320), (2048, 640), (128, 1280))
 GEGLU_B4_CALLS = (5, 5, 5, 1)  # calls a b4 step of each of the first four rows
+# the b1 step's four (UNet batch 2), GEGLU_B4_CALLS calls each
+GEGLU_B1_ROWS = ((8192, 320), (2048, 640), (512, 1280), (128, 1280))
 
 # (plane side, C) of every distinct GroupNorm of a UNet call (models/unet.py:
 # the ResBlocks' in_norm and out_norm, the transformers' norm, the out norm;
@@ -93,8 +95,9 @@ def kernel_cases(dev, kernels=None) -> list:
     W = importlib.import_module(f"{_PKG}.ops.probes.winograd")
     want = set(kernels) if kernels else {"attention", "attention_sm90",
                                          "attention_f32_sm90", "attention_bf16_wide_sm90",
-                                         "geglu_ff",
+                                         "geglu_ff", "geglu_ff_f32_sm90",
                                          "group_norm", "conv3x3", "conv3x3_sm90",
+                                         "conv3x3_f32_sm90",
                                          "attention_cm", "winograd", "probe_attention",
                                          "probe_groupnorm", "probe_copy"}
 
@@ -170,21 +173,27 @@ def kernel_cases(dev, kernels=None) -> list:
             q, k, v = (randn(2, s_, c, dtype=f32) for _ in range(3))
             attn_case(f"f32 B2 S{s_} H8 d{c // 8}", q, k, v, 8, "float32", "attention",
                       (lambda q=q, k=k, v=v: fma(q, k, v, 8)) if fma else None, "tf32x3")
-    if "geglu_ff" in want:
-        # every UNet level at UNet batch 8 (the b4 render), then the rows of
-        # UNet batch 2 (the b1 render) that batch 8 lacks; no single PyTorch
-        # call computes the GEGLU FF, so it has no library time
+    # every UNet level at UNet batch 8 (the b4 render), then the rows of UNet
+    # batch 2 (the b1 render) that batch 8 lacks: bf16 on K2's bf16 body;
+    # in f32 (an f32 UNet's) on its 3xTF32 body, bound at the rate of three
+    # TF32 products. No single PyTorch call computes the GEGLU FF, so it has
+    # no library time
+    ff_dtypes = [(bf16, "geglu_ff")] if "geglu_ff" in want else []
+    if "geglu_ff_f32_sm90" in want:
+        ff_dtypes.append((f32, "geglu_ff_f32_sm90"))
+    for dt, kernel in ff_dtypes:
         for m, c in GEGLU_ROWS:
-            x = randn(m, c, dtype=bf16)
-            w1 = uniform(c, 8 * c, bound=c ** -0.5, dtype=bf16)
-            b1 = uniform(8 * c, bound=c ** -0.5, dtype=bf16)
-            w2 = uniform(4 * c, c, bound=(4 * c) ** -0.5, dtype=bf16)
-            b2 = uniform(c, bound=(4 * c) ** -0.5, dtype=bf16)
+            x = randn(m, c, dtype=dt)
+            w1 = uniform(c, 8 * c, bound=c ** -0.5, dtype=dt)
+            b1 = uniform(8 * c, bound=c ** -0.5, dtype=dt)
+            w2 = uniform(4 * c, c, bound=(4 * c) ** -0.5, dtype=dt)
+            b2 = uniform(c, bound=(4 * c) ** -0.5, dtype=dt)
             a = (x, w1, b1, w2, b2)
-            cases.append(Case("geglu_ff", f"bf16 M{m} C{c} H4 {4 * c}",
+            cases.append(Case(kernel, f"{'bf16' if dt == bf16 else 'f32'} M{m} C{c} H4 {4 * c}",
                               lambda a=a: F2.geglu_ff(*a), lambda a=a: F2.geglu_ff_plain(*a),
-                              None, "bfloat16", 24.0 * m * c * c,
-                              2.0 * (2 * m * c + 12 * c * c + 9 * c)))
+                              None, "bfloat16" if dt == bf16 else "float32", 24.0 * m * c * c,
+                              x.element_size() * (2 * m * c + 12 * c * c + 9 * c),
+                              rate="tf32x3" if dt == f32 else None))
     if "group_norm" in want:
         # every GroupNorm shape of a UNet call at UNet batch 8 (the b4 step)
         # and 2 (the b1 step), bf16, eps 1e-5; the f32 VAE-decode planes and
@@ -212,27 +221,34 @@ def kernel_cases(dev, kernels=None) -> list:
     if "conv3x3_sm90" in want:
         # every distinct 3x3 conv of the batch-1 render (UNet batch 2), through
         # K4's route (the sm90 body in this tree), with the mma.sync body beside it
-        shapes += [(2, hw, c, co, bf16) for hw, c, co in B1_UNET_CONVS]
+        shapes += [("conv3x3_sm90", 2, hw, c, co, bf16) for hw, c, co in B1_UNET_CONVS]
+    if "conv3x3_f32_sm90" in want:
+        # the same convs of an f32 UNet, and the exact f32 decode's conv on a
+        # 32^2 plane (a 32x32 latent), through K4's route (the 3xTF32 body in
+        # this tree, bound at the rate of three TF32 products), with the FMA
+        # body it replaced beside each
+        shapes += [("conv3x3_f32_sm90", 2, hw, c, co, f32) for hw, c, co in B1_UNET_CONVS]
+        shapes += [("conv3x3_f32_sm90", 1, 32, 512, 512, f32)]
     if "conv3x3" in want:
-        # the exact f32 decode's conv on a 32^2 plane (a 32x32 latent)
-        shapes += [(1, 32, 512, 512, f32)]
-    if shapes:
-        for b, hw, c, co, dt in shapes:
-            x = randn(b, hw, hw, c, dtype=dt)
-            w = uniform(co, c, 3, 3, bound=(9 * c) ** -0.5, dtype=dt).contiguous(
-                memory_format=torch.channels_last)
-            bias = uniform(co, bound=0.1, dtype=dt)
-            a = (x, w, bias)
-            m = b * hw * hw
-            generic = getattr(C, "conv3x3_generic", None)  # a parent tree may lack it
-            cases.append(Case(
-                "conv3x3_sm90" if dt == bf16 else "conv3x3",
-                f"{'bf16' if dt == bf16 else 'f32'} B{b} {hw}x{hw} {c}->{co}",
-                lambda a=a: C.conv3x3(*a), lambda a=a: C.conv3x3_plain(*a),
-                lambda a=a: F.conv2d(a[0].permute(0, 3, 1, 2), a[1], a[2], padding=1),
-                "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 9 * c,
-                x.element_size() * (m * c + 9 * c * co + m * co + co),
-                (lambda a=a: generic(*a)) if dt == bf16 and generic else None))
+        # the FMA body's own shapes: an f32 UNet's conv_in and out conv on a
+        # 16^2 latent (phase 11's UNet eval)
+        shapes += [("conv3x3", 2, 16, 4, 320, f32), ("conv3x3", 2, 16, 320, 4, f32)]
+    generic = getattr(C, "conv3x3_generic", None)  # a parent tree may lack it
+    for kernel, b, hw, c, co, dt in shapes:
+        x = randn(b, hw, hw, c, dtype=dt)
+        w = uniform(co, c, 3, 3, bound=(9 * c) ** -0.5, dtype=dt).contiguous(
+            memory_format=torch.channels_last)
+        bias = uniform(co, bound=0.1, dtype=dt)
+        a = (x, w, bias)
+        m = b * hw * hw
+        cases.append(Case(
+            kernel, f"{'bf16' if dt == bf16 else 'f32'} B{b} {hw}x{hw} {c}->{co}",
+            lambda a=a: C.conv3x3(*a), lambda a=a: C.conv3x3_plain(*a),
+            lambda a=a: F.conv2d(a[0].permute(0, 3, 1, 2), a[1], a[2], padding=1),
+            "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 9 * c,
+            x.element_size() * (m * c + 9 * c * co + m * co + co),
+            (lambda a=a: generic(*a)) if kernel != "conv3x3" and generic else None,
+            "tf32x3" if kernel == "conv3x3_f32_sm90" else None))
     if "attention_cm" in want:
         # K5, hdbs mode: the cm block's [H, D, B, S] slices of one [3C, B, S]
         # projection at the levels the gate admits (UNet batch 8, and 2 for
@@ -402,10 +418,14 @@ def host_us(dev, calls: int = 500) -> dict:
     G = importlib.import_module(f"{_PKG}.ops.groupnorm")
     gx = torch.randn((2, 8, 8, 640), device=dev).to(torch.bfloat16)
     gg = torch.ones(640, device=dev, dtype=torch.bfloat16)
+    ff32 = [t.float() for t in ff]
+    xf, wf, bf = x.float(), w.float(), b.float()
     fns = {"geglu_ff (K2)": lambda: F2.geglu_ff(*ff),
+           "geglu_ff (K2 f32 body)": lambda: F2.geglu_ff(*ff32),
            "group_norm_nhwc (K3 route)": lambda: G.group_norm_nhwc(gx, gg, gg, 32, 1e-5, True),
            "conv3x3 route (sm90 body)": lambda: C.conv3x3(x, w, b),
            "conv3x3_generic (mma.sync body)": lambda: C.conv3x3_generic(x, w, b),
+           "conv3x3 route (f32 body)": lambda: C.conv3x3(xf, wf, bf),
            "flash_attention route (sm90 body)": lambda: A.flash_attention(q, q, q, 1),
            "attention_probe full (K7)": lambda: PA.attention_probe(q, q, q, 1, 0.158),
            "attention_dmajor route (K5)": lambda: A.attention_dmajor(qd, qd, qd, 0.158)}

@@ -338,7 +338,8 @@ SASS_OPS = ("HMMA", "FFMA", "SHFL", "MUFU.RSQ", "HGMMA", "UTMALDG", "UBLKCP")
 
 def sass_counts() -> dict:
     """{mangled kernel name: {op: n for op in SASS_OPS}} over the SASS of
-    the kernel library (each function's static instruction count)."""
+    the kernel library (each function's static instruction count), and
+    "HGMMA.TF32": the wgmma instructions on TF32 operands."""
     lib = _build.kernel_library()
     sass = subprocess.run([_tool("cuobjdump"), "-sass", lib._name], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -347,11 +348,13 @@ def sass_counts() -> dict:
         m = re.search(r"Function : (\S+)", ln)
         if m:
             name = m.group(1)
-            counts[name] = dict.fromkeys(SASS_OPS, 0)
+            counts[name] = dict.fromkeys(SASS_OPS + ("HGMMA.TF32",), 0)
         elif name is not None:
             for op in SASS_OPS:
                 if re.search(rf"\b{re.escape(op)}\b", ln):
                     counts[name][op] += 1
+            if re.search(r"\bHGMMA\.\S*TF32", ln):
+                counts[name]["HGMMA.TF32"] += 1
     return counts
 
 

@@ -4,6 +4,8 @@ Run from the repository root on a machine with the GPU::
 
     python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --batch 1 --vae bfloat16
     python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --batch 4 --attn-route cm
+    python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --batch 1 --unet-dtype float32 \
+        --vae float32
 
 Builds the SD-1.5 bundle with random weights (seed 0), renders 512x512 at
 ``--batch`` with DDIM and CFG 7.5 for a few warm-up steps, then times
@@ -13,7 +15,9 @@ and prints the device time by kernel family, the device busy time and the
 idle share of each, beside the card's name and power limit. ``--attn-route``
 takes the UNet's self-attention through the default route (``bsc``: K1), the
 channel-major block (``cm``: K5 at levels 1 and 2) or the canonical-K route
-(``kcanon``: K5 at every site, behind its d-major copies).
+(``kcanon``: K5 at every site, behind its d-major copies). ``--unet-dtype
+float32`` casts the UNet to f32 (the exact-f32 render: K2's and K4's 3xTF32
+bodies, K1's fused 3xTF32 body), TF32 off.
 """
 
 from __future__ import annotations
@@ -54,10 +58,14 @@ FAMILIES = (
     ("attention_f32", "K1 attention f32"),
     ("geglu_gemm_sm90", "K2 GEGLU GEMMs"),
     ("geglu_splitk", "K2 GEGLU GEMMs"),
+    ("geglu_gemm_f32_sm90", "K2 GEGLU GEMMs (f32 3xTF32 body)"),
+    ("geglu_f32_reduce", "K2 GEGLU GEMMs (f32 3xTF32 body)"),
     ("gn_slab", "K3 GroupNorm"),
     ("gn_stats", "K3 GroupNorm"),
     ("gn_apply", "K3 GroupNorm"),
     ("group_norm", "K3 GroupNorm (replaced body)"),
+    ("conv3x3_f32_sm90", "K4 conv3x3 (f32 3xTF32 body)"),
+    ("conv3x3_f32_reduce", "K4 conv3x3 (f32 3xTF32 body)"),
     ("conv3x3_sm90", "K4 conv3x3 (sm90 body)"),
     ("conv3x3_splitk", "K4 conv3x3 (sm90 body)"),
     ("conv3x3", "K4 conv3x3"),
@@ -114,6 +122,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3, help="steady CFG steps timed and profiled")
     ap.add_argument("--attn-route", default="bsc", choices=("bsc", "cm", "kcanon"),
                     help="route of the UNet's self-attention sites")
+    ap.add_argument("--unet-dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="UNet dtype (float32: the exact-f32 render)")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -122,7 +132,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    bundle = ModelBundle.random("sd15", seed=0, device=dev).cast_vae(args.vae)
+    bundle = ModelBundle.random("sd15", seed=0, device=dev).cast_vae(args.vae).cast(
+        args.unet_dtype)
     if args.attn_route == "cm":
         bundle = dataclasses.replace(
             bundle, unet_cfg=dataclasses.replace(bundle.unet_cfg, attn_route="cm"))

@@ -35,6 +35,8 @@ and back over the trees (A B B A for two, A B C C B A for three), repeated
   the time the card waits for the host;
 * ``render_b4``: the same for phase 2's render, batch 4 with the f32 VAE
   decode;
+* ``render_b1_f32``: the same for phase 11's exact-f32 render: batch 1, the
+  UNet cast to f32 (K2's and K4's 3xTF32 bodies), f32 VAE decode, TF32 off;
 * ``render_b4_cm``: the same for phase 7's render: batch 4, DPM++ 2M on the
   Karras schedule, 20 steps, the UNet's channel-major attention route
   (``attn_route="cm"``: K5 at levels 1 and 2), f32 VAE decode;
@@ -100,7 +102,7 @@ def _kernels(names) -> tuple:
     return out, hashes
 
 
-def _render(batch: int, iters: int, cm: bool = False) -> dict:
+def _render(batch: int, iters: int, cm: bool = False, f32: bool = False) -> dict:
     import dataclasses
 
     import torch
@@ -117,7 +119,9 @@ def _render(batch: int, iters: int, cm: bool = False) -> dict:
 
     dev = torch.device("cuda")
     bundle = ModelBundle.random("sd15", seed=0, device=dev)
-    if batch == 1:
+    if f32:  # phase 11's render
+        bundle = bundle.cast("float32")
+    elif batch == 1:
         bundle = bundle.cast_vae("bfloat16")
     sampler = dict(sampler="DDIM", eta=0.0)
     n_steps = 50
@@ -220,8 +224,9 @@ def _child(args) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hashes = {}
-    if args.what in ("render_b1", "render_b4", "render_b4_cm"):
-        out = _render(int(args.what.split("_")[1][1:]), args.iters, args.what.endswith("_cm"))
+    if args.what in ("render_b1", "render_b4", "render_b4_cm", "render_b1_f32"):
+        out = _render(int(args.what.split("_")[1][1:]), args.iters, args.what.endswith("_cm"),
+                      args.what.endswith("_f32"))
     elif args.what in ("decode_b1", "decode_b4"):
         out = _decode(int(args.what[-1]), args.iters)
     elif args.what == "host":
@@ -241,8 +246,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
                     help="a checkout to run (two or more)")
     ap.add_argument("--what", default="render_b1",
-                    help="render_b1, render_b4, render_b4_cm, decode_b1, decode_b4, host or "
-                         "kernels:NAME[,NAME]")
+                    help="render_b1, render_b4, render_b4_cm, render_b1_f32, decode_b1, "
+                         "decode_b4, host or kernels:NAME[,NAME]")
     ap.add_argument("--rounds", type=int, default=2, help="forward-and-back passes")
     ap.add_argument("--iters", type=int, default=10, help="steady steps a timing (render_b1)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)

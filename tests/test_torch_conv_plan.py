@@ -26,7 +26,7 @@ from complex_prompt_diffusion_tpu_torch.ops.conv import (
     conv3x3_plain,
     conv3x3_plan,
     conv3x3_sm90,
-    sm90_takes,
+    k4_body,
 )
 from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import (
     B1_UNET_CONV_COUNTS,
@@ -83,10 +83,10 @@ def test_plan_rejects_what_the_sm90_body_does_not_take():
         conv3x3_plan(2, 16, 16, 64, 96)  # Co % 64 != 0
     with pytest.raises(ValueError):
         conv3x3_plan(2, 16, 16, 64, 64, splits=10)  # 9 k-steps
-    assert sm90_takes(torch.bfloat16, 320, 640)
-    assert not sm90_takes(torch.float32, 320, 640)
-    assert not sm90_takes(torch.bfloat16, 4, 320)
-    assert not sm90_takes(torch.bfloat16, 320, 4)
+    assert k4_body(torch.bfloat16, 320, 640) == "bf16_sm90"
+    assert k4_body(torch.float32, 320, 640) == "f32_sm90"  # K4's f32 body, not this one
+    assert k4_body(torch.bfloat16, 4, 320) == "generic"
+    assert k4_body(torch.bfloat16, 320, 4) == "generic"
     x = torch.zeros(1, 8, 8, 64)
     with pytest.raises(ValueError):  # the body is bf16 only
         conv3x3_sm90(x, torch.zeros(64, 64, 3, 3), torch.zeros(64))
@@ -111,7 +111,7 @@ def test_b1_unet_conv_shapes_and_counts_match_the_unet_plan(monkeypatch):
         M.unet_apply(cfg, params, torch.randn((2, 64, 64, 4), generator=gen),
                      torch.tensor([801, 801]), torch.randn((2, 77, 64), generator=gen))
     assert collections.Counter(calls) == dict(zip(B1_UNET_CONVS, B1_UNET_CONV_COUNTS))
-    assert all(sm90_takes(torch.bfloat16, c, co) for _, c, co in B1_UNET_CONVS)
+    assert all(k4_body(torch.bfloat16, c, co) == "bf16_sm90" for _, c, co in B1_UNET_CONVS)
 
 
 def _emulate(x, weight, bias, plan):

@@ -41,11 +41,13 @@ from complex_prompt_diffusion_tpu_torch.ops.attention import (
 )
 from complex_prompt_diffusion_tpu_torch.ops.conv import (
     conv3x3,
+    conv3x3_f32_sm90,
+    conv3x3_generic,
     conv3x3_plain,
     conv3x3_plan,
     conv3x3_sm90,
 )
-from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import B1_UNET_CONVS
+from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import B1_UNET_CONVS, GEGLU_ROWS
 from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     _TILE_BYTES,
     GnPlan,
@@ -60,6 +62,7 @@ from complex_prompt_diffusion_tpu_torch.ops.mlp import (
     GEGLU2_WIDTHS,
     _forced_plan,
     geglu_ff,
+    geglu_ff_f32_sm90,
     geglu_ff_plain,
     geglu_plan,
 )
@@ -198,8 +201,8 @@ def test_geglu_bf16_ragged(dev, c):
     assert geglu_ff.launches == before + geglu_plan(3 * 37, c, h4).launches
     assert got.shape == x.shape and got.dtype == torch.bfloat16
     assert _rel(got, geglu_ff_plain(*args)) <= TOL[torch.bfloat16]
-    with pytest.raises(TypeError):
-        geglu_ff(x.float(), *args[1:])
+    with pytest.raises(TypeError):  # f32 runs K2's f32 body; f16 has none
+        geglu_ff(x.half(), *args[1:])
 
 
 def _geglu_args(dev, m, c, seed):
@@ -263,6 +266,118 @@ def test_geglu_sm90_takes_strided_rows_and_raises_on_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         geglu_ff(torch.zeros((4, 36), device=dev, dtype=torch.bfloat16),
                  *[a[..., :1] for a in args[1:]])
+    # f32 is taken (K2's f32 body, the weights widened); f16 raises
+    f32_args = [a.float() for a in args]
+    before = geglu_ff_f32_sm90.launches
+    got = geglu_ff(x3.float(), *f32_args[1:])
+    assert got.dtype == torch.float32 and geglu_ff_f32_sm90.launches > before
+    assert _rel(got, geglu_ff_plain(x3.float(), *f32_args[1:])) <= 1e-5
+    with pytest.raises(TypeError):
+        geglu_ff(x3.half(), *args[1:])
+
+
+def _geglu_f32_args(dev, m, c, seed):
+    return [a.float() for a in _geglu_args(dev, m, c, seed)]
+
+
+@pytest.mark.parametrize("m,c", GEGLU_ROWS)
+def test_geglu_f32_at_the_phase1_cases(dev, m, c):
+    """K2's f32 body (three TF32 products a product) at every phase-1 case:
+    within 1e-5 of the TF32-off twin, the same bits on two calls, and the
+    kernels its plan predicts, all on the f32 body."""
+    args = _geglu_f32_args(dev, m, c, m + 3 * c)
+    before, before_f32 = geglu_ff.launches, geglu_ff_f32_sm90.launches
+    got = geglu_ff(*args)
+    n = geglu_plan(m, c, 4 * c, torch.float32).launches
+    assert geglu_ff.launches == before + n and geglu_ff_f32_sm90.launches == before_f32 + n
+    assert got.dtype == torch.float32
+    assert _rel(got, geglu_ff_plain(*args)) <= 1e-5
+    assert torch.equal(geglu_ff(*args), got)
+
+
+@pytest.mark.parametrize("m", [1, 77, 200, 4097])
+@pytest.mark.parametrize("c", [32, 320, 1280])
+def test_geglu_f32_ragged_rows_at_every_split_count(dev, m, c):
+    """Rows that are not multiples of the 128-row unit, the tiny UNet's C =
+    32, and split counts forced for both GEMMs (1 .. 16, or the k-steps):
+    each within 1e-5 of the twin and the same bits twice."""
+    h4 = 4 * c
+    args = _geglu_f32_args(dev, m, c, m * c + 1)
+    want = geglu_ff_plain(*args)
+    k1, k2 = -(-c // 32), -(-h4 // 32)
+    for s_ in sorted({1, 2, 3, 7, 16, k1}):
+        plan = _forced_plan(m, c, h4, splits1=min(s_, k1), splits2=min(s_, k2),
+                            dtype=torch.float32)
+        before = geglu_ff_f32_sm90.launches
+        got = geglu_ff(*args, plan=plan)
+        assert geglu_ff_f32_sm90.launches == before + plan.launches
+        assert _rel(got, want) <= 1e-5, plan
+        assert torch.equal(geglu_ff(*args, plan=plan), got), plan
+
+
+def _conv_f32_inputs(dev, b, h, w, c, co, seed):
+    x, wt, bias = _conv_inputs(dev, b, h, w, c, co, seed)
+    return x.float() + 0.01 * torch.randn(x.shape, generator=_gen(dev, seed), device=dev), \
+        wt.float(), bias.float() + 0.01
+
+
+@pytest.mark.parametrize("b,hw,c,co", [(2, hw, c, co) for hw, c, co in B1_UNET_CONVS]
+                         + [(1, 32, 512, 512)])
+def test_conv3x3_f32_sm90_at_the_phase1_cases(dev, b, hw, c, co):
+    """K4's f32 body at the 22 convs' shapes of a batch-1 f32 UNet call and
+    the small f32 decode's 32^2 512->512, through the route: within 1e-5 of
+    the TF32-off twin, one call of the f32 body, the same bits twice; the
+    FMA body it replaced still within f32's tolerance."""
+    x, wt, bias = _conv_f32_inputs(dev, b, hw, hw, c, co, b + hw + c + co)
+    want = conv3x3_plain(x, wt, bias)
+    before, before_f32 = conv3x3.launches, conv3x3_f32_sm90.launches
+    got = conv3x3(x, wt, bias)
+    assert conv3x3.launches == before + 1 and conv3x3_f32_sm90.launches == before_f32 + 1
+    assert got.dtype == torch.float32 and _rel(got, want) <= 1e-5
+    assert torch.equal(got, conv3x3(x, wt, bias))
+    # the FMA body's sequential f32 sums over K = 9C: f32's tolerance
+    assert _rel(conv3x3_generic(x, wt, bias), want) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("b,hw,c,co", [(1, 8, 64, 64), (2, 24, 96, 192), (3, 40, 32, 64),
+                                       (4, 8, 192, 128), (2, 10, 64, 320)])
+def test_conv3x3_f32_sm90_ragged_planes_and_split_counts(dev, b, hw, c, co):
+    """Planes that are not a multiple of the unit (8, 10, 24, 40), Co = 192 and
+    320 (part of a 128-channel unit), C = 32 (one chunk a tap), batch 1-4;
+    every forced split count within 1e-5 of the twin and the same bits twice."""
+    x, wt, bias = _conv_f32_inputs(dev, b, hw, hw, c, co, 7 * b + hw + c + co)
+    want = conv3x3_plain(x, wt, bias)
+    ksteps = conv3x3_plan(b, hw, hw, c, co, dtype=torch.float32).ksteps
+    for s_ in sorted({1, 2, 3, 7, ksteps}):
+        got = conv3x3_f32_sm90(x, wt, bias, splits=s_)
+        assert _rel(got, want) <= 1e-5, s_
+        assert torch.equal(got, conv3x3_f32_sm90(x, wt, bias, splits=s_)), s_
+
+
+@pytest.mark.parametrize("splits", [1, None])
+def test_conv3x3_f32_fold_rule_at_the_longest_k(dev, splits):
+    """The fold rule at K = 9C = 23040 (the UNet's 16^2 2560->1280 conv):
+    the run length of csrc/tf32x3.cuh (kFold) holds 1e-5 against the
+    TF32-off twin with the whole K in one unit and with the plan's splits."""
+    x, wt, bias = _conv_f32_inputs(dev, 2, 16, 16, 2560, 1280, 23040)
+    want = conv3x3_plain(x, wt, bias)
+    got = conv3x3_f32_sm90(x, wt, bias, splits=splits)
+    assert _rel(got, want) <= 1e-5
+
+
+def test_conv3x3_f32_sm90_raises_on_what_it_does_not_take(dev):
+    x, wt, bias = _conv_f32_inputs(dev, 1, 8, 8, 64, 64, 1)
+    with pytest.raises(ValueError):  # bf16
+        conv3x3_f32_sm90(x.to(torch.bfloat16), wt, bias)
+    with pytest.raises(ValueError):  # C % 32 != 0
+        conv3x3_f32_sm90(x[..., :40].contiguous(), wt[:, :40].contiguous(), bias)
+    flat = torch.empty(1 + x.numel(), device=dev)
+    shifted = flat[1:].view(x.shape)  # 4 bytes past a 16-byte boundary
+    shifted.copy_(x)
+    with pytest.raises(ValueError):  # TMA needs a 16-byte aligned base
+        conv3x3_f32_sm90(shifted, wt, bias)
+    with pytest.raises(TypeError):
+        conv3x3(x.half(), wt.half(), bias)
 
 
 @pytest.mark.parametrize("d", [64, 384, 512])
@@ -380,9 +495,11 @@ def _grad_cases(dev):
         "K1 bf16 d512": lambda: flash_attention(qwb, qwb, qwb, 1),
         "K5": lambda: attention_dmajor(dm, dm, dm, 0.125),
         "K2": lambda: geglu_ff(*ff),
+        "K2 f32": lambda: geglu_ff(*[t.float() for t in ff]),
         "K3": lambda: group_norm_nhwc(x, gam, gam, 32),
         "K4 sm90": lambda: conv3x3(x, w, bias),
         "K4 f32": lambda: conv3x3(xf, w.float(), bias.float()),
+        "K4 f32 FMA": lambda: conv3x3(xf[..., :40], w.float()[:, :40], bias.float()),
         "K6": lambda: wino3x3(x, w.permute(2, 3, 1, 0), bias),
         "K7": lambda: attention_probe(q8[..., :40], q8[..., :40], q8[..., :40], 1, 0.158),
         "K8": lambda: group_norm_probe(x320, g320, g320),
@@ -391,7 +508,8 @@ def _grad_cases(dev):
 
 
 @pytest.mark.parametrize("name", ["K1 sm90", "K1 f32", "K1 f32 3xTF32", "K1 bf16 d512", "K5",
-                                  "K2", "K3", "K4 sm90", "K4 f32", "K6", "K7", "K8", "K9"])
+                                  "K2", "K2 f32", "K3", "K4 sm90", "K4 f32", "K4 f32 FMA", "K6",
+                                  "K7", "K8", "K9"])
 def test_each_wrapper_raises_under_grad_and_runs_without_it(dev, name):
     call = _grad_cases(dev)[name]
     with pytest.raises(RuntimeError, match="no backward kernel"):
@@ -761,6 +879,55 @@ def test_tiny_slice_on_card_matches_plain_path(dev):
     for name in ("attention", "geglu_ff", "group_norm", "conv3x3"):
         assert ops.KERNEL_WRAPPERS[name].launches > 0
     assert ops.KERNEL_WRAPPERS["attention_cm"].launches == 0
+
+
+def test_tiny_f32_slice_on_card_matches_plain_path(dev):
+    """The tiny model as ``ModelBundle.random`` makes it, with no cast (f32
+    UNet: K2's and K4's f32 bodies, K1's fused 3xTF32 body), against the
+    plain twins on CPU copies of the same weights (TF32 off), and a short
+    txt2img through the kernels."""
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch import ops
+    from complex_prompt_diffusion_tpu_torch.pipeline import ModelBundle, RenderConfig, txt2img
+    from complex_prompt_diffusion_tpu_torch.pipeline import _tree_map
+
+    bundle = ModelBundle.random("tiny", seed=0, device=dev)
+    assert bundle.unet_cfg.dtype == "float32"
+    cpu_unet = _tree_map(lambda a: a.cpu(), bundle.unet_params)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 16, 16, 4), generator=g)
+    t = torch.tensor([901, 41])
+    ctx = torch.randn((2, 77, 64), generator=g)
+    for w in ops.KERNEL_WRAPPERS.values():
+        w.launches = 0
+    with torch.inference_mode():
+        got = M.unet_apply(bundle.unet_cfg, bundle.unet_params, x.to(dev), t.to(dev),
+                           ctx.to(dev)).cpu()
+        want = M.unet_apply(bundle.unet_cfg, cpu_unet, x, t, ctx)
+    assert float((got - want).norm() / want.norm()) <= 1e-4
+    k = ops.KERNEL_WRAPPERS
+    assert k["geglu_ff_f32_sm90"].launches > 0
+    assert k["geglu_ff"].launches == k["geglu_ff_f32_sm90"].launches
+    assert k["conv3x3"].launches == 9 and k["conv3x3_sm90"].launches == 0
+
+    images, latents = txt2img(bundle, "a cat", cfg=RenderConfig(
+        steps=3, width=128, height=128, batch_size=2))
+    assert images.shape == (2, 32, 32, 3) and torch.isfinite(latents).all()
+
+
+def test_default_bundle_renders_on_the_card_without_a_cast(dev):
+    """``ModelBundle.random()`` with no arguments: the tiny config on the
+    card with an f32 UNet, as the JAX package's default; txt2img renders
+    through K2's f32 body."""
+    from complex_prompt_diffusion_tpu_torch.pipeline import ModelBundle, RenderConfig, txt2img
+
+    bundle = ModelBundle.random()
+    assert bundle.device.type == "cuda" and bundle.unet_cfg.dtype == "float32"
+    before = geglu_ff_f32_sm90.launches
+    images, latents = txt2img(bundle, "a lighthouse", cfg=RenderConfig(
+        steps=2, width=64, height=64, batch_size=1))
+    assert images.dtype.name == "uint8" and images.shape[0] == 1
+    assert torch.isfinite(latents).all() and geglu_ff_f32_sm90.launches > before
 
 
 def _k5_kernels(dtype, b, h, sq, skv, d):

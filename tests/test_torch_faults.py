@@ -67,11 +67,13 @@ _LAUNCHERS = [
     (A.attention_dmajor, "_build.kernel_library()"),
     (A.attention_dmajor_prior, "_build.kernel_library()"),
     (F2.geglu_ff, "_build.kernel_library()"),
+    (F2.geglu_ff_f32_sm90, "_build.kernel_library()"),
     (G.group_norm_nhwc, "_build.kernel_library()"),
     (G.group_norm_prior, "_build.kernel_library()"),
     (A._attention_bf16_wide_sm90, "_build.kernel_library()"),
     (C.conv3x3_generic, "_build.kernel_library()"),
     (C.conv3x3_sm90, "_build.kernel_library()"),
+    (C.conv3x3_f32_sm90, "_build.kernel_library()"),
     (PW.wino3x3, "_build.kernel_library()"),
     (PW.wino3x3_sm90, "_build.kernel_library()"),
     (PW.wino3x3_prior, "_build.kernel_library()"),
@@ -95,6 +97,27 @@ def test_every_kernel_wrapper_refuses_grad_before_it_launches(fn, launch):
              and isinstance(n.func, ast.Attribute) and n.func.attr == "refuse_grad"]
     assert calls, f"{fn.__name__} does not call _build.refuse_grad"
     assert src.index("refuse_grad") < src.index(launch)
+
+
+@pytest.mark.parametrize("fn", [F2.geglu_ff, F2.geglu_ff_f32_sm90, C.conv3x3, C.conv3x3_f32_sm90],
+                         ids=lambda f: f.__name__)
+def test_f32_routes_reach_a_plain_twin_only_for_cpu_tensors(fn):
+    """K2's and K4's f32 routes: every call of a plain twin in the wrapper
+    lies in the body of an ``if not x.is_cuda:`` (a CUDA tensor launches the
+    kernel or raises), read from the source as no CPU run reaches the CUDA
+    branch."""
+    src = inspect.getsource(fn)
+    tree = ast.parse(src.lstrip() if src.startswith(" ") else src)
+    guarded = set()
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.If) and isinstance(node.test, ast.UnaryOp)
+                and isinstance(node.test.op, ast.Not)
+                and isinstance(node.test.operand, ast.Attribute)
+                and node.test.operand.attr == "is_cuda"):
+            guarded |= {id(n) for stmt in node.body for n in ast.walk(stmt)}
+    plain = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name) and n.func.id.endswith("_plain")]
+    assert plain and all(id(n) in guarded for n in plain)
 
 
 def test_cpu_twins_stay_differentiable():

@@ -12,20 +12,21 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            ``geglu_ff_sm90.cu``, ``geglu_ff_f32_sm90.cu``, ``conv3x3_sm90.cu``,
            ``conv3x3_f32_sm90.cu``, ``attention_cm_sm90.cu``,
            ``attention_cm_f32_sm90.cu``), of K6
-           (``winograd_sm90.cu``) and of K7 (``probe_attention*.cu``: K1's
-           and K5's Hopper loops and the fused f32 body in its modes) hold
-           wgmma (HGMMA) and TMA load (UTMALDG) instructions in every
-           instantiation (K7's loads-only mode, which computes nothing, TMA
-           loads alone; K2's and K4's f32 bodies TF32 wgmma only), and K3's
-           (``groupnorm_sm90.cu``) and K9's
+           (``winograd_sm90.cu``, ``winograd_f32_sm90.cu``) and of K7
+           (``probe_attention*.cu``: K1's and K5's Hopper loops and the fused
+           f32 body in its modes) hold wgmma (HGMMA) and TMA load (UTMALDG)
+           instructions in every instantiation (K7's loads-only mode, which
+           computes nothing, TMA loads alone; K2's, K4's and K6's f32 bodies
+           TF32 wgmma only), and K3's and K8's (``groupnorm_sm90.cu``,
+           ``probe_groupnorm.cu``: K3's kernels in K8's modes) and K9's
            (``probe_copy_sm90.cu``) a TMA or bulk-copy load (UTMALDG or
-           UBLKCP) in every one;
+           UBLKCP) in every one, K8's tensor-core statistics HMMA;
   phase 1  runs each kernel at its paths' shapes against its plain PyTorch
            twin on the card (TF32 off): error, the times (CUDA-graph
            replays, ``tools/hotcold.py``, one input repeated) of the kernel,
            the body it replaced where it is still built (K1's and K4's
-           mma.sync bodies, K1's f32 FMA body, K3's, K5's, K6's, K7's and
-           K9's first bodies; held to the same twin), the
+           mma.sync bodies, K1's f32 FMA body, K3's, K5's, K6's, K7's, K8's
+           and K9's first bodies; held to the same twin), the
            twin and the one
            PyTorch call that computes the same function (where there is
            one), and the bound from this case's bytes and flops, with the
@@ -66,21 +67,23 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            its user would call it: on the weights of the UNet's 20 ResBlock
            convs of the 32x32 and 16x16 planes at UNet batch 2, each held
            against the same conv through ``layers.conv2d`` (K4): in bf16 on
-           K6's Hopper body (the kernels its plans predict), in f32 on its
-           first body; then the 20 bf16 convs timed on the Hopper body, on
-           the first body and through K4;
+           K6's Hopper body, in f32 on its 3xTF32 body (the kernels their
+           plans predict), the f32 ones also against the plain twin at 1e-5
+           (TF32 off); then the 20 convs of each dtype timed on K6's Hopper
+           body, on its first body, through K4 and through cuDNN;
   phase 10 the probes of the TPU tuning scripts (``scripts/perf_attn8..12``,
            ``perf_gn4..8``), which no layer dispatches: every mode and flag
            of K7 (attention ablations), K8 (GroupNorm modes, tensor-core
-           statistics, forced splits) and K9 (streaming copy), and of K7's
-           and K9's replaced bodies, against its plain twin at small shapes,
-           K7's full mode at K1's choices bit-exact against K1, and every K9
+           statistics, forced splits) and K9 (streaming copy), and of K7's,
+           K8's and K9's replaced bodies, against its plain twin at small
+           shapes, K7's full mode at K1's choices bit-exact against K1, K8's
+           full mode at K3's plan bit-exact against K3, and every K9
            mode at the copy scripts' shapes bit-exact on both of K9's
            bodies; the SASS wgmma count of every K7 mode (and the replaced
            loops' HMMA) and the statistics of every GroupNorm mode
            (``cuobjdump``); then every script variant timed at the scripts'
-           shapes with the L2 hot and cold, K7's and K9's replaced bodies
-           beside their rows, and each K7 mode's share of the full mode's
+           shapes with the L2 hot and cold, K7's, K8's and K9's replaced
+           bodies beside their rows, and each K7 mode's share of the full mode's
            time at every UNet level (``tools/probe_attention.py``,
            ``tools/probe_groupnorm.py``);
   phase 11 the exact-f32 render: one SD-1.5 UNet eval cast to f32 on a
@@ -187,12 +190,17 @@ KERNELS = {
     ),
     "winograd": (
         f"{PKG}/csrc/winograd.cu",
-        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel (f32; bf16 with C "
-        "or Co % 64 != 0)",
+        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel (f32 with C % 32 or "
+        "Co % 64 != 0; bf16 with C or Co % 64 != 0)",
     ),
     "winograd_sm90": (
         f"{PKG}/csrc/winograd_sm90.cu",
         "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel (bf16, C % 64 == "
+        "Co % 64 == 0)",
+    ),
+    "winograd_f32_sm90": (
+        f"{PKG}/csrc/winograd_f32_sm90.cu",
+        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel (f32, C % 32 == "
         "Co % 64 == 0)",
     ),
     "probe_attention": (
@@ -219,8 +227,9 @@ PROBE_ATTENTION_SOURCES = tuple(f"{PKG}/csrc/{f}" for f in (
     "probe_attention_w160.cu", "probe_attention_sm90.cuh", "attention_sm90.cuh",
     "attention_cm_sm90.cuh", "attention_f32_fused.cuh"))
 # the probes: no layer calls them; phase 10 runs the last three
-PROBES = ("winograd", "winograd_sm90", "probe_attention", "probe_groupnorm", "probe_copy")
-PHASE10_PROBES = PROBES[2:]
+PROBES = ("winograd", "winograd_sm90", "winograd_f32_sm90", "probe_attention", "probe_groupnorm",
+          "probe_copy")
+PHASE10_PROBES = PROBES[3:]
 # K1's, K2's f32, K4's, K5's and K6's Hopper bodies, counted inside
 # "attention", "geglu_ff", "conv3x3", "attention_cm" (K5's f32 body inside
 # its Hopper count) and "winograd"
@@ -229,29 +238,36 @@ SM90 = {"attention_sm90": "attention", "attention_f32_sm90": "attention",
         "attention_bf16_wide_sm90": "attention", "conv3x3_sm90": "conv3x3",
         "conv3x3_f32_sm90": "conv3x3", "geglu_ff_f32_sm90": "geglu_ff",
         "attention_cm_sm90": "attention_cm", "attention_cm_f32_sm90": "attention_cm_sm90",
-        "winograd_sm90": "winograd"}
+        "winograd_sm90": "winograd", "winograd_f32_sm90": "winograd"}
 # phase 1's K1 f32, K5 and K6 cases (kernels "attention", "attention_cm" and
 # "winograd", the routes) by the body they run
 K1_BODY = {"float32": "attention_f32_fused_sm90"}
 K5_BODY = {"bfloat16": "attention_cm_sm90", "float32": "attention_cm_f32_sm90"}
-K6_BODY = {"bfloat16": "winograd_sm90", "float32": "winograd"}
+K6_BODY = {"bfloat16": "winograd_sm90", "float32": "winograd_f32_sm90"}
 # the Hopper kernels phase 0 finds in the SASS: every instantiation must hold
 # wgmma (HGMMA) and TMA loads (UTMALDG). attention_sm90_kernel is K1's and
 # K7's (K1's loop in K7's modes), attention_cm_sm90_kernel K5's bf16 and
 # K7's, attention_f32x3_kernel the fused 3xTF32 body of K1, K5 and K7;
-# geglu_gemm_f32_sm90_kernel and conv3x3_f32_sm90_kernel K2's and K4's f32
-# bodies, whose wgmma must be TF32 ones (TF32_FUNCTIONS)
+# geglu_gemm_f32_sm90_kernel, conv3x3_f32_sm90_kernel and
+# wino3x3_f32_sm90_kernel K2's, K4's and K6's f32 bodies, whose wgmma must be
+# TF32 ones (TF32_FUNCTIONS)
 SM90_FUNCTIONS = ("attention_sm90_kernel", "tf32x3_gemm_kernel", "wide_gemm_kernel",
                   "geglu_gemm_sm90_kernel", "conv3x3_sm90_kernel", "attention_cm_sm90_kernel",
                   "attention_f32x3_kernel", "wino3x3_sm90_kernel", "geglu_gemm_f32_sm90_kernel",
-                  "conv3x3_f32_sm90_kernel")
-TF32_FUNCTIONS = ("geglu_gemm_f32_sm90_kernel", "conv3x3_f32_sm90_kernel")
+                  "conv3x3_f32_sm90_kernel", "wino3x3_f32_sm90_kernel")
+TF32_FUNCTIONS = ("geglu_gemm_f32_sm90_kernel", "conv3x3_f32_sm90_kernel",
+                  "wino3x3_f32_sm90_kernel")
 # K7's loads-only mode of K1's loop (MODE 6 of attention_sm90_kernel<DV, BKV,
 # MODE, ...>) computes nothing: TMA loads, no wgmma
 LOADS_ONLY = re.compile(r"attention_sm90_kernelILi\d+ELi\d+ELi6E")
-# K3's and K9's kernels: every instantiation must load by TMA (UTMALDG) or
-# bulk copy (UBLKCP)
+# K3's, K8's (K3's kernels in K8's modes) and K9's kernels: every
+# instantiation must load by TMA (UTMALDG) or bulk copy (UBLKCP)
 BULK_FUNCTIONS = ("gn_slab_kernel", "gn_stats_kernel", "gn_apply_kernel", "copy_bulk_kernel")
+# K8's instantiations with the tensor-core statistics (MMA = true: the slab
+# kernel <bf16, full, true>, the statistics kernel <bf16, true>) must hold
+# mma.sync (HMMA) or wgmma (HGMMA)
+MMA_STATS = re.compile(r"gn_slab_kernelI13__nv_bfloat16Li0ELb1E|"
+                       r"gn_stats_kernelI13__nv_bfloat16Lb1E")
 
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |a - b| / max |b|
 
@@ -298,9 +314,10 @@ def rel_err(got, want) -> tuple:
 def phase0_sass(card: str) -> None:
     """The TMA + wgmma bodies of K1, K2, K4, K5, K6 and K7 as built: every
     instantiation must hold HGMMA (wgmma) and UTMALDG (TMA tensor load)
-    instructions (K7's loads-only mode UTMALDG alone), K2's and K4's f32
-    bodies TF32 wgmma only; K3's and K9's kernels a TMA or bulk-copy load
-    (UTMALDG or UBLKCP)."""
+    instructions (K7's loads-only mode UTMALDG alone), K2's, K4's and K6's
+    f32 bodies TF32 wgmma only; K3's, K8's and K9's kernels a TMA or
+    bulk-copy load (UTMALDG or UBLKCP), K8's tensor-core statistics HMMA or
+    HGMMA."""
     from complex_prompt_diffusion_tpu_torch.tools import probe_attention as PA
 
     counts = PA.sass_counts()
@@ -330,6 +347,12 @@ def phase0_sass(card: str) -> None:
         if not fns or bad:
             raise SmokeFailure(f"{body}: no instantiation, or one without a TMA or bulk-copy "
                                f"load: {bad or 'none built'}")
+    mma = {n: c["HMMA"] + c["HGMMA"] for n, c in counts.items() if MMA_STATS.search(n)}
+    print(f"phase0: SASS (cuobjdump) of K8's tensor-core statistics: {len(mma)} instantiations, "
+          f"HMMA + HGMMA {sorted(mma.values())} ({card})")
+    if len(mma) < 2 or not all(mma.values()):
+        raise SmokeFailure(f"K8's tensor-core statistics: want the slab and statistics kernels "
+                           f"with HMMA or HGMMA, got {mma or 'none built'}")
 
 
 def phase1(dev, card: str) -> dict:
@@ -377,16 +400,17 @@ def phase1(dev, card: str) -> dict:
         plain_ms = graph_ms(case.plain)
         lib_ms = graph_ms(case.library) if case.library is not None else None
         bound_ms, by = case.bound()
-        # the 3xTF32 bodies (K1's, K2's, K4's and K5's f32 ones) are held to
-        # 1e-5, as the card tests hold them: one TF32 product (~1e-3) would
-        # miss it. K4's replaced FMA body keeps the f32 tolerance it was held
-        # to as the kernel: its sequential f32 sums over K = 9C (up to 23040)
-        # differ from the twin's by up to ~1e-5
+        # the 3xTF32 bodies (K1's, K2's, K4's, K5's and K6's f32 ones) are
+        # held to 1e-5, as the card tests hold them: one TF32 product (~1e-3)
+        # would miss it. K4's and K6's replaced FMA bodies keep the f32
+        # tolerance they were held to as the kernel: K4's sequential f32 sums
+        # over K = 9C (up to 23040) differ from the twin's by up to ~1e-5
         tol = 1e-5 if case.rate == "tf32x3" else TOL[case.dtype]
-        prior_tol = TOL[case.dtype] if case.kernel == "conv3x3_f32_sm90" else tol
+        prior_tol = (TOL[case.dtype] if case.kernel in ("conv3x3_f32_sm90", "winograd")
+                     else tol)
         ok = rel <= tol and (prior_rel is None or prior_rel <= prior_tol)
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-        if case.kernel in ("conv3x3", "conv3x3_sm90"):
+        if case.kernel in ("conv3x3", "conv3x3_sm90", "conv3x3_f32_sm90"):
             conv_ms[case.label] = ms
         if case.kernel in ("conv3x3_sm90", "conv3x3_f32_sm90"):
             conv_rows[case.label] = (ms, prior_ms, lib_ms, bound_ms)
@@ -1055,13 +1079,17 @@ def phase8(bundle, image, card: str, steps: int) -> dict:
 def phase9(bundle, dev, card: str) -> dict:
     """The Winograd probe on the UNet's own ResBlock conv weights at the
     batch-1 render's planes, against the same convs through K4: in bf16 on
-    K6's Hopper body, in f32 on its first body; returns its launch counts."""
+    K6's Hopper body, in f32 on its 3xTF32 body (and against the plain twin
+    at 1e-5, TF32 off); then the 20 convs of each dtype timed on both of
+    K6's bodies, through K4 and through cuDNN; returns its launch counts."""
     import torch
+    import torch.nn.functional as F
 
     from complex_prompt_diffusion_tpu_torch import models as M
     from complex_prompt_diffusion_tpu_torch.models import layers as L
     from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import (
         wino3x3,
+        wino3x3_plain,
         wino3x3_plan,
         wino3x3_prior,
         winograd_weights,
@@ -1089,57 +1117,83 @@ def phase9(bundle, dev, card: str) -> dict:
         co, c = p["weight"].shape[:2]
         x = torch.randn((2, side, side, c), generator=gen, device=dev).to(torch.bfloat16)
         cases.append((x, p, p["weight"].permute(2, 3, 1, 0)))  # HWIO view of the weight
+    # the same convs in f32 (an f32 UNet's: weights, bias and input cast)
+    cases32 = [(x.float(), {k: v.float() for k, v in p.items()}, k.float()) for x, p, k in cases]
     want_sm90 = sum(wino3x3_plan(*x.shape, k.shape[3]).launches for x, _, k in cases)
+    want_f32 = sum(wino3x3_plan(*x.shape, k.shape[3], dtype=torch.float32).launches
+                   for x, _, k in cases32)
 
     reset_launches()
-    worst = {"bf16": 0.0, "f32": 0.0}
+    worst = {"bf16": 0.0, "f32": 0.0, "f32 twin": 0.0}
     with torch.inference_mode():
-        for x, p, k_hwio in cases:
-            want = L.conv2d(p, x)
-            for dt, got in (("bf16", wino3x3(x, k_hwio, p["bias"])),
-                            ("f32", wino3x3(x.float(), k_hwio.float(), p["bias"].float()))):
+        for (x, p, k_hwio), (x32, p32, k32) in zip(cases, cases32):
+            for dt, got, want in (("bf16", wino3x3(x, k_hwio, p["bias"]), L.conv2d(p, x)),
+                                  ("f32", wino3x3(x32, k32, p32["bias"]), L.conv2d(p32, x32))):
                 rel = float((got.float() - want.float()).norm() / want.float().norm())
                 if not (rel <= TOL["bfloat16"]) or not bool(torch.isfinite(got).all()):
                     raise SmokeFailure(f"the Winograd probe ({dt}) disagrees with K4 on a "
                                        f"{tuple(k_hwio.shape)} conv: rel L2 {rel:.3e}")
                 worst[dt] = max(worst[dt], rel)
+                if dt == "f32":  # K6's f32 body against its twin: max |a - b| / max |b|
+                    twin = wino3x3_plain(x32, winograd_weights(k32), p32["bias"])
+                    rel = rel_err(got, twin)[1]
+                    if not rel <= 1e-5:
+                        raise SmokeFailure(f"K6's f32 body disagrees with its plain twin on a "
+                                           f"{tuple(k32.shape)} conv: {rel:.3e} (tol 1e-5)")
+                    worst["f32 twin"] = max(worst["f32 twin"], rel)
     torch.cuda.synchronize()
     launches = read_launches()
     n = len(cases)
-    if (launches["winograd_sm90"] != want_sm90 or launches["winograd"] != want_sm90 + n
-            or launches["conv3x3"] != n or launches["conv3x3_sm90"] != n or not cases):
-        raise SmokeFailure(f"the probe phase launched {launches} for {n} convs (want "
-                           f"{want_sm90} kernels of K6's Hopper body by their plans, {n} of its "
-                           f"first body, {n} of K4's sm90 body)")
+    if (launches["winograd_sm90"] != want_sm90 or launches["winograd_f32_sm90"] != want_f32
+            or launches["winograd"] != want_sm90 + want_f32 or launches["conv3x3"] != 2 * n
+            or launches["conv3x3_sm90"] != n or launches["conv3x3_f32_sm90"] != n or not cases):
+        raise SmokeFailure(f"the probe phase launched {launches} for {n} convs of each dtype "
+                           f"(want {want_sm90} kernels of K6's bf16 Hopper body and {want_f32} "
+                           f"of its f32 one by their plans, none of its first body, {n} of K4's "
+                           f"sm90 body and {n} of its f32 one)")
+    times = {}
     with torch.inference_mode():
-        us = [winograd_weights(k).to(x.dtype) for x, _, k in cases]
-        ms_w = graph_ms(lambda: [wino3x3(x, k, p["bias"]) for x, p, k in cases])
-        ms_u = graph_ms(lambda: [wino3x3(x, k, p["bias"], u=u)
-                                 for (x, p, k), u in zip(cases, us)])
-        ms_prior = graph_ms(lambda: [wino3x3_prior(x, k, p["bias"], u=u)
-                                     for (x, p, k), u in zip(cases, us)])
-        ms_k4 = graph_ms(lambda: [L.conv2d(p, x) for x, p, _ in cases])
-    print(f"phase9: Winograd probe on the UNet's {n} ResBlock convs of the 32^2 and 16^2 "
-          f"planes (UNet batch 2), on {card}: worst rel L2 vs K4 {worst['bf16']:.3e} (bf16, "
-          f"Hopper body), {worst['f32']:.3e} (f32, first body) (tol 2e-2); all {n} bf16 "
-          f"convs with U made ahead: K6 Hopper body {ms_u:.3f} ms, K6 first body "
-          f"{ms_prior:.3f} ms, K4 {ms_k4:.3f} ms; K6 with the weight transform in each call "
-          f"{ms_w:.3f} ms ({METHOD}); launches {json.dumps(launches)}")
+        for dt, cs in (("bf16", cases), ("f32", cases32)):
+            us = [winograd_weights(k).to(x.dtype) for x, _, k in cs]
+            ws = [p["weight"].contiguous(memory_format=torch.channels_last) for _, p, _ in cs]
+            times[dt] = {
+                "K6 with the weight transform in each call": graph_ms(
+                    lambda cs=cs: [wino3x3(x, k, p["bias"]) for x, p, k in cs]),
+                "K6 Hopper body": graph_ms(lambda cs=cs, us=us: [
+                    wino3x3(x, k, p["bias"], u=u) for (x, p, k), u in zip(cs, us)]),
+                "K6 first body": graph_ms(lambda cs=cs, us=us: [
+                    wino3x3_prior(x, k, p["bias"], u=u) for (x, p, k), u in zip(cs, us)]),
+                "K4": graph_ms(lambda cs=cs: [L.conv2d(p, x) for x, p, _ in cs]),
+                "cuDNN": graph_ms(lambda cs=cs, ws=ws: [
+                    F.conv2d(x.permute(0, 3, 1, 2), w, p["bias"], padding=1)
+                    for (x, p, _), w in zip(cs, ws)]),
+            }
+    for dt in ("bf16", "f32"):
+        t = times[dt]
+        print(f"phase9: Winograd probe on the UNet's {n} ResBlock convs of the 32^2 and 16^2 "
+              f"planes (UNet batch 2) in {dt}, U made ahead, on {card}: "
+              f"{', '.join(f'{k} {v:.4f} ms' for k, v in t.items())}; Hopper / first body "
+              f"{t['K6 Hopper body'] / t['K6 first body']:.3f}, / K4 "
+              f"{t['K6 Hopper body'] / t['K4']:.3f} ({METHOD})")
+    print(f"phase9: worst rel L2 vs K4 {worst['bf16']:.3e} (bf16), {worst['f32']:.3e} (f32) (tol "
+          f"2e-2); f32 body vs its plain twin {worst['f32 twin']:.3e} (tol 1e-5, TF32 off); "
+          f"launches {json.dumps(launches)} ({card})")
     return launches
 
 
 def phase10(dev, card: str) -> dict:
     """The probes of the TPU tuning scripts: every mode and flag against its
-    plain twin at small shapes, the SASS MMA counts of the attention
-    ablations, then every script variant at the scripts' shapes; returns the
-    timed run's launch counts."""
+    plain twin at small shapes, K8's full mode against K3's bits at the
+    scripts' planes, the SASS MMA counts of the attention ablations and the
+    GroupNorm modes' statistics, then every script variant at the scripts'
+    shapes; returns the timed run's launch counts."""
     import torch
 
     from complex_prompt_diffusion_tpu_torch.tools import probe_attention as PA
     from complex_prompt_diffusion_tpu_torch.tools import probe_groupnorm as PG
     from complex_prompt_diffusion_tpu_torch.tools.hotcold import METHOD
 
-    checks = PA.check_small(dev) + PG.check_small(dev)
+    checks = PA.check_small(dev) + PG.check_small(dev) + PG.check_k3_bits(dev)
     for label, err, tol in checks:
         print(f"phase10: {label}: error {err:.3e} (tol {tol:.0e}) ({card})")
     copies = PG.check_copies(dev)
@@ -1368,6 +1422,8 @@ def main(argv=None) -> int:
             entry["replaced_body_ms"] = sm["replaced_ms"]
         if name == "probe_attention":
             entry["sources"] = list(PROBE_ATTENTION_SOURCES)
+        elif name == "probe_groupnorm":  # K3's kernels, in K8's modes
+            entry["sources"] = [src, f"{PKG}/csrc/groupnorm_sm90.cuh"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

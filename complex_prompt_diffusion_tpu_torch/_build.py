@@ -92,6 +92,8 @@ _SIGNATURES = {
     # x, u, bias, y, workspace, B, H, W, C, Co, then the plan (tw, splits,
     # chunks_per_split), int* kernels launched, stream
     "cpd_wino3x3_sm90_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # K6's f32 Hopper body: the same arguments (x, u, bias and y in f32)
+    "cpd_wino3x3_f32_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # x, w1, b1, w2, b2, hidden, out, ws1, ws2, M, C, H4, then the plan (bn1,
     # splits1, steps1, bn2, splits2, steps2), int* kernels launched, stream
     "cpd_geglu_ff_sm90_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -142,8 +144,14 @@ _SIGNATURES = {
     "cpd_probe_attention_prior_cm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                           _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                           _I, _F, _I, _P),
-    # K8: x, gamma, beta, y, part, N, HW, C, G, splits, eps, mode, mma, stream
-    "cpd_probe_group_norm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # K8: x, gamma, beta, y, parts, N, HW, C, G, eps, mode, mma, form, tiles,
+    # runs, int* kernels launched, stream
+    "cpd_probe_group_norm_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                                  _P, _P),
+    # K8's replaced body: x, gamma, beta, y, part, N, HW, C, G, splits, eps,
+    # mode, mma, stream
+    "cpd_probe_group_norm_prior_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                                        _P),
     # K9: x, y, N, HW, C, rows, convert, stages, stream
     "cpd_probe_copy_bf16": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # K9's Hopper body: x, y, tiles, tile bytes, then the plan (split, slot,

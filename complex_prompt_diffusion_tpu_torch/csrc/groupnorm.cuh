@@ -1,9 +1,10 @@
 // The body of K3 (csrc/groupnorm.cu): NHWC GroupNorm (+ SiLU), the slice
 // addressing, the statistics, the fused kernel and the split kernels (the
 // design notes are at the top of groupnorm.cu). groupnorm.cu launches them
-// as K3; the probe kernel K8 (csrc/probe_groupnorm.cu) launches the fused
-// bf16 kernel in the modes of the TPU ablation script and with tensor-core
-// statistics, and the split kernels with a forced split count. The fused
+// as K3's replaced body; K8's replaced body (csrc/probe_groupnorm_prior.cu)
+// launches the fused bf16 kernel in the modes of the TPU ablation script
+// and with tensor-core statistics, and the split kernels with a forced
+// split count. The fused
 // kernel's mode and statistics engine are template parameters with K3's as
 // the defaults, so the kernels K3 launches are the code it always ran.
 #pragma once

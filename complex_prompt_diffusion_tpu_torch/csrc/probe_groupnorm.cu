@@ -1,104 +1,78 @@
-// K8: the GroupNorm probe. K3's own kernels (groupnorm.cuh) in the forms
-// the TPU GroupNorm was tuned with, to find where their time goes on the
-// H100. bf16 NHWC, as the TPU scripts.
+// K8: the GroupNorm probe. K3's Hopper kernels (groupnorm_sm90.cuh) in the
+// forms the TPU GroupNorm was tuned with, to find where their time goes on
+// the H100. bf16 NHWC, as the TPU scripts.
 //
 // Replaces the TPU probe kernels:
 //   * scripts/perf_gn6.py:73 make (_kernel :27): modes copy, stats, norm,
-//     full and bf16sig of K3's fused bf16 kernel (GnMode in groupnorm.cuh),
-//     with K3's access pattern unchanged;
+//     full and bf16sig, each an epilogue and statistics variant of K3's slab
+//     and apply loops (GnProbeMode in groupnorm_sm90.cuh), with their TMA and
+//     bulk-copy loads unchanged;
 //   * scripts/perf_gn5.py:111 make, kind "mxu" (_kernel_mxu :56): the
-//     channel sums as products with a ones operand, here mma.sync m16n8k16
-//     (sums_mma in groupnorm.cuh: s1 of the bf16 values as they are, s2 of
-//     x^2 rounded once to bf16). Kinds "merged" and "nohi" are K3's fused
-//     kernel: the channel -> group map is an index on this card, not a
-//     matmul, so DEFAULT against HIGHEST precision changes no work here;
+//     channel sums as products with a ones operand, here mma.sync m16n8k16 on
+//     the slab's boxes or on the statistics kernel's ring chunks
+//     (octet_sums_mma: s1 of the bf16 values as they are, s2 of x^2 rounded
+//     once to bf16). Kinds "merged" and "nohi" are K3: the channel -> group
+//     map is an index on this card, not a matmul, so DEFAULT against HIGHEST
+//     precision changes no work here;
 //   * scripts/perf_gn4.py:43,63 chunked (the package's _gn_stats_kernel and
-//     _gn_apply_kernel over HW chunks): K3's split schedule, its statistics
-//     and apply kernels, with the split count forced (hw / chunk);
-//     perf_gn4.py:96 flat_onepass is K3's fused kernel (splits = 1).
+//     _gn_apply_kernel over a grid (sample, chunk) whose chunks one core
+//     streams in turn): K3's split form with the sample cut into `runs`
+//     chunks (hw / chunk), each of K3's tiles streaming its share of every
+//     chunk in turn, so that the grid stays K3's one full wave;
+//     perf_gn4.py:96 flat_onepass is K3.
 //
-// What bounds it: bytes. One read and one write of the plane at least; K3's
-// modes with statistics read it twice, the copy once.
+// The form and its blocks come from the host: K3's plan (ops/groupnorm.py:
+// group_norm_plan), or the split form over K3's split tiles (at most hw /
+// runs of them) and the forced runs. The full mode at K3's plan launches
+// K3's own instantiations, so it writes K3's bits.
+//
+// What bounds it: bytes. One read and one write of the plane at least (bf16
+// 8x64x64x320: 0.0125 ms at 3.35 TB/s); the split form reads it twice, and
+// its copy mode once (no statistics kernel). The body this replaced
+// (probe_groupnorm_prior.cu: one block a (sample, group) slice, accesses as
+// narrow as 4 bytes, the plane read 2-3 times) ran 0.083-0.091 ms there.
 
-#include "groupnorm.cuh"
+#include "groupnorm_sm90.cuh"
 
-namespace {
-
-typedef __nv_bfloat16 bf16;
-
-template <int VEC>
-int probe_vec(const bf16* x, const bf16* gamma, const bf16* beta, bf16* y, float2* part, int N,
-              int HW, int C, int G, int S, float eps, int mode, int mma, cudaStream_t s) {
-  const dim3 grid(G, N);
-  if (S > 0) {
-    if (mode != kGnFull || mma) return (int)cudaErrorInvalidValue;
-    launch_split<bf16, VEC>(x, gamma, beta, y, part, N, HW, C, G, S, eps, 1, s);
-    return 0;
-  }
-  if (mma) {
-    if (mode != kGnFull) return (int)cudaErrorInvalidValue;
-    group_norm_kernel<bf16, VEC, kGnFull, true><<<grid, kThreads, 0, s>>>(x, gamma, beta, y, HW, C,
-                                                                           G, eps, 1);
-    return 0;
-  }
+// x, y: [N, HW, C] bf16 contiguous, 16-byte aligned; gamma, beta: [C] bf16.
+// C % 8 == 0, C <= 4096, C % G == 0, G <= 256. mode: GnProbeMode; mma (mode
+// full only): the tensor-core statistics. form and tiles as
+// cpd_group_norm_sm90's (0: split over `tiles` tiles a sample with `parts`
+// N * tiles * G float2 of scratch; 1: slab of `tiles` groups a block);
+// runs: the split form's runs a sample (1 at K3's plan and its kernels;
+// more, forced chunks, mode full only; tiles x runs <= HW).
+// Sets *launched to the kernels it launched (1 or 2).
+extern "C" int cpd_probe_group_norm_sm90(const void* x, const void* gamma, const void* beta,
+                                         void* y, void* parts, int N, int HW, int C, int G,
+                                         float eps, int mode, int mma, int form, int tiles,
+                                         int runs, int* launched, void* stream) {
+  typedef __nv_bfloat16 bf16;
+  *launched = 0;
+  if (!gn_args_ok(x, y, parts, N, HW, C, G, form, tiles, runs) || (mma && mode != kModeFull) ||
+      (runs != 1 && (form != 0 || mode != kModeFull || mma)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (runs != 1)  // forced chunks: the split form's RUNS kernels, GroupNorm + SiLU
+    return launch<bf16, kModeFull, false, true>(x, gamma, beta, y, parts, N, HW, C, G, eps, 1,
+                                                form, tiles, runs, launched, st);
+  if (mma)
+    return launch<bf16, kModeFull, true>(x, gamma, beta, y, parts, N, HW, C, G, eps, 1, form,
+                                         tiles, runs, launched, st);
   switch (mode) {
-    case kGnFull:
-      group_norm_kernel<bf16, VEC, kGnFull><<<grid, kThreads, 0, s>>>(x, gamma, beta, y, HW, C, G,
-                                                                      eps, 1);
-      return 0;
-    case kGnCopy:
-      group_norm_kernel<bf16, VEC, kGnCopy><<<grid, kThreads, 0, s>>>(x, gamma, beta, y, HW, C, G,
-                                                                      eps, 1);
-      return 0;
-    case kGnStats:
-      group_norm_kernel<bf16, VEC, kGnStats><<<grid, kThreads, 0, s>>>(x, gamma, beta, y, HW, C,
-                                                                       G, eps, 1);
-      return 0;
-    case kGnNorm:
-      group_norm_kernel<bf16, VEC, kGnNorm><<<grid, kThreads, 0, s>>>(x, gamma, beta, y, HW, C, G,
-                                                                      eps, 1);
-      return 0;
-    case kGnBf16Sig:
-      group_norm_kernel<bf16, VEC, kGnBf16Sig><<<grid, kThreads, 0, s>>>(x, gamma, beta, y, HW, C,
-                                                                         G, eps, 1);
-      return 0;
+    case kModeFull:
+    case kModeNorm:
+      return launch<bf16, kModeFull>(x, gamma, beta, y, parts, N, HW, C, G, eps,
+                                     mode == kModeFull, form, tiles, runs, launched, st);
+    case kModeCopy:
+      return launch<bf16, kModeCopy>(x, gamma, beta, y, parts, N, HW, C, G, eps, 0, form, tiles,
+                                     runs, launched, st);
+    case kModeStats:
+      return launch<bf16, kModeStats>(x, gamma, beta, y, parts, N, HW, C, G, eps, 0, form, tiles,
+                                      runs, launched, st);
+    case kModeBf16Sig:
+      return launch<bf16, kModeBf16Sig>(x, gamma, beta, y, parts, N, HW, C, G, eps, 0, form,
+                                        tiles, runs, launched, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-}  // namespace
-
-// x, y: [N, HW, C] bf16 contiguous; gamma, beta: [C] bf16. splits = 0: the
-// fused kernel in `mode` (GnMode), with tensor-core statistics if `mma`
-// (mode full only); splits = S >= 1: K3's statistics and apply kernels over
-// S HW splits (mode full), with `part` N * G * S float2 of scratch. SiLU is
-// on in every mode that applies an activation (full; bf16sig's own).
-extern "C" int cpd_probe_group_norm_bf16(const void* x, const void* gamma, const void* beta,
-                                         void* y, void* part, int N, int HW, int C, int G,
-                                         int splits, float eps, int mode, int mma,
-                                         void* stream) {
-  if (splits < 0 || !gn_shape_ok(HW, C, G, splits > 0 ? splits : 1, splits > 0 ? part : nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xp = static_cast<const bf16*>(x);
-  const bf16* gp = static_cast<const bf16*>(gamma);
-  const bf16* bp = static_cast<const bf16*>(beta);
-  bf16* yp = static_cast<bf16*>(y);
-  float2* pp = static_cast<float2*>(part);
-  int err;
-  switch (pick_vec<bf16>(x, y, C / G)) {
-    case 8:
-      err = probe_vec<8>(xp, gp, bp, yp, pp, N, HW, C, G, splits, eps, mode, mma, s);
-      break;
-    case 4:
-      err = probe_vec<4>(xp, gp, bp, yp, pp, N, HW, C, G, splits, eps, mode, mma, s);
-      break;
-    case 2:
-      err = probe_vec<2>(xp, gp, bp, yp, pp, N, HW, C, G, splits, eps, mode, mma, s);
-      break;
-    default:
-      err = probe_vec<1>(xp, gp, bp, yp, pp, N, HW, C, G, splits, eps, mode, mma, s);
-  }
-  return err != 0 ? err : (int)cudaGetLastError();
 }

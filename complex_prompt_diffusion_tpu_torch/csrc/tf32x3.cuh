@@ -3,8 +3,10 @@
 // the K-major 128-byte-swizzled hi and lo tiles that wgmma reads, the
 // "landed f32 tile -> hi and lo tiles" routines of the GEMM bodies (K2's f32
 // GEGLU FF, geglu_ff_f32_sm90.cu; K4's f32 conv, conv3x3_f32_sm90.cu), their
-// A fragments split in registers, the three products of a k-step, and the
-// fold rule. K1's and K5's fused attention body (attention_f32_fused.cuh)
+// A fragments split in registers, the three products of a k-step (A from
+// registers, or from shared memory: K6's f32 Winograd body,
+// winograd_f32_sm90.cu, which also takes the split_mnmajor), and the fold
+// rule. K1's and K5's fused attention body (attention_f32_fused.cuh)
 // takes the split and the swizzled store from here, K1's unfused body
 // (attention_f32_sm90.cu) the split.
 //
@@ -172,6 +174,25 @@ __device__ __forceinline__ void mma_kstep(float (&d)[N / 2], const AFrag& f,
     WgmmaTf32<N>::rs(d, f.l[kk], bh, kk > 0 || !fresh);
     WgmmaTf32<N>::rs(d, f.h[kk], bl, 1);
     WgmmaTf32<N>::rs(d, f.h[kk], bh, 1);
+  }
+}
+
+// the three products of one k-step into d (d = them when `fresh`) with A's
+// hi and lo K-major tiles (64 rows) in shared memory too: for a body whose A
+// is split once for several consumer warpgroups (K6's f32 body)
+template <int N>
+__device__ __forceinline__ void mma_kstep_ss(float (&d)[N / 2], const unsigned char* ahi,
+                                             const unsigned char* alo, const unsigned char* bhi,
+                                             const unsigned char* blo, bool fresh) {
+#pragma unroll
+  for (int kk = 0; kk < KB / 8; ++kk) {
+    const uint64_t ah = desc_sw128(ahi + kk * 32, 16, 1024);
+    const uint64_t al = desc_sw128(alo + kk * 32, 16, 1024);
+    const uint64_t bh = desc_sw128(bhi + kk * 32, 16, 1024);
+    const uint64_t bl = desc_sw128(blo + kk * 32, 16, 1024);
+    WgmmaTf32<N>::ss(d, al, bh, kk > 0 || !fresh);
+    WgmmaTf32<N>::ss(d, ah, bl, 1);
+    WgmmaTf32<N>::ss(d, ah, bh, 1);
   }
 }
 

@@ -39,11 +39,12 @@
 // block, chunks of 16 input channels, the 256 threads as 16 positions x 16
 // threads of 4 tiles x 16 channels each; same gather, transform and
 // epilogue. Single-buffered.
-// This first body keeps f32 and the bf16 shapes outside the Hopper body's
-// rule (ops/probes/winograd.py: sm90_takes); for bf16 with C and Co
-// multiples of 64, winograd_sm90.cu (TMA + wgmma, the patch shared between
-// neighbouring tiles, each transform serving 128 output channels) replaced
-// it, and it stays callable there as wino3x3_prior.
+// This first body keeps the shapes outside the Hopper bodies' rule
+// (ops/probes/winograd.py: k6_body); for bf16 with C and Co multiples of
+// 64, winograd_sm90.cu (TMA + wgmma, the patch shared between neighbouring
+// tiles, each transform serving 128 output channels) replaced it, for f32
+// with C % 32 == Co % 64 == 0 winograd_f32_sm90.cu (the same on 3xTF32
+// wgmma), and it stays callable there as wino3x3_prior.
 
 #include "common.cuh"
 

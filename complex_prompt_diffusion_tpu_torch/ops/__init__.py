@@ -29,14 +29,17 @@ and a plain PyTorch twin:
   * ``probes.winograd.wino3x3`` — the Winograd F(2x2,3x3) conv through K6,
     an opt-in probe that no layer dispatches: bf16 with C and Co multiples
     of 64 through its TMA + wgmma body (``csrc/winograd_sm90.cu``,
-    ``wino3x3_sm90``), the rest through ``csrc/winograd.cu``
-    (``wino3x3_prior``).
+    ``wino3x3_sm90``), f32 with C % 32 == 0 and Co % 64 == 0 through its
+    3xTF32 body (``csrc/winograd_f32_sm90.cu``, ``wino3x3_f32_sm90``), the
+    rest through ``csrc/winograd.cu`` (``wino3x3_prior``).
   * ``probes.attention``, ``probes.groupnorm``, ``probes.stream`` — the
     probes of the TPU tuning scripts: K1's and K5's Hopper loops and the
     fused f32 body with pieces of the work removed (K7,
     ``csrc/probe_attention.cu``; its replaced loops
-    ``csrc/probe_attention_prior.cu`` are ``attention_probe_prior``), K3's kernels in the
-    scripts' forms (K8, ``csrc/probe_groupnorm.cu``) and a streaming copy
+    ``csrc/probe_attention_prior.cu`` are ``attention_probe_prior``), K3's
+    Hopper kernels in the scripts' forms (K8, ``csrc/probe_groupnorm.cu``;
+    its replaced body ``csrc/probe_groupnorm_prior.cu`` is
+    ``group_norm_probe_prior``) and a streaming copy
     by bulk copies (K9, ``csrc/probe_copy_sm90.cu``; its replaced body
     ``csrc/probe_copy.cu`` is ``stream_copy_prior``). No layer dispatches
     them.
@@ -69,7 +72,11 @@ from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_ff, geglu_ff_f32_sm
 from complex_prompt_diffusion_tpu_torch.ops.probes.attention import attention_probe
 from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_probe
 from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy
-from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3, wino3x3_sm90
+from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import (
+    wino3x3,
+    wino3x3_f32_sm90,
+    wino3x3_sm90,
+)
 
 # the wrapper of each kernel (or a count of its own where no wrapper function
 # carries one), whose ``launches`` attribute counts launches;
@@ -80,7 +87,8 @@ from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import wino3x3, wino
 # one; "attention_cm" counts every K5 kernel,
 # "attention_cm_sm90" those of its Hopper bodies (both dtypes),
 # "attention_cm_f32_sm90" those of the f32 one (counts attention_dmajor keeps);
-# "winograd" counts every K6 kernel, "winograd_sm90" those of its Hopper body
+# "winograd" counts every K6 kernel, "winograd_sm90" and "winograd_f32_sm90"
+# those of its bf16 and f32 Hopper bodies
 KERNEL_WRAPPERS = {
     "attention": flash_attention,
     "attention_sm90": attention_sm90,
@@ -98,6 +106,7 @@ KERNEL_WRAPPERS = {
     "attention_cm_f32_sm90": attention_cm_f32_sm90_count,
     "winograd": wino3x3,
     "winograd_sm90": wino3x3_sm90,
+    "winograd_f32_sm90": wino3x3_f32_sm90,
     "probe_attention": attention_probe,
     "probe_groupnorm": group_norm_probe,
     "probe_copy": stream_copy,
@@ -116,6 +125,7 @@ __all__ = [
     "self_attention_cm",
     "wino3x3",
     "wino3x3_sm90",
+    "wino3x3_f32_sm90",
     "attention_probe",
     "group_norm_probe",
     "stream_copy",

@@ -14,10 +14,13 @@ dispatches it: ``models/layers.conv2d`` never calls it.
     accumulation, applies the output transform ``A^T M A`` and the bias in
     f32 and writes NHWC. The transformed tiles never reach device memory.
 
-:func:`wino3x3` routes CUDA tensors by a shape rule (:func:`sm90_takes`):
+:func:`wino3x3` routes CUDA tensors by a shape rule (:func:`k6_body`):
 bf16 with C and Co multiples of 64 (every ResBlock conv of the UNet) to
 :func:`wino3x3_sm90` (``csrc/winograd_sm90.cu``: TMA + wgmma, the split of
-:func:`wino3x3_plan`), everything else (f32; other bf16 widths) to
+:func:`wino3x3_plan`), f32 with C % 32 == 0 and Co % 64 == 0 (the same
+convs) to :func:`wino3x3_f32_sm90` (``csrc/winograd_f32_sm90.cu``: TMA +
+wgmma, each product as three TF32 products, the split of
+``wino3x3_plan(..., dtype=float32)``), everything else to
 :func:`wino3x3_prior` (``csrc/winograd.cu``, the first body: mma.sync for
 bf16, exact FMAs for f32).
 
@@ -39,7 +42,7 @@ import torch.nn.functional as F
 from complex_prompt_diffusion_tpu_torch import _build
 
 __all__ = ["wino3x3", "wino3x3_plain", "wino3x3_supported", "winograd_weights", "wino3x3_sm90",
-           "wino3x3_prior", "wino3x3_plan", "Wino3x3Plan", "sm90_takes"]
+           "wino3x3_f32_sm90", "wino3x3_prior", "wino3x3_plan", "Wino3x3Plan", "k6_body"]
 
 # G for F(2x2,3x3): exact in bf16/f32 except the halves (exact in f32).
 _G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
@@ -111,23 +114,41 @@ def wino3x3_plain(x, u, bias):
     return out.reshape(b, h, w, -1).to(x.dtype)
 
 
-def sm90_takes(dtype, c: int, co: int) -> bool:
-    """The shape route of :func:`wino3x3`: bf16 with C and Co multiples of
-    64 (a chunk is 64 channels, one 128-byte TMA row; U's boxes are 64
-    output channels wide)."""
-    return dtype == torch.bfloat16 and c % 64 == 0 and co % 64 == 0
+def k6_body(dtype, c: int, co: int) -> str:
+    """The route of :func:`wino3x3`: ``"bf16_sm90"`` for bf16 with C % 64 ==
+    0 (a chunk is 64 channels, one 128-byte TMA row) and Co % 64 == 0 (U's
+    boxes are 64 output channels wide), ``"f32_sm90"`` for f32 with C % 32
+    == 0 (a chunk is 32 f32 channels, one 128-byte TMA row) and Co % 64 ==
+    0, ``"prior"`` (the first body) for the other bf16 and f32 shapes;
+    raises for any other dtype (f16)."""
+    if dtype == torch.bfloat16:
+        return "bf16_sm90" if c % SM90_KC == 0 and co % 64 == 0 else "prior"
+    if dtype == torch.float32:
+        return "f32_sm90" if c % F32_KC == 0 and co % 64 == 0 else "prior"
+    raise TypeError(f"K6 supports bfloat16 and float32 activations, got {dtype}")
 
 
 SM90_BT, SM90_BN, SM90_KC = 64, 128, 64  # the Hopper body's block: tiles, channels, chunk
+F32_KC = 32  # the f32 Hopper body's chunk: 32 f32 channels, one 128-byte row
 SM90_SMS = 132  # H100 SXM; one block an SM (220 KB of shared memory each)
 # The split cost model of wino3x3_plan, in microseconds on an H100 80GB HBM3
-# (700 W): one 64-channel chunk of a block as measured (a run with one split
-# over its chunks: 7.9 us at the phase-9 shapes, against 2.2 us of
-# tensor-core work), the reduce kernel's launch, and the rate at which the
-# f32 partials are written and read back (K4's, ops/conv.py). With these
-# the plan picks the split count that measured fastest (or within 1%) at
-# each of phase 9's six distinct shapes (PERF.md section 6).
-_CHUNK_US = 7.9
+# (700 W): the weight of one chunk of a block, the reduce kernel's launch,
+# and the rate at which the f32 partials are written and read back (K4's,
+# ops/conv.py). The chunk weight is a time for bf16 only:
+#   * bf16: a 64-channel chunk as measured (a run with one split over its
+#     chunks: 7.9 us at the phase-9 shapes, against 2.2 us of tensor-core
+#     work);
+#   * f32: not a time but a weight fitted to the picks. A 32-channel chunk
+#     measures 20.6-23.7 us unsplit (tools/wino_splits.py; 6.7 us of
+#     tensor-core work as three TF32 products), but the model charges every
+#     block of a thin last wave the whole wave's chunks, so at that weight
+#     it prices more blocks too high against the partials' pass and picks 8
+#     splits at B2 32^2 1280->1280 (1.9% over the best, 3). Any weight in
+#     4-12 picks the split count that measured fastest at the 11 shapes
+#     tools/wino_splits.py sweeps (phase 9's ten distinct ResBlock convs at
+#     UNet batch 2 and B1 32^2 512->512); 12 is used. Other shapes are not
+#     validated.
+_CHUNK_WEIGHT_US = {torch.bfloat16: 7.9, torch.float32: 12.0}
 _REDUCE_US = 2.0
 _PARTIALS_BYTES_PER_US = 2.8e6
 _MAX_SPLITS = 16
@@ -149,6 +170,7 @@ class Wino3x3Plan(NamedTuple):
     kchunks: int
     splits: int
     chunks_per_split: int
+    kc: int = SM90_KC  # channels a chunk: 64 (bf16) or 32 (f32)
 
     @property
     def launches(self) -> int:
@@ -158,7 +180,7 @@ class Wino3x3Plan(NamedTuple):
         """The input channels split ``split`` reduces over."""
         lo = split * self.chunks_per_split
         hi = min(self.kchunks, lo + self.chunks_per_split)
-        return range(lo * SM90_KC, hi * SM90_KC)
+        return range(lo * self.kc, hi * self.kc)
 
     def tiles(self, block: int) -> list:
         """The (image, tile row, tile column) of block row ``block`` (its
@@ -172,17 +194,19 @@ class Wino3x3Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=1024)
 def wino3x3_plan(b: int, h: int, w: int, c: int, co: int,
-                 splits: Optional[int] = None) -> Wino3x3Plan:
-    """The block and split plan the Hopper body runs for x [b, h, w, c] and
-    ``co`` output channels. Rectangles are 16 x 4 tiles where W / 2 >= 16,
-    8 x 8 where W / 2 >= 8, else 4 x 16 (TMA zero-fills what falls outside
-    the plane). ``splits`` (default: chosen here) divides the chunks among
-    blocks: the choice minimises the modelled time, waves of blocks on 132
-    SMs x chunks a block, plus, with more than one split, the reduce pass
-    (a launch and the f32 partials written and read); the smaller count
-    wins a tie."""
-    if c % 64 or co % 64:
-        raise ValueError(f"the Hopper Winograd body needs C % 64 == 0 and Co % 64 == 0; got "
+                 splits: Optional[int] = None, dtype=torch.bfloat16) -> Wino3x3Plan:
+    """The block and split plan a Hopper body runs for x [b, h, w, c] of
+    ``dtype`` (bf16: :func:`wino3x3_sm90`, 64-channel chunks; f32:
+    :func:`wino3x3_f32_sm90`, 32-channel chunks) and ``co`` output channels.
+    Rectangles are 16 x 4 tiles where W / 2 >= 16, 8 x 8 where W / 2 >= 8,
+    else 4 x 16 (TMA zero-fills what falls outside the plane). ``splits``
+    (default: chosen here) divides the chunks among blocks: the choice
+    minimises the modelled time, waves of blocks on 132 SMs x chunks a
+    block, plus, with more than one split, the reduce pass (a launch and the
+    f32 partials written and read); the smaller count wins a tie."""
+    kc = F32_KC if dtype == torch.float32 else SM90_KC
+    if c % kc or co % 64:
+        raise ValueError(f"the Hopper Winograd body needs C % {kc} == 0 and Co % 64 == 0; got "
                          f"C={c}, Co={co}")
     if h % 2 or w % 2 or h < 8 or w < 8:
         raise ValueError(f"the Hopper Winograd body needs even H, W >= 8; got {h}x{w}")
@@ -192,13 +216,13 @@ def wino3x3_plan(b: int, h: int, w: int, c: int, co: int,
     rects_w, rects_h = -(-tw_tiles // tw), -(-th_tiles // th)
     m_blocks = b * rects_h * rects_w
     n_blocks = -(-co // SM90_BN)
-    kchunks = c // SM90_KC
+    kchunks = c // kc
     blocks = m_blocks * n_blocks
     if splits is None:
         partial_bytes = 4.0 * b * h * w * co
 
         def cost(s):
-            t = math.ceil(blocks * s / SM90_SMS) * math.ceil(kchunks / s) * _CHUNK_US
+            t = math.ceil(blocks * s / SM90_SMS) * math.ceil(kchunks / s) * _CHUNK_WEIGHT_US[dtype]
             if s > 1:
                 t += _REDUCE_US + 2 * s * partial_bytes / _PARTIALS_BYTES_PER_US
             return t
@@ -208,7 +232,7 @@ def wino3x3_plan(b: int, h: int, w: int, c: int, co: int,
         raise ValueError(f"splits must lie in 1..{kchunks}; got {splits}")
     per = -(-kchunks // splits)
     return Wino3x3Plan(tw, th, rects_w, rects_h, m_blocks, n_blocks, kchunks, -(-kchunks // per),
-                       per)
+                       per, kc)
 
 
 def _check_args(x, kernel, bias, u):
@@ -235,22 +259,26 @@ def wino3x3(x, kernel, bias, u=None):
     ``u``: ``winograd_weights(kernel).to(x.dtype)`` computed ahead, for a
     caller that reuses one weight over many calls; by default it is
     computed here. CPU tensors run :func:`wino3x3_plain`. CUDA tensors go
-    by shape to the Hopper body (:func:`wino3x3_sm90`) where
-    :func:`sm90_takes` says so, else to the first body
+    by :func:`k6_body` to the bf16 Hopper body (:func:`wino3x3_sm90`), the
+    f32 one (:func:`wino3x3_f32_sm90`) or the first body
     (:func:`wino3x3_prior`); each launches its kernels or raises. Shapes
     outside :func:`wino3x3_supported` raise on every device.
-    ``wino3x3.launches`` counts the kernels launched by both bodies, each
+    ``wino3x3.launches`` counts the kernels launched by every body, each
     body's own counter those of that body."""
     u = _check_args(x, kernel, bias, u)
     if not x.is_cuda:
         return wino3x3_plain(x, u, bias)
     _build.refuse_grad("Winograd conv3x3 (K6)", x, kernel, bias, u)
-    lib = _build.kernel_library()
     b, h, w, c = x.shape
     co = kernel.shape[3]
-    if sm90_takes(x.dtype, c, co):
+    body = k6_body(x.dtype, c, co)
+    lib = _build.kernel_library()
+    if body == "bf16_sm90":
         y, n = _launch_sm90(lib, x, u, bias, wino3x3_plan(b, h, w, c, co))
         wino3x3_sm90.launches += n
+    elif body == "f32_sm90":
+        y, n = _launch_sm90(lib, x, u, bias, wino3x3_plan(b, h, w, c, co, dtype=torch.float32))
+        wino3x3_f32_sm90.launches += n
     else:
         y, n = _launch_prior(lib, x, u, bias)
         wino3x3_prior.launches += n
@@ -272,7 +300,7 @@ def wino3x3_sm90(x, kernel, bias, u=None, splits: Optional[int] = None):
     u = _check_args(x, kernel, bias, u)
     b, h, w, c = x.shape
     co = kernel.shape[3]
-    if not sm90_takes(x.dtype, c, co):
+    if x.dtype != torch.bfloat16 or k6_body(x.dtype, c, co) != "bf16_sm90":
         raise ValueError(f"wino3x3_sm90 takes bf16 with C % 64 == 0 and Co % 64 == 0; got "
                          f"{x.dtype} C={c} Co={co}")
     plan = wino3x3_plan(b, h, w, c, co, splits)
@@ -285,6 +313,34 @@ def wino3x3_sm90(x, kernel, bias, u=None, splits: Optional[int] = None):
 
 
 wino3x3_sm90.launches = 0
+
+
+def wino3x3_f32_sm90(x, kernel, bias, u=None, splits: Optional[int] = None):
+    """K6's f32 TMA + wgmma body (``csrc/winograd_f32_sm90.cu``: each
+    product as three TF32 products, hi and lo split in the kernel, so its
+    result holds the f32 twin to ~1e-6) on a CUDA f32 x with C % 32 == 0
+    and Co % 64 == 0; anything else raises. ``splits`` forces the split
+    count of ``wino3x3_plan(..., dtype=float32)``; the splits are summed in
+    a fixed order, so the bits do not depend on the run. CPU tensors run
+    :func:`wino3x3_plain` after the same checks.
+    ``wino3x3_f32_sm90.launches`` counts the kernels the library reports it
+    launched (1, or 2 with the reduction)."""
+    u = _check_args(x, kernel, bias, u)
+    b, h, w, c = x.shape
+    co = kernel.shape[3]
+    if x.dtype != torch.float32 or k6_body(x.dtype, c, co) != "f32_sm90":
+        raise ValueError(f"wino3x3_f32_sm90 takes f32 with C % 32 == 0 and Co % 64 == 0; got "
+                         f"{x.dtype} C={c} Co={co}")
+    plan = wino3x3_plan(b, h, w, c, co, splits, torch.float32)
+    if not x.is_cuda:
+        return wino3x3_plain(x, u, bias)
+    _build.refuse_grad("Winograd conv3x3 (K6, f32 Hopper body)", x, kernel, bias, u)
+    y, n = _launch_sm90(_build.kernel_library(), x, u, bias, plan)
+    wino3x3_f32_sm90.launches += n
+    return y
+
+
+wino3x3_f32_sm90.launches = 0
 
 
 def wino3x3_prior(x, kernel, bias, u=None):
@@ -306,7 +362,8 @@ wino3x3_prior.launches = 0
 
 
 def _launch_sm90(lib, x, u, bias, plan):
-    """(y, kernels launched) of the Hopper body on checked CUDA tensors."""
+    """(y, kernels launched) of the Hopper body of x's dtype (bf16 or f32)
+    on checked CUDA tensors."""
     b, h, w, c = x.shape
     co = u.shape[2]
     x = x.contiguous()
@@ -319,11 +376,12 @@ def _launch_sm90(lib, x, u, bias, plan):
     ws = (torch.empty((plan.splits, b * h * w, co), dtype=torch.float32, device=x.device)
           if plan.splits > 1 else y)
     launched = ctypes.c_int(0)
-    err = lib.cpd_wino3x3_sm90_bf16(
-        x.data_ptr(), u.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(), b, h, w, c,
-        co, plan.tw, plan.splits, plan.chunks_per_split, ctypes.byref(launched),
-        _build.stream_ptr(x.device))
-    _build.check(err, "Winograd conv3x3 (K6, Hopper body)")
+    f32 = x.dtype == torch.float32
+    fn = lib.cpd_wino3x3_f32_sm90 if f32 else lib.cpd_wino3x3_sm90_bf16
+    err = fn(x.data_ptr(), u.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(), b, h, w, c,
+             co, plan.tw, plan.splits, plan.chunks_per_split, ctypes.byref(launched),
+             _build.stream_ptr(x.device))
+    _build.check(err, f"Winograd conv3x3 (K6, {'f32 ' if f32 else ''}Hopper body)")
     return y, launched.value
 
 

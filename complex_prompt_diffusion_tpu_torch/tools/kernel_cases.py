@@ -70,7 +70,8 @@ class Case(NamedTuple):
     nbytes: float  # each input read once, each output written once
     # the body this kernel replaced, where it is still built (the mma.sync
     # bodies of K1 and K4, K1's f32 FMA body, K3's first body, K5's, K6's,
-    # K7's and K9's first bodies), timed beside it; None where there is none
+    # K7's, K8's and K9's first bodies), timed beside it; None where there is
+    # none
     prior: Optional[Callable] = None
     # the PEAK_FLOPS entry of the units that do the work, where it is not
     # the dtype's
@@ -308,11 +309,13 @@ def kernel_cases(dev, kernels=None) -> list:
         # != Co, one batch-8 shape and an f32 one; U is made once, outside
         # the timed call, as a caller with fixed weights would. The library
         # call is the direct conv (cuDNN); K4's cases above time the same
-        # shapes. The bf16 cases run the Hopper body with the first body beside
-        # them; the f32 case runs the first body. (A parent tree may lack the
-        # Hopper body and its wrappers; the labels are the parent's, so that
-        # tree_ab compares the same cases.)
+        # shapes. Each case runs the Hopper body of its dtype (the f32 one
+        # bound at the rate of three TF32 products) with the first body
+        # beside it. (A parent tree may lack the Hopper bodies and their
+        # wrappers; the labels are the parent's, so that tree_ab compares the
+        # same cases.)
         wino_prior = getattr(W, "wino3x3_prior", None)
+        k6_body = getattr(W, "k6_body", None)
         shapes = [(2, 32, 640, 640, bf16), (2, 32, 1280, 1280, bf16), (2, 16, 1280, 1280, bf16),
                   (8, 32, 640, 640, bf16), (2, 32, 960, 640, bf16), (2, 16, 2560, 1280, bf16),
                   (1, 32, 512, 512, f32)]
@@ -324,7 +327,10 @@ def kernel_cases(dev, kernels=None) -> list:
             w_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             a = (x, k, bias, u)
             m = b * hw * hw
-            sm90 = wino_prior is not None and W.sm90_takes(dt, c, co)
+            f32_sm90 = k6_body is not None and k6_body(dt, c, co) == "f32_sm90"
+            # a parent tree without k6_body routes by its sm90_takes (bf16 only)
+            sm90 = wino_prior is not None and (k6_body(dt, c, co) != "prior" if k6_body
+                                               else W.sm90_takes(dt, c, co))
             cases.append(Case(
                 "winograd", f"{'bf16' if dt == bf16 else 'f32'} B{b} {hw}x{hw} {c}->{co}",
                 lambda a=a: W.wino3x3(*a), lambda a=a: W.wino3x3_plain(a[0], a[3], a[2]),
@@ -332,7 +338,8 @@ def kernel_cases(dev, kernels=None) -> list:
                                                           padding=1),
                 "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 4 * c,
                 x.element_size() * (m * c + 16 * c * co + m * co) + 4 * co,
-                (lambda a=a: wino_prior(*a[:3], u=a[3])) if sm90 else None))
+                (lambda a=a: wino_prior(*a[:3], u=a[3])) if sm90 else None,
+                "tf32x3" if f32_sm90 else None))
     # the probes (imported here: a source tree without them runs the cases
     # above); each at a shape of its TPU script, the tools/probe_*.py rows
     # time every variant
@@ -362,7 +369,9 @@ def kernel_cases(dev, kernels=None) -> list:
                 (lambda q=q, k=k, v=v, kw=kw, d=c // 8: probe_prior(q, k, v, 8, d**-0.5, **kw))
                 if probe_prior else None, "tf32x3" if dt == f32 else None))
     if "probe_groupnorm" in want:
+        # K8 with its replaced body beside it (a parent tree may lack it)
         PG = importlib.import_module(f"{_PKG}.ops.probes.groupnorm")
+        k8_prior = getattr(PG, "group_norm_probe_prior", None)
         for shape, kw in (((8, 64, 64, 320), dict(mma=True)), ((8, 64, 64, 320), dict(splits=16)),
                           ((8, 32, 32, 1280), dict(mode="bf16sig"))):
             x = randn(*shape, dtype=bf16, scale=2.0) + 0.5
@@ -375,7 +384,8 @@ def kernel_cases(dev, kernels=None) -> list:
                 lambda a=a, kw=kw: PG.group_norm_probe(*a, **kw),
                 lambda a=a, kw=kw: PG.group_norm_probe_plain(*a, **kw),
                 lambda a=a: F.silu(F.group_norm(a[0].permute(0, 3, 1, 2), 32, a[1], a[2])),
-                "bfloat16", 10.0 * x.numel(), (2 * x.numel() + 2 * shape[-1]) * 2))
+                "bfloat16", 10.0 * x.numel(), (2 * x.numel() + 2 * shape[-1]) * 2,
+                (lambda a=a, kw=kw: k8_prior(*a, **kw)) if k8_prior else None))
     if "probe_copy" in want:
         # K9 at the three COPY_SHAPES of tools/probe_groupnorm.py, each in a
         # 64-row 4-stage mode and a whole-plane f32 mode, the replaced body

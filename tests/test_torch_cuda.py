@@ -67,18 +67,24 @@ from complex_prompt_diffusion_tpu_torch.ops.mlp import (
     geglu_plan,
 )
 from complex_prompt_diffusion_tpu_torch.ops.probes.attention import attention_probe
-from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_probe
+from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import (
+    group_norm_probe,
+    group_norm_probe_plain,
+    group_norm_probe_prior,
+    probe_plan,
+)
 from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy, stream_copy_prior
 from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import (
-    sm90_takes,
+    k6_body,
     wino3x3,
+    wino3x3_f32_sm90,
     wino3x3_plain,
     wino3x3_plan,
     wino3x3_prior,
     wino3x3_sm90,
     winograd_weights,
 )
-from complex_prompt_diffusion_tpu_torch.tools.probe_groupnorm import COPY_SHAPES
+from complex_prompt_diffusion_tpu_torch.tools.probe_groupnorm import COPY_SHAPES, GN4_PLANES
 
 pytestmark = pytest.mark.cuda
 
@@ -501,15 +507,17 @@ def _grad_cases(dev):
         "K4 f32": lambda: conv3x3(xf, w.float(), bias.float()),
         "K4 f32 FMA": lambda: conv3x3(xf[..., :40], w.float()[:, :40], bias.float()),
         "K6": lambda: wino3x3(x, w.permute(2, 3, 1, 0), bias),
+        "K6 f32": lambda: wino3x3(xf, w.float().permute(2, 3, 1, 0), bias.float()),
         "K7": lambda: attention_probe(q8[..., :40], q8[..., :40], q8[..., :40], 1, 0.158),
         "K8": lambda: group_norm_probe(x320, g320, g320),
+        "K8 replaced body": lambda: group_norm_probe_prior(x320, g320, g320),
         "K9": lambda: stream_copy(x.reshape(1, 256, 64), 64),
     }
 
 
 @pytest.mark.parametrize("name", ["K1 sm90", "K1 f32", "K1 f32 3xTF32", "K1 bf16 d512", "K5",
                                   "K2", "K2 f32", "K3", "K4 sm90", "K4 f32", "K4 f32 FMA", "K6",
-                                  "K7", "K8", "K9"])
+                                  "K6 f32", "K7", "K8", "K8 replaced body", "K9"])
 def test_each_wrapper_raises_under_grad_and_runs_without_it(dev, name):
     call = _grad_cases(dev)[name]
     with pytest.raises(RuntimeError, match="no backward kernel"):
@@ -1119,8 +1127,10 @@ def test_wino3x3(dev, dtype, b, h, w, c, co):
     bias = torch.randn(co, generator=g, device=dev).to(dtype)
     before = wino3x3.launches
     got = wino3x3(x, k, bias)
-    # the Hopper body launches its reduction too where its plan splits C
-    want_launches = (wino3x3_plan(b, h, w, c, co).launches if sm90_takes(dtype, c, co) else 1)
+    # a Hopper body launches its reduction too where its plan splits C
+    body = k6_body(dtype, c, co)
+    want_launches = (1 if body == "prior" else
+                     wino3x3_plan(b, h, w, c, co, dtype=dtype).launches)
     assert wino3x3.launches == before + want_launches
     assert got.shape == (b, h, w, co) and got.dtype == dtype
     u = winograd_weights(k).to(dtype)
@@ -1198,6 +1208,60 @@ def test_wino3x3_sm90_raises_on_what_it_does_not_take(dev):
         wino3x3_sm90(x.float(), k.float(), bias.float())
     with pytest.raises(ValueError):  # C % 64 != 0
         wino3x3_sm90(x[..., :32], k[:, :, :32], bias)
+
+
+def _wino_f32_case(dev, b, h, w, c, co, seed):
+    x, k, bias, _ = _wino_case(dev, b, h, w, c, co, seed)
+    x, k, bias = x.float() + 0.01 * torch.randn(x.shape, generator=_gen(dev, seed), device=dev), \
+        k.float(), bias.float()
+    return x, k, bias, winograd_weights(k)
+
+
+@pytest.mark.parametrize("b,hw,c,co", [(2, hw, c, co) for hw, c, co in B1_UNET_CONVS]
+                         + [(1, 32, 512, 512)])
+def test_wino3x3_f32_sm90_at_the_phase9_shapes(dev, b, hw, c, co):
+    """K6's f32 body at every ResBlock conv of phase 9 (UNet batch 2) and
+    phase 1's B1 32^2 512->512, through the route, with the kernels its
+    plan predicts: 1e-5 of the TF32-off twin, the same bits twice."""
+    x, k, bias, u = _wino_f32_case(dev, b, hw, hw, c, co, hw + c + co)
+    before = (wino3x3.launches, wino3x3_f32_sm90.launches, wino3x3_prior.launches)
+    got = wino3x3(x, k, bias, u=u)
+    n = wino3x3_plan(b, hw, hw, c, co, dtype=torch.float32).launches
+    assert (wino3x3.launches, wino3x3_f32_sm90.launches, wino3x3_prior.launches) == (
+        before[0] + n, before[1] + n, before[2])
+    assert got.dtype == torch.float32
+    assert _rel(got, wino3x3_plain(x, u, bias)) <= 1e-5
+    assert torch.equal(got, wino3x3(x, k, bias, u=u))
+
+
+@pytest.mark.parametrize("b,h,w,c,co", [(1, 20, 12, 64, 192), (3, 10, 14, 128, 64),
+                                        (1, 36, 20, 96, 128), (1, 8, 8, 32, 64),
+                                        (2, 64, 64, 320, 320)])
+def test_wino3x3_f32_sm90_ragged_tiles_at_every_split_count(dev, b, h, w, c, co):
+    """Tile rectangles that overhang the plane, Co not a multiple of the
+    block's 128, C of 1 to 10 chunks of 32, and every split count of C: 1e-5
+    of the twin, and a second run writes the same bits."""
+    x, k, bias, u = _wino_f32_case(dev, b, h, w, c, co, h * w + c)
+    want = wino3x3_plain(x, u, bias)
+    kchunks = c // 32
+    for splits in sorted({1, 2, 3, kchunks} & set(range(1, kchunks + 1))):
+        got = wino3x3_f32_sm90(x, k, bias, u=u, splits=splits)
+        assert _rel(got, want) <= 1e-5, splits
+        assert torch.equal(got, wino3x3_f32_sm90(x, k, bias, u=u, splits=splits))
+
+
+def test_wino3x3_f32_sm90_raises_on_what_it_does_not_take(dev):
+    x, k, bias, _ = _wino_f32_case(dev, 1, 8, 8, 64, 64, 3)
+    with pytest.raises(ValueError):  # bf16: the other Hopper body's
+        wino3x3_f32_sm90(x.bfloat16(), k.bfloat16(), bias.bfloat16())
+    with pytest.raises(ValueError):  # C % 32 != 0
+        wino3x3_f32_sm90(x[..., :48], k[:, :, :48], bias)
+    with pytest.raises(ValueError):  # Co % 64 != 0
+        wino3x3_f32_sm90(x, k[..., :32], bias[:32])
+    # the route leaves those f32 widths to the first body
+    before = (wino3x3_f32_sm90.launches, wino3x3_prior.launches)
+    wino3x3(x[..., :48], k[:, :, :48], bias)
+    assert (wino3x3_f32_sm90.launches, wino3x3_prior.launches) == (before[0], before[1] + 1)
 
 
 def test_cm_unet_on_card_matches_default_route(dev):
@@ -1373,24 +1437,24 @@ def test_attention_probe_prior_still_matches(dev, kw):
                 PA.attention_probe_plain(q, k, v, 2, 80**-0.5, "scores")) <= 1e-4
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (2, 12, 12, 320), (1, 8, 8, 1280)])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (2, 12, 12, 320), (1, 8, 8, 1280),
+                                   (1, 64, 64, 320), (2, 7, 9, 1280)])
 @pytest.mark.parametrize("mode,splits,mma", [("full", None, False), ("copy", None, False),
                                              ("stats", None, False), ("norm", None, False),
                                              ("bf16sig", None, False), ("full", None, True),
                                              ("full", 1, False), ("full", 5, False)])
 def test_group_norm_probe(dev, shape, mode, splits, mma):
-    from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import (
-        group_norm_probe,
-        group_norm_probe_plain,
-    )
-
+    """Every K8 mode and flag against its twin, on K3's slab form (the small
+    planes) and split form (1 x 64^2 x 320), with the kernels its plan
+    predicts (the library reports them)."""
     g = _gen(dev, shape[-1])
     x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
     gamma = (torch.randn(shape[-1], generator=g, device=dev) * 0.5 + 1).to(torch.bfloat16)
     beta = (torch.randn(shape[-1], generator=g, device=dev) * 0.5).to(torch.bfloat16)
     before = group_norm_probe.launches
     got = group_norm_probe(x, gamma, beta, mode, splits=splits, mma=mma)
-    assert group_norm_probe.launches == before + (1 if splits is None else 2)
+    plan = probe_plan(shape[0], shape[1] * shape[2], shape[3], 32, mode, splits)
+    assert group_norm_probe.launches == before + plan.launches
     want = group_norm_probe_plain(x, gamma, beta, mode, splits=splits, mma=mma)
     if mode in ("copy", "stats"):
         assert torch.equal(got, want)
@@ -1398,18 +1462,65 @@ def test_group_norm_probe(dev, shape, mode, splits, mma):
         assert _rel(got, want) <= TOL[torch.bfloat16]
 
 
-def test_group_norm_probe_full_is_k3(dev):
-    """The fused kernel's full mode is the kernel of K3's replaced body
-    (``group_norm_prior``, which the probe script rows compare against):
-    the same bits."""
-    from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_probe
+@pytest.mark.parametrize("side,c", GN4_PLANES)
+def test_group_norm_probe_full_is_k3(dev, side, c):
+    """K8's full mode at K3's plan is K3's own instantiation of its Hopper
+    kernels: the same bits as ``group_norm_nhwc`` at every plane phase 10
+    times (batch 8), slab and split form."""
+    g = _gen(dev, side + c)
+    x = torch.randn((8, side, side, c), generator=g, device=dev).to(torch.bfloat16)
+    gamma = torch.randn(c, generator=g, device=dev).to(torch.bfloat16)
+    beta = torch.randn(c, generator=g, device=dev).to(torch.bfloat16)
+    assert torch.equal(group_norm_probe(x, gamma, beta), group_norm_nhwc(x, gamma, beta, 32,
+                                                                         1e-5, True))
 
-    g = _gen(dev, 77)
-    x = torch.randn((8, 32, 32, 640), generator=g, device=dev).to(torch.bfloat16)
-    gamma = torch.randn(640, generator=g, device=dev).to(torch.bfloat16)
-    beta = torch.randn(640, generator=g, device=dev).to(torch.bfloat16)
-    assert torch.equal(group_norm_probe(x, gamma, beta), group_norm_prior(x, gamma, beta, 32,
-                                                                          1e-5, True))
+
+@pytest.mark.parametrize("side,c", [(64, 320), (64, 640)])
+def test_group_norm_probe_forced_runs_on_k3s_grid(dev, side, c):
+    """Forced splits keep K3's split grid (8 x 16 blocks at batch 8): one
+    run is K3's split form, the same bits as ``group_norm_nhwc``; 2 to 16
+    runs a sample (perf_gn4's chunk 2048 .. 256) stream each tile's share of
+    every run and agree with the twin."""
+    g = _gen(dev, side * c)
+    x = (torch.randn((8, side, side, c), generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+    gamma = (torch.randn(c, generator=g, device=dev) * 0.5 + 1).to(torch.bfloat16)
+    beta = (torch.randn(c, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    k3 = group_norm_nhwc(x, gamma, beta, 32, 1e-5, True)
+    assert torch.equal(group_norm_probe(x, gamma, beta, splits=1), k3)
+    want = group_norm_probe_plain(x, gamma, beta)
+    for runs in (2, 4, 8, 16):
+        plan = probe_plan(8, side * side, c, 32, "full", runs,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+        assert plan.tiles * 8 >= 128 and plan.runs == runs
+        assert _rel(group_norm_probe(x, gamma, beta, splits=runs), want) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(mode="copy"), dict(mode="bf16sig"),
+                                dict(mma=True), dict(splits=3)])
+def test_group_norm_probe_prior_still_runs(dev, kw):
+    """K8's replaced body (one block a (sample, group) slice) against the
+    twin, counted on its own count."""
+    g = _gen(dev, 41)
+    x = (torch.randn((2, 12, 12, 320), generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+    gamma = torch.ones(320, device=dev, dtype=torch.bfloat16)
+    beta = torch.zeros(320, device=dev, dtype=torch.bfloat16)
+    before = (group_norm_probe_prior.launches, group_norm_probe.launches)
+    got = group_norm_probe_prior(x, gamma, beta, **kw)
+    assert (group_norm_probe_prior.launches, group_norm_probe.launches) == (
+        before[0] + (2 if "splits" in kw else 1), before[1])
+    assert _rel(got, group_norm_probe_plain(x, gamma, beta, **kw)) <= TOL[torch.bfloat16]
+
+
+def test_group_norm_probe_refuses_what_k3s_forms_refuse(dev):
+    """C % 8 != 0 and more than 256 groups: K3's Hopper forms refuse them,
+    and K8 raises ValueError on the card (no kernel of another form)."""
+    before = group_norm_probe.launches
+    for shape, groups in (((1, 8, 8, 36), 4), ((1, 8, 8, 512), 512)):
+        x = torch.zeros(shape, device=dev, dtype=torch.bfloat16)
+        g = torch.ones(shape[-1], device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            group_norm_probe(x, g, g, num_groups=groups)
+    assert group_norm_probe.launches == before
 
 
 @pytest.mark.parametrize("stages", [1, 3, 4, 8])

@@ -167,16 +167,16 @@ def test_wino3x3_mirrors_match_the_c_source():
     assert (int(k["BT"]), int(k["BN"]), int(k["KC"])) == (W.SM90_BT, W.SM90_BN, W.SM90_KC)
     text = (CSRC / "winograd_sm90.cu").read_text()
     assert "tw != 4 && tw != 8 && tw != 16" in text  # the rectangles the plan picks
-    assert "C % KC" in text and "Co % 64" in text  # takes what sm90_takes routes there
+    assert "C % KC" in text and "Co % 64" in text  # takes what k6_body routes there
 
 
 def test_wino3x3_routes_by_the_stated_shape_rule():
     bf, f32 = torch.bfloat16, torch.float32
-    assert W.sm90_takes(bf, 640, 1280) and W.sm90_takes(bf, 64, 64)
-    assert not W.sm90_takes(bf, 96, 128) and not W.sm90_takes(bf, 128, 96)
-    assert not W.sm90_takes(f32, 640, 640)
+    assert W.k6_body(bf, 640, 1280) == W.k6_body(bf, 64, 64) == "bf16_sm90"
+    assert W.k6_body(bf, 96, 128) == W.k6_body(bf, 128, 96) == "prior"
+    assert W.k6_body(f32, 640, 640) == "f32_sm90"  # f32 goes to its own Hopper body
     for hw, c, co in B1_UNET_CONVS:  # every ResBlock conv of phase 9 takes the Hopper body
-        assert W.sm90_takes(bf, c, co)
+        assert W.k6_body(bf, c, co) == "bf16_sm90"
 
 
 def _wino_inputs(b, h, w, c, co, dtype, seed=9):

@@ -248,6 +248,51 @@ def test_gn6_modes(mode):
         _close(got, want)
 
 
+# ---- K8 on both of K3's forms: the twins at shapes where K3's plan takes each ----
+
+# (2, 8, 8, 320): the slab form; (1, 64, 64, 320): the split form (132
+# tiles of 31 or 32 pixels at batch 1)
+_FORM_SHAPES = [((2, 8, 8, 320), "slab"), ((1, 64, 64, 320), "split")]
+
+
+@pytest.mark.parametrize("shape,form", _FORM_SHAPES)
+@pytest.mark.parametrize("mode", ["copy", "stats", "norm", "full", "bf16sig"])
+def test_gn6_modes_at_both_forms(shape, form, mode):
+    n, h, w, c = shape
+    assert PG.probe_plan(n, h * w, c, 32, mode, None, 132).form == form
+    (xj, x), (gj, g), (bj, b) = _gn_inputs(shape, 31)
+    want = _script("perf_gn6")["make"](mode, shape)(xj, gj, bj)
+    got = PG.group_norm_probe(x, g, b, mode)
+    if mode in ("copy", "stats"):
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(jnp.float32(want)))
+    else:
+        _close(got, want)
+
+
+@pytest.mark.parametrize("shape,form", _FORM_SHAPES)
+@pytest.mark.parametrize("kind", ["merged", "mxu"])
+def test_gn5_kinds_at_both_forms(shape, form, kind):
+    n, h, w, c = shape
+    assert PG.probe_plan(n, h * w, c, 32).form == form
+    (xj, x), (gj, g), (bj, b) = _gn_inputs(shape, 32)
+    want = _script("perf_gn5")["make"](kind, shape)(xj, gj, bj)
+    _close(PG.group_norm_probe(x, g, b, mma=kind == "mxu"), want)
+
+
+@pytest.mark.parametrize("ch", [4096, 1024, 256])
+def test_gn4_chunked_on_a_split_form_plane(ch):
+    """perf_gn4's chunked form on a 64^2 plane: K8 runs K3's split form with
+    the sample cut into hw / chunk runs (1, 4 and 16), each of K3's split
+    tiles streaming its share of every run, every count the twin's values."""
+    shape = (1, 64, 64, 320)
+    (xj, x), (gj, g), (bj, b) = _gn_inputs(shape, 33)
+    want = _script("perf_gn4")["chunked"](xj, gj, bj, ch)
+    plan = PG.probe_plan(1, 4096, 320, 32, "full", 4096 // ch)
+    assert (plan.form, plan.runs) == ("split", 4096 // ch)
+    assert plan.tiles == min(132, ch)
+    _close(PG.group_norm_probe(x, g, b, splits=4096 // ch), want)
+
+
 # ---- perf_gn7 / perf_gn8: the streaming copies ----
 
 @pytest.mark.parametrize("ch", [256, 64])
@@ -317,15 +362,29 @@ def test_port_never_imports_jax_or_the_jax_package():
 
 
 def _gn_sass(full=30, stats=30, copy=0, rsq=2, hmma=16):
-    """Per-kernel SASS counts of K3's fused bf16 kernel at every pack width,
-    keyed by mangled names as cuobjdump prints them."""
+    """Per-kernel SASS counts of K8's instantiations of K3's Hopper kernels
+    (slab, statistics and apply kernels in K8's translation unit), keyed by
+    mangled names as cuobjdump prints them."""
+    tu = "_ZN51_GLOBAL__N__e73a7672_18_probe_groupnorm_cu_e620f378"
     counts = {}
-    for vec in (8, 4, 2, 1):
-        for mode, mma, shfl, c_rsq, c_hmma in ((0, 0, full, rsq, 0), (1, 0, copy, 0, 0),
-                                               (2, 0, stats, rsq, 0), (0, 1, full, rsq, hmma)):
-            name = (f"_ZN12_GLOBAL__N_117group_norm_kernelI13__nv_bfloat16Li{vec}ELi{mode}"
-                    f"ELb{mma}EEEvPKT_S4_S4_PS2_iiifi")
-            counts[name] = {"HMMA": c_hmma, "FFMA": 0, "SHFL": shfl, "MUFU.RSQ": c_rsq}
+
+    def put(name, shfl=0, c_rsq=0, c_hmma=0):
+        counts[tu + name] = {"HMMA": c_hmma, "FFMA": 0, "SHFL": shfl, "MUFU.RSQ": c_rsq}
+
+    for mode, mma, shfl, c_rsq, c_hmma in ((0, 0, full, rsq, 0), (1, 0, copy, 0, 0),
+                                           (2, 0, stats, rsq, 0), (4, 0, full, rsq, 0),
+                                           (0, 1, full, rsq, hmma)):
+        put(f"14gn_slab_kernelI13__nv_bfloat16Li{mode}ELb{mma}EEEv14CUtensorMap_st", shfl, c_rsq,
+            c_hmma)
+    for mma in (0, 1):
+        put(f"15gn_stats_kernelI13__nv_bfloat16Lb{mma}ELb0EEEvPKT_P6float2iiii", full, 0,
+            hmma if mma else 0)
+    for mode, c_rsq in ((0, rsq), (1, 0), (2, rsq), (4, rsq)):
+        put(f"15gn_apply_kernelI13__nv_bfloat16Li{mode}ELb0EEEvPKT_PK6float2S4_S4_PS2_iiiiifi",
+            0, c_rsq)
+    # the forced chunks' instantiations (RUNS true) are not the ones checked
+    put("15gn_stats_kernelI13__nv_bfloat16Lb0ELb1EEEvPKT_P6float2iiii")
+    put("15gn_apply_kernelI13__nv_bfloat16Li0ELb1EEEvPKT_PK6float2S4_S4_PS2_iiiiifi")
     return counts
 
 
@@ -338,11 +397,12 @@ def _gn_sass(full=30, stats=30, copy=0, rsq=2, hmma=16):
     ({}, False),
 ])
 def test_k8_sass_check_needs_the_statistics(counts, ok):
-    """K8's "stats" mode writes ``x + rstd * 0``, equal to its plain twin
-    whether or not the statistics ran, so phase 10 holds its SASS to the
-    full mode's shuffles; the check must fail on a build without them."""
+    """K8's "stats" mode writes ``x + rstd * gamma * 0``, equal to its plain
+    twin whether or not the statistics ran, so phase 10 holds its SASS to
+    the full mode's shuffles and rsqrt; the check must fail on a build
+    without them."""
     from complex_prompt_diffusion_tpu_torch.tools.probe_groupnorm import check_sass
 
     lines, got = check_sass(counts)
     assert got is ok
-    assert len(lines) == 5  # a header, then one line a pack width
+    assert len(lines) == (3 if counts else 2)  # a header, then a line a form (or what is missing)

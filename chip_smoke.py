@@ -94,11 +94,27 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            s/step, decode ms, peak memory; and a short txt2img of the
            default bundle, ``ModelBundle.random()`` with no arguments (the
            tiny config, f32 UNet: K4's FMA body at its narrow widths), a
-           path of its own.
+           path of its own;
+  phase 12 the sampler zoo (run after phase 8, on phase 2's bundle with the
+           bf16 VAE): txt2img at 512x512, batch 1, CFG 7.5, 20 steps, once
+           with each of PLMS, DPM-Solver++ multistep order 2, singlestep
+           order 3 and adaptive order 3, UniPC bh2 order 2 (twice with one
+           seed: the same bits) and vary_coeff order 3, iPNDM, DPM Adaptive
+           and Blur, then the bf16 decode; and a DDIM inversion round trip
+           (``ddim_encode`` of a phase-2 image's latents over 20 steps, DDIM
+           20 back: the latent relRMSE). Each render counts its UNet calls
+           (a wrapper around ``models.unet_apply``) against the NFE its
+           sampler's code implies (PLMS steps + 1; the fixed-grid solvers,
+           UniPC, iPNDM and Blur steps; the adaptive integrators 3 an
+           iteration, at most 200 iterations, printed) and prints seconds a
+           render and a UNet call.
 
-Each path of phases 2 and 4 to 11 runs with every launch count set to 0
+Each path of phases 2 and 4 to 12 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
-run were launched: in phases 2, 4, 6 and 7 every UNet self-attention site
+run were launched (phase 12, render by render: K1's sm90 body 15 times, K2
+its plans' kernels for 16 calls, K3 61 calls and K4's sm90 body 22 times a
+UNet call, K3 30 calls and K1's wide body once a decode, K3 22 calls and
+K1's wide body once an encode, nothing on the f32 bodies, K5 or the probes): in phases 2, 4, 6 and 7 every UNet self-attention site
 on K1's sm90 body (phase 11: its fused 3xTF32 body), in phases 2, 4 and 6
 every GEGLU FF call on K2's bf16 body with the kernels its plan predicts
 (the library reports what it launched; phase 11: its f32 body, none on the
@@ -1076,6 +1092,189 @@ def phase8(bundle, image, card: str, steps: int) -> dict:
     return launches
 
 
+class UnetCalls:
+    """Counts UNet calls: wraps ``models.unet_apply``, which the pipeline
+    calls through the module, while the block runs."""
+
+    def __enter__(self):
+        from complex_prompt_diffusion_tpu_torch import models as M
+
+        self.n, self._models, self._inner = 0, M, M.unet_apply
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self._inner(*args, **kwargs)
+
+        M.unet_apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._models.unet_apply = self._inner
+
+
+def check_b1_unet_calls(launches: dict, calls: int, decodes: int, encodes: int,
+                        what: str) -> None:
+    """A batch-1 bf16 path of ``calls`` UNet calls (UNet batch 2 under CFG),
+    ``decodes`` bf16 decodes and ``encodes`` bf16 encodes: every
+    self-attention site on K1's sm90 body, every GEGLU FF on K2's bf16 body,
+    every GroupNorm on K3's Hopper body, every conv on K4's sm90 body, each
+    with exactly the launches its calls imply (so none ran a plain twin),
+    and nothing on the f32 bodies, K5 or the probes."""
+    want_attn = UNET_SELF_ATTN_SITES * calls
+    want_conv = UNET_CONVS_PER_CALL_B1 * calls
+    if launches["attention_sm90"] != want_attn:
+        raise SmokeFailure(f"K1's sm90 body launched {launches['attention_sm90']} times in "
+                           f"{what}, want {UNET_SELF_ATTN_SITES} x {calls} UNet calls")
+    if launches["conv3x3"] != want_conv or launches["conv3x3_sm90"] != want_conv:
+        raise SmokeFailure(f"K4 launched {launches['conv3x3']} times in {what}, its sm90 body "
+                           f"{launches['conv3x3_sm90']}: want {UNET_CONVS_PER_CALL_B1} x {calls} "
+                           f"UNet calls, all on the sm90 body")
+    check_geglu(launches, 1, calls, what)
+    check_gn(launches, calls, decodes, encodes, what)
+    check_wide(launches, decodes + encodes, 1, what)
+    others = {n: launches[n] for n in ("attention_f32_sm90", "attention_f32_fused_sm90",
+                                       "conv3x3_f32_sm90", "geglu_ff_f32_sm90",
+                                       "attention_cm") + PROBES if launches[n]}
+    if others:
+        raise SmokeFailure(f"{what} launched kernels off its path: {others}")
+
+
+# phase 12's renders: (label, RenderConfig fields, the NFE its sampler's code
+# implies at SAMPLER_STEPS, or None where it depends on the data: the two
+# adaptive integrators make 3 calls an iteration, at most 200 iterations)
+SAMPLER_STEPS = 20
+SAMPLER_RENDERS = (
+    # the first step evaluates twice (the pseudo improved Euler step)
+    ("PLMS", dict(sampler="PLMS"), SAMPLER_STEPS + 1),
+    # one call a step
+    ("DPM-Solver++ multistep order 2", dict(sampler="dpm_solver", solver_order=2,
+                                            solver_method="multistep"), SAMPLER_STEPS),
+    # jumps of 3 calls, the remainder (2) last: 6 x 3 + 2
+    ("DPM-Solver++ singlestep order 3", dict(sampler="dpm_solver", solver_order=3,
+                                             solver_method="singlestep"), SAMPLER_STEPS),
+    ("DPM-Solver++ adaptive order 3", dict(sampler="dpm_solver", solver_order=3,
+                                           solver_method="adaptive"), None),
+    # one call at the start and one a step but the last
+    ("UniPC bh2 order 2", dict(sampler="UniPC", solver_order=2, unipc_variant="bh2"),
+     SAMPLER_STEPS),
+    ("UniPC vary_coeff order 3", dict(sampler="UniPC", solver_order=3,
+                                      unipc_variant="vary_coeff"), SAMPLER_STEPS),
+    ("iPNDM", dict(sampler="iPNDM"), SAMPLER_STEPS),
+    ("DPM Adaptive", dict(sampler="DPM Adaptive"), None),
+    ("Blur", dict(sampler="Blur"), SAMPLER_STEPS),
+)
+ADAPTIVE_ORDER, ADAPTIVE_MAX_ITERS = 3, 200
+
+
+def phase12(bundle, image, card: str) -> dict:
+    """The sampler zoo at full width, batch 1 (bf16 UNet and decode): one
+    txt2img render a sampler of ``SAMPLER_RENDERS``, UniPC twice with one
+    seed (same bits), and a DDIM inversion round trip of ``image``'s
+    latents. Each render's UNet calls against its NFE and its kernels'
+    launches against its calls; returns the phase's launch counts."""
+    import numpy as np
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch import schedules as S
+    from complex_prompt_diffusion_tpu_torch.guidance import make_denoiser, stacked_context
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        RenderConfig,
+        decode_latents,
+        encode_image,
+        make_guidance_spec,
+        txt2img,
+    )
+    from complex_prompt_diffusion_tpu_torch.samplers import ddim_encode, sample_ddim
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def render(label, fields, nfe):
+        cfg = RenderConfig(steps=SAMPLER_STEPS, guidance_scale=7.5, width=512, height=512,
+                           batch_size=1, seed=0, **fields)
+        reset_launches()
+        torch.cuda.synchronize()
+        with UnetCalls() as unet:
+            t0 = time.perf_counter()
+            _, latents = txt2img(bundle, "a lighthouse on a cliff at sunset", cfg=cfg,
+                                 decode=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            images = decode_latents(bundle, latents)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        launches = read_launches()
+        calls = unet.n
+        check_latents(latents, (1, 64, 64, 4))
+        check_image(images, (1, 512, 512, 3))
+        if nfe is None:
+            # order x iterations, at most max_iters iterations
+            if not (calls > 0 and calls % ADAPTIVE_ORDER == 0
+                    and calls <= ADAPTIVE_ORDER * ADAPTIVE_MAX_ITERS):
+                raise SmokeFailure(f"{label} made {calls} UNet calls: want {ADAPTIVE_ORDER} an "
+                                   f"iteration, at most {ADAPTIVE_MAX_ITERS} iterations")
+        elif calls != nfe:
+            raise SmokeFailure(f"{label} made {calls} UNet calls, its sampler implies {nfe}")
+        check_b1_unet_calls(launches, calls, 1, 0, f"the {label} render")
+        add(launches)
+        print(f"phase12: {label} 512x512 b1 {SAMPLER_STEPS} steps CFG 7.5 on {card}: NFE "
+              f"{calls}{' (data-dependent)' if nfe is None else ''}, UNet calls {calls}; K1 "
+              f"{launches['attention']} (sm90 {launches['attention_sm90']}), K2 "
+              f"{launches['geglu_ff']}, K3 {launches['group_norm']} ({launches['group_norm calls']}"
+              f" calls), K4 {launches['conv3x3']}; sampling {t1 - t0:.3f} s = "
+              f"{(t1 - t0) / calls:.4f} s a UNet call, render with bf16 decode {t2 - t0:.3f} s; "
+              f"latents std {float(latents.std()):.4f}", flush=True)
+        return latents
+
+    for label, fields, nfe in SAMPLER_RENDERS:
+        latents = render(label, fields, nfe)
+        if fields["sampler"] == "UniPC" and fields["unipc_variant"] == "bh2":
+            again = render(label + " (again, same seed)", fields, nfe)
+            if not torch.equal(latents, again):
+                raise SmokeFailure("UniPC rendered twice with one seed gave different bits")
+            print(f"phase12: UniPC bh2 twice with seed 0: the same bits ({card})")
+
+    # DDIM inversion round trip of the image's latents, 20 steps each way
+    spec = make_guidance_spec(bundle, "a photograph of an astronaut riding a horse")
+    cross_kv = M.precompute_cross_kv(bundle.unet_cfg, bundle.unet_params,
+                                     stacked_context(spec, 1))
+
+    def unet_eps(x, t, ctx):
+        return M.unet_apply(bundle.unet_cfg, bundle.unet_params, x, t, ctx, cross_kv=cross_kv)
+
+    eps_fn, _ = make_denoiser(unet_eps, spec, model_sigmas=bundle.tables.sigmas)
+    itables = S.make_inference_tables(bundle.tables, SAMPLER_STEPS)
+    ucs = np.full(itables.num_steps, 7.5)
+    reset_launches()
+    torch.cuda.synchronize()
+    with UnetCalls() as unet, torch.inference_mode():
+        t0 = time.perf_counter()
+        z0 = encode_image(bundle, image)
+        x_T = ddim_encode(eps_fn, z0, itables, itables.num_steps, ucs)
+        back, _ = sample_ddim(eps_fn, x_T, itables, ucs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    launches = read_launches()
+    calls = unet.n
+    if calls != 2 * itables.num_steps:
+        raise SmokeFailure(f"the DDIM inversion round trip made {calls} UNet calls, want "
+                           f"{2 * itables.num_steps}")
+    check_latents(back, (1, 64, 64, 4))
+    check_b1_unet_calls(launches, calls, 0, 1, "the DDIM inversion round trip")
+    add(launches)
+    rel = float((back - z0).norm() / z0.norm())
+    print(f"phase12: DDIM inversion round trip of a phase-2 image's latents at b1, "
+          f"{itables.num_steps} steps each way, CFG 7.5, on {card}: latent relRMSE {rel:.4f}; "
+          f"{calls} UNet calls in {t1 - t0:.3f} s; x_T std {float(x_T.std()):.4f}", flush=True)
+    if not np.isfinite(rel):
+        raise SmokeFailure(f"the DDIM inversion round trip is not finite: {rel}")
+    return total
+
+
 def phase9(bundle, dev, card: str) -> dict:
     """The Winograd probe on the UNet's own ResBlock conv weights at the
     batch-1 render's planes, against the same convs through K4: in bf16 on
@@ -1392,6 +1591,7 @@ def main(argv=None) -> int:
     paths["txt2img_b4_dpmpp2m_cm"], paths["unet_cm_sites_bf16_f32"] = phase7(
         bundle, dev, card, K_STEPS)
     paths["img2img_b1_euler_a_kcanon"] = phase8(bundle16, images[0], card, K_STEPS)
+    paths["samplers_b1"] = phase12(bundle16, images[0], card)
     for name in PROBES:
         if any(p[name] for p in paths.values()):
             raise SmokeFailure(f"the probe {name} was launched in a render: no layer "

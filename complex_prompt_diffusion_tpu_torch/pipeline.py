@@ -3,19 +3,23 @@ sampling, VAE encode and decode.
 
 Counterpart of ``complex_prompt_diffusion_tpu/pipeline.py``: ``txt2img`` ->
 ``make_guidance_spec`` -> ``encode_prompt`` (tokenizer + CLIP) ->
-``sample_latents`` (the sampler ``cfg.sampler`` names: DDIM over the
-inference tables, or a k-diffusion sampler over a sigma schedule; CFG with
-uncond and cond in ONE UNet call, cross-attention k/v hoisted out of the
-step loop) -> ``decode_latents`` (VAE decode to uint8); ``img2img`` encodes
-the image (``encode_image``), noises it to the step ``img2img_t_enc`` picks
-(a DDIM timestep, or a sigma of the schedule) and runs the last part of the
-chain. Where the JAX package jits one scan, the port runs an eager Python
-loop on the device. Entry points run on the bundle's device, which is the
-GPU unless the caller asks for the CPU.
+``sample_latents`` (the sampler ``cfg.sampler`` names, by its family: DDIM
+or PLMS over the inference tables; a k-diffusion sampler or DPM Adaptive
+over a sigma schedule; DPM-Solver or UniPC in continuous time, the model
+called at fractional timesteps; iPNDM on its trig schedule; blur diffusion
+in the blur operator's eigenbasis; CFG with uncond and cond in ONE UNet
+call, cross-attention k/v hoisted out of the step loop) ->
+``decode_latents`` (VAE decode to uint8); ``img2img`` encodes the image
+(``encode_image``), noises it to the step ``img2img_t_enc`` picks (a DDIM
+timestep, or a sigma of the schedule) and runs the last part of the chain.
+``step_callback(t, x0)`` sees every denoiser evaluation of the t and sigma
+families. Where the JAX package jits one scan, the port runs an eager
+Python loop on the device. Entry points run on the bundle's device, which
+is the GPU unless the caller asks for the CPU.
 
-The samplers outside DDIM and ``samplers/kdiff.py``, tiled UNet, ToMe,
-DeepCache, CLIP and attention-saliency guidance are not ported yet: they
-raise NotImplementedError.
+Not ported yet, each raising NotImplementedError: the "Log" sampler (it
+needs the UNet's backward), tiled UNet, ToMe, DeepCache, CLIP and
+attention-saliency guidance.
 """
 
 from __future__ import annotations
@@ -37,7 +41,13 @@ from complex_prompt_diffusion_tpu_torch.guidance import (
     stacked_context,
 )
 from complex_prompt_diffusion_tpu_torch.prompts.tokenizer import get_tokenizer
-from complex_prompt_diffusion_tpu_torch.samplers import get_sampler
+from complex_prompt_diffusion_tpu_torch.samplers import (
+    BlurDiffusion,
+    NoiseScheduleVP,
+    get_sampler,
+    sample_ddim,
+    sample_unipc,
+)
 
 __all__ = [
     "ModelBundle",
@@ -346,7 +356,7 @@ def make_guidance_spec(
 def _check_ported(bundle: ModelBundle, cfg: RenderConfig) -> None:
     _, sample_fn = get_sampler(cfg.sampler)
     if getattr(sample_fn, "not_ported", False):
-        raise NotImplementedError(f"sampler {cfg.sampler!r} is not ported yet")
+        sample_fn()  # raises NotImplementedError with the reason
     unported = [
         name for name, on in (
             ("unet_tile", cfg.unet_tile),
@@ -399,6 +409,35 @@ def _run_sigma_sampler(sample_fn, den_fn, x, bundle, cfg, t_start, generator, no
     return x0
 
 
+def _t_family_callback(eps_fn, itables, step_callback):
+    """eps_fn with the step callback: x0 = (x - sqrt(1 - a_t) e_t) /
+    sqrt(a_t) at the evaluation's timestep, from the inference tables."""
+    timesteps = np.asarray(itables.timesteps)
+    a_t = np.asarray(itables.alphas_cumprod_t, np.float32)
+    s1m = np.asarray(itables.sqrt_one_minus_alphas_cumprod_t, np.float32)
+
+    def eps_cb(x, t, uc_scale):
+        e_t = eps_fn(x, t, uc_scale)
+        t_host = np.asarray(t.cpu() if torch.is_tensor(t) else t).reshape(-1)[0]
+        idx = int(np.clip(np.searchsorted(timesteps, t_host), 0, len(timesteps) - 1))
+        x0 = (x[..., : e_t.shape[-1]] - float(s1m[idx]) * e_t) / float(np.sqrt(a_t[idx]))
+        step_callback(np.asarray(t_host), x0.cpu().numpy())
+        return e_t
+
+    return eps_cb
+
+
+def _sigma_family_callback(den_fn, step_callback):
+    """den_fn with the step callback: (sigma, denoised) at every call."""
+
+    def den_cb(x, sigma, uc_scale):
+        denoised = den_fn(x, sigma, uc_scale)
+        step_callback(np.asarray(np.float32(sigma)), denoised.cpu().numpy())
+        return denoised
+
+    return den_cb
+
+
 @torch.inference_mode()
 def sample_latents(
     bundle: ModelBundle,
@@ -409,6 +448,7 @@ def sample_latents(
     generator: Optional[torch.Generator] = None,
     noises: Optional[torch.Tensor] = None,
     t_start: Optional[int] = None,
+    step_callback=None,
 ) -> torch.Tensor:
     """Run the configured sampler with CFG; returns final latents f32
     [B, h, w, 4] (unscaled model space). ``generator`` (default: seeded from
@@ -416,7 +456,15 @@ def sample_latents(
     sampler scales the draw by its first sigma), then the per-step noises
     unless ``noises`` is given. ``t_start`` (img2img): run only the first
     ``t_start`` timesteps of the DDIM table, or the last ``t_start`` steps
-    of the sigma schedule."""
+    of the sigma schedule; PLMS, like the JAX package's, ignores it and runs
+    its whole schedule. The solver family (DPM-Solver, UniPC: order
+    ``cfg.solver_order``, ``cfg.solver_method`` or ``cfg.unipc_variant``)
+    calls the UNet at fractional timesteps (t_cont - 1/N) * 1000 with the
+    constant guidance scale, as do iPNDM and Blur; Blur needs a square
+    canvas and, unlike the JAX package's (which draws its own), starts from
+    ``x_init`` when given. ``step_callback(t, x0)`` (numpy arrays) is called
+    at every denoiser evaluation of the t and sigma families, as in the JAX
+    package; the other families do not call it."""
     _check_ported(bundle, cfg)
     family, sample_fn = get_sampler(cfg.sampler)
     shape = (cfg.batch_size,) + cfg.latent_shape
@@ -428,13 +476,18 @@ def sample_latents(
             f"(got latent {lh}x{lw} from {cfg.height}x{cfg.width}); "
             f"use multiples of {8 * div} pixels"
         )
+    if family == "blur" and lh != lw:
+        raise ValueError(
+            "Blur sampler requires a square canvas (the spectral "
+            f"operator diagonalizes on a square grid; got {lh}x{lw})"
+        )
     device = bundle.device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
     x_T = None
     if x_init is not None:
         x_T = torch.as_tensor(x_init, dtype=torch.float32, device=device)
-    elif family == "t":
+    elif family != "sigma":
         x_T = torch.randn(shape, generator=generator, device=device)
 
     # cross-attention k/v are loop-invariant: compute them once per render
@@ -452,18 +505,49 @@ def sample_latents(
         unet_eps, spec, gcfg=cfg.guidance, model_sigmas=bundle.tables.sigmas,
         parameterization=bundle.parameterization,
     )
+    uc = cfg.guidance.guidance_scale
     if family == "sigma":
+        if step_callback is not None:
+            den_fn = _sigma_family_callback(den_fn, step_callback)
         return _run_sigma_sampler(
             sample_fn, den_fn, x_T, bundle, cfg, t_start, generator, noises
         )
+    if family == "solver":
+        ns = NoiseScheduleVP("discrete", alphas_cumprod=bundle.tables.alphas_cumprod)
+        kw = {"order": cfg.solver_order}
+        if sample_fn is sample_unipc:
+            kw["variant"] = cfg.unipc_variant
+        else:
+            kw["method"] = cfg.solver_method
+        step = np.float32(1.0 / ns.total_N)
+
+        def model_fn(x, t_cont):
+            # the fractional timestep, in f32 as the JAX package computes it
+            t_disc = (np.float32(t_cont) - step) * np.float32(1000.0)
+            return eps_fn(x, t_disc, uc)
+
+        return sample_fn(model_fn, x_T, ns, steps=cfg.steps, **kw)
+    if family == "trig":
+        return sample_fn(eps_fn, x_T, cfg.steps, uc)[0]
+    if family == "blur":
+        n = cfg.steps
+
+        def eps_model(x, i):
+            # blur index i in 1..n -> the trained timestep grid
+            return eps_fn(x, np.float32(i) / np.float32(n) * np.float32(999.0), uc)
+
+        return sample_fn(eps_model, BlurDiffusion(n=n, resolution=lh), x_T.shape,
+                         generator=generator, x_T=x_T, noises=noises)
     itables = S.make_inference_tables(
         bundle.tables, cfg.steps, eta=cfg.eta, discretize=cfg.discretize
     )
     uc_scales = make_uc_scale_schedule(cfg.guidance, itables.num_steps)
+    if step_callback is not None:
+        eps_fn = _t_family_callback(eps_fn, itables, step_callback)
+    kw = {"t_start": t_start} if sample_fn is sample_ddim else {}
     x0, _ = sample_fn(
         eps_fn, x_T, itables, uc_scales,
-        generator=generator, noises=noises, temperature=cfg.temperature,
-        t_start=t_start,
+        generator=generator, noises=noises, temperature=cfg.temperature, **kw,
     )
     return x0
 
@@ -488,15 +572,19 @@ def txt2img(
     noises: Optional[torch.Tensor] = None,
     x_T: Optional[torch.Tensor] = None,
     decode: bool = True,
+    step_callback=None,
 ):
-    """Text to image. Returns (images_uint8 | None, latents)."""
+    """Text to image. ``step_callback(t, x0_pred)``: the optional per-step
+    preview hook of :func:`sample_latents` (``samplers/callbacks.py``).
+    Returns (images_uint8 | None, latents)."""
     spec = (
         prompt
         if isinstance(prompt, GuidanceSpec)
         else make_guidance_spec(bundle, prompt, negative_prompt)
     )
     latents = sample_latents(
-        bundle, spec, cfg, x_init=x_T, generator=generator, noises=noises
+        bundle, spec, cfg, x_init=x_T, generator=generator, noises=noises,
+        step_callback=step_callback,
     )
     images = decode_latents(bundle, latents) if decode else None
     return images, latents
@@ -555,6 +643,7 @@ def img2img(
     noise=None,
     noises=None,
     decode: bool = True,
+    step_callback=None,
 ):
     """Image to image: sample the encoder's posterior, noise the latents and
     run the last part of the reverse chain.
@@ -566,10 +655,19 @@ def img2img(
     img2img_t_enc(..., "k")`` (the opposite convention), then the schedule
     from ``idx`` on. ``generator`` (default: seeded from ``cfg.seed``)
     draws the posterior noise, the forward noise and the per-step noises,
-    each unless given (``encode_noise``, ``noise``, ``noises``). Returns
-    (images_uint8 | None, latents)."""
+    each unless given (``encode_noise``, ``noise``, ``noises``).
+    ``step_callback``: as in :func:`sample_latents`. The solver and trig
+    families have no partial-noise start and raise ValueError, as in the
+    JAX package; PLMS runs its whole schedule from x_t (the JAX package
+    passes the start to DDIM only). Returns (images_uint8 | None, latents)."""
     _check_ported(bundle, cfg)
     family, _ = get_sampler(cfg.sampler)
+    if family in ("solver", "trig"):
+        raise ValueError(
+            f"img2img is not supported with the {cfg.sampler!r} sampler "
+            "(no partial-noise entry point); use a DDIM/PLMS or k-diffusion "
+            "sampler"
+        )
     spec = (
         prompt
         if isinstance(prompt, GuidanceSpec)
@@ -596,7 +694,7 @@ def img2img(
         t_enc = len(sigmas) - 1 - idx
     latents = sample_latents(
         bundle, spec, cfg, x_init=x_t, generator=generator, noises=noises,
-        t_start=t_enc,
+        t_start=t_enc, step_callback=step_callback,
     )
     images = decode_latents(bundle, latents) if decode else None
     return images, latents

@@ -1,9 +1,12 @@
-"""DDIM sampling as a Python loop over the reversed timestep grid.
+"""DDIM, PLMS and DDIM inversion as Python loops over the timestep grid.
 
 Counterpart of ``complex_prompt_diffusion_tpu/samplers/ddim.py``
-(``ddim_step``, ``sample_ddim``, ``_noise_source``), which runs the same
-loop as one ``lax.scan``. Step math: pred_x0, dir_xt and the eta-noise of
-DDIM eq. 12; the loop walks index = S-1-i like the reference sampler.
+(``ddim_step``, ``sample_ddim``, ``sample_plms``, ``ddim_encode``,
+``_noise_source``), which runs the same loops as ``lax.scan``s. Step math:
+pred_x0, dir_xt and the eta-noise of DDIM eq. 12; the loop walks index =
+S-1-i like the reference sampler. PLMS takes the same step with an
+Adams-Bashforth blend of the eps history; its first step is a pseudo
+improved Euler step with a second eps evaluation at t_next.
 
 RNG contract: per-step noise is either injected (``noises`` [S, ...], the
 mode tests use to hold two frameworks to one trajectory) or drawn from a
@@ -15,11 +18,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from complex_prompt_diffusion_tpu_torch.schedules import InferenceTables
 
-__all__ = ["DeviceTables", "ddim_step", "sample_ddim"]
+__all__ = ["DeviceTables", "ddim_step", "sample_ddim", "sample_plms", "ddim_encode"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,3 +125,90 @@ def sample_ddim(
         )
         traj.append(pred_x0)
     return x, torch.stack(traj)
+
+
+def _plms_combine(e_t, old_eps):
+    """Adams-Bashforth blend of orders 2-4; ``old_eps[0]`` is the most
+    recent of up to three earlier evaluations."""
+    if len(old_eps) == 1:
+        return (3 * e_t - old_eps[0]) / 2
+    if len(old_eps) == 2:
+        return (23 * e_t - 16 * old_eps[0] + 5 * old_eps[1]) / 12
+    return (55 * e_t - 59 * old_eps[0] + 37 * old_eps[1] - 9 * old_eps[2]) / 24
+
+
+def sample_plms(
+    eps_fn: Callable,
+    x_T: torch.Tensor,
+    itables: InferenceTables,
+    uc_scales,
+    *,
+    generator: Optional[torch.Generator] = None,
+    noises=None,
+    temperature: float = 1.0,
+    clip_sample: Optional[str] = None,
+):
+    """PLMS (PNDM) over the whole table. eps_fn(x, t, uc_scale) -> eps.
+
+    The first step is a pseudo improved Euler step: a DDIM step with e_t,
+    a second eps evaluation at t_next, and the step again with their mean
+    (so a run makes steps + 1 eps evaluations). Later steps blend e_t with
+    the earlier evaluations (a list of the newest three) by Adams-Bashforth.
+    Like the JAX function it takes no ``t_start``: an img2img start runs
+    the whole schedule.
+
+    Returns (x_0, pred_x0 trajectory [S, ...])."""
+    device = x_T.device
+    it = DeviceTables.from_tables(itables, device)
+    s = it.num_steps
+    uc_scales = torch.as_tensor(uc_scales, dtype=torch.float32, device=device)
+    noise_at = _noise_source(generator, noises, x_T.shape, device)
+
+    def step(x, e, idx, noise):
+        return ddim_step(x, e, idx, it, noise, temperature=temperature,
+                         clip_sample=clip_sample)
+
+    x = x_T
+    old_eps = []  # newest first
+    traj = []
+    for i in range(s):
+        idx = s - 1 - i
+        noise = noise_at(i)
+        e_t = eps_fn(x, it.timesteps[idx], uc_scales[i])
+        if not old_eps:
+            x_prev_1, _ = step(x, e_t, idx, noise)
+            t_next = it.timesteps[max(idx - 1, 0)]
+            e_t_prime = (e_t + eps_fn(x_prev_1, t_next, uc_scales[i])) / 2
+        else:
+            e_t_prime = _plms_combine(e_t, old_eps)
+        x, pred_x0 = step(x, e_t_prime, idx, noise)
+        old_eps = [e_t] + old_eps[:2]
+        traj.append(pred_x0)
+    return x, torch.stack(traj)
+
+
+def ddim_encode(
+    eps_fn: Callable,
+    x0: torch.Tensor,
+    itables: InferenceTables,
+    t_enc: int,
+    uc_scales,
+):
+    """Deterministic DDIM inversion, image -> noise: ``t_enc`` forward
+    steps up the table. eps_fn(x, t, uc_scale) -> eps. The step weights are
+    host f32 scalars, rounded where the JAX package's f32 arrays round."""
+    ac_next_t = np.asarray(itables.alphas_cumprod_t, np.float32)
+    ac_t = np.asarray(itables.alphas_cumprod_prev_t, np.float32)
+    ucs = np.asarray(uc_scales, np.float32)
+    if not ucs.ndim:
+        ucs = np.full(int(t_enc), ucs)
+    timesteps = torch.as_tensor(itables.timesteps, dtype=torch.int64, device=x0.device)
+    one = np.float32(1)
+    x_next = x0
+    for i in range(int(t_enc)):
+        e_t = eps_fn(x_next, timesteps[i], float(ucs[i]))
+        ac_next, ac = ac_next_t[i], ac_t[i]
+        w_x = np.sqrt(ac_next / ac)
+        w_eps = np.sqrt(ac_next) * (np.sqrt(one / ac_next - one) - np.sqrt(one / ac - one))
+        x_next = float(w_x) * x_next + float(w_eps) * e_t
+    return x_next

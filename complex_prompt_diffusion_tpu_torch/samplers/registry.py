@@ -3,21 +3,27 @@
 Counterpart of ``complex_prompt_diffusion_tpu/samplers/registry.py``. Names
 are matched case-insensitively (including the reference's "Huen" spelling
 for Heun). Each entry is (family, sample_fn), where family is "t"
-(DDIM-style, drives InferenceTables) or "sigma" (k-diffusion, drives a sigma
-schedule).
+(DDIM-style, drives InferenceTables), "sigma" (k-diffusion, drives a sigma
+schedule), "solver" (continuous-time VP solvers), "trig" (iPNDM's own
+schedule) or "blur" (inverse-heat blur diffusion).
 
-Ported: DDIM and the nine k-diffusion samplers of ``kdiff.py``. The other
-names the JAX package registers (PLMS, DPM Adaptive, Log, dpm_solver / DPM
-Solver, UniPC, iPNDM, Blur) are registered too, with their families, to a
-function that raises NotImplementedError naming the sampler.
+Every name the JAX package registers resolves to a ported function with
+the same family, except "Log" (the log-likelihood estimator): it takes the
+UNet's vector-Jacobian product, and the port's kernels have no backward
+yet, so it is registered to a function that raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+from complex_prompt_diffusion_tpu_torch.samplers import blur as _blur
 from complex_prompt_diffusion_tpu_torch.samplers import ddim as _ddim
+from complex_prompt_diffusion_tpu_torch.samplers import dpm_adaptive as _dpma
+from complex_prompt_diffusion_tpu_torch.samplers import ipndm as _ipndm
 from complex_prompt_diffusion_tpu_torch.samplers import kdiff as _k
+from complex_prompt_diffusion_tpu_torch.samplers import solver as _solver
+from complex_prompt_diffusion_tpu_torch.samplers import unipc as _unipc
 
 __all__ = ["SAMPLERS", "get_sampler", "register"]
 
@@ -43,9 +49,9 @@ def get_sampler(name: str) -> Tuple[str, Callable]:
     return SAMPLERS[key]
 
 
-def _not_ported(name: str) -> Callable:
+def _not_ported(name: str, reason: str) -> Callable:
     def sample(*args, **kwargs):
-        raise NotImplementedError(f"sampler {name!r} is not ported yet")
+        raise NotImplementedError(f"sampler {name!r} is not ported yet: {reason}")
 
     sample.not_ported = True
     return sample
@@ -53,6 +59,7 @@ def _not_ported(name: str) -> Callable:
 
 # t-space family
 register("DDIM", "t")(_ddim.sample_ddim)
+register("PLMS", "t")(_ddim.sample_plms)
 
 # sigma-space (k-diffusion) family, names as registered by the reference
 register("Euler", "sigma")(_k.sample_euler)
@@ -65,16 +72,18 @@ register("DPM++ 2m", "sigma")(_k.sample_dpmpp_2m)
 register("DPM++ 2s Ancestral", "sigma")(_k.sample_dpmpp_2s_ancestral)
 register("LMS", "sigma")(_k.sample_lms)
 register("DPM Fast", "sigma")(_k.sample_dpm_fast)
+register("DPM Adaptive", "sigma")(_dpma.sample_dpm_adaptive)
+register("Log", "sigma")(_not_ported(
+    "Log", "the log-likelihood estimator takes the UNet's vector-Jacobian product, and "
+    "the port's kernels have no backward pass yet"))
 
-# registered by the JAX package, not ported yet
-for _name, _family in (
-    ("PLMS", "t"),
-    ("DPM Adaptive", "sigma"),
-    ("Log", "sigma"),
-    ("dpm_solver", "solver"),
-    ("DPM Solver", "solver"),
-    ("UniPC", "solver"),
-    ("iPNDM", "trig"),
-    ("Blur", "blur"),
-):
-    register(_name, _family)(_not_ported(_name))
+# continuous-time solver family
+register("dpm_solver", "solver")(_solver.sample_dpm_solver)
+register("DPM Solver", "solver")(_solver.sample_dpm_solver)
+register("UniPC", "solver")(_unipc.sample_unipc)
+
+# trig family (iPNDM's own sin^2 schedule)
+register("iPNDM", "trig")(_ipndm.sample_ipndm)
+
+# blur-diffusion family
+register("Blur", "blur")(_blur.sample_blur)

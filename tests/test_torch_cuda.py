@@ -1548,3 +1548,65 @@ def test_stream_copy_at_the_script_shapes(dev, hw, c, convert, stages):
             before = stream_copy.launches
             assert torch.equal(stream_copy(x, rows, convert, stages), x), rows
             assert stream_copy.launches == before + 1
+
+
+# the samplers beyond DDIM and the k-diffusion nine, on the tiny bundle at
+# 128x128 (16x16 latents: the level-0 self-attention reaches K1), with the
+# bound of each against the CPU port: the f32 UNet's kernels (3xTF32, TF32
+# off) differ from the plain twins by ~1e-5 an evaluation; the adaptive
+# integrators' step sizes follow their error norms; Blur's x0 takes a 1e6
+# gain where the process's cumulative products underflow
+NEW_SAMPLERS = [
+    ("PLMS", {}, 1e-3),
+    ("dpm_solver", dict(solver_order=2), 1e-3),
+    ("DPM Solver", dict(solver_order=3, solver_method="singlestep"), 1e-3),
+    ("dpm_solver", dict(solver_order=3, solver_method="adaptive"), 1e-2),
+    ("UniPC", dict(unipc_variant="bh2"), 1e-3),
+    ("UniPC", dict(solver_order=3, unipc_variant="vary_coeff"), 1e-3),
+    ("iPNDM", {}, 1e-3),
+    ("DPM Adaptive", {}, 1e-2),
+    ("Blur", {}, 5e-2),
+]
+
+
+@pytest.mark.parametrize("sampler,kw,tol", NEW_SAMPLERS,
+                         ids=[f"{s}-{i}" for i, (s, _, _) in enumerate(NEW_SAMPLERS)])
+def test_new_samplers_render_on_the_card_like_the_cpu_port(dev, sampler, kw, tol):
+    """txt2img with each new sampler on the card against the same render of
+    the CPU port (the same weights, x_T and noises): relative L2 of the
+    latents within ``tol``, and K1, K2, K3 and K4 launched."""
+    import dataclasses
+
+    import numpy as np
+
+    from complex_prompt_diffusion_tpu_torch import ops
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        ModelBundle,
+        RenderConfig,
+        _sigma_schedule,
+        _tree_map,
+        txt2img,
+    )
+
+    cpu = ModelBundle.random("tiny", seed=0, device="cpu")
+    card = dataclasses.replace(
+        cpu, device=dev,
+        **{f: _tree_map(lambda a: a.to(dev), getattr(cpu, f))
+           for f in ("unet_params", "vae_params", "clip_params")})
+    cfg = RenderConfig(sampler=sampler, steps=6, width=128, height=128, batch_size=1, **kw)
+    rng = np.random.default_rng(0)
+    x_T = rng.standard_normal((1, 16, 16, 4)).astype(np.float32)
+    if sampler == "DPM Adaptive":
+        x_T *= np.float32(_sigma_schedule(cpu, cfg)[0])
+    noises = rng.standard_normal((6, 1, 16, 16, 4)).astype(np.float32)
+    kw = dict(noises=noises) if sampler == "Blur" else {}
+    want = txt2img(cpu, "a cat", cfg=cfg, x_T=torch.from_numpy(x_T), decode=False, **kw)[1]
+    for w in ops.KERNEL_WRAPPERS.values():
+        w.launches = 0
+    got = txt2img(card, "a cat", cfg=cfg, x_T=torch.from_numpy(x_T).to(dev), decode=False,
+                  noises=None if not kw else torch.from_numpy(noises).to(dev))[1].cpu()
+    for name in ("attention", "geglu_ff", "group_norm", "conv3x3"):
+        assert ops.KERNEL_WRAPPERS[name].launches > 0, name
+    assert torch.isfinite(got).all()
+    rel = float((got - want).norm() / want.norm())
+    assert rel <= tol, rel

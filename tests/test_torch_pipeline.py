@@ -168,7 +168,7 @@ def test_render_config_validation_and_unported_paths(bundles):
             JP.RenderConfig(**bad)
     assert P.RenderConfig(guidance_scale=9.0).guidance.guidance_scale == 9.0
     spec = P.make_guidance_spec(pb, "a cat")
-    for cfg in (P.RenderConfig(sampler="PLMS", width=32, height=32),
+    for cfg in (P.RenderConfig(sampler="Log", width=32, height=32),
                 P.RenderConfig(tome_ratio=0.5, width=32, height=32),
                 P.RenderConfig(guidance=G.GuidanceConfig(attn_guide=True), width=32,
                                height=32)):

@@ -283,7 +283,7 @@ def test_img2img_draws_from_generator_and_raises_for_k_samplers(bundles):
     torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)
     assert not torch.equal(runs[0], runs[2])
     with pytest.raises(NotImplementedError):
-        P.img2img(pb, _image(14), "a cat", cfg=dataclasses.replace(cfg, sampler="PLMS"))
+        P.img2img(pb, _image(14), "a cat", cfg=dataclasses.replace(cfg, sampler="Log"))
 
 
 def test_entry_points_default_to_the_gpu():

@@ -107,7 +107,21 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            sampler's code implies (PLMS steps + 1; the fixed-grid solvers,
            UniPC, iPNDM and Blur steps; the adaptive integrators 3 an
            iteration, at most 200 iterations, printed) and prints seconds a
-           render and a UNet call.
+           render and a UNet call;
+  phase 13 SD 2.1-v at full width, 768x768 (after phase 11): random SD 2.1
+           trees from seed 0 written as a CompVis fp16 checkpoint
+           (``tools/synth_checkpoint.py``, in a temporary directory, deleted
+           after) and loaded through ``config.bundle_from_config`` with a
+           literal of v2-inference-v.yaml's model section (the card has no
+           PyYAML), the UNet cast to bf16 on the host, held bit for bit to
+           what was written; txt2img b4 DDIM 50 CFG 7.5 with the exact-f32
+           decode (peak memory); txt2img b1 DPM++ 2M Karras 20 (the v
+           denoiser) with the bf16 decode (seconds to first image); one
+           UNet eval on a 24x24 latent (S = 576, 144, 36, 9) against the CPU
+           plain twins. Phase 1 holds SD 2.1's kernel rows too: K1 at head
+           dim 64 and S = 9216, 2304, 576, 144, the d512 mid-block at S =
+           9216 (bf16 b1, f32 b4), K2 at M73728, K3 on the 96^2 and 768^2
+           planes, K4 on 24^2.
 
 Each path of phases 2 and 4 to 12 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
@@ -126,7 +140,12 @@ on the bf16 one), in phases 2 to 8 and 11 every GroupNorm (61 a UNet call, 30 a 
 encode) on K3's Hopper body with the kernels its plans predict (the library
 reports what it launched) and none on its replaced body, and in phases 3 to
 6 and 8 every bf16 VAE mid-block attention on K1's wgmma wide body (its
-scores, softmax and output kernels).
+scores, softmax and output kernels). Phase 13 predicts each count from
+the SD 2.1 config's sites and the kernels' plans (``unet_call_launches``):
+K1's sm90 body 16 times a UNet call at 768x768 (the middle block's 144
+tokens too), K4's sm90 body on the 11 convs of the 24^2 plane at batch 1
+and none at batch 4, the f32 mid-block's kernels by ``f32_sm90_launches``
+and the bf16 one's by ``bf16_wide_launches`` at S = 9216.
 Any failure exits non-zero before the result lines. On success the
 last three lines are the kernels JSON, the card's name and power limit
 (from nvidia-smi) and ``{"ok": true, "device": {...}}``.
@@ -136,6 +155,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import re
 import subprocess
@@ -297,6 +317,41 @@ UNET_CM_SITES = 10  # of them inside the cm gate (levels 1 and 2: C = 640, 1280)
 UNET_GN_CALLS = 61  # GroupNorms a UNet call (tools/kernel_cases.py: GN_B4_CALLS)
 VAE_DECODE_GN_CALLS = 30  # GroupNorms a VAE decode: mid-block 5, up levels 24, out 1
 VAE_ENCODE_GN_CALLS = 22  # a VAE encode: down levels 16, mid-block 5, out 1
+
+
+# v2-inference-v.yaml's ``model:`` section (SD 2.1 768-v), parsed: the card
+# has no PyYAML, so phase 13 hands this to ``config.bundle_from_config``
+# (tests/test_torch_checkpoint.py holds it to the YAML text)
+V2_INFERENCE_V_MODEL = {
+    "base_learning_rate": 0.0001,
+    "target": "ldm.models.diffusion.ddpm.LatentDiffusion",
+    "params": {
+        "parameterization": "v", "linear_start": 0.00085, "linear_end": 0.012,
+        "num_timesteps_cond": 1, "log_every_t": 200, "timesteps": 1000,
+        "first_stage_key": "jpg", "cond_stage_key": "txt", "image_size": 96, "channels": 4,
+        "cond_stage_trainable": False, "conditioning_key": "crossattn",
+        "monitor": "val/loss_simple_ema", "scale_factor": 0.18215, "use_ema": False,
+        "unet_config": {
+            "target": "ldm.modules.diffusionmodules.openaimodel.UNetModel",
+            "params": {
+                "use_checkpoint": True, "use_fp16": True, "image_size": 32, "in_channels": 4,
+                "out_channels": 4, "model_channels": 320, "attention_resolutions": [4, 2, 1],
+                "num_res_blocks": 2, "channel_mult": [1, 2, 4, 4], "num_head_channels": 64,
+                "use_spatial_transformer": True, "use_linear_in_transformer": True,
+                "transformer_depth": 1, "context_dim": 1024, "legacy": False}},
+        "first_stage_config": {
+            "target": "ldm.models.autoencoder.AutoencoderKL",
+            "params": {
+                "embed_dim": 4, "monitor": "val/rec_loss",
+                "ddconfig": {"double_z": True, "z_channels": 4, "resolution": 256,
+                             "in_channels": 3, "out_ch": 3, "ch": 128, "ch_mult": [1, 2, 4, 4],
+                             "num_res_blocks": 2, "attn_resolutions": [], "dropout": 0.0},
+                "lossconfig": {"target": "torch.nn.Identity"}}},
+        "cond_stage_config": {
+            "target": "ldm.modules.encoders.modules.FrozenOpenCLIPEmbedder",
+            "params": {"freeze": True, "layer": "penultimate"}},
+    },
+}
 
 
 class SmokeFailure(Exception):
@@ -522,19 +577,13 @@ def phase1(dev, card: str) -> dict:
 
 
 def geglu_launches_per_step(batch: int, dtype: str = "bfloat16", latent: int = 64) -> int:
-    """K2's launches in one CFG step at a ``latent`` x ``latent`` latent
-    (512x512: 64; UNet batch 2 x batch) in ``dtype``: 5 calls at each of the
-    three levels with transformer blocks and 1 in the middle block, each with
-    the launches of its plan."""
-    import torch
+    """K2's launches in one CFG step of SD-1.5 at a ``latent`` x ``latent``
+    latent (512x512: 64; UNet batch 2 x batch) in ``dtype``: 5 calls at each
+    of the three levels with transformer blocks and 1 in the middle block,
+    each with the launches of its plan."""
+    from complex_prompt_diffusion_tpu_torch.models import UNetConfig
 
-    from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_plan
-
-    ub, s = 2 * batch, latent * latent
-    sites = ((ub * s, 320, 5), (ub * s // 4, 640, 5), (ub * s // 16, 1280, 5),
-             (ub * s // 64, 1280, 1))
-    return sum(n * geglu_plan(m, c, 4 * c, getattr(torch, dtype)).launches
-               for m, c, n in sites)
+    return unet_call_launches(UNetConfig.sd15(), latent, 2 * batch, dtype)["k2"]
 
 
 def check_geglu(launches: dict, batch: int, steps: int, what: str,
@@ -1553,6 +1602,282 @@ def phase11(dev, card: str, steps: int) -> dict:
     return launches, n
 
 
+SD21_STEPS = 50  # DDIM steps of phase 13's b4 render
+SD21_K_STEPS = 20  # DPM++ 2M Karras steps of its b1 render
+
+
+def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16") -> dict:
+    """What one UNet call of ``cfg`` on a ``latent`` x ``latent`` input at
+    UNet batch ``ub`` launches, from its sites (``kernel_cases.unet_sites``)
+    and the kernels' own rules: K1's sm90 body once at every self-attention
+    site above ``SHORT_KV`` tokens, K2 the kernels of each FF site's plan,
+    K3 one call a GroupNorm, K4 the convs its gate admits (and of those, the
+    ones on its sm90 body)."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch.models.layers import conv3x3_wanted
+    from complex_prompt_diffusion_tpu_torch.ops.attention import SHORT_KV
+    from complex_prompt_diffusion_tpu_torch.ops.conv import k4_body
+    from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_plan
+    from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import unet_sites
+
+    sites = unet_sites(cfg, latent)
+    dt = getattr(torch, dtype)
+    gated = [(s, c, co) for s, c, co in sites["conv"]
+             if conv3x3_wanted(torch.empty((ub, s, s, c), device="meta"), (co, c, 3, 3))]
+    return {"k1": sum(1 for s, *_ in sites["attn"] if s * s > SHORT_KV),
+            "k2": sum(geglu_plan(ub * s * s, ch, 4 * ch, dt).launches
+                      for s, ch, _, _ in sites["attn"]),
+            "k3": sites["gn"], "k4": len(gated),
+            "k4_sm90": sum(1 for _, c, co in gated if k4_body(dt, c, co) == "bf16_sm90")}
+
+
+def scratch_dir(need_bytes: int) -> str:
+    """A new temporary directory with ``need_bytes`` free: under the
+    temporary directory, or /dev/shm where that disk is short."""
+    import shutil
+    import tempfile
+
+    for base in (tempfile.gettempdir(), "/dev/shm"):
+        if Path(base).is_dir() and shutil.disk_usage(base).free >= need_bytes:
+            return tempfile.mkdtemp(prefix="sd21-ckpt-", dir=base)
+    raise SmokeFailure(f"no temporary directory has {need_bytes} bytes free for the checkpoint")
+
+
+def tree_mismatches(got, want, pre: str = "") -> list:
+    """Paths where two tensor trees differ in structure, dtype or bits."""
+    import torch
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            return [pre or "/"]
+        return [m for k in want for m in tree_mismatches(got[k], want[k], f"{pre}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return [pre]
+        return [m for i, (a, b) in enumerate(zip(got, want))
+                for m in tree_mismatches(a, b, f"{pre}/{i}")]
+    ok = got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
+    return [] if ok else [pre]
+
+
+def phase13(dev, card: str) -> dict:
+    """SD 2.1-v at full width, 768x768: (a) random SD 2.1 trees (seed 0)
+    written as a CompVis fp16 checkpoint by ``tools/synth_checkpoint.py``,
+    loaded through ``config.bundle_from_config`` with v2-inference-v's model
+    section (UNet cast to bf16 on the host) and held to what was written;
+    (b) txt2img b4, DDIM 50, CFG 7.5, the exact-f32 decode; (c) txt2img b1,
+    DPM++ 2M Karras 20 (the v denoiser of the sigma family), bf16 decode;
+    (d) one UNet eval on a 24x24 latent (S = 576, 144, 36, 9), CUDA
+    kernels against the CPU plain twins. Every launch count is predicted
+    from the config and the kernels' plans. Returns the launch counts of
+    (b), (c) and (d) by path."""
+    import os
+    import shutil
+
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import config as CONF
+    from complex_prompt_diffusion_tpu_torch import convert
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch import schedules as S
+    from complex_prompt_diffusion_tpu_torch.ops.attention import f32_sm90_launches
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        RenderConfig,
+        _tree_map,
+        _unzero_kernels,
+        decode_latents,
+        txt2img,
+    )
+    from complex_prompt_diffusion_tpu_torch.tools import synth_checkpoint as SC
+    from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import SD21_LATENT
+
+    side, s = SD21_LATENT, SD21_LATENT ** 2
+    px = 8 * side
+    # (a) the checkpoint, written and loaded at full width
+    unet_cfg, vae_cfg, clip_cfg = M.UNetConfig.sd21(), M.VAEConfig.sd(), M.CLIPTextConfig.sd21()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    unet = _unzero_kernels(gen, M.init_unet(gen, unet_cfg, dev))
+    vae = M.init_vae(gen, vae_cfg, dev)
+    clip = M.init_clip_text(gen, clip_cfg, dev)
+    sd = SC.state_dict(unet_cfg, unet, vae, clip, dtype=torch.float16)
+    n_tensors = len(sd)
+    tmp = scratch_dir(2 * sum(t.numel() * t.element_size() for t in sd.values()))
+    try:
+        path = os.path.join(tmp, "sd21-768-v.ckpt")
+        t1 = time.perf_counter()
+        nbytes = SC.write_checkpoint(path, sd)
+        del sd
+        t2 = time.perf_counter()
+        bundle = CONF.bundle_from_config(V2_INFERENCE_V_MODEL, checkpoint_path=path,
+                                         dtype="bfloat16", device=dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # what was written, cast as the file and the load cast it: fp16, the
+    # UNet then bf16
+    bad = (tree_mismatches(bundle.unet_params, convert.to_port(
+        _tree_map(lambda a: a.half(), unet), dev, torch.bfloat16))
+        + tree_mismatches(bundle.vae_params, convert.vae_params(
+            _tree_map(lambda a: a.half(), vae), dev, torch.float32))
+        + tree_mismatches(bundle.clip_params, convert.to_port(
+            _tree_map(lambda a: a.half(), clip), dev, torch.float32)))
+    del unet, vae, clip
+    torch.cuda.empty_cache()
+    fields = (bundle.version, bundle.parameterization, bundle.clip_layer,
+              bundle.tokenizer.pad_id, bundle.unet_cfg, bundle.vae_cfg.dtype)
+    want_fields = ("sd2", "v", "penultimate", 0,
+                   dataclasses.replace(unet_cfg, dtype="bfloat16"), "float32")
+    if bad or fields != want_fields:
+        raise SmokeFailure(f"the loaded SD 2.1 checkpoint differs from what was written at "
+                           f"{bad[:5]} ({len(bad)} leaves), or its bundle says {fields}, want "
+                           f"{want_fields}")
+    print(f"phase13: SD 2.1-v checkpoint (CompVis layout, fp16, random weights from seed 0): "
+          f"{nbytes} bytes, {n_tensors} tensors, built and converted in {t1 - t0:.2f} s, written "
+          f"in {t2 - t1:.2f} s, loaded through config.bundle_from_config (v2-inference-v's model "
+          f"section; UNet cast to bf16 on the host) in {t3 - t2:.2f} s; every tree equals the "
+          f"written one after the same casts; version sd2, parameterization v, clip_layer "
+          f"penultimate, pad id 0 ({card})", flush=True)
+
+    prompt = "a photograph of a lighthouse on a rocky coast at sunset"
+    paths = {}
+    # (b) batch 4, DDIM 50, the exact-f32 decode
+    per8 = unet_call_launches(bundle.unet_cfg, side, 8)
+    if per8["k3"] != UNET_GN_CALLS or per8["k4"]:
+        raise SmokeFailure(f"the SD 2.1 UNet call at UNet batch 8 has {per8}: want "
+                           f"{UNET_GN_CALLS} GroupNorms and no conv inside K4's gate")
+    cfg = RenderConfig(steps=SD21_STEPS, sampler="DDIM", eta=0.0, guidance_scale=7.5,
+                       width=px, height=px, batch_size=4, seed=0)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    with UnetCalls() as unet_calls:
+        t0 = time.perf_counter()
+        _, latents = txt2img(bundle, prompt, cfg=cfg, decode=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        images = decode_latents(bundle, latents)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = read_launches()
+    calls = unet_calls.n
+    check_latents(latents, (4, side, side, 4))
+    check_image(images, (4, px, px, 3))
+    want_f32 = f32_sm90_launches(4, 1, s, s)
+    nfe = S.make_inference_tables(bundle.tables, SD21_STEPS).num_steps
+    if (calls != nfe or launches["attention_sm90"] != per8["k1"] * calls
+            or launches["attention_f32_sm90"] != want_f32
+            or launches["attention"] != per8["k1"] * calls + want_f32):
+        raise SmokeFailure(f"the SD 2.1 b4 render made {calls} UNet calls and launched K1 "
+                           f"{launches['attention']} times, {launches['attention_sm90']} on the "
+                           f"sm90 body, {launches['attention_f32_sm90']} on the 3xTF32 body: want "
+                           f"{nfe} calls, {per8['k1']} a call on the sm90 body and the f32 "
+                           f"d=512 mid-block at S = {s} on the 3xTF32 body ({want_f32} kernels)")
+    if launches["geglu_ff"] != per8["k2"] * calls or launches["geglu_ff_f32_sm90"]:
+        raise SmokeFailure(f"K2 launched {launches['geglu_ff']} kernels in the SD 2.1 b4 render "
+                           f"({launches['geglu_ff_f32_sm90']} on its f32 body): want "
+                           f"{per8['k2']} a call by its plans, all bf16")
+    check_gn(launches, calls, 1, 0, "the SD 2.1 b4 render")
+    others = {n: launches[n] for n in ("attention_f32_fused_sm90", "attention_bf16_wide_sm90",
+                                       "conv3x3", "attention_cm") + PROBES if launches[n]}
+    if others:
+        raise SmokeFailure(f"the SD 2.1 b4 render launched kernels off its path: {others}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"phase13: SD 2.1-v txt2img {px}x{px} b4 DDIM {SD21_STEPS} steps CFG 7.5, bf16 UNet, "
+          f"exact-f32 decode (TF32 off) on {card}: sampling {t1 - t0:.3f} s = "
+          f"{(t1 - t0) / SD21_STEPS:.4f} s/step (incl. prompt encode and first-call warm-up), "
+          f"decode {1000 * (t2 - t1) / 4:.2f} ms/img, end to end {4 / (t2 - t0):.4f} img/s, peak "
+          f"memory {peak_gb:.2f} GiB; UNet calls {calls}; K1 sm90 {launches['attention_sm90']} "
+          f"({per8['k1']} a call), 3xTF32 {launches['attention_f32_sm90']}, K2 "
+          f"{launches['geglu_ff']} ({per8['k2']} a call), K3 {launches['group_norm']} kernels for "
+          f"{launches['group_norm calls']} calls", flush=True)
+    print(f"phase13: b4 launches {json.dumps(launches)}; latents mean {float(latents.mean()):.5f} "
+          f"std {float(latents.std()):.5f}; image mean {float(images.mean()):.2f}")
+    paths["sd21_txt2img_b4"] = launches
+
+    # (c) batch 1, DPM++ 2M Karras 20, the bf16 decode
+    bundle16 = bundle.cast_vae("bfloat16")
+    per2 = unet_call_launches(bundle.unet_cfg, side, 2)
+    if per2["k4"] != per2["k4_sm90"] or not per2["k4"]:
+        raise SmokeFailure(f"the SD 2.1 UNet call at UNet batch 2 has {per2}: want K4 convs "
+                           f"(the 24^2 plane), all on the sm90 body")
+    cfg = RenderConfig(steps=SD21_K_STEPS, sampler="DPM++ 2m", sigma_schedule="karras",
+                       guidance_scale=7.5, width=px, height=px, batch_size=1, seed=1)
+    reset_launches()
+    torch.cuda.synchronize()
+    with UnetCalls() as unet_calls:
+        t0 = time.perf_counter()
+        _, latents = txt2img(bundle16, prompt, cfg=cfg, decode=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        images = decode_latents(bundle16, latents)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = read_launches()
+    decode_latents(bundle16, latents)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    calls = unet_calls.n
+    check_latents(latents, (1, side, side, 4))
+    check_image(images, (1, px, px, 3))
+    if (calls != SD21_K_STEPS or launches["attention_sm90"] != per2["k1"] * calls
+            or launches["conv3x3"] != per2["k4"] * calls
+            or launches["conv3x3_sm90"] != per2["k4"] * calls
+            or launches["geglu_ff"] != per2["k2"] * calls):
+        raise SmokeFailure(f"the SD 2.1 b1 render made {calls} UNet calls and launched {launches}: "
+                           f"want {SD21_K_STEPS} calls, each with {per2['k1']} K1 sm90 launches, "
+                           f"{per2['k4']} K4 convs on the sm90 body, {per2['k2']} K2 kernels")
+    check_gn(launches, calls, 1, 0, "the SD 2.1 b1 render")
+    check_wide(launches, 1, 1, "the SD 2.1 b1 render", s=s)
+    others = {n: launches[n] for n in ("attention_f32_sm90", "attention_f32_fused_sm90",
+                                       "conv3x3_f32_sm90", "geglu_ff_f32_sm90",
+                                       "attention_cm") + PROBES if launches[n]}
+    if others:
+        raise SmokeFailure(f"the SD 2.1 b1 render launched kernels off its path: {others}")
+    print(f"phase13: SD 2.1-v txt2img {px}x{px} b1 DPM++ 2M Karras {SD21_K_STEPS} steps CFG 7.5 "
+          f"(the v denoiser), bf16 UNet and decode, on {card}: seconds to first image "
+          f"{t2 - t0:.3f} s end to end (incl. prompt encode and first-call warm-up), "
+          f"{(t1 - t0) / SD21_K_STEPS:.4f} s/step, decode {1000 * (t2 - t1):.2f} ms (first call), "
+          f"{1000 * (t3 - t2):.2f} ms (second); K1 sm90 {launches['attention_sm90']}, wide "
+          f"{launches['attention_bf16_wide_sm90']}, K4 sm90 {launches['conv3x3_sm90']} "
+          f"({per2['k4']} a call), K2 {launches['geglu_ff']}, K3 {launches['group_norm']} "
+          f"kernels for {launches['group_norm calls']} calls", flush=True)
+    print(f"phase13: b1 launches {json.dumps(launches)}; latents std {float(latents.std()):.5f}")
+    paths["sd21_txt2img_b1_dpmpp2m"] = launches
+    del bundle16
+    torch.cuda.empty_cache()
+
+    # (d) one UNet eval on a 24x24 latent against the CPU plain twins
+    cpu = torch.device("cpu")
+    g = torch.Generator(device=cpu).manual_seed(19)
+    x = torch.randn((2, 24, 24, 4), generator=g)
+    t = torch.tensor([801, 801])
+    ctx = torch.randn((2, 77, clip_cfg.hidden_size), generator=g)
+    per = unet_call_launches(bundle.unet_cfg, 24, 2)
+    reset_launches()
+    with torch.inference_mode():
+        got = M.unet_apply(bundle.unet_cfg, bundle.unet_params, x.to(dev), t.to(dev),
+                           ctx.to(dev)).cpu()
+        n = read_launches()
+        want = M.unet_apply(bundle.unet_cfg, _tree_map(lambda a: a.to(cpu), bundle.unet_params),
+                            x, t, ctx)
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    print(f"phase13: SD 2.1 UNet eps 24x24 latent b2 (self-attention S = 576, 144 on K1 at d = "
+          f"64; 36, 9 on the short path), bf16 weights, CUDA kernels vs CPU plain twins: rel L2 "
+          f"{rel:.3e} (tol 5e-2, bf16); K1 sm90 {n['attention_sm90']}, K4 {n['conv3x3']} "
+          f"({n['conv3x3_sm90']} sm90), K2 {n['geglu_ff']} ({card})", flush=True)
+    if (n["attention_sm90"] != per["k1"] or n["conv3x3"] != per["k4"]
+            or n["conv3x3_sm90"] != per["k4_sm90"] or n["geglu_ff"] != per["k2"]):
+        raise SmokeFailure(f"the 24x24 SD 2.1 UNet eval launched {n}: want {per}")
+    if not rel <= 5e-2:
+        raise SmokeFailure(f"the SD 2.1 UNet's kernel path disagrees with the plain path: "
+                           f"{rel:.3e}")
+    paths["sd21_unet_eval_24"] = n
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -1601,6 +1926,7 @@ def main(argv=None) -> int:
     del bundle, bundle16
     torch.cuda.empty_cache()
     paths["txt2img_b1_f32"], paths["txt2img_default_bundle"] = phase11(dev, card, args.steps)
+    paths.update(phase13(dev, card))
 
     kernels = []
     # "attention" and "conv3x3" count every body of K1 and K4: their own

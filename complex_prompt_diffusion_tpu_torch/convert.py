@@ -12,7 +12,8 @@ with two changes of layout:
 
 Leaves may be numpy arrays, anything ``np.asarray`` accepts (JAX arrays,
 without importing jax here) or torch tensors, so the port's own random
-init (built in the JAX layout) goes through the same function.
+init and checkpoint loader (both build the JAX layout) go through the same
+function. :func:`tables_from` carries a bundle's diffusion tables across.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["to_port", "unet_params", "vae_params", "clip_params", "config_from"]
+__all__ = ["to_port", "unet_params", "vae_params", "clip_params", "config_from", "tables_from"]
 
 
 def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -32,7 +33,7 @@ def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
         if arr.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch twin
             a = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
         else:
-            a = torch.from_numpy(np.array(arr, copy=True))
+            a = torch.from_numpy(np.array(arr, order="C"))  # a copy, row-major
     a = a.to(device)
     if dtype is not None and a.is_floating_point():
         a = a.to(dtype)
@@ -109,3 +110,12 @@ def config_from(cls, cfg, **overrides):
                     f"counterpart in the port's {cls.__name__}: converting would drop it")
     kw.update(overrides)
     return cls(**kw)
+
+
+def tables_from(tables):
+    """The port's ``DiffusionTables`` from any object with its fields (the
+    JAX package's tables, say), each read as a numpy array as it is."""
+    from complex_prompt_diffusion_tpu_torch.schedules import DiffusionTables
+
+    return DiffusionTables(**{f.name: np.asarray(getattr(tables, f.name))
+                              for f in dataclasses.fields(DiffusionTables)})

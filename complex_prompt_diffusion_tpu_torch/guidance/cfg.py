@@ -8,12 +8,12 @@ Counterpart of ``complex_prompt_diffusion_tpu/guidance/cfg.py``:
   * optional per-step scale decay (:func:`make_uc_scale_schedule`);
   * :func:`make_denoiser` wraps the eps model for the sigma-space
     (k-diffusion) samplers: input scaled by c_in, sigma mapped to a
-    fractional timestep (:func:`sigma_to_t_cont`), output x - sigma * eps.
+    fractional timestep (:func:`sigma_to_t_cont`), output x - sigma * eps,
+    or for a v-model c_skip * x + c_out * v.
 
 Unconditional blur, eps thresholding, the dynamic scale clip and
 attention-saliency guidance are not ported yet and raise
-NotImplementedError, as does the v-parameterization of the denoiser; depth
-conditioning is not ported yet.
+NotImplementedError; depth conditioning is not ported yet.
 """
 
 from __future__ import annotations
@@ -193,14 +193,15 @@ def make_denoiser(
       * eps_fn(x, t, uc_scale) — t-space (DDIM family).
       * denoised_fn(x, sigma, uc_scale) — sigma-space (k-diffusion family):
         scales the input by c_in = 1/sqrt(sigma^2+1), converts sigma to a
-        fractional timestep, and returns x - sigma * eps. ``sigma`` is a
-        host scalar (the samplers keep their schedules on the host); the
-        arithmetic on it is f32, as in the JAX package.
+        fractional timestep, and returns x - sigma * eps; with
+        ``parameterization="v"`` the guided output is v and it returns
+        c_skip * x + c_out * v, c_skip = 1/(sigma^2+1) and c_out =
+        -sigma/sqrt(1+sigma^2). ``sigma`` is a host scalar (the samplers
+        keep their schedules on the host); the arithmetic on it is f32, as
+        in the JAX package.
     """
-    if parameterization != "eps":
-        raise NotImplementedError(
-            f"parameterization {parameterization!r} is not ported yet (eps only)"
-        )
+    if parameterization not in ("eps", "v"):
+        raise ValueError(f"unknown parameterization {parameterization!r} (eps|v)")
 
     def eps_fn(x, t, uc_scale):
         return cfg_epsilon(unet_eps, x, t, spec, uc_scale, gcfg=gcfg)
@@ -212,6 +213,11 @@ def make_denoiser(
         c_in = np.float32(1.0) / np.sqrt(sigma**2 + np.float32(1.0))
         t = sigma_to_t_cont(sigma, model_sigmas)
         e_t = cfg_epsilon(unet_eps, x * float(c_in), t, spec, uc_scale, gcfg=gcfg)
+        if parameterization == "v":
+            one = np.float32(1.0)
+            c_skip = one / (sigma**2 + one)
+            c_out = -sigma * (one / np.sqrt(one + sigma**2))
+            return x * float(c_skip) + e_t * float(c_out)
         return x - float(sigma) * e_t
 
     return eps_fn, denoised_fn

@@ -1,4 +1,4 @@
-"""CLIP text transformer (the SD-1.x conditioning encoder).
+"""CLIP text transformers (the SD-1.x and SD-2.x conditioning encoders).
 
 Counterpart of ``complex_prompt_diffusion_tpu/models/clip.py``:
 ``clip_text_apply`` with the causal bias, layers "last" (SD 1.x) and
@@ -35,6 +35,13 @@ class CLIPTextConfig:
     def sd15() -> "CLIPTextConfig":
         """CLIP ViT-L/14 text tower (openai/clip-vit-large-patch14)."""
         return CLIPTextConfig()
+
+    @staticmethod
+    def sd21() -> "CLIPTextConfig":
+        """OpenCLIP ViT-H/14 text tower (laion2b_s32b_b79k), SD 2.x."""
+        return CLIPTextConfig(
+            hidden_size=1024, num_layers=24, num_heads=16, activation="gelu"
+        )
 
     @staticmethod
     def tiny() -> "CLIPTextConfig":

@@ -60,6 +60,29 @@ class UNetConfig:
         return UNetConfig()
 
     @staticmethod
+    def sd21() -> "UNetConfig":
+        """v2-inference.yaml (SD 2.x): 64-channel heads, 1024-wide context,
+        linear proj_in / proj_out."""
+        return UNetConfig(
+            num_heads=-1,
+            num_head_channels=64,
+            context_dim=1024,
+            use_linear_in_transformer=True,
+        )
+
+    @staticmethod
+    def sd2_depth() -> "UNetConfig":
+        """v2-midas-inference.yaml: depth2img, 5-channel latent input (the
+        depth map concatenated; rendering it is not ported yet)."""
+        return dataclasses.replace(UNetConfig.sd21(), in_channels=5)
+
+    @staticmethod
+    def sd_inpaint() -> "UNetConfig":
+        """LatentInpaintDiffusion: 9-channel input (4 noisy latents, the
+        mask, 4 masked-image latents; rendering it is not ported yet)."""
+        return UNetConfig(in_channels=9)
+
+    @staticmethod
     def tiny(context_dim: int = 32) -> "UNetConfig":
         """Small config for tests."""
         return UNetConfig(

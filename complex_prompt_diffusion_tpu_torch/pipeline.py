@@ -17,6 +17,16 @@ families. Where the JAX package jits one scan, the port runs an eager
 Python loop on the device. Entry points run on the bundle's device, which
 is the GPU unless the caller asks for the CPU.
 
+A v-parameterized model (SD 2.x 768-v) is converted where the JAX package
+converts it: in the t family (DDIM, PLMS, DDIM img2img) its output becomes
+eps = sqrt(a_t) v + sqrt(1 - a_t) x at the clipped integer timestep, and
+the sigma family's denoiser takes ``parameterization``; the solver, trig
+and blur families take the UNet's output as it is, as the JAX package's
+do. Bundles come from a CompVis checkpoint
+(:meth:`ModelBundle.from_checkpoint`, ``.ckpt`` or ``.safetensors``), a
+YAML config (``config.py``), a saved bundle (:func:`load_bundle`), the JAX
+package, or random weights.
+
 Not ported yet, each raising NotImplementedError: the "Log" sampler (it
 needs the UNet's backward), tiled UNet, ToMe, DeepCache, CLIP and
 attention-saliency guidance.
@@ -60,6 +70,10 @@ __all__ = [
     "encode_image",
     "img2img_t_enc",
     "img2img",
+    "render_config_to_json",
+    "render_config_from_json",
+    "save_bundle",
+    "load_bundle",
 ]
 
 LATENT_SCALE = 0.18215
@@ -162,10 +176,51 @@ class ModelBundle:
         )
 
     @staticmethod
+    def from_checkpoint(
+        path: str,
+        vocab_path: Optional[str] = None,
+        dtype: Optional[str] = None,
+        *,
+        device="cuda",
+    ) -> "ModelBundle":
+        """Bundle from a CompVis SD checkpoint (``.ckpt`` / ``.pt`` or
+        ``.safetensors``; ``models/params.py``) on ``device`` (the GPU unless
+        asked otherwise). The configs are the presets the checkpoint's
+        version and input width pick; ``clip_layer`` and the tokenizer's
+        padding follow the version (SD 2.x's OpenCLIP tokenizer pads with
+        0). ``dtype`` (e.g. "bfloat16"): the UNet's weights and compute
+        dtype, cast on the host before the move to the device, so the
+        device never holds the f32 copy."""
+        from complex_prompt_diffusion_tpu_torch.models.params import load_sd_checkpoint
+
+        device = _device(device)
+        ck = load_sd_checkpoint(path)
+        version = ck["version"]
+        (unet_cfg, unet), (vae_cfg, vae), (clip_cfg, clip) = ck["unet"], ck["vae"], ck["clip"]
+        del ck
+        if dtype is not None:
+            unet_cfg = dataclasses.replace(unet_cfg, dtype=dtype)
+        unet_params = convert.unet_params(unet, "cpu", getattr(torch, dtype) if dtype else None)
+        return ModelBundle(
+            version=version,
+            unet_cfg=unet_cfg,
+            unet_params=_tree_map(lambda a: a.to(device), unet_params),
+            vae_cfg=vae_cfg,
+            vae_params=convert.vae_params(vae, device),
+            clip_cfg=clip_cfg,
+            clip_params=convert.clip_params(clip, device),
+            tokenizer=get_tokenizer(vocab_path, pad_with_eos=(version == "sd1")),
+            tables=S.make_diffusion_tables(),
+            device=device,
+            clip_layer="last" if version == "sd1" else "penultimate",
+        )
+
+    @staticmethod
     def from_jax_params(
         unet_cfg, unet_params, vae_cfg, vae_params, clip_cfg, clip_params,
         *, device="cuda", tokenizer=None, version: str = "sd1",
         parameterization: str = "eps", clip_layer: Optional[str] = None,
+        tables=None,
     ) -> "ModelBundle":
         """Bundle from the JAX package's configs and parameter trees (any
         objects with the same fields; arrays as numpy or JAX arrays),
@@ -173,8 +228,10 @@ class ModelBundle:
         otherwise). Weights keep their dtypes. ``parameterization`` ("eps"
         or "v") is the model's output, as the JAX bundle's field of that
         name; ``clip_layer`` defaults to "last" for "sd1" and "penultimate"
-        otherwise, as the JAX package picks it. :meth:`from_jax_bundle`
-        takes all three from a JAX bundle."""
+        otherwise, as the JAX package picks it; ``tables``: the diffusion
+        tables (any object with their fields; default: SD's). The tokenizer
+        pads with EOS for "sd1" and with 0 otherwise. :meth:`from_jax_bundle`
+        takes all four from a JAX bundle."""
         if parameterization not in ("eps", "v"):
             raise ValueError(f"unknown parameterization {parameterization!r} (eps|v)")
         device = _device(device)
@@ -192,7 +249,7 @@ class ModelBundle:
             tokenizer=tokenizer or get_tokenizer(
                 vocab_size=ccfg.vocab_size, pad_with_eos=(version == "sd1")
             ),
-            tables=S.make_diffusion_tables(),
+            tables=S.make_diffusion_tables() if tables is None else convert.tables_from(tables),
             device=device,
             parameterization=parameterization,
             clip_layer=clip_layer or ("last" if version == "sd1" else "penultimate"),
@@ -202,14 +259,15 @@ class ModelBundle:
     def from_jax_bundle(jax_bundle, *, device="cuda", tokenizer=None) -> "ModelBundle":
         """:meth:`from_jax_params` on a JAX package bundle (any object with
         its fields, read by attribute): configs, parameter trees,
-        ``version``, ``parameterization`` and ``clip_layer``. A v-model
-        stays "v", so the entry points refuse it (not ported yet) instead
-        of sampling it as eps."""
+        ``version``, ``parameterization``, ``clip_layer`` and, where it has
+        them, the diffusion ``tables`` (a YAML's betas). A v-model stays
+        "v" and samples as one."""
         jb = jax_bundle
         return ModelBundle.from_jax_params(
             jb.unet_cfg, jb.unet_params, jb.vae_cfg, jb.vae_params, jb.clip_cfg,
             jb.clip_params, device=device, tokenizer=tokenizer, version=jb.version,
             parameterization=jb.parameterization, clip_layer=jb.clip_layer,
+            tables=getattr(jb, "tables", None),
         )
 
     def cast(self, dtype: str) -> "ModelBundle":
@@ -363,7 +421,9 @@ def _check_ported(bundle: ModelBundle, cfg: RenderConfig) -> None:
             ("tome_ratio", cfg.tome_ratio > 0.0),
             ("deepcache_interval", cfg.deepcache_interval >= 2),
             ("clip_sample", bool(cfg.clip_sample)),
-            ("v-parameterization", bundle.parameterization != "eps"),
+            (f"in_channels={bundle.unet_cfg.in_channels} (a concat-conditioned UNet: "
+             "depth2img or inpaint)",
+             bundle.unet_cfg.in_channels != bundle.unet_cfg.out_channels),
         ) + tuple((n, True) for n in cfg.guidance.unported())
         if on
     ]
@@ -407,6 +467,25 @@ def _run_sigma_sampler(sample_fn, den_fn, x, bundle, cfg, t_start, generator, no
     uc_scales = make_uc_scale_schedule(cfg.guidance, len(sigmas) - 1)
     x0, _ = sample_fn(den_fn, x, sigmas, uc_scales, generator=generator, noises=noises, **kw)
     return x0
+
+
+def _v_to_eps(unet_eps, tables, device):
+    """The UNet of a v-model as an eps model for the t family: eps =
+    sqrt(a_t) v + sqrt(1 - a_t) x at the integer timestep t, clipped to the
+    table (the JAX package's ``_to_eps``), f32 on the device."""
+    sqrt_ac = torch.as_tensor(np.asarray(tables.sqrt_alphas_cumprod, np.float32), device=device)
+    sqrt_1m = torch.as_tensor(
+        np.asarray(tables.sqrt_one_minus_alphas_cumprod, np.float32), device=device)
+
+    def eps(x, t, ctx):
+        out = unet_eps(x, t, ctx)
+        ti = torch.clamp(torch.as_tensor(t, device=device).to(torch.int32).reshape(-1), 0,
+                         sqrt_ac.shape[0] - 1).long()
+        a = sqrt_ac[ti].reshape(-1, 1, 1, 1)
+        b = sqrt_1m[ti].reshape(-1, 1, 1, 1)
+        return a * out + b * x[..., : out.shape[-1]]
+
+    return eps
 
 
 def _t_family_callback(eps_fn, itables, step_callback):
@@ -464,7 +543,8 @@ def sample_latents(
     canvas and, unlike the JAX package's (which draws its own), starts from
     ``x_init`` when given. ``step_callback(t, x0)`` (numpy arrays) is called
     at every denoiser evaluation of the t and sigma families, as in the JAX
-    package; the other families do not call it."""
+    package; the other families do not call it. A v-model's output is
+    converted as the module docstring says."""
     _check_ported(bundle, cfg)
     family, sample_fn = get_sampler(cfg.sampler)
     shape = (cfg.batch_size,) + cfg.latent_shape
@@ -538,6 +618,9 @@ def sample_latents(
 
         return sample_fn(eps_model, BlurDiffusion(n=n, resolution=lh), x_T.shape,
                          generator=generator, x_T=x_T, noises=noises)
+    if bundle.parameterization == "v":
+        eps_fn, _ = make_denoiser(_v_to_eps(unet_eps, bundle.tables, device), spec,
+                                  gcfg=cfg.guidance)
     itables = S.make_inference_tables(
         bundle.tables, cfg.steps, eta=cfg.eta, discretize=cfg.discretize
     )
@@ -698,3 +781,87 @@ def img2img(
     )
     images = decode_latents(bundle, latents) if decode else None
     return images, latents
+
+
+def render_config_to_json(cfg: RenderConfig) -> dict:
+    """The render options as a JSON-able dict: the JAX package's dict for
+    the same options."""
+    data = dataclasses.asdict(cfg)
+    data["guidance"] = dataclasses.asdict(cfg.guidance)
+    return data
+
+
+def render_config_from_json(data: dict) -> RenderConfig:
+    """Inverse of :func:`render_config_to_json`; unknown keys are dropped."""
+    data = dict(data)
+    g = data.pop("guidance", {})
+    known_g = {f.name for f in dataclasses.fields(GuidanceConfig)}
+    known = {f.name for f in dataclasses.fields(RenderConfig)} - {"guidance"}
+    return RenderConfig(
+        guidance=GuidanceConfig(**{k: v for k, v in g.items() if k in known_g}),
+        **{k: v for k, v in data.items() if k in known},
+    )
+
+
+PARAMS_FILE = "params.pt"
+
+
+def save_bundle(bundle: ModelBundle, path: str) -> None:
+    """Write a bundle to the directory ``path``: its three parameter trees
+    with ``torch.save`` (``params.pt``) and ``meta.json`` with the JAX
+    package's keys (version, parameterization, clip_layer and the three
+    configs). The JAX package stores the trees as an orbax checkpoint; the
+    port neither writes nor reads that format. As in the JAX package, the
+    diffusion tables are not stored: :func:`load_bundle` rebuilds SD's."""
+    import json
+    import os
+
+    os.makedirs(path, exist_ok=True)
+    torch.save({"unet": bundle.unet_params, "vae": bundle.vae_params,
+                "clip": bundle.clip_params}, os.path.join(path, PARAMS_FILE))
+    meta = {
+        "version": bundle.version,
+        "parameterization": bundle.parameterization,
+        "clip_layer": bundle.clip_layer,
+        "unet_cfg": dataclasses.asdict(bundle.unet_cfg),
+        "vae_cfg": dataclasses.asdict(bundle.vae_cfg),
+        "clip_cfg": dataclasses.asdict(bundle.clip_cfg),
+    }
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+
+
+def load_bundle(path: str, vocab_path: Optional[str] = None, *, device="cuda") -> ModelBundle:
+    """Read a bundle that :func:`save_bundle` wrote onto ``device`` (the GPU
+    unless asked otherwise): the trees with ``torch.load(weights_only=True)``,
+    the configs from ``meta.json`` (fields the port's configs lack are
+    dropped)."""
+    import json
+    import os
+
+    device = _device(device)
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+
+    def _cfg(cls, data):
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: (tuple(v) if isinstance(v, list) else v)
+                      for k, v in data.items() if k in fields})
+
+    params = torch.load(os.path.join(path, PARAMS_FILE), map_location=device,
+                        weights_only=True)
+    return ModelBundle(
+        version=meta["version"],
+        unet_cfg=_cfg(M.UNetConfig, meta["unet_cfg"]),
+        unet_params=params["unet"],
+        vae_cfg=_cfg(M.VAEConfig, meta["vae_cfg"]),
+        vae_params=params["vae"],
+        clip_cfg=_cfg(M.CLIPTextConfig, meta["clip_cfg"]),
+        clip_params=params["clip"],
+        tokenizer=get_tokenizer(vocab_path, pad_with_eos=(meta["version"] == "sd1"),
+                                vocab_size=meta["clip_cfg"].get("vocab_size", 49408)),
+        tables=S.make_diffusion_tables(),
+        device=device,
+        parameterization=meta["parameterization"],
+        clip_layer=meta["clip_layer"],
+    )

@@ -17,9 +17,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Case", "kernel_cases", "host_us", "PEAK_FLOPS", "HBM_BYTES_PER_S", "B1_UNET_CONVS",
-           "B1_UNET_CONV_COUNTS", "GEGLU_ROWS", "GEGLU_B4_CALLS", "GEGLU_B1_ROWS", "GN_UNET_PLANES",
-           "GN_B4_CALLS", "GN_DECODE_PLANES"]
+__all__ = ["Case", "kernel_cases", "host_us", "unet_sites", "PEAK_FLOPS", "HBM_BYTES_PER_S",
+           "B1_UNET_CONVS", "B1_UNET_CONV_COUNTS", "GEGLU_ROWS", "GEGLU_B4_CALLS", "GEGLU_B1_ROWS",
+           "GN_UNET_PLANES", "GN_B4_CALLS", "GN_DECODE_PLANES", "SD21_LATENT"]
 
 _PKG = "complex_prompt_diffusion_tpu_torch"
 
@@ -57,6 +57,50 @@ GN_B4_CALLS = (13, 2, 1, 1, 11, 1, 1, 1, 1, 11, 1, 2, 12, 3)
 # (plane side, C) of the VAE decoder's planes: the mid-block and the four up
 # levels (30 GroupNorms a decode, over these shapes)
 GN_DECODE_PLANES = ((64, 512), (128, 512), (256, 256), (512, 256), (512, 128))
+
+SD21_LATENT = 96  # latent side of SD 2.1's 768x768 renders
+
+
+def unet_sites(cfg, latent: int) -> dict:
+    """The kernel sites of one UNet call of config ``cfg`` on a ``latent`` x
+    ``latent`` input, walking ``models.unet.build_plan`` as ``unet_apply``
+    does: "attn", (plane side, channels, heads, head dim) of every
+    transformer (its self-attention at S = side^2; its cross-attention over
+    the 77 context tokens); "conv", (plane side, C, Co) of every stride-1
+    3x3 conv (conv_in, a ResBlock's two, the up convs after their 2x
+    upsample, the out conv; the down convs have stride 2); "gn", the
+    GroupNorm count (two a ResBlock, one a transformer, the out norm)."""
+    from complex_prompt_diffusion_tpu_torch.models.unet import build_plan
+
+    input_plan, middle_plan, output_plan = build_plan(cfg)
+    sites = {"attn": [], "conv": [], "gn": 1}
+    side = latent
+
+    def walk(block):
+        nonlocal side
+        for desc in block:
+            kind = desc[0]
+            if kind == "conv_in":
+                sites["conv"].append((side, cfg.in_channels, cfg.model_channels))
+            elif kind == "res":
+                sites["conv"] += [(side, desc[1], desc[2]), (side, desc[2], desc[2])]
+                sites["gn"] += 2
+            elif kind == "attn":
+                sites["attn"].append((side, desc[1], desc[2], desc[3]))
+                sites["gn"] += 1
+            elif kind == "down":
+                side //= 2
+            elif kind == "up":
+                side *= 2
+                sites["conv"].append((side, desc[1], desc[1]))
+
+    for block in input_plan:
+        walk(block)
+    walk(middle_plan)
+    for block in output_plan:
+        walk(block)
+    sites["conv"].append((side, cfg.model_channels, cfg.out_channels))
+    return sites
 
 
 class Case(NamedTuple):
@@ -100,7 +144,7 @@ def kernel_cases(dev, kernels=None) -> list:
                                          "group_norm", "conv3x3", "conv3x3_sm90",
                                          "conv3x3_f32_sm90",
                                          "attention_cm", "winograd", "probe_attention",
-                                         "probe_groupnorm", "probe_copy"}
+                                         "probe_groupnorm", "probe_copy", "sd21"}
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -179,45 +223,73 @@ def kernel_cases(dev, kernels=None) -> list:
     # in f32 (an f32 UNet's) on its 3xTF32 body, bound at the rate of three
     # TF32 products. No single PyTorch call computes the GEGLU FF, so it has
     # no library time
+    def tag(dt):
+        return "bf16" if dt == bf16 else "f32"
+
+    def ff_case(kernel, m, c, dt):
+        x = randn(m, c, dtype=dt)
+        w1 = uniform(c, 8 * c, bound=c ** -0.5, dtype=dt)
+        b1 = uniform(8 * c, bound=c ** -0.5, dtype=dt)
+        w2 = uniform(4 * c, c, bound=(4 * c) ** -0.5, dtype=dt)
+        b2 = uniform(c, bound=(4 * c) ** -0.5, dtype=dt)
+        a = (x, w1, b1, w2, b2)
+        cases.append(Case(kernel, f"{tag(dt)} M{m} C{c} H4 {4 * c}",
+                          lambda a=a: F2.geglu_ff(*a), lambda a=a: F2.geglu_ff_plain(*a),
+                          None, "bfloat16" if dt == bf16 else "float32", 24.0 * m * c * c,
+                          x.element_size() * (2 * m * c + 12 * c * c + 9 * c),
+                          rate="tf32x3" if dt == f32 else None))
+
+    # the replaced body beside each GroupNorm (a parent tree may lack its wrapper)
+    gn_prior = getattr(G, "group_norm_prior", None)
+
+    def gn_case(shape, dt, eps):
+        x = randn(*shape, dtype=dt, scale=2.0) + 0.5
+        gamma = randn(shape[-1], dtype=dt, scale=0.5) + 1.0
+        beta = randn(shape[-1], dtype=dt, scale=0.5)
+        a = (x, gamma, beta, 32, eps, True)
+        cases.append(Case(
+            "group_norm", f"{tag(dt)} {'x'.join(map(str, shape))} silu",
+            lambda a=a: G.group_norm_nhwc(*a), lambda a=a: G.group_norm_plain(*a),
+            lambda a=a: F.silu(F.group_norm(a[0].permute(0, 3, 1, 2), 32, a[1], a[2], a[4])),
+            "bfloat16" if dt == bf16 else "float32", 10.0 * x.numel(),
+            (2 * x.numel() + 2 * shape[-1]) * x.element_size(),
+            (lambda a=a: gn_prior(*a)) if gn_prior else None))
+
+    # K4's replaced mma.sync / FMA body beside its Hopper bodies (a parent
+    # tree may lack it)
+    generic = getattr(C, "conv3x3_generic", None)
+
+    def conv_case(kernel, b, hw, c, co, dt):
+        x = randn(b, hw, hw, c, dtype=dt)
+        w = uniform(co, c, 3, 3, bound=(9 * c) ** -0.5, dtype=dt).contiguous(
+            memory_format=torch.channels_last)
+        bias = uniform(co, bound=0.1, dtype=dt)
+        a = (x, w, bias)
+        m = b * hw * hw
+        cases.append(Case(
+            kernel, f"{tag(dt)} B{b} {hw}x{hw} {c}->{co}",
+            lambda a=a: C.conv3x3(*a), lambda a=a: C.conv3x3_plain(*a),
+            lambda a=a: F.conv2d(a[0].permute(0, 3, 1, 2), a[1], a[2], padding=1),
+            "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 9 * c,
+            x.element_size() * (m * c + 9 * c * co + m * co + co),
+            (lambda a=a: generic(*a)) if kernel != "conv3x3" and generic else None,
+            "tf32x3" if kernel == "conv3x3_f32_sm90" else None))
+
     ff_dtypes = [(bf16, "geglu_ff")] if "geglu_ff" in want else []
     if "geglu_ff_f32_sm90" in want:
         ff_dtypes.append((f32, "geglu_ff_f32_sm90"))
     for dt, kernel in ff_dtypes:
         for m, c in GEGLU_ROWS:
-            x = randn(m, c, dtype=dt)
-            w1 = uniform(c, 8 * c, bound=c ** -0.5, dtype=dt)
-            b1 = uniform(8 * c, bound=c ** -0.5, dtype=dt)
-            w2 = uniform(4 * c, c, bound=(4 * c) ** -0.5, dtype=dt)
-            b2 = uniform(c, bound=(4 * c) ** -0.5, dtype=dt)
-            a = (x, w1, b1, w2, b2)
-            cases.append(Case(kernel, f"{'bf16' if dt == bf16 else 'f32'} M{m} C{c} H4 {4 * c}",
-                              lambda a=a: F2.geglu_ff(*a), lambda a=a: F2.geglu_ff_plain(*a),
-                              None, "bfloat16" if dt == bf16 else "float32", 24.0 * m * c * c,
-                              x.element_size() * (2 * m * c + 12 * c * c + 9 * c),
-                              rate="tf32x3" if dt == f32 else None))
+            ff_case(kernel, m, c, dt)
     if "group_norm" in want:
         # every GroupNorm shape of a UNet call at UNet batch 8 (the b4 step)
         # and 2 (the b1 step), bf16, eps 1e-5; the f32 VAE-decode planes and
-        # the bf16 planes of the b4 and the b1 bf16 decode (eps 1e-6). The
-        # replaced body beside each (a parent tree may lack its wrapper)
-        gn_prior = getattr(G, "group_norm_prior", None)
+        # the bf16 planes of the b4 and the b1 bf16 decode (eps 1e-6)
         shapes = [((b, side, side, c), bf16, 1e-5) for b in (8, 2) for side, c in GN_UNET_PLANES]
         for b, dt in ((4, f32), (4, bf16), (1, bf16)):
             shapes += [((b, side, side, c), dt, 1e-6) for side, c in GN_DECODE_PLANES]
         for shape, dt, eps in shapes:
-            x = randn(*shape, dtype=dt, scale=2.0) + 0.5
-            gamma = randn(shape[-1], dtype=dt, scale=0.5) + 1.0
-            beta = randn(shape[-1], dtype=dt, scale=0.5)
-            a = (x, gamma, beta, 32, eps, True)
-            cases.append(Case(
-                "group_norm",
-                f"{'bf16' if dt == bf16 else 'f32'} {'x'.join(map(str, shape))} silu",
-                lambda a=a: G.group_norm_nhwc(*a), lambda a=a: G.group_norm_plain(*a),
-                lambda a=a: F.silu(F.group_norm(a[0].permute(0, 3, 1, 2), 32, a[1], a[2],
-                                                a[4])),
-                "bfloat16" if dt == bf16 else "float32", 10.0 * x.numel(),
-                (2 * x.numel() + 2 * shape[-1]) * x.element_size(),
-                (lambda a=a: gn_prior(*a)) if gn_prior else None))
+            gn_case(shape, dt, eps)
     shapes = []
     if "conv3x3_sm90" in want:
         # every distinct 3x3 conv of the batch-1 render (UNet batch 2), through
@@ -234,22 +306,8 @@ def kernel_cases(dev, kernels=None) -> list:
         # the FMA body's own shapes: an f32 UNet's conv_in and out conv on a
         # 16^2 latent (phase 11's UNet eval)
         shapes += [("conv3x3", 2, 16, 4, 320, f32), ("conv3x3", 2, 16, 320, 4, f32)]
-    generic = getattr(C, "conv3x3_generic", None)  # a parent tree may lack it
-    for kernel, b, hw, c, co, dt in shapes:
-        x = randn(b, hw, hw, c, dtype=dt)
-        w = uniform(co, c, 3, 3, bound=(9 * c) ** -0.5, dtype=dt).contiguous(
-            memory_format=torch.channels_last)
-        bias = uniform(co, bound=0.1, dtype=dt)
-        a = (x, w, bias)
-        m = b * hw * hw
-        cases.append(Case(
-            kernel, f"{'bf16' if dt == bf16 else 'f32'} B{b} {hw}x{hw} {c}->{co}",
-            lambda a=a: C.conv3x3(*a), lambda a=a: C.conv3x3_plain(*a),
-            lambda a=a: F.conv2d(a[0].permute(0, 3, 1, 2), a[1], a[2], padding=1),
-            "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 9 * c,
-            x.element_size() * (m * c + 9 * c * co + m * co + co),
-            (lambda a=a: generic(*a)) if kernel != "conv3x3" and generic else None,
-            "tf32x3" if kernel == "conv3x3_f32_sm90" else None))
+    for shape in shapes:
+        conv_case(*shape)
     if "attention_cm" in want:
         # K5, hdbs mode: the cm block's [H, D, B, S] slices of one [3C, B, S]
         # projection at the levels the gate admits (UNet batch 8, and 2 for
@@ -340,6 +398,32 @@ def kernel_cases(dev, kernels=None) -> list:
                 x.element_size() * (m * c + 16 * c * co + m * co) + 4 * co,
                 (lambda a=a: wino_prior(*a[:3], u=a[3])) if sm90 else None,
                 "tf32x3" if f32_sm90 else None))
+    if "sd21" in want:
+        # SD 2.1 at 768x768 (a 96x96 latent): K1's sm90 body at head dim 64
+        # at every self-attention level of the b4 step (UNet batch 8: 9216,
+        # 2304, 576 and, in the middle block, 144 tokens; the last two not
+        # multiples of its 128-row tiles), on views of one qkv projection;
+        # the VAE mid-block at S = 9216 (the b1 bf16 decode on the wide body,
+        # the b4 exact decode on the 3xTF32 one); K2 at level 0 of the b4
+        # step; K3 on the b4 step's 96^2 plane and the decodes' largest ones
+        # (their replaced body beside them); K4 on the b1 step's 24^2 plane
+        # (its mma.sync body beside it)
+        for s_, heads in ((9216, 5), (2304, 10), (576, 20), (144, 20)):
+            qkv = randn(8, s_, 3 * heads * 64, dtype=bf16)
+            q, k, v = qkv.chunk(3, dim=-1)
+            attn_case(f"bf16 B8 S{s_} H{heads} d64", q, k, v, heads, "bfloat16",
+                      "attention_sm90")
+        q, k, v = (randn(1, 9216, 512, dtype=bf16) for _ in range(3))
+        attn_case("bf16 B1 S9216 H1 d512", q, k, v, 1, "bfloat16", "attention_bf16_wide_sm90")
+        q, k, v = (randn(4, 9216, 512, dtype=f32) for _ in range(3))
+        attn_case("f32 B4 S9216 H1 d512", q, k, v, 1, "float32", "attention_f32_sm90",
+                  rate="tf32x3")
+        ff_case("geglu_ff", 8 * 9216, 320, bf16)
+        for shape, dt, eps in (((8, 96, 96, 320), bf16, 1e-5), ((4, 768, 768, 128), f32, 1e-6),
+                               ((1, 768, 768, 256), bf16, 1e-6)):
+            gn_case(shape, dt, eps)
+        for c, co in ((1280, 1280), (2560, 1280)):
+            conv_case("conv3x3_sm90", 2, 24, c, co, bf16)
     # the probes (imported here: a source tree without them runs the cases
     # above); each at a shape of its TPU script, the tools/probe_*.py rows
     # time every variant

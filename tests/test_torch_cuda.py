@@ -1610,3 +1610,101 @@ def test_new_samplers_render_on_the_card_like_the_cpu_port(dev, sampler, kw, tol
     assert torch.isfinite(got).all()
     rel = float((got - want).norm() / want.norm())
     assert rel <= tol, rel
+
+
+# SD 2.1 at 768x768: K1's sm90 body at head dim 64 (one full 64-column box)
+# with the 24^2 and 12^2 levels' sequence lengths, neither a multiple of its
+# 128-row query tile or 128-key tile, on strided views of one qkv projection
+# (as in the UNet); a second call writes the same bits
+@pytest.mark.parametrize("b,s,heads", [(8, 576, 20), (8, 144, 20), (2, 9216, 5), (3, 200, 5)])
+def test_attention_bf16_d64_ragged_sd21(dev, b, s, heads):
+    g = _gen(dev, s)
+    qkv = torch.randn((b, s, 3 * heads * 64), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    before = attention_sm90.launches
+    got = flash_attention(q, k, v, heads)
+    assert attention_sm90.launches == before + 1
+    assert tuple(got.shape) == (b, s, heads * 64)
+    assert _rel(got, attention_plain(q, k, v, heads)) <= TOL[torch.bfloat16]
+    assert torch.equal(got, flash_attention(q, k, v, heads))
+
+
+def _tiny_sd2_presets(monkeypatch):
+    """Tiny stand-ins for the SD 2.x presets ``load_sd_checkpoint`` reads,
+    with SD 2.x's shapes (64-wide heads at 128 channels, linear proj)."""
+    import dataclasses
+
+    from complex_prompt_diffusion_tpu_torch import models as M
+
+    unet = dataclasses.replace(M.UNetConfig.tiny(context_dim=64), model_channels=128,
+                               num_heads=-1, num_head_channels=64,
+                               use_linear_in_transformer=True)
+    # the tokenizer the loader builds has CLIP's vocabulary
+    clip = dataclasses.replace(M.CLIPTextConfig.tiny(), activation="gelu", vocab_size=49408)
+    monkeypatch.setattr(M.UNetConfig, "sd21", staticmethod(lambda: unet))
+    monkeypatch.setattr(M.CLIPTextConfig, "sd21", staticmethod(lambda: clip))
+    monkeypatch.setattr(M.VAEConfig, "sd", staticmethod(M.VAEConfig.tiny))
+    return unet, clip, M.VAEConfig.tiny()
+
+
+def test_from_checkpoint_on_the_card(dev, tmp_path, monkeypatch):
+    """A tiny SD 2.x checkpoint (fp16, written by tools/synth_checkpoint.py)
+    loads onto the card with the UNet in bf16: the same bits as the CPU
+    load moved there. Then a v render through ``bundle_from_config`` with
+    the UNet in f32 (K1's fused 3xTF32 body at d = 64, S = 576; K2's and
+    K4's f32 bodies) against the same render of the CPU port: relative L2
+    within 1e-3, the bound the f32 renders of the new samplers above hold
+    (the f32 kernels differ from the plain twins by ~1e-5 an evaluation)."""
+    import numpy as np
+
+    from complex_prompt_diffusion_tpu_torch import config as CONF
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch import ops
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        ModelBundle,
+        RenderConfig,
+        _tree_map,
+        _unzero_kernels,
+        txt2img,
+    )
+    from complex_prompt_diffusion_tpu_torch.tools import synth_checkpoint as SC
+
+    unet_cfg, clip_cfg, vae_cfg = _tiny_sd2_presets(monkeypatch)
+    gen = torch.Generator().manual_seed(0)
+    unet = _unzero_kernels(gen, M.init_unet(gen, unet_cfg))
+    sd = SC.state_dict(unet_cfg, unet, M.init_vae(gen, vae_cfg), M.init_clip_text(gen, clip_cfg),
+                       dtype=torch.float16)
+    path = str(tmp_path / "tiny-sd2.ckpt")
+    SC.write_checkpoint(path, sd)
+    card = ModelBundle.from_checkpoint(path, dtype="bfloat16", device=dev)
+    cpu = ModelBundle.from_checkpoint(path, dtype="bfloat16", device="cpu")
+    for name in ("unet_params", "vae_params", "clip_params"):
+        got, want = [], []
+        _tree_map(got.append, getattr(card, name))
+        _tree_map(want.append, getattr(cpu, name))
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.is_cuda and a.dtype == b.dtype and a.stride() == b.stride()
+            assert torch.equal(a.cpu(), b)
+    assert (card.version, card.clip_layer, card.tokenizer.pad_id, card.unet_cfg.dtype) == \
+        ("sd2", "penultimate", 0, "bfloat16")
+
+    model = {"params": {"parameterization": "v", "unet_config": {"params": dict(
+        model_channels=128, attention_resolutions=[2, 1], num_res_blocks=1, channel_mult=[1, 2],
+        num_head_channels=64, use_linear_in_transformer=True, context_dim=64)},
+        "first_stage_config": {"params": {"ddconfig": dict(ch=32, ch_mult=[1, 2],
+                                                           num_res_blocks=1)}},
+        "cond_stage_config": {"target": "ldm.modules.encoders.modules.FrozenOpenCLIPEmbedder"}}}
+    v_card = CONF.bundle_from_config(model, checkpoint_path=path, dtype="float32", device=dev)
+    v_cpu = CONF.bundle_from_config(model, checkpoint_path=path, dtype="float32", device="cpu")
+    assert v_card.parameterization == "v" and v_card.unet_cfg.dtype == "float32"
+    cfg = RenderConfig(sampler="DDIM", steps=4, width=192, height=192, batch_size=1)
+    x_T = np.random.default_rng(1).standard_normal((1, 24, 24, 4)).astype(np.float32)
+    want = txt2img(v_cpu, "a cat", cfg=cfg, x_T=torch.from_numpy(x_T), decode=False)[1]
+    for w in ops.KERNEL_WRAPPERS.values():
+        w.launches = 0
+    got = txt2img(v_card, "a cat", cfg=cfg, x_T=torch.from_numpy(x_T).to(dev), decode=False)[1]
+    for name in ("attention_f32_fused_sm90", "geglu_ff_f32_sm90", "conv3x3_f32_sm90"):
+        assert ops.KERNEL_WRAPPERS[name].launches > 0, name  # K1: S = 576 at d = 64
+    rel = float((got.cpu() - want).norm() / want.norm())
+    assert rel <= 1e-3, rel

@@ -1,12 +1,15 @@
-"""Four places where the port once departed from the JAX package without a
+"""Five places where the port once departed from the JAX package without a
 word, each held here on the CPU:
 
   * the kernel wrappers refuse autograd on the card (their CUDA outputs
     carry no ``grad_fn``; the backward kernels are not written yet), while
     the plain twins that CPU tensors take stay differentiable;
   * a bundle converted from the JAX package keeps its ``parameterization``
-    and ``clip_layer``, so a v-model is refused by the entry points instead
-    of being sampled as eps;
+    and ``clip_layer``, so a v-model samples as one (an unknown
+    parameterization is refused) instead of being sampled as eps;
+  * a bundle converted from the JAX package keeps its diffusion tables
+    (a YAML's ``linear_start`` / ``linear_end``), so it samples under the
+    same betas;
   * ``convert.config_from`` raises on a field it would drop and maps
     ``use_pallas="cm"`` to ``attn_route="cm"``;
   * ``encode_image`` rescales on ``max > 2`` after the cast to f32, as the
@@ -19,11 +22,14 @@ import importlib
 import inspect
 import types
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from complex_prompt_diffusion_tpu import config as JCONF
 from complex_prompt_diffusion_tpu import pipeline as JP
+from complex_prompt_diffusion_tpu import schedules as JS
 from complex_prompt_diffusion_tpu.models import clip as JC
 from complex_prompt_diffusion_tpu.models import unet as JU
 from complex_prompt_diffusion_tpu.models import vae as JV
@@ -143,12 +149,22 @@ def jax_bundle():
 
 
 def test_v_bundle_keeps_v_and_is_refused(jax_bundle):
+    """A v-model stays "v" through the conversion and renders as the JAX
+    package renders it (DDIM converts v to eps); an unknown
+    parameterization is refused."""
     jb_v = dataclasses.replace(jax_bundle, parameterization="v")
     pb = P.ModelBundle.from_jax_bundle(jb_v, device="cpu")
     assert (pb.parameterization, pb.version, pb.clip_layer) == ("v", "sd1", "last")
-    cfg = P.RenderConfig(steps=2, width=32, height=32, batch_size=1)
-    with pytest.raises(NotImplementedError, match="v-parameterization"):
-        P.txt2img(pb, "a cat", cfg=cfg)
+    kw = dict(steps=2, width=32, height=32, batch_size=1)
+    x_T = np.random.default_rng(3).standard_normal((1, 4, 4, 4)).astype(np.float32)
+    want = JP.txt2img(jb_v, "a cat", cfg=JP.RenderConfig(**kw), x_T=jnp.asarray(x_T),
+                      decode=False)[1]
+    got = P.txt2img(pb, "a cat", cfg=P.RenderConfig(**kw), x_T=torch.from_numpy(x_T),
+                    decode=False)[1]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_RTOL, atol=F32_ATOL)
+    eps = P.txt2img(P.ModelBundle.from_jax_bundle(jax_bundle, device="cpu"), "a cat",
+                    cfg=P.RenderConfig(**kw), x_T=torch.from_numpy(x_T), decode=False)[1]
+    assert not torch.allclose(got, eps)
     jb = jax_bundle
     pb2 = P.ModelBundle.from_jax_params(
         jb.unet_cfg, jb.unet_params, jb.vae_cfg, jb.vae_params, jb.clip_cfg,
@@ -218,3 +234,72 @@ def test_encode_image_dark_uint8_matches_jax(jax_bundle):
     np.testing.assert_allclose(P.encode_image(pb, bright).numpy(),
                                np.asarray(JP.encode_image(jb, bright)),
                                rtol=F32_RTOL, atol=F32_ATOL)
+
+
+# ---- the diffusion tables through the bundle conversion ----
+
+# config-1.49.yaml's layout at tiny widths, with betas other than SD's
+TABLES_YAML = """\
+model:
+  target: ldm.models.diffusion.ddpm.LatentDiffusion
+  params:
+    linear_start: 0.0005
+    linear_end: 0.0200
+    timesteps: 1000
+    unet_config:
+      target: ldm.modules.diffusionmodules.openaimodel.UNetModel
+      params:
+        in_channels: 4
+        out_channels: 4
+        model_channels: 32
+        attention_resolutions: [ 2, 1 ]
+        num_res_blocks: 1
+        channel_mult: [ 1, 2 ]
+        num_heads: 2
+        context_dim: 64
+    first_stage_config:
+      target: ldm.models.autoencoder.AutoencoderKL
+      params:
+        embed_dim: 4
+        ddconfig:
+          double_z: true
+          z_channels: 4
+          resolution: 32
+          in_channels: 3
+          out_ch: 3
+          ch: 32
+          ch_mult: [ 1, 2 ]
+          num_res_blocks: 1
+          attn_resolutions: []
+    cond_stage_config:
+      target: ldm.modules.encoders.modules.FrozenCLIPEmbedder
+"""
+
+
+def test_from_jax_bundle_keeps_the_tables_of_a_yaml(tmp_path, monkeypatch):
+    """A JAX bundle from ``bundle_from_yaml`` with non-default betas: the
+    port's bundle carries its tables (every field equal) and DDIM samples
+    under them, as the JAX package does. (The CLIP preset the YAML names
+    is swapped for a tiny one, with the tokenizer's vocabulary, so the
+    bundle is small.)"""
+    monkeypatch.setattr(JC.CLIPTextConfig, "sd15", staticmethod(
+        lambda: dataclasses.replace(JC.CLIPTextConfig.tiny(), vocab_size=49408)))
+    path = tmp_path / "tables.yaml"
+    path.write_text(TABLES_YAML)
+    jb = JCONF.bundle_from_yaml(str(path), seed=0)
+    assert not np.array_equal(jb.tables.betas, JS.make_diffusion_tables().betas)
+    pb = P.ModelBundle.from_jax_bundle(jb, device="cpu")
+    for f in dataclasses.fields(pb.tables):
+        np.testing.assert_array_equal(getattr(pb.tables, f.name), getattr(jb.tables, f.name))
+    kw = dict(steps=4, width=32, height=32, batch_size=1)
+    x_T = np.random.default_rng(9).standard_normal((1, 4, 4, 4)).astype(np.float32)
+    want = JP.txt2img(jb, "a cat", cfg=JP.RenderConfig(**kw), x_T=jnp.asarray(x_T),
+                      decode=False)[1]
+    got = P.txt2img(pb, "a cat", cfg=P.RenderConfig(**kw), x_T=torch.from_numpy(x_T),
+                    decode=False)[1]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_RTOL, atol=F32_ATOL)
+    # an object without tables still gets SD's
+    ns = types.SimpleNamespace(**{f.name: getattr(jb, f.name) for f in dataclasses.fields(jb)
+                                  if f.name != "tables"})
+    np.testing.assert_array_equal(P.ModelBundle.from_jax_bundle(ns, device="cpu").tables.betas,
+                                  JS.make_diffusion_tables().betas)

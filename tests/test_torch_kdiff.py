@@ -139,8 +139,17 @@ def test_make_denoiser_matches_jax_on_tiny_unet(bundles):
         e = p_eps(torch.from_numpy(x), torch.tensor(500), 7.5)
         e_ref = G.cfg_epsilon(p_unet, torch.from_numpy(x), torch.tensor(500), pspec, 7.5)
     torch.testing.assert_close(e, e_ref, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        G.make_denoiser(p_unet, pspec, model_sigmas=MODEL_SIGMAS, parameterization="v")
+    # a v-model: denoised = c_skip * x + c_out * v, as the JAX package's
+    _, j_den_v = JG.make_denoiser(j_unet, jspec, model_sigmas=jnp.asarray(MODEL_SIGMAS),
+                                  parameterization="v")
+    _, p_den_v = G.make_denoiser(p_unet, pspec, model_sigmas=MODEL_SIGMAS, parameterization="v")
+    for sigma in (0.07, 1.234, 9.5):
+        want = j_den_v(jnp.asarray(x), jnp.float32(sigma), jnp.float32(7.5))
+        with torch.inference_mode():
+            got = p_den_v(torch.from_numpy(x), np.float32(sigma), 7.5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TRAJ_RTOL, atol=TRAJ_ATOL)
+    with pytest.raises(ValueError, match="parameterization"):
+        G.make_denoiser(p_unet, pspec, model_sigmas=MODEL_SIGMAS, parameterization="x0")
     with pytest.raises(ValueError):
         G.make_denoiser(p_unet, pspec)[1](torch.from_numpy(x), np.float32(1.0), 7.5)
 

@@ -121,9 +121,33 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            plain twins. Phase 1 holds SD 2.1's kernel rows too: K1 at head
            dim 64 and S = 9216, 2304, 576, 144, the d512 mid-block at S =
            9216 (bf16 b1, f32 b4), K2 at M73728, K3 on the 96^2 and 768^2
-           planes, K4 on 24^2.
+           planes, K4 on 24^2;
+  phase 14 the prompt algebra (after phase 12, on phase 2's bundle with the
+           bf16 VAE, 512x512): (a) the schedule grammar's table on the
+           card's host, with no lark loaded; (b) a 3-factor
+           CompositionalPrompt (main prompt, an AND factor on the left half
+           at scale 1.5, a NOT factor off the top third at 0.5) at b1, DDIM
+           20, with uc blur (k 7, 5 rounds), eps dynamic thresholding, the
+           dynamic scale clip and clip_sample: UNet batch 4, so K4 takes
+           the 22 convs a call; one guided eps of the same spec at a 16x16
+           latent held to the CPU plain twins; (c) the same spec at b4,
+           DDIM 10: UNet batch 16 (K1 over 128 head batches at S = 4096,
+           K2 at M = 65536, K3 at N = 16, no K4), peak memory; (d) the
+           manager's JSON API: process_txt2img of a WeightedPrompt ("a
+           cat:2.0 a dog:1.0", both subprompts in one CLIP batch) with DPM++
+           2M Karras 20 and a score corrector, and process_img2img of a
+           phase-2 image with a mask through RePaint (steps 10, jump_length
+           5, jump_n_sample 2; UNet calls from the jump walk); (e)
+           RenderEngine.render_path of a ComplexPrompt with a prompt lerp
+           (lerp_keys ["magnitude"]): 3 independent frames at b1, DDIM 10,
+           then 2 feedback frames. Every path's K1-K4 launches equal
+           ``unet_call_launches`` at its UNet batch (1 + K) x B times its
+           UNet calls. Phase 1 holds every distinct K1-K4 shape of a UNet
+           call at UNet batch 4 and 16 to its plain twin and times it
+           (kernel_cases' "ub4" and "ub16" groups, from
+           ``unet_batch_shapes``), with the step sums of K2, K3 and K4.
 
-Each path of phases 2 and 4 to 12 runs with every launch count set to 0
+Each path of phases 2, 4 to 12 and 14 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched (phase 12, render by render: K1's sm90 body 15 times, K2
 its plans' kernels for 16 calls, K3 61 calls and K4's sm90 body 22 times a
@@ -444,7 +468,9 @@ def phase1(dev, card: str) -> dict:
         PEAK_FLOPS,
         host_us,
         kernel_cases,
+        unet_batch_shapes,
     )
+    from complex_prompt_diffusion_tpu_torch.models import UNetConfig
 
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                       "library_ms": 0.0, "replaced_ms": None,
@@ -521,23 +547,29 @@ def phase1(dev, card: str) -> dict:
         if prior_ms is not None:
             sm["replaced_ms"] = (sm["replaced_ms"] or 0.0) + prior_ms
         torch.cuda.empty_cache()
-    for dt, body, prior in (("bf16", "sm90 K4", "mma.sync body"),
-                            ("f32", "K4's 3xTF32 body", "FMA body it replaced")):
-        # the 22 convs of one batch-1 UNet call, each shape times its count
+    for dt, ub, body, prior in (("bf16", 2, "sm90 K4", "mma.sync body"),
+                                ("f32", 2, "K4's 3xTF32 body", "FMA body it replaced"),
+                                ("bf16", 4, "sm90 K4", "mma.sync body")):
+        # the 22 convs of one UNet call at UNet batch 2 (a batch-1 step) or 4
+        # (a batch-1 step of a 3-factor prompt), each shape times its count
         sums = [0.0] * 4
         for (hw, c, co), n in zip(B1_UNET_CONVS, B1_UNET_CONV_COUNTS):
-            row = conv_rows.get(f"{dt} B2 {hw}x{hw} {c}->{co}")
+            row = conv_rows.get(f"{dt} B{ub} {hw}x{hw} {c}->{co}")
             if row is None:
                 break
             sums = [a + n * (b or 0.0) for a, b in zip(sums, row)]
         else:
-            print(f"phase1: the {sum(B1_UNET_CONV_COUNTS)} {dt} convs of a batch-1 UNet call: "
-                  f"{body} {sums[0]:.4f} ms, {prior} {sums[1]:.4f} ms, cuDNN {sums[2]:.4f} ms, "
-                  f"bound {sums[3]:.4f} ms ({100 * sums[3] / sums[0]:.1f}% of the kernel's "
-                  f"time; {card})")
+            print(f"phase1: the {sum(B1_UNET_CONV_COUNTS)} {dt} convs of a UNet call at UNet "
+                  f"batch {ub}: {body} {sums[0]:.4f} ms, {prior} {sums[1]:.4f} ms, cuDNN "
+                  f"{sums[2]:.4f} ms, bound {sums[3]:.4f} ms ({100 * sums[3] / sums[0]:.1f}% of "
+                  f"the kernel's time; {card})")
+    sd15 = UNetConfig.sd15()
     for dt, step, rows in (("bf16", "b4", GEGLU_ROWS[:4]), ("f32", "b4", GEGLU_ROWS[:4]),
-                           ("f32", "b1", GEGLU_B1_ROWS)):
-        # the 16 GEGLU FF calls of one CFG step (UNet batch 8 or 2), by level
+                           ("f32", "b1", GEGLU_B1_ROWS),
+                           ("bf16", "3-factor b1", unet_batch_shapes(sd15, 64, 4)["ff"]),
+                           ("bf16", "3-factor b4", unet_batch_shapes(sd15, 64, 16)["ff"])):
+        # the 16 GEGLU FF calls of one CFG step (UNet batch 8 or 2; 4 or 16
+        # for a 3-factor prompt), by level
         sums = [0.0] * 3
         for (m, c), n in zip(rows, GEGLU_B4_CALLS):
             row = ff_rows.get(f"{dt} M{m} C{c} H4 {4 * c}")
@@ -550,8 +582,9 @@ def phase1(dev, card: str) -> dict:
                   f"{'/'.join(f'M{m}' for m, _ in rows)}): K2 {sums[0]:.4f} ms, plain twin "
                   f"{sums[1]:.4f} ms, bound {sums[2]:.4f} ms ({100 * sums[2] / sums[0]:.1f}% of "
                   f"K2's time; {card})")
-    for ub, step in ((8, "b4"), (2, "b1")):
-        # the 61 GroupNorms of one CFG step (UNet batch 2 x batch), by shape
+    for ub, step in ((8, "b4"), (2, "b1"), (4, "3-factor b1"), (16, "3-factor b4")):
+        # the 61 GroupNorms of one CFG step (UNet batch (1 + factors) x
+        # batch), by shape
         sums = [0.0] * 4
         for (side, c), n in zip(GN_UNET_PLANES, GN_B4_CALLS):
             row = gn_rows.get(f"bf16 {ub}x{side}x{side}x{c} silu")
@@ -1141,49 +1174,65 @@ def phase8(bundle, image, card: str, steps: int) -> dict:
     return launches
 
 
-class UnetCalls:
-    """Counts UNet calls: wraps ``models.unet_apply``, which the pipeline
-    calls through the module, while the block runs."""
+class ModelCalls:
+    """Records the batch of every call of ``models.<name>``, which the
+    pipeline calls through the module, while the block runs: wraps it and
+    reads the batch of the third argument (the UNet's x, CLIP's tokens)."""
+
+    def __init__(self, name: str):
+        self.name = name
 
     def __enter__(self):
         from complex_prompt_diffusion_tpu_torch import models as M
 
-        self.n, self._models, self._inner = 0, M, M.unet_apply
+        self.batches, self._models, self._inner = [], M, getattr(M, self.name)
 
-        def counted(*args, **kwargs):
-            self.n += 1
-            return self._inner(*args, **kwargs)
+        def counted(cfg, params, x, *args, **kwargs):
+            self.batches.append(int(x.shape[0]))
+            return self._inner(cfg, params, x, *args, **kwargs)
 
-        M.unet_apply = counted
+        setattr(M, self.name, counted)
         return self
 
+    @property
+    def n(self) -> int:
+        return len(self.batches)
+
     def __exit__(self, *exc):
-        self._models.unet_apply = self._inner
+        setattr(self._models, self.name, self._inner)
 
 
-def check_b1_unet_calls(launches: dict, calls: int, decodes: int, encodes: int,
-                        what: str) -> None:
-    """A batch-1 bf16 path of ``calls`` UNet calls (UNet batch 2 under CFG),
-    ``decodes`` bf16 decodes and ``encodes`` bf16 encodes: every
-    self-attention site on K1's sm90 body, every GEGLU FF on K2's bf16 body,
-    every GroupNorm on K3's Hopper body, every conv on K4's sm90 body, each
-    with exactly the launches its calls imply (so none ran a plain twin),
-    and nothing on the f32 bodies, K5 or the probes."""
-    want_attn = UNET_SELF_ATTN_SITES * calls
-    want_conv = UNET_CONVS_PER_CALL_B1 * calls
-    if launches["attention_sm90"] != want_attn:
-        raise SmokeFailure(f"K1's sm90 body launched {launches['attention_sm90']} times in "
-                           f"{what}, want {UNET_SELF_ATTN_SITES} x {calls} UNet calls")
-    if launches["conv3x3"] != want_conv or launches["conv3x3_sm90"] != want_conv:
-        raise SmokeFailure(f"K4 launched {launches['conv3x3']} times in {what}, its sm90 body "
-                           f"{launches['conv3x3_sm90']}: want {UNET_CONVS_PER_CALL_B1} x {calls} "
-                           f"UNet calls, all on the sm90 body")
-    check_geglu(launches, 1, calls, what)
+def check_unet_path(launches: dict, unet_cfg, ub: int, calls: int, decodes: int, encodes: int,
+                    what: str, batch: int = 1, latent: int = 64,
+                    decode_dtype: str = "bfloat16") -> None:
+    """A bf16 path of ``calls`` UNet calls at UNet batch ``ub`` (a ``latent``
+    x ``latent`` input), ``decodes`` decodes at ``batch`` and ``encodes``
+    bf16 encodes at batch 1: K1's sm90 body, K2, K3 and K4 (its sm90 body)
+    with exactly the launches ``unet_call_launches`` predicts a call times
+    the calls (so none ran a plain twin); the VAE mid-block on K1's wide
+    body once a bf16 decode and an encode, or on its 3xTF32 body once an f32
+    decode (``decode_dtype``); nothing on the other f32 bodies, K5 or the
+    probes."""
+    from complex_prompt_diffusion_tpu_torch.ops.attention import f32_sm90_launches
+
+    per = unet_call_launches(unet_cfg, latent, ub)
+    s = latent * latent  # the VAE mid-block's tokens
+    f32_decode = decode_dtype == "float32"
+    want_f32 = decodes * f32_sm90_launches(batch, 1, s, s) if f32_decode else 0
+    want = {"attention_sm90": per["k1"] * calls, "attention_f32_sm90": want_f32,
+            "geglu_ff": per["k2"] * calls, "conv3x3": per["k4"] * calls,
+            "conv3x3_sm90": per["k4_sm90"] * calls}
+    got = {k: launches[k] for k in want}
+    if got != want or per["k3"] != UNET_GN_CALLS:
+        raise SmokeFailure(f"{what} ({calls} UNet calls at UNet batch {ub}) launched {got}: want "
+                           f"{want} ({per} a call)")
     check_gn(launches, calls, decodes, encodes, what)
-    check_wide(launches, decodes + encodes, 1, what)
-    others = {n: launches[n] for n in ("attention_f32_sm90", "attention_f32_fused_sm90",
-                                       "conv3x3_f32_sm90", "geglu_ff_f32_sm90",
-                                       "attention_cm") + PROBES if launches[n]}
+    if decodes and encodes and batch != 1:
+        raise SmokeFailure("check_unet_path: decodes at batch > 1 with encodes")
+    check_wide(launches, 0 if f32_decode else decodes + encodes, batch, what, s=s)
+    others = {n: launches[n] for n in ("attention_f32_fused_sm90", "conv3x3_f32_sm90",
+                                       "geglu_ff_f32_sm90", "attention_cm") + PROBES
+              if launches[n]}
     if others:
         raise SmokeFailure(f"{what} launched kernels off its path: {others}")
 
@@ -1247,7 +1296,7 @@ def phase12(bundle, image, card: str) -> dict:
                            batch_size=1, seed=0, **fields)
         reset_launches()
         torch.cuda.synchronize()
-        with UnetCalls() as unet:
+        with ModelCalls("unet_apply") as unet:
             t0 = time.perf_counter()
             _, latents = txt2img(bundle, "a lighthouse on a cliff at sunset", cfg=cfg,
                                  decode=False)
@@ -1268,7 +1317,7 @@ def phase12(bundle, image, card: str) -> dict:
                                    f"iteration, at most {ADAPTIVE_MAX_ITERS} iterations")
         elif calls != nfe:
             raise SmokeFailure(f"{label} made {calls} UNet calls, its sampler implies {nfe}")
-        check_b1_unet_calls(launches, calls, 1, 0, f"the {label} render")
+        check_unet_path(launches, bundle.unet_cfg, 2, calls, 1, 0, f"the {label} render")
         add(launches)
         print(f"phase12: {label} 512x512 b1 {SAMPLER_STEPS} steps CFG 7.5 on {card}: NFE "
               f"{calls}{' (data-dependent)' if nfe is None else ''}, UNet calls {calls}; K1 "
@@ -1300,7 +1349,7 @@ def phase12(bundle, image, card: str) -> dict:
     ucs = np.full(itables.num_steps, 7.5)
     reset_launches()
     torch.cuda.synchronize()
-    with UnetCalls() as unet, torch.inference_mode():
+    with ModelCalls("unet_apply") as unet, torch.inference_mode():
         t0 = time.perf_counter()
         z0 = encode_image(bundle, image)
         x_T = ddim_encode(eps_fn, z0, itables, itables.num_steps, ucs)
@@ -1313,7 +1362,7 @@ def phase12(bundle, image, card: str) -> dict:
         raise SmokeFailure(f"the DDIM inversion round trip made {calls} UNet calls, want "
                            f"{2 * itables.num_steps}")
     check_latents(back, (1, 64, 64, 4))
-    check_b1_unet_calls(launches, calls, 0, 1, "the DDIM inversion round trip")
+    check_unet_path(launches, bundle.unet_cfg, 2, calls, 0, 1, "the DDIM inversion round trip")
     add(launches)
     rel = float((back - z0).norm() / z0.norm())
     print(f"phase12: DDIM inversion round trip of a phase-2 image's latents at b1, "
@@ -1681,7 +1730,6 @@ def phase13(dev, card: str) -> dict:
     from complex_prompt_diffusion_tpu_torch import convert
     from complex_prompt_diffusion_tpu_torch import models as M
     from complex_prompt_diffusion_tpu_torch import schedules as S
-    from complex_prompt_diffusion_tpu_torch.ops.attention import f32_sm90_launches
     from complex_prompt_diffusion_tpu_torch.pipeline import (
         RenderConfig,
         _tree_map,
@@ -1753,7 +1801,7 @@ def phase13(dev, card: str) -> dict:
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
-    with UnetCalls() as unet_calls:
+    with ModelCalls("unet_apply") as unet_calls:
         t0 = time.perf_counter()
         _, latents = txt2img(bundle, prompt, cfg=cfg, decode=False)
         torch.cuda.synchronize()
@@ -1765,25 +1813,11 @@ def phase13(dev, card: str) -> dict:
     calls = unet_calls.n
     check_latents(latents, (4, side, side, 4))
     check_image(images, (4, px, px, 3))
-    want_f32 = f32_sm90_launches(4, 1, s, s)
     nfe = S.make_inference_tables(bundle.tables, SD21_STEPS).num_steps
-    if (calls != nfe or launches["attention_sm90"] != per8["k1"] * calls
-            or launches["attention_f32_sm90"] != want_f32
-            or launches["attention"] != per8["k1"] * calls + want_f32):
-        raise SmokeFailure(f"the SD 2.1 b4 render made {calls} UNet calls and launched K1 "
-                           f"{launches['attention']} times, {launches['attention_sm90']} on the "
-                           f"sm90 body, {launches['attention_f32_sm90']} on the 3xTF32 body: want "
-                           f"{nfe} calls, {per8['k1']} a call on the sm90 body and the f32 "
-                           f"d=512 mid-block at S = {s} on the 3xTF32 body ({want_f32} kernels)")
-    if launches["geglu_ff"] != per8["k2"] * calls or launches["geglu_ff_f32_sm90"]:
-        raise SmokeFailure(f"K2 launched {launches['geglu_ff']} kernels in the SD 2.1 b4 render "
-                           f"({launches['geglu_ff_f32_sm90']} on its f32 body): want "
-                           f"{per8['k2']} a call by its plans, all bf16")
-    check_gn(launches, calls, 1, 0, "the SD 2.1 b4 render")
-    others = {n: launches[n] for n in ("attention_f32_fused_sm90", "attention_bf16_wide_sm90",
-                                       "conv3x3", "attention_cm") + PROBES if launches[n]}
-    if others:
-        raise SmokeFailure(f"the SD 2.1 b4 render launched kernels off its path: {others}")
+    if calls != nfe:
+        raise SmokeFailure(f"the SD 2.1 b4 render made {calls} UNet calls, want {nfe}")
+    check_unet_path(launches, bundle.unet_cfg, 8, calls, 1, 0, "the SD 2.1 b4 render", batch=4,
+                    latent=side, decode_dtype="float32")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"phase13: SD 2.1-v txt2img {px}x{px} b4 DDIM {SD21_STEPS} steps CFG 7.5, bf16 UNet, "
           f"exact-f32 decode (TF32 off) on {card}: sampling {t1 - t0:.3f} s = "
@@ -1807,7 +1841,7 @@ def phase13(dev, card: str) -> dict:
                        guidance_scale=7.5, width=px, height=px, batch_size=1, seed=1)
     reset_launches()
     torch.cuda.synchronize()
-    with UnetCalls() as unet_calls:
+    with ModelCalls("unet_apply") as unet_calls:
         t0 = time.perf_counter()
         _, latents = txt2img(bundle16, prompt, cfg=cfg, decode=False)
         torch.cuda.synchronize()
@@ -1822,20 +1856,10 @@ def phase13(dev, card: str) -> dict:
     calls = unet_calls.n
     check_latents(latents, (1, side, side, 4))
     check_image(images, (1, px, px, 3))
-    if (calls != SD21_K_STEPS or launches["attention_sm90"] != per2["k1"] * calls
-            or launches["conv3x3"] != per2["k4"] * calls
-            or launches["conv3x3_sm90"] != per2["k4"] * calls
-            or launches["geglu_ff"] != per2["k2"] * calls):
-        raise SmokeFailure(f"the SD 2.1 b1 render made {calls} UNet calls and launched {launches}: "
-                           f"want {SD21_K_STEPS} calls, each with {per2['k1']} K1 sm90 launches, "
-                           f"{per2['k4']} K4 convs on the sm90 body, {per2['k2']} K2 kernels")
-    check_gn(launches, calls, 1, 0, "the SD 2.1 b1 render")
-    check_wide(launches, 1, 1, "the SD 2.1 b1 render", s=s)
-    others = {n: launches[n] for n in ("attention_f32_sm90", "attention_f32_fused_sm90",
-                                       "conv3x3_f32_sm90", "geglu_ff_f32_sm90",
-                                       "attention_cm") + PROBES if launches[n]}
-    if others:
-        raise SmokeFailure(f"the SD 2.1 b1 render launched kernels off its path: {others}")
+    if calls != SD21_K_STEPS:
+        raise SmokeFailure(f"the SD 2.1 b1 render made {calls} UNet calls, want {SD21_K_STEPS}")
+    check_unet_path(launches, bundle.unet_cfg, 2, calls, 1, 0, "the SD 2.1 b1 render",
+                    latent=side)
     print(f"phase13: SD 2.1-v txt2img {px}x{px} b1 DPM++ 2M Karras {SD21_K_STEPS} steps CFG 7.5 "
           f"(the v denoiser), bf16 UNet and decode, on {card}: seconds to first image "
           f"{t2 - t0:.3f} s end to end (incl. prompt encode and first-call warm-up), "
@@ -1855,7 +1879,6 @@ def phase13(dev, card: str) -> dict:
     x = torch.randn((2, 24, 24, 4), generator=g)
     t = torch.tensor([801, 801])
     ctx = torch.randn((2, 77, clip_cfg.hidden_size), generator=g)
-    per = unet_call_launches(bundle.unet_cfg, 24, 2)
     reset_launches()
     with torch.inference_mode():
         got = M.unet_apply(bundle.unet_cfg, bundle.unet_params, x.to(dev), t.to(dev),
@@ -1868,13 +1891,256 @@ def phase13(dev, card: str) -> dict:
           f"64; 36, 9 on the short path), bf16 weights, CUDA kernels vs CPU plain twins: rel L2 "
           f"{rel:.3e} (tol 5e-2, bf16); K1 sm90 {n['attention_sm90']}, K4 {n['conv3x3']} "
           f"({n['conv3x3_sm90']} sm90), K2 {n['geglu_ff']} ({card})", flush=True)
-    if (n["attention_sm90"] != per["k1"] or n["conv3x3"] != per["k4"]
-            or n["conv3x3_sm90"] != per["k4_sm90"] or n["geglu_ff"] != per["k2"]):
-        raise SmokeFailure(f"the 24x24 SD 2.1 UNet eval launched {n}: want {per}")
+    check_unet_path(n, bundle.unet_cfg, 2, 1, 0, 0, "the 24x24 SD 2.1 UNet eval", latent=24)
     if not rel <= 5e-2:
         raise SmokeFailure(f"the SD 2.1 UNet's kernel path disagrees with the plain path: "
                            f"{rel:.3e}")
     paths["sd21_unet_eval_24"] = n
+    return paths
+
+
+# phase 14: the reference's schedule table (tests/test_torch_prompts.py holds
+# it against the JAX package's lark parser), at 10 steps
+SCHEDULE_TABLE = (
+    ("test", [[10, "test"]]),
+    ("a [b:3]", [[3, "a "], [10, "a b"]]),
+    ("a [b: 3]", [[3, "a "], [10, "a b"]]),
+    ("a [[[b]]:2]", [[2, "a "], [10, "a [[b]]"]]),
+    ("[(a:2):3]", [[3, ""], [10, "(a:2)"]]),
+    ("a [b : c : 1] d", [[1, "a b  d"], [10, "a  c  d"]]),
+    ("a[b:[c:d:2]:1]e", [[1, "abe"], [2, "ace"], [10, "ade"]]),
+    ("a [unbalanced", [[10, "a [unbalanced"]]),
+    ("a [b:.5] c", [[5, "a  c"], [10, "a b c"]]),
+    ("a [{b|d{:.5] c", [[10, "a [{b|d{:.5] c"]]),
+    ("((a][:b:c [d:3]", [[3, "((a][:b:c "], [10, "((a][:b:c d"]]),
+)
+PROMPT_STEPS = 20  # DDIM steps of phase 14's b1 3-factor render
+PROMPT_B4_STEPS = 10  # and of its b4 one
+RENDER_STEPS = 10  # DDIM steps of the render engine's frames
+
+
+def phase14(bundle, image, card: str) -> dict:
+    """The prompt algebra at full width (bf16 UNet and VAE, 512x512): (a) the
+    schedule grammar, (b) a 3-factor masked prompt with the guidance
+    switches at b1 and one guided eps against the CPU twins, (c) the same
+    spec at b4, (d) the manager's JSON API (txt2img of a weighted prompt,
+    img2img with a mask through RePaint), (e) the render engine, independent
+    and feedback frames. Returns the launch counts by path."""
+    import numpy as np
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch.guidance import (
+        GuidanceConfig,
+        GuidanceSpec,
+        cfg_epsilon,
+    )
+    from complex_prompt_diffusion_tpu_torch.manager import DiffusionModelManager
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        RenderConfig,
+        _tree_map,
+        decode_latents,
+        txt2img,
+    )
+    from complex_prompt_diffusion_tpu_torch.prompts import (
+        ComplexPrompt,
+        CompositionalPrompt,
+        expand_schedule,
+    )
+    from complex_prompt_diffusion_tpu_torch.render import RenderEngine
+    from complex_prompt_diffusion_tpu_torch.samplers.repaint import repaint_rows
+
+    paths = {}
+
+    # (a) the schedule grammar, parsed by the port's own parser
+    bad = [(p, expand_schedule(p, 10), want) for p, want in SCHEDULE_TABLE
+           if expand_schedule(p, 10) != want]
+    if bad or "lark" in sys.modules:
+        raise SmokeFailure(f"the schedule grammar: {bad[:3]}; lark loaded: "
+                           f"{'lark' in sys.modules}")
+    print(f"phase14: the schedule grammar's table, {len(SCHEDULE_TABLE)} prompts at 10 steps: "
+          f"every expansion as expected, no lark loaded ({card})", flush=True)
+
+    # (b) a 3-factor prompt at b1 with every guidance switch
+    def three_factor():
+        p = CompositionalPrompt("a castle on a hill at dawn", negative_prompt="blurry",
+                                bundle=bundle)
+        p.add_conjunction("a red dragon", scale=1.5, mask="left_half_valid")
+        p.add_negation("fog", scale=0.5, mask="top_third_hidden")
+        return p
+
+    gcfg = GuidanceConfig(guidance_scale=7.5, uc_blur=True, uc_blur_k=7, uc_blur_rounds=5,
+                          threshold_e="dynamic_thresholding", dynamic_scale_clip=True)
+    prompt = three_factor()
+    spec = prompt.build_spec(64, 64)
+    if tuple(spec.masks.shape) != (3, 64, 64, 1) or spec.scales.tolist() != [1.0, 1.5, -0.5]:
+        raise SmokeFailure(f"the 3-factor spec: masks {list(spec.masks.shape)}, scales "
+                           f"{spec.scales.tolist()}")
+
+    def render(label, cfg, batch, spec_):
+        """The render twice: the first call (the new shapes' first launches
+        and plans) and again, warm; each a path with its own counts.
+        Returns the first's launch counts."""
+        out = []
+        for run in ("first call", "again, warm"):
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats(bundle.device)
+            torch.cuda.synchronize()
+            with ModelCalls("unet_apply") as unet:
+                t0 = time.perf_counter()
+                _, latents = txt2img(bundle, spec_, cfg=cfg, decode=False)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                images = decode_latents(bundle, latents)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            launches = read_launches()
+            check_latents(latents, (batch, 64, 64, 4))
+            check_image(images, (batch, 512, 512, 3))
+            ub = (1 + spec_.num_factors) * batch
+            if unet.n != cfg.steps:
+                raise SmokeFailure(f"{label} made {unet.n} UNet calls, want {cfg.steps}")
+            check_unet_path(launches, bundle.unet_cfg, ub, unet.n, 1, 0, label, batch)
+            out.append(launches)
+            peak = torch.cuda.max_memory_allocated(bundle.device) / 2**30
+            print(f"phase14: {label} ({run}) on {card}: UNet batch {ub}, {unet.n} UNet calls, "
+                  f"sampling {t1 - t0:.3f} s = {(t1 - t0) / cfg.steps:.4f} s/step, render with "
+                  f"bf16 decode {t2 - t0:.3f} s wall, peak memory {peak:.2f} GiB; K1 sm90 "
+                  f"{launches['attention_sm90']}, K2 {launches['geglu_ff']}, K3 "
+                  f"{launches['group_norm']} kernels for {launches['group_norm calls']} calls, K4 "
+                  f"{launches['conv3x3']} ({launches['conv3x3_sm90']} sm90); latents std "
+                  f"{float(latents.std()):.4f}", flush=True)
+        return out[0]
+
+    cfg = RenderConfig(steps=PROMPT_STEPS, sampler="DDIM", width=512, height=512, batch_size=1,
+                       seed=3, clip_sample="dynamic_thresholding", guidance=gcfg)
+    paths["prompt_3factor_b1"] = render(
+        f"3-factor CompositionalPrompt txt2img 512x512 b1 DDIM {PROMPT_STEPS}, uc blur k 7 x 5 "
+        f"rounds, dynamic thresholding of eps, dynamic scale clip, clip_sample", cfg, 1, spec)
+
+    # one guided eps of the same prompt (masks at a 16x16 latent), CUDA
+    # kernels against the CPU plain twins on copies of the same weights
+    cpu = torch.device("cpu")
+    spec16 = prompt.build_spec(16, 16)
+    spec16_cpu = GuidanceSpec(*(getattr(spec16, f).to(cpu) for f in
+                                ("uncond", "factors", "scales", "masks")))
+    g = torch.Generator(device=cpu).manual_seed(23)
+    x = torch.randn((1, 16, 16, 4), generator=g)
+    params_cpu = _tree_map(lambda a: a.to(cpu), bundle.unet_params)
+
+    def unet_on(params):
+        return lambda x_, t_, ctx: M.unet_apply(bundle.unet_cfg, params, x_, t_, ctx)
+
+    reset_launches()
+    with torch.inference_mode():
+        got = cfg_epsilon(unet_on(bundle.unet_params), x.to(bundle.device), 801, spec16, 7.5,
+                          gcfg=gcfg, uc_blur_on=True).cpu()
+        n = read_launches()
+        want = cfg_epsilon(unet_on(params_cpu), x, 801, spec16_cpu, 7.5, gcfg=gcfg,
+                           uc_blur_on=True)
+    del params_cpu
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    max_rel = rel_err(got, want)[1]
+    print(f"phase14: one guided eps of the 3-factor spec (16x16 latent, UNet batch 4, every "
+          f"switch on, blur on), CUDA kernels vs CPU plain twins: rel L2 {rel:.3e}, max abs / "
+          f"max {max_rel:.3e} (tol 2e-2, bf16); K1 sm90 {n['attention_sm90']}, K4 "
+          f"{n['conv3x3']} ({n['conv3x3_sm90']} sm90), K2 {n['geglu_ff']} ({card})", flush=True)
+    check_unet_path(n, bundle.unet_cfg, 4, 1, 0, 0, "the 16x16 guided eps", latent=16)
+    if not rel <= TOL["bfloat16"]:
+        raise SmokeFailure(f"the guided eps's kernel path disagrees with the plain path: {rel:.3e}")
+
+    # (c) the same spec at b4: UNet batch 16
+    cfg4 = dataclasses.replace(cfg, steps=PROMPT_B4_STEPS, batch_size=4)
+    paths["prompt_3factor_b4"] = render(
+        f"3-factor CompositionalPrompt txt2img 512x512 b4 DDIM {PROMPT_B4_STEPS}, the same "
+        f"switches", cfg4, 4, spec)
+    if paths["prompt_3factor_b4"]["conv3x3"]:
+        raise SmokeFailure("UNet batch 16 ran K4: its gate admits batch <= 4 only")
+    torch.cuda.empty_cache()
+
+    # (d) the manager's JSON API
+    mgr = DiffusionModelManager(bundle=bundle)
+    config = {"sampler": {"name": "DPM++ 2m"},
+              "prompt_json": {"class": "WeightedPrompt", "prompt": "a cat:2.0 a dog:1.0"},
+              "render": {"steps": 20, "W": 512, "H": 512, "scheduler": "karras", "seed": 4,
+                         "score_corrector": "dynamic_thresholding"}}
+    reset_launches()
+    torch.cuda.synchronize()
+    with ModelCalls("unet_apply") as unet, ModelCalls("clip_text_apply") as clip:
+        t0 = time.perf_counter()
+        images = mgr.process_txt2img(config)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    launches = read_launches()
+    check_image(images, (1, 512, 512, 3))
+    if unet.n != 20 or sorted(clip.batches) != [1, 2]:
+        raise SmokeFailure(f"process_txt2img made {unet.n} UNet calls and CLIP calls of batch "
+                           f"{clip.batches}: want 20, and [2, 1] (the subprompts in one batch)")
+    check_unet_path(launches, bundle.unet_cfg, 2, unet.n, 1, 0, "the manager's txt2img")
+    paths["manager_txt2img_weighted_dpmpp2m"] = launches
+    print(f"phase14: manager process_txt2img of a WeightedPrompt JSON ('a cat:2.0 a dog:1.0') "
+          f"512x512 b1 DPM++ 2M Karras 20, score corrector -> dynamic thresholding of eps, on "
+          f"{card}: {t1 - t0:.3f} s wall = {(t1 - t0) / 20:.4f} s/step with the bf16 decode; "
+          f"CLIP calls of batch {clip.batches}; {unet.n} UNet calls at UNet batch 2", flush=True)
+
+    mask = np.ones((512, 512), np.float32)
+    mask[100:412, 150:470] = 0.0  # repaint this block; its edges off the 8-pixel grid
+    config = {"sampler": {"name": "DDIM"}, "prompt": "a stone bridge over a river",
+              "jump_length": 5, "jump_n_sample": 2,
+              "render": {"steps": 10, "W": 512, "H": 512, "seed": 5}}
+    rows = repaint_rows(bundle.tables, 10, 5, 2)
+    want_calls = int(rows["reverse"].sum())
+    reset_launches()
+    torch.cuda.synchronize()
+    with ModelCalls("unet_apply") as unet:
+        t0 = time.perf_counter()
+        images = mgr.process_img2img(image, config, mask=mask)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    launches = read_launches()
+    check_image(images, (1, 512, 512, 3))
+    if unet.n != want_calls:
+        raise SmokeFailure(f"RePaint made {unet.n} UNet calls, its jump walk has {want_calls} "
+                           f"reverse transitions of {len(rows['t'])}")
+    check_unet_path(launches, bundle.unet_cfg, 2, unet.n, 1, 1, "the manager's RePaint")
+    paths["manager_img2img_repaint"] = launches
+    print(f"phase14: manager process_img2img with a mask (RePaint, steps 10, jump_length 5, "
+          f"jump_n_sample 2: {len(rows['t'])} transitions, {want_calls} reverse) of a phase-2 "
+          f"image 512x512 b1, bf16 encode and decode, on {card}: {t1 - t0:.3f} s wall; "
+          f"{unet.n} UNet calls at UNet batch 2 = {(t1 - t0) / unet.n:.4f} s a call", flush=True)
+
+    # (e) the render engine along a prompt lerp
+    def lerp_prompt():
+        p = ComplexPrompt("a red cube on a wooden table", "blurry", bundle=bundle)
+        return p.add_prompt_lerp("a blue sphere on a wooden table", magnitude=0.9,
+                                 lerp_keys=["magnitude"])
+
+    rcfg = RenderConfig(steps=RENDER_STEPS, sampler="DDIM", width=512, height=512, seed=6)
+    for label, frames_n, kw, calls_want in (
+            ("independent", 3, {}, 3 * RENDER_STEPS),
+            ("feedback", 2, dict(feedback=True),
+             RENDER_STEPS + max(1, int((1 - rcfg.denoising_strength) * RENDER_STEPS)))):
+        reset_launches()
+        torch.cuda.synchronize()
+        with ModelCalls("unet_apply") as unet:
+            t0 = time.perf_counter()
+            frames = RenderEngine(bundle, rcfg).render_path(lerp_prompt(), frames_n, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        launches = read_launches()
+        if len(frames) != frames_n or unet.n != calls_want:
+            raise SmokeFailure(f"render_path ({label}) gave {len(frames)} frames with {unet.n} "
+                               f"UNet calls: want {frames_n} and {calls_want}")
+        for f in frames:
+            check_image(f[None], (1, 512, 512, 3))
+        check_unet_path(launches, bundle.unet_cfg, 2, unet.n, frames_n, 0,
+                        f"render_path ({label})")
+        paths[f"render_path_{label}"] = launches
+        print(f"phase14: RenderEngine.render_path ({label}) of a ComplexPrompt with a prompt "
+              f"lerp (lerp_keys ['magnitude']): {frames_n} frames 512x512 b1 DDIM "
+              f"{RENDER_STEPS}, bf16 decode, on {card}: {t1 - t0:.3f} s wall = "
+              f"{(t1 - t0) / frames_n:.3f} s a frame; {unet.n} UNet calls = "
+              f"{(t1 - t0) / unet.n:.4f} s a call with the decodes", flush=True)
     return paths
 
 
@@ -1917,6 +2183,7 @@ def main(argv=None) -> int:
         bundle, dev, card, K_STEPS)
     paths["img2img_b1_euler_a_kcanon"] = phase8(bundle16, images[0], card, K_STEPS)
     paths["samplers_b1"] = phase12(bundle16, images[0], card)
+    paths.update(phase14(bundle16, images[0], card))
     for name in PROBES:
         if any(p[name] for p in paths.values()):
             raise SmokeFailure(f"the probe {name} was launched in a render: no layer "

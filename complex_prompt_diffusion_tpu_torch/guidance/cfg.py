@@ -5,15 +5,19 @@ Counterpart of ``complex_prompt_diffusion_tpu/guidance/cfg.py``:
   * the uncond and all K prompt factors go through ONE UNet call;
   * eps = e_uncond + scale_t * sum_k mask_k * scale_k * (e_k - e_uncond),
     with negative scales for "not" factors;
-  * optional per-step scale decay (:func:`make_uc_scale_schedule`);
+  * optional per-step scale decay (:func:`make_uc_scale_schedule`), the
+    dynamic scale clip of the guided sum, unconditional blur on the last
+    steps (:func:`make_uc_blur_schedule`: a host bool a step, so a step's
+    blur is a Python ``if``, no device read) and eps thresholding by the
+    score-corrector chain (``threshold.py``);
   * :func:`make_denoiser` wraps the eps model for the sigma-space
     (k-diffusion) samplers: input scaled by c_in, sigma mapped to a
     fractional timestep (:func:`sigma_to_t_cont`), output x - sigma * eps,
     or for a v-model c_skip * x + c_out * v.
 
-Unconditional blur, eps thresholding, the dynamic scale clip and
-attention-saliency guidance are not ported yet and raise
-NotImplementedError; depth conditioning is not ported yet.
+Attention-saliency guidance is not ported yet and raises
+NotImplementedError (it needs ``unet_apply(return_skips=True)``); depth
+conditioning is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,11 +28,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from complex_prompt_diffusion_tpu_torch.guidance.threshold import dynamic_clip, get_thresholder
+from complex_prompt_diffusion_tpu_torch.ops.blur import gaussian_blur
+
 __all__ = [
     "GuidanceSpec",
     "GuidanceConfig",
     "cfg_epsilon",
     "make_uc_scale_schedule",
+    "make_uc_blur_schedule",
     "stacked_context",
     "sigma_to_t_cont",
     "make_denoiser",
@@ -89,14 +97,7 @@ class GuidanceConfig:
 
     def unported(self) -> list:
         """Names of the switches that are on but not ported yet."""
-        return [
-            name for name, on in (
-                ("uc_blur", self.uc_blur),
-                ("threshold_e", bool(self.threshold_e)),
-                ("dynamic_scale_clip", self.dynamic_scale_clip),
-                ("attn_guide", self.attn_guide),
-            ) if on
-        ]
+        return ["attn_guide"] if self.attn_guide else []
 
 
 def make_uc_scale_schedule(gcfg: GuidanceConfig, total_steps: int) -> np.ndarray:
@@ -119,6 +120,20 @@ def make_uc_scale_schedule(gcfg: GuidanceConfig, total_steps: int) -> np.ndarray
                 )
             out[t_idx] = uc
     return out
+
+
+def make_uc_blur_schedule(gcfg: GuidanceConfig, total_steps: int) -> np.ndarray:
+    """Per-step blur flag [S] (host bools): blur the unconditional eps when
+    t_idx > total_steps - rounds (rounds default total_steps // 10)."""
+    if not gcfg.uc_blur:
+        return np.zeros(total_steps, dtype=bool)
+    rounds = (
+        gcfg.uc_blur_rounds
+        if gcfg.uc_blur_rounds is not None
+        else total_steps // 10
+    )
+    t_idx = np.arange(total_steps)
+    return t_idx > (total_steps - rounds)
 
 
 def stacked_context(spec: GuidanceSpec, batch_size: int) -> torch.Tensor:
@@ -145,12 +160,18 @@ def cfg_epsilon(
     uc_scale,
     *,
     gcfg: GuidanceConfig = GuidanceConfig(),
+    uc_blur_on: Optional[bool] = None,
 ) -> torch.Tensor:
     """One guided eps evaluation.
 
     unet_eps(x_in, t_in, context) -> eps, with x_in [(1+K)*B, H, W, C],
     t_in [(1+K)*B], context [(1+K)*B, L, D]. x: [B, H, W, C]; t: scalar or
-    [B]; uc_scale: this step's guidance scale.
+    [B]; uc_scale: this step's guidance scale. ``uc_blur_on`` (a host bool,
+    the t family's per-step flag; None elsewhere): blur the unconditional
+    eps with ``gcfg.uc_blur_k`` before the sum, when ``gcfg.uc_blur``.
+    Then eps = e_uncond + scale * e_sum, the scaled sum divided by its
+    dynamic clip first (``dynamic_scale_clip``), the result thresholded by
+    ``threshold_e``.
     """
     unported = gcfg.unported()
     if unported:
@@ -161,9 +182,17 @@ def cfg_epsilon(
     out = unet_eps(x_in, t_in, ctx_in)
     out = out.reshape((1 + k, b) + tuple(out.shape[1:]))
     e_uncond = out[0]
+    if gcfg.uc_blur and uc_blur_on:
+        e_uncond = gaussian_blur(e_uncond, gcfg.uc_blur_k)
     weights = spec.scales.reshape(k, 1, 1, 1, 1) * spec.masks[:, None]
     e_sum = torch.sum(weights * (out[1:] - e_uncond[None]), dim=0)
-    return e_uncond + uc_scale * e_sum
+    scaled = uc_scale * e_sum
+    if gcfg.dynamic_scale_clip:
+        scaled = dynamic_clip(scaled, gcfg.dynamic_scale_clip_threshold)
+    e_t = e_uncond + scaled
+    if gcfg.threshold_e:
+        e_t = get_thresholder(gcfg.threshold_e)(e_t, gcfg.threshold_e_value)
+    return e_t
 
 
 def sigma_to_t_cont(sigma, model_sigmas) -> np.ndarray:
@@ -190,7 +219,8 @@ def make_denoiser(
     """Build the two denoising closures the samplers consume.
 
     Returns (eps_fn, denoised_fn):
-      * eps_fn(x, t, uc_scale) — t-space (DDIM family).
+      * eps_fn(x, t, uc_scale, uc_blur_on=None) — t-space (DDIM family);
+        ``uc_blur_on`` is the step's host blur flag.
       * denoised_fn(x, sigma, uc_scale) — sigma-space (k-diffusion family):
         scales the input by c_in = 1/sqrt(sigma^2+1), converts sigma to a
         fractional timestep, and returns x - sigma * eps; with
@@ -203,8 +233,8 @@ def make_denoiser(
     if parameterization not in ("eps", "v"):
         raise ValueError(f"unknown parameterization {parameterization!r} (eps|v)")
 
-    def eps_fn(x, t, uc_scale):
-        return cfg_epsilon(unet_eps, x, t, spec, uc_scale, gcfg=gcfg)
+    def eps_fn(x, t, uc_scale, uc_blur_on=None):
+        return cfg_epsilon(unet_eps, x, t, spec, uc_scale, gcfg=gcfg, uc_blur_on=uc_blur_on)
 
     def denoised_fn(x, sigma, uc_scale):
         if model_sigmas is None:

@@ -27,9 +27,10 @@ do. Bundles come from a CompVis checkpoint
 YAML config (``config.py``), a saved bundle (:func:`load_bundle`), the JAX
 package, or random weights.
 
-Not ported yet, each raising NotImplementedError: the "Log" sampler (it
-needs the UNet's backward), tiled UNet, ToMe, DeepCache, CLIP and
-attention-saliency guidance.
+The guidance switches (uc blur, eps thresholding, the dynamic scale clip)
+and ``clip_sample`` are ported. Not ported yet, each raising
+NotImplementedError: the "Log" sampler (it needs the UNet's backward),
+tiled UNet, ToMe, DeepCache, CLIP and attention-saliency guidance.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from complex_prompt_diffusion_tpu_torch.guidance import (
     GuidanceConfig,
     GuidanceSpec,
     make_denoiser,
+    make_uc_blur_schedule,
     make_uc_scale_schedule,
     stacked_context,
 )
@@ -420,7 +422,6 @@ def _check_ported(bundle: ModelBundle, cfg: RenderConfig) -> None:
             ("unet_tile", cfg.unet_tile),
             ("tome_ratio", cfg.tome_ratio > 0.0),
             ("deepcache_interval", cfg.deepcache_interval >= 2),
-            ("clip_sample", bool(cfg.clip_sample)),
             (f"in_channels={bundle.unet_cfg.in_channels} (a concat-conditioned UNet: "
              "depth2img or inpaint)",
              bundle.unet_cfg.in_channels != bundle.unet_cfg.out_channels),
@@ -495,8 +496,8 @@ def _t_family_callback(eps_fn, itables, step_callback):
     a_t = np.asarray(itables.alphas_cumprod_t, np.float32)
     s1m = np.asarray(itables.sqrt_one_minus_alphas_cumprod_t, np.float32)
 
-    def eps_cb(x, t, uc_scale):
-        e_t = eps_fn(x, t, uc_scale)
+    def eps_cb(x, t, uc_scale, blur_on):
+        e_t = eps_fn(x, t, uc_scale, blur_on)
         t_host = np.asarray(t.cpu() if torch.is_tensor(t) else t).reshape(-1)[0]
         idx = int(np.clip(np.searchsorted(timesteps, t_host), 0, len(timesteps) - 1))
         x0 = (x[..., : e_t.shape[-1]] - float(s1m[idx]) * e_t) / float(np.sqrt(a_t[idx]))
@@ -544,7 +545,11 @@ def sample_latents(
     ``x_init`` when given. ``step_callback(t, x0)`` (numpy arrays) is called
     at every denoiser evaluation of the t and sigma families, as in the JAX
     package; the other families do not call it. A v-model's output is
-    converted as the module docstring says."""
+    converted as the module docstring says. The guidance switches of
+    ``cfg.guidance`` (dynamic scale clip, ``threshold_e``) apply in every
+    family; as in the JAX package, only the t family passes the
+    unconditional-blur flags (``uc_blur``) and takes ``cfg.clip_sample``,
+    the other families ignore both."""
     _check_ported(bundle, cfg)
     family, sample_fn = get_sampler(cfg.sampler)
     shape = (cfg.batch_size,) + cfg.latent_shape
@@ -630,7 +635,10 @@ def sample_latents(
     kw = {"t_start": t_start} if sample_fn is sample_ddim else {}
     x0, _ = sample_fn(
         eps_fn, x_T, itables, uc_scales,
-        generator=generator, noises=noises, temperature=cfg.temperature, **kw,
+        generator=generator, noises=noises,
+        uc_blur_flags=make_uc_blur_schedule(cfg.guidance, itables.num_steps),
+        temperature=cfg.temperature, clip_sample=cfg.clip_sample,
+        clip_sample_thresh=cfg.clip_sample_thresh, **kw,
     )
     return x0
 

@@ -1,7 +1,8 @@
 """Samplers of the port, by name through the registry: DDIM and PLMS (and
 DDIM inversion), the k-diffusion family and DPM Adaptive, the continuous-time
-DPM-Solver and UniPC, iPNDM and blur diffusion; ``callbacks`` holds the
-per-step preview hooks."""
+DPM-Solver and UniPC, iPNDM and blur diffusion. RePaint inpainting
+(``sample_repaint``) is driven by the manager's masked img2img, not by the
+registry; ``callbacks`` holds the per-step preview hooks."""
 
 from complex_prompt_diffusion_tpu_torch.samplers.blur import BlurDiffusion, sample_blur
 from complex_prompt_diffusion_tpu_torch.samplers.ddim import (
@@ -26,6 +27,7 @@ from complex_prompt_diffusion_tpu_torch.samplers.kdiff import (
     sample_heun,
     sample_lms,
 )
+from complex_prompt_diffusion_tpu_torch.samplers.repaint import sample_repaint
 from complex_prompt_diffusion_tpu_torch.samplers.registry import (
     SAMPLERS,
     get_sampler,
@@ -65,6 +67,7 @@ __all__ = [
     "sample_ipndm",
     "BlurDiffusion",
     "sample_blur",
+    "sample_repaint",
     "SAMPLERS",
     "get_sampler",
     "register",

@@ -11,6 +11,12 @@ improved Euler step with a second eps evaluation at t_next.
 RNG contract: per-step noise is either injected (``noises`` [S, ...], the
 mode tests use to hold two frameworks to one trajectory) or drawn from a
 ``torch.Generator``; with neither, the noise term is zero.
+
+``clip_sample`` thresholds pred_x0 with a thresholder of
+``guidance/threshold.py`` and re-derives eps from the clipped x0, as the
+JAX step does. The eps model takes the step's blur flag as its fourth
+argument, eps_fn(x, t, uc_scale, blur_on): ``uc_blur_flags`` (host bools,
+one a step), all False where none are given.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from complex_prompt_diffusion_tpu_torch.guidance.threshold import get_thresholder
 from complex_prompt_diffusion_tpu_torch.schedules import InferenceTables
 
 __all__ = ["DeviceTables", "ddim_step", "sample_ddim", "sample_plms", "ddim_encode"]
@@ -73,17 +80,21 @@ def ddim_step(
     *,
     temperature: float = 1.0,
     clip_sample: Optional[str] = None,
+    clip_sample_thresh: float = 90.0,
 ):
     """One reverse step x_t -> x_{t-1} (DDIM eq. 12). ``idx`` indexes the
     inference tables (S-1 = most noisy). Returns (x_prev, pred_x0); with
-    eta=0 tables the noise term vanishes."""
-    if clip_sample:
-        raise NotImplementedError("clip_sample thresholding is not ported yet")
+    eta=0 tables the noise term vanishes. ``clip_sample``: threshold pred_x0
+    by that thresholder at ``clip_sample_thresh`` and re-derive eps from it
+    (Glide-style)."""
     a_t = it.alphas_cumprod_t[idx]
     a_prev = it.alphas_cumprod_prev_t[idx]
     sqrt_1m_at = it.sqrt_one_minus_alphas_cumprod_t[idx]
     sigma_t = it.sigmas_t[idx]
     pred_x0 = (x - sqrt_1m_at * e_t) / torch.sqrt(a_t)
+    if clip_sample:
+        pred_x0 = get_thresholder(clip_sample)(pred_x0, clip_sample_thresh)
+        e_t = (x - torch.sqrt(a_t) * pred_x0) / sqrt_1m_at
     dir_xt = torch.sqrt(1.0 - a_prev - sigma_t**2) * e_t
     x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt + sigma_t * noise * temperature
     return x_prev, pred_x0
@@ -97,11 +108,14 @@ def sample_ddim(
     *,
     generator: Optional[torch.Generator] = None,
     noises=None,
+    uc_blur_flags=None,
     temperature: float = 1.0,
     clip_sample: Optional[str] = None,
+    clip_sample_thresh: float = 90.0,
     t_start: Optional[int] = None,
 ):
-    """Full reverse chain. eps_fn(x, t, uc_scale) -> eps.
+    """Full reverse chain. eps_fn(x, t, uc_scale, blur_on) -> eps, blur_on
+    from ``uc_blur_flags`` (host bools, one a step; all False by default).
 
     ``t_start``: run only the first ``t_start`` timesteps of the table, from
     table index ``t_start - 1`` down to 0 (the img2img decode path).
@@ -114,17 +128,26 @@ def sample_ddim(
         raise ValueError(f"t_start must be in [1, {it.num_steps}], got {t_start}")
     uc_scales = torch.as_tensor(uc_scales, dtype=torch.float32, device=device)
     noise_at = _noise_source(generator, noises, x_T.shape, device)
+    flags = _blur_flags(uc_blur_flags, s_run)
     x = x_T
     traj = []
     for i in range(s_run):
         idx = s_run - 1 - i
-        e_t = eps_fn(x, it.timesteps[idx], uc_scales[i])
+        e_t = eps_fn(x, it.timesteps[idx], uc_scales[i], flags[i])
         x, pred_x0 = ddim_step(
-            x, e_t, idx, it, noise_at(i),
-            temperature=temperature, clip_sample=clip_sample,
+            x, e_t, idx, it, noise_at(i), temperature=temperature,
+            clip_sample=clip_sample, clip_sample_thresh=clip_sample_thresh,
         )
         traj.append(pred_x0)
     return x, torch.stack(traj)
+
+
+def _blur_flags(uc_blur_flags, n: int) -> list:
+    """The steps' blur flags as host bools; ``n`` False where none are
+    given."""
+    if uc_blur_flags is None:
+        return [False] * n
+    return [bool(f) for f in np.asarray(uc_blur_flags)]
 
 
 def _plms_combine(e_t, old_eps):
@@ -145,10 +168,14 @@ def sample_plms(
     *,
     generator: Optional[torch.Generator] = None,
     noises=None,
+    uc_blur_flags=None,
     temperature: float = 1.0,
     clip_sample: Optional[str] = None,
+    clip_sample_thresh: float = 90.0,
 ):
-    """PLMS (PNDM) over the whole table. eps_fn(x, t, uc_scale) -> eps.
+    """PLMS (PNDM) over the whole table. eps_fn(x, t, uc_scale, blur_on) ->
+    eps, blur_on from ``uc_blur_flags`` (host bools, one a step, all False
+    by default; the first step's second evaluation takes step 0's flag).
 
     The first step is a pseudo improved Euler step: a DDIM step with e_t,
     a second eps evaluation at t_next, and the step again with their mean
@@ -163,10 +190,11 @@ def sample_plms(
     s = it.num_steps
     uc_scales = torch.as_tensor(uc_scales, dtype=torch.float32, device=device)
     noise_at = _noise_source(generator, noises, x_T.shape, device)
+    flags = _blur_flags(uc_blur_flags, s)
 
     def step(x, e, idx, noise):
         return ddim_step(x, e, idx, it, noise, temperature=temperature,
-                         clip_sample=clip_sample)
+                         clip_sample=clip_sample, clip_sample_thresh=clip_sample_thresh)
 
     x = x_T
     old_eps = []  # newest first
@@ -174,11 +202,11 @@ def sample_plms(
     for i in range(s):
         idx = s - 1 - i
         noise = noise_at(i)
-        e_t = eps_fn(x, it.timesteps[idx], uc_scales[i])
+        e_t = eps_fn(x, it.timesteps[idx], uc_scales[i], flags[i])
         if not old_eps:
             x_prev_1, _ = step(x, e_t, idx, noise)
             t_next = it.timesteps[max(idx - 1, 0)]
-            e_t_prime = (e_t + eps_fn(x_prev_1, t_next, uc_scales[i])) / 2
+            e_t_prime = (e_t + eps_fn(x_prev_1, t_next, uc_scales[i], flags[i])) / 2
         else:
             e_t_prime = _plms_combine(e_t, old_eps)
         x, pred_x0 = step(x, e_t_prime, idx, noise)
@@ -195,8 +223,9 @@ def ddim_encode(
     uc_scales,
 ):
     """Deterministic DDIM inversion, image -> noise: ``t_enc`` forward
-    steps up the table. eps_fn(x, t, uc_scale) -> eps. The step weights are
-    host f32 scalars, rounded where the JAX package's f32 arrays round."""
+    steps up the table. eps_fn(x, t, uc_scale, blur_on) -> eps, never
+    blurred, as in the JAX package. The step weights are host f32 scalars,
+    rounded where the JAX package's f32 arrays round."""
     ac_next_t = np.asarray(itables.alphas_cumprod_t, np.float32)
     ac_t = np.asarray(itables.alphas_cumprod_prev_t, np.float32)
     ucs = np.asarray(uc_scales, np.float32)
@@ -206,7 +235,7 @@ def ddim_encode(
     one = np.float32(1)
     x_next = x0
     for i in range(int(t_enc)):
-        e_t = eps_fn(x_next, timesteps[i], float(ucs[i]))
+        e_t = eps_fn(x_next, timesteps[i], float(ucs[i]), False)
         ac_next, ac = ac_next_t[i], ac_t[i]
         w_x = np.sqrt(ac_next / ac)
         w_eps = np.sqrt(ac_next) * (np.sqrt(one / ac_next - one) - np.sqrt(one / ac - one))

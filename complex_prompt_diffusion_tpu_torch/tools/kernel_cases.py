@@ -17,9 +17,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Case", "kernel_cases", "host_us", "unet_sites", "PEAK_FLOPS", "HBM_BYTES_PER_S",
-           "B1_UNET_CONVS", "B1_UNET_CONV_COUNTS", "GEGLU_ROWS", "GEGLU_B4_CALLS", "GEGLU_B1_ROWS",
-           "GN_UNET_PLANES", "GN_B4_CALLS", "GN_DECODE_PLANES", "SD21_LATENT"]
+__all__ = ["Case", "kernel_cases", "host_us", "unet_sites", "unet_batch_shapes", "PEAK_FLOPS",
+           "HBM_BYTES_PER_S", "B1_UNET_CONVS", "B1_UNET_CONV_COUNTS", "GEGLU_ROWS",
+           "GEGLU_B4_CALLS", "GEGLU_B1_ROWS", "GN_UNET_PLANES", "GN_B4_CALLS", "GN_DECODE_PLANES", "SD21_LATENT"]
 
 _PKG = "complex_prompt_diffusion_tpu_torch"
 
@@ -68,12 +68,14 @@ def unet_sites(cfg, latent: int) -> dict:
     transformer (its self-attention at S = side^2; its cross-attention over
     the 77 context tokens); "conv", (plane side, C, Co) of every stride-1
     3x3 conv (conv_in, a ResBlock's two, the up convs after their 2x
-    upsample, the out conv; the down convs have stride 2); "gn", the
-    GroupNorm count (two a ResBlock, one a transformer, the out norm)."""
+    upsample, the out conv; the down convs have stride 2); "gn_planes",
+    (plane side, C) of every GroupNorm (a ResBlock's in_norm over its input
+    and out_norm over its output, a transformer's norm, the out norm); "gn",
+    their count."""
     from complex_prompt_diffusion_tpu_torch.models.unet import build_plan
 
     input_plan, middle_plan, output_plan = build_plan(cfg)
-    sites = {"attn": [], "conv": [], "gn": 1}
+    sites = {"attn": [], "conv": [], "gn_planes": []}
     side = latent
 
     def walk(block):
@@ -84,10 +86,10 @@ def unet_sites(cfg, latent: int) -> dict:
                 sites["conv"].append((side, cfg.in_channels, cfg.model_channels))
             elif kind == "res":
                 sites["conv"] += [(side, desc[1], desc[2]), (side, desc[2], desc[2])]
-                sites["gn"] += 2
+                sites["gn_planes"] += [(side, desc[1]), (side, desc[2])]
             elif kind == "attn":
                 sites["attn"].append((side, desc[1], desc[2], desc[3]))
-                sites["gn"] += 1
+                sites["gn_planes"].append((side, desc[1]))
             elif kind == "down":
                 side //= 2
             elif kind == "up":
@@ -100,7 +102,32 @@ def unet_sites(cfg, latent: int) -> dict:
     for block in output_plan:
         walk(block)
     sites["conv"].append((side, cfg.model_channels, cfg.out_channels))
+    sites["gn_planes"].append((side, cfg.model_channels))
+    sites["gn"] = len(sites["gn_planes"])
     return sites
+
+
+def unet_batch_shapes(cfg, latent: int, ub: int) -> dict:
+    """Every distinct shape one bf16 UNet call of ``cfg`` on a ``latent`` x
+    ``latent`` input at UNet batch ``ub`` gives K1-K4, from its sites
+    (:func:`unet_sites`): "attn", (S, heads, head dim) of the self-attention
+    sites K1 takes (above ``SHORT_KV`` tokens); "ff", (M, C) of the GEGLU
+    FFs (K2); "gn", (N, side, side, C) of the GroupNorms (K3); "conv",
+    (side, C, Co) of the convs K4's gate admits at this batch."""
+    from complex_prompt_diffusion_tpu_torch.models.layers import conv3x3_wanted
+    from complex_prompt_diffusion_tpu_torch.ops.attention import SHORT_KV
+
+    sites = unet_sites(cfg, latent)
+    distinct = dict.fromkeys  # first-seen order, no repeats
+    return {
+        "attn": list(distinct((side * side, heads, d) for side, _, heads, d in sites["attn"]
+                              if side * side > SHORT_KV)),
+        "ff": list(distinct((ub * side * side, ch) for side, ch, _, _ in sites["attn"])),
+        "gn": list(distinct((ub, side, side, c) for side, c in sites["gn_planes"])),
+        "conv": list(distinct(
+            (side, c, co) for side, c, co in sites["conv"]
+            if conv3x3_wanted(torch.empty((ub, side, side, c), device="meta"), (co, c, 3, 3)))),
+    }
 
 
 class Case(NamedTuple):
@@ -144,7 +171,8 @@ def kernel_cases(dev, kernels=None) -> list:
                                          "group_norm", "conv3x3", "conv3x3_sm90",
                                          "conv3x3_f32_sm90",
                                          "attention_cm", "winograd", "probe_attention",
-                                         "probe_groupnorm", "probe_copy", "sd21"}
+                                         "probe_groupnorm", "probe_copy", "sd21", "ub4",
+                                         "ub16"}
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -424,6 +452,30 @@ def kernel_cases(dev, kernels=None) -> list:
             gn_case(shape, dt, eps)
         for c, co in ((1280, 1280), (2560, 1280)):
             conv_case("conv3x3_sm90", 2, 24, c, co, bf16)
+    for ub in (4, 16):
+        if f"ub{ub}" not in want:
+            continue
+        # every distinct K1-K4 shape of an SD-1.5 UNet call on a 64x64 latent
+        # at UNet batch 4 and 16 (a 3-factor prompt, (1 + 3) x B, at b1 and
+        # b4): K1's sm90 body at each self-attention level, on views of one
+        # qkv projection; K2 at each level's M; K3 on every GroupNorm plane
+        # (its replaced body beside it); K4 on the convs its gate admits
+        # (batch 4 only; the mma.sync body beside its sm90 body)
+        from complex_prompt_diffusion_tpu_torch.models import UNetConfig
+
+        shapes = unet_batch_shapes(UNetConfig.sd15(), 64, ub)
+        for s_, heads, d in shapes["attn"]:
+            qkv = randn(ub, s_, 3 * heads * d, dtype=bf16)
+            q, k, v = qkv.chunk(3, dim=-1)
+            attn_case(f"bf16 B{ub} S{s_} H{heads} d{d}", q, k, v, heads, "bfloat16",
+                      "attention_sm90")
+        for m, c in shapes["ff"]:
+            ff_case("geglu_ff", m, c, bf16)
+        for shape in shapes["gn"]:
+            gn_case(shape, bf16, 1e-5)
+        for side, c, co in shapes["conv"]:
+            conv_case("conv3x3_sm90" if C.k4_body(bf16, c, co) == "bf16_sm90" else "conv3x3",
+                      ub, side, c, co, bf16)
     # the probes (imported here: a source tree without them runs the cases
     # above); each at a shape of its TPU script, the tools/probe_*.py rows
     # time every variant

@@ -6,6 +6,7 @@ Run from the repository root on a machine with the GPU::
     python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --batch 4 --attn-route cm
     python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --batch 1 --unet-dtype float32 \
         --vae float32
+    python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --batch 4 --three-factor
 
 Builds the SD-1.5 bundle with random weights (seed 0), renders 512x512 at
 ``--batch`` with DDIM and CFG 7.5 for a few warm-up steps, then times
@@ -17,7 +18,12 @@ takes the UNet's self-attention through the default route (``bsc``: K1), the
 channel-major block (``cm``: K5 at levels 1 and 2) or the canonical-K route
 (``kcanon``: K5 at every site, behind its d-major copies). ``--unet-dtype
 float32`` casts the UNet to f32 (the exact-f32 render: K2's and K4's 3xTF32
-bodies, K1's fused 3xTF32 body), TF32 off.
+bodies, K1's fused 3xTF32 body), TF32 off. ``--three-factor`` guides by
+the 3-factor CompositionalPrompt of ``chip_smoke.py``'s phase 14 (an AND
+factor on the left half at scale 1.5, a NOT factor off the top third at
+0.5: UNet batch 4 x ``--batch``) with its switches on and the blur on in
+every step: uc blur (k 7, 5 rounds), dynamic thresholding of eps, the
+dynamic scale clip (the sampler's ``clip_sample`` is not in the step).
 """
 
 from __future__ import annotations
@@ -32,13 +38,18 @@ from collections import defaultdict
 import torch
 
 from complex_prompt_diffusion_tpu_torch import models as M
-from complex_prompt_diffusion_tpu_torch.guidance import cfg_epsilon, stacked_context
+from complex_prompt_diffusion_tpu_torch.guidance import (
+    GuidanceConfig,
+    cfg_epsilon,
+    stacked_context,
+)
 from complex_prompt_diffusion_tpu_torch.pipeline import (
     ModelBundle,
     RenderConfig,
     decode_latents,
     make_guidance_spec,
 )
+from complex_prompt_diffusion_tpu_torch.prompts import CompositionalPrompt
 
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
@@ -124,6 +135,8 @@ def main(argv=None) -> int:
                     help="route of the UNet's self-attention sites")
     ap.add_argument("--unet-dtype", default="bfloat16", choices=("bfloat16", "float32"),
                     help="UNet dtype (float32: the exact-f32 render)")
+    ap.add_argument("--three-factor", action="store_true",
+                    help="phase 14's 3-factor prompt with every guidance switch on")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -141,7 +154,17 @@ def main(argv=None) -> int:
         importlib.import_module(
             "complex_prompt_diffusion_tpu_torch.ops.attention")._USE_KCANON = True
     cfg = RenderConfig(steps=50, width=512, height=512, batch_size=args.batch, seed=0)
-    spec = make_guidance_spec(bundle, "a photograph of an astronaut riding a horse")
+    if args.three_factor:
+        prompt = CompositionalPrompt("a castle on a hill at dawn", negative_prompt="blurry",
+                                     bundle=bundle)
+        prompt.add_conjunction("a red dragon", scale=1.5, mask="left_half_valid")
+        prompt.add_negation("fog", scale=0.5, mask="top_third_hidden")
+        spec = prompt.build_spec(*cfg.latent_shape[:2])
+        gcfg = GuidanceConfig(guidance_scale=7.5, uc_blur=True, uc_blur_k=7, uc_blur_rounds=5,
+                              threshold_e="dynamic_thresholding", dynamic_scale_clip=True)
+    else:
+        spec = make_guidance_spec(bundle, "a photograph of an astronaut riding a horse")
+        gcfg = cfg.guidance
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((args.batch,) + cfg.latent_shape, generator=gen, device=dev)
     t = torch.tensor(801, device=dev)
@@ -155,7 +178,7 @@ def main(argv=None) -> int:
                                 cross_kv=cross_kv)
 
         def step():
-            return cfg_epsilon(unet, x, t, spec, scale, gcfg=cfg.guidance)
+            return cfg_epsilon(unet, x, t, spec, scale, gcfg=gcfg, uc_blur_on=args.three_factor)
 
         for _ in range(3):
             step()
@@ -172,7 +195,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         decode_ms = 1e3 * (time.perf_counter() - t0)
         print(f"profile_step: SD-1.5 512x512 batch {args.batch} (UNet batch "
-              f"{2 * args.batch}), VAE {args.vae}, attention route {args.attn_route}: "
+              f"{(1 + spec.num_factors) * args.batch}"
+              f"{', 3-factor prompt, every switch on' if args.three_factor else ''}), VAE "
+              f"{args.vae}, attention route {args.attn_route}: "
               f"{step_ms:.2f} ms per steady CFG step, "
               f"{decode_ms:.2f} ms per decode, without the profiler ({card})")
 

@@ -638,7 +638,7 @@ def test_port_imports_no_jax_safetensors_orbax_and_yaml_only_to_parse():
     for path in files:
         for mod, fn in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "safetensors", "orbax",
+            assert top not in ("jax", "jaxlib", "flax", "safetensors", "orbax", "lark",
                                "complex_prompt_diffusion_tpu"), (path, mod)
             if top == "yaml":
                 assert path.name == "config.py" and fn == "load_yaml_config", (path, fn)

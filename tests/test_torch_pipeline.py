@@ -90,9 +90,18 @@ def test_cfg_epsilon_multi_factor():
     got = G.cfg_epsilon(_toy_eps(torch), torch.from_numpy(x), torch.tensor(801), pspec,
                         torch.tensor(7.5))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=STEP_RTOL, atol=STEP_ATOL)
+    # uc blur is ported (the flag on: the blurred uncond eps); attn_guide
+    # still raises
+    want = JG.cfg_epsilon(_toy_eps(jnp), jnp.asarray(x), jnp.asarray(801), jspec,
+                          jnp.float32(7.5), gcfg=JG.GuidanceConfig(uc_blur=True, uc_blur_k=3),
+                          uc_blur_on=jnp.asarray(True))
+    got = G.cfg_epsilon(_toy_eps(torch), torch.from_numpy(x), torch.tensor(801), pspec,
+                        torch.tensor(7.5), gcfg=G.GuidanceConfig(uc_blur=True, uc_blur_k=3),
+                        uc_blur_on=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=STEP_RTOL, atol=STEP_ATOL)
     with pytest.raises(NotImplementedError):
         G.cfg_epsilon(_toy_eps(torch), torch.from_numpy(x), torch.tensor(1), pspec, 1.0,
-                      gcfg=G.GuidanceConfig(uc_blur=True))
+                      gcfg=G.GuidanceConfig(attn_guide=True))
 
 
 def test_ddim_step_and_loop_with_injected_noise():
@@ -120,7 +129,7 @@ def test_ddim_step_and_loop_with_injected_noise():
         jnp.asarray(x_T), jtab, scales, noises=noises,
     )
     g_x0, g_traj = D.sample_ddim(
-        lambda a, t, s: G.cfg_epsilon(_toy_eps(torch), a, t, pspec, s),
+        lambda a, t, s, blur=None: G.cfg_epsilon(_toy_eps(torch), a, t, pspec, s),
         torch.from_numpy(x_T), itab, scales, noises=noises,
     )
     np.testing.assert_allclose(g_x0.numpy(), np.asarray(w_x0), rtol=1e-5, atol=1e-5)

@@ -95,7 +95,7 @@ def _t_space_eps(xp):
             a2 = jnp.interp(t, jnp.arange(1000, dtype=jnp.float32), ac)
             return _vp_eps(jnp, x, jnp.sqrt(a2), jnp.sqrt(1 - a2), uc)
     else:
-        def eps(x, t, uc):
+        def eps(x, t, uc, blur=None):
             t = float(torch.as_tensor(t).reshape(-1)[0])
             a2 = np.float32(np.interp(t, np.arange(1000), AC.astype(np.float32)))
             return _vp_eps(torch, x, float(np.sqrt(a2)), float(np.sqrt(1 - a2)), float(uc))
@@ -167,7 +167,7 @@ def test_plms_matches_jax(steps, eta, noised):
     ucs = np.linspace(7.5, 4.0, s)
     calls = []
 
-    def counted(x_, t, uc):
+    def counted(x_, t, uc, blur=None):
         calls.append(int(t))
         return _t_space_eps(torch)(x_, t, uc)
 

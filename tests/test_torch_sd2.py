@@ -19,66 +19,16 @@ import torch
 
 from complex_prompt_diffusion_tpu import models as JM
 from complex_prompt_diffusion_tpu import pipeline as JP
-from complex_prompt_diffusion_tpu import schedules as JS
 from complex_prompt_diffusion_tpu.models import clip as JC
 from complex_prompt_diffusion_tpu.models import unet as JU
-from complex_prompt_diffusion_tpu.models import vae as JV
 from complex_prompt_diffusion_tpu.ops.attention import attention as jax_attention
-from complex_prompt_diffusion_tpu.prompts.tokenizer import get_tokenizer as j_tokenizer
 from complex_prompt_diffusion_tpu_torch import convert
 from complex_prompt_diffusion_tpu_torch import models as M
 from complex_prompt_diffusion_tpu_torch import pipeline as P
 from complex_prompt_diffusion_tpu_torch.ops.attention import flash_attention
 
-# the whole tiny slice through CLIP, UNet and VAE, f32 (as
-# tests/test_torch_sampler_slice.py)
-SLICE_RTOL, SLICE_ATOL = 1e-4, 1e-4
-# f32 whole-model outputs of O(1), sums in another order (as
-# tests/test_torch_models.py)
-MODEL_RTOL, MODEL_ATOL = 2e-5, 2e-5
-PROMPT, NEGATIVE = "a lighthouse on a cliff", "blurry"
-SIDE = 12  # latent side: level-0 self-attention at S = 144, not a multiple of 128
-LATENT = (2, SIDE, SIDE, 4)
-PIXELS = 8 * SIDE
-
-
-def _sd2_tiny_configs():
-    """SD 2.x's shapes at tiny widths, in the JAX package's classes."""
-    ucfg = dataclasses.replace(JU.UNetConfig.tiny(context_dim=64), model_channels=64,
-                               num_heads=-1, num_head_channels=64,
-                               use_linear_in_transformer=True, dtype="float32")
-    ccfg = dataclasses.replace(JC.CLIPTextConfig.tiny(), activation="gelu")
-    return ucfg, JV.VAEConfig.tiny(), ccfg
-
-
-def _sd2_tiny_jax_bundle(parameterization: str):
-    ucfg, vcfg, ccfg = _sd2_tiny_configs()
-    key = jax.random.PRNGKey(3)
-    unet = JP._unzero_kernels(jax.random.fold_in(key, 1), JM.init_unet(key, ucfg, commit=False))
-    return JP.ModelBundle(
-        version="sd2", unet_cfg=ucfg, unet_params=unet, vae_cfg=vcfg,
-        vae_params=JM.init_vae(key, vcfg, commit=False), clip_cfg=ccfg,
-        clip_params=JM.init_clip_text(key, ccfg, commit=False),
-        tokenizer=j_tokenizer(vocab_size=ccfg.vocab_size, pad_with_eos=False),
-        tables=JS.make_diffusion_tables(), parameterization=parameterization,
-        clip_layer="penultimate")
-
-
-@pytest.fixture(scope="module")
-def v_bundles():
-    jb = _sd2_tiny_jax_bundle("v")
-    return jb, P.ModelBundle.from_jax_bundle(jb, device="cpu")
-
-
-@pytest.fixture(scope="module")
-def eps_bundles():
-    jb = _sd2_tiny_jax_bundle("eps")
-    return jb, P.ModelBundle.from_jax_bundle(jb, device="cpu")
-
-
-def _close(got, want):
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=SLICE_RTOL,
-                               atol=SLICE_ATOL)
+from _sd2_tiny import LATENT, MODEL_ATOL, MODEL_RTOL, PROMPT, _sd2_tiny_configs
+from _sd2_tiny import v_bundles  # noqa: F401 (a fixture: registered by the import)
 
 
 # ---- presets and plan ----
@@ -165,149 +115,6 @@ def test_k1_twin_matches_onepass_kernel_at_d64_ragged(s, heads):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=2e-5)
 
 
-# ---- the v-parameterization through every sampler family ----
-
-def _cfgs(**kw):
-    kw = dict(width=PIXELS, height=PIXELS, batch_size=2, guidance_scale=7.5, **kw)
-    return JP.RenderConfig(**kw), P.RenderConfig(**kw)
-
-
-# (sampler, options, whether x_T is scaled by the first sigma)
-FAMILY_CASES = [
-    ("DDIM", dict(steps=4), False),
-    ("DDIM", dict(steps=4, eta=0.5), False),
-    ("PLMS", dict(steps=4), False),
-    ("Euler Ancestral", dict(steps=4), True),
-    ("DPM++ 2m", dict(steps=4, sigma_schedule="karras"), True),
-    ("dpm_solver", dict(steps=4, solver_order=2, solver_method="multistep"), False),
-    ("UniPC", dict(steps=4, solver_order=2, unipc_variant="bh2"), False),
-    ("iPNDM", dict(steps=4), False),
-]
-
-
-@pytest.mark.parametrize("sampler,kw,scaled", FAMILY_CASES,
-                         ids=[f"{s}-{i}" for i, (s, _, _) in enumerate(FAMILY_CASES)])
-def test_v_bundle_latents_match_jax(v_bundles, sampler, kw, scaled):
-    """The same x_T and noises in both packages; a v-model converts where
-    the JAX package converts it (t family: eps from v at the integer t;
-    sigma family: the denoiser's c_skip / c_out; the solver and trig
-    families take the output as it is)."""
-    jb, pb = v_bundles
-    jcfg, pcfg = _cfgs(sampler=sampler, **kw)
-    rng = np.random.default_rng(21)
-    x_T = rng.standard_normal(LATENT).astype(np.float32)
-    if scaled:
-        x_T = x_T * np.float32(P._sigma_schedule(pb, pcfg)[0])
-    noises = rng.standard_normal((kw["steps"] + 1,) + LATENT).astype(np.float32)
-    want = JP.sample_latents(jb, JP.make_guidance_spec(jb, PROMPT, NEGATIVE), jcfg,
-                             x_init=jnp.asarray(x_T), noises=jnp.asarray(noises))
-    got = P.sample_latents(pb, P.make_guidance_spec(pb, PROMPT, NEGATIVE), pcfg,
-                           x_init=torch.from_numpy(x_T), noises=torch.from_numpy(noises))
-    _close(got, want)
-
-
-def test_v_bundle_blur_matches_the_jax_sampler_core(v_bundles):
-    """Blur on a v-bundle: JAX's blur family feeds the UNet's raw output to
-    its process as eps; the port does the same (its core against JAX's
-    steps from the same x_T and noises, as the eps slice test holds it)."""
-    from complex_prompt_diffusion_tpu import samplers as JSA
-    from complex_prompt_diffusion_tpu.guidance import cfg as JG
-
-    jb, pb = v_bundles
-    steps = 3
-    jcfg, pcfg = _cfgs(sampler="Blur", steps=steps)
-    rng = np.random.default_rng(22)
-    x_T = rng.standard_normal(LATENT).astype(np.float32)
-    noises = rng.standard_normal((steps,) + LATENT).astype(np.float32)
-    jspec = JP.make_guidance_spec(jb, PROMPT, NEGATIVE)
-    eps_fn, _ = JG.make_denoiser(JP._unet_eps_fn(jb), jspec, gcfg=jcfg.guidance)
-    proc = JSA.BlurDiffusion(n=steps, resolution=SIDE)
-    x = jnp.asarray(x_T)
-    for step in range(steps):
-        i = steps - step
-        e = eps_fn(x, (jnp.asarray(i, jnp.float32) / steps) * 999.0, jnp.float32(7.5),
-                   jnp.asarray(False))
-        x0 = proc.get_x0_from_eps(x, e, i)
-        x = x0 if i == 1 else proc.get_mean(x0, i - 1) + proc.get_std(
-            i - 1, jnp.asarray(noises[step]))
-    got = P.sample_latents(pb, P.make_guidance_spec(pb, PROMPT, NEGATIVE), pcfg,
-                           x_init=torch.from_numpy(x_T), noises=noises)
-    # the blur process's underflowed products give x0 a large gain (see the
-    # eps slice test); relative L2 as there
-    x = np.asarray(x)
-    assert float(np.linalg.norm(got.numpy() - x) / np.linalg.norm(x)) <= 5e-2
-
-
-def test_v_bundle_ddim_img2img_matches_jax(v_bundles):
-    """DDIM img2img on a v-bundle: the chain assembled from the JAX
-    functions with the same injected noises, started at step t_enc."""
-    jb, pb = v_bundles
-    steps, strength = 5, 0.6
-    kw = dict(steps=steps, sampler="DDIM", width=PIXELS, height=PIXELS, guidance_scale=7.5,
-              denoising_strength=strength)
-    jcfg, pcfg = JP.RenderConfig(**kw), P.RenderConfig(**kw)
-    rng = np.random.default_rng(23)
-    image = rng.integers(0, 256, (2 * SIDE, 2 * SIDE, 3)).astype(np.uint8)  # tiny VAE: 2x
-    z_shape = (1, SIDE, SIDE, 4)
-    enc_noise = rng.standard_normal(z_shape).astype(np.float32)
-    noise = rng.standard_normal(z_shape).astype(np.float32)
-    itables = P.S.make_inference_tables(pb.tables, steps)
-    t_enc = P.img2img_t_enc(strength, itables.num_steps, "t")
-    post = JM.vae_encode(jb.vae_cfg, jb.vae_params,
-                         jnp.asarray(image, jnp.float32)[None] / 127.5 - 1.0)
-    z0 = (post.mean + post.std * jnp.asarray(enc_noise)) * JP.LATENT_SCALE
-    a_t = float(itables.alphas_cumprod_t[t_enc - 1])
-    x_t = np.sqrt(a_t) * z0 + np.sqrt(1 - a_t) * jnp.asarray(noise)
-    want = JP.sample_latents(jb, JP.make_guidance_spec(jb, "a cat", ""), jcfg,
-                             x_init=jnp.array(x_t), t_start=t_enc)
-    _, got = P.img2img(pb, image, "a cat", cfg=pcfg, encode_noise=enc_noise, noise=noise,
-                       decode=False)
-    _close(got, want)
-
-
-def test_v_conversion_changes_the_t_and_sigma_families(v_bundles, eps_bundles):
-    """The same weights read as eps and as v render differently in the
-    families that convert, and alike in those that take the output as it
-    is (the solver family): the conversion is applied once, where JAX
-    applies it."""
-    (_, pv), (_, pe) = v_bundles, eps_bundles
-    x_T = torch.from_numpy(np.random.default_rng(24).standard_normal(LATENT).astype(np.float32))
-    for sampler, differs in (("DDIM", True), ("Euler", True), ("UniPC", False)):
-        _, cfg = _cfgs(sampler=sampler, steps=3)
-        x = x_T * float(P._sigma_schedule(pv, cfg)[0]) if sampler == "Euler" else x_T
-        a, b = (P.sample_latents(pb, P.make_guidance_spec(pb, PROMPT), cfg, x_init=x)
-                for pb in (pv, pe))
-        assert (not torch.allclose(a, b)) == differs, sampler
-
-
-@pytest.mark.parametrize("sampler,kw", [("DDIM", dict(steps=4)), ("Euler", dict(steps=4)),
-                                        ("UniPC", dict(steps=4))])
-def test_eps_bundle_unchanged(eps_bundles, sampler, kw):
-    """An eps-model of SD 2.x's shape still renders as the JAX package does."""
-    jb, pb = eps_bundles
-    jcfg, pcfg = _cfgs(sampler=sampler, **kw)
-    x_T = np.random.default_rng(25).standard_normal(LATENT).astype(np.float32)
-    if sampler == "Euler":
-        x_T = x_T * np.float32(P._sigma_schedule(pb, pcfg)[0])
-    want = JP.sample_latents(jb, JP.make_guidance_spec(jb, PROMPT, NEGATIVE), jcfg,
-                             x_init=jnp.asarray(x_T))
-    got = P.sample_latents(pb, P.make_guidance_spec(pb, PROMPT, NEGATIVE), pcfg,
-                           x_init=torch.from_numpy(x_T))
-    _close(got, want)
-
-
-def test_v_bundle_txt2img_decodes_as_jax(v_bundles):
-    """The whole v render, prompt to uint8 image, DDIM."""
-    jb, pb = v_bundles
-    jcfg, pcfg = _cfgs(sampler="DDIM", steps=3)
-    x_T = np.random.default_rng(26).standard_normal(LATENT).astype(np.float32)
-    w_img, w_lat = JP.txt2img(jb, PROMPT, NEGATIVE, cfg=jcfg, x_T=jnp.asarray(x_T))
-    g_img, g_lat = P.txt2img(pb, PROMPT, NEGATIVE, cfg=pcfg, x_T=torch.from_numpy(x_T))
-    _close(g_lat, w_lat)
-    assert g_img.shape == np.asarray(w_img).shape == (2, 2 * SIDE, 2 * SIDE, 3)
-    assert np.abs(g_img.astype(np.int16) - np.asarray(w_img).astype(np.int16)).max() <= 1
-
-
 @pytest.mark.parametrize("in_ch", [5, 9])
 def test_concat_conditioned_unets_say_they_wait(in_ch):
     """A 5- or 9-channel UNet (depth2img, inpaint) loads, and the entry
@@ -361,3 +168,53 @@ def test_unet_sites_of_sd21(latent, k1, convs):
     gated = [(s, c, co) for s, c, co in sites["conv"]
              if conv3x3_wanted(torch.empty((2, s, s, c), device="meta"), (co, c, 3, 3))]
     assert len(gated) == convs
+
+
+@pytest.mark.parametrize("ub", [2, 4, 8, 16])
+def test_unet_batch_shapes_cover_every_kernel_site(ub):
+    """``tools/kernel_cases.unet_batch_shapes`` (phase 1's "ub4" and "ub16"
+    groups) at SD 1.5's 64x64 latent: K1 at the three self-attention
+    levels; K2 at each level's M (``GEGLU_ROWS`` at UNet batch 8,
+    ``GEGLU_B1_ROWS`` at 2); K3 on the 14 planes of ``GN_UNET_PLANES``,
+    whose counts the sites' GroupNorm planes reproduce; K4 on the 10 shapes
+    of ``B1_UNET_CONVS`` at UNet batch <= 4 and on none above."""
+    from collections import Counter
+
+    from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import (
+        B1_UNET_CONVS,
+        GEGLU_B1_ROWS,
+        GEGLU_ROWS,
+        GN_B4_CALLS,
+        GN_UNET_PLANES,
+        unet_batch_shapes,
+        unet_sites,
+    )
+
+    cfg = M.UNetConfig.sd15()
+    assert Counter(unet_sites(cfg, 64)["gn_planes"]) == dict(zip(GN_UNET_PLANES, GN_B4_CALLS))
+    shapes = unet_batch_shapes(cfg, 64, ub)
+    assert shapes["attn"] == [(4096, 8, 40), (1024, 8, 80), (256, 8, 160)]
+    assert shapes["ff"] == [(ub * s, c) for s, c in ((4096, 320), (1024, 640), (256, 1280),
+                                                      (64, 1280))]
+    assert shapes["ff"] == {8: list(GEGLU_ROWS[:4]), 2: list(GEGLU_B1_ROWS)}.get(ub, shapes["ff"])
+    assert sorted(shapes["gn"]) == sorted((ub, s, s, c) for s, c in GN_UNET_PLANES)
+    assert sorted(shapes["conv"]) == (sorted(B1_UNET_CONVS) if ub <= 4 else [])
+
+
+def test_kernel_cases_make_a_case_for_each_unet_batch_shape(monkeypatch):
+    """The "ub4" group makes one case a shape of ``unet_batch_shapes``, on
+    the kernel its route takes (K4's sm90 body where C and Co are multiples
+    of 64, else its generic one); on the CPU each wrapper runs its plain
+    twin. Small stand-in shapes keep the tensors small."""
+    from complex_prompt_diffusion_tpu_torch.tools import kernel_cases as KC
+
+    small = {"attn": [(256, 2, 8)], "ff": [(64, 16)], "gn": [(4, 8, 8, 64)],
+             "conv": [(16, 64, 64), (16, 4, 64)]}
+    monkeypatch.setattr(KC, "unet_batch_shapes", lambda cfg, latent, ub: small)
+    cases = KC.kernel_cases("cpu", ["ub4"])
+    assert [(c.kernel, c.label) for c in cases] == [
+        ("attention_sm90", "bf16 B4 S256 H2 d8"), ("geglu_ff", "bf16 M64 C16 H4 64"),
+        ("group_norm", "bf16 4x8x8x64 silu"), ("conv3x3_sm90", "bf16 B4 16x16 64->64"),
+        ("conv3x3", "bf16 B4 16x16 4->64")]
+    for case in cases:
+        torch.testing.assert_close(case.run(), case.plain(), rtol=0, atol=0)

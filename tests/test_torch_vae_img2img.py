@@ -200,14 +200,14 @@ def test_sample_ddim_t_start_matches_jax(t_start):
         jnp.asarray(x_T), jtab, uc, noises=noises, t_start=t_start,
     )
     g_x0, g_traj = D.sample_ddim(
-        lambda a, t, s: G.cfg_epsilon(_toy_eps(torch), a, t, pspec, s),
+        lambda a, t, s, blur=None: G.cfg_epsilon(_toy_eps(torch), a, t, pspec, s),
         torch.from_numpy(x_T), itab, uc, noises=noises, t_start=t_start,
     )
     assert g_traj.shape[0] == t_start
     np.testing.assert_allclose(g_x0.numpy(), np.asarray(w_x0), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(g_traj.numpy(), np.asarray(w_traj), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
-        D.sample_ddim(lambda a, t, s: a, torch.from_numpy(x_T), itab, uc, t_start=6)
+        D.sample_ddim(lambda a, t, s, blur=None: a, torch.from_numpy(x_T), itab, uc, t_start=6)
 
 
 def test_img2img_t_enc_matches_jax():

@@ -145,15 +145,42 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            UNet calls. Phase 1 holds every distinct K1-K4 shape of a UNet
            call at UNet batch 4 and 16 to its plain twin and times it
            (kernel_cases' "ub4" and "ub16" groups, from
-           ``unet_batch_shapes``), with the step sums of K2, K3 and K4.
+           ``unet_batch_shapes``), with the step sums of K2, K3 and K4;
+  phase 15 concat-conditioned UNets at 512x512 (after phase 13): (a) a
+           9-channel SD-1.5 inpaint checkpoint (random weights from seed 0,
+           fp16, written in the run and loaded by
+           ``ModelBundle.from_checkpoint``, held bit for bit to what was
+           written; ``UNetConfig.sd_inpaint``; UNet bf16, bf16 VAE):
+           ``inpaint`` of a phase-2 image b1 DDIM 50 and b4 DPM++ 2M Karras
+           20, the manager's ``process_img2img`` with a mask (its 9-channel
+           branch, DDIM 20), a 2-factor CompositionalPrompt (UNet batch 3,
+           DDIM 20; phase 1's "ub3" group holds its shapes); (b) a
+           5-channel SD-2 depth checkpoint loaded by
+           ``config.bundle_from_config`` with a literal of
+           v2-midas-inference.yaml's model section (``UNetConfig.sd2_depth``,
+           eps): ``depth2img`` (Sobel depth) strength 0.75, DDIM 50, b1 with
+           the bf16 VAE and b4 (four images, one depth map each) with the
+           exact-f32 one; for each UNet, one guided eps on a 16x16 latent
+           with its concat channels (conv_in's C = 9 or 5 on K4's generic
+           body) against the CPU plain twins; (c) the native tokenizer
+           built by the host C++ compiler, its ids equal to the Python BPE
+           tokenizer's over a fixed corpus on a synthetic byte-level vocab
+           (``tools/synth_vocab.py``). Every render's
+           K1-K4 launches equal ``unet_call_launches`` of the loaded config
+           at its UNet batch times its calls. Phase 1 holds SD-2's 512^2
+           shapes too (kernel_cases' "sd2_512" group: K1 at head dim 64 and
+           S = 4096, 1024, 256 at UNet batch 2 and 8, and at the middle
+           block's 64 tokens; K4's generic body on the concat UNets'
+           conv_in at a 32x32 latent, 9 -> 320 and 5 -> 320, bf16 and f32).
 
-Each path of phases 2, 4 to 12 and 14 runs with every launch count set to 0
+Each path of phases 2, 4 to 12, 14 and 15 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched (phase 12, render by render: K1's sm90 body 15 times, K2
 its plans' kernels for 16 calls, K3 61 calls and K4's sm90 body 22 times a
 UNet call, K3 30 calls and K1's wide body once a decode, K3 22 calls and
-K1's wide body once an encode, nothing on the f32 bodies, K5 or the probes): in phases 2, 4, 6 and 7 every UNet self-attention site
-on K1's sm90 body (phase 11: its fused 3xTF32 body), in phases 2, 4 and 6
+K1's wide body once an encode, nothing on the f32 bodies, K5 or the
+probes): in phases 2, 4, 6 and 7 every UNet self-attention site on K1's
+sm90 body (phase 11: its fused 3xTF32 body), in phases 2, 4 and 6
 every GEGLU FF call on K2's bf16 body with the kernels its plan predicts
 (the library reports what it launched; phase 11: its f32 body, none on the
 bf16 one), in phases 2 and 11 the f32 VAE mid-block on K1's 3xTF32 body
@@ -378,6 +405,43 @@ V2_INFERENCE_V_MODEL = {
 }
 
 
+# v2-midas-inference.yaml's ``model:`` section (SD 2's depth model), parsed:
+# phase 15 hands it to ``config.bundle_from_config`` (tests/test_torch_depth.py
+# holds it to the YAML text and the bundle it gives to UNetConfig.sd2_depth)
+V2_MIDAS_MODEL = {
+    "base_learning_rate": 5.0e-07,
+    "target": "ldm.models.diffusion.ddpm.LatentDepth2ImageDiffusion",
+    "params": {
+        "linear_start": 0.00085, "linear_end": 0.012, "num_timesteps_cond": 1,
+        "log_every_t": 200, "timesteps": 1000, "first_stage_key": "jpg", "cond_stage_key": "txt",
+        "image_size": 64, "channels": 4, "cond_stage_trainable": False,
+        "conditioning_key": "hybrid", "scale_factor": 0.18215,
+        "monitor": "val/loss_simple_ema", "finetune_keys": None, "use_ema": False,
+        "depth_stage_config": {"target": "ldm.modules.midas.api.MiDaSInference",
+                               "params": {"model_type": "dpt_hybrid"}},
+        "unet_config": {
+            "target": "ldm.modules.diffusionmodules.openaimodel.UNetModel",
+            "params": {
+                "use_checkpoint": True, "image_size": 32, "in_channels": 5, "out_channels": 4,
+                "model_channels": 320, "attention_resolutions": [4, 2, 1], "num_res_blocks": 2,
+                "channel_mult": [1, 2, 4, 4], "num_head_channels": 64,
+                "use_spatial_transformer": True, "use_linear_in_transformer": True,
+                "transformer_depth": 1, "context_dim": 1024, "legacy": False}},
+        "first_stage_config": {
+            "target": "ldm.models.autoencoder.AutoencoderKL",
+            "params": {
+                "embed_dim": 4, "monitor": "val/rec_loss",
+                "ddconfig": {"double_z": True, "z_channels": 4, "resolution": 256,
+                             "in_channels": 3, "out_ch": 3, "ch": 128, "ch_mult": [1, 2, 4, 4],
+                             "num_res_blocks": 2, "attn_resolutions": [], "dropout": 0.0},
+                "lossconfig": {"target": "torch.nn.Identity"}}},
+        "cond_stage_config": {
+            "target": "ldm.modules.encoders.modules.FrozenOpenCLIPEmbedder",
+            "params": {"freeze": True, "layer": "penultimate"}},
+    },
+}
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -549,9 +613,11 @@ def phase1(dev, card: str) -> dict:
         torch.cuda.empty_cache()
     for dt, ub, body, prior in (("bf16", 2, "sm90 K4", "mma.sync body"),
                                 ("f32", 2, "K4's 3xTF32 body", "FMA body it replaced"),
+                                ("bf16", 3, "sm90 K4", "mma.sync body"),
                                 ("bf16", 4, "sm90 K4", "mma.sync body")):
-        # the 22 convs of one UNet call at UNet batch 2 (a batch-1 step) or 4
-        # (a batch-1 step of a 3-factor prompt), each shape times its count
+        # the 22 convs of one UNet call at UNet batch 2 (a batch-1 step), 3 or
+        # 4 (a batch-1 step of a 2- or 3-factor prompt), each shape times its
+        # count
         sums = [0.0] * 4
         for (hw, c, co), n in zip(B1_UNET_CONVS, B1_UNET_CONV_COUNTS):
             row = conv_rows.get(f"{dt} B{ub} {hw}x{hw} {c}->{co}")
@@ -566,10 +632,11 @@ def phase1(dev, card: str) -> dict:
     sd15 = UNetConfig.sd15()
     for dt, step, rows in (("bf16", "b4", GEGLU_ROWS[:4]), ("f32", "b4", GEGLU_ROWS[:4]),
                            ("f32", "b1", GEGLU_B1_ROWS),
+                           ("bf16", "2-factor b1", unet_batch_shapes(sd15, 64, 3)["ff"]),
                            ("bf16", "3-factor b1", unet_batch_shapes(sd15, 64, 4)["ff"]),
                            ("bf16", "3-factor b4", unet_batch_shapes(sd15, 64, 16)["ff"])):
-        # the 16 GEGLU FF calls of one CFG step (UNet batch 8 or 2; 4 or 16
-        # for a 3-factor prompt), by level
+        # the 16 GEGLU FF calls of one CFG step (UNet batch 8 or 2; 3 for a
+        # 2-factor prompt, 4 or 16 for a 3-factor one), by level
         sums = [0.0] * 3
         for (m, c), n in zip(rows, GEGLU_B4_CALLS):
             row = ff_rows.get(f"{dt} M{m} C{c} H4 {4 * c}")
@@ -582,7 +649,8 @@ def phase1(dev, card: str) -> dict:
                   f"{'/'.join(f'M{m}' for m, _ in rows)}): K2 {sums[0]:.4f} ms, plain twin "
                   f"{sums[1]:.4f} ms, bound {sums[2]:.4f} ms ({100 * sums[2] / sums[0]:.1f}% of "
                   f"K2's time; {card})")
-    for ub, step in ((8, "b4"), (2, "b1"), (4, "3-factor b1"), (16, "3-factor b4")):
+    for ub, step in ((8, "b4"), (2, "b1"), (3, "2-factor b1"), (4, "3-factor b1"),
+                     (16, "3-factor b4")):
         # the 61 GroupNorms of one CFG step (UNet batch (1 + factors) x
         # batch), by shape
         sums = [0.0] * 4
@@ -671,13 +739,15 @@ def check_gn(launches: dict, unet_calls: int, decodes: int, encodes: int, what: 
                            f"{launches['group_norm_prior']}")
 
 
-def check_wide(launches: dict, calls: int, batch: int, what: str, s: int = 4096) -> None:
+def check_wide(launches: dict, calls: int, batch: int, what: str, s: int = 4096,
+               more=()) -> None:
     """Every bf16 VAE mid-block attention of a path (``calls`` of them, at
-    ``batch`` and S = ``s``) on K1's wgmma wide body, with the kernels its
-    passes need; no other K1 launch outside the Hopper bodies."""
+    ``batch`` and S = ``s``, and ``more`` (calls, batch) pairs) on K1's
+    wgmma wide body, with the kernels its passes need; no other K1 launch
+    outside the Hopper bodies."""
     from complex_prompt_diffusion_tpu_torch.ops.attention import bf16_wide_launches
 
-    want = calls * bf16_wide_launches(batch, 1, s, s)
+    want = sum(n * bf16_wide_launches(b, 1, s, s) for n, b in ((calls, batch), *more))
     own = (launches["attention"] - launches["attention_sm90"] - launches["attention_f32_sm90"]
            - launches["attention_f32_fused_sm90"])
     if launches["attention_bf16_wide_sm90"] != want or own != want:
@@ -1204,21 +1274,22 @@ class ModelCalls:
 
 def check_unet_path(launches: dict, unet_cfg, ub: int, calls: int, decodes: int, encodes: int,
                     what: str, batch: int = 1, latent: int = 64,
-                    decode_dtype: str = "bfloat16") -> None:
+                    decode_dtype: str = "bfloat16", encode_batch: int = 1) -> None:
     """A bf16 path of ``calls`` UNet calls at UNet batch ``ub`` (a ``latent``
     x ``latent`` input), ``decodes`` decodes at ``batch`` and ``encodes``
-    bf16 encodes at batch 1: K1's sm90 body, K2, K3 and K4 (its sm90 body)
-    with exactly the launches ``unet_call_launches`` predicts a call times
-    the calls (so none ran a plain twin); the VAE mid-block on K1's wide
-    body once a bf16 decode and an encode, or on its 3xTF32 body once an f32
-    decode (``decode_dtype``); nothing on the other f32 bodies, K5 or the
-    probes."""
+    encodes at ``encode_batch``: K1's sm90 body, K2, K3 and K4 (its sm90
+    body) with exactly the launches ``unet_call_launches`` predicts a call
+    times the calls (so none ran a plain twin); the VAE mid-block on K1's
+    wide body once a bf16 decode and an encode, or on its 3xTF32 body once
+    an f32 one (the VAE's ``decode_dtype``); nothing on the other f32
+    bodies, K5 or the probes."""
     from complex_prompt_diffusion_tpu_torch.ops.attention import f32_sm90_launches
 
     per = unet_call_launches(unet_cfg, latent, ub)
     s = latent * latent  # the VAE mid-block's tokens
     f32_decode = decode_dtype == "float32"
-    want_f32 = decodes * f32_sm90_launches(batch, 1, s, s) if f32_decode else 0
+    want_f32 = (decodes * f32_sm90_launches(batch, 1, s, s)
+                + encodes * f32_sm90_launches(encode_batch, 1, s, s)) if f32_decode else 0
     want = {"attention_sm90": per["k1"] * calls, "attention_f32_sm90": want_f32,
             "geglu_ff": per["k2"] * calls, "conv3x3": per["k4"] * calls,
             "conv3x3_sm90": per["k4_sm90"] * calls}
@@ -1227,9 +1298,10 @@ def check_unet_path(launches: dict, unet_cfg, ub: int, calls: int, decodes: int,
         raise SmokeFailure(f"{what} ({calls} UNet calls at UNet batch {ub}) launched {got}: want "
                            f"{want} ({per} a call)")
     check_gn(launches, calls, decodes, encodes, what)
-    if decodes and encodes and batch != 1:
-        raise SmokeFailure("check_unet_path: decodes at batch > 1 with encodes")
-    check_wide(launches, 0 if f32_decode else decodes + encodes, batch, what, s=s)
+    if f32_decode:
+        check_wide(launches, 0, batch, what, s=s)
+    else:
+        check_wide(launches, decodes, batch, what, s=s, more=((encodes, encode_batch),))
     others = {n: launches[n] for n in ("attention_f32_fused_sm90", "conv3x3_f32_sm90",
                                        "geglu_ff_f32_sm90", "attention_cm") + PROBES
               if launches[n]}
@@ -1689,7 +1761,7 @@ def scratch_dir(need_bytes: int) -> str:
 
     for base in (tempfile.gettempdir(), "/dev/shm"):
         if Path(base).is_dir() and shutil.disk_usage(base).free >= need_bytes:
-            return tempfile.mkdtemp(prefix="sd21-ckpt-", dir=base)
+            return tempfile.mkdtemp(prefix="ckpt-", dir=base)
     raise SmokeFailure(f"no temporary directory has {need_bytes} bytes free for the checkpoint")
 
 
@@ -1721,73 +1793,38 @@ def phase13(dev, card: str) -> dict:
     kernels against the CPU plain twins. Every launch count is predicted
     from the config and the kernels' plans. Returns the launch counts of
     (b), (c) and (d) by path."""
-    import os
-    import shutil
-
     import torch
 
     from complex_prompt_diffusion_tpu_torch import config as CONF
-    from complex_prompt_diffusion_tpu_torch import convert
     from complex_prompt_diffusion_tpu_torch import models as M
     from complex_prompt_diffusion_tpu_torch import schedules as S
     from complex_prompt_diffusion_tpu_torch.pipeline import (
         RenderConfig,
         _tree_map,
-        _unzero_kernels,
         decode_latents,
         txt2img,
     )
-    from complex_prompt_diffusion_tpu_torch.tools import synth_checkpoint as SC
     from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import SD21_LATENT
 
     side, s = SD21_LATENT, SD21_LATENT ** 2
     px = 8 * side
     # (a) the checkpoint, written and loaded at full width
-    unet_cfg, vae_cfg, clip_cfg = M.UNetConfig.sd21(), M.VAEConfig.sd(), M.CLIPTextConfig.sd21()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    unet = _unzero_kernels(gen, M.init_unet(gen, unet_cfg, dev))
-    vae = M.init_vae(gen, vae_cfg, dev)
-    clip = M.init_clip_text(gen, clip_cfg, dev)
-    sd = SC.state_dict(unet_cfg, unet, vae, clip, dtype=torch.float16)
-    n_tensors = len(sd)
-    tmp = scratch_dir(2 * sum(t.numel() * t.element_size() for t in sd.values()))
-    try:
-        path = os.path.join(tmp, "sd21-768-v.ckpt")
-        t1 = time.perf_counter()
-        nbytes = SC.write_checkpoint(path, sd)
-        del sd
-        t2 = time.perf_counter()
-        bundle = CONF.bundle_from_config(V2_INFERENCE_V_MODEL, checkpoint_path=path,
-                                         dtype="bfloat16", device=dev)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    # what was written, cast as the file and the load cast it: fp16, the
-    # UNet then bf16
-    bad = (tree_mismatches(bundle.unet_params, convert.to_port(
-        _tree_map(lambda a: a.half(), unet), dev, torch.bfloat16))
-        + tree_mismatches(bundle.vae_params, convert.vae_params(
-            _tree_map(lambda a: a.half(), vae), dev, torch.float32))
-        + tree_mismatches(bundle.clip_params, convert.to_port(
-            _tree_map(lambda a: a.half(), clip), dev, torch.float32)))
-    del unet, vae, clip
-    torch.cuda.empty_cache()
+    unet_cfg = M.UNetConfig.sd21()
+    bundle, took = synth_bundle(
+        dev, unet_cfg, M.VAEConfig.sd(), M.CLIPTextConfig.sd21(), "openclip",
+        lambda path: CONF.bundle_from_config(V2_INFERENCE_V_MODEL, checkpoint_path=path,
+                                             dtype="bfloat16", device=dev))
     fields = (bundle.version, bundle.parameterization, bundle.clip_layer,
               bundle.tokenizer.pad_id, bundle.unet_cfg, bundle.vae_cfg.dtype)
     want_fields = ("sd2", "v", "penultimate", 0,
                    dataclasses.replace(unet_cfg, dtype="bfloat16"), "float32")
-    if bad or fields != want_fields:
-        raise SmokeFailure(f"the loaded SD 2.1 checkpoint differs from what was written at "
-                           f"{bad[:5]} ({len(bad)} leaves), or its bundle says {fields}, want "
+    if fields != want_fields:
+        raise SmokeFailure(f"the loaded SD 2.1 checkpoint's bundle says {fields}, want "
                            f"{want_fields}")
     print(f"phase13: SD 2.1-v checkpoint (CompVis layout, fp16, random weights from seed 0): "
-          f"{nbytes} bytes, {n_tensors} tensors, built and converted in {t1 - t0:.2f} s, written "
-          f"in {t2 - t1:.2f} s, loaded through config.bundle_from_config (v2-inference-v's model "
-          f"section; UNet cast to bf16 on the host) in {t3 - t2:.2f} s; every tree equals the "
-          f"written one after the same casts; version sd2, parameterization v, clip_layer "
-          f"penultimate, pad id 0 ({card})", flush=True)
+          f"{took} through config.bundle_from_config (v2-inference-v's model section; UNet cast "
+          f"to bf16 on the host); version sd2, parameterization v, clip_layer penultimate, pad "
+          f"id 0 ({card})", flush=True)
 
     prompt = "a photograph of a lighthouse on a rocky coast at sunset"
     paths = {}
@@ -1878,7 +1915,7 @@ def phase13(dev, card: str) -> dict:
     g = torch.Generator(device=cpu).manual_seed(19)
     x = torch.randn((2, 24, 24, 4), generator=g)
     t = torch.tensor([801, 801])
-    ctx = torch.randn((2, 77, clip_cfg.hidden_size), generator=g)
+    ctx = torch.randn((2, 77, bundle.clip_cfg.hidden_size), generator=g)
     reset_launches()
     with torch.inference_mode():
         got = M.unet_apply(bundle.unet_cfg, bundle.unet_params, x.to(dev), t.to(dev),
@@ -2144,6 +2181,323 @@ def phase14(bundle, image, card: str) -> dict:
     return paths
 
 
+CONCAT_STEPS = 50  # DDIM steps of phase 15's b1 inpaint and depth2img renders (and b4 depth2img)
+CONCAT_K_STEPS = 20  # DPM++ 2M Karras steps of its b4 inpaint render
+CONCAT_SHORT_STEPS = 20  # DDIM steps of its manager request and 2-factor prompt
+TOKENIZER_CORPUS = 2000  # strings of tools/synth_vocab.py's corpus in the native tokenizer's check
+
+
+def synth_bundle(dev, unet_cfg, vae_cfg, clip_cfg, clip_layout: str, load):
+    """Random trees of the three configs from seed 0, made on the card,
+    written as a CompVis fp16 checkpoint (``tools/synth_checkpoint.py``) in
+    a temporary directory (deleted after), loaded by ``load(path)`` and held
+    bit for bit to what was written (cast as the file and the load cast it:
+    fp16, then the UNet to its compute dtype, the rest to f32). Returns the
+    bundle and a line of what it took."""
+    import os
+    import shutil
+
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import convert
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch.pipeline import _tree_map, _unzero_kernels
+    from complex_prompt_diffusion_tpu_torch.tools import synth_checkpoint as SC
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    unet = _unzero_kernels(gen, M.init_unet(gen, unet_cfg, dev))
+    vae = M.init_vae(gen, vae_cfg, dev)
+    clip = M.init_clip_text(gen, clip_cfg, dev)
+    sd = SC.state_dict(unet_cfg, unet, vae, clip, clip_layout=clip_layout, dtype=torch.float16)
+    n_tensors = len(sd)
+    tmp = scratch_dir(2 * sum(t.numel() * t.element_size() for t in sd.values()))
+    try:
+        path = os.path.join(tmp, "model.ckpt")
+        t1 = time.perf_counter()
+        nbytes = SC.write_checkpoint(path, sd)
+        del sd
+        t2 = time.perf_counter()
+        bundle = load(path)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def half(tree):
+        return _tree_map(lambda a: a.half(), tree)
+
+    bad = (tree_mismatches(bundle.unet_params, convert.to_port(
+        half(unet), dev, bundle.unet_cfg.compute_dtype))
+        + tree_mismatches(bundle.vae_params, convert.vae_params(half(vae), dev, torch.float32))
+        + tree_mismatches(bundle.clip_params, convert.to_port(half(clip), dev, torch.float32)))
+    del unet, vae, clip
+    torch.cuda.empty_cache()
+    if bad:
+        raise SmokeFailure(f"the loaded checkpoint differs from what was written at {bad[:5]} "
+                           f"({len(bad)} leaves)")
+    return bundle, (f"{nbytes} bytes, {n_tensors} tensors, built and converted in "
+                    f"{t1 - t0:.2f} s, written in {t2 - t1:.2f} s, loaded in {t3 - t2:.2f} s, "
+                    f"every tree equal to the written one after the same casts")
+
+
+def phase15(dev, card: str, image) -> dict:
+    """Concat-conditioned UNets at full width, 512x512, and the native
+    tokenizer: (a) a 9-channel SD-1.5 inpaint checkpoint (fp16, random
+    weights) loaded by ``ModelBundle.from_checkpoint`` (UNet bf16, bf16 VAE):
+    ``inpaint`` b1 DDIM 50 and b4 DPM++ 2M Karras 20, the manager's JSON
+    request with a mask (its 9-channel branch), a 2-factor composed prompt
+    (UNet batch 3); (b) a 5-channel SD-2 depth checkpoint loaded by
+    ``config.bundle_from_config`` with v2-midas-inference's model section:
+    ``depth2img`` (Sobel depth) b1 strength 0.75 DDIM 50 with the bf16
+    VAE, and b4 with the exact-f32 one; (c) the native tokenizer built by
+    the host compiler, its ids against the Python BPE tokenizer's. Every
+    render's K1-K4 launches are ``unet_call_launches``' of the loaded config
+    times its UNet calls. Returns the launch counts by path."""
+    import numpy as np
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import config as CONF
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch import schedules as S
+    from complex_prompt_diffusion_tpu_torch.guidance.cfg import GuidanceSpec, cfg_epsilon
+    from complex_prompt_diffusion_tpu_torch.manager import DiffusionModelManager
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        ModelBundle,
+        RenderConfig,
+        _tree_map,
+        depth2img,
+        img2img_t_enc,
+        inpaint,
+        make_guidance_spec,
+    )
+    from complex_prompt_diffusion_tpu_torch.prompts import CompositionalPrompt
+
+    paths = {}
+
+    def render(bundle, label, fn, ub, calls, batch, decode_dtype="bfloat16", encode_batch=1):
+        """One render (``fn`` returns images and latents, or images only):
+        its UNet calls at UNet batch ``ub``, one encode at ``encode_batch``
+        and one decode at ``batch``, every K1-K4 launch as predicted."""
+        reset_launches()
+        torch.cuda.synchronize()
+        with ModelCalls("unet_apply") as unet:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        launches = read_launches()
+        images, latents = out if isinstance(out, tuple) else (out, None)
+        check_image(images, (batch, 512, 512, 3))
+        if latents is not None:
+            check_latents(latents, (batch, 64, 64, 4))
+        if unet.n != calls or set(unet.batches) != {ub}:
+            raise SmokeFailure(f"{label} made {unet.n} UNet calls at UNet batches "
+                               f"{sorted(set(unet.batches))}: want {calls} at {ub}")
+        check_unet_path(launches, bundle.unet_cfg, ub, unet.n, 1, 1, label, batch,
+                        decode_dtype=decode_dtype, encode_batch=encode_batch)
+        std = f"; latents std {float(latents.std()):.4f}" if latents is not None else ""
+        print(f"phase15: {label} on {card}: {t1 - t0:.3f} s wall with the prompt encode, the "
+              f"VAE encode and decode = {(t1 - t0) / calls:.4f} s a step; UNet batch {ub}, "
+              f"{unet.n} calls; K1 sm90 {launches['attention_sm90']}, K2 "
+              f"{launches['geglu_ff']}, K3 {launches['group_norm']} kernels for "
+              f"{launches['group_norm calls']} calls, K4 {launches['conv3x3']} "
+              f"({launches['conv3x3_sm90']} sm90){std}", flush=True)
+        return launches
+
+    def concat_eps(bundle, cond, label, seed):
+        """One guided eps (CFG 7.5) of a plain prompt on a 16x16 latent
+        (UNet batch 2; K1 at S = 256, every 16^2-plane conv, conv_in's C =
+        9 or 5 among them, inside K4's gate) with the concat channels
+        ``cond`` (CPU f32), CUDA kernels against the CPU plain twins on
+        copies of the same weights: in bf16, the UNet's output (both
+        branches) at phases 3 and 13's bf16 UNet tolerance, 5e-2; with the
+        UNet cast to f32 (TF32 off; conv_in and the out conv on K4's
+        generic f32 body, the other convs on its 3xTF32 body), the guided
+        eps at 1e-4. The bf16 guided eps is printed, not held: CFG 7.5
+        multiplies the two branches' difference, a small part of an eps on
+        these random weights (printed), and with it their bf16 rounding,
+        so its error is several times a branch's."""
+        cpu = torch.device("cpu")
+        spec = make_guidance_spec(bundle, "a red door", "blurry")
+        spec_cpu = GuidanceSpec(*(getattr(spec, f).to(cpu) for f in
+                                  ("uncond", "factors", "scales", "masks")))
+        x = torch.randn((1, 16, 16, 4), generator=torch.Generator().manual_seed(seed))
+        errs, launches = {}, {}
+        for dt in ("bfloat16", "float32"):
+            b = bundle if dt == "bfloat16" else bundle.cast("float32")
+            params_cpu = _tree_map(lambda a: a.to(cpu), b.unet_params)
+            raw = {}
+
+            def unet_on(params, key, b=b, raw=raw):
+                def eps(x_, t_, ctx):
+                    raw[key] = M.unet_apply(b.unet_cfg, params, x_, t_, ctx)
+                    return raw[key]
+                return eps
+
+            reset_launches()
+            with torch.inference_mode():
+                got = cfg_epsilon(unet_on(b.unet_params, "got"), x.to(dev), 801, spec, 7.5,
+                                  depth_mask=cond.to(dev)).cpu()
+                launches[dt] = read_launches()
+                want = cfg_epsilon(unet_on(params_cpu, "want"), x, 801, spec_cpu, 7.5,
+                                   depth_mask=cond)
+            errs[dt] = (float((raw["got"].cpu().float() - raw["want"].float()).norm()
+                              / raw["want"].float().norm()),
+                        float((got.float() - want.float()).norm() / want.float().norm()))
+            e_u, e_c = raw["want"].float()
+            spread = float((e_c - e_u).norm() / e_u.norm())
+            del b, params_cpu, raw
+            torch.cuda.empty_cache()
+        n, n32 = launches["bfloat16"], launches["float32"]
+        print(f"phase15: one guided eps (CFG 7.5) of the {label} (16x16 latent, UNet batch 2, "
+              f"{bundle.unet_cfg.in_channels} input channels), CUDA kernels vs CPU plain twins: "
+              f"bf16 UNet output rel L2 {errs['bfloat16'][0]:.3e} (tol 5e-2), guided eps "
+              f"{errs['bfloat16'][1]:.3e} (not held; |e_c - e_u| / |e_u| {spread:.3e}); f32 UNet output {errs['float32'][0]:.3e}, "
+              f"guided eps {errs['float32'][1]:.3e} (tol 1e-4, TF32 off); bf16: K1 sm90 "
+              f"{n['attention_sm90']}, K4 {n['conv3x3']} ({n['conv3x3_sm90']} sm90), K2 "
+              f"{n['geglu_ff']}; f32: K4 {n32['conv3x3']} ({n32['conv3x3_f32_sm90']} 3xTF32), "
+              f"K1 fused f32 {n32['attention_f32_fused_sm90']} ({card})", flush=True)
+        check_unet_path(n, bundle.unet_cfg, 2, 1, 0, 0, f"the 16x16 guided eps of the {label}",
+                        latent=16)
+        k4 = unet_call_launches(bundle.unet_cfg, 16, 2)["k4"]
+        if (n32["conv3x3"] != k4 or n32["conv3x3_f32_sm90"] != k4 - 2 or n32["conv3x3_sm90"]
+                or n32["attention_sm90"]):
+            raise SmokeFailure(f"the f32 16x16 guided eps of the {label} launched {n32}: want K4 "
+                               f"{k4} times, all but conv_in and the out conv on its 3xTF32 "
+                               f"body, no bf16 body")
+        if not (errs["bfloat16"][0] <= 5e-2 and errs["float32"][1] <= 1e-4):
+            raise SmokeFailure(f"the {label}'s kernel path disagrees with the plain path: {errs}")
+        return n
+
+    mask = np.zeros((512, 512), np.float32)
+    mask[100:412, 150:470] = 1.0  # the hole; its edges off the 8-pixel grid
+    ddim50 = S.make_inference_tables(S.make_diffusion_tables(), CONCAT_STEPS).num_steps
+    ddim20 = S.make_inference_tables(S.make_diffusion_tables(), CONCAT_SHORT_STEPS).num_steps
+
+    # (a) SD-1.5 inpaint: 4 latent + mask + 4 masked-image channels
+    want_cfg = dataclasses.replace(M.UNetConfig.sd_inpaint(), dtype="bfloat16")
+    bundle, took = synth_bundle(
+        dev, M.UNetConfig.sd_inpaint(), M.VAEConfig.sd(), M.CLIPTextConfig.sd15(), "hf",
+        lambda path: ModelBundle.from_checkpoint(path, dtype="bfloat16", device=dev))
+    if bundle.unet_cfg != want_cfg or bundle.version != "sd1":
+        raise SmokeFailure(f"the 9-channel checkpoint loaded as {bundle.version} "
+                           f"{bundle.unet_cfg}: want sd1 {want_cfg}")
+    print(f"phase15: SD-1.5 inpaint checkpoint (9-channel UNet, CompVis layout, fp16, random "
+          f"weights from seed 0): {took} through ModelBundle.from_checkpoint (UNet bf16); "
+          f"config UNetConfig.sd_inpaint ({card})", flush=True)
+    g = torch.Generator().manual_seed(29)
+    hole = (torch.rand((1, 16, 16, 1), generator=g) > 0.5).float()
+    paths["inpaint_unet_eval_16"] = concat_eps(
+        bundle, torch.cat([hole, torch.randn((1, 16, 16, 4), generator=g)], -1),
+        "9-channel inpaint UNet ([mask, masked latents] concat)", 31)
+    bundle16 = bundle.cast_vae("bfloat16")
+    prompt = "a wooden door in a stone wall"
+    cfg = RenderConfig(steps=CONCAT_STEPS, sampler="DDIM", eta=0.0, guidance_scale=7.5,
+                       width=512, height=512, seed=7)
+    paths["inpaint_b1_ddim"] = render(
+        bundle16, f"inpaint 512x512 b1 DDIM {CONCAT_STEPS} CFG 7.5, bf16 VAE",
+        lambda: inpaint(bundle16, image, mask, prompt, "blurry", cfg), 2, ddim50, 1)
+    cfg4 = RenderConfig(steps=CONCAT_K_STEPS, sampler="DPM++ 2m", sigma_schedule="karras",
+                        guidance_scale=7.5, width=512, height=512, batch_size=4, seed=8)
+    paths["inpaint_b4_dpmpp2m"] = render(
+        bundle16, f"inpaint 512x512 b4 DPM++ 2M Karras {CONCAT_K_STEPS} CFG 7.5, bf16 VAE",
+        lambda: inpaint(bundle16, image, mask, prompt, "blurry", cfg4), 8, CONCAT_K_STEPS, 4)
+    mgr = DiffusionModelManager(bundle=bundle16)
+    config = {"sampler": {"name": "DDIM"}, "prompt": prompt, "negative_prompt": "blurry",
+              "render": {"steps": CONCAT_SHORT_STEPS, "W": 512, "H": 512, "seed": 9}}
+    paths["manager_inpaint_model"] = render(
+        bundle16, f"manager process_img2img with a mask on the 9-channel UNet (its inpaint "
+        f"branch) 512x512 b1 DDIM {CONCAT_SHORT_STEPS}",
+        lambda: mgr.process_img2img(image, config, mask=mask), 2, ddim20, 1)
+    composed = CompositionalPrompt("a stone cottage", negative_prompt="blurry", bundle=bundle16)
+    composed.add_conjunction("ivy on the walls", scale=1.5, mask="left_half_valid")
+    spec = composed.build_spec(64, 64)
+    cfg2 = dataclasses.replace(cfg, steps=CONCAT_SHORT_STEPS, seed=10)
+    paths["inpaint_2factor_b1"] = render(
+        bundle16, f"inpaint of a 2-factor CompositionalPrompt 512x512 b1 DDIM "
+        f"{CONCAT_SHORT_STEPS}", lambda: inpaint(bundle16, image, mask, spec, cfg=cfg2),
+        1 + spec.num_factors, ddim20, 1)
+    del bundle, bundle16, mgr, composed, spec
+    torch.cuda.empty_cache()
+
+    # (b) SD-2 depth: 4 latent + the depth channel
+    want_cfg = dataclasses.replace(M.UNetConfig.sd2_depth(), dtype="bfloat16")
+    bundle, took = synth_bundle(
+        dev, M.UNetConfig.sd2_depth(), M.VAEConfig.sd(), M.CLIPTextConfig.sd21(), "openclip",
+        lambda path: CONF.bundle_from_config(V2_MIDAS_MODEL, checkpoint_path=path,
+                                             dtype="bfloat16", device=dev))
+    fields = (bundle.version, bundle.parameterization, bundle.clip_layer, bundle.unet_cfg)
+    if fields != ("sd2", "eps", "penultimate", want_cfg):
+        raise SmokeFailure(f"the 5-channel checkpoint loaded as {fields}: want sd2, eps, "
+                           f"penultimate, {want_cfg}")
+    print(f"phase15: SD-2 depth checkpoint (5-channel UNet, CompVis layout, fp16, random "
+          f"weights from seed 0): {took} through config.bundle_from_config "
+          f"(v2-midas-inference's model section; UNet bf16); config UNetConfig.sd2_depth, eps "
+          f"({card})", flush=True)
+    depth = torch.rand((16, 16, 1), generator=torch.Generator().manual_seed(37)) * 2 - 1
+    paths["depth_unet_eval_16"] = concat_eps(bundle, depth, "5-channel depth UNet ([h, w, 1] "
+                                             "depth channel, broadcast over the batch)", 41)
+    prompt = "a lighthouse on a cliff, oil painting"
+    cfg = RenderConfig(steps=CONCAT_STEPS, sampler="DDIM", eta=0.0, guidance_scale=7.5,
+                       width=512, height=512, seed=11, denoising_strength=0.75)
+    t_enc = img2img_t_enc(cfg.denoising_strength, ddim50, "t")
+    bundle16 = bundle.cast_vae("bfloat16")
+    paths["depth2img_b1_ddim"] = render(
+        bundle16, f"depth2img (Sobel depth) 512x512 b1 strength 0.75 DDIM {CONCAT_STEPS} "
+        f"({t_enc} steps run) CFG 7.5, bf16 VAE",
+        lambda: depth2img(bundle16, image, prompt, "blurry", cfg), 2, t_enc, 1)
+    del bundle16
+    torch.cuda.empty_cache()
+    images4 = np.ascontiguousarray(np.stack([image, image[:, ::-1], image[::-1],
+                                             np.rot90(image)]))
+    paths["depth2img_b4_f32_vae"] = render(
+        bundle, f"depth2img (Sobel depth, one map an image) 512x512 b4 strength 0.75 DDIM "
+        f"{CONCAT_STEPS} ({t_enc} steps run) CFG 7.5, exact-f32 VAE (TF32 off)",
+        lambda: depth2img(bundle, images4, prompt, "blurry", dataclasses.replace(cfg, seed=12)),
+        8, t_enc, 4, decode_dtype="float32", encode_batch=4)
+    del bundle
+    torch.cuda.empty_cache()
+
+    # (c) the native tokenizer, built here by the host compiler
+    import shutil
+    import tempfile
+
+    from complex_prompt_diffusion_tpu_torch.prompts import tokenizer_native as TN
+    from complex_prompt_diffusion_tpu_torch.prompts.tokenizer import ClipBPETokenizer
+    from complex_prompt_diffusion_tpu_torch.tools import synth_vocab as SV
+
+    tmp = tempfile.mkdtemp(prefix="vocab-")
+    try:
+        py = ClipBPETokenizer(*SV.write_synthetic_vocab(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    lib = TN.load_library()
+    t1 = time.perf_counter()
+    native = TN.NativeClipTokenizer(py)
+    corpus = SV.corpus(TOKENIZER_CORPUS, seed=0, most=24)
+    t2 = time.perf_counter()
+    got = [native.encode_text(t) for t in corpus]
+    t3 = time.perf_counter()
+    py.cache.clear()
+    want = [py.encode_text(t) for t in corpus]
+    t4 = time.perf_counter()
+    bad = [t for t, a, b in zip(corpus, got, want) if a != b]
+    seq_ok = np.array_equal(native(corpus[:64]), py(corpus[:64]))
+    if bad or not seq_ok or "native" in Path(lib._name).parts:
+        raise SmokeFailure(f"the native tokenizer ({lib._name}) differs from the Python BPE on "
+                           f"{len(bad)} of {len(corpus)} strings ({bad[:3]}), sequences equal: "
+                           f"{seq_ok}")
+    print(f"phase15: native tokenizer built by the host compiler and loaded in {t1 - t0:.2f} s "
+          f"({Path(lib._name).name}); ids equal to the Python BPE tokenizer's on all "
+          f"{len(corpus)} strings of a fixed corpus (synthetic byte-level vocab), the 77-token "
+          f"sequences of 64 of them equal; encode {1e6 * (t3 - t2) / len(corpus):.1f} us a "
+          f"string native, {1e6 * (t4 - t3) / len(corpus):.1f} us Python (cache cleared; "
+          f"host, {card})", flush=True)
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -2194,6 +2548,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths["txt2img_b1_f32"], paths["txt2img_default_bundle"] = phase11(dev, card, args.steps)
     paths.update(phase13(dev, card))
+    paths.update(phase15(dev, card, images[0]))
 
     kernels = []
     # "attention" and "conv3x3" count every body of K1 and K4: their own

@@ -15,9 +15,12 @@ Counterpart of ``complex_prompt_diffusion_tpu/guidance/cfg.py``:
     fractional timestep (:func:`sigma_to_t_cont`), output x - sigma * eps,
     or for a v-model c_skip * x + c_out * v.
 
-Attention-saliency guidance is not ported yet and raises
-NotImplementedError (it needs ``unet_apply(return_skips=True)``); depth
-conditioning is not ported yet.
+A concat-conditioned UNet (the 9-channel inpaint model, SD-2's 5-channel
+depth model, the latent upscaler) takes its conditioning channels as
+``depth_mask``: concatenated to x before the factor tiling, broadcast over
+the batch; in sigma space after the c_in scaling, which scales only the
+latents. Attention-saliency guidance is not ported yet and raises
+NotImplementedError (it needs ``unet_apply(return_skips=True)``).
 """
 
 from __future__ import annotations
@@ -143,9 +146,15 @@ def stacked_context(spec: GuidanceSpec, batch_size: int) -> torch.Tensor:
     return ctx.repeat_interleave(batch_size, dim=0)
 
 
-def _batched_inputs(x, t, spec: GuidanceSpec):
+def _batched_inputs(x, t, spec: GuidanceSpec, depth_mask=None):
+    """x and t tiled for the one-call factor batch, with the stacked
+    contexts; ``depth_mask`` ([h, w, c] or [1 | B, h, w, c]) is broadcast
+    over the batch and concatenated to x first."""
     b = x.shape[0]
     k = spec.num_factors
+    if depth_mask is not None:
+        x = torch.cat([x, depth_mask.to(x.dtype).expand(x.shape[:3] + depth_mask.shape[-1:])],
+                      dim=-1)
     x_in = x.repeat(1 + k, 1, 1, 1)
     t_b = torch.as_tensor(t, device=x.device).reshape(-1).expand(b)
     t_in = t_b.repeat(1 + k)
@@ -160,13 +169,15 @@ def cfg_epsilon(
     uc_scale,
     *,
     gcfg: GuidanceConfig = GuidanceConfig(),
+    depth_mask: Optional[torch.Tensor] = None,
     uc_blur_on: Optional[bool] = None,
 ) -> torch.Tensor:
     """One guided eps evaluation.
 
     unet_eps(x_in, t_in, context) -> eps, with x_in [(1+K)*B, H, W, C],
     t_in [(1+K)*B], context [(1+K)*B, L, D]. x: [B, H, W, C]; t: scalar or
-    [B]; uc_scale: this step's guidance scale. ``uc_blur_on`` (a host bool,
+    [B]; uc_scale: this step's guidance scale; ``depth_mask``: a concat
+    UNet's conditioning channels (see the module docstring). ``uc_blur_on`` (a host bool,
     the t family's per-step flag; None elsewhere): blur the unconditional
     eps with ``gcfg.uc_blur_k`` before the sum, when ``gcfg.uc_blur``.
     Then eps = e_uncond + scale * e_sum, the scaled sum divided by its
@@ -178,7 +189,7 @@ def cfg_epsilon(
         raise NotImplementedError(f"guidance options not ported yet: {unported}")
     b = x.shape[0]
     k = spec.num_factors
-    x_in, t_in, ctx_in = _batched_inputs(x, t, spec)
+    x_in, t_in, ctx_in = _batched_inputs(x, t, spec, depth_mask)
     out = unet_eps(x_in, t_in, ctx_in)
     out = out.reshape((1 + k, b) + tuple(out.shape[1:]))
     e_uncond = out[0]
@@ -215,8 +226,10 @@ def make_denoiser(
     gcfg: GuidanceConfig = GuidanceConfig(),
     model_sigmas=None,
     parameterization: str = "eps",
+    depth_mask: Optional[torch.Tensor] = None,
 ):
-    """Build the two denoising closures the samplers consume.
+    """Build the two denoising closures the samplers consume; both pass
+    ``depth_mask`` to :func:`cfg_epsilon`.
 
     Returns (eps_fn, denoised_fn):
       * eps_fn(x, t, uc_scale, uc_blur_on=None) — t-space (DDIM family);
@@ -234,7 +247,8 @@ def make_denoiser(
         raise ValueError(f"unknown parameterization {parameterization!r} (eps|v)")
 
     def eps_fn(x, t, uc_scale, uc_blur_on=None):
-        return cfg_epsilon(unet_eps, x, t, spec, uc_scale, gcfg=gcfg, uc_blur_on=uc_blur_on)
+        return cfg_epsilon(unet_eps, x, t, spec, uc_scale, gcfg=gcfg, depth_mask=depth_mask,
+                           uc_blur_on=uc_blur_on)
 
     def denoised_fn(x, sigma, uc_scale):
         if model_sigmas is None:
@@ -242,7 +256,8 @@ def make_denoiser(
         sigma = np.float32(sigma)
         c_in = np.float32(1.0) / np.sqrt(sigma**2 + np.float32(1.0))
         t = sigma_to_t_cont(sigma, model_sigmas)
-        e_t = cfg_epsilon(unet_eps, x * float(c_in), t, spec, uc_scale, gcfg=gcfg)
+        e_t = cfg_epsilon(unet_eps, x * float(c_in), t, spec, uc_scale, gcfg=gcfg,
+                          depth_mask=depth_mask)
         if parameterization == "v":
             one = np.float32(1.0)
             c_skip = one / (sigma**2 + one)

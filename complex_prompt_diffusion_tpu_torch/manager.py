@@ -10,13 +10,16 @@ JSON (``prompts.compose.prompt_from_json``).
 As in the JAX package: no fp16-halving pass and no low-VRAM hooks (the
 bundle's ``cast`` / ``cast_vae`` set the dtypes); samplers resolve from the
 typed registry; the reference's ``score_corrector`` becomes the guidance's
-``threshold_e``; a mask runs RePaint (``samplers/repaint.py``) over an
-ordinary 4-channel UNet. The 9-channel inpaint UNet's path is not ported
-and raises NotImplementedError.
+``threshold_e``; a mask runs the inpaint model (``pipeline.inpaint``) on a
+9-channel UNet, RePaint (``samplers/repaint.py``) over an ordinary
+4-channel one. As in the JAX package, the two read the mask in opposite
+senses: mask = 1 is the hole to regenerate for the inpaint model, the
+region to keep for RePaint.
 
 The entry points run on the bundle's device. Keyword arguments beyond the
 JAX package's are passed on to the pipeline (``generator``, ``x_T``,
-``noises``; img2img's ``encode_noise`` and ``noise``; RePaint's ``x_T``,
+``noises``; img2img's ``encode_noise`` and ``noise``; the inpaint
+model's ``encode_noise``, ``x_T`` and ``noises``; RePaint's ``x_T``,
 ``noises`` and ``generator``), which is how tests hold two packages to one
 trajectory; by default every draw comes from a generator seeded with the
 render's ``seed``.
@@ -29,17 +32,18 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from complex_prompt_diffusion_tpu_torch.guidance import GuidanceConfig
 from complex_prompt_diffusion_tpu_torch.pipeline import (
     ModelBundle,
     RenderConfig,
     img2img,
+    inpaint,
     txt2img,
 )
 from complex_prompt_diffusion_tpu_torch.prompts.compose import prompt_from_json
 from complex_prompt_diffusion_tpu_torch.samplers import get_sampler
+from complex_prompt_diffusion_tpu_torch.utils.resize import resize
 
 __all__ = ["DiffusionModelManager"]
 
@@ -130,20 +134,21 @@ class DiffusionModelManager:
         self, img: np.ndarray, config: Dict[str, Any],
         mask: Optional[np.ndarray] = None, **kwargs,
     ) -> np.ndarray:
-        """img2img of ``img``; with ``mask``, RePaint inpainting of the
-        region where the mask is 0 (``config["jump_length"]`` and
-        ``["jump_n_sample"]``, default 10 each). ``kwargs`` go to
-        ``img2img`` (``generator``, ``encode_noise``, ``noise``, ``noises``)
-        or to ``sample_repaint`` (``generator``, ``x_T``, ``noises``)."""
+        """img2img of ``img``; with ``mask``, inpainting: on a 9-channel
+        UNet by the inpaint model (``pipeline.inpaint``: mask = 1 is the
+        hole), else by RePaint of the region where the mask is 0
+        (``config["jump_length"]`` and ``["jump_n_sample"]``, default 10
+        each). ``kwargs`` go to ``img2img`` (``generator``, ``encode_noise``,
+        ``noise``, ``noises``), to ``inpaint`` (``generator``,
+        ``encode_noise``, ``x_T``, ``noises``) or to ``sample_repaint``
+        (``generator``, ``x_T``, ``noises``)."""
         cfg = self._make_render_config(config)
         prompt = self._make_embedding(config)
         if mask is not None:
             if self.bundle.unet_cfg.in_channels >= 9:
-                raise NotImplementedError(
-                    "inpainting with the 9-channel inpaint UNet (mask and masked-image "
-                    "latents as extra UNet channels) is not ported yet (ROADMAP.md §1 "
-                    "item 7); a 4-channel UNet inpaints by RePaint"
-                )
+                imgs, _ = inpaint(self.bundle, img, mask, self._spec_or_text(prompt, cfg),
+                                  config.get("negative_prompt", ""), cfg, **kwargs)
+                return imgs
             return self._inpaint(img, mask, prompt, cfg, config, **kwargs)
         imgs, _ = img2img(self.bundle, img, self._spec_or_text(prompt, cfg),
                           config.get("negative_prompt", ""), cfg, **kwargs)
@@ -168,14 +173,11 @@ class DiffusionModelManager:
             else prompt.build_spec(cfg.height // 8, cfg.width // 8, b)
         )
         z0 = encode_image(b, img)  # the posterior's mode
-        # the latent-resolution mask; mask == 1 keeps the original.
-        # "nearest-exact" samples at half-pixel centres, as
-        # jax.image.resize(method="nearest") does ("nearest" does not)
+        # the latent-resolution mask; mask == 1 keeps the original
         m = torch.as_tensor(np.asarray(mask, np.float32), device=b.device)
         if m.ndim == 2:
             m = m[None, :, :, None]
-        m = F.interpolate(m.permute(0, 3, 1, 2), size=tuple(z0.shape[1:3]), mode="nearest-exact")
-        m = m.permute(0, 2, 3, 1).expand(z0.shape)
+        m = resize(m, (1,) + tuple(z0.shape[1:3]) + (1,), "nearest").expand(z0.shape)
         cross_kv = M.precompute_cross_kv(b.unet_cfg, b.unet_params,
                                          stacked_context(spec, z0.shape[0]))
 

@@ -17,9 +17,9 @@ files with :func:`read_safetensors`, a reader of the format's own (an
 8-byte little-endian header length, a JSON header of dtype, shape and
 offsets, then the raw bytes), so no safetensors package is needed.
 
-Not ported yet: hypernetworks, ``make_it_fit`` / ``zero_extend_input_conv``
-(the inpaint finetune seeding), the CLIP vision tower and the diffusers
-UNet layout.
+``make_it_fit`` and ``zero_extend_input_conv`` are the weight surgery of
+the concat models' finetune seeding, on raw state dicts. Not ported yet:
+hypernetworks, the CLIP vision tower and the diffusers UNet layout.
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ __all__ = [
     "convert_clip_hf",
     "convert_clip_openclip",
     "apply_ema_weights",
+    "make_it_fit",
+    "zero_extend_input_conv",
     "detect_sd_version",
     "load_sd_checkpoint",
 ]
@@ -398,6 +400,66 @@ def apply_ema_weights(sd: Dict[str, Array]) -> Dict[str, Array]:
             ema_key = "model_ema." + k[len("model."):].replace(".", "")
             if ema_key in sd:
                 out[k] = sd[ema_key]
+    return out
+
+
+def make_it_fit(sd: StateDict, target_shapes: Dict[str, tuple]) -> Dict[str, Array]:
+    """Fit checkpoint weights onto a model whose first two (torch-layout:
+    out, in) axes differ, e.g. a 9-channel inpaint UNet's input conv from a
+    4-channel checkpoint: each leaf of ``target_shapes`` that ``sd`` holds
+    with another shape is tiled cyclically over those axes and, for >= 2-D
+    weights, divided by an input-usage count so the layer's output scale
+    holds. Raw torch-layout state dict; trailing (spatial) axes must match.
+
+    The reference's counter starts at 1, not 0, so each count is 1 + the
+    real uses; kept, as the JAX package keeps it: a weight whose input dim
+    is unchanged while its output dim grows is halved."""
+    out = dict(sd)
+    for name, want in target_shapes.items():
+        if name not in sd:
+            continue
+        old = np.asarray(sd[name])
+        want = tuple(want)
+        if old.shape == want:
+            continue
+        if len(old.shape) != len(want):
+            raise ValueError(f"{name}: rank mismatch {old.shape} -> {want} "
+                             "(make_it_fit only adapts same-rank weights)")
+        if len(want) > 2 and old.shape[2:] != want[2:]:
+            raise ValueError(f"{name}: trailing axes must match ({old.shape} -> {want})")
+        idx0 = np.arange(want[0]) % old.shape[0]
+        if old.ndim == 1:
+            out[name] = old[idx0]
+            continue
+        idx1 = np.arange(want[1]) % old.shape[1]
+        new = old[idx0][:, idx1]
+        n_used_old = np.ones(old.shape[1])
+        np.add.at(n_used_old, idx1, 1)
+        n_used_new = n_used_old[idx1]
+        new = new / n_used_new.reshape((1, -1) + (1,) * (old.ndim - 2))
+        out[name] = new.astype(old.dtype)
+    return out
+
+
+def zero_extend_input_conv(sd: StateDict, new_in_channels: int,
+                           keep_dims: int = 4) -> Dict[str, Array]:
+    """Widen the UNet's input conv (and its EMA shadow) to
+    ``new_in_channels``, keeping the checkpoint's first ``keep_dims`` input
+    channels and zeroing the new ones, so the seeded concat model at first
+    ignores its conditioning and reproduces the base model. Raw
+    torch-layout [out, in, kh, kw] state dict."""
+    key = "model.diffusion_model.input_blocks.0.0.weight"
+    ema_key = "model_ema.diffusion_modelinput_blocks00weight"
+    out = dict(sd)
+    for k in (key, ema_key):
+        if k not in sd:
+            continue
+        old = np.asarray(sd[k])
+        if old.shape[1] >= new_in_channels:
+            continue
+        new = np.zeros((old.shape[0], new_in_channels) + old.shape[2:], old.dtype)
+        new[:, :keep_dims] = old[:, :keep_dims]
+        out[k] = new
     return out
 
 

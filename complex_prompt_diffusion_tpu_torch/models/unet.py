@@ -71,15 +71,24 @@ class UNetConfig:
         )
 
     @staticmethod
+    def sd_upscaler() -> "UNetConfig":
+        """LatentUpscaleDiffusion (the x4 upscaler's config): 7-channel input
+        (4 latent, the 3-channel low-resolution image), the noise level as
+        a class label (``num_classes`` 1000), as the JAX package's preset.
+        ``pipeline.upscale_latents`` passes no label, so on this preset the
+        UNet raises, as the JAX package's does."""
+        return dataclasses.replace(UNetConfig.sd21(), in_channels=7, num_classes=1000)
+
+    @staticmethod
     def sd2_depth() -> "UNetConfig":
         """v2-midas-inference.yaml: depth2img, 5-channel latent input (the
-        depth map concatenated; rendering it is not ported yet)."""
+        depth map concatenated; ``pipeline.depth2img``)."""
         return dataclasses.replace(UNetConfig.sd21(), in_channels=5)
 
     @staticmethod
     def sd_inpaint() -> "UNetConfig":
         """LatentInpaintDiffusion: 9-channel input (4 noisy latents, the
-        mask, 4 masked-image latents; rendering it is not ported yet)."""
+        mask, 4 masked-image latents; ``pipeline.inpaint``)."""
         return UNetConfig(in_channels=9)
 
     @staticmethod

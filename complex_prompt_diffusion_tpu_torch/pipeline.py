@@ -17,6 +17,14 @@ families. Where the JAX package jits one scan, the port runs an eager
 Python loop on the device. Entry points run on the bundle's device, which
 is the GPU unless the caller asks for the CPU.
 
+Concat-conditioned UNets take their extra input channels as ``depth_mask``
+(``guidance/cfg.py``), in every sampler family: ``inpaint`` (the 9-channel
+inpaint model: the hole's mask and the masked image's latents),
+``depth2img`` (SD-2's 5-channel depth model: a depth map from
+``depth.py``) and ``upscale_latents`` (the latent upscaler's noise-augmented
+low-resolution image). The resizes are ``utils/resize.py``'s copies of
+``jax.image.resize``.
+
 A v-parameterized model (SD 2.x 768-v) is converted where the JAX package
 converts it: in the t family (DDIM, PLMS, DDIM img2img) its output becomes
 eps = sqrt(a_t) v + sqrt(1 - a_t) x at the clipped integer timestep, and
@@ -60,6 +68,7 @@ from complex_prompt_diffusion_tpu_torch.samplers import (
     sample_ddim,
     sample_unipc,
 )
+from complex_prompt_diffusion_tpu_torch.utils.resize import resize
 
 __all__ = [
     "ModelBundle",
@@ -72,6 +81,10 @@ __all__ = [
     "encode_image",
     "img2img_t_enc",
     "img2img",
+    "inpaint",
+    "depth2img",
+    "upscale_latents",
+    "initial_noise",
     "render_config_to_json",
     "render_config_from_json",
     "save_bundle",
@@ -145,13 +158,16 @@ class ModelBundle:
 
     @staticmethod
     def random(scale: str = "tiny", seed: int = 0, device="cuda") -> "ModelBundle":
-        """Random-weight bundle ("tiny" or "sd15"), built on ``device`` (the
-        GPU unless asked otherwise) from a seeded generator with the JAX
-        package's init distributions. The UNet weights are stored in its
+        """Random-weight bundle ("tiny", "tiny-inpaint" or "sd15"), built on
+        ``device`` (the GPU unless asked otherwise) from a seeded generator
+        with the JAX package's init distributions. "tiny-inpaint" is the
+        tiny config with the inpaint model's 9 input channels (4 latent, the
+        mask, 4 masked-image latents). The UNet weights are stored in its
         compute dtype (bf16 for "sd15")."""
         device = _device(device)
-        if scale == "tiny":
-            unet_cfg = dataclasses.replace(M.UNetConfig.tiny(context_dim=64), dtype="float32")
+        if scale in ("tiny", "tiny-inpaint"):
+            unet_cfg = dataclasses.replace(M.UNetConfig.tiny(context_dim=64), dtype="float32",
+                                           in_channels=9 if scale == "tiny-inpaint" else 4)
             vae_cfg = M.VAEConfig.tiny()
             clip_cfg = M.CLIPTextConfig.tiny()
         elif scale == "sd15":
@@ -413,7 +429,11 @@ def make_guidance_spec(
     return GuidanceSpec.single(cond, uncond, scale)
 
 
-def _check_ported(bundle: ModelBundle, cfg: RenderConfig) -> None:
+def _check_ported(bundle: ModelBundle, cfg: RenderConfig, depth_mask=None) -> None:
+    """Raise, before any launch, for what is not ported and for a concat
+    UNet whose conditioning channels do not fill its input: in_channels must
+    equal out_channels plus ``depth_mask``'s channels (so a concat UNet
+    without its conditioning raises; it does not render unconditioned)."""
     _, sample_fn = get_sampler(cfg.sampler)
     if getattr(sample_fn, "not_ported", False):
         sample_fn()  # raises NotImplementedError with the reason
@@ -422,14 +442,20 @@ def _check_ported(bundle: ModelBundle, cfg: RenderConfig) -> None:
             ("unet_tile", cfg.unet_tile),
             ("tome_ratio", cfg.tome_ratio > 0.0),
             ("deepcache_interval", cfg.deepcache_interval >= 2),
-            (f"in_channels={bundle.unet_cfg.in_channels} (a concat-conditioned UNet: "
-             "depth2img or inpaint)",
-             bundle.unet_cfg.in_channels != bundle.unet_cfg.out_channels),
         ) + tuple((n, True) for n in cfg.guidance.unported())
         if on
     ]
     if unported:
         raise NotImplementedError(f"not ported yet: {unported}")
+    ucfg = bundle.unet_cfg
+    extra = 0 if depth_mask is None else depth_mask.shape[-1]
+    if ucfg.in_channels != ucfg.out_channels + extra:
+        raise ValueError(
+            f"the UNet takes {ucfg.in_channels} input channels: {ucfg.out_channels} latent "
+            f"channels and {extra} of depth_mask give {ucfg.out_channels + extra}"
+            + ("; a concat-conditioned UNet needs its conditioning (inpaint, depth2img, "
+               "upscale_latents)" if depth_mask is None else "")
+        )
 
 
 def _sigma_schedule(bundle: ModelBundle, cfg: RenderConfig) -> np.ndarray:
@@ -447,14 +473,32 @@ def _sigma_schedule(bundle: ModelBundle, cfg: RenderConfig) -> np.ndarray:
     )
 
 
-def _run_sigma_sampler(sample_fn, den_fn, x, bundle, cfg, t_start, generator, noises):
-    """The sigma-family call: the schedule cut to its last ``t_start``
-    steps, the per-step scales, churn arguments for euler/heun/dpm2 and eta
-    for the ancestral samplers; x_T is scaled by the first sigma unless the
-    caller gave its own start."""
+def _cut_sigmas(bundle: ModelBundle, cfg: RenderConfig, t_start) -> np.ndarray:
+    """The sigma schedule, cut to its last ``t_start`` steps when given."""
     sigmas = _sigma_schedule(bundle, cfg)
     if t_start is not None:
         sigmas = sigmas[len(sigmas) - 1 - t_start:]
+    return sigmas
+
+
+def initial_noise(bundle: ModelBundle, cfg: RenderConfig, generator: torch.Generator,
+                  t_start: Optional[int] = None) -> torch.Tensor:
+    """The start :func:`sample_latents` draws when it is given none: x_T ~
+    N(0, 1) of shape [B, h, w, 4] from ``generator``, scaled by the first
+    sigma of the (cut) schedule for the sigma family, as the JAX package's
+    ``sample_latents`` scales its draw."""
+    shape = (cfg.batch_size,) + cfg.latent_shape
+    x = torch.randn(shape, generator=generator, device=bundle.device)
+    if get_sampler(cfg.sampler)[0] == "sigma":
+        x = x * float(_cut_sigmas(bundle, cfg, t_start)[0])
+    return x
+
+
+def _run_sigma_sampler(sample_fn, den_fn, x, bundle, cfg, t_start, generator, noises):
+    """The sigma-family call: the schedule cut to its last ``t_start``
+    steps, the per-step scales, churn arguments for euler/heun/dpm2 and eta
+    for the ancestral samplers."""
+    sigmas = _cut_sigmas(bundle, cfg, t_start)
     kw = {}
     name = cfg.sampler.lower()
     if name in ("euler", "huen", "heun", "dpm2"):
@@ -462,9 +506,6 @@ def _run_sigma_sampler(sample_fn, den_fn, x, bundle, cfg, t_start, generator, no
                   s_noise=cfg.s_noise)
     if "ancestral" in name:
         kw["eta"] = cfg.eta if cfg.eta else 1.0
-    if x is None:
-        shape = (cfg.batch_size,) + cfg.latent_shape
-        x = torch.randn(shape, generator=generator, device=bundle.device) * float(sigmas[0])
     uc_scales = make_uc_scale_schedule(cfg.guidance, len(sigmas) - 1)
     x0, _ = sample_fn(den_fn, x, sigmas, uc_scales, generator=generator, noises=noises, **kw)
     return x0
@@ -529,12 +570,16 @@ def sample_latents(
     noises: Optional[torch.Tensor] = None,
     t_start: Optional[int] = None,
     step_callback=None,
+    depth_mask=None,
 ) -> torch.Tensor:
     """Run the configured sampler with CFG; returns final latents f32
     [B, h, w, 4] (unscaled model space). ``generator`` (default: seeded from
-    ``cfg.seed``) draws x_T unless ``x_init`` is given (a sigma-family
-    sampler scales the draw by its first sigma), then the per-step noises
-    unless ``noises`` is given. ``t_start`` (img2img): run only the first
+    ``cfg.seed``) draws x_T unless ``x_init`` is given (:func:`initial_noise`:
+    a sigma-family sampler scales the draw by its first sigma), then the
+    per-step noises unless ``noises`` is given. ``depth_mask`` ([h, w, c] or
+    [1 | B, h, w, c]): a concat-conditioned UNet's extra input channels, in
+    every family (the UNet must take 4 + c channels). ``t_start``
+    (img2img): run only the first
     ``t_start`` timesteps of the DDIM table, or the last ``t_start`` steps
     of the sigma schedule; PLMS, like the JAX package's, ignores it and runs
     its whole schedule. The solver family (DPM-Solver, UniPC: order
@@ -550,9 +595,10 @@ def sample_latents(
     family; as in the JAX package, only the t family passes the
     unconditional-blur flags (``uc_blur``) and takes ``cfg.clip_sample``,
     the other families ignore both."""
-    _check_ported(bundle, cfg)
+    device = bundle.device
+    depth_mask = _as_device_tensor(depth_mask, bundle)
+    _check_ported(bundle, cfg, depth_mask)
     family, sample_fn = get_sampler(cfg.sampler)
-    shape = (cfg.batch_size,) + cfg.latent_shape
     div = 2 ** (len(bundle.unet_cfg.channel_mult) - 1)
     lh, lw = cfg.latent_shape[0], cfg.latent_shape[1]
     if lh % div or lw % div or cfg.height % 8 or cfg.width % 8:
@@ -566,19 +612,16 @@ def sample_latents(
             "Blur sampler requires a square canvas (the spectral "
             f"operator diagonalizes on a square grid; got {lh}x{lw})"
         )
-    device = bundle.device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    x_T = None
     if x_init is not None:
         x_T = torch.as_tensor(x_init, dtype=torch.float32, device=device)
-    elif family != "sigma":
-        x_T = torch.randn(shape, generator=generator, device=device)
+    else:
+        x_T = initial_noise(bundle, cfg, generator, t_start)
 
     # cross-attention k/v are loop-invariant: compute them once per render
-    batch = shape[0] if x_T is None else x_T.shape[0]
     cross_kv = M.precompute_cross_kv(
-        bundle.unet_cfg, bundle.unet_params, stacked_context(spec, batch)
+        bundle.unet_cfg, bundle.unet_params, stacked_context(spec, x_T.shape[0])
     )
 
     def unet_eps(x, t, ctx):
@@ -588,7 +631,7 @@ def sample_latents(
 
     eps_fn, den_fn = make_denoiser(
         unet_eps, spec, gcfg=cfg.guidance, model_sigmas=bundle.tables.sigmas,
-        parameterization=bundle.parameterization,
+        parameterization=bundle.parameterization, depth_mask=depth_mask,
     )
     uc = cfg.guidance.guidance_scale
     if family == "sigma":
@@ -625,7 +668,7 @@ def sample_latents(
                          generator=generator, x_T=x_T, noises=noises)
     if bundle.parameterization == "v":
         eps_fn, _ = make_denoiser(_v_to_eps(unet_eps, bundle.tables, device), spec,
-                                  gcfg=cfg.guidance)
+                                  gcfg=cfg.guidance, depth_mask=depth_mask)
     itables = S.make_inference_tables(
         bundle.tables, cfg.steps, eta=cfg.eta, discretize=cfg.discretize
     )
@@ -653,6 +696,14 @@ def decode_latents(bundle: ModelBundle, latents: torch.Tensor) -> np.ndarray:
     return torch.round(img * 255).to(torch.uint8).cpu().numpy()
 
 
+def _spec(bundle: ModelBundle, prompt, negative_prompt: str = "") -> GuidanceSpec:
+    """A prompt's guidance spec: a spec as it is, a string through
+    :func:`make_guidance_spec`."""
+    if isinstance(prompt, GuidanceSpec):
+        return prompt
+    return make_guidance_spec(bundle, prompt, negative_prompt)
+
+
 def txt2img(
     bundle: ModelBundle,
     prompt: Union[str, GuidanceSpec],
@@ -662,20 +713,18 @@ def txt2img(
     generator: Optional[torch.Generator] = None,
     noises: Optional[torch.Tensor] = None,
     x_T: Optional[torch.Tensor] = None,
+    depth_mask=None,
     decode: bool = True,
     step_callback=None,
 ):
     """Text to image. ``step_callback(t, x0_pred)``: the optional per-step
-    preview hook of :func:`sample_latents` (``samplers/callbacks.py``).
-    Returns (images_uint8 | None, latents)."""
-    spec = (
-        prompt
-        if isinstance(prompt, GuidanceSpec)
-        else make_guidance_spec(bundle, prompt, negative_prompt)
-    )
+    preview hook of :func:`sample_latents` (``samplers/callbacks.py``);
+    ``depth_mask``: a concat UNet's conditioning, as there. Returns
+    (images_uint8 | None, latents)."""
+    spec = _spec(bundle, prompt, negative_prompt)
     latents = sample_latents(
         bundle, spec, cfg, x_init=x_T, generator=generator, noises=noises,
-        step_callback=step_callback,
+        step_callback=step_callback, depth_mask=depth_mask,
     )
     images = decode_latents(bundle, latents) if decode else None
     return images, latents
@@ -733,11 +782,13 @@ def img2img(
     encode_noise=None,
     noise=None,
     noises=None,
+    depth_mask=None,
     decode: bool = True,
     step_callback=None,
 ):
     """Image to image: sample the encoder's posterior, noise the latents and
-    run the last part of the reverse chain.
+    run the last part of the reverse chain (``depth_mask``: a concat UNet's
+    conditioning, as in :func:`sample_latents`).
 
     DDIM: to step ``t_enc = img2img_t_enc(cfg.denoising_strength, steps,
     "t")`` with x_t = sqrt(a_t) z0 + sqrt(1 - a_t) noise, then the first
@@ -751,7 +802,8 @@ def img2img(
     families have no partial-noise start and raise ValueError, as in the
     JAX package; PLMS runs its whole schedule from x_t (the JAX package
     passes the start to DDIM only). Returns (images_uint8 | None, latents)."""
-    _check_ported(bundle, cfg)
+    depth_mask = _as_device_tensor(depth_mask, bundle)
+    _check_ported(bundle, cfg, depth_mask)
     family, _ = get_sampler(cfg.sampler)
     if family in ("solver", "trig"):
         raise ValueError(
@@ -759,11 +811,7 @@ def img2img(
             "(no partial-noise entry point); use a DDIM/PLMS or k-diffusion "
             "sampler"
         )
-    spec = (
-        prompt
-        if isinstance(prompt, GuidanceSpec)
-        else make_guidance_spec(bundle, prompt, negative_prompt)
-    )
+    spec = _spec(bundle, prompt, negative_prompt)
     if generator is None:
         generator = torch.Generator(device=bundle.device).manual_seed(cfg.seed)
     z0 = encode_image(bundle, image, generator=generator, noise=encode_noise)
@@ -785,8 +833,135 @@ def img2img(
         t_enc = len(sigmas) - 1 - idx
     latents = sample_latents(
         bundle, spec, cfg, x_init=x_t, generator=generator, noises=noises,
-        t_start=t_enc, step_callback=step_callback,
+        t_start=t_enc, step_callback=step_callback, depth_mask=depth_mask,
     )
+    images = decode_latents(bundle, latents) if decode else None
+    return images, latents
+
+
+def inpaint(
+    bundle: ModelBundle,
+    image,
+    mask,
+    prompt: Union[str, GuidanceSpec],
+    negative_prompt: str = "",
+    cfg: RenderConfig = RenderConfig(),
+    *,
+    generator: Optional[torch.Generator] = None,
+    encode_noise=None,
+    x_T=None,
+    noises=None,
+    decode: bool = True,
+):
+    """The inpaint model's path (``in_channels`` 9; ``UNetConfig.sd_inpaint``,
+    ``ModelBundle.random("tiny-inpaint")``): ``mask`` [H, W] (or [H, W, 1])
+    is thresholded at 0.5, mask = 1 marking the hole to regenerate; the
+    image with the hole zeroed is encoded (posterior noise ``encode_noise``,
+    else drawn from ``generator``), the mask resized to the latent grid
+    ("nearest", as ``jax.image.resize``), and ``[mask, masked latents]`` (5
+    channels) concatenated to the UNet's input at every step of a txt2img
+    run (x_T and per-step noises from ``generator`` unless given). A UNet
+    with fewer than 9 input channels raises ValueError: a plain checkpoint
+    inpaints by RePaint (the manager picks). Returns (images_uint8 | None,
+    latents)."""
+    if bundle.unet_cfg.in_channels < 9:
+        raise ValueError(
+            "bundle is not an inpaint model "
+            f"(unet in_channels={bundle.unet_cfg.in_channels}, need 9); "
+            "use the RePaint path for plain SD checkpoints"
+        )
+    spec = _spec(bundle, prompt, negative_prompt)
+    if generator is None:
+        generator = torch.Generator(device=bundle.device).manual_seed(cfg.seed)
+    m = np.asarray(mask, np.float32)
+    if m.ndim == 3:
+        m = m[..., 0]
+    m = (m > 0.5).astype(np.float32)
+    masked = np.asarray(image, np.float32) * (1.0 - m)[..., None]
+    masked_z = encode_image(bundle, masked, generator=generator, noise=encode_noise)
+    lh, lw = masked_z.shape[1], masked_z.shape[2]
+    mask_lat = resize(torch.as_tensor(m, device=bundle.device)[None, :, :, None],
+                      (1, lh, lw, 1), "nearest")
+    concat = torch.cat([mask_lat, masked_z], dim=-1)  # [1, lh, lw, 5]
+    latents = sample_latents(bundle, spec, cfg, x_init=x_T, generator=generator,
+                             noises=noises, depth_mask=concat)
+    images = decode_latents(bundle, latents) if decode else None
+    return images, latents
+
+
+def depth2img(
+    bundle: ModelBundle,
+    image,
+    prompt: Union[str, GuidanceSpec],
+    negative_prompt: str = "",
+    cfg: RenderConfig = RenderConfig(),
+    *,
+    estimator=None,
+    generator: Optional[torch.Generator] = None,
+    encode_noise=None,
+    noise=None,
+    noises=None,
+    decode: bool = True,
+):
+    """Depth-conditioned img2img (SD-2's depth model, ``in_channels`` 5):
+    a depth map of the [H, W, 3] ``image`` from ``estimator`` (default
+    ``depth.SobelDepthEstimator``), resized to the latent grid ``(height //
+    8, width // 8)`` by ``depth.DepthManager`` and fed as the UNet's fifth
+    input channel through :func:`img2img` (its draws and their overrides
+    as there). An [N, H, W, 3] ``image`` renders N images, each on its own
+    depth map (the JAX package's takes one image)."""
+    from complex_prompt_diffusion_tpu_torch.depth import DepthManager
+
+    mgr = DepthManager(estimator=estimator, size=(cfg.height // 8, cfg.width // 8),
+                       device=bundle.device)
+    img = np.asarray(image)
+    depth = (torch.stack([mgr.conditioning_channel(im) for im in img]) if img.ndim == 4
+             else mgr.conditioning_channel(img))
+    return img2img(bundle, img, prompt, negative_prompt, cfg, generator=generator,
+                   encode_noise=encode_noise, noise=noise, noises=noises, depth_mask=depth,
+                   decode=decode)
+
+
+def upscale_latents(
+    bundle: ModelBundle,
+    low_res_image,
+    prompt: Union[str, GuidanceSpec],
+    cfg: RenderConfig = RenderConfig(),
+    *,
+    noise_level: int = 20,
+    generator: Optional[torch.Generator] = None,
+    aug_noise=None,
+    x_T=None,
+    noises=None,
+    decode: bool = True,
+):
+    """The latent upscaler's path (``UNetConfig.sd_upscaler``-shaped: 4 +
+    the image's channels in): the low-resolution image ([h, w, c] or [N,
+    h, w, c]; mapped to [-1, 1] when its max is above 2) resized
+    bilinearly to the latent grid (as ``jax.image.resize``), noise-augmented
+    to ``noise_level`` (q_sample: sqrt(a) img + sqrt(1 - a) noise, the noise
+    ``aug_noise`` or drawn from ``generator``) and concatenated to the UNet's
+    input (the first image's) through a txt2img run. As in the JAX package,
+    the level reaches the UNet only through those channels: on the preset
+    (``num_classes=1000``) ``unet_apply`` raises "class-conditional model
+    requires y", because the sampler passes no class label."""
+    spec = _spec(bundle, prompt)
+    if generator is None:
+        generator = torch.Generator(device=bundle.device).manual_seed(cfg.seed)
+    img = _as_device_tensor(low_res_image, bundle)
+    if img.ndim == 3:
+        img = img[None]
+    if float(img.max()) > 2.0:
+        img = img / 127.5 - 1.0
+    lh, lw = cfg.latent_shape[0], cfg.latent_shape[1]
+    img = resize(img, (img.shape[0], lh, lw, img.shape[-1]), "bilinear")
+    ac = np.asarray(bundle.tables.alphas_cumprod)[noise_level]
+    if aug_noise is None:
+        aug_noise = torch.randn(img.shape, generator=generator, device=bundle.device)
+    img_aug = float(np.sqrt(ac)) * img + float(np.sqrt(1 - ac)) * _as_device_tensor(aug_noise,
+                                                                                    bundle)
+    latents = sample_latents(bundle, spec, cfg, x_init=x_T, generator=generator,
+                             noises=noises, depth_mask=img_aug[0])
     images = decode_latents(bundle, latents) if decode else None
     return images, latents
 

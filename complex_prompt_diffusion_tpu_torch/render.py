@@ -9,8 +9,11 @@ helpers ``add_noise`` / ``sqrt_lerp``.
 Independent frames run one ``sample_latents`` and one decode each, as the
 JAX package's code does (its docstring's "one batched run" is not what it
 runs). A ``torch.Generator`` (default: seeded with ``cfg.seed``) takes the
-place of the JAX package's per-frame keys: each independent frame draws
-its x_T from it (``x_init``), then its sampler's per-step noises.
+place of the JAX package's per-frame keys: each independent frame, and the
+first feedback frame, draws its x_T from it (``pipeline.initial_noise``:
+scaled by the first sigma for a sigma-family sampler, as the JAX package's
+``sample_latents`` scales the draw it makes from the frame's key) and
+passes it as ``x_init``, then its sampler's per-step noises.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from complex_prompt_diffusion_tpu_torch.pipeline import (
     ModelBundle,
     RenderConfig,
     decode_latents,
+    initial_noise,
     sample_latents,
 )
 
@@ -99,12 +103,11 @@ class RenderEngine:
             generator = torch.Generator(device=b.device).manual_seed(cfg.seed)
         path = prompt.embedding_path(steps=lerp_steps, bundle=b)
         uncond = prompt.uncond_embedding(b)
-        shape = (cfg.batch_size,) + cfg.latent_shape
 
         if not feedback:
             imgs: List[np.ndarray] = []
             for cond in path:
-                x_T = torch.randn(shape, generator=generator, device=b.device)
+                x_T = initial_noise(b, cfg, generator)
                 lat = sample_latents(b, self._spec_for(cond, uncond), cfg, x_init=x_T,
                                      generator=generator)
                 imgs.extend(decode_latents(b, lat))
@@ -116,7 +119,7 @@ class RenderEngine:
         for cond in path:
             spec = self._spec_for(cond, uncond)
             if prev_latent is None:
-                x_T = torch.randn(shape, generator=generator, device=b.device)
+                x_T = initial_noise(b, cfg, generator)
                 lat = sample_latents(b, spec, cfg, x_init=x_T, generator=generator)
             else:
                 noise = torch.randn(prev_latent.shape, generator=generator, device=b.device)

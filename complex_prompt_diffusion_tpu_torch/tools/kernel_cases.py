@@ -171,8 +171,8 @@ def kernel_cases(dev, kernels=None) -> list:
                                          "group_norm", "conv3x3", "conv3x3_sm90",
                                          "conv3x3_f32_sm90",
                                          "attention_cm", "winograd", "probe_attention",
-                                         "probe_groupnorm", "probe_copy", "sd21", "ub4",
-                                         "ub16"}
+                                         "probe_groupnorm", "probe_copy", "sd21", "ub3",
+                                         "ub4", "ub16", "sd2_512"}
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -452,15 +452,16 @@ def kernel_cases(dev, kernels=None) -> list:
             gn_case(shape, dt, eps)
         for c, co in ((1280, 1280), (2560, 1280)):
             conv_case("conv3x3_sm90", 2, 24, c, co, bf16)
-    for ub in (4, 16):
+    for ub in (3, 4, 16):
         if f"ub{ub}" not in want:
             continue
         # every distinct K1-K4 shape of an SD-1.5 UNet call on a 64x64 latent
-        # at UNet batch 4 and 16 (a 3-factor prompt, (1 + 3) x B, at b1 and
-        # b4): K1's sm90 body at each self-attention level, on views of one
-        # qkv projection; K2 at each level's M; K3 on every GroupNorm plane
-        # (its replaced body beside it); K4 on the convs its gate admits
-        # (batch 4 only; the mma.sync body beside its sm90 body)
+        # at UNet batch 3, 4 and 16 (a 2-factor prompt at b1, a 3-factor one,
+        # (1 + 3) x B, at b1 and b4): K1's sm90 body at each self-attention
+        # level, on views of one qkv projection; K2 at each level's M; K3 on
+        # every GroupNorm plane (its replaced body beside it); K4 on the convs
+        # its gate admits (batch 3 and 4 only; the mma.sync body beside its
+        # sm90 body)
         from complex_prompt_diffusion_tpu_torch.models import UNetConfig
 
         shapes = unet_batch_shapes(UNetConfig.sd15(), 64, ub)
@@ -476,6 +477,43 @@ def kernel_cases(dev, kernels=None) -> list:
         for side, c, co in shapes["conv"]:
             conv_case("conv3x3_sm90" if C.k4_body(bf16, c, co) == "bf16_sm90" else "conv3x3",
                       ub, side, c, co, bf16)
+    if "sd2_512" in want:
+        # SD-2 at 512x512 (a 64x64 latent: the depth model's UNet, SD 2.1's
+        # widths at head dim 64): every distinct K1-K4 shape of a UNet call at
+        # UNet batch 2 (a b1 render) and 8 (b4) that no case above has (K1 at
+        # S = 4096, 1024 and 256; K2, K3 and K4 at SD-1.5's widths, whose
+        # cases above it shares), and K1 at the middle block's 64 tokens
+        # (in a UNet call the short path takes them: S <= SHORT_KV); then
+        # K4's generic body on the concat UNets' conv_in at a 256x256 render
+        # (a 32x32 latent, UNet batch 2): 9 -> 320 (inpaint) and 5 -> 320
+        # (depth), bf16 and f32
+        from complex_prompt_diffusion_tpu_torch.models import UNetConfig
+
+        have = {(c.kernel, c.label) for c in cases}
+        start = len(cases)
+        for ub in (2, 8):
+            shapes = unet_batch_shapes(UNetConfig.sd2_depth(), 64, ub)
+            for s_, heads, d in shapes["attn"] + [(64, 20, 64)]:
+                qkv = randn(ub, s_, 3 * heads * d, dtype=bf16)
+                q, k, v = qkv.chunk(3, dim=-1)
+                attn_case(f"bf16 B{ub} S{s_} H{heads} d{d}", q, k, v, heads, "bfloat16",
+                          "attention_sm90")
+            for m, c in shapes["ff"]:
+                ff_case("geglu_ff", m, c, bf16)
+            for shape in shapes["gn"]:
+                gn_case(shape, bf16, 1e-5)
+            for side, c, co in shapes["conv"]:
+                conv_case("conv3x3_sm90" if C.k4_body(bf16, c, co) == "bf16_sm90" else "conv3x3",
+                          ub, side, c, co, bf16)
+        for c in (9, 5):
+            for dt in (bf16, f32):
+                conv_case("conv3x3", 2, 32, c, 320, dt)
+        fresh = []
+        for c in cases[start:]:
+            if (c.kernel, c.label) not in have:
+                have.add((c.kernel, c.label))
+                fresh.append(c)
+        cases[start:] = fresh
     # the probes (imported here: a source tree without them runs the cases
     # above); each at a shape of its TPU script, the tools/probe_*.py rows
     # time every variant

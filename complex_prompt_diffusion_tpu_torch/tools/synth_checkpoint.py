@@ -16,8 +16,11 @@ the state dict a CompVis checkpoint holds:
     one under ``cond_stage_model.transformer.text_model.*``.
 
 :func:`write_checkpoint` saves it as a ``.ckpt`` (``{"state_dict": ...}``
-through ``torch.save``). The CPU tests hold the keys to the JAX package's
-converters; ``chip_smoke.py`` writes a full-width SD-2.1 file with it.
+through ``torch.save``). The UNet may have any input width: the
+concat models' 9 (SD-1 inpaint) or 5 (SD-2 depth), which the loader's
+detection maps to ``UNetConfig.sd_inpaint`` / ``sd2_depth``. The CPU tests
+hold the keys to the JAX package's converters; ``chip_smoke.py`` writes
+full-width SD-2.1, SD-1.5 inpaint and SD-2 depth files with it.
 """
 
 from __future__ import annotations
@@ -204,6 +207,10 @@ def state_dict(
     as the EMA shadows of ``unet``."""
     if clip_layout not in ("openclip", "hf"):
         raise ValueError(f"unknown clip_layout {clip_layout!r} (openclip|hf)")
+    in_ch = unet["input_blocks"][0][0]["kernel"].shape[2]
+    if in_ch != unet_cfg.in_channels:
+        raise ValueError(f"the UNet tree's conv_in takes {in_ch} channels, its config "
+                         f"{unet_cfg.in_channels}")
     w = _Writer(dtype)
     _unet(w, unet_cfg, unet, "model.diffusion_model.")
     _vae(w, vae, "first_stage_model.")

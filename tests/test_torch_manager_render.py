@@ -252,12 +252,17 @@ def test_process_img2img_masked_repaint_equals_jax(bundles):
     _u8_close(got, want)
 
 
-def test_nine_channel_inpaint_waits_for_its_item(bundles):
+def test_nine_channel_inpaint_waits_for_its_item(bundles, monkeypatch):
+    """A mask on a 9-channel UNet no longer raises: the manager hands it to
+    ``pipeline.inpaint`` (tests/test_torch_inpaint.py holds that branch to
+    JAX's), not to RePaint."""
     _, pb = bundles
-    nine = dataclasses.replace(pb, unet_cfg=dataclasses.replace(pb.unet_cfg, in_channels=9))
-    with pytest.raises(NotImplementedError, match="9-channel.*ROADMAP.md §1 item 7"):
-        DiffusionModelManager(bundle=nine).process_img2img(
-            _image(1), {"render": {"W": 32, "H": 32}}, mask=np.ones((32, 32), np.float32))
+    nine = P.ModelBundle.random("tiny-inpaint", device="cpu")
+    seen = []
+    monkeypatch.setattr(DiffusionModelManager, "_inpaint", lambda *a, **k: seen.append("repaint"))
+    imgs = DiffusionModelManager(bundle=nine).process_img2img(
+        _image(1, 8), {"render": {"W": 32, "H": 32, "steps": 2}}, mask=np.ones((8, 8), np.float32))
+    assert not seen and imgs.shape == (1, 8, 8, 3) and imgs.dtype == np.uint8
 
 
 # ---- the render engine ----
@@ -293,6 +298,52 @@ def test_render_path_frames_equal_jax(bundles, monkeypatch):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SLICE_RTOL,
                                    atol=SLICE_ATOL)
     assert not torch.equal(seen[0][0], seen[1][0])  # a fresh x_T a frame
+
+
+@pytest.mark.parametrize("feedback", [False, True])
+def test_render_path_sigma_family_start_equals_jax(bundles, monkeypatch, feedback):
+    """Euler frames (independent, and the first feedback frame) start from
+    x_T scaled by the schedule's first sigma (14.61 for SD's tables), as
+    JAX's engine starts them: it passes a key, and JAX's sample_latents
+    scales the draw it makes from it. The start reaching sample_latents is
+    the engine's generator draw times sigmas[0] (std ~ 14.6, not ~1), and
+    the frames equal JAX's sample_latents from that start."""
+    jb, pb = bundles
+    cfg_kw = dict(steps=4, width=32, height=32, batch_size=1, seed=19, sampler="Euler")
+    pcfg, jcfg = P.RenderConfig(**cfg_kw), JP.RenderConfig(**cfg_kw)
+    sigma0 = float(P._sigma_schedule(pb, pcfg)[0])
+    assert abs(sigma0 - 14.6146) < 1e-3
+    seen = []
+    inner = R.sample_latents
+
+    def recording(bundle, spec, cfg, **kw):
+        lat = inner(bundle, spec, cfg, **kw)
+        seen.append((kw["x_init"].clone(), lat.clone(), kw.get("t_start")))
+        return lat
+
+    monkeypatch.setattr(R, "sample_latents", recording)
+    R.RenderEngine(pb, pcfg).render_path(_lerp_prompt(C, pb), 2, feedback=feedback)
+    x0 = seen[0][0]
+    draw = torch.randn(x0.shape, generator=torch.Generator().manual_seed(19))
+    torch.testing.assert_close(x0, draw * sigma0, rtol=0, atol=0)
+    assert 10.0 < float(x0.std()) < 20.0
+    jp = _lerp_prompt(JC, jb)
+    path, uncond = jp.embedding_path(steps=2, bundle=jb), jp.uncond_embedding(jb)
+    frames = seen if not feedback else seen[:1]  # a feedback frame starts on the table
+    for cond, (x_T, got, t_start) in zip(path, frames):
+        assert t_start is None and float(x_T.std()) > 10.0
+        spec = JG.GuidanceSpec.single(jnp.asarray(cond), jnp.asarray(uncond))
+        want = JP.sample_latents(jb, spec, jcfg, x_init=jnp.asarray(x_T.numpy()))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SLICE_RTOL,
+                                   atol=SLICE_ATOL)
+    # JAX's engine: sample_latents(key=k) starts from normal(split(k)[0]) * sigmas[0]
+    k = jax.random.fold_in(jax.random.PRNGKey(19), 0)
+    spec = JG.GuidanceSpec.single(jnp.asarray(path[0]), jnp.asarray(uncond))
+    start = np.asarray(jax.random.normal(jax.random.split(k)[0], x0.shape, jnp.float32)) * sigma0
+    np.testing.assert_allclose(np.asarray(JP.sample_latents(jb, spec, jcfg, key=k)),
+                               np.asarray(JP.sample_latents(jb, spec, jcfg,
+                                                            x_init=jnp.asarray(start))),
+                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("diversity", [0.0, 0.3])

@@ -118,7 +118,8 @@ def test_k1_twin_matches_onepass_kernel_at_d64_ragged(s, heads):
 @pytest.mark.parametrize("in_ch", [5, 9])
 def test_concat_conditioned_unets_say_they_wait(in_ch):
     """A 5- or 9-channel UNet (depth2img, inpaint) loads, and the entry
-    points refuse to render it, naming why."""
+    points refuse to render it without its conditioning channels, or with
+    a conditioning of the wrong width, naming why (before any launch)."""
     ucfg, vcfg, ccfg = _sd2_tiny_configs()
     jcfg = dataclasses.replace(ucfg, in_channels=in_ch)
     key = jax.random.PRNGKey(0)
@@ -127,8 +128,12 @@ def test_concat_conditioned_unets_say_they_wait(in_ch):
         JM.init_vae(key, vcfg, commit=False), ccfg,
         JM.init_clip_text(key, ccfg, commit=False), device="cpu", version="sd2")
     assert pb.unet_cfg.in_channels == in_ch
-    with pytest.raises(NotImplementedError, match=f"in_channels={in_ch}.*depth2img or inpaint"):
-        P.txt2img(pb, "a cat", cfg=P.RenderConfig(steps=2, width=32, height=32))
+    cfg = P.RenderConfig(steps=2, width=32, height=32)
+    with pytest.raises(ValueError, match=f"takes {in_ch} input channels.*needs its conditioning"):
+        P.txt2img(pb, "a cat", cfg=cfg)
+    with pytest.raises(ValueError, match=f"takes {in_ch} input channels: 4 latent channels and "
+                                         f"{in_ch - 3} of depth_mask"):
+        P.txt2img(pb, "a cat", cfg=cfg, depth_mask=torch.zeros((4, 4, in_ch - 3)))
 
 
 # ---- the kernel sites a UNet call has (chip_smoke.py's launch predictions) ----
@@ -170,10 +175,10 @@ def test_unet_sites_of_sd21(latent, k1, convs):
     assert len(gated) == convs
 
 
-@pytest.mark.parametrize("ub", [2, 4, 8, 16])
+@pytest.mark.parametrize("ub", [2, 3, 4, 8, 16])
 def test_unet_batch_shapes_cover_every_kernel_site(ub):
-    """``tools/kernel_cases.unet_batch_shapes`` (phase 1's "ub4" and "ub16"
-    groups) at SD 1.5's 64x64 latent: K1 at the three self-attention
+    """``tools/kernel_cases.unet_batch_shapes`` (phase 1's "ub3", "ub4" and
+    "ub16" groups) at SD 1.5's 64x64 latent: K1 at the three self-attention
     levels; K2 at each level's M (``GEGLU_ROWS`` at UNet batch 8,
     ``GEGLU_B1_ROWS`` at 2); K3 on the 14 planes of ``GN_UNET_PLANES``,
     whose counts the sites' GroupNorm planes reproduce; K4 on the 10 shapes

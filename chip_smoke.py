@@ -171,9 +171,40 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            shapes too (kernel_cases' "sd2_512" group: K1 at head dim 64 and
            S = 4096, 1024, 256 at UNet batch 2 and 8, and at the middle
            block's 64 tokens; K4's generic body on the concat UNets'
-           conv_in at a 32x32 latent, 9 -> 320 and 5 -> 320, bf16 and f32).
+           conv_in at a 32x32 latent, 9 -> 320 and 5 -> 320, bf16 and f32);
+  phase 16 the UNet's opt-in modes (after phase 15, on phase 2's bundle
+           rebuilt from seed 0: bf16 UNet, bf16 VAE, 512x512 unless said):
+           (a) a UNet-batch-8 call returning its skips, decoder features
+           and deep feature, then injecting them back (torch.equal), a
+           ``collect_attn_maps`` call at UNet batch 2 (16 maps [2, 8, HW,
+           77] whose rows sum to 1; the output against the plain call) and
+           a DAAM ``word_heat_map``; (b) DeepCache at b4: DDIM 50 at
+           interval 3 (17 full, 33 shallow calls) and DPM++ 2M Karras 20 at
+           interval 2, against the exact renders of the same seed (s/step,
+           latent relRMSE), and a shallow pass fed the same call's deep
+           feature against the full pass (torch.equal); (c) token
+           reduction: ToDo 0.75 at b4 DDIM 50, with DeepCache 3 too, ToMe
+           merge 0.75 (b1 DDIM 50) and 0.3 (b1 DDIM 20, S' = 2868) with
+           ``tome_mlp`` and ``tome_crossattn`` (s/step, relRMSE, uint8
+           PSNR and SSIM against the exact renders: random weights), and the
+           merged level-0 attention (K1) and FF (K2) against their plain
+           twins under one plan; (d) attention-saliency guidance b1 DDIM
+           50 (4 guided rounds: 54 UNet calls, 4 at UNet batch 1), and one
+           guided eps with the UNet in f32 at a 16x16 latent against the CPU
+           plain twins; (e) tiled inference: 1024x1024 b1 DDIM 20, 64-latent
+           tiles every 48, 2 a call (UNet batch 4), and a single tile at
+           512x512 equal to the untiled render. Every render's K1-K4 launches
+           follow from its UNet calls by kind (full, shallow, uncond-only,
+           tile chunk; ``unet_call_launches`` with ``deep_at`` and the
+           config's token reduction). Phase 1 holds the new shapes too
+           (kernel_cases' "todo" and "tome" groups: K1 at Sq 4096, Skv 1024
+           at UNet batch 8 and 2; at S' = 1024 and 2868; K2 at M = 2 x S';
+           "ub1": attention guidance's UNet-batch-1 call).
+Phase 1's UNet groups come from ``kernel_cases.unet_call_groups``; a
+full-width UNet call whose K1-K4 shapes none of them holds fails its
+path's launch check (``check_held``).
 
-Each path of phases 2, 4 to 12, 14 and 15 runs with every launch count set to 0
+Each path of phases 2, 4 to 12 and 14 to 16 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched (phase 12, render by render: K1's sm90 body 15 times, K2
 its plans' kernels for 16 calls, K3 61 calls and K4's sm90 body 22 times a
@@ -611,13 +642,14 @@ def phase1(dev, card: str) -> dict:
         if prior_ms is not None:
             sm["replaced_ms"] = (sm["replaced_ms"] or 0.0) + prior_ms
         torch.cuda.empty_cache()
-    for dt, ub, body, prior in (("bf16", 2, "sm90 K4", "mma.sync body"),
+    for dt, ub, body, prior in (("bf16", 1, "sm90 K4", "mma.sync body"),
+                                ("bf16", 2, "sm90 K4", "mma.sync body"),
                                 ("f32", 2, "K4's 3xTF32 body", "FMA body it replaced"),
                                 ("bf16", 3, "sm90 K4", "mma.sync body"),
                                 ("bf16", 4, "sm90 K4", "mma.sync body")):
-        # the 22 convs of one UNet call at UNet batch 2 (a batch-1 step), 3 or
-        # 4 (a batch-1 step of a 2- or 3-factor prompt), each shape times its
-        # count
+        # the 22 convs of one UNet call at UNet batch 1 (attention guidance's
+        # unconditional call), 2 (a batch-1 step), 3 or 4 (a batch-1 step of a
+        # 2- or 3-factor prompt), each shape times its count
         sums = [0.0] * 4
         for (hw, c, co), n in zip(B1_UNET_CONVS, B1_UNET_CONV_COUNTS):
             row = conv_rows.get(f"{dt} B{ub} {hw}x{hw} {c}->{co}")
@@ -632,6 +664,9 @@ def phase1(dev, card: str) -> dict:
     sd15 = UNetConfig.sd15()
     for dt, step, rows in (("bf16", "b4", GEGLU_ROWS[:4]), ("f32", "b4", GEGLU_ROWS[:4]),
                            ("f32", "b1", GEGLU_B1_ROWS),
+                           ("bf16", "b1 unconditional (UNet batch 1)",
+                            unet_batch_shapes(sd15, 64, 1)["ff"]),
+                           ("bf16", "b1", GEGLU_B1_ROWS),
                            ("bf16", "2-factor b1", unet_batch_shapes(sd15, 64, 3)["ff"]),
                            ("bf16", "3-factor b1", unet_batch_shapes(sd15, 64, 4)["ff"]),
                            ("bf16", "3-factor b4", unet_batch_shapes(sd15, 64, 16)["ff"])):
@@ -649,8 +684,8 @@ def phase1(dev, card: str) -> dict:
                   f"{'/'.join(f'M{m}' for m, _ in rows)}): K2 {sums[0]:.4f} ms, plain twin "
                   f"{sums[1]:.4f} ms, bound {sums[2]:.4f} ms ({100 * sums[2] / sums[0]:.1f}% of "
                   f"K2's time; {card})")
-    for ub, step in ((8, "b4"), (2, "b1"), (3, "2-factor b1"), (4, "3-factor b1"),
-                     (16, "3-factor b4")):
+    for ub, step in ((8, "b4"), (2, "b1"), (1, "b1 unconditional"), (3, "2-factor b1"),
+                     (4, "3-factor b1"), (16, "3-factor b4")):
         # the 61 GroupNorms of one CFG step (UNet batch (1 + factors) x
         # batch), by shape
         sums = [0.0] * 4
@@ -1285,6 +1320,7 @@ def check_unet_path(launches: dict, unet_cfg, ub: int, calls: int, decodes: int,
     bodies, K5 or the probes."""
     from complex_prompt_diffusion_tpu_torch.ops.attention import f32_sm90_launches
 
+    check_held(unet_cfg, latent, ub, None, what)
     per = unet_call_launches(unet_cfg, latent, ub)
     s = latent * latent  # the VAE mid-block's tokens
     f32_decode = decode_dtype == "float32"
@@ -1727,13 +1763,14 @@ SD21_STEPS = 50  # DDIM steps of phase 13's b4 render
 SD21_K_STEPS = 20  # DPM++ 2M Karras steps of its b1 render
 
 
-def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16") -> dict:
+def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16", deep_at=None) -> dict:
     """What one UNet call of ``cfg`` on a ``latent`` x ``latent`` input at
-    UNet batch ``ub`` launches, from its sites (``kernel_cases.unet_sites``)
+    UNet batch ``ub`` launches, from its sites (``kernel_cases.unet_sites``,
+    the shallow pass's with ``deep_at``, token reduction as ``cfg`` sets it)
     and the kernels' own rules: K1's sm90 body once at every self-attention
-    site above ``SHORT_KV`` tokens, K2 the kernels of each FF site's plan,
-    K3 one call a GroupNorm, K4 the convs its gate admits (and of those, the
-    ones on its sm90 body)."""
+    site above ``SHORT_KV`` keys, K2 the kernels of each FF site's plan at
+    its rows, K3 one call a GroupNorm, K4 the convs its gate admits (and of
+    those, the ones on its sm90 body)."""
     import torch
 
     from complex_prompt_diffusion_tpu_torch.models.layers import conv3x3_wanted
@@ -1742,13 +1779,13 @@ def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16") -> di
     from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_plan
     from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import unet_sites
 
-    sites = unet_sites(cfg, latent)
+    sites = unet_sites(cfg, latent, deep_at)
     dt = getattr(torch, dtype)
     gated = [(s, c, co) for s, c, co in sites["conv"]
              if conv3x3_wanted(torch.empty((ub, s, s, c), device="meta"), (co, c, 3, 3))]
-    return {"k1": sum(1 for s, *_ in sites["attn"] if s * s > SHORT_KV),
-            "k2": sum(geglu_plan(ub * s * s, ch, 4 * ch, dt).launches
-                      for s, ch, _, _ in sites["attn"]),
+    return {"k1": sum(1 for _, skv, _, _ in sites["self_attn"] if skv > SHORT_KV),
+            "k2": sum(geglu_plan(ub * rows, ch, 4 * ch, dt).launches
+                      for rows, ch in sites["ff_rows"]),
             "k3": sites["gn"], "k4": len(gated),
             "k4_sm90": sum(1 for _, c, co in gated if k4_body(dt, c, co) == "bf16_sm90")}
 
@@ -2498,6 +2535,423 @@ def phase15(dev, card: str, image) -> dict:
     return paths
 
 
+PROMPT16 = "a photograph of an astronaut riding a horse"  # phase 2's prompt
+DC_STEPS = 50  # DDIM steps of phase 16's b4 DeepCache and ToDo renders
+DC_K_STEPS = 20  # DPM++ 2M Karras steps of its b4 DeepCache render
+TOME_STEPS = (50, 20)  # DDIM steps of its b1 ToMe renders, ratio 0.75 and 0.3
+GUIDE_STEPS = 50  # DDIM steps of its attention-guided render
+TILE_STEPS = 20  # DDIM steps of its tiled renders
+SD15_DEEP_AT = 9  # SD-1.5's default DeepCache split (models.unet.deepcache_default_block)
+
+
+class UNetCallKinds:
+    """Records every UNet call while the block runs, through the models
+    package and inside ``models/unet.py`` (where DeepCache's pair calls
+    it): its batch and kind, "full" or "shallow"."""
+
+    def __enter__(self):
+        from complex_prompt_diffusion_tpu_torch import models as M
+        from complex_prompt_diffusion_tpu_torch.models import unet as U
+
+        self.calls, self._mods, self._inner = [], (M, U), U.unet_apply
+
+        def counted(cfg, params, x, *args, **kwargs):
+            kind = "shallow" if kwargs.get("deep_feature") is not None else "full"
+            self.calls.append((int(x.shape[0]), kind))
+            return self._inner(cfg, params, x, *args, **kwargs)
+
+        for mod in self._mods:
+            mod.unet_apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self._mods:
+            mod.unet_apply = self._inner
+
+
+def check_held(cfg, latent: int, ub: int, deep_at, what: str) -> None:
+    """Phase 1 held every K1-K4 shape of this UNet call to its plain twin
+    (``kernel_cases.held_unet_shapes``, from ``unet_call_groups``): a
+    full-width call (latent >= 64) at a shape no group has fails here. The
+    small evals (16^2 and 24^2 latents) are held whole against the CPU twins
+    where they run."""
+    from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import (
+        held_unet_shapes,
+        unet_shape_keys,
+    )
+
+    if latent < 64:
+        return
+    missing = unet_shape_keys(cfg, latent, ub, deep_at) - held_unet_shapes()
+    if missing:
+        raise SmokeFailure(f"{what}: phase 1 holds no case at its UNet calls' shapes "
+                           f"{sorted(missing)} (UNet batch {ub}, latent {latent}): add the call "
+                           f"to kernel_cases.unet_call_groups")
+
+
+def check_calls(launches: dict, what: str, calls, decodes: int = 0, batch: int = 1,
+                s_decode: int = 4096) -> None:
+    """A bf16 path's K1-K4 launches against its UNet calls: ``calls`` lists
+    (n, config, latent side, UNet batch, deep_at) groups, each call's counts
+    from ``unet_call_launches`` (a shallow pass with ``deep_at``; token
+    reduction as the config sets it); K3's calls for them and ``decodes``
+    bf16 decodes (at ``batch``, the mid-block at ``s_decode`` tokens on K1's
+    wide body); nothing on the f32 bodies, K5 or the probes."""
+    want = {"attention_sm90": 0, "geglu_ff": 0, "conv3x3": 0, "conv3x3_sm90": 0}
+    gn = 0
+    for n, cfg, latent, ub, deep_at in calls:
+        check_held(cfg, latent, ub, deep_at, what)
+        per = unet_call_launches(cfg, latent, ub, deep_at=deep_at)
+        for key, k in (("attention_sm90", "k1"), ("geglu_ff", "k2"), ("conv3x3", "k4"),
+                       ("conv3x3_sm90", "k4_sm90")):
+            want[key] += n * per[k]
+        gn += n * per["k3"]
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise SmokeFailure(f"{what} launched {got}: want {want} from its UNet calls {calls}")
+    want_gn = gn + VAE_DECODE_GN_CALLS * decodes
+    if (launches["group_norm calls"] != want_gn
+            or launches["group_norm"] != launches["group_norm planned"]
+            or launches["group_norm_prior"]):
+        raise SmokeFailure(f"K3 in {what}: {launches['group_norm calls']} calls (want {want_gn}), "
+                           f"{launches['group_norm']} kernels against "
+                           f"{launches['group_norm planned']} planned, the replaced body "
+                           f"{launches['group_norm_prior']}")
+    check_wide(launches, decodes, batch, what, s=s_decode)
+    others = {n: launches[n] for n in ("attention_f32_sm90", "attention_f32_fused_sm90",
+                                       "conv3x3_f32_sm90", "geglu_ff_f32_sm90", "attention_cm")
+              + PROBES if launches[n]}
+    if others:
+        raise SmokeFailure(f"{what} launched kernels off its path: {others}")
+
+
+def rel_rmse(got, want) -> float:
+    return float((got.float() - want.float()).pow(2).mean().sqrt()
+                 / want.float().pow(2).mean().sqrt())
+
+
+def phase16(dev, card: str) -> dict:
+    """The UNet's opt-in modes at SD-1.5 full width (phase 2's bundle
+    rebuilt from seed 0: bf16 UNet, bf16 VAE; 512x512 unless said): (a) the
+    skip, feature and attention-map interfaces (the inject identity, DAAM);
+    (b) DeepCache, its shallow pass against the full one; (c) ToDo and ToMe
+    token reduction, the merged attention and FF against their plain twins
+    under one plan; (d) attention-saliency guidance, one guided eps in f32
+    against the CPU twins; (e) tiled inference at 1024x1024, and a single
+    tile at 512x512 against the untiled render. Every render's K1-K4
+    launches follow from its UNet calls by kind (``check_calls``). Returns
+    the launch counts by path."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch import schedules as S
+    from complex_prompt_diffusion_tpu_torch.guidance import (
+        GuidanceConfig,
+        GuidanceSpec,
+        cfg_epsilon,
+        cfg_epsilon_attn_guided,
+    )
+    from complex_prompt_diffusion_tpu_torch.guidance.daam import word_heat_map
+    from complex_prompt_diffusion_tpu_torch.models import layers as L
+    from complex_prompt_diffusion_tpu_torch.models.tiled import tile_positions
+    from complex_prompt_diffusion_tpu_torch.ops import tome as TM
+    from complex_prompt_diffusion_tpu_torch.ops.attention import attention_plain, flash_attention
+    from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_ff, geglu_ff_plain
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        ModelBundle,
+        RenderConfig,
+        _tree_map,
+        decode_latents,
+        make_guidance_spec,
+        txt2img,
+    )
+    from complex_prompt_diffusion_tpu_torch.utils.metrics import psnr, ssim
+
+    paths = {}
+    t0 = time.perf_counter()
+    bundle = ModelBundle.random("sd15", seed=0, device=dev).cast_vae("bfloat16")
+    torch.cuda.synchronize()
+    ucfg, params = bundle.unet_cfg, bundle.unet_params
+    print(f"phase16: SD-1.5 random bundle of phase 2 (seed 0; UNet bf16, VAE cast to bf16) "
+          f"rebuilt in {time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    # (a) the interfaces: a UNet-batch-8 call returning its skips, decoder
+    # features and the feature entering output block 0, then the same call
+    # with all of them injected back
+    x = torch.randn((8, 64, 64, 4), generator=gen, device=dev)
+    t = torch.full((8,), 601, dtype=torch.long, device=dev)
+    ctx = torch.randn((8, 77, 768), generator=gen, device=dev)
+    reset_launches()
+    with torch.inference_mode():
+        out, skips, feats, deep0 = M.unet_apply(ucfg, params, x, t, ctx, return_skips=True,
+                                                return_feats=True, return_deep_at=0)
+        again = M.unet_apply(ucfg, params, x, t, ctx, inject_skips=skips, inject_skips_stop=99,
+                             inject_feats=(deep0,) + feats[:-1], inject_feats_stop=99)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    check_calls(launches, "the inject identity", [(2, ucfg, 64, 8, None)])
+    same = torch.equal(again, out)
+    print(f"phase16: (a) UNet batch 8, return_skips + return_feats + return_deep_at=0: "
+          f"{len(skips)} skips, {len(feats)} features; injected back (skips and features, stop "
+          f"99): output torch.equal {same} ({card})", flush=True)
+    if not same:
+        raise SmokeFailure("finding: injecting a call's own skips and features changed its "
+                           "output on the card: a kernel is not deterministic")
+    paths["unet_inject_identity_ub8"] = launches
+    reset_launches()
+    with torch.inference_mode():
+        out_m, maps = M.unet_apply(ucfg, params, x[:2], t[:2], ctx[:2], collect_attn_maps=True)
+        plain = M.unet_apply(ucfg, params, x[:2], t[:2], ctx[:2])
+        hm = word_heat_map(maps, [1, 2])
+        torch.cuda.synchronize()
+    launches = read_launches()
+    check_calls(launches, "the attention-map call", [(2, ucfg, 64, 2, None)])
+    paths["unet_attn_maps_ub2"] = launches
+    worst = max(float((m.sum(-1) - 1).abs().max()) for m in maps)
+    rel = float((out_m - plain).norm() / plain.norm())
+    shapes = sorted({tuple(m.shape) for m in maps})
+    print(f"phase16: (a) collect_attn_maps at UNet batch 2: {len(maps)} maps {shapes}, f32, rows "
+          f"sum to 1 within {worst:.2e}; output vs the plain call rel L2 {rel:.3e} (tol 5e-2); "
+          f"word_heat_map of tokens 1-2: {list(hm.shape)} in [{float(hm.min()):.3f}, "
+          f"{float(hm.max()):.3f}] ({card})", flush=True)
+    if (len(maps) != 16 or any(m.dtype != torch.float32 or m.shape[:2] != (2, 8)
+                               or m.shape[3] != 77 for m in maps)
+            or worst > 1e-3 or not rel <= 5e-2 or tuple(hm.shape) != (64, 64)
+            or not bool(torch.isfinite(hm).all()) or float(hm.min()) < 0
+            or float(hm.max()) > 1):
+        raise SmokeFailure(f"the attention maps: {len(maps)} maps {shapes}, row sums off by "
+                           f"{worst}, output rel {rel}, heat map {list(hm.shape)}")
+
+    def render(label, bundle_, cfg, calls, prompt=PROMPT16, decode=True):
+        """One render with its UNet calls recorded by kind and its launches
+        checked against ``calls`` (as ``check_calls``); returns (latents,
+        images, launches, s/step)."""
+        b, side = cfg.batch_size, cfg.height // 8
+        reset_launches()
+        torch.cuda.synchronize()
+        with UNetCallKinds() as kinds:
+            t0 = time.perf_counter()
+            _, latents = txt2img(bundle_, prompt, cfg=cfg, decode=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        images = decode_latents(bundle_, latents) if decode else None
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = read_launches()
+        check_latents(latents, (b, side, side, 4))
+        if decode:
+            check_image(images, (b, cfg.height, cfg.width, 3))
+        want_kinds = collections.Counter()
+        for n, _, _, ub, deep_at in calls:
+            want_kinds[(ub, "full" if deep_at is None else "shallow")] += n
+        if collections.Counter(kinds.calls) != want_kinds:
+            raise SmokeFailure(f"{label} made the UNet calls {collections.Counter(kinds.calls)}, "
+                               f"want {dict(want_kinds)}")
+        check_calls(launches, label, calls, decodes=int(decode), batch=b, s_decode=side * side)
+        steps = cfg.steps
+        print(f"phase16: {label} on {card}: UNet calls {dict(want_kinds)} (batch, kind); "
+              f"sampling {t1 - t0:.3f} s = {(t1 - t0) / steps:.4f} s/step"
+              + (f", render with bf16 decode {t2 - t0:.3f} s wall" if decode else "")
+              + f"; K1 sm90 {launches['attention_sm90']}, K2 {launches['geglu_ff']}, K3 "
+              f"{launches['group_norm']} kernels for {launches['group_norm calls']} calls, K4 "
+              f"{launches['conv3x3']} ({launches['conv3x3_sm90']} sm90)", flush=True)
+        return latents, images, launches, (t1 - t0) / steps
+
+    def compare(label, got, ref, b):
+        """relRMSE of the latents, PSNR and SSIM of the uint8 images against
+        the exact render (random weights: not comparable with trained-weight
+        numbers)."""
+        print(f"phase16: {label} against the exact render of the same seed: latent relRMSE "
+              f"{rel_rmse(got[0], ref[0]):.4e}, s/step {got[3]:.4f} against {ref[3]:.4f}"
+              + (f", uint8 PSNR {psnr(got[1], ref[1]):.2f} dB, SSIM {ssim(got[1], ref[1]):.4f}"
+                 if got[1] is not None else "")
+              + f" (random weights; batch {b}; {card})", flush=True)
+
+    # (b) DeepCache: the exact b4 DDIM 50 and DPM++ 2M Karras 20 renders,
+    # then each with the cache (interval 3: 17 full and 33 shallow calls;
+    # interval 2: 10 and 10)
+    b4 = dict(width=512, height=512, batch_size=4, seed=0, guidance_scale=7.5)
+    ddim50 = RenderConfig(steps=DC_STEPS, sampler="DDIM", **b4)
+    dpm20 = RenderConfig(steps=DC_K_STEPS, sampler="DPM++ 2m", sigma_schedule="karras", **b4)
+    ref_b4 = render(f"exact b4 DDIM {DC_STEPS}", bundle, ddim50, [(DC_STEPS, ucfg, 64, 8, None)])
+    paths["exact_b4_ddim50"] = ref_b4[2]
+    ref_b4k = render(f"exact b4 DPM++ 2M Karras {DC_K_STEPS}", bundle, dpm20,
+                     [(DC_K_STEPS, ucfg, 64, 8, None)])
+    paths["exact_b4_dpmpp2m"] = ref_b4k[2]
+    full3 = len(range(0, DC_STEPS, 3))
+    got = render(f"DeepCache b4 DDIM {DC_STEPS} interval 3", bundle,
+                 dataclasses.replace(ddim50, deepcache_interval=3),
+                 [(full3, ucfg, 64, 8, None), (DC_STEPS - full3, ucfg, 64, 8, SD15_DEEP_AT)])
+    paths["deepcache3_b4_ddim50"] = got[2]
+    compare(f"DeepCache b4 DDIM {DC_STEPS} interval 3", got, ref_b4, 4)
+    got = render(f"DeepCache b4 DPM++ 2M Karras {DC_K_STEPS} interval 2", bundle,
+                 dataclasses.replace(dpm20, deepcache_interval=2),
+                 [(DC_K_STEPS // 2, ucfg, 64, 8, None),
+                  (DC_K_STEPS // 2, ucfg, 64, 8, SD15_DEEP_AT)])
+    paths["deepcache2_b4_dpmpp2m"] = got[2]
+    compare(f"DeepCache b4 DPM++ 2M Karras {DC_K_STEPS} interval 2", got, ref_b4k, 4)
+    # the shallow pass fed the same call's deep feature, through the hoisted
+    # cross k/v, against the full pass: the same bits
+    with torch.inference_mode():
+        kv = M.precompute_cross_kv(ucfg, params, ctx)
+        out_full, deep = M.unet_apply(ucfg, params, x, t, ctx, cross_kv=kv,
+                                      return_deep_at=SD15_DEEP_AT)
+        out_sh = M.unet_apply(ucfg, params, x, t, ctx, cross_kv=kv, deep_feature=deep,
+                              deep_at=SD15_DEEP_AT)
+        same = torch.equal(out_sh, out_full)
+    print(f"phase16: (b) shallow pass (deep_at {SD15_DEEP_AT}, hoisted cross k/v) fed the same "
+          f"call's deep feature {list(deep.shape)} vs the full pass at UNet batch 8: torch.equal "
+          f"{same} ({card})", flush=True)
+    if not same:
+        raise SmokeFailure("finding: the shallow pass differs from the full pass on the card: a "
+                           "kernel is not deterministic")
+
+    # (c) token reduction: ToDo (K/V pooled 2x2 at level 0) at b4 DDIM 50,
+    # with DeepCache 3 too; ToMe merge with tome_mlp and tome_crossattn at
+    # b1, ratio 0.75 (S' = 1024) over DDIM 50 and 0.3 (S' = 2868) over 20
+    todo = dataclasses.replace(ucfg, tome_ratio=0.75, tome_mode="downsample")
+    got = render(f"ToDo 0.75 b4 DDIM {DC_STEPS}", bundle,
+                 dataclasses.replace(ddim50, tome_ratio=0.75), [(DC_STEPS, todo, 64, 8, None)])
+    paths["todo_b4_ddim50"] = got[2]
+    compare(f"ToDo 0.75 b4 DDIM {DC_STEPS}", got, ref_b4, 4)
+    got = render(f"DeepCache 3 + ToDo 0.75 b4 DDIM {DC_STEPS}", bundle,
+                 dataclasses.replace(ddim50, tome_ratio=0.75, deepcache_interval=3),
+                 [(full3, todo, 64, 8, None), (DC_STEPS - full3, todo, 64, 8, SD15_DEEP_AT)])
+    paths["deepcache3_todo_b4_ddim50"] = got[2]
+    compare(f"DeepCache 3 + ToDo 0.75 b4 DDIM {DC_STEPS}", got, ref_b4, 4)
+    b1 = dict(width=512, height=512, batch_size=1, seed=1, guidance_scale=7.5)
+    tome_bundle = dataclasses.replace(bundle, unet_cfg=dataclasses.replace(
+        ucfg, tome_mlp=True, tome_crossattn=True))
+    refs_b1 = {}
+    for ratio, steps in zip((0.75, 0.3), TOME_STEPS):
+        cfg = RenderConfig(steps=steps, sampler="DDIM", **b1)
+        if steps not in refs_b1:
+            refs_b1[steps] = render(f"exact b1 DDIM {steps}", bundle, cfg,
+                                    [(steps, ucfg, 64, 2, None)])
+            paths[f"exact_b1_ddim{steps}"] = refs_b1[steps][2]
+        merge = dataclasses.replace(tome_bundle.unet_cfg, tome_ratio=ratio, tome_mode="merge")
+        label = f"ToMe merge {ratio} + tome_mlp + tome_crossattn b1 DDIM {steps}"
+        got = render(label, tome_bundle, dataclasses.replace(cfg, tome_ratio=ratio,
+                                                             tome_mode="merge"),
+                     [(steps, merge, 64, 2, None)])
+        paths[f"tome{ratio}_b1_ddim{steps}"] = got[2]
+        compare(label, got, refs_b1[steps], 1)
+    # the merged level-0 attention and FF through K1 and K2 against their
+    # plain twins under ONE plan (a plan built twice from bf16 scores may
+    # break ties otherwise)
+    blk = params["input_blocks"][1][1]["blocks"][0]
+    xs = torch.randn((2, 4096, 320), generator=gen, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        for ratio in (0.75, 0.3):
+            r = min(int(ratio * 4096), 4096 - 1024)
+            plan = TM.build_merge(xs, 64, 64, r)
+            a1 = blk["attn1"]
+            w = torch.cat([a1["to_q"]["kernel"], a1["to_k"]["kernel"], a1["to_v"]["kernel"]], 1)
+            q, k, v = L.linear({"kernel": w}, TM.tome_merge(plan, L.layer_norm(blk["norm1"], xs))
+                               ).chunk(3, dim=-1)
+            reset_launches()
+            got_a = TM.tome_unmerge(plan, flash_attention(q, k, v, 8))
+            ff = blk["ff"]
+            ff_args = (ff["proj"]["kernel"], ff["proj"]["bias"], ff["out"]["kernel"],
+                       ff["out"]["bias"])
+            y = TM.tome_merge(plan, L.layer_norm(blk["norm3"], xs))
+            got_f = TM.tome_unmerge(plan, geglu_ff(y, *ff_args))
+            torch.cuda.synchronize()
+            n = read_launches()
+            want_a = TM.tome_unmerge(plan, attention_plain(q, k, v, 8))
+            want_f = TM.tome_unmerge(plan, geglu_ff_plain(y, *ff_args))
+            ea, ef = rel_err(got_a, want_a), rel_err(got_f, want_f)
+            print(f"phase16: (c) ToMe {ratio} under one plan (S' = {4096 - r}, UNet batch 2, "
+                  f"level 0): K1 ({n['attention_sm90']} launch) rel {ea[1]:.3e}, K2 "
+                  f"({n['geglu_ff']} kernels, M = {2 * (4096 - r)}) rel {ef[1]:.3e} against the "
+                  f"plain twins, unmerged (tol {TOL['bfloat16']:.0e}) ({card})", flush=True)
+            if (ea[1] > TOL["bfloat16"] or ef[1] > TOL["bfloat16"] or n["attention_sm90"] != 1
+                    or n["geglu_ff"] <= 0):
+                raise SmokeFailure(f"ToMe {ratio} under one plan: K1 rel {ea[1]}, K2 rel {ef[1]}, "
+                                   f"launches {n}")
+
+    # (d) attention-saliency guidance at b1 DDIM 50 (rounds 4, scale 1.1,
+    # blur 31): 50 CFG calls (4 of them with the skips) and 4 calls at UNet
+    # batch 1 on the unconditional context
+    gcfg = GuidanceConfig(attn_guide=True, attn_guide_rounds=4, attn_guide_scale=1.1,
+                          attn_guide_blur_k=31)
+    cfg = RenderConfig(steps=GUIDE_STEPS, sampler="DDIM", guidance=gcfg, **b1)
+    got = render(f"attention guidance b1 DDIM {GUIDE_STEPS} (rounds 4, scale 1.1, blur 31)",
+                 bundle, cfg, [(GUIDE_STEPS, ucfg, 64, 2, None), (4, ucfg, 64, 1, None)])
+    paths["attn_guide_b1_ddim50"] = got[2]
+    compare(f"attention guidance b1 DDIM {GUIDE_STEPS}", got, refs_b1[GUIDE_STEPS], 1)
+    # one guided step's eps at a 16x16 latent, the UNet in f32 (TF32 off),
+    # against the CPU plain twins on copies of the same weights
+    cpu = torch.device("cpu")
+    b32 = bundle.cast("float32")
+    cfg32, p32 = b32.unet_cfg, b32.unet_params
+    p32_cpu = _tree_map(lambda a: a.to(cpu), p32)
+    spec = make_guidance_spec(bundle, PROMPT16)
+    spec_cpu = GuidanceSpec(*(a.to(cpu) for a in (spec.uncond, spec.factors, spec.scales,
+                                                  spec.masks)))
+    it = S.make_inference_tables(bundle.tables, GUIDE_STEPS)
+    idx = 2
+    coeffs = (np.float32(it.alphas_cumprod_t[idx]),
+              np.float32(it.sqrt_one_minus_alphas_cumprod_t[idx]))
+    x16 = torch.randn((1, 16, 16, 4), generator=torch.Generator().manual_seed(5))
+    t16 = int(it.timesteps[idx])
+    gcfg16 = dataclasses.replace(gcfg, attn_guide_blur_k=7)
+
+    def guided(p, x_, sp):
+        def eps(a, tt, c):
+            return M.unet_apply(cfg32, p, a, tt, c)
+
+        def eps_skips(a, tt, c):
+            return M.unet_apply(cfg32, p, a, tt, c, return_skips=True)
+
+        return cfg_epsilon_attn_guided(eps, eps_skips, x_, torch.tensor(t16, device=x_.device),
+                                       sp, 7.5, coeffs, gcfg=gcfg16)
+
+    with torch.inference_mode():
+        got_e = guided(p32, x16.to(dev), spec).cpu()
+        want_e = guided(p32_cpu, x16, spec_cpu)
+        plain_e = cfg_epsilon(lambda a, tt, c: M.unet_apply(cfg32, p32_cpu, a, tt, c), x16,
+                              torch.tensor(t16), spec_cpu, 7.5)
+    rel = float((got_e - want_e).norm() / want_e.norm())
+    moved = float((want_e - plain_e).norm() / plain_e.norm())
+    print(f"phase16: (d) one attention-guided eps, f32 UNet (TF32 off) at a 16x16 latent (blur "
+          f"7), CUDA kernels vs CPU plain twins: rel L2 {rel:.3e} (tol 1e-4); the guidance moves "
+          f"eps by rel {moved:.3e} ({card})", flush=True)
+    if not rel <= 1e-4 or not moved > 0:
+        raise SmokeFailure(f"the attention-guided eps: rel {rel}, moved {moved}")
+    del b32, p32, p32_cpu
+    torch.cuda.empty_cache()
+
+    # (e) tiled inference: 1024x1024 b1 DDIM 20, 64-latent tiles every 48,
+    # 2 tiles a call (UNet batch 4); a single 64 tile at 512x512 is the
+    # untiled render, bit for bit (phase (c)'s exact b1 DDIM 20)
+    pos = tile_positions(128, 64, 48)
+    n_tiles = len(pos) ** 2
+    chunks = -(-n_tiles // 2)
+    cfg = RenderConfig(steps=TILE_STEPS, sampler="DDIM", unet_tile=64, unet_tile_stride=48,
+                       unet_tile_chunk=2, **dict(b1, width=1024, height=1024))
+    got = render(f"tiled 1024x1024 b1 DDIM {TILE_STEPS} ({n_tiles} tiles at {pos}, 2 a call)",
+                 bundle, cfg, [(chunks * TILE_STEPS, ucfg, 64, 4, None)])
+    paths["tiled_1024_b1_ddim20"] = got[2]
+    one = render(f"single tile 512x512 b1 DDIM {TILE_STEPS} (unet_tile 64)", bundle,
+                 RenderConfig(steps=TILE_STEPS, sampler="DDIM", unet_tile=64, **b1),
+                 [(TILE_STEPS, ucfg, 64, 2, None)])
+    paths["tiled_single_512_b1_ddim20"] = one[2]
+    same = torch.equal(one[0], refs_b1[TILE_STEPS][0])
+    print(f"phase16: (e) the single-tile 512x512 render against the untiled one: latents "
+          f"torch.equal {same} ({card})", flush=True)
+    if not same:
+        raise SmokeFailure("the single-tile render differs from the untiled one")
+    del bundle, tome_bundle
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -2549,6 +3003,7 @@ def main(argv=None) -> int:
     paths["txt2img_b1_f32"], paths["txt2img_default_bundle"] = phase11(dev, card, args.steps)
     paths.update(phase13(dev, card))
     paths.update(phase15(dev, card, images[0]))
+    paths.update(phase16(dev, card))
 
     kernels = []
     # "attention" and "conv3x3" count every body of K1 and K4: their own

@@ -1,11 +1,16 @@
-"""Classifier-free guidance for the port, and the thresholders
-(``threshold.py``) its switches use."""
+"""Classifier-free guidance for the port (with its DeepCache and
+attention-guided forms), the thresholders (``threshold.py``) its switches
+use, attention-saliency guidance (``attn_guidance.py``) and DAAM heat maps
+(``daam.py``)."""
 
 from complex_prompt_diffusion_tpu_torch.guidance.cfg import (
     GuidanceConfig,
     GuidanceSpec,
     cfg_epsilon,
+    cfg_epsilon_attn_guided,
+    cfg_epsilon_deepcache,
     make_denoiser,
+    make_denoiser_deepcache,
     make_uc_blur_schedule,
     make_uc_scale_schedule,
     sigma_to_t_cont,
@@ -16,6 +21,9 @@ __all__ = [
     "GuidanceConfig",
     "GuidanceSpec",
     "cfg_epsilon",
+    "cfg_epsilon_deepcache",
+    "cfg_epsilon_attn_guided",
+    "make_denoiser_deepcache",
     "make_uc_scale_schedule",
     "make_uc_blur_schedule",
     "stacked_context",

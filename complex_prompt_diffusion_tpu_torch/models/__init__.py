@@ -1,4 +1,5 @@
-"""Model definitions of the port: CLIP text tower, UNet, VAE (encoder and
+"""Model definitions of the port: CLIP text tower, UNet (with DeepCache's
+pair of calls; tiled inference in ``tiled.py``), VAE (encoder and
 decoder)."""
 
 from complex_prompt_diffusion_tpu_torch.models import layers
@@ -10,7 +11,9 @@ from complex_prompt_diffusion_tpu_torch.models.clip import (
 from complex_prompt_diffusion_tpu_torch.models.unet import (
     UNetConfig,
     build_plan,
+    deepcache_default_block,
     init_unet,
+    make_deepcache_unets,
     precompute_cross_kv,
     unet_apply,
 )
@@ -32,6 +35,8 @@ __all__ = [
     "init_unet",
     "precompute_cross_kv",
     "unet_apply",
+    "deepcache_default_block",
+    "make_deepcache_unets",
     "VAEConfig",
     "DiagonalGaussian",
     "init_vae",

@@ -1,4 +1,4 @@
-"""Stable Diffusion UNet as plain functions on tensors (exact path).
+"""Stable Diffusion UNet as plain functions on tensors.
 
 Counterpart of ``complex_prompt_diffusion_tpu/models/unet.py``: the same
 static plan (:func:`build_plan`), the same parameter tree, NHWC activations,
@@ -7,10 +7,20 @@ MLP and every GroupNorm go through the port's kernels (``ops``); with
 ``UNetConfig.attn_route == "cm"`` the self-attention sites the JAX gate
 admits run the fused channel-major block (K5).
 
+:func:`unet_apply` takes every option of the JAX function: the skip and
+decoder-feature interfaces (``return_skips`` / ``inject_skips``,
+``return_feats`` / ``inject_feats``), cross-attention probability maps for
+DAAM (``collect_attn_maps``: an explicit softmax at the cross-attention
+sites, whose 77 keys take the plain path anyway), and DeepCache
+(``return_deep_at``; ``deep_feature`` + ``deep_at``: the shallow pass, the
+identical subgraph of the full pass; :func:`make_deepcache_unets`). Token
+reduction (``UNetConfig.tome_*``, ``ops/tome.py``) shrinks the large
+self-attention sites: ToDo pools their K/V (K1 with Sq != Skv), ToMe merges
+the sequence (K1 on the merged tokens; K2 too with ``tome_mlp``).
+
 The up-path skip concat is a plain ``torch.cat``: the JAX package's split
 GroupNorm+conv over a virtual concat is gated to its TPU matmul-stats GN
-regime. ToMe, DeepCache, hypernetworks, attention-map collection and
-skip/feature injection are not ported yet and raise NotImplementedError.
+regime. Hypernetworks are not ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,9 +32,12 @@ import torch
 
 from complex_prompt_diffusion_tpu_torch.models import layers as L
 from complex_prompt_diffusion_tpu_torch.ops import attention as mha
-from complex_prompt_diffusion_tpu_torch.ops import geglu_ff, self_attention_cm
+from complex_prompt_diffusion_tpu_torch.ops import geglu_ff, self_attention_cm, tome
 
-__all__ = ["UNetConfig", "build_plan", "init_unet", "unet_apply", "precompute_cross_kv"]
+__all__ = [
+    "UNetConfig", "build_plan", "init_unet", "unet_apply", "precompute_cross_kv",
+    "deepcache_default_block", "make_deepcache_unets",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +62,19 @@ class UNetConfig:
     # S > 128, S % 128 == 0 and C % 128 == 0 run the fused channel-major
     # block ``ops.self_attention_cm`` (K5), the others stay on "bsc".
     attn_route: str = "bsc"
+    # Token reduction (ops/tome.py) at the self-attention sites with
+    # S >= tome_min_seq (SD-1.5 512x512: level 0): "downsample" (ToDo: K/V
+    # pooled over tome_sx x tome_sy, Q full; tome_ratio > 0 only switches it
+    # on) or "merge" (ToMe-SD: tome_ratio * S tokens merged before the
+    # attention, unmerged after; tome_mlp / tome_crossattn reuse the block's
+    # plan for the FF and the cross-attention's queries)
+    tome_ratio: float = 0.0
+    tome_mode: str = "downsample"
+    tome_min_seq: int = 4096
+    tome_sx: int = 2
+    tome_sy: int = 2
+    tome_mlp: bool = False
+    tome_crossattn: bool = False
 
     def __post_init__(self):
         if self.attn_route not in ("bsc", "cm"):
@@ -340,10 +366,98 @@ def precompute_cross_kv(cfg: UNetConfig, params, context):
     return tuple(cache)
 
 
-def _cross_attention(p, x, context, heads: int, kv=None, attn_route: str = "bsc"):
+def deepcache_default_block(cfg: UNetConfig) -> int:
+    """Default DeepCache split: the first output block of the shallowest
+    level (the last ``nrb[0] + 1`` output blocks run at full resolution), so
+    a shallow pass keeps only the level-0 encoder and decoder blocks."""
+    _, _, output_plan = build_plan(cfg)
+    return len(output_plan) - (cfg.res_blocks_per_level[0] + 1)
+
+
+def make_deepcache_unets(cfg: UNetConfig, params, block, *, cross_kv=None,
+                         batch_chunk: int = -1):
+    """The DeepCache pair of UNet calls (the JAX package's, one source for
+    both sampler families):
+
+      * ``unet_full(x, t, ctx) -> (raw_out, deep)``: the full pass, with the
+        feature entering output block ``block``;
+      * ``unet_shallow(x, t, ctx, deep) -> raw_out``: only the blocks after
+        the split, resumed from the carried feature.
+
+    ``block=None`` is :func:`deepcache_default_block`; an index out of range
+    raises ValueError here. ``cross_kv``: the full hoisted tuple (the
+    shallow pass picks its sites). ``batch_chunk`` > 0 splits a wider batch
+    into calls of at most that many (x, t, ctx, cross_kv and the deep
+    feature sliced alike); <= 0 is one wide call. The output is the raw model output: a v-model's
+    conversion stays with the caller."""
+    n_out = len(build_plan(cfg)[2])
+    j0 = deepcache_default_block(cfg) if block is None else int(block)
+    if not 0 <= j0 < n_out:
+        raise ValueError(f"deepcache_block={j0} out of range (0..{n_out - 1})")
+
+    def _kv_slice(sl):
+        return None if cross_kv is None else tuple((k[sl], v[sl]) for k, v in cross_kv)
+
+    def _slices(b):
+        return [slice(lo, min(lo + batch_chunk, b)) for lo in range(0, b, batch_chunk)]
+
+    def unet_full(x, t, ctx):
+        b = x.shape[0]
+        if batch_chunk > 0 and b > batch_chunk:
+            outs, deeps = [], []
+            for sl in _slices(b):
+                o, d = unet_apply(cfg, params, x[sl], t[sl], ctx[sl], cross_kv=_kv_slice(sl),
+                                  return_deep_at=j0)
+                outs.append(o)
+                deeps.append(d)
+            return torch.cat(outs, dim=0), torch.cat(deeps, dim=0)
+        return unet_apply(cfg, params, x, t, ctx, cross_kv=cross_kv, return_deep_at=j0)
+
+    def unet_shallow(x, t, ctx, deep):
+        b = x.shape[0]
+        if batch_chunk > 0 and b > batch_chunk:
+            return torch.cat([
+                unet_apply(cfg, params, x[sl], t[sl], ctx[sl], cross_kv=_kv_slice(sl),
+                           deep_feature=deep[sl], deep_at=j0)
+                for sl in _slices(b)], dim=0)
+        return unet_apply(cfg, params, x, t, ctx, cross_kv=cross_kv, deep_feature=deep,
+                          deep_at=j0)
+
+    return unet_full, unet_shallow
+
+
+def _kv_counts(cfg: UNetConfig):
+    """Cross-attention k/v entries of each plan segment: (input blocks,
+    middle, output blocks), to align a full ``precompute_cross_kv`` tuple
+    with a shallow pass."""
+
+    def n(block_plan):
+        return sum(d[4] for d in block_plan if d[0] == "attn")
+
+    input_plan, middle_plan, output_plan = build_plan(cfg)
+    return [n(b) for b in input_plan], n(middle_plan), [n(b) for b in output_plan]
+
+
+def _shallow_cross_kv(cfg: UNetConfig, cross_kv, deep_at: int):
+    """The entries of a full cross_kv tuple a shallow pass reads: the
+    executed input prefix and the executed output suffix."""
+    kv_in, kv_mid, kv_out = _kv_counts(cfg)
+    keep_in = len(kv_in) - deep_at
+    a = sum(kv_in[:keep_in])
+    b = sum(kv_in) + kv_mid + sum(kv_out[:deep_at])
+    return tuple(cross_kv[:a]) + tuple(cross_kv[b:])
+
+
+def _cross_attention(p, x, context, heads: int, kv=None, attn_route: str = "bsc",
+                     collector=None, self_kv=None):
     if kv is not None and context is not None:
         q = L.linear(p["to_q"], x)
         k, v = kv
+    elif context is None and self_kv is not None:
+        # ToDo: Q from the full sequence, K/V from the pooled one (K1 with
+        # Sq != Skv)
+        q = L.linear(p["to_q"], x)
+        k, v = _cross_kv(p, self_kv)
     elif context is None:
         if "hyper_k" in p or "hyper_v" in p:
             raise NotImplementedError("hypernetworks are not ported yet")
@@ -366,10 +480,41 @@ def _cross_attention(p, x, context, heads: int, kv=None, attn_route: str = "bsc"
     else:
         q = L.linear(p["to_q"], x)
         k, v = _cross_kv(p, context)
-    return L.linear(p["to_out"], mha(q, k, v, heads))
+    if collector is not None and context is not None:
+        # DAAM capture: the explicit softmax, so the per-token maps exist;
+        # f32 [B, heads, HW, L] probabilities, the output through them
+        b, sq, inner = q.shape
+        d = inner // heads
+
+        def split(z):
+            return z.reshape(b, z.shape[1], heads, d).transpose(1, 2)
+
+        qh, kh, vh = split(q), split(k), split(v)
+        probs = torch.softmax(torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+                              * (d ** -0.5), dim=-1)
+        collector.append(probs)
+        out = torch.matmul(probs.to(vh.dtype), vh).transpose(1, 2).reshape(b, sq, inner)
+    else:
+        out = mha(q, k, v, heads)
+    return L.linear(p["to_out"], out)
 
 
-def _apply_attn(p, cfg: UNetConfig, h, context, heads, dim_head, kv_iter=None):
+def _tome_sites(cfg: UNetConfig, hh: int, ww: int):
+    """(token reduction on at this site, ToMe's r): on where tome_ratio > 0,
+    S >= tome_min_seq and the grid divides by the pool; r > 0 in merge
+    mode only."""
+    on = (cfg.tome_ratio > 0.0 and hh * ww >= cfg.tome_min_seq
+          and hh % cfg.tome_sy == 0 and ww % cfg.tome_sx == 0)
+    if on and cfg.tome_mode not in ("downsample", "merge"):
+        raise ValueError(f"unknown tome_mode {cfg.tome_mode!r} (downsample|merge)")
+    r = 0
+    if on and cfg.tome_mode == "merge":
+        n_dst = (hh // cfg.tome_sy) * (ww // cfg.tome_sx)
+        r = min(int(cfg.tome_ratio * hh * ww), hh * ww - n_dst)
+    return on, r
+
+
+def _apply_attn(p, cfg: UNetConfig, h, context, heads, dim_head, kv_iter=None, collector=None):
     n, hh_, ww_, c = h.shape
     inner = heads * dim_head
     x = L.group_norm_p(p["norm"], h, eps=1e-6)
@@ -377,18 +522,41 @@ def _apply_attn(p, cfg: UNetConfig, h, context, heads, dim_head, kv_iter=None):
         x = L.linear(p["proj_in"], x.reshape(n, hh_ * ww_, c))
     else:
         x = L.conv2d(p["proj_in"], x).reshape(n, hh_ * ww_, inner)
+    tome_on, tome_r = _tome_sites(cfg, hh_, ww_)
+    route = cfg.attn_route
     for blk in p["blocks"]:
         xa = L.layer_norm(blk["norm1"], x)
-        x = x + _cross_attention(blk["attn1"], xa, None, heads, attn_route=cfg.attn_route)
+        plan = None
+        if tome_on and cfg.tome_mode == "downsample":
+            xkv = tome.downsample_kv(xa, hh_, ww_, cfg.tome_sx, cfg.tome_sy)
+            x = x + _cross_attention(blk["attn1"], xa, None, heads, attn_route=route,
+                                     self_kv=xkv)
+        elif tome_r > 0:
+            # one plan a block, from the block's input (ToMe-SD), reused by
+            # the FF and cross-attention merges below
+            plan = tome.build_merge(x, hh_, ww_, tome_r, cfg.tome_sx, cfg.tome_sy)
+            out = _cross_attention(blk["attn1"], tome.tome_merge(plan, xa), None, heads,
+                                   attn_route=route)
+            x = x + tome.tome_unmerge(plan, out)
+        else:
+            x = x + _cross_attention(blk["attn1"], xa, None, heads, attn_route=route)
         kv = next(kv_iter) if (kv_iter is not None and context is not None) else None
         xc = L.layer_norm(blk["norm2"], x)
-        x = x + _cross_attention(blk["attn2"], xc, context, heads, kv=kv)
+        if plan is not None and cfg.tome_crossattn and collector is None:
+            out = _cross_attention(blk["attn2"], tome.tome_merge(plan, xc), context, heads,
+                                   kv=kv)
+            x = x + tome.tome_unmerge(plan, out)
+        else:
+            x = x + _cross_attention(blk["attn2"], xc, context, heads, kv=kv,
+                                     collector=collector)
         y = L.layer_norm(blk["norm3"], x)
         ff = blk["ff"]
-        x = x + geglu_ff(
-            y, ff["proj"]["kernel"], ff["proj"]["bias"],
-            ff["out"]["kernel"], ff["out"]["bias"],
-        )
+        ff_args = (ff["proj"]["kernel"], ff["proj"]["bias"], ff["out"]["kernel"],
+                   ff["out"]["bias"])
+        if plan is not None and cfg.tome_mlp:
+            x = x + tome.tome_unmerge(plan, geglu_ff(tome.tome_merge(plan, y), *ff_args))
+        else:
+            x = x + geglu_ff(y, *ff_args)
     if cfg.use_linear_in_transformer:
         x = L.linear(p["proj_out"], x).reshape(n, hh_, ww_, c)
     else:
@@ -396,7 +564,7 @@ def _apply_attn(p, cfg: UNetConfig, h, context, heads, dim_head, kv_iter=None):
     return x + h
 
 
-def _apply_block(block_plan, block_params, cfg, h, emb, context, kv_iter=None):
+def _apply_block(block_plan, block_params, cfg, h, emb, context, kv_iter=None, collector=None):
     for desc, p in zip(block_plan, block_params):
         kind = desc[0]
         if kind == "conv_in":
@@ -404,7 +572,7 @@ def _apply_block(block_plan, block_params, cfg, h, emb, context, kv_iter=None):
         elif kind == "res":
             h = _apply_res(p, cfg, h, emb, desc[3])
         elif kind == "attn":
-            h = _apply_attn(p, cfg, h, context, desc[2], desc[3], kv_iter)
+            h = _apply_attn(p, cfg, h, context, desc[2], desc[3], kv_iter, collector)
         elif kind == "down":
             h = L.conv2d(p, h, stride=2)
         elif kind == "up":
@@ -422,34 +590,57 @@ def unet_apply(
     context,
     y=None,
     *,
-    cross_kv=None,
     return_skips: bool = False,
     inject_skips=None,
+    inject_skips_stop: int = 10,
     return_feats: bool = False,
     inject_feats=None,
+    inject_feats_stop: int = 10,
     collect_attn_maps: bool = False,
+    cross_kv=None,
     return_deep_at: Optional[int] = None,
     deep_feature=None,
+    deep_at: Optional[int] = None,
 ):
     """Predict eps (or v) for latents ``x`` [N,H,W,C] at ``timesteps`` [N]
-    with ``context`` [N, L, D]; returns f32 [N,H,W,out_channels].
+    with ``context`` [N, L, D]; returns f32 [N,H,W,out_channels], followed
+    by the extras asked for, in the JAX package's order:
 
-    ``cross_kv``: optional output of :func:`precompute_cross_kv` for this
-    ``context``; the cross-attention k/v are then read from it. The
-    skip/feature/attention-map interfaces and DeepCache are not ported yet.
+      * ``return_skips``: the encoder skip tensor each output block pops, a
+        tuple in output-block order; ``inject_skips`` replaces the skip of
+        output block i < ``inject_skips_stop``;
+      * ``return_feats``: each output block's output (the decoder hidden
+        states), a tuple; ``inject_feats`` replaces the hidden state
+        entering output block i < ``inject_feats_stop``;
+      * ``collect_attn_maps``: the f32 cross-attention probabilities
+        [B, heads, HW, L] of every cross-attention site (encoder, middle,
+        decoder order), computed by an explicit softmax;
+      * ``return_deep_at=j``: the hidden state entering output block j (the
+        DeepCache feature).
+
+    ``deep_feature=h, deep_at=j``: the DeepCache shallow pass: only the
+    input blocks whose skips feed output blocks j.., no middle block, the
+    output blocks from j on resumed from ``h``; fed the same call's deep
+    feature it equals the full pass bit for bit. ``cross_kv``: the output
+    of :func:`precompute_cross_kv` for this ``context`` (the full tuple,
+    also for a shallow pass). The JAX package's ValueErrors: ``deep_feature``
+    without ``deep_at``, ``deep_at`` out of range, the shallow pass with an
+    aux interface, ``return_deep_at`` out of range.
     """
-    unported = {
-        "return_skips": return_skips, "inject_skips": inject_skips is not None,
-        "return_feats": return_feats, "inject_feats": inject_feats is not None,
-        "collect_attn_maps": collect_attn_maps,
-        "return_deep_at": return_deep_at is not None,
-        "deep_feature": deep_feature is not None,
-    }
-    used = [k for k, on in unported.items() if on]
-    if used:
-        raise NotImplementedError(f"unet_apply options not ported yet: {used}")
     input_plan, middle_plan, output_plan = build_plan(cfg)
     dtype = cfg.compute_dtype
+    shallow = deep_feature is not None
+    if shallow:
+        if deep_at is None:
+            raise ValueError("deep_feature requires deep_at")
+        if not 0 <= deep_at < len(output_plan):
+            raise ValueError(f"deep_at={deep_at} out of range (0..{len(output_plan) - 1})")
+        if (return_skips or return_feats or collect_attn_maps or inject_skips is not None
+                or inject_feats is not None or return_deep_at is not None):
+            raise ValueError("DeepCache shallow pass is incompatible with the aux "
+                             "skip/feature/attn-map interfaces")
+        if cross_kv is not None:
+            cross_kv = _shallow_cross_kv(cfg, cross_kv, deep_at)
 
     t_emb = L.timestep_embedding(timesteps, cfg.model_channels)
     emb = L.linear(params["time_embed"]["lin1"], t_emb)
@@ -463,16 +654,55 @@ def unet_apply(
     h = x.to(dtype)
     if context is not None:
         context = context.to(dtype)
+    collector = [] if collect_attn_maps else None
     kv_iter = iter(cross_kv) if cross_kv is not None else None
 
+    keep_in = len(input_plan) - deep_at if shallow else len(input_plan)
     hs = []
-    for block_plan, block_params in zip(input_plan, params["input_blocks"]):
-        h = _apply_block(block_plan, block_params, cfg, h, emb, context, kv_iter)
+    for block_plan, block_params in zip(input_plan[:keep_in], params["input_blocks"][:keep_in]):
+        h = _apply_block(block_plan, block_params, cfg, h, emb, context, kv_iter, collector)
         hs.append(h)
-    h = _apply_block(middle_plan, params["middle_block"], cfg, h, emb, context, kv_iter)
-    for block_plan, block_params in zip(output_plan, params["output_blocks"]):
-        h = torch.cat([h, hs.pop()], dim=-1)
-        h = _apply_block(block_plan, block_params, cfg, h, emb, context, kv_iter)
+    if shallow:
+        h = deep_feature
+        out_start = deep_at
+    else:
+        h = _apply_block(middle_plan, params["middle_block"], cfg, h, emb, context, kv_iter,
+                         collector)
+        out_start = 0
+
+    deep_out = None
+    skips_out, feats_out = [], []
+    for i in range(out_start, len(output_plan)):
+        if return_deep_at is not None and i == return_deep_at:
+            deep_out = h
+        skip = hs.pop()
+        if return_skips:
+            skips_out.append(skip)
+        if inject_skips is not None and i < inject_skips_stop:
+            skip = inject_skips[i]
+        if inject_feats is not None and i < inject_feats_stop:
+            h = inject_feats[i]
+        h = torch.cat([h, skip], dim=-1)
+        h = _apply_block(output_plan[i], params["output_blocks"][i], cfg, h, emb, context,
+                         kv_iter, collector)
+        if return_feats:
+            feats_out.append(h)
 
     h = L.group_norm_silu_p(params["out"]["norm"], h)
-    return L.conv2d(params["out"]["conv"], h).float()
+    out = L.conv2d(params["out"]["conv"], h).float()
+
+    extras = []
+    if return_skips:
+        extras.append(tuple(skips_out))
+    if return_feats:
+        extras.append(tuple(feats_out))
+    if collect_attn_maps:
+        extras.append(tuple(collector))
+    if return_deep_at is not None:
+        if deep_out is None:
+            raise ValueError(f"return_deep_at={return_deep_at} out of range "
+                             f"(0..{len(output_plan) - 1})")
+        extras.append(deep_out)
+    if extras:
+        return (out, *extras)
+    return out

@@ -35,10 +35,15 @@ do. Bundles come from a CompVis checkpoint
 YAML config (``config.py``), a saved bundle (:func:`load_bundle`), the JAX
 package, or random weights.
 
-The guidance switches (uc blur, eps thresholding, the dynamic scale clip)
-and ``clip_sample`` are ported. Not ported yet, each raising
-NotImplementedError: the "Log" sampler (it needs the UNet's backward),
-tiled UNet, ToMe, DeepCache, CLIP and attention-saliency guidance.
+The guidance switches (uc blur, eps thresholding, the dynamic scale clip,
+attention-saliency guidance) and ``clip_sample`` are ported, and so are the
+UNet's opt-in modes: DeepCache (``deepcache_interval``: the full UNet every
+N-th step, its shallow pass in between, for ``DEEPCACHE_SAMPLERS``), token
+reduction (``tome_ratio``, ``tome_mode``: ToDo K/V pooling or ToMe merging
+at the large self-attention sites) and tiled inference (``unet_tile``,
+``unet_tile_stride``, ``unet_tile_chunk``; ``models/tiled.py``). Not ported
+yet: the "Log" sampler (it needs the UNet's backward, NotImplementedError)
+and CLIP guidance.
 """
 
 from __future__ import annotations
@@ -55,11 +60,15 @@ from complex_prompt_diffusion_tpu_torch import schedules as S
 from complex_prompt_diffusion_tpu_torch.guidance import (
     GuidanceConfig,
     GuidanceSpec,
+    cfg_epsilon_attn_guided,
+    cfg_epsilon_deepcache,
     make_denoiser,
+    make_denoiser_deepcache,
     make_uc_blur_schedule,
     make_uc_scale_schedule,
     stacked_context,
 )
+from complex_prompt_diffusion_tpu_torch.models.tiled import make_tiled_unet
 from complex_prompt_diffusion_tpu_torch.prompts.tokenizer import get_tokenizer
 from complex_prompt_diffusion_tpu_torch.samplers import (
     BlurDiffusion,
@@ -93,8 +102,9 @@ __all__ = [
 
 LATENT_SCALE = 0.18215
 
-# Samplers whose scans thread the DeepCache state in the JAX package (kept
-# for RenderConfig validation parity).
+# Samplers whose loops thread the DeepCache state (ddim.py eps_state,
+# kdiff.py den_state): DPM Fast, the adaptive integrators and the
+# continuous-time solvers have no fixed per-step grid of evaluations.
 DEEPCACHE_SAMPLERS = frozenset({
     "ddim", "plms",
     "euler", "euler ancestral", "heun", "huen",
@@ -430,23 +440,20 @@ def make_guidance_spec(
 
 
 def _check_ported(bundle: ModelBundle, cfg: RenderConfig, depth_mask=None) -> None:
-    """Raise, before any launch, for what is not ported and for a concat
-    UNet whose conditioning channels do not fill its input: in_channels must
+    """Raise, before any launch, for what is not ported (the "Log"
+    sampler), for tiled inference with attention guidance (a ValueError, as
+    in the JAX package) and for a concat UNet whose conditioning channels
+    do not fill its input: in_channels must
     equal out_channels plus ``depth_mask``'s channels (so a concat UNet
     without its conditioning raises; it does not render unconditioned)."""
     _, sample_fn = get_sampler(cfg.sampler)
     if getattr(sample_fn, "not_ported", False):
         sample_fn()  # raises NotImplementedError with the reason
-    unported = [
-        name for name, on in (
-            ("unet_tile", cfg.unet_tile),
-            ("tome_ratio", cfg.tome_ratio > 0.0),
-            ("deepcache_interval", cfg.deepcache_interval >= 2),
-        ) + tuple((n, True) for n in cfg.guidance.unported())
-        if on
-    ]
-    if unported:
-        raise NotImplementedError(f"not ported yet: {unported}")
+    if cfg.unet_tile and cfg.guidance.attn_guide:
+        raise ValueError(
+            "tiled UNet inference (unet_tile) is incompatible with "
+            "attention-saliency guidance (skip tensors span the full canvas)"
+        )
     ucfg = bundle.unet_cfg
     extra = 0 if depth_mask is None else depth_mask.shape[-1]
     if ucfg.in_channels != ucfg.out_channels + extra:
@@ -494,10 +501,11 @@ def initial_noise(bundle: ModelBundle, cfg: RenderConfig, generator: torch.Gener
     return x
 
 
-def _run_sigma_sampler(sample_fn, den_fn, x, bundle, cfg, t_start, generator, noises):
+def _run_sigma_sampler(sample_fn, den_fn, x, bundle, cfg, t_start, generator, noises,
+                       den_state=None):
     """The sigma-family call: the schedule cut to its last ``t_start``
-    steps, the per-step scales, churn arguments for euler/heun/dpm2 and eta
-    for the ancestral samplers."""
+    steps, the per-step scales, churn arguments for euler/heun/dpm2, eta
+    for the ancestral samplers, and the DeepCache state when given."""
     sigmas = _cut_sigmas(bundle, cfg, t_start)
     kw = {}
     name = cfg.sampler.lower()
@@ -506,55 +514,67 @@ def _run_sigma_sampler(sample_fn, den_fn, x, bundle, cfg, t_start, generator, no
                   s_noise=cfg.s_noise)
     if "ancestral" in name:
         kw["eta"] = cfg.eta if cfg.eta else 1.0
+    if den_state is not None:
+        kw["den_state"] = den_state
     uc_scales = make_uc_scale_schedule(cfg.guidance, len(sigmas) - 1)
     x0, _ = sample_fn(den_fn, x, sigmas, uc_scales, generator=generator, noises=noises, **kw)
     return x0
 
 
-def _v_to_eps(unet_eps, tables, device):
-    """The UNet of a v-model as an eps model for the t family: eps =
+def _v_to_eps(tables, device):
+    """to_eps(out, x, t): a v-model's output as eps for the t family, eps =
     sqrt(a_t) v + sqrt(1 - a_t) x at the integer timestep t, clipped to the
     table (the JAX package's ``_to_eps``), f32 on the device."""
     sqrt_ac = torch.as_tensor(np.asarray(tables.sqrt_alphas_cumprod, np.float32), device=device)
     sqrt_1m = torch.as_tensor(
         np.asarray(tables.sqrt_one_minus_alphas_cumprod, np.float32), device=device)
 
-    def eps(x, t, ctx):
-        out = unet_eps(x, t, ctx)
+    def to_eps(out, x, t):
         ti = torch.clamp(torch.as_tensor(t, device=device).to(torch.int32).reshape(-1), 0,
                          sqrt_ac.shape[0] - 1).long()
         a = sqrt_ac[ti].reshape(-1, 1, 1, 1)
         b = sqrt_1m[ti].reshape(-1, 1, 1, 1)
         return a * out + b * x[..., : out.shape[-1]]
 
-    return eps
+    return to_eps
+
+
+def _t_index(itables, t) -> tuple:
+    """(table index, host value) of the t family's timestep ``t`` (a host
+    read of a device scalar); the index as the JAX package finds it:
+    searchsorted, clipped."""
+    timesteps = np.asarray(itables.timesteps)
+    t_host = np.asarray(t.cpu() if torch.is_tensor(t) else t).reshape(-1)[0]
+    return int(np.clip(np.searchsorted(timesteps, t_host), 0, len(timesteps) - 1)), t_host
 
 
 def _t_family_callback(eps_fn, itables, step_callback):
     """eps_fn with the step callback: x0 = (x - sqrt(1 - a_t) e_t) /
-    sqrt(a_t) at the evaluation's timestep, from the inference tables."""
-    timesteps = np.asarray(itables.timesteps)
+    sqrt(a_t) at the evaluation's timestep, from the inference tables.
+    The rest of the call passes through, a stateful eps_fn's state too."""
     a_t = np.asarray(itables.alphas_cumprod_t, np.float32)
     s1m = np.asarray(itables.sqrt_one_minus_alphas_cumprod_t, np.float32)
 
-    def eps_cb(x, t, uc_scale, blur_on):
-        e_t = eps_fn(x, t, uc_scale, blur_on)
-        t_host = np.asarray(t.cpu() if torch.is_tensor(t) else t).reshape(-1)[0]
-        idx = int(np.clip(np.searchsorted(timesteps, t_host), 0, len(timesteps) - 1))
+    def eps_cb(x, t, *rest):
+        out = eps_fn(x, t, *rest)
+        e_t = out[0] if isinstance(out, tuple) else out
+        idx, t_host = _t_index(itables, t)
         x0 = (x[..., : e_t.shape[-1]] - float(s1m[idx]) * e_t) / float(np.sqrt(a_t[idx]))
         step_callback(np.asarray(t_host), x0.cpu().numpy())
-        return e_t
+        return out
 
     return eps_cb
 
 
 def _sigma_family_callback(den_fn, step_callback):
-    """den_fn with the step callback: (sigma, denoised) at every call."""
+    """den_fn with the step callback: (sigma, denoised) at every call. The
+    rest of the call passes through, a stateful den_fn's state too."""
 
-    def den_cb(x, sigma, uc_scale):
-        denoised = den_fn(x, sigma, uc_scale)
+    def den_cb(x, sigma, *rest):
+        out = den_fn(x, sigma, *rest)
+        denoised = out[0] if isinstance(out, tuple) else out
         step_callback(np.asarray(np.float32(sigma)), denoised.cpu().numpy())
-        return denoised
+        return out
 
     return den_cb
 
@@ -594,11 +614,22 @@ def sample_latents(
     ``cfg.guidance`` (dynamic scale clip, ``threshold_e``) apply in every
     family; as in the JAX package, only the t family passes the
     unconditional-blur flags (``uc_blur``) and takes ``cfg.clip_sample``,
-    the other families ignore both."""
+    the other families ignore both; so with ``attn_guide``, which guides the
+    t family's last ``attn_guide_rounds`` steps (refused with ``unet_tile``).
+    ``tome_ratio`` > 0 renders with a copy of the UNet config switched to
+    ``tome_ratio`` / ``tome_mode``; ``deepcache_interval`` >= 2 runs the full
+    UNet on every N-th step and its shallow pass (``deepcache_block``)
+    between; ``unet_tile`` folds the UNet over overlapping tiles
+    (``models/tiled.py``), ``unet_tile_chunk`` tiles a call."""
     device = bundle.device
     depth_mask = _as_device_tensor(depth_mask, bundle)
     _check_ported(bundle, cfg, depth_mask)
     family, sample_fn = get_sampler(cfg.sampler)
+    if cfg.tome_ratio > 0.0 and (bundle.unet_cfg.tome_ratio != cfg.tome_ratio
+                                 or bundle.unet_cfg.tome_mode != cfg.tome_mode):
+        # token reduction is a UNet config switch: this render's copy
+        bundle = dataclasses.replace(bundle, unet_cfg=dataclasses.replace(
+            bundle.unet_cfg, tome_ratio=cfg.tome_ratio, tome_mode=cfg.tome_mode))
     div = 2 ** (len(bundle.unet_cfg.channel_mult) - 1)
     lh, lw = cfg.latent_shape[0], cfg.latent_shape[1]
     if lh % div or lw % div or cfg.height % 8 or cfg.width % 8:
@@ -619,26 +650,45 @@ def sample_latents(
     else:
         x_T = initial_noise(bundle, cfg, generator, t_start)
 
-    # cross-attention k/v are loop-invariant: compute them once per render
-    cross_kv = M.precompute_cross_kv(
-        bundle.unet_cfg, bundle.unet_params, stacked_context(spec, x_T.shape[0])
-    )
+    ucfg, params = bundle.unet_cfg, bundle.unet_params
+    gcfg = cfg.guidance
+    # cross-attention k/v are loop-invariant: computed once per render,
+    # except where the UNet sees another batch or context mid-step (tiles,
+    # attention guidance's unconditional pass), as in the JAX package
+    cross_kv = None
+    if not (cfg.unet_tile or gcfg.attn_guide):
+        cross_kv = M.precompute_cross_kv(ucfg, params, stacked_context(spec, x_T.shape[0]))
 
     def unet_eps(x, t, ctx):
-        return M.unet_apply(
-            bundle.unet_cfg, bundle.unet_params, x, t, ctx, cross_kv=cross_kv
-        )
+        return M.unet_apply(ucfg, params, x, t, ctx, cross_kv=cross_kv)
+
+    if cfg.unet_tile:
+        unet_eps = make_tiled_unet(unet_eps, cfg.unet_tile, cfg.unet_tile_stride or None,
+                                   max(cfg.unet_tile_chunk, 1))
+    dc_pair = None
+    if cfg.deepcache_interval >= 2:
+        # RenderConfig has checked the sampler (DEEPCACHE_SAMPLERS) and that
+        # neither tiles nor attention guidance are on; one wide call, as the
+        # JAX package's off its TPU (no batch chunking)
+        dc_pair = M.make_deepcache_unets(ucfg, params, cfg.deepcache_block, cross_kv=cross_kv)
+    # the state before the first step: never read (step 0 is a full pass)
+    dc_state0 = x_T.new_zeros(0) if dc_pair is not None else None
 
     eps_fn, den_fn = make_denoiser(
-        unet_eps, spec, gcfg=cfg.guidance, model_sigmas=bundle.tables.sigmas,
+        unet_eps, spec, gcfg=gcfg, model_sigmas=bundle.tables.sigmas,
         parameterization=bundle.parameterization, depth_mask=depth_mask,
     )
-    uc = cfg.guidance.guidance_scale
+    uc = gcfg.guidance_scale
     if family == "sigma":
+        if dc_pair is not None:
+            den_fn = make_denoiser_deepcache(
+                *dc_pair, spec, interval=cfg.deepcache_interval, gcfg=gcfg,
+                model_sigmas=bundle.tables.sigmas, parameterization=bundle.parameterization,
+                depth_mask=depth_mask)
         if step_callback is not None:
             den_fn = _sigma_family_callback(den_fn, step_callback)
         return _run_sigma_sampler(
-            sample_fn, den_fn, x_T, bundle, cfg, t_start, generator, noises
+            sample_fn, den_fn, x_T, bundle, cfg, t_start, generator, noises, den_state=dc_state0,
         )
     if family == "solver":
         ns = NoiseScheduleVP("discrete", alphas_cumprod=bundle.tables.alphas_cumprod)
@@ -666,24 +716,74 @@ def sample_latents(
 
         return sample_fn(eps_model, BlurDiffusion(n=n, resolution=lh), x_T.shape,
                          generator=generator, x_T=x_T, noises=noises)
-    if bundle.parameterization == "v":
-        eps_fn, _ = make_denoiser(_v_to_eps(unet_eps, bundle.tables, device), spec,
-                                  gcfg=cfg.guidance, depth_mask=depth_mask)
     itables = S.make_inference_tables(
         bundle.tables, cfg.steps, eta=cfg.eta, discretize=cfg.discretize
     )
-    uc_scales = make_uc_scale_schedule(cfg.guidance, itables.num_steps)
+    to_eps = (_v_to_eps(bundle.tables, device) if bundle.parameterization == "v"
+              else lambda out, x, t: out)
+
+    def unet_eps_t(x, t, ctx):
+        return to_eps(unet_eps(x, t, ctx), x, t)
+
+    if bundle.parameterization == "v":
+        eps_fn, _ = make_denoiser(unet_eps_t, spec, gcfg=gcfg, depth_mask=depth_mask)
+    if gcfg.attn_guide:
+        eps_fn = _attn_guided_eps(eps_fn, unet_eps_t, to_eps, ucfg, params, spec, itables, gcfg,
+                                  depth_mask)
+    kw = {"t_start": t_start} if sample_fn is sample_ddim else {}
+    if dc_pair is not None:
+        raw_full, raw_shallow = dc_pair
+        interval = cfg.deepcache_interval
+
+        def unet_full(x_in, t_in, ctx):
+            out, deep = raw_full(x_in, t_in, ctx)
+            return to_eps(out, x_in, t_in), deep
+
+        def unet_shallow(x_in, t_in, ctx, deep):
+            return to_eps(raw_shallow(x_in, t_in, ctx, deep), x_in, t_in)
+
+        def eps_fn(x, t, uc_scale, blur_on, i, deep):
+            return cfg_epsilon_deepcache(
+                unet_full, unet_shallow, x, t, spec, uc_scale, (i % interval) == 0, deep,
+                gcfg=gcfg, depth_mask=depth_mask, uc_blur_on=blur_on)
+
+        kw["eps_state"] = dc_state0
+    uc_scales = make_uc_scale_schedule(gcfg, itables.num_steps)
     if step_callback is not None:
         eps_fn = _t_family_callback(eps_fn, itables, step_callback)
-    kw = {"t_start": t_start} if sample_fn is sample_ddim else {}
     x0, _ = sample_fn(
         eps_fn, x_T, itables, uc_scales,
         generator=generator, noises=noises,
-        uc_blur_flags=make_uc_blur_schedule(cfg.guidance, itables.num_steps),
+        uc_blur_flags=make_uc_blur_schedule(gcfg, itables.num_steps),
         temperature=cfg.temperature, clip_sample=cfg.clip_sample,
         clip_sample_thresh=cfg.clip_sample_thresh, **kw,
     )
     return x0
+
+
+def _attn_guided_eps(base_eps, unet_eps, to_eps, ucfg, params, spec, itables, gcfg, depth_mask):
+    """The t family's eps model under attention-saliency guidance: on the
+    last ``attn_guide_rounds`` table indices (idx = searchsorted(timesteps,
+    t), as the JAX package gates) :func:`cfg_epsilon_attn_guided` with the
+    step's f32 coefficients, else ``base_eps``. ``unet_eps`` (x, t, ctx) ->
+    eps, ``to_eps`` the v-model conversion of the skips call. The gate reads
+    the step's timestep to the host: one sync an evaluation."""
+    a_t = np.asarray(itables.alphas_cumprod_t, np.float32)
+    s1m = np.asarray(itables.sqrt_one_minus_alphas_cumprod_t, np.float32)
+
+    def unet_eps_skips(x, t, ctx):
+        out, skips = M.unet_apply(ucfg, params, x, t, ctx, return_skips=True)
+        return to_eps(out, x, t), skips
+
+    def eps_fn(x, t, uc_scale, blur_on):
+        idx, _ = _t_index(itables, t)
+        if idx < gcfg.attn_guide_rounds:
+            return cfg_epsilon_attn_guided(
+                unet_eps, unet_eps_skips, x, t, spec, uc_scale, (a_t[idx], s1m[idx]),
+                gcfg=gcfg, depth_mask=depth_mask, uc_blur_on=blur_on)
+        return base_eps(x, t, uc_scale, blur_on)
+
+    return eps_fn
 
 
 @torch.inference_mode()

@@ -16,7 +16,10 @@ mode tests use to hold two frameworks to one trajectory) or drawn from a
 ``guidance/threshold.py`` and re-derives eps from the clipped x0, as the
 JAX step does. The eps model takes the step's blur flag as its fourth
 argument, eps_fn(x, t, uc_scale, blur_on): ``uc_blur_flags`` (host bools,
-one a step), all False where none are given.
+one a step), all False where none are given. With ``eps_state`` (the
+DeepCache feature cache) the protocol is the JAX package's stateful one:
+eps_fn(x, t, uc_scale, blur_on, i, state) -> (eps, state), ``i`` the 0-based
+loop iteration, the state carried from evaluation to evaluation.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from complex_prompt_diffusion_tpu_torch.guidance.threshold import get_thresholder
+from complex_prompt_diffusion_tpu_torch.samplers.kdiff import Stateful
 from complex_prompt_diffusion_tpu_torch.schedules import InferenceTables
 
 __all__ = ["DeviceTables", "ddim_step", "sample_ddim", "sample_plms", "ddim_encode"]
@@ -113,12 +117,15 @@ def sample_ddim(
     clip_sample: Optional[str] = None,
     clip_sample_thresh: float = 90.0,
     t_start: Optional[int] = None,
+    eps_state=None,
 ):
     """Full reverse chain. eps_fn(x, t, uc_scale, blur_on) -> eps, blur_on
     from ``uc_blur_flags`` (host bools, one a step; all False by default).
 
     ``t_start``: run only the first ``t_start`` timesteps of the table, from
     table index ``t_start - 1`` down to 0 (the img2img decode path).
+    ``eps_state``: the stateful protocol of the module docstring, starting
+    from this state.
 
     Returns (x_0, pred_x0 trajectory [S_run, ...])."""
     device = x_T.device
@@ -129,11 +136,12 @@ def sample_ddim(
     uc_scales = torch.as_tensor(uc_scales, dtype=torch.float32, device=device)
     noise_at = _noise_source(generator, noises, x_T.shape, device)
     flags = _blur_flags(uc_blur_flags, s_run)
+    eps = Stateful(eps_fn, eps_state)
     x = x_T
     traj = []
     for i in range(s_run):
         idx = s_run - 1 - i
-        e_t = eps_fn(x, it.timesteps[idx], uc_scales[i], flags[i])
+        e_t = eps(x, it.timesteps[idx], uc_scales[i], flags[i], i)
         x, pred_x0 = ddim_step(
             x, e_t, idx, it, noise_at(i), temperature=temperature,
             clip_sample=clip_sample, clip_sample_thresh=clip_sample_thresh,
@@ -172,10 +180,13 @@ def sample_plms(
     temperature: float = 1.0,
     clip_sample: Optional[str] = None,
     clip_sample_thresh: float = 90.0,
+    eps_state=None,
 ):
     """PLMS (PNDM) over the whole table. eps_fn(x, t, uc_scale, blur_on) ->
     eps, blur_on from ``uc_blur_flags`` (host bools, one a step, all False
     by default; the first step's second evaluation takes step 0's flag).
+    ``eps_state``: the stateful protocol of the module docstring; the first
+    step's second evaluation threads the state too, with the same ``i``.
 
     The first step is a pseudo improved Euler step: a DDIM step with e_t,
     a second eps evaluation at t_next, and the step again with their mean
@@ -196,17 +207,18 @@ def sample_plms(
         return ddim_step(x, e, idx, it, noise, temperature=temperature,
                          clip_sample=clip_sample, clip_sample_thresh=clip_sample_thresh)
 
+    eps = Stateful(eps_fn, eps_state)
     x = x_T
     old_eps = []  # newest first
     traj = []
     for i in range(s):
         idx = s - 1 - i
         noise = noise_at(i)
-        e_t = eps_fn(x, it.timesteps[idx], uc_scales[i], flags[i])
+        e_t = eps(x, it.timesteps[idx], uc_scales[i], flags[i], i)
         if not old_eps:
             x_prev_1, _ = step(x, e_t, idx, noise)
             t_next = it.timesteps[max(idx - 1, 0)]
-            e_t_prime = (e_t + eps_fn(x_prev_1, t_next, uc_scales[i], flags[i])) / 2
+            e_t_prime = (e_t + eps(x_prev_1, t_next, uc_scales[i], flags[i], i)) / 2
         else:
             e_t_prime = _plms_combine(e_t, old_eps)
         x, pred_x0 = step(x, e_t_prime, idx, noise)

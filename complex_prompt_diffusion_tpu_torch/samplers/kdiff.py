@@ -17,8 +17,11 @@ waits for the device.
 
 RNG contract: per-step noise is either injected (``noises``, indexed
 ``noises[i]``) or drawn from a ``torch.Generator``; with neither it is zero.
-The DeepCache state slot (``den_state``) of the JAX samplers is not ported
-yet and raises NotImplementedError.
+
+``den_state`` (the DeepCache feature cache) switches the eight samplers
+that take it to the JAX package's stateful protocol, ``den(x, sigma,
+uc_scale, i, state) -> (denoised, state)`` (:class:`Stateful`): ``i`` is the
+step index, which a multi-eval sampler's evaluations of one step share.
 """
 
 from __future__ import annotations
@@ -98,9 +101,21 @@ def _uc(uc_scales, n: int) -> np.ndarray:
     return np.broadcast_to(np.asarray(uc_scales, np.float64), (n,)).astype(_F)
 
 
-def _no_state(den_state) -> None:
-    if den_state is not None:
-        raise NotImplementedError("den_state (DeepCache) is not ported yet")
+class Stateful:
+    """A model behind one call form, ``(*args, i) -> out``, for DDIM, PLMS
+    and the k-samplers alike: with a state (``state`` given) the stateful
+    protocol ``model(*args, i, state) -> (out, state)``, its state kept here
+    between evaluations; without, ``model(*args)``."""
+
+    def __init__(self, model: Callable, state):
+        self.model, self.state, self.on = model, state, state is not None
+
+    def __call__(self, *args):
+        *args, i = args
+        if not self.on:
+            return self.model(*args)
+        out, self.state = self.model(*args, i, self.state)
+        return out
 
 
 def _churn(x, noise_at, i: int, sig_i, gamma, s_noise: float):
@@ -119,7 +134,7 @@ def sample_euler(
     s_noise: float = 1.0, den_state=None,
 ):
     """Karras Algorithm 2, Euler steps + churn."""
-    _no_state(den_state)
+    den = Stateful(den, den_state)
     n = len(sigmas) - 1
     sig = _f32(sigmas)
     gammas = _f32(_churn_gammas(sigmas, s_churn, s_tmin, s_tmax))
@@ -128,7 +143,7 @@ def sample_euler(
     traj = []
     for i in range(n):
         x, sigma_hat = _churn(x, noise_at, i, sig[i], gammas[i], s_noise)
-        denoised = den(x, sigma_hat, float(ucs[i]))
+        denoised = den(x, sigma_hat, float(ucs[i]), i)
         d = _to_d(x, sigma_hat, denoised)
         x = x + d * float(sig[i + 1] - sigma_hat)
         traj.append(denoised)
@@ -141,7 +156,7 @@ def sample_euler_ancestral(
     den_state=None,
 ):
     """Euler ancestral."""
-    _no_state(den_state)
+    den = Stateful(den, den_state)
     n = len(sigmas) - 1
     sig = _f32(sigmas)
     down, up = (_f32(a) for a in get_ancestral_step(sigmas[:-1], sigmas[1:], eta))
@@ -149,7 +164,7 @@ def sample_euler_ancestral(
     noise_at = _noise_source(generator, noises, x)
     traj = []
     for i in range(n):
-        denoised = den(x, sig[i], float(ucs[i]))
+        denoised = den(x, sig[i], float(ucs[i]), i)
         d = _to_d(x, sig[i], denoised)
         x = x + d * float(down[i] - sig[i])
         x = x + noise_at(i) * float(up[i]) * temperature
@@ -164,7 +179,7 @@ def sample_heun(
     s_noise: float = 1.0, den_state=None,
 ):
     """Heun 2nd-order; falls back to Euler on the last step."""
-    _no_state(den_state)
+    den = Stateful(den, den_state)
     n = len(sigmas) - 1
     sig = _f32(sigmas)
     gammas = _f32(_churn_gammas(sigmas, s_churn, s_tmin, s_tmax))
@@ -174,14 +189,14 @@ def sample_heun(
     for i in range(n):
         x, sigma_hat = _churn(x, noise_at, i, sig[i], gammas[i], s_noise)
         uc = float(ucs[i])
-        denoised = den(x, sigma_hat, uc)
+        denoised = den(x, sigma_hat, uc, i)
         d = _to_d(x, sigma_hat, denoised)
         dt = float(sig[i + 1] - sigma_hat)
         if sig[i + 1] == 0:
             x = x + d * dt
         else:
             x_2 = x + d * dt
-            denoised_2 = den(x_2, sig[i + 1], uc)
+            denoised_2 = den(x_2, sig[i + 1], uc, i)
             d_2 = _to_d(x_2, sig[i + 1], denoised_2)
             x = x + (d + d_2) / 2 * dt
         traj.append(denoised)
@@ -205,7 +220,7 @@ def sample_dpm2(
     Like the reference, the midpoint formula is used on every step; the
     terminal sigma=0 makes the last midpoint sigma_mid = (sigma_hat^(1/3)/2)^3.
     """
-    _no_state(den_state)
+    den = Stateful(den, den_state)
     n = len(sigmas) - 1
     sig = _f32(sigmas)
     gammas = _f32(_churn_gammas(sigmas, s_churn, s_tmin, s_tmax))
@@ -215,11 +230,11 @@ def sample_dpm2(
     for i in range(n):
         x, sigma_hat = _churn(x, noise_at, i, sig[i], gammas[i], s_noise)
         uc = float(ucs[i])
-        denoised = den(x, sigma_hat, uc)
+        denoised = den(x, sigma_hat, uc, i)
         d = _to_d(x, sigma_hat, denoised)
         sigma_mid = _rho3_mid(sigma_hat, sig[i + 1])
         x_2 = x + d * float(sigma_mid - sigma_hat)
-        denoised_2 = den(x_2, sigma_mid, uc)
+        denoised_2 = den(x_2, sigma_mid, uc, i)
         d_2 = _to_d(x_2, sigma_mid, denoised_2)
         x = x + d_2 * float(sig[i + 1] - sigma_hat)
         traj.append(denoised)
@@ -231,7 +246,7 @@ def sample_dpm2_ancestral(
     *, generator=None, noises=None, eta: float = 1.0, den_state=None,
 ):
     """DPM2 ancestral."""
-    _no_state(den_state)
+    den = Stateful(den, den_state)
     n = len(sigmas) - 1
     sig = _f32(sigmas)
     down, up = (_f32(a) for a in get_ancestral_step(sigmas[:-1], sigmas[1:], eta))
@@ -240,11 +255,11 @@ def sample_dpm2_ancestral(
     traj = []
     for i in range(n):
         uc = float(ucs[i])
-        denoised = den(x, sig[i], uc)
+        denoised = den(x, sig[i], uc, i)
         d = _to_d(x, sig[i], denoised)
         sigma_mid = _rho3_mid(sig[i], down[i])
         x_2 = x + d * float(sigma_mid - sig[i])
-        denoised_2 = den(x_2, sigma_mid, uc)
+        denoised_2 = den(x_2, sigma_mid, uc, i)
         d_2 = _to_d(x_2, sigma_mid, denoised_2)
         x = x + d_2 * float(down[i] - sig[i])
         x = x + noise_at(i) * float(up[i])
@@ -257,7 +272,7 @@ def sample_dpmpp_2m(
     *, generator=None, noises=None, den_state=None,
 ):
     """DPM-Solver++(2M) multistep in t = -log(sigma) space."""
-    _no_state(den_state)
+    den = Stateful(den, den_state)
     n = len(sigmas) - 1
     sig = _f32(sigmas)
     ucs = _uc(uc_scales, n)
@@ -265,7 +280,7 @@ def sample_dpmpp_2m(
     traj = []
     with np.errstate(divide="ignore", invalid="ignore"):  # -log(0) on the last step
         for i in range(n):
-            denoised = den(x, sig[i], float(ucs[i]))
+            denoised = den(x, sig[i], float(ucs[i]), i)
             t, t_next = -np.log(sig[i]), -np.log(sig[i + 1])
             h = t_next - t
             ratio = float(np.exp(-t_next) / np.exp(-t))
@@ -288,7 +303,7 @@ def sample_dpmpp_2s_ancestral(
     den_state=None,
 ):
     """DPM-Solver++(2S) ancestral."""
-    _no_state(den_state)
+    den = Stateful(den, den_state)
     n = len(sigmas) - 1
     sig = _f32(sigmas)
     down, up = (_f32(a) for a in get_ancestral_step(sigmas[:-1], sigmas[1:], eta))
@@ -297,7 +312,7 @@ def sample_dpmpp_2s_ancestral(
     traj = []
     for i in range(n):
         uc = float(ucs[i])
-        denoised = den(x, sig[i], uc)
+        denoised = den(x, sig[i], uc, i)
         if down[i] == 0:
             d = _to_d(x, sig[i], denoised)
             x = x + d * float(down[i] - sig[i])
@@ -307,7 +322,7 @@ def sample_dpmpp_2s_ancestral(
             h = t_next - t
             s_mid = t + r * h
             x_2 = float(np.exp(-s_mid) / np.exp(-t)) * x - float(np.expm1(-h * r)) * denoised
-            denoised_2 = den(x_2, np.exp(-s_mid), uc)
+            denoised_2 = den(x_2, np.exp(-s_mid), uc, i)
             x = float(np.exp(-t_next) / np.exp(-t)) * x - float(np.expm1(-h)) * denoised_2
         x = x + noise_at(i) * float(up[i]) * temperature
         traj.append(denoised)
@@ -346,7 +361,7 @@ def sample_lms(
 ):
     """Linear multistep: a buffer of the ``order`` newest derivatives,
     integrated coefficients."""
-    _no_state(den_state)
+    den = Stateful(den, den_state)
     n = len(sigmas) - 1
     sig = _f32(sigmas)
     coeffs = _f32(lms_coefficients(np.asarray(sigmas, np.float64), order))
@@ -354,7 +369,7 @@ def sample_lms(
     ds = []  # ds[0] = newest derivative
     traj = []
     for i in range(n):
-        denoised = den(x, sig[i], float(ucs[i]))
+        denoised = den(x, sig[i], float(ucs[i]), i)
         ds = [_to_d(x, sig[i], denoised)] + ds[: order - 1]
         # the coefficient row is zero beyond the current order
         for c, d in zip(coeffs[i], ds):

@@ -10,6 +10,8 @@ port), and the flops and bytes the function needs, from which
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import importlib
 import time
 from typing import Callable, NamedTuple, Optional
@@ -19,7 +21,8 @@ import torch.nn.functional as F
 
 __all__ = ["Case", "kernel_cases", "host_us", "unet_sites", "unet_batch_shapes", "PEAK_FLOPS",
            "HBM_BYTES_PER_S", "B1_UNET_CONVS", "B1_UNET_CONV_COUNTS", "GEGLU_ROWS",
-           "GEGLU_B4_CALLS", "GEGLU_B1_ROWS", "GN_UNET_PLANES", "GN_B4_CALLS", "GN_DECODE_PLANES", "SD21_LATENT"]
+           "GEGLU_B4_CALLS", "GEGLU_B1_ROWS", "GN_UNET_PLANES", "GN_B4_CALLS", "GN_DECODE_PLANES", "SD21_LATENT",
+           "unet_call_groups", "unet_shape_keys", "held_unet_shapes"]
 
 _PKG = "complex_prompt_diffusion_tpu_torch"
 
@@ -61,73 +64,137 @@ GN_DECODE_PLANES = ((64, 512), (128, 512), (256, 256), (512, 256), (512, 128))
 SD21_LATENT = 96  # latent side of SD 2.1's 768x768 renders
 
 
-def unet_sites(cfg, latent: int) -> dict:
+def unet_sites(cfg, latent: int, deep_at=None) -> dict:
     """The kernel sites of one UNet call of config ``cfg`` on a ``latent`` x
     ``latent`` input, walking ``models.unet.build_plan`` as ``unet_apply``
     does: "attn", (plane side, channels, heads, head dim) of every
     transformer (its self-attention at S = side^2; its cross-attention over
-    the 77 context tokens); "conv", (plane side, C, Co) of every stride-1
-    3x3 conv (conv_in, a ResBlock's two, the up convs after their 2x
-    upsample, the out conv; the down convs have stride 2); "gn_planes",
-    (plane side, C) of every GroupNorm (a ResBlock's in_norm over its input
-    and out_norm over its output, a transformer's norm, the out norm); "gn",
-    their count."""
-    from complex_prompt_diffusion_tpu_torch.models.unet import build_plan
+    the 77 context tokens); "self_attn", (Sq, Skv, heads, head dim) of each
+    transformer's self-attention after the config's token reduction (ToDo:
+    Skv = S / (tome_sx * tome_sy); ToMe: Sq = Skv = S - r); "ff_rows", (rows
+    a sample, channels) of each GEGLU FF (S - r under ToMe's ``tome_mlp``);
+    "conv", (plane side, C, Co) of every stride-1 3x3 conv (conv_in, a
+    ResBlock's two, the up convs after their 2x upsample, the out conv; the
+    down convs have stride 2); "gn_planes", (plane side, C) of every
+    GroupNorm (a ResBlock's in_norm over its input and out_norm over its
+    output, a transformer's norm, the out norm); "gn", their count.
+    ``deep_at``: the DeepCache shallow pass resumed at that output block
+    (the input blocks whose skips it pops, no middle block, the output
+    blocks from ``deep_at`` on)."""
+    from complex_prompt_diffusion_tpu_torch.models.unet import _tome_sites, build_plan
 
     input_plan, middle_plan, output_plan = build_plan(cfg)
-    sites = {"attn": [], "conv": [], "gn_planes": []}
+    sites = {"attn": [], "self_attn": [], "ff_rows": [], "conv": [], "gn_planes": []}
     side = latent
+    keep_in = len(input_plan) - deep_at if deep_at is not None else len(input_plan)
+    start_out = deep_at if deep_at is not None else 0
 
-    def walk(block):
+    def walk(block, run: bool):
         nonlocal side
         for desc in block:
             kind = desc[0]
+            if kind == "down":
+                side //= 2
+            elif kind == "up":
+                side *= 2
+            if not run:
+                continue
             if kind == "conv_in":
                 sites["conv"].append((side, cfg.in_channels, cfg.model_channels))
             elif kind == "res":
                 sites["conv"] += [(side, desc[1], desc[2]), (side, desc[2], desc[2])]
                 sites["gn_planes"] += [(side, desc[1]), (side, desc[2])]
             elif kind == "attn":
-                sites["attn"].append((side, desc[1], desc[2], desc[3]))
+                s, (heads, d) = side * side, desc[2:4]
+                on, r = _tome_sites(cfg, side, side)
+                sq = skv = s - r
+                if on and cfg.tome_mode == "downsample":
+                    skv = s // (cfg.tome_sx * cfg.tome_sy)
+                sites["attn"].append((side, desc[1], heads, d))
+                sites["self_attn"].append((sq, skv, heads, d))
+                sites["ff_rows"].append((s - r if cfg.tome_mlp else s, desc[1]))
                 sites["gn_planes"].append((side, desc[1]))
-            elif kind == "down":
-                side //= 2
             elif kind == "up":
-                side *= 2
                 sites["conv"].append((side, desc[1], desc[1]))
 
-    for block in input_plan:
-        walk(block)
-    walk(middle_plan)
-    for block in output_plan:
-        walk(block)
+    for i, block in enumerate(input_plan):
+        walk(block, i < keep_in)
+    walk(middle_plan, deep_at is None)
+    for i, block in enumerate(output_plan):
+        walk(block, i >= start_out)
     sites["conv"].append((side, cfg.model_channels, cfg.out_channels))
     sites["gn_planes"].append((side, cfg.model_channels))
     sites["gn"] = len(sites["gn_planes"])
     return sites
 
 
-def unet_batch_shapes(cfg, latent: int, ub: int) -> dict:
+def unet_batch_shapes(cfg, latent: int, ub: int, deep_at=None) -> dict:
     """Every distinct shape one bf16 UNet call of ``cfg`` on a ``latent`` x
     ``latent`` input at UNet batch ``ub`` gives K1-K4, from its sites
-    (:func:`unet_sites`): "attn", (S, heads, head dim) of the self-attention
-    sites K1 takes (above ``SHORT_KV`` tokens); "ff", (M, C) of the GEGLU
+    (:func:`unet_sites`, ``deep_at`` for a shallow pass): "attn", (S,
+    heads, head dim) of the self-attention sites K1 takes (above
+    ``SHORT_KV`` keys) with Sq = Skv; "attn_kv", (Sq, Skv, heads, head dim)
+    of those with Sq != Skv (ToDo's pooled K/V); "ff", (M, C) of the GEGLU
     FFs (K2); "gn", (N, side, side, C) of the GroupNorms (K3); "conv",
     (side, C, Co) of the convs K4's gate admits at this batch."""
     from complex_prompt_diffusion_tpu_torch.models.layers import conv3x3_wanted
     from complex_prompt_diffusion_tpu_torch.ops.attention import SHORT_KV
 
-    sites = unet_sites(cfg, latent)
+    sites = unet_sites(cfg, latent, deep_at)
     distinct = dict.fromkeys  # first-seen order, no repeats
+    k1 = [site for site in sites["self_attn"] if site[1] > SHORT_KV]
     return {
-        "attn": list(distinct((side * side, heads, d) for side, _, heads, d in sites["attn"]
-                              if side * side > SHORT_KV)),
-        "ff": list(distinct((ub * side * side, ch) for side, ch, _, _ in sites["attn"])),
+        "attn": list(distinct((sq, heads, d) for sq, skv, heads, d in k1 if sq == skv)),
+        "attn_kv": list(distinct(site for site in k1 if site[0] != site[1])),
+        "ff": list(distinct((ub * rows, ch) for rows, ch in sites["ff_rows"])),
         "gn": list(distinct((ub, side, side, c) for side, c in sites["gn_planes"])),
         "conv": list(distinct(
             (side, c, co) for side, c, co in sites["conv"]
             if conv3x3_wanted(torch.empty((ub, side, side, c), device="meta"), (co, c, 3, 3)))),
     }
+
+
+def unet_call_groups() -> dict:
+    """The full-width bf16 UNet calls whose every distinct K1-K4 shape phase
+    1 holds to its plain twin, by ``kernel_cases`` group: lists of (config,
+    latent side, UNet batch). SD-1.5 on the 64x64 latent of a 512x512 render
+    at UNet batch 1 (attention guidance's unconditional call), 2 (a b1 CFG
+    step), 3 and 4 (a 2- and a 3-factor prompt at b1; a chunk of 2 tiles),
+    8 (b4) and 16 (a 3-factor prompt at b4); SD 2.1 on its 96x96 latent and
+    SD-2's 512^2 UNet at 8 and 2; ToDo (0.75) at 8 and 2; ToMe merge (0.75
+    and 0.3, with tome_mlp) at 2. ``chip_smoke.py`` fails a path whose UNet
+    calls bring a shape none of these has (:func:`held_unet_shapes`)."""
+    from complex_prompt_diffusion_tpu_torch.models import UNetConfig
+
+    sd15 = UNetConfig.sd15()
+    todo = dataclasses.replace(sd15, tome_ratio=0.75, tome_mode="downsample")
+    groups = {f"ub{ub}": [(sd15, 64, ub)] for ub in (1, 2, 3, 4, 8, 16)}
+    groups["sd21"] = [(UNetConfig.sd21(), SD21_LATENT, ub) for ub in (8, 2)]
+    groups["sd2_512"] = [(UNetConfig.sd2_depth(), 64, ub) for ub in (2, 8)]
+    groups["todo"] = [(todo, 64, ub) for ub in (8, 2)]
+    groups["tome"] = [(dataclasses.replace(sd15, tome_ratio=ratio, tome_mode="merge",
+                                           tome_mlp=True), 64, 2) for ratio in (0.75, 0.3)]
+    return groups
+
+
+def unet_shape_keys(cfg, latent: int, ub: int, deep_at=None) -> set:
+    """The K1-K4 shapes of one bf16 UNet call (:func:`unet_batch_shapes`)
+    as keys: ("k1", UNet batch, Sq, Skv, heads, head dim), ("k2", M, C),
+    ("k3", N, side, side, C), ("k4", UNet batch, side, C, Co)."""
+    shapes = unet_batch_shapes(cfg, latent, ub, deep_at)
+    return ({("k1", ub, s, s, heads, d) for s, heads, d in shapes["attn"]}
+            | {("k1", ub) + site for site in shapes["attn_kv"]}
+            | {("k2",) + ff for ff in shapes["ff"]}
+            | {("k3",) + gn for gn in shapes["gn"]}
+            | {("k4", ub) + conv for conv in shapes["conv"]})
+
+
+@functools.lru_cache(maxsize=None)
+def held_unet_shapes() -> frozenset:
+    """The keys (:func:`unet_shape_keys`) of every UNet call of
+    :func:`unet_call_groups`: the shapes phase 1 holds."""
+    return frozenset().union(*(unet_shape_keys(*call) for calls in unet_call_groups().values()
+                               for call in calls))
 
 
 class Case(NamedTuple):
@@ -165,14 +232,12 @@ def kernel_cases(dev, kernels=None) -> list:
     G = importlib.import_module(f"{_PKG}.ops.groupnorm")
     F2 = importlib.import_module(f"{_PKG}.ops.mlp")
     W = importlib.import_module(f"{_PKG}.ops.probes.winograd")
-    want = set(kernels) if kernels else {"attention", "attention_sm90",
-                                         "attention_f32_sm90", "attention_bf16_wide_sm90",
-                                         "geglu_ff", "geglu_ff_f32_sm90",
-                                         "group_norm", "conv3x3", "conv3x3_sm90",
-                                         "conv3x3_f32_sm90",
-                                         "attention_cm", "winograd", "probe_attention",
-                                         "probe_groupnorm", "probe_copy", "sd21", "ub3",
-                                         "ub4", "ub16", "sd2_512"}
+    want = set(kernels) if kernels else ({"attention", "attention_sm90", "attention_f32_sm90",
+                                          "attention_bf16_wide_sm90", "geglu_ff",
+                                          "geglu_ff_f32_sm90", "group_norm", "conv3x3",
+                                          "conv3x3_sm90", "conv3x3_f32_sm90", "attention_cm",
+                                          "winograd", "probe_attention", "probe_groupnorm",
+                                          "probe_copy", "sd21"} | set(unet_call_groups()))
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -427,93 +492,67 @@ def kernel_cases(dev, kernels=None) -> list:
                 (lambda a=a: wino_prior(*a[:3], u=a[3])) if sm90 else None,
                 "tf32x3" if f32_sm90 else None))
     if "sd21" in want:
-        # SD 2.1 at 768x768 (a 96x96 latent): K1's sm90 body at head dim 64
-        # at every self-attention level of the b4 step (UNet batch 8: 9216,
-        # 2304, 576 and, in the middle block, 144 tokens; the last two not
-        # multiples of its 128-row tiles), on views of one qkv projection;
-        # the VAE mid-block at S = 9216 (the b1 bf16 decode on the wide body,
-        # the b4 exact decode on the 3xTF32 one); K2 at level 0 of the b4
-        # step; K3 on the b4 step's 96^2 plane and the decodes' largest ones
-        # (their replaced body beside them); K4 on the b1 step's 24^2 plane
-        # (its mma.sync body beside it)
-        for s_, heads in ((9216, 5), (2304, 10), (576, 20), (144, 20)):
-            qkv = randn(8, s_, 3 * heads * 64, dtype=bf16)
-            q, k, v = qkv.chunk(3, dim=-1)
-            attn_case(f"bf16 B8 S{s_} H{heads} d64", q, k, v, heads, "bfloat16",
-                      "attention_sm90")
+        # SD 2.1 at 768x768 (a 96x96 latent), beside its UNet calls (the
+        # group's entry in unet_call_groups, below): the VAE mid-block at S =
+        # 9216 (the b1 bf16 decode on the wide body, the b4 exact decode on
+        # the 3xTF32 one) and the decodes' largest GroupNorm planes (their
+        # replaced body beside them)
         q, k, v = (randn(1, 9216, 512, dtype=bf16) for _ in range(3))
         attn_case("bf16 B1 S9216 H1 d512", q, k, v, 1, "bfloat16", "attention_bf16_wide_sm90")
         q, k, v = (randn(4, 9216, 512, dtype=f32) for _ in range(3))
         attn_case("f32 B4 S9216 H1 d512", q, k, v, 1, "float32", "attention_f32_sm90",
                   rate="tf32x3")
-        ff_case("geglu_ff", 8 * 9216, 320, bf16)
-        for shape, dt, eps in (((8, 96, 96, 320), bf16, 1e-5), ((4, 768, 768, 128), f32, 1e-6),
-                               ((1, 768, 768, 256), bf16, 1e-6)):
-            gn_case(shape, dt, eps)
-        for c, co in ((1280, 1280), (2560, 1280)):
-            conv_case("conv3x3_sm90", 2, 24, c, co, bf16)
-    for ub in (3, 4, 16):
-        if f"ub{ub}" not in want:
+        for shape, dt in (((4, 768, 768, 128), f32), ((1, 768, 768, 256), bf16)):
+            gn_case(shape, dt, 1e-6)
+    # every distinct K1-K4 shape of the UNet calls of each group of
+    # unet_call_groups that no case before it has: K1's sm90 body at each
+    # self-attention site K1 takes (views of one qkv projection; where ToDo
+    # pools the K/V, q beside views of one kv projection), K2 at each FF's M
+    # (ToMe's merged rows under tome_mlp), K3 on every GroupNorm plane (its
+    # replaced body beside it), K4 on the convs its gate admits (the
+    # mma.sync body beside its sm90 body). The "sd2_512" group adds K1 at
+    # the middle block's 64 tokens (in a UNet call the short path takes
+    # them: S <= SHORT_KV), then K4's generic body on the concat UNets'
+    # conv_in at a 256x256 render (a 32x32 latent, UNet batch 2): 9 -> 320
+    # (inpaint) and 5 -> 320 (depth), bf16 and f32
+    have = {(c.kernel, c.label) for c in cases}
+
+    def new(kernel, label):
+        fresh = (kernel, label) not in have
+        have.add((kernel, label))
+        return fresh
+
+    for group, calls in unet_call_groups().items():
+        if group not in want:
             continue
-        # every distinct K1-K4 shape of an SD-1.5 UNet call on a 64x64 latent
-        # at UNet batch 3, 4 and 16 (a 2-factor prompt at b1, a 3-factor one,
-        # (1 + 3) x B, at b1 and b4): K1's sm90 body at each self-attention
-        # level, on views of one qkv projection; K2 at each level's M; K3 on
-        # every GroupNorm plane (its replaced body beside it); K4 on the convs
-        # its gate admits (batch 3 and 4 only; the mma.sync body beside its
-        # sm90 body)
-        from complex_prompt_diffusion_tpu_torch.models import UNetConfig
-
-        shapes = unet_batch_shapes(UNetConfig.sd15(), 64, ub)
-        for s_, heads, d in shapes["attn"]:
-            qkv = randn(ub, s_, 3 * heads * d, dtype=bf16)
-            q, k, v = qkv.chunk(3, dim=-1)
-            attn_case(f"bf16 B{ub} S{s_} H{heads} d{d}", q, k, v, heads, "bfloat16",
-                      "attention_sm90")
-        for m, c in shapes["ff"]:
-            ff_case("geglu_ff", m, c, bf16)
-        for shape in shapes["gn"]:
-            gn_case(shape, bf16, 1e-5)
-        for side, c, co in shapes["conv"]:
-            conv_case("conv3x3_sm90" if C.k4_body(bf16, c, co) == "bf16_sm90" else "conv3x3",
-                      ub, side, c, co, bf16)
-    if "sd2_512" in want:
-        # SD-2 at 512x512 (a 64x64 latent: the depth model's UNet, SD 2.1's
-        # widths at head dim 64): every distinct K1-K4 shape of a UNet call at
-        # UNet batch 2 (a b1 render) and 8 (b4) that no case above has (K1 at
-        # S = 4096, 1024 and 256; K2, K3 and K4 at SD-1.5's widths, whose
-        # cases above it shares), and K1 at the middle block's 64 tokens
-        # (in a UNet call the short path takes them: S <= SHORT_KV); then
-        # K4's generic body on the concat UNets' conv_in at a 256x256 render
-        # (a 32x32 latent, UNet batch 2): 9 -> 320 (inpaint) and 5 -> 320
-        # (depth), bf16 and f32
-        from complex_prompt_diffusion_tpu_torch.models import UNetConfig
-
-        have = {(c.kernel, c.label) for c in cases}
-        start = len(cases)
-        for ub in (2, 8):
-            shapes = unet_batch_shapes(UNetConfig.sd2_depth(), 64, ub)
-            for s_, heads, d in shapes["attn"] + [(64, 20, 64)]:
-                qkv = randn(ub, s_, 3 * heads * d, dtype=bf16)
-                q, k, v = qkv.chunk(3, dim=-1)
-                attn_case(f"bf16 B{ub} S{s_} H{heads} d{d}", q, k, v, heads, "bfloat16",
-                          "attention_sm90")
+        for cfg, latent, ub in calls:
+            shapes = unet_batch_shapes(cfg, latent, ub)
+            extra = [(64, 20, 64)] if group == "sd2_512" else []
+            for s_, heads, d in shapes["attn"] + extra:
+                label = f"bf16 B{ub} S{s_} H{heads} d{d}"
+                if new("attention_sm90", label):
+                    q, k, v = randn(ub, s_, 3 * heads * d, dtype=bf16).chunk(3, dim=-1)
+                    attn_case(label, q, k, v, heads, "bfloat16", "attention_sm90")
+            for sq, skv, heads, d in shapes.get("attn_kv", ()):
+                label = f"bf16 B{ub} Sq{sq} Skv{skv} H{heads} d{d}"
+                if new("attention_sm90", label):
+                    q = randn(ub, sq, heads * d, dtype=bf16)
+                    k, v = randn(ub, skv, 2 * heads * d, dtype=bf16).chunk(2, dim=-1)
+                    attn_case(label, q, k, v, heads, "bfloat16", "attention_sm90")
             for m, c in shapes["ff"]:
-                ff_case("geglu_ff", m, c, bf16)
+                if new("geglu_ff", f"bf16 M{m} C{c} H4 {4 * c}"):
+                    ff_case("geglu_ff", m, c, bf16)
             for shape in shapes["gn"]:
-                gn_case(shape, bf16, 1e-5)
+                if new("group_norm", f"bf16 {'x'.join(map(str, shape))} silu"):
+                    gn_case(shape, bf16, 1e-5)
             for side, c, co in shapes["conv"]:
-                conv_case("conv3x3_sm90" if C.k4_body(bf16, c, co) == "bf16_sm90" else "conv3x3",
-                          ub, side, c, co, bf16)
-        for c in (9, 5):
-            for dt in (bf16, f32):
-                conv_case("conv3x3", 2, 32, c, 320, dt)
-        fresh = []
-        for c in cases[start:]:
-            if (c.kernel, c.label) not in have:
-                have.add((c.kernel, c.label))
-                fresh.append(c)
-        cases[start:] = fresh
+                kernel = "conv3x3_sm90" if C.k4_body(bf16, c, co) == "bf16_sm90" else "conv3x3"
+                if new(kernel, f"bf16 B{ub} {side}x{side} {c}->{co}"):
+                    conv_case(kernel, ub, side, c, co, bf16)
+        if group == "sd2_512":
+            for c in (9, 5):
+                for dt in (bf16, f32):
+                    conv_case("conv3x3", 2, 32, c, 320, dt)
     # the probes (imported here: a source tree without them runs the cases
     # above); each at a shape of its TPU script, the tools/probe_*.py rows
     # time every variant

@@ -190,10 +190,20 @@ def test_from_jax_bundle_reads_any_object_with_the_fields(jax_bundle):
 # ---- config_from ----
 
 def test_config_from_raises_on_a_dropped_field():
-    with pytest.raises(ValueError, match="tome_ratio"):
-        convert.config_from(M.UNetConfig, dataclasses.replace(JU.UNetConfig(), tome_ratio=0.5))
-    with pytest.raises(ValueError, match="tome_mode"):
-        convert.config_from(M.UNetConfig, dataclasses.replace(JU.UNetConfig(), tome_mode="merge"))
+    """A field the port's config lacks raises unless it holds its default.
+    The token-reduction fields are the port's now (they map); a JAX-side
+    field with no counterpart, set off its default, still raises."""
+    got = convert.config_from(M.UNetConfig, dataclasses.replace(
+        JU.UNetConfig(), tome_ratio=0.5, tome_mode="merge"))
+    assert (got.tome_ratio, got.tome_mode) == (0.5, "merge")
+
+    @dataclasses.dataclass(frozen=True)
+    class Wider(JU.UNetConfig):
+        hypernetwork: str = ""
+
+    with pytest.raises(ValueError, match="hypernetwork"):
+        convert.config_from(M.UNetConfig, Wider(hypernetwork="anime"))
+    assert convert.config_from(M.UNetConfig, Wider()) == M.UNetConfig()
     with pytest.raises(ValueError, match="use_pallas"):
         convert.config_from(M.UNetConfig, dataclasses.replace(JU.UNetConfig(), use_pallas="tp"))
 

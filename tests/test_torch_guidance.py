@@ -107,13 +107,17 @@ def test_uc_blur_schedule_equals_jax(kw, steps):
 
 
 def test_only_attn_guide_is_unported():
+    """Attention-saliency guidance is ported: no switch is left unported,
+    and a guided render runs (``tests/test_torch_attn_guide.py`` holds it
+    to the JAX package)."""
     on = dict(uc_blur=True, threshold_e="static_thresholding", dynamic_scale_clip=True)
     assert G.GuidanceConfig(**on).unported() == []
-    assert G.GuidanceConfig(attn_guide=True, **on).unported() == ["attn_guide"]
-    with pytest.raises(NotImplementedError, match="attn_guide"):
-        P.txt2img(P.ModelBundle.random("tiny", device="cpu"), "a cat",
-                  cfg=P.RenderConfig(steps=2, width=32, height=32,
-                                     guidance=G.GuidanceConfig(attn_guide=True)))
+    assert G.GuidanceConfig(attn_guide=True, **on).unported() == []
+    _, lat = P.txt2img(P.ModelBundle.random("tiny", device="cpu"), "a cat",
+                       cfg=P.RenderConfig(steps=2, width=32, height=32,
+                                          guidance=G.GuidanceConfig(attn_guide=True)),
+                       decode=False)
+    assert tuple(lat.shape) == (1, 4, 4, 4) and bool(torch.isfinite(lat).all())
 
 
 def _fake_unet(xp):

@@ -217,8 +217,16 @@ def test_sampler_noise_sources_and_state_slot():
     b = K.sample_euler_ancestral(den, x, sigmas, 7.5, eta=0.0,
                                  generator=torch.Generator().manual_seed(1))[0]
     assert not torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        K.sample_euler(den, x, sigmas, 7.5, den_state=object())
+    # the state slot: a stateful denoiser, its state carried across steps
+    # (tests/test_torch_deepcache.py holds every sampler to the JAX scans)
+    seen = []
+
+    def den_st(x_, sigma, uc, i, st):
+        seen.append((i, st))
+        return den(x_, sigma, uc), st + 1
+
+    K.sample_euler(den_st, x, sigmas, 7.5, den_state=0)
+    assert seen == [(i, i) for i in range(4)]
     down, up = K.get_ancestral_step(sigmas[:-1], sigmas[1:], 1.0)
     jd, ju = JK.get_ancestral_step(sigmas[:-1], sigmas[1:], 1.0)
     np.testing.assert_array_equal(down, jd)

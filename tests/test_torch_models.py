@@ -150,10 +150,26 @@ def test_unet_sd2_style_config_branches():
 
 
 def test_unet_unported_options_raise(jax_bundle):
+    """``return_skips`` is ported (one skip an output block, after the
+    output); what still raises: a hypernetwork at a cross-attention site
+    and a CLIP layer other than "last" and "penultimate"."""
     cfg = convert.config_from(M.UNetConfig, jax_bundle.unet_cfg)
+    params = convert.unet_params(jax_bundle.unet_params)
     x, t, ctx = map(torch.from_numpy, _unet_inputs(jax_bundle.unet_cfg, seed=5, n=1))
-    with pytest.raises(NotImplementedError):
-        M.unet_apply(cfg, {}, x, t, ctx, return_skips=True)
+    out, skips = M.unet_apply(cfg, params, x, t, ctx, return_skips=True)
+    assert len(skips) == len(M.build_plan(cfg)[2])
+    torch.testing.assert_close(out, M.unet_apply(cfg, params, x, t, ctx), rtol=0, atol=0)
+    attn2 = params["input_blocks"][1][1]["blocks"][0]["attn2"]
+    attn2["hyper_k"] = {}
+    try:
+        with pytest.raises(NotImplementedError, match="hypernetworks"):
+            M.unet_apply(cfg, params, x, t, ctx)
+    finally:
+        del attn2["hyper_k"]
+    ccfg = convert.config_from(M.CLIPTextConfig, jax_bundle.clip_cfg)
+    with pytest.raises(NotImplementedError, match="clip layer"):
+        M.clip_text_apply(ccfg, convert.clip_params(jax_bundle.clip_params),
+                          torch.zeros((1, 77), dtype=torch.long), layer="hidden3")
 
 
 def test_vae_decode(jax_bundle):

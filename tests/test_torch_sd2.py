@@ -175,10 +175,10 @@ def test_unet_sites_of_sd21(latent, k1, convs):
     assert len(gated) == convs
 
 
-@pytest.mark.parametrize("ub", [2, 3, 4, 8, 16])
+@pytest.mark.parametrize("ub", [1, 2, 3, 4, 8, 16])
 def test_unet_batch_shapes_cover_every_kernel_site(ub):
-    """``tools/kernel_cases.unet_batch_shapes`` (phase 1's "ub3", "ub4" and
-    "ub16" groups) at SD 1.5's 64x64 latent: K1 at the three self-attention
+    """``tools/kernel_cases.unet_batch_shapes`` (phase 1's "ub1" to "ub16"
+    groups) at SD 1.5's 64x64 latent: K1 at the three self-attention
     levels; K2 at each level's M (``GEGLU_ROWS`` at UNet batch 8,
     ``GEGLU_B1_ROWS`` at 2); K3 on the 14 planes of ``GN_UNET_PLANES``,
     whose counts the sites' GroupNorm planes reproduce; K4 on the 10 shapes

@@ -199,12 +199,36 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            config's token reduction). Phase 1 holds the new shapes too
            (kernel_cases' "todo" and "tome" groups: K1 at Sq 4096, Skv 1024
            at UNet batch 8 and 2; at S' = 1024 and 2868; K2 at M = 2 x S';
-           "ub1": attention guidance's UNet-batch-1 call).
+           "ub1": attention guidance's UNet-batch-1 call);
+  phase 17 gradients through the kernels (after phase 16; phase 2's bundle
+           rebuilt from seed 0): (a) every body a dispatch entry reaches (K1
+           sm90, fused f32, 3xTF32 f32 and bf16 wide; K5 bf16 and f32; K2
+           bf16 with f32 master weights and f32; K3 bf16 and f32, with and
+           without SiLU; K4 sm90, f32 and generic; K6 bf16 and f32) under
+           grad: the forward launches the planned kernels with the bits of a
+           call without grad, the backward launches none, and the gradients
+           for a random cotangent torch.equal autograd's through the plain
+           twin, each in its input's dtype (None where an input needs none);
+           K7-K9 still raise under grad; (b) the SD-1.5 train step at full
+           width: f32 master weights, bf16 compute, batch 2 at 512x512, a
+           random context, Adan (lr 1e-4) and LitEma, 3 steps (s/step, peak
+           memory; each step's K1-K4 launches as its UNet call predicts, one
+           step's gradients all finite and its backward launching nothing),
+           then one step in f32 at a 16x16 latent, its loss and the
+           gradients of conv_in, a K4-gated conv, a GEGLU w1, a GroupNorm
+           scale and a self-attention wq against CPU copies (1e-4); (c)
+           null-text inversion of a phase-2 image at 512x512 (DDIM 20, 5
+           Adam iterations a step, CFG 7.5 at UNet batch 2): wall time, the
+           table [20, 1, 77, 768] finite, the mean DDIM-step loss lowered;
+           (d) the "Log" sampler through ``sample_latents``: RK4 4 steps at
+           512x512 b1 (16 VJPs) and dopri5 at a 16x16 latent (NFE
+           printed), finite log-likelihoods [B]. The kernels line names
+           each kernel's backward rule.
 Phase 1's UNet groups come from ``kernel_cases.unet_call_groups``; a
 full-width UNet call whose K1-K4 shapes none of them holds fails its
 path's launch check (``check_held``).
 
-Each path of phases 2, 4 to 12 and 14 to 16 runs with every launch count set to 0
+Each path of phases 2, 4 to 12 and 14 to 17 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched (phase 12, render by render: K1's sm90 body 15 times, K2
 its plans' kernels for 16 calls, K3 61 calls and K4's sm90 body 22 times a
@@ -227,10 +251,13 @@ the SD 2.1 config's sites and the kernels' plans (``unet_call_launches``):
 K1's sm90 body 16 times a UNet call at 768x768 (the middle block's 144
 tokens too), K4's sm90 body on the 11 convs of the 24^2 plane at batch 1
 and none at batch 4, the f32 mid-block's kernels by ``f32_sm90_launches``
-and the bf16 one's by ``bf16_wide_launches`` at S = 9216.
+and the bf16 one's by ``bf16_wide_launches`` at S = 9216. Phase 17's
+forwards under grad launch what their UNet calls predict, and their
+backwards launch nothing (the backward rules recompute the plain twins).
 Any failure exits non-zero before the result lines. On success the
-last three lines are the kernels JSON, the card's name and power limit
-(from nvidia-smi) and ``{"ok": true, "device": {...}}``.
+last three lines are the kernels JSON (each kernel's ``backward`` rule
+beside it), the card's name and power limit (from nvidia-smi) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2952,6 +2979,455 @@ def phase16(dev, card: str) -> dict:
     return paths
 
 
+NULL_STEPS = 20  # DDIM steps of phase 17's null-text inversion
+NULL_INNER = 5  # its Adam iterations a step
+TRAIN_STEPS = 3  # phase 17's SD-1.5 train steps
+LOGLIK_RK4_STEPS = 4  # its "Log" RK4 steps at 512x512 (4 VJPs a step)
+GRAD_CPU_TOL = 1e-4  # phase 17(b): f32 loss and gradients at a 16x16 latent vs the CPU copies
+# the backward rule beside each kernel of the kernels line: the VJP of the
+# plain twin recomputed on the saved inputs (``_build.kernel_with_plain_vjp``)
+# for every body under a dispatch entry; the probes have none (as in JAX)
+BACKWARD = {"attention": "plain recompute (VJP of ops.attention.attention_plain)",
+            "geglu_ff": "plain recompute (VJP of ops.mlp.geglu_ff_plain)",
+            "group_norm": "plain recompute (VJP of ops.groupnorm.group_norm_plain)",
+            "conv3x3": "plain recompute (VJP of ops.conv.conv3x3_plain)",
+            "attention_cm": "plain recompute (VJP of ops.attention.attention_dmajor_plain)",
+            "winograd": "plain recompute (VJP of ops.probes.winograd.wino3x3_plain)"}
+
+
+def grad_wiring_cases(dev) -> list:
+    """Phase 17(a)'s cases: (label, dispatch entry, its plain twin, tensors,
+    other arguments, counter, the forward's planned kernels). Every body a
+    dispatch entry reaches: K1 sm90 bf16, fused f32, 3xTF32 f32 and bf16
+    wide; K5 bf16 and f32 (the latter through its out_hdbs view); K2 bf16
+    (f32 master weights) and f32; K3 bf16 and f32 with and without SiLU;
+    K4 sm90 (its bias needs no gradient), f32 and generic; K6 bf16 and
+    f32."""
+    import importlib
+
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch.ops import conv as C
+    from complex_prompt_diffusion_tpu_torch.ops import groupnorm as G
+    from complex_prompt_diffusion_tpu_torch.ops import mlp as F2
+    from complex_prompt_diffusion_tpu_torch.ops.probes import winograd as W
+
+    # ops/__init__ re-exports the function ``attention``: the module by name
+    A = importlib.import_module("complex_prompt_diffusion_tpu_torch.ops.attention")
+    bf, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev).manual_seed(17)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def leaf(shape, dtype=f32, scale=1.0, grad=True):
+        t = (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+        return t.requires_grad_(grad)
+
+    def conv_w(co, c, dtype=f32):
+        w = (torch.randn((co, c, 3, 3), generator=g, device=dev) * (9 * c) ** -0.5).to(dtype)
+        return w.contiguous(memory_format=torch.channels_last).requires_grad_()
+
+    def qkv(shape, dtype):
+        return tuple(leaf(shape, dtype) for _ in range(3))
+
+    def ff(dtype_x, c=320):
+        return (leaf((2, 1024, c), dtype_x), leaf((c, 8 * c), f32, c ** -0.5),
+                leaf(8 * c, f32, 0.1), leaf((4 * c, c), f32, (4 * c) ** -0.5), leaf(c, f32, 0.1))
+
+    def gn(dtype, silu):
+        x = leaf((2, 32, 32, 640), dtype, 2.0)
+        return ("K3 " + ("bf16" if dtype == bf else "f32") + (" SiLU" if silu else ""),
+                G.group_norm_nhwc, G.group_norm_plain,
+                (x, (1 + leaf(640, f32, 0.1, grad=False)).requires_grad_(), leaf(640, f32, 0.1)),
+                (32, 1e-5, silu), G.group_norm_nhwc,
+                G.group_norm_plan(2, 1024, 640, 32, dtype, sms).launches)
+
+    def wino_twin(x, k, b):
+        return W.wino3x3_plain(x, W.winograd_weights(k).to(x.dtype), b)
+
+    def hwio(co, c):
+        return (torch.randn((3, 3, c, co), generator=g, device=dev) * (9 * c) ** -0.5
+                ).requires_grad_()
+
+    s5 = 40 ** -0.5
+    return [
+        ("K1 sm90 bf16", A.flash_attention, A.attention_plain, qkv((2, 1024, 320), bf), (8,),
+         A.flash_attention, 1),
+        ("K1 fused 3xTF32 f32", A.flash_attention, A.attention_plain, qkv((2, 1024, 320), f32),
+         (8,), A.flash_attention, 1),
+        ("K1 3xTF32 f32 d512", A.flash_attention, A.attention_plain, qkv((1, 1024, 512), f32),
+         (1,), A.flash_attention, A.f32_sm90_launches(1, 1, 1024, 1024)),
+        ("K1 bf16 wide d512", A.flash_attention, A.attention_plain, qkv((1, 1024, 512), bf),
+         (1,), A.flash_attention, A.bf16_wide_launches(1, 1, 1024, 1024)),
+        ("K5 bf16", A.attention_dmajor, A.attention_dmajor_plain, qkv((2, 8, 40, 1024), bf),
+         (s5, False, False), A.attention_dmajor, 1),
+        ("K5 f32 out_hdbs", A.attention_dmajor, A.attention_dmajor_plain,
+         qkv((2, 8, 40, 1024), f32), (s5, False, True), A.attention_dmajor, 1),
+        ("K2 bf16 (f32 master weights)", F2.geglu_ff, F2.geglu_ff_plain, ff(bf), (),
+         F2.geglu_ff, F2.geglu_plan(2048, 320, 1280).launches),
+        ("K2 f32", F2.geglu_ff, F2.geglu_ff_plain, ff(f32), (), F2.geglu_ff,
+         F2.geglu_plan(2048, 320, 1280, f32).launches),
+        gn(bf, False), gn(bf, True), gn(f32, False), gn(f32, True),
+        ("K4 sm90 (f32 master weight; bias needs none)", C.conv3x3, C.conv3x3_plain,
+         (leaf((2, 32, 32, 320), bf), conv_w(640, 320), leaf(640, f32, 0.1, grad=False)), (),
+         C.conv3x3, 1),
+        ("K4 f32", C.conv3x3, C.conv3x3_plain,
+         (leaf((2, 16, 16, 640)), conv_w(640, 640), leaf(640, f32, 0.1)), (), C.conv3x3, 1),
+        ("K4 generic bf16", C.conv3x3, C.conv3x3_plain,
+         (leaf((2, 16, 16, 40), bf), conv_w(320, 40), leaf(320, f32, 0.1)), (), C.conv3x3, 1),
+        ("K6 bf16", W.wino3x3, wino_twin, (leaf((2, 16, 16, 640), bf), hwio(640, 640),
+                                           leaf(640, f32, 0.1)), (), W.wino3x3,
+         W.wino3x3_plan(2, 16, 16, 640, 640).launches),
+        ("K6 f32", W.wino3x3, wino_twin, (leaf((2, 16, 16, 640)), hwio(640, 640),
+                                          leaf(640, f32, 0.1)), (), W.wino3x3,
+         W.wino3x3_plan(2, 16, 16, 640, 640, dtype=f32).launches),
+    ]
+
+
+def phase17_grads(dev, card: str) -> dict:
+    """(a): every dispatched body under grad. Its forward launches the
+    kernel (the counter moves by the planned kernels, the output has the
+    bits of a call without grad), the backward launches none, and the
+    gradients for a random cotangent equal autograd's through the plain
+    twin on the same inputs (torch.equal), each in its input's dtype, None
+    where an input needs none; K7-K9 still raise under grad."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch.ops.probes.attention import attention_probe
+    from complex_prompt_diffusion_tpu_torch.ops.probes.groupnorm import group_norm_probe
+    from complex_prompt_diffusion_tpu_torch.ops.probes.stream import stream_copy
+
+    reset_launches()
+    cases = grad_wiring_cases(dev)
+    g = torch.Generator(device=dev).manual_seed(170)
+    for label, fn, twin, args, rest, counter, planned in cases:
+        n0 = counter.launches
+        with torch.no_grad():
+            ref_out = fn(*args, *rest)
+        n1 = counter.launches
+        out = fn(*args, *rest)
+        n2 = counter.launches
+        wrt = [a for a in args if a.requires_grad]
+        cot = torch.randn(out.shape, generator=g, device=dev).to(out.dtype)
+        got = torch.autograd.grad(out, wrt, cot, retain_graph=True)
+        none_ok = all(r is None for r, a in zip(out.grad_fn.apply(cot)[3:], args)
+                      if not a.requires_grad)
+        torch.cuda.synchronize()
+        n3 = counter.launches
+        want = torch.autograd.grad(twin(*args, *rest), wrt, cot)
+        equal = all(a.dtype == x.dtype and torch.equal(a, b) for a, b, x in zip(got, want, wrt))
+        ok = (n1 - n0 == planned and n2 - n1 == planned and n3 == n2 and none_ok and equal
+              and torch.equal(out, ref_out) and out.grad_fn is not None)
+        print(f"phase17: (a) {label}: forward {n2 - n1} kernels under grad (planned {planned}), "
+              f"backward 0 ({n3 - n2}); {len(wrt)} gradients torch.equal the plain twin's "
+              f"{equal}, dtypes {[str(a.dtype)[6:] for a in got]}; None where none is needed "
+              f"{none_ok} ({card})", flush=True)
+        if not ok:
+            raise SmokeFailure(f"the backward rule of {label}: launches {n0} {n1} {n2} {n3} "
+                               f"(planned {planned}), gradients equal {equal}, None {none_ok}")
+    q = torch.randn((1, 256, 40), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    x = torch.randn((1, 8, 8, 320), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    ones = torch.ones(320, device=dev, dtype=torch.bfloat16)
+    for label, call in (("K7", lambda: attention_probe(q, q, q, 1, 0.158)),
+                        ("K8", lambda: group_norm_probe(x, ones, ones)),
+                        ("K9", lambda: stream_copy(x.reshape(1, 64, 320), 64))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward rule" not in str(e):
+                raise
+        else:
+            raise SmokeFailure(f"the probe {label} ran under grad: it has no backward rule")
+    print(f"phase17: (a) K7, K8 and K9 raise under grad (no backward rule, as in the JAX "
+          f"package) ({card})", flush=True)
+    return read_launches()
+
+
+def phase17_train(dev, card: str, bundle, latent: int = 64) -> dict:
+    """(b): the training step at SD-1.5 full width (f32 master weights,
+    bf16 compute, batch 2 at 512x512, random context, Adan lr 1e-4,
+    LitEma): s/step and peak memory over TRAIN_STEPS steps, each step's
+    K1-K4 launches as its UNet call predicts (``check_calls``), one step's
+    gradients computed apart (every one finite; the backward launches
+    nothing); then one step's loss and five gradients in f32 at a 16x16
+    latent against CPU copies. ``latent``: the side of the train batch's
+    latents (64: 512x512)."""
+    import numpy as np
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch import train as T
+    from complex_prompt_diffusion_tpu_torch.pipeline import _tree_map
+    from complex_prompt_diffusion_tpu_torch.train.loop import LitEma
+    from complex_prompt_diffusion_tpu_torch.train.optimizers import tree_leaves, tree_map
+
+    ucfg, tables = bundle.unet_cfg, bundle.tables
+    params = _tree_map(lambda a: a.float(), bundle.unet_params)  # f32 master weights
+    g = torch.Generator(device=dev).manual_seed(171)
+    ctx_dim = ucfg.context_dim
+    batch = {"latents": torch.randn((2, latent, latent, 4), generator=g, device=dev),
+             "context": torch.randn((2, 77, ctx_dim), generator=g, device=dev)}
+    opt = T.adan(learning_rate=1e-4)
+    step = T.make_train_step(ucfg, tables, opt)
+    state = opt.init(params)
+    ema = LitEma.create(params)
+    first = tree_leaves(params)
+    # one step's gradients apart: the forward's launches, none in the backward
+    t = torch.randint(0, 1000, (2,), generator=g, device=dev)
+    noise = torch.randn((2, latent, latent, 4), generator=g, device=dev)
+    leaves = [p.detach().requires_grad_() for p in first]
+    it = iter(leaves)
+    diff = tree_map(lambda _: next(it), params)
+    reset_launches()
+    loss = T.p_losses(lambda p, x, tt, c: M.unet_apply(ucfg, p, x, tt, c), diff, tables,
+                      batch["latents"], batch["context"], t, noise)
+    torch.cuda.synchronize()
+    fwd = read_launches()
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    after = read_launches()
+    check_calls(fwd, "the train step's forward", [(1, ucfg, latent, 2, None)])
+    finite = all(bool(torch.isfinite(gr).all()) for gr in grads)
+    if after != fwd or not finite or not bool(torch.isfinite(loss)):
+        raise SmokeFailure(f"the train step's backward: launches {after} after {fwd}, "
+                           f"gradients finite {finite}, loss {float(loss)}")
+    del leaves, diff, grads, loss
+    torch.cuda.empty_cache()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        params, state, loss = step(params, state, batch, g)
+        ema = ema.update(params)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_launches()
+    check_calls(launches, f"{TRAIN_STEPS} train steps", [(TRAIN_STEPS, ucfg, latent, 2, None)])
+    moved = sum(not torch.equal(a, b) for a, b in zip(tree_leaves(params), first))
+    shadow_ok = all(bool(torch.isfinite(a).all()) for a in tree_leaves(ema.shadow))
+    losses = [float(v) for v in losses]
+    print(f"phase17: (b) SD-1.5 train step, batch 2 at {8 * latent}x{8 * latent} ({latent}x"
+          f"{latent} latents), f32 master "
+          f"weights, bf16 compute, Adan lr 1e-4, LitEma on {card}: {dt:.4f} s/step over "
+          f"{TRAIN_STEPS} steps (with the EMA update), peak memory {peak:.2f} GiB; losses "
+          f"{[round(v, 5) for v in losses]}; {moved} of {len(first)} parameter tensors moved; "
+          f"every gradient of one step finite; a step's forward launched K1 sm90 "
+          f"{fwd['attention_sm90']}, K2 {fwd['geglu_ff']}, K3 {fwd['group_norm']} kernels for "
+          f"{fwd['group_norm calls']} calls, K4 {fwd['conv3x3']} ({fwd['conv3x3_sm90']} sm90) as "
+          f"its UNet call predicts; its backward launched none", flush=True)
+    if not all(np.isfinite(losses)) or moved < len(first) // 2 or not shadow_ok:
+        raise SmokeFailure(f"the train steps: losses {losses}, {moved} tensors moved, EMA "
+                           f"finite {shadow_ok}")
+    del params, state, ema, first
+    torch.cuda.empty_cache()
+
+    # one step's loss and five gradients in f32 at a 16x16 latent against
+    # CPU copies of the same weights (TF32 off)
+    cfg32 = dataclasses.replace(ucfg, dtype="float32")
+    p32 = _tree_map(lambda a: a.float(), bundle.unet_params)
+    cpu = torch.device("cpu")
+    gc = torch.Generator().manual_seed(172)
+    x16 = torch.randn((2, 16, 16, 4), generator=gc)
+    ctx16 = torch.randn((2, 77, ctx_dim), generator=gc)
+    noise16, t16 = torch.randn((2, 16, 16, 4), generator=gc), torch.tensor([151, 777])
+    named = {"conv_in": lambda p: p["input_blocks"][0][0]["weight"],
+             "K4-gated conv (level 0 ResBlock in_conv, 16x16 plane)":
+                 lambda p: p["input_blocks"][1][0]["in_conv"]["weight"],
+             "GEGLU w1 (level 0)": lambda p: p["input_blocks"][1][1]["blocks"][0]["ff"]["proj"]
+                                            ["kernel"],
+             "GroupNorm scale (level 0 ResBlock in_norm)":
+                 lambda p: p["input_blocks"][1][0]["in_norm"]["scale"],
+             "self-attention wq (level 0)": lambda p: p["input_blocks"][1][1]["blocks"][0]
+                                                      ["attn1"]["to_q"]["kernel"]}
+
+    def loss_and_grads(p, device):
+        leaves_ = [a.detach().requires_grad_() for a in tree_leaves(p)]
+        it_ = iter(leaves_)
+        d = tree_map(lambda _: next(it_), p)
+        lv = T.p_losses(lambda pp, x, tt, c: M.unet_apply(cfg32, pp, x, tt, c), d, tables,
+                        x16.to(device), ctx16.to(device), t16.to(device), noise16.to(device))
+        targets = [f(d) for f in named.values()]
+        return float(lv.detach()), [gr.cpu() for gr in torch.autograd.grad(lv, targets)]
+
+    reset_launches()
+    l_dev, g_dev = loss_and_grads(p32, dev)
+    n = read_launches()
+    p_cpu = _tree_map(lambda a: a.to(cpu), p32)
+    l_cpu, g_cpu = loss_and_grads(p_cpu, cpu)
+    rels = [rel_err(a, b)[1] for a, b in zip(g_dev, g_cpu)]
+    l_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    print(f"phase17: (b) one step in f32 (TF32 off) at a 16x16 latent, UNet batch 2, CUDA "
+          f"kernels (K1 fused f32 {n['attention_f32_fused_sm90']}, K2 f32 "
+          f"{n['geglu_ff_f32_sm90']} kernels, K3 {n['group_norm']}, K4 {n['conv3x3']} "
+          f"({n['conv3x3_f32_sm90']} on its f32 body)) and their plain backward vs the CPU plain "
+          f"twins: loss {l_dev:.6f} vs {l_cpu:.6f} (rel {l_rel:.3e}); gradients rel "
+          + ", ".join(f"{k} {r:.3e}" for k, r in zip(named, rels))
+          + f" (tol {GRAD_CPU_TOL:.0e}) ({card})", flush=True)
+    if (not l_rel <= GRAD_CPU_TOL or not all(r <= GRAD_CPU_TOL for r in rels)
+            or n["conv3x3_f32_sm90"] <= 0 or n["attention_f32_fused_sm90"] <= 0):
+        raise SmokeFailure(f"the f32 train step at 16x16 against the CPU: loss rel {l_rel}, "
+                           f"gradients rel {rels}, launches {n}")
+    del p32, p_cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase17_null_inversion(dev, card: str, bundle, image) -> dict:
+    """(c): null-text inversion of a phase-2 image at 512x512 b1: its
+    ``encode_image`` latents, DDIM NULL_STEPS steps, NULL_INNER Adam
+    iterations a step, cond from ``encode_prompt``, CFG 7.5 (the uncond
+    and cond pair in one UNet call at batch 2). The table [steps, 1, 77,
+    768] is finite, and the mean over the steps of the DDIM-step loss with
+    the optimized uncond lies below that with the start, both computed with
+    the port's DDIM coefficients."""
+    import numpy as np
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch import schedules as S
+    from complex_prompt_diffusion_tpu_torch.pipeline import encode_image, encode_prompt
+    from complex_prompt_diffusion_tpu_torch.prompts.null_inversion import (
+        ddim_invert_loop,
+        null_text_inversion,
+    )
+
+    ucfg, params = bundle.unet_cfg, bundle.unet_params
+    z0 = encode_image(bundle, image[None])
+    cond = encode_prompt(bundle, PROMPT16)
+    uncond = encode_prompt(bundle, "")
+    cond_c = cond.clone()  # out of inference mode: the UNet's context under grad
+    it = S.make_inference_tables(bundle.tables, NULL_STEPS)
+
+    def unet(x, t, ctx):
+        return M.unet_apply(ucfg, params, x, t.reshape(-1).expand(x.shape[0]), ctx)
+
+    def cond_eps(x, t):
+        return unet(x, t, cond_c)
+
+    def cfg_eps(x, t, u):
+        e = unet(torch.cat([x, x]), t, torch.cat([u, cond_c]))
+        return e[:1], e[1:]
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x_T, table = null_text_inversion(cond_eps, cfg_eps, z0, uncond, it,
+                                     num_inner_steps=NULL_INNER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_launches()
+    side = z0.shape[1]
+    n = it.num_steps
+    check_calls(launches, "null-text inversion",
+                [(n, ucfg, side, 1, None), (n * NULL_INNER, ucfg, side, 2, None)])
+    a_t = np.asarray(it.alphas_cumprod_t, np.float32)
+    a_prev = np.asarray(it.alphas_cumprod_prev_t, np.float32)
+    one = np.float32(1)
+    with torch.inference_mode():
+        latents = ddim_invert_loop(cond_eps, z0, it)
+
+        def loss(idx, u):
+            x = latents[idx + 1]
+            e_u, e_c = cfg_eps(x, torch.tensor(int(it.timesteps[idx]), device=dev), u)
+            eps = e_u + 7.5 * (e_c - e_u)
+            x0 = (x - float(np.sqrt(one - a_t[idx])) * eps) / float(np.sqrt(a_t[idx]))
+            x_prev = float(np.sqrt(a_prev[idx])) * x0 + float(np.sqrt(one - a_prev[idx])) * eps
+            return float(((x_prev - latents[idx]) ** 2).mean())
+
+        start = float(np.mean([loss(idx, uncond) for idx in range(n)]))
+        final = float(np.mean([loss(n - 1 - i, table[i]) for i in range(n)]))
+    same_x = bool(torch.equal(latents[-1], x_T))
+    print(f"phase17: (c) null-text inversion of a phase-2 image at {image.shape[1]}x"
+          f"{image.shape[0]} b1, DDIM {n} steps x {NULL_INNER} Adam iterations, CFG 7.5 (UNet "
+          f"batch 2 under grad w.r.t. the uncond) on {card}: {wall:.3f} s wall, peak memory "
+          f"{peak:.2f} GiB with the bundle ({n} inversion calls, {n * NULL_INNER} value-and-grad "
+          f"calls); table {list(table.shape)} finite "
+          f"{bool(torch.isfinite(table).all())}; mean DDIM-step loss {start:.6e} with the start "
+          f"uncond, {final:.6e} with the table; x_T equals a second inversion {same_x}; "
+          f"launches K1 sm90 {launches['attention_sm90']}, K2 {launches['geglu_ff']}, K3 "
+          f"{launches['group_norm']}, K4 {launches['conv3x3']}", flush=True)
+    if (tuple(table.shape) != (n, 1, 77, ucfg.context_dim)
+            or not bool(torch.isfinite(table).all())
+            or not final < start or not same_x):
+        raise SmokeFailure(f"null-text inversion: table {list(table.shape)}, loss {start} -> "
+                           f"{final}, x_T repeatable {same_x}")
+    return launches
+
+
+def phase17_loglik(dev, card: str, bundle, sides=(512, 128)) -> dict:
+    """(d): the "Log" sampler through ``sample_latents``: 512x512 b1 with
+    the fixed-grid RK4 (LOGLIK_RK4_STEPS steps: 4 VJPs a step through the
+    CFG UNet at batch 2), and dopri5 (its default) at a 16x16 latent at
+    full width with its NFE; finite log-likelihoods of shape [B]. ``sides``:
+    the two renders' pixel sides."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        RenderConfig,
+        make_guidance_spec,
+        sample_latents,
+    )
+
+    spec = make_guidance_spec(bundle, PROMPT16)
+    ucfg = bundle.unet_cfg
+    out = {}
+    for label, side, steps in ((f"rk4_{sides[0]}", sides[0], LOGLIK_RK4_STEPS),
+                               (f"dopri5_{sides[1]}", sides[1], None)):
+        cfg = RenderConfig(sampler="Log", width=side, height=side, steps=20, seed=3)
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with UNetCallKinds() as kinds:
+            t0 = time.perf_counter()
+            ll = sample_latents(bundle, spec, cfg, loglik_steps=steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = read_launches()
+        nfe = len(kinds.calls)
+        if steps is not None and nfe != 4 * steps:
+            raise SmokeFailure(f"Log RK4 {steps} steps made {nfe} UNet calls, want {4 * steps}")
+        check_calls(launches, f"Log {label}", [(nfe, ucfg, side // 8, 2, None)])
+        print(f"phase17: (d) \"Log\" through sample_latents, {side}x{side} b1, "
+              + (f"RK4 {steps} steps" if steps else "dopri5 (atol = rtol = 1e-4)")
+              + f", CFG 7.5: {nfe} UNet VJPs (NFE) at UNet batch 2 in {wall:.3f} s "
+              f"({wall / nfe:.4f} s a VJP), peak memory {peak:.2f} GiB with the bundle; "
+              f"log-likelihood {[round(float(v), 3) for v in ll]} "
+              f"nats, shape {list(ll.shape)} ({card})", flush=True)
+        if tuple(ll.shape) != (1,) or not bool(torch.isfinite(ll).all()):
+            raise SmokeFailure(f"Log {label}: log-likelihoods {ll}")
+        out[f"loglik_{label}"] = launches
+    return out
+
+
+def phase17(dev, card: str, image) -> dict:
+    """Gradients through the kernels at SD-1.5 full width (phase 2's bundle
+    rebuilt from seed 0: bf16 UNet, bf16 VAE): (a) every dispatched body
+    under grad; (b) the training step; (c) null-text inversion; (d) the
+    "Log" sampler. Returns the launch counts by path."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch.pipeline import ModelBundle
+
+    paths = {"grad_wiring": phase17_grads(dev, card)}
+    t0 = time.perf_counter()
+    bundle = ModelBundle.random("sd15", seed=0, device=dev).cast_vae("bfloat16")
+    torch.cuda.synchronize()
+    print(f"phase17: SD-1.5 random bundle of phase 2 rebuilt in {time.perf_counter() - t0:.2f} "
+          f"s", flush=True)
+    paths["train_step_b2"] = phase17_train(dev, card, bundle)
+    paths["null_text_inversion_b1"] = phase17_null_inversion(dev, card, bundle, image)
+    paths.update(phase17_loglik(dev, card, bundle))
+    del bundle
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -3004,6 +3480,7 @@ def main(argv=None) -> int:
     paths.update(phase13(dev, card))
     paths.update(phase15(dev, card, images[0]))
     paths.update(phase16(dev, card))
+    paths.update(phase17(dev, card, images[0]))
 
     kernels = []
     # "attention" and "conv3x3" count every body of K1 and K4: their own
@@ -3021,6 +3498,10 @@ def main(argv=None) -> int:
             "bound_by": max(sm["by"], key=sm["by"].get),
             "library_ms": sm["library_ms"],
         }
+        route = name
+        while route in SM90:  # a Hopper body -> the wrapper that counts every body
+            route = SM90[route]
+        entry["backward"] = BACKWARD.get(route, "none: a probe, as in the JAX package")
         if sm["replaced_ms"] is not None:
             entry["replaced_body_ms"] = sm["replaced_ms"]
         if name == "probe_attention":

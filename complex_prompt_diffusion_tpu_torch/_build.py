@@ -27,7 +27,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["KernelBuildError", "kernel_library", "check", "stream_ptr", "refuse_grad"]
+__all__ = ["KernelBuildError", "kernel_library", "check", "stream_ptr", "refuse_grad",
+           "kernel_with_plain_vjp"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -248,21 +249,80 @@ def check(err: int, what: str) -> None:
 
 
 def refuse_grad(what: str, *tensors) -> None:
-    """Raise before a kernel launch that autograd would need to see through.
+    """Raise before a kernel body or probe launches where autograd would
+    need to see through it.
 
-    The CUDA kernels write into fresh buffers through ctypes, so their
-    outputs carry no ``grad_fn``: under grad mode, with an argument that
-    requires grad, a result would silently cut the graph. The backward
-    kernels are not written yet (ROADMAP.md, "Backward passes"); the plain
-    twins, which CPU tensors take, stay differentiable."""
+    The CUDA kernels write into fresh buffers through ctypes, so a body's
+    output carries no ``grad_fn``: under grad mode, with an argument that
+    requires grad, a result would silently cut the graph. The six dispatch
+    entries (``flash_attention``, ``attention_dmajor``, ``geglu_ff``,
+    ``group_norm_nhwc``, ``conv3x3``, ``wino3x3``) differentiate through
+    :func:`kernel_with_plain_vjp` and call their bodies with grad off, so
+    this raises only for a body or a probe (K7-K9, which have no backward
+    rule in the JAX package either) called directly."""
+    if _grad_wanted(tensors):
+        raise RuntimeError(
+            f"{what} has no backward rule of its own: its CUDA output would carry no "
+            "gradient. Differentiate through its dispatch entry (flash_attention, "
+            "attention_dmajor, geglu_ff, group_norm_nhwc, conv3x3, wino3x3), or call it "
+            "under torch.no_grad() or torch.inference_mode(), or on CPU tensors (the "
+            "differentiable plain twin)")
+
+
+def _grad_wanted(tensors) -> bool:
     import torch
 
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{what} has no backward kernel yet (ROADMAP.md, \"Backward passes\"): its "
-            "CUDA output would carry no gradient. Call it under torch.no_grad() or "
-            "torch.inference_mode(), or on CPU tensors (the differentiable plain twin)")
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_vjp_function():
+    """The ``torch.autograd.Function`` of :func:`kernel_with_plain_vjp`,
+    made at first use (torch is imported lazily here)."""
+    import torch
+
+    class KernelWithPlainVJP(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, kernel_fn, plain_fn, nondiff, *tensors):
+            ctx.plain_fn, ctx.nondiff = plain_fn, nondiff
+            ctx.save_for_backward(*tensors)  # the residuals: the inputs, as JAX's rules keep
+            return kernel_fn(*tensors, *nondiff)
+
+        @staticmethod
+        def backward(ctx, grad_out):
+            needs = ctx.needs_input_grad[3:]
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_(n) if t is not None else None
+                       for t, n in zip(ctx.saved_tensors, needs)]
+                out = ctx.plain_fn(*ins, *ctx.nondiff)
+                wrt = [t for t, n in zip(ins, needs) if n]
+                grads = iter(torch.autograd.grad(out, wrt, grad_out, allow_unused=True))
+            return (None, None, None, *(next(grads) if n else None for n in needs))
+
+    return KernelWithPlainVJP
+
+
+def kernel_with_plain_vjp(kernel_fn, plain_fn, nondiff: tuple, *tensors):
+    """``kernel_fn(*tensors, *nondiff)``, differentiable as
+    ``plain_fn(*tensors, *nondiff)`` is: the port of the JAX package's
+    ``jax.custom_vjp`` rules, whose forward is the Pallas kernel and whose
+    backward recomputes the op in XLA and takes that op's VJP.
+
+    Where grad mode is on and a tensor requires grad, the call runs in a
+    ``torch.autograd.Function``: its forward launches the kernel (with grad
+    off, so the body's :func:`refuse_grad` stays quiet) and saves the
+    inputs; its backward recomputes ``plain_fn`` on them under grad and
+    returns ``torch.autograd.grad`` of it for the cotangent (``None`` for
+    an input that needs none, each gradient in its input's dtype). The
+    backward launches no kernel: it is plain PyTorch (cuBLAS and cuDNN
+    inside ``torch.matmul`` and the convs), as JAX's rule is XLA. Anywhere
+    else the kernel runs alone. ``tensors`` may hold ``None``; ``nondiff``
+    holds the rest of the arguments (heads, scale, groups, eps, flags,
+    plans), as ``nondiff_argnums`` do in JAX."""
+    if not _grad_wanted(tensors):
+        return kernel_fn(*tensors, *nondiff)
+    return _plain_vjp_function().apply(kernel_fn, plain_fn, nondiff, *tensors)
 
 
 def stream_ptr(device) -> int:

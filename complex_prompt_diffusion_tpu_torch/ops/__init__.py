@@ -45,8 +45,14 @@ and a plain PyTorch twin:
     them.
 
 A wrapper runs the plain twin only for CPU tensors; for a CUDA tensor it
-launches its kernel or raises, and raises under grad mode when an argument
-requires grad (``_build.refuse_grad``: no backward kernels yet).
+launches its kernel or raises. The six dispatch entries (``flash_attention``,
+``attention_dmajor``, ``geglu_ff``, ``group_norm_nhwc``, ``conv3x3``,
+``probes.winograd.wino3x3``) are differentiable: under grad their forward
+is the kernel and their backward the VJP of the plain twin recomputed on
+the saved inputs (``_build.kernel_with_plain_vjp``, the port of the JAX
+package's ``custom_vjp`` rules); the backward launches no kernel. The
+bodies under them, and the probes K7-K9, raise under grad mode when an
+argument requires grad (``_build.refuse_grad``).
 """
 
 from complex_prompt_diffusion_tpu_torch.ops.attention import (

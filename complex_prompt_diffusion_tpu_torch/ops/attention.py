@@ -211,14 +211,24 @@ def flash_attention(q, k, v, num_heads: int, scale: Optional[float] = None):
     :func:`k1_body` names (bf16 with d <= 256: :func:`attention_sm90`; bf16
     with 256 < d <= 512: :func:`attention_bf16_wide_sm90`; f32 with d <= 160:
     :func:`attention_f32_fused_sm90`; f32 with 160 < d <= 512:
-    :func:`attention_f32_sm90`) or raise; there is no fallback.
-    ``flash_attention.launches`` counts the kernels of every body: one a
-    call, or the kernels the unfused bodies report (scores, softmax and
-    output a pass; the 3xTF32 body's three split kernels first).
+    :func:`attention_f32_sm90`) or raise; there is no fallback. Under grad
+    the kernel's output is differentiable: the backward is the VJP of
+    :func:`attention_plain` recomputed on the saved q, k, v
+    (``_build.kernel_with_plain_vjp``; the JAX rules' VJP of
+    ``_xla_attention``). ``flash_attention.launches`` counts the kernels of
+    every body's forward: one a call, or the kernels the unfused bodies
+    report (scores, softmax and output a pass; the 3xTF32 body's three
+    split kernels first).
     """
     if not q.is_cuda:
         return attention_plain(q, k, v, num_heads, scale)
     _check_qkv(q, k, v, num_heads)
+    return _build.kernel_with_plain_vjp(_flash_attention_cuda, attention_plain,
+                                        (num_heads, scale), q, k, v)
+
+
+def _flash_attention_cuda(q, k, v, num_heads, scale):
+    """K1's forward on CUDA tensors: the body :func:`k1_body` names."""
     body = k1_body(q.dtype, q.shape[2] // num_heads)
     if body == "sm90":
         out = _attention_sm90(q, k, v, num_heads, scale)
@@ -644,14 +654,22 @@ def attention_dmajor(q, k, v, scale: float, k_canonical: bool = False,
     CPU tensors run :func:`attention_dmajor_plain`. CUDA tensors launch the
     Hopper body :func:`k5_body` names (bf16 with a padded head dim K1 has,
     f32 with d <= 256; Sq, Skv and every stride a multiple of 16 bytes) or
-    raise; there is no fallback. ``attention_dmajor.launches`` counts the
-    kernels launched: one a call, or what the f32 unfused kernels report
-    (3 + 3 a pass); ``attention_cm_sm90_count`` counts them too (the Hopper
-    bodies, both dtypes) and ``attention_cm_f32_sm90_count`` those of f32
-    calls."""
+    raise; there is no fallback. Under grad the backward is the VJP of
+    :func:`attention_dmajor_plain` on the saved q, k, v (the JAX rule of the
+    cm block: the VJP of its plain ``_ref``, whose projections are plain
+    products here too). ``attention_dmajor.launches`` counts the kernels
+    launched: one a call, or what the f32 unfused kernels report (3 + 3 a
+    pass); ``attention_cm_sm90_count`` counts them too (the Hopper bodies,
+    both dtypes) and ``attention_cm_f32_sm90_count`` those of f32 calls."""
     _check_dmajor(q, k, v, k_canonical)
     if not q.is_cuda:
         return attention_dmajor_plain(q, k, v, scale, k_canonical, out_hdbs)
+    return _build.kernel_with_plain_vjp(_attention_dmajor_sm90, attention_dmajor_plain,
+                                        (scale, k_canonical, out_hdbs), q, k, v)
+
+
+def _attention_dmajor_sm90(q, k, v, scale, k_canonical, out_hdbs):
+    """K5's forward on CUDA tensors: the Hopper body :func:`k5_body` names."""
     _build.refuse_grad(_K5_WHAT, q, k, v)
     b, h, d, sq = q.shape
     skv = v.shape[3]

@@ -88,8 +88,10 @@ def conv3x3(x, weight, bias):
     :func:`k4_body` to :func:`conv3x3_sm90`, :func:`conv3x3_f32_sm90` or
     :func:`conv3x3_generic`; each launches its kernel or raises. The weight
     is taken in x's dtype, the bias in f32 (or bf16, which the bf16 kernels
-    widen themselves), as the TPU kernel does. ``conv3x3.launches`` counts
-    calls of every body."""
+    widen themselves), as the TPU kernel does. Under grad the backward is
+    the VJP of :func:`conv3x3_plain` on the saved x, weight and bias (the
+    JAX rule's VJP of ``_xla_conv``), each gradient in its input's dtype.
+    ``conv3x3.launches`` counts calls of every body."""
     if x.ndim != 4:
         raise ValueError(f"conv3x3 expects NHWC, got shape {tuple(x.shape)}")
     _, _, _, c, co = _check_shapes(x, weight, bias)
@@ -97,6 +99,11 @@ def conv3x3(x, weight, bias):
         return conv3x3_plain(x, weight, bias)
     body = {"bf16_sm90": conv3x3_sm90, "f32_sm90": conv3x3_f32_sm90,
             "generic": conv3x3_generic}[k4_body(x.dtype, c, co)]
+    return _build.kernel_with_plain_vjp(functools.partial(_conv3x3_counted, body),
+                                        conv3x3_plain, (), x, weight, bias)
+
+
+def _conv3x3_counted(body, x, weight, bias):
     y = body(x, weight, bias)
     conv3x3.launches += 1
     return y

@@ -163,20 +163,33 @@ def group_norm_nhwc(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
                     silu: bool = False, plan: Optional[GnPlan] = None):
     """K3 wrapper. CPU tensors run :func:`group_norm_plain`; CUDA tensors
     (f32 or bf16, NHWC, C % 8 == 0, C <= 4096, G <= 256) launch
-    ``csrc/groupnorm_sm90.cu`` in the form :func:`group_norm_plan` picks
-    (``plan`` runs another: the tests and ``tools/gn_plans.py``) or raise.
-    ``group_norm_nhwc.launches`` adds the kernels the library reports it
-    launched, ``.planned`` the plan's count and ``.calls`` one a call."""
+    ``csrc/groupnorm_sm90.cu`` (``_group_norm_sm90``) in the form
+    :func:`group_norm_plan` picks (``plan`` runs another: the tests and
+    ``tools/gn_plans.py``) or raise. Under grad the backward is the VJP of
+    :func:`group_norm_plain` on the saved x, gamma and beta (the JAX rule's
+    VJP of ``_gn_xla``). ``group_norm_nhwc.launches`` adds the kernels the
+    library reports it launched, ``.planned`` the plan's count and
+    ``.calls`` one a call."""
     if x.ndim != 4:
         raise ValueError(f"group norm expects NHWC, got shape {tuple(x.shape)}")
-    n, h, w, c = x.shape
-    if c % num_groups:
-        raise ValueError(f"channels {c} not divisible by {num_groups} groups")
+    if x.shape[-1] % num_groups:
+        raise ValueError(f"channels {x.shape[-1]} not divisible by {num_groups} groups")
     if not x.is_cuda:
         return group_norm_plain(x, gamma, beta, num_groups, eps, silu)
     if x.dtype not in _PRIOR_FNS:
         raise TypeError(f"K3 supports float32 and bfloat16, got {x.dtype}")
+    return _build.kernel_with_plain_vjp(functools.partial(_group_norm_sm90, plan=plan),
+                                        group_norm_plain, (num_groups, eps, silu),
+                                        x, gamma, beta)
+
+
+def _group_norm_sm90(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
+                    silu: bool = False, plan: Optional[GnPlan] = None):
+    """K3's Hopper body on CUDA tensors that :func:`group_norm_nhwc` has
+    checked: the form ``plan`` (default :func:`group_norm_plan`'s) names.
+    Its launches count into ``group_norm_nhwc``'s counters."""
     _build.refuse_grad("group_norm (K3)", x, gamma, beta)
+    n, h, w, c = x.shape
     x, gamma, beta = _nhwc_args(x, gamma, beta)
     if plan is None:
         dev = x.device.index

@@ -21,8 +21,8 @@ import torch.nn.functional as F
 
 from complex_prompt_diffusion_tpu_torch import _build
 
-__all__ = ["geglu_ff", "geglu_ff_f32_sm90", "geglu_ff_plain", "geglu_plan", "k2_body",
-           "GemmPlan", "GegluPlan"]
+__all__ = ["geglu_ff", "geglu_ff_bf16_sm90", "geglu_ff_f32_sm90", "geglu_ff_plain",
+           "geglu_plan", "k2_body", "GemmPlan", "GegluPlan"]
 
 GEGLU_BM, GEGLU_BK = 128, 64  # K2's work-unit rows and k-step (bf16)
 GEGLU1_WIDTHS = (64, 128)  # value columns of a GEMM1 tile (as many gate columns beside)
@@ -209,22 +209,52 @@ def geglu_ff(x, w1, b1, w2, b2, plan: Optional[GegluPlan] = None):
     """K2 wrapper: GEGLU FF over x [..., C].
 
     CPU tensors run :func:`geglu_ff_plain`. CUDA tensors go by
-    :func:`k2_body`: bf16 launches ``csrc/geglu_ff_sm90.cu`` (GEMM1 with the
-    GEGLU epilogue, then GEMM2 + b2, each followed by a reduce kernel when
-    the plan splits its K), f32 :func:`geglu_ff_f32_sm90`; anything else
-    raises (C and H4 multiples of 8, 16-byte aligned operands). ``plan``
-    overrides :func:`geglu_plan`'s choice (the tests force split counts).
-    ``geglu_ff.launches`` adds the kernels the library reports it launched
-    on either body: 2 a call, plus 1 for each split GEMM (what
-    ``GegluPlan.launches`` predicts)."""
+    :func:`k2_body`: bf16 launches ``csrc/geglu_ff_sm90.cu``
+    (:func:`geglu_ff_bf16_sm90`: GEMM1 with the GEGLU epilogue, then GEMM2 +
+    b2, each followed by a reduce kernel when the plan splits its K), f32
+    :func:`geglu_ff_f32_sm90`; anything else raises (C and H4 multiples of
+    8, 16-byte aligned operands). ``plan`` overrides :func:`geglu_plan`'s
+    choice (the tests force split counts). Under grad the backward is the
+    VJP of :func:`geglu_ff_plain` on the saved x and weights (the JAX
+    rule's VJP of ``_ff_xla``); weights of another dtype than x (f32 master
+    weights under bf16 activations) are cast inside, so each gradient comes
+    back in its weight's dtype. ``geglu_ff.launches`` adds the kernels the
+    library reports it launched on either body: 2 a call, plus 1 for each
+    split GEMM (what ``GegluPlan.launches`` predicts)."""
     if not x.is_cuda:
         return geglu_ff_plain(x, w1, b1, w2, b2)
     c, h4 = _check_shapes(x, w1, b1, w2, b2)
-    if k2_body(x.dtype, c, h4) == "f32_sm90":
+    k2_body(x.dtype, c, h4)
+    return _build.kernel_with_plain_vjp(functools.partial(_geglu_ff_cuda, plan=plan),
+                                        geglu_ff_plain, (), x, w1, b1, w2, b2)
+
+
+geglu_ff.launches = 0
+
+
+def _geglu_ff_cuda(x, w1, b1, w2, b2, plan):
+    """K2's forward on CUDA tensors: the body :func:`k2_body` names."""
+    if x.dtype == torch.float32:
         before = geglu_ff_f32_sm90.launches
         out = geglu_ff_f32_sm90(x, w1, b1, w2, b2, plan)
         geglu_ff.launches += geglu_ff_f32_sm90.launches - before
         return out
+    return geglu_ff_bf16_sm90(x, w1, b1, w2, b2, plan)
+
+
+def geglu_ff_bf16_sm90(x, w1, b1, w2, b2, plan: Optional[GegluPlan] = None):
+    """K2's bf16 body (``csrc/geglu_ff_sm90.cu``): GEGLU FF over a bf16 x
+    [..., C] as two persistent TMA + wgmma GEMMs with :func:`geglu_plan`'s
+    plan (or ``plan``); the weights are read where they lie (bf16,
+    contiguous; others are converted). CPU tensors run
+    :func:`geglu_ff_plain` after the same checks; a CUDA x that is not
+    bf16 raises. Its launches count into ``geglu_ff.launches``."""
+    c, h4 = _check_shapes(x, w1, b1, w2, b2)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"K2's bf16 body takes bfloat16 activations, got {x.dtype}")
+    k2_body(x.dtype, c, h4)
+    if not x.is_cuda:
+        return geglu_ff_plain(x, w1, b1, w2, b2)
     _build.refuse_grad("geglu_ff (K2)", x, w1, b1, w2, b2)
     if x.numel() == 0:
         return x.new_empty(x.shape)
@@ -237,9 +267,6 @@ def geglu_ff(x, w1, b1, w2, b2, plan: Optional[GegluPlan] = None):
     geglu_ff.launches += launched.value
     _build.check(err, "geglu_ff (K2)")
     return out.reshape(x.shape)
-
-
-geglu_ff.launches = 0
 
 
 def geglu_ff_f32_sm90(x, w1, b1, w2, b2, plan: Optional[GegluPlan] = None):

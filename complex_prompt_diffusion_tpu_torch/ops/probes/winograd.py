@@ -262,15 +262,23 @@ def wino3x3(x, kernel, bias, u=None):
     by :func:`k6_body` to the bf16 Hopper body (:func:`wino3x3_sm90`), the
     f32 one (:func:`wino3x3_f32_sm90`) or the first body
     (:func:`wino3x3_prior`); each launches its kernels or raises. Shapes
-    outside :func:`wino3x3_supported` raise on every device.
+    outside :func:`wino3x3_supported` raise on every device. Under grad the
+    backward is the VJP of :func:`wino3x3_plain` on the saved x, U and bias,
+    and the kernel's gradient follows through :func:`winograd_weights`
+    (together the VJP of the conv the JAX rule takes, ``_xla_conv``).
     ``wino3x3.launches`` counts the kernels launched by every body, each
     body's own counter those of that body."""
     u = _check_args(x, kernel, bias, u)
     if not x.is_cuda:
         return wino3x3_plain(x, u, bias)
-    _build.refuse_grad("Winograd conv3x3 (K6)", x, kernel, bias, u)
+    return _build.kernel_with_plain_vjp(_wino3x3_cuda, wino3x3_plain, (), x, u, bias)
+
+
+def _wino3x3_cuda(x, u, bias):
+    """K6's forward on CUDA tensors: the body :func:`k6_body` names."""
+    _build.refuse_grad("Winograd conv3x3 (K6)", x, u, bias)
     b, h, w, c = x.shape
-    co = kernel.shape[3]
+    co = u.shape[2]
     body = k6_body(x.dtype, c, co)
     lib = _build.kernel_library()
     if body == "bf16_sm90":

@@ -41,9 +41,10 @@ UNet's opt-in modes: DeepCache (``deepcache_interval``: the full UNet every
 N-th step, its shallow pass in between, for ``DEEPCACHE_SAMPLERS``), token
 reduction (``tome_ratio``, ``tome_mode``: ToDo K/V pooling or ToMe merging
 at the large self-attention sites) and tiled inference (``unet_tile``,
-``unet_tile_stride``, ``unet_tile_chunk``; ``models/tiled.py``). Not ported
-yet: the "Log" sampler (it needs the UNet's backward, NotImplementedError)
-and CLIP guidance.
+``unet_tile_stride``, ``unet_tile_chunk``; ``models/tiled.py``). The "Log"
+sampler returns log-likelihoods [B] from ``sample_latents``, through the
+UNet's vector-Jacobian products (the kernels' backward rules). Not ported
+yet: CLIP guidance.
 """
 
 from __future__ import annotations
@@ -77,6 +78,7 @@ from complex_prompt_diffusion_tpu_torch.samplers import (
     sample_ddim,
     sample_unipc,
 )
+from complex_prompt_diffusion_tpu_torch.samplers.loglik import sample_log_likelihood
 from complex_prompt_diffusion_tpu_torch.utils.resize import resize
 
 __all__ = [
@@ -439,16 +441,12 @@ def make_guidance_spec(
     return GuidanceSpec.single(cond, uncond, scale)
 
 
-def _check_ported(bundle: ModelBundle, cfg: RenderConfig, depth_mask=None) -> None:
-    """Raise, before any launch, for what is not ported (the "Log"
-    sampler), for tiled inference with attention guidance (a ValueError, as
-    in the JAX package) and for a concat UNet whose conditioning channels
-    do not fill its input: in_channels must
+def _check_render(bundle: ModelBundle, cfg: RenderConfig, depth_mask=None) -> None:
+    """Raise, before any launch, for tiled inference with attention
+    guidance (a ValueError, as in the JAX package) and for a concat UNet
+    whose conditioning channels do not fill its input: in_channels must
     equal out_channels plus ``depth_mask``'s channels (so a concat UNet
     without its conditioning raises; it does not render unconditioned)."""
-    _, sample_fn = get_sampler(cfg.sampler)
-    if getattr(sample_fn, "not_ported", False):
-        sample_fn()  # raises NotImplementedError with the reason
     if cfg.unet_tile and cfg.guidance.attn_guide:
         raise ValueError(
             "tiled UNet inference (unet_tile) is incompatible with "
@@ -502,10 +500,11 @@ def initial_noise(bundle: ModelBundle, cfg: RenderConfig, generator: torch.Gener
 
 
 def _run_sigma_sampler(sample_fn, den_fn, x, bundle, cfg, t_start, generator, noises,
-                       den_state=None):
+                       den_state=None, loglik_steps=None):
     """The sigma-family call: the schedule cut to its last ``t_start``
     steps, the per-step scales, churn arguments for euler/heun/dpm2, eta
-    for the ancestral samplers, and the DeepCache state when given."""
+    for the ancestral samplers, the DeepCache state and the "Log"
+    sampler's RK4 steps when given."""
     sigmas = _cut_sigmas(bundle, cfg, t_start)
     kw = {}
     name = cfg.sampler.lower()
@@ -516,6 +515,8 @@ def _run_sigma_sampler(sample_fn, den_fn, x, bundle, cfg, t_start, generator, no
         kw["eta"] = cfg.eta if cfg.eta else 1.0
     if den_state is not None:
         kw["den_state"] = den_state
+    if loglik_steps is not None:
+        kw["steps"] = loglik_steps
     uc_scales = make_uc_scale_schedule(cfg.guidance, len(sigmas) - 1)
     x0, _ = sample_fn(den_fn, x, sigmas, uc_scales, generator=generator, noises=noises, **kw)
     return x0
@@ -573,13 +574,12 @@ def _sigma_family_callback(den_fn, step_callback):
     def den_cb(x, sigma, *rest):
         out = den_fn(x, sigma, *rest)
         denoised = out[0] if isinstance(out, tuple) else out
-        step_callback(np.asarray(np.float32(sigma)), denoised.cpu().numpy())
+        step_callback(np.asarray(np.float32(sigma)), denoised.detach().cpu().numpy())
         return out
 
     return den_cb
 
 
-@torch.inference_mode()
 def sample_latents(
     bundle: ModelBundle,
     spec: GuidanceSpec,
@@ -591,6 +591,7 @@ def sample_latents(
     t_start: Optional[int] = None,
     step_callback=None,
     depth_mask=None,
+    loglik_steps: Optional[int] = None,
 ) -> torch.Tensor:
     """Run the configured sampler with CFG; returns final latents f32
     [B, h, w, 4] (unscaled model space). ``generator`` (default: seeded from
@@ -620,10 +621,40 @@ def sample_latents(
     ``tome_ratio`` / ``tome_mode``; ``deepcache_interval`` >= 2 runs the full
     UNet on every N-th step and its shallow pass (``deepcache_block``)
     between; ``unet_tile`` folds the UNet over overlapping tiles
-    (``models/tiled.py``), ``unet_tile_chunk`` tiles a call."""
+    (``models/tiled.py``), ``unet_tile_chunk`` tiles a call.
+
+    The "Log" sampler returns the log-likelihoods [B] of ``x_init`` (or of
+    the drawn x_T) instead of latents, as the JAX package's does: it takes
+    the UNet's vector-Jacobian product, so it runs in grad mode on copies
+    of the inputs made outside inference mode (``spec``, ``x_init``,
+    ``noises``, ``depth_mask``; ``noises`` is its Hutchinson probe). It
+    integrates with dopri5, the JAX package's route, or with the
+    fixed-grid RK4 of ``loglik_steps`` steps when given (the port's
+    ``sample_log_likelihood(steps=)``, which the JAX package's
+    ``sample_latents`` does not reach)."""
+    kw = dict(x_init=x_init, generator=generator, noises=noises, t_start=t_start,
+              step_callback=step_callback, depth_mask=depth_mask, loglik_steps=loglik_steps)
+    if get_sampler(cfg.sampler)[1] is not sample_log_likelihood:
+        if loglik_steps is not None:
+            raise ValueError(f"loglik_steps is the \"Log\" sampler's; got sampler "
+                             f"{cfg.sampler!r}")
+        with torch.inference_mode():
+            return _sample_latents(bundle, spec, cfg, **kw)
+    # "Log" takes the UNet's VJP: grad mode, and no inference tensor (what
+    # encode_prompt and the other entry points return) where autograd saves one
+    with torch.inference_mode(False), torch.enable_grad():
+        spec = GuidanceSpec(*(t.clone() for t in (spec.uncond, spec.factors, spec.scales,
+                                                  spec.masks)))
+        kw = {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()}
+        return _sample_latents(bundle, spec, cfg, **kw).detach()
+
+
+def _sample_latents(bundle, spec, cfg, *, x_init, generator, noises, t_start, step_callback,
+                    depth_mask, loglik_steps) -> torch.Tensor:
+    """:func:`sample_latents` in the grad mode its caller chose."""
     device = bundle.device
     depth_mask = _as_device_tensor(depth_mask, bundle)
-    _check_ported(bundle, cfg, depth_mask)
+    _check_render(bundle, cfg, depth_mask)
     family, sample_fn = get_sampler(cfg.sampler)
     if cfg.tome_ratio > 0.0 and (bundle.unet_cfg.tome_ratio != cfg.tome_ratio
                                  or bundle.unet_cfg.tome_mode != cfg.tome_mode):
@@ -689,6 +720,7 @@ def sample_latents(
             den_fn = _sigma_family_callback(den_fn, step_callback)
         return _run_sigma_sampler(
             sample_fn, den_fn, x_T, bundle, cfg, t_start, generator, noises, den_state=dc_state0,
+            loglik_steps=loglik_steps,
         )
     if family == "solver":
         ns = NoiseScheduleVP("discrete", alphas_cumprod=bundle.tables.alphas_cumprod)
@@ -903,7 +935,7 @@ def img2img(
     JAX package; PLMS runs its whole schedule from x_t (the JAX package
     passes the start to DDIM only). Returns (images_uint8 | None, latents)."""
     depth_mask = _as_device_tensor(depth_mask, bundle)
-    _check_ported(bundle, cfg, depth_mask)
+    _check_render(bundle, cfg, depth_mask)
     family, _ = get_sampler(cfg.sampler)
     if family in ("solver", "trig"):
         raise ValueError(

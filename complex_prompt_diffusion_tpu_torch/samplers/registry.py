@@ -8,9 +8,9 @@ schedule), "solver" (continuous-time VP solvers), "trig" (iPNDM's own
 schedule) or "blur" (inverse-heat blur diffusion).
 
 Every name the JAX package registers resolves to a ported function with
-the same family, except "Log" (the log-likelihood estimator): it takes the
-UNet's vector-Jacobian product, and the port's kernels have no backward
-yet, so it is registered to a function that raises NotImplementedError.
+the same family; "Log" is the log-likelihood estimator
+(``loglik.sample_log_likelihood``), which returns log-likelihoods [B], not
+latents.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from complex_prompt_diffusion_tpu_torch.samplers import ddim as _ddim
 from complex_prompt_diffusion_tpu_torch.samplers import dpm_adaptive as _dpma
 from complex_prompt_diffusion_tpu_torch.samplers import ipndm as _ipndm
 from complex_prompt_diffusion_tpu_torch.samplers import kdiff as _k
+from complex_prompt_diffusion_tpu_torch.samplers import loglik as _loglik
 from complex_prompt_diffusion_tpu_torch.samplers import solver as _solver
 from complex_prompt_diffusion_tpu_torch.samplers import unipc as _unipc
 
@@ -49,14 +50,6 @@ def get_sampler(name: str) -> Tuple[str, Callable]:
     return SAMPLERS[key]
 
 
-def _not_ported(name: str, reason: str) -> Callable:
-    def sample(*args, **kwargs):
-        raise NotImplementedError(f"sampler {name!r} is not ported yet: {reason}")
-
-    sample.not_ported = True
-    return sample
-
-
 # t-space family
 register("DDIM", "t")(_ddim.sample_ddim)
 register("PLMS", "t")(_ddim.sample_plms)
@@ -73,9 +66,7 @@ register("DPM++ 2s Ancestral", "sigma")(_k.sample_dpmpp_2s_ancestral)
 register("LMS", "sigma")(_k.sample_lms)
 register("DPM Fast", "sigma")(_k.sample_dpm_fast)
 register("DPM Adaptive", "sigma")(_dpma.sample_dpm_adaptive)
-register("Log", "sigma")(_not_ported(
-    "Log", "the log-likelihood estimator takes the UNet's vector-Jacobian product, and "
-    "the port's kernels have no backward pass yet"))
+register("Log", "sigma")(_loglik.sample_log_likelihood)  # log-likelihood estimator
 
 # continuous-time solver family
 register("dpm_solver", "solver")(_solver.sample_dpm_solver)

@@ -7,6 +7,7 @@ Run from the repository root on a machine with the GPU::
     python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --batch 1 --unet-dtype float32 \
         --vae float32
     python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --batch 4 --three-factor
+    python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --train --batch 2
 
 Builds the SD-1.5 bundle with random weights (seed 0), renders 512x512 at
 ``--batch`` with DDIM and CFG 7.5 for a few warm-up steps, then times
@@ -24,6 +25,15 @@ factor on the left half at scale 1.5, a NOT factor off the top third at
 0.5: UNet batch 4 x ``--batch``) with its switches on and the blur on in
 every step: uc blur (k 7, 5 rounds), dynamic thresholding of eps, the
 dynamic scale clip (the sampler's ``clip_sample`` is not in the step).
+
+``--train`` profiles the training step instead (``train.make_train_step``'s
+parts): SD-1.5 at 512x512, ``--batch`` latents, f32 master weights under
+the UNet's bf16 compute, a random context, Adan lr 1e-4. It times
+``--steps`` steady steps without the profiler, then profiles the forward
+(the loss: the hand-written kernels), the backward (``torch.autograd.grad``:
+the kernels' backward rules recompute their plain twins, and the rest of
+the graph's own backward) and the optimizer update apart, and names the top
+device kernels of the backward.
 """
 
 from __future__ import annotations
@@ -126,6 +136,86 @@ def _breakdown(prof, label: str, wall_ms: float, card: str) -> None:
         print(f"    other: {ms:9.3f} ms  {name[:100]}")
 
 
+def _top(prof, label: str, card: str, n: int = 10) -> None:
+    """The ``n`` kernels with the most device time in ``prof``."""
+    rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and getattr(e, "self_device_time_total", 0.0) > 0]
+    total = sum(r[0] for r in rows)
+    print(f"{label}: top {n} device kernels of {total:.2f} ms ({card})")
+    for ms, count, name in sorted(rows, reverse=True)[:n]:
+        print(f"  {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<5d} {_family(name):28s} "
+              f"{name[:90]}")
+
+
+def _train(args, card: str) -> int:
+    """The ``--train`` mode (see the module docstring)."""
+    from complex_prompt_diffusion_tpu_torch import train as T
+    from complex_prompt_diffusion_tpu_torch.pipeline import _tree_map
+    from complex_prompt_diffusion_tpu_torch.train.loop import p_losses
+    from complex_prompt_diffusion_tpu_torch.train.optimizers import (
+        apply_updates,
+        tree_leaves,
+        tree_map,
+    )
+
+    dev = torch.device("cuda")
+    bundle = ModelBundle.random("sd15", seed=0, device=dev)
+    ucfg, tables = bundle.unet_cfg, bundle.tables
+    params = _tree_map(lambda a: a.float(), bundle.unet_params)
+    del bundle
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {"latents": torch.randn((args.batch, 64, 64, 4), generator=gen, device=dev),
+             "context": torch.randn((args.batch, 77, 768), generator=gen, device=dev)}
+    opt = T.adan(learning_rate=1e-4)
+    state = opt.init(params)
+    step = T.make_train_step(ucfg, tables, opt)
+    for _ in range(2):
+        params, state, _ = step(params, state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        params, state, _ = step(params, state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+    print(f"profile_step: SD-1.5 train step, batch {args.batch} at 512x512, f32 master weights, "
+          f"bf16 compute, Adan: {step_ms:.2f} ms per steady step without the profiler ({card})")
+
+    def apply_fn(p, x, t, c):
+        return M.unet_apply(ucfg, p, x, t, c)
+
+    t = torch.randint(0, 1000, (args.batch,), generator=gen, device=dev)
+    noise = torch.randn(batch["latents"].shape, generator=gen, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    diff = tree_map(lambda _: next(it), params)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        loss = p_losses(apply_fn, diff, tables, batch["latents"], batch["context"], t, noise)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    _breakdown(prof, "train step forward (the loss)", wall, card)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    _breakdown(prof, "train step backward (autograd.grad)", wall, card)
+    _top(prof, "train step backward", card)
+    grads_tree = iter(grads)
+    grads_tree = tree_map(lambda _: next(grads_tree), params)
+    with torch.profiler.profile(activities=acts) as prof, torch.no_grad():
+        t0 = time.perf_counter()
+        updates, state = opt.update(grads_tree, state, params)
+        params = apply_updates(params, updates)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    _breakdown(prof, "Adan update", wall, card)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1)
@@ -137,6 +227,8 @@ def main(argv=None) -> int:
                     help="UNet dtype (float32: the exact-f32 render)")
     ap.add_argument("--three-factor", action="store_true",
                     help="phase 14's 3-factor prompt with every guidance switch on")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the training step (f32 master weights, bf16 compute, Adan)")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -144,6 +236,8 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.train:
+        return _train(args, card)
     dev = torch.device("cuda")
     bundle = ModelBundle.random("sd15", seed=0, device=dev).cast_vae(args.vae).cast(
         args.unet_dtype)

@@ -478,36 +478,62 @@ def test_attention_f32_sm90_in_several_passes_and_heads(dev):
 
 
 def _grad_cases(dev):
+    """K1-K6 (the dispatch entries): (wrapper, its plain twin, tensors, the
+    other arguments, the counter of the wrapper's forward launches); K7-K9
+    (probes: no backward rule, as in JAX): a call under grad."""
     bf, f32 = torch.bfloat16, torch.float32
-    q8 = torch.randn((1, 256, 64), device=dev, dtype=bf, requires_grad=True)
-    qf = torch.randn((1, 256, 64), device=dev, requires_grad=True)
-    qw = torch.randn((1, 256, 512), device=dev, requires_grad=True)
-    qwb = torch.randn((1, 256, 512), device=dev, dtype=bf, requires_grad=True)
-    dm = torch.randn((1, 1, 64, 256), device=dev, dtype=bf, requires_grad=True)
-    x = torch.randn((1, 16, 16, 64), device=dev, dtype=bf, requires_grad=True)
-    xf = torch.randn((1, 16, 16, 64), device=dev, dtype=f32, requires_grad=True)
-    w = torch.randn((64, 64, 3, 3), device=dev, dtype=bf).contiguous(
-        memory_format=torch.channels_last)
-    bias = torch.zeros(64, device=dev, dtype=bf)
-    gam = torch.ones(64, device=dev, dtype=bf)
+    g = _gen(dev, 11)
+
+    def leaf(shape, dtype=f32, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype).requires_grad_()
+
+    def qkv(shape, dtype):
+        return tuple(leaf(shape, dtype) for _ in range(3))
+
+    x = leaf((1, 16, 16, 64), bf)
+    xf = leaf((1, 16, 16, 64))
+    w = (torch.randn((64, 64, 3, 3), generator=g, device=dev) * 0.05).to(bf).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    wf = (torch.randn((64, 64, 3, 3), generator=g, device=dev) * 0.05).contiguous(
+        memory_format=torch.channels_last).requires_grad_()  # an f32 master weight
+    bias = leaf(64, bf, 0.1)
+    biasf = leaf(64, f32, 0.1)
+    gam = 1 + leaf(64, f32, 0.1).detach()
+    gam.requires_grad_()
     x320 = torch.randn((1, 8, 8, 320), device=dev, dtype=bf, requires_grad=True)
     g320 = torch.ones(320, device=dev, dtype=bf)
-    ff = _geglu_args(dev, 16, 64, 3)
-    ff[1].requires_grad_(True)  # a weight that requires grad is refused too
+    ff = [t.detach().requires_grad_() for t in _geglu_args(dev, 16, 64, 3)]
+    ff32 = [t.detach().float().requires_grad_() for t in ff]
+    q8 = leaf((1, 256, 64), bf)
+
+    def wino_twin(x_, k_, b_):
+        return wino3x3_plain(x_, winograd_weights(k_).to(x_.dtype), b_)
+
+    def hwio(t):
+        return t.detach().permute(2, 3, 1, 0).contiguous().requires_grad_()
+
     return {
-        "K1 sm90": lambda: flash_attention(q8, q8, q8, 1),
-        "K1 f32": lambda: flash_attention(qf, qf, qf, 1),
-        "K1 f32 3xTF32": lambda: flash_attention(qw, qw, qw, 1),
-        "K1 bf16 d512": lambda: flash_attention(qwb, qwb, qwb, 1),
-        "K5": lambda: attention_dmajor(dm, dm, dm, 0.125),
-        "K2": lambda: geglu_ff(*ff),
-        "K2 f32": lambda: geglu_ff(*[t.float() for t in ff]),
-        "K3": lambda: group_norm_nhwc(x, gam, gam, 32),
-        "K4 sm90": lambda: conv3x3(x, w, bias),
-        "K4 f32": lambda: conv3x3(xf, w.float(), bias.float()),
-        "K4 f32 FMA": lambda: conv3x3(xf[..., :40], w.float()[:, :40], bias.float()),
-        "K6": lambda: wino3x3(x, w.permute(2, 3, 1, 0), bias),
-        "K6 f32": lambda: wino3x3(xf, w.float().permute(2, 3, 1, 0), bias.float()),
+        "K1 sm90": (flash_attention, attention_plain, qkv((1, 256, 64), bf), (1,),
+                    flash_attention),
+        "K1 f32": (flash_attention, attention_plain, qkv((1, 256, 64), f32), (1,),
+                   flash_attention),
+        "K1 f32 3xTF32": (flash_attention, attention_plain, qkv((1, 256, 512), f32), (1,),
+                          flash_attention),
+        "K1 bf16 d512": (flash_attention, attention_plain, qkv((1, 256, 512), bf), (1,),
+                         flash_attention),
+        "K5": (attention_dmajor, attention_dmajor_plain, qkv((1, 1, 64, 256), bf),
+               (0.125,), attention_dmajor),
+        "K2": (geglu_ff, geglu_ff_plain, tuple(ff), (), geglu_ff),
+        "K2 f32": (geglu_ff, geglu_ff_plain, tuple(ff32), (), geglu_ff),
+        "K3": (group_norm_nhwc, group_norm_plain, (x, gam, leaf(64, f32, 0.1)), (32,),
+               group_norm_nhwc),
+        "K4 sm90": (conv3x3, conv3x3_plain, (x, w, bias), (), conv3x3),
+        "K4 f32": (conv3x3, conv3x3_plain, (xf, wf, biasf), (), conv3x3),
+        "K4 f32 FMA": (conv3x3, conv3x3_plain,
+                       (leaf((1, 16, 16, 40)), leaf((64, 40, 3, 3), f32, 0.05), biasf), (),
+                       conv3x3),
+        "K6": (wino3x3, wino_twin, (x, hwio(w), bias), (), wino3x3),
+        "K6 f32": (wino3x3, wino_twin, (xf, hwio(wf), biasf), (), wino3x3),
         "K7": lambda: attention_probe(q8[..., :40], q8[..., :40], q8[..., :40], 1, 0.158),
         "K8": lambda: group_norm_probe(x320, g320, g320),
         "K8 replaced body": lambda: group_norm_probe_prior(x320, g320, g320),
@@ -519,11 +545,34 @@ def _grad_cases(dev):
                                   "K2", "K2 f32", "K3", "K4 sm90", "K4 f32", "K4 f32 FMA", "K6",
                                   "K6 f32", "K7", "K8", "K8 replaced body", "K9"])
 def test_each_wrapper_raises_under_grad_and_runs_without_it(dev, name):
-    call = _grad_cases(dev)[name]
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        call()
+    """K1-K6 under grad: the forward launches the kernel (its counter moves
+    as it does without grad; the output has the same bits) and the backward
+    launches none; the gradients for a random cotangent equal autograd's
+    through the plain twin on the same inputs (torch.equal: the backward is
+    that twin's VJP), each in its input's dtype. K7-K9 still raise under
+    grad. Every case runs without grad."""
+    case = _grad_cases(dev)[name]
+    if callable(case):
+        with pytest.raises(RuntimeError, match="no backward rule"):
+            case()
+        with torch.no_grad():
+            assert torch.isfinite(case().float()).all()
+        return
+    fn, twin, args, rest, counter = case
+    n0 = counter.launches
     with torch.no_grad():
-        assert torch.isfinite(call().float()).all()
+        plain_run = fn(*args, *rest)
+    n1 = counter.launches
+    out = fn(*args, *rest)
+    n2 = counter.launches
+    assert n1 > n0 and n2 - n1 == n1 - n0 and torch.equal(out, plain_run)
+    cot = torch.randn(out.shape, generator=_gen(dev, 12), device=dev).to(out.dtype)
+    got = torch.autograd.grad(out, args, cot)
+    torch.cuda.synchronize()
+    assert counter.launches == n2
+    want = torch.autograd.grad(twin(*args, *rest), args, cot)
+    for a, gr, wa in zip(args, got, want):
+        assert gr.dtype == a.dtype and torch.equal(gr, wa)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -1,9 +1,12 @@
 """Five places where the port once departed from the JAX package without a
 word, each held here on the CPU:
 
-  * the kernel wrappers refuse autograd on the card (their CUDA outputs
-    carry no ``grad_fn``; the backward kernels are not written yet), while
-    the plain twins that CPU tensors take stay differentiable;
+  * the kernels' CUDA outputs carry no ``grad_fn``: the six dispatch
+    entries differentiate through ``_build.kernel_with_plain_vjp`` (the
+    kernel forward, the plain twin's VJP backward, as the JAX package's
+    ``custom_vjp`` rules), and every body and probe refuses autograd when
+    called directly, while the plain twins that CPU tensors take stay
+    differentiable;
   * a bundle converted from the JAX package keeps its ``parameterization``
     and ``clip_layer``, so a v-model samples as one (an unknown
     parameterization is refused) instead of being sampled as eps;
@@ -57,7 +60,7 @@ F32_RTOL, F32_ATOL = 5e-5, 5e-5
 def test_refuse_grad_raises_under_grad_and_lets_the_rest_through():
     x = torch.zeros(3, requires_grad=True)
     y = torch.zeros(3)
-    with pytest.raises(RuntimeError, match="no backward kernel.*Backward passes"):
+    with pytest.raises(RuntimeError, match="no backward rule.*dispatch entry"):
         _build.refuse_grad("K0", y, x)
     _build.refuse_grad("K0", y, None, 3)  # nothing requires grad
     with torch.no_grad():
@@ -67,20 +70,22 @@ def test_refuse_grad_raises_under_grad_and_lets_the_rest_through():
 
 
 # every wrapper that launches a kernel for CUDA tensors, with the name of its
-# library call
+# library call; the six dispatch entries, with their call of the helper that
+# makes the kernel differentiable
+_VJP = "_build.kernel_with_plain_vjp("
 _LAUNCHERS = [
     (A._launch, "fn("),
-    (A.attention_dmajor, "_build.kernel_library()"),
+    (A.attention_dmajor, _VJP),
     (A.attention_dmajor_prior, "_build.kernel_library()"),
-    (F2.geglu_ff, "_build.kernel_library()"),
+    (F2.geglu_ff, _VJP),
     (F2.geglu_ff_f32_sm90, "_build.kernel_library()"),
-    (G.group_norm_nhwc, "_build.kernel_library()"),
+    (G.group_norm_nhwc, _VJP),
     (G.group_norm_prior, "_build.kernel_library()"),
     (A._attention_bf16_wide_sm90, "_build.kernel_library()"),
     (C.conv3x3_generic, "_build.kernel_library()"),
     (C.conv3x3_sm90, "_build.kernel_library()"),
     (C.conv3x3_f32_sm90, "_build.kernel_library()"),
-    (PW.wino3x3, "_build.kernel_library()"),
+    (PW.wino3x3, _VJP),
     (PW.wino3x3_sm90, "_build.kernel_library()"),
     (PW.wino3x3_f32_sm90, "_build.kernel_library()"),
     (PW.wino3x3_prior, "_build.kernel_library()"),
@@ -92,18 +97,37 @@ _LAUNCHERS = [
     (PG.group_norm_probe_prior, "_build.kernel_library()"),
     (PS.stream_copy, "_build.kernel_library()"),
     (PS.stream_copy_prior, "_build.kernel_library()"),
+    (A.flash_attention, _VJP),
+    (C.conv3x3, _VJP),
+    (A._attention_f32_sm90, "_build.kernel_library()"),
+    (A._attention_dmajor_sm90, "_build.kernel_library()"),
+    (F2.geglu_ff_bf16_sm90, "_build.kernel_library()"),
+    (G._group_norm_sm90, "_build.kernel_library()"),
+    (PW._wino3x3_cuda, "_build.kernel_library()"),
 ]
+
+
+def _calls(tree, name):
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+            and isinstance(n.func, ast.Attribute) and n.func.attr == name]
 
 
 @pytest.mark.parametrize("fn,launch", _LAUNCHERS, ids=lambda v: getattr(v, "__name__", ""))
 def test_every_kernel_wrapper_refuses_grad_before_it_launches(fn, launch):
-    """No CPU run can reach the CUDA branch, so the wrapper's source is read:
-    ``_build.refuse_grad`` is called, and before the kernel library is."""
+    """No CPU run can reach the CUDA branch, so the wrapper's source is read.
+    A body or probe calls ``_build.refuse_grad``, and before the kernel
+    library. A dispatch entry (K1-K6) launches nothing itself: its CUDA
+    branch returns ``_build.kernel_with_plain_vjp`` of a body (which
+    refuses, as above: its own case) and the plain twin."""
     src = inspect.getsource(fn)
     tree = ast.parse(src.lstrip() if src.startswith(" ") else src)
-    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
-             and isinstance(n.func, ast.Attribute) and n.func.attr == "refuse_grad"]
-    assert calls, f"{fn.__name__} does not call _build.refuse_grad"
+    if launch == _VJP:
+        (call,) = _calls(tree, "kernel_with_plain_vjp")
+        assert "kernel_library" not in src
+        ret = [n for n in ast.walk(tree) if isinstance(n, ast.Return) and n.value is call]
+        assert ret, f"{fn.__name__} does not return the helper's result"
+        return
+    assert _calls(tree, "refuse_grad"), f"{fn.__name__} does not call _build.refuse_grad"
     assert src.index("refuse_grad") < src.index(launch)
 
 

@@ -255,16 +255,16 @@ def test_registry_names_match_jax():
 @pytest.mark.parametrize("name", ["PLMS", "DPM Adaptive", "Log", "dpm_solver", "DPM Solver",
                                   "UniPC", "iPNDM", "Blur"])
 def test_registry_unported_names_raise(name):
-    """The names outside DDIM and kdiff.py: all ported now (with the JAX
-    family) but "Log", which still raises, naming itself and the missing
-    backward."""
+    """The names outside DDIM and kdiff.py: all ported now, with the JAX
+    family; "Log" is the log-likelihood estimator (it raised until the
+    kernels had backward rules)."""
     family, fn = R.get_sampler(name)
     assert family == JR.get_sampler(name)[0]
-    if name != "Log":
-        assert not getattr(fn, "not_ported", False) and callable(fn)
-        return
-    with pytest.raises(NotImplementedError, match=f"{name}.*backward"):
-        fn(None, None, None, None)
+    assert not getattr(fn, "not_ported", False) and callable(fn)
+    if name == "Log":
+        from complex_prompt_diffusion_tpu_torch.samplers.loglik import sample_log_likelihood
+
+        assert fn is sample_log_likelihood
 
 
 def _noises(steps, shape, seed):

@@ -180,9 +180,11 @@ def test_render_config_validation_and_unported_paths(bundles):
             JP.RenderConfig(**bad)
     assert P.RenderConfig(guidance_scale=9.0).guidance.guidance_scale == 9.0
     spec = P.make_guidance_spec(pb, "a cat")
-    # "Log" still raises; token reduction and attention guidance render
-    with pytest.raises(NotImplementedError):
-        P.sample_latents(pb, spec, P.RenderConfig(sampler="Log", width=32, height=32))
+    # "Log" returns log-likelihoods [B] now (it raised until the kernels had
+    # backward rules); token reduction and attention guidance render
+    ll = P.sample_latents(pb, spec, P.RenderConfig(sampler="Log", width=32, height=32),
+                          loglik_steps=2)
+    assert tuple(ll.shape) == (1,) and bool(torch.isfinite(ll).all())
     for cfg in (P.RenderConfig(tome_ratio=0.5, width=32, height=32, steps=2),
                 P.RenderConfig(guidance=G.GuidanceConfig(attn_guide=True), width=32,
                                height=32, steps=2)):

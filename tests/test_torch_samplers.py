@@ -630,13 +630,16 @@ def test_latent_preview_and_render_callback_match_jax():
 # --- registry --------------------------------------------------------------------
 
 def test_every_jax_name_resolves_with_its_family_and_only_log_raises():
+    """Every JAX name resolves to a ported function of its family; "Log",
+    the last to raise, is ported now (the log-likelihood estimator)."""
     assert sorted(R.SAMPLERS) == sorted(JR.SAMPLERS)
     for name, (family, _) in JR.SAMPLERS.items():
         p_family, fn = R.get_sampler(name)
         assert p_family == family
-        assert getattr(fn, "not_ported", False) == (name == "log"), name
-    with pytest.raises(NotImplementedError, match="backward"):
-        R.get_sampler("Log")[1](None, None, None)
+        assert not getattr(fn, "not_ported", False), name
+    from complex_prompt_diffusion_tpu_torch.samplers import loglik
+
+    assert R.get_sampler("Log")[1] is loglik.sample_log_likelihood
     assert R.get_sampler("PLMS")[1] is D.sample_plms
     assert R.get_sampler("dpm_solver")[1] is R.get_sampler("DPM Solver")[1] \
         is Sol.sample_dpm_solver

@@ -223,12 +223,32 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            (d) the "Log" sampler through ``sample_latents``: RK4 4 steps at
            512x512 b1 (16 VJPs) and dopri5 at a 16x16 latent (NFE
            printed), finite log-likelihoods [B]. The kernels line names
-           each kernel's backward rule.
+           each kernel's backward rule;
+  phase 18 CLIP guidance and hypernetworks (after phase 17; phase 2's
+           bundle rebuilt from seed 0: UNet bf16, VAE f32; 512x512): (a) the
+           guide CLIP's vision towers (ViT-B/32, ViT-L/14; random weights,
+           b4 224^2) and SD-1.5's text tower at "pooled" and "hidden"
+           (layer_idx 11), f32 with TF32 off, against the CPU port; (b)
+           ``sample_latents(clip_guidance=)`` with a ViT-B/32 guide and a
+           unit random 512-wide text embedding: DDIM 20 b1 against the
+           unguided render of the same start (the latents move), and PLMS
+           10 on a 2-factor prompt at factor_limit 2 (11 evaluations: CFG at
+           UNet batch 3, the guide at 2); (c) ``clip_guided_txt2img`` with a
+           ViT-L/14 guide, 4 cutouts and SD-1.5's pooled text embedding
+           (768 = 768), DDIM 20 b1, uint8 images; (d) txt2img b1 DDIM 20 with
+           a random hypernetwork (k and v, hidden 1536) on the 16
+           cross-attention sites, k/v hoisted once; (e) one CLIP-guided eps
+           with the UNet and VAE in f32 at a 16x16 latent (1e-4) and one f32
+           hypernetwork UNet eval (1e-5) against the CPU port. Every path
+           prints s/step and peak memory; its UNet calls by batch and its
+           K1-K4 launches equal what its calls' and decodes' forwards
+           predict (``check_calls(f32_decodes=)``), so no backward launched
+           a kernel.
 Phase 1's UNet groups come from ``kernel_cases.unet_call_groups``; a
 full-width UNet call whose K1-K4 shapes none of them holds fails its
 path's launch check (``check_held``).
 
-Each path of phases 2, 4 to 12 and 14 to 17 runs with every launch count set to 0
+Each path of phases 2, 4 to 12 and 14 to 18 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched (phase 12, render by render: K1's sm90 body 15 times, K2
 its plans' kernels for 16 calls, K3 61 calls and K4's sm90 body 22 times a
@@ -251,9 +271,10 @@ the SD 2.1 config's sites and the kernels' plans (``unet_call_launches``):
 K1's sm90 body 16 times a UNet call at 768x768 (the middle block's 144
 tokens too), K4's sm90 body on the 11 convs of the 24^2 plane at batch 1
 and none at batch 4, the f32 mid-block's kernels by ``f32_sm90_launches``
-and the bf16 one's by ``bf16_wide_launches`` at S = 9216. Phase 17's
-forwards under grad launch what their UNet calls predict, and their
-backwards launch nothing (the backward rules recompute the plain twins).
+and the bf16 one's by ``bf16_wide_launches`` at S = 9216. Phase 17's and
+phase 18's forwards under grad launch what their UNet calls and decodes
+predict, and their backwards launch nothing (the backward rules recompute
+the plain twins).
 Any failure exits non-zero before the result lines. On success the
 last three lines are the kernels JSON (each kernel's ``backward`` rule
 beside it), the card's name and power limit (from nvidia-smi) and
@@ -2617,14 +2638,18 @@ def check_held(cfg, latent: int, ub: int, deep_at, what: str) -> None:
 
 
 def check_calls(launches: dict, what: str, calls, decodes: int = 0, batch: int = 1,
-                s_decode: int = 4096) -> None:
+                s_decode: int = 4096, f32_decodes: int = 0) -> None:
     """A bf16 path's K1-K4 launches against its UNet calls: ``calls`` lists
     (n, config, latent side, UNet batch, deep_at) groups, each call's counts
     from ``unet_call_launches`` (a shallow pass with ``deep_at``; token
-    reduction as the config sets it); K3's calls for them and ``decodes``
-    bf16 decodes (at ``batch``, the mid-block at ``s_decode`` tokens on K1's
-    wide body); nothing on the f32 bodies, K5 or the probes."""
-    want = {"attention_sm90": 0, "geglu_ff": 0, "conv3x3": 0, "conv3x3_sm90": 0}
+    reduction as the config sets it); K3's calls for them, ``decodes`` bf16
+    decodes (at ``batch``, the mid-block at ``s_decode`` tokens on K1's
+    wide body) and ``f32_decodes`` f32 ones (the mid-block's passes on K1's
+    3xTF32 body); nothing on the other f32 bodies, K5 or the probes."""
+    from complex_prompt_diffusion_tpu_torch.ops.attention import f32_sm90_launches
+
+    want = {"attention_sm90": 0, "geglu_ff": 0, "conv3x3": 0, "conv3x3_sm90": 0,
+            "attention_f32_sm90": f32_decodes * f32_sm90_launches(batch, 1, s_decode, s_decode)}
     gn = 0
     for n, cfg, latent, ub, deep_at in calls:
         check_held(cfg, latent, ub, deep_at, what)
@@ -2636,7 +2661,7 @@ def check_calls(launches: dict, what: str, calls, decodes: int = 0, batch: int =
     got = {k: launches[k] for k in want}
     if got != want:
         raise SmokeFailure(f"{what} launched {got}: want {want} from its UNet calls {calls}")
-    want_gn = gn + VAE_DECODE_GN_CALLS * decodes
+    want_gn = gn + VAE_DECODE_GN_CALLS * (decodes + f32_decodes)
     if (launches["group_norm calls"] != want_gn
             or launches["group_norm"] != launches["group_norm planned"]
             or launches["group_norm_prior"]):
@@ -2645,8 +2670,8 @@ def check_calls(launches: dict, what: str, calls, decodes: int = 0, batch: int =
                            f"{launches['group_norm planned']} planned, the replaced body "
                            f"{launches['group_norm_prior']}")
     check_wide(launches, decodes, batch, what, s=s_decode)
-    others = {n: launches[n] for n in ("attention_f32_sm90", "attention_f32_fused_sm90",
-                                       "conv3x3_f32_sm90", "geglu_ff_f32_sm90", "attention_cm")
+    others = {n: launches[n] for n in ("attention_f32_fused_sm90", "conv3x3_f32_sm90",
+                                       "geglu_ff_f32_sm90", "attention_cm")
               + PROBES if launches[n]}
     if others:
         raise SmokeFailure(f"{what} launched kernels off its path: {others}")
@@ -3428,6 +3453,302 @@ def phase17(dev, card: str, image) -> dict:
     return paths
 
 
+CG_STEPS = 20  # DDIM steps of phase 18's CLIP-guided renders and its hypernetwork render
+CG_PLMS_STEPS = 10  # PLMS steps of its 2-factor guided render (11 evaluations)
+CG_CUTOUTS = 4  # cutouts a step of its standalone CLIP-guided txt2img
+HYPER_HIDDEN = 1536  # the hypernetwork's hidden width: the A1111 layer structure [1, 2, 1] at 768
+CG_CPU_TOL = 1e-4  # phase 18(e): one f32 CLIP-guided eps at a 16x16 latent vs the CPU copies
+HYPER_CPU_TOL = 1e-5  # and one f32 hypernetwork UNet eval
+
+
+def phase18_towers(dev, card: str, bundle) -> None:
+    """(a): the guide CLIP's towers at full width, f32 with TF32 off, on the
+    card against the CPU port on the same weights: ViT-B/32 and ViT-L/14
+    (random weights, batch 4, 224^2, projected) and SD-1.5's text tower
+    (the bundle's) at "pooled" and "hidden" (layer_idx 11)."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import convert
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch.pipeline import _tree_map
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for name, vcfg in (("ViT-B/32", M.CLIPVisionConfig.vit_b32()),
+                       ("ViT-L/14", M.CLIPVisionConfig.vit_l14())):
+        params = convert.clip_vision_params(M.init_clip_vision(gen, vcfg, dev), dev)
+        side = vcfg.image_size
+        images = torch.randn((4, side, side, 3), generator=gen, device=dev)
+        with torch.inference_mode():
+            M.clip_vision_apply(vcfg, params, images)  # the first call's set-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = M.clip_vision_apply(vcfg, params, images)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            want = M.clip_vision_apply(vcfg, _tree_map(lambda a: a.to(cpu), params), images.cpu())
+        err = rel_err(got.cpu(), want)
+        print(f"phase18: (a) {name} vision tower b4 {side}^2 f32 (TF32 off, {vcfg.num_patches + 1} "
+              f"tokens, {vcfg.num_layers} layers): [4, {vcfg.projection_dim}] on the card vs the "
+              f"CPU port: max rel {err[1]:.3e} (tol {TOL['float32']:.0e}); {ms:.2f} ms ({card})",
+              flush=True)
+        if tuple(got.shape) != (4, vcfg.projection_dim) or not err[1] <= TOL["float32"]:
+            raise SmokeFailure(f"the {name} vision tower: {list(got.shape)}, rel {err[1]}")
+    tokens = torch.as_tensor(bundle.tokenizer([PROMPT16, "a red dragon"]), device=dev)
+    clip_cpu = _tree_map(lambda a: a.to(cpu), bundle.clip_params)
+    d = bundle.clip_cfg.hidden_size
+    for layer, idx, shape in (("pooled", None, (2, d)), ("hidden", 11, (2, 77, d))):
+        with torch.inference_mode():
+            got = M.clip_text_apply(bundle.clip_cfg, bundle.clip_params, tokens, layer=layer,
+                                    layer_idx=idx)
+            want = M.clip_text_apply(bundle.clip_cfg, clip_cpu, tokens.cpu(), layer=layer,
+                                     layer_idx=idx)
+        err = rel_err(got.cpu(), want)
+        print(f"phase18: (a) SD-1.5 text tower layer={layer!r}"
+              + (f" layer_idx {idx}" if idx else "") + f" b2: {list(got.shape)} vs the CPU port: "
+              f"max rel {err[1]:.3e} (tol {TOL['float32']:.0e}) ({card})", flush=True)
+        if tuple(got.shape) != shape or not err[1] <= TOL["float32"]:
+            raise SmokeFailure(f"the text tower's {layer} layer: {list(got.shape)}, rel {err[1]}")
+
+
+def unit_text_embedding(dev, width: int, seed: int):
+    """A unit random guide text embedding [width] (random weights have no
+    guide CLIP text tower to encode one)."""
+    import torch
+
+    e = torch.randn((width,), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return e / e.norm()
+
+
+def guided_render(label: str, card: str, run, calls, f32_decodes: int, steps: int, want_calls):
+    """One guided path: launch counts at 0, ``run()`` timed to a sync (its
+    peak memory), the UNet calls by batch against ``want_calls`` (a sorted
+    list of batches), the K1-K4 launches against ``calls`` and the f32
+    decodes (``check_calls``: forwards only, so the backward launched
+    none). Returns (run's result, launches, seconds)."""
+    import torch
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with UNetCallKinds() as kinds:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_launches()
+    batches = sorted(b for b, _ in kinds.calls)
+    if batches != want_calls:
+        raise SmokeFailure(f"{label}: UNet calls at batches {batches}, want {want_calls}")
+    check_calls(launches, label, calls, f32_decodes=f32_decodes)
+    groups = [(n, ub) for n, _, _, ub, _ in calls]
+    print(f"phase18: {label} on {card}: {wall:.3f} s = {wall / steps:.4f} s/step, peak memory "
+          f"{peak:.2f} GiB with the bundle; {len(batches)} UNet calls ((calls, UNet batch) "
+          f"{groups}), {f32_decodes} f32 decodes; launches K1 sm90 {launches['attention_sm90']}, "
+          f"K1 3xTF32 {launches['attention_f32_sm90']}, K2 {launches['geglu_ff']}, K3 "
+          f"{launches['group_norm']} kernels for {launches['group_norm calls']} calls, K4 sm90 "
+          f"{launches['conv3x3_sm90']} (each as its UNet calls and decodes predict: none in a "
+          f"backward)", flush=True)
+    return out, launches, wall
+
+
+def phase18(dev, card: str) -> dict:
+    """CLIP guidance and hypernetworks at SD-1.5 full width (phase 2's bundle
+    rebuilt from seed 0: UNet bf16, VAE f32; 512x512): (a) the towers
+    against the CPU port; (b) ``sample_latents(clip_guidance=)``: DDIM 20 b1
+    with a ViT-B/32 guide against the unguided render of the same start,
+    then PLMS 10 on a 2-factor prompt at factor_limit 2; (c) the standalone
+    ``clip_guided_txt2img`` with a ViT-L/14 guide, 4 cutouts and the pooled
+    SD text embedding as its text; (d) txt2img with a random hypernetwork on
+    every cross-attention site (hoisted k/v); (e) one guided eps and one
+    hypernetwork UNet eval in f32 at a 16x16 latent against the CPU copies.
+    Returns the launch counts by path."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import convert
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch.guidance.clip_guidance import (
+        ClipGuidanceConfig,
+        make_clip_guidance,
+    )
+    from complex_prompt_diffusion_tpu_torch.models.params import attach_hypernetwork
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        ModelBundle,
+        RenderConfig,
+        _tree_map,
+        initial_noise,
+        make_guidance_spec,
+        sample_latents,
+        txt2img,
+    )
+    from complex_prompt_diffusion_tpu_torch.pipeline_clip_guided import clip_guided_txt2img
+    from complex_prompt_diffusion_tpu_torch.prompts import CompositionalPrompt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paths = {}
+    t0 = time.perf_counter()
+    bundle = ModelBundle.random("sd15", seed=0, device=dev)
+    torch.cuda.synchronize()
+    ucfg = bundle.unet_cfg
+    print(f"phase18: SD-1.5 random bundle of phase 2 (seed 0; UNet bf16, VAE f32) rebuilt in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    phase18_towers(dev, card, bundle)
+
+    # (b) sample_latents with a ViT-B/32 guide: DDIM 20 b1 (a CFG call at
+    # UNet batch 2, the guide's UNet call at batch 1 and an f32 decode under
+    # grad a step)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    vit_b = M.CLIPVisionConfig.vit_b32()
+    vit_b_params = convert.clip_vision_params(M.init_clip_vision(gen, vit_b, dev), dev)
+    text_b = unit_text_embedding(dev, vit_b.projection_dim, 19)
+    cg = ClipGuidanceConfig(grad_scale=1.0)
+    spec = make_guidance_spec(bundle, PROMPT16)
+    cfg = RenderConfig(steps=CG_STEPS, sampler="DDIM", width=512, height=512, seed=18)
+    x_T = initial_noise(bundle, cfg, gen)
+    plain, _, plain_wall = guided_render(
+        f"unguided DDIM {CG_STEPS} b1 (the reference)", card,
+        lambda: sample_latents(bundle, spec, cfg, x_init=x_T),
+        [(CG_STEPS, ucfg, 64, 2, None)], 0, CG_STEPS, [2] * CG_STEPS)
+    guided, paths["clip_guided_ddim20_b1"], wall = guided_render(
+        f"CLIP-guided DDIM {CG_STEPS} b1 (ViT-B/32 guide, grad_scale 1)", card,
+        lambda: sample_latents(bundle, spec, cfg, x_init=x_T,
+                               clip_guidance=(vit_b, vit_b_params, text_b, cg)),
+        [(CG_STEPS, ucfg, 64, 2, None), (CG_STEPS, ucfg, 64, 1, None)], CG_STEPS, CG_STEPS,
+        [1] * CG_STEPS + [2] * CG_STEPS)
+    check_latents(guided, (1, 64, 64, 4))
+    moved = rel_rmse(guided, plain)
+    print(f"phase18: (b) the guided latents against the unguided render of the same start: "
+          f"relRMSE {moved:.4e}; a guided step {wall / CG_STEPS:.4f} s against "
+          f"{plain_wall / CG_STEPS:.4f} s unguided ({card})", flush=True)
+    if not moved > 0:
+        raise SmokeFailure("CLIP guidance left the DDIM latents as they were")
+    prompt = CompositionalPrompt(PROMPT16, bundle=bundle)
+    prompt.add_conjunction("a red dragon", scale=1.5, mask="left_half_valid")
+    n_eval = CG_PLMS_STEPS + 1
+    cfg_p = RenderConfig(steps=CG_PLMS_STEPS, sampler="PLMS", width=512, height=512, seed=18)
+    spec2 = prompt.build_spec(*cfg_p.latent_shape[:2])
+    guided_p, paths["clip_guided_plms10_2factor_b1"], _ = guided_render(
+        f"CLIP-guided PLMS {CG_PLMS_STEPS} b1, 2-factor prompt, factor_limit 2", card,
+        lambda: sample_latents(bundle, spec2, cfg_p, x_init=x_T,
+                               clip_guidance=(vit_b, vit_b_params, text_b,
+                                              ClipGuidanceConfig(grad_scale=1.0,
+                                                                 factor_limit=2))),
+        [(n_eval, ucfg, 64, 3, None), (n_eval, ucfg, 64, 2, None)], n_eval, CG_PLMS_STEPS,
+        [2] * n_eval + [3] * n_eval)
+    check_latents(guided_p, (1, 64, 64, 4))
+    del vit_b_params
+
+    # (c) the standalone CLIP-guided txt2img: ViT-L/14 guide (768 wide, as
+    # SD-1.5's pooled text embedding), 4 cutouts a step
+    vit_l = M.CLIPVisionConfig.vit_l14()
+    vit_l_params = convert.clip_vision_params(M.init_clip_vision(gen, vit_l, dev), dev)
+    cfg_c = RenderConfig(steps=CG_STEPS, sampler="DDIM", width=512, height=512, seed=18)
+    (images, latents), paths["clip_guided_txt2img_b1"], _ = guided_render(
+        f"clip_guided_txt2img DDIM {CG_STEPS} b1 (ViT-L/14 guide, {CG_CUTOUTS} cutouts, the "
+        f"pooled SD text embedding)", card,
+        lambda: clip_guided_txt2img(bundle, vit_l, vit_l_params, PROMPT16, cfg=cfg_c,
+                                    num_cutouts=CG_CUTOUTS, x_T=x_T),
+        [(CG_STEPS, ucfg, 64, 2, None), (CG_STEPS, ucfg, 64, 1, None)], CG_STEPS + 1, CG_STEPS,
+        [1] * CG_STEPS + [2] * CG_STEPS)
+    check_latents(latents, (1, 64, 64, 4))
+    check_image(images, (1, 512, 512, 3))
+    del vit_l_params
+
+    # (d) a random hypernetwork (k and v, hidden 1536) on every
+    # cross-attention site: txt2img b1 DDIM 20, k/v hoisted once
+    rng = torch.Generator(device=dev).manual_seed(20)
+
+    def linear(i, o):
+        return {"kernel": torch.randn((i, o), generator=rng, device=dev) * i ** -0.5,
+                "bias": torch.zeros(o, device=dev)}
+
+    d = ucfg.context_dim
+    hyper = {d: {kv: {"linear1": linear(d, HYPER_HIDDEN), "linear2": linear(HYPER_HIDDEN, d)}
+                 for kv in ("k", "v")}}
+    hbundle = dataclasses.replace(bundle, unet_params=attach_hypernetwork(bundle.unet_params,
+                                                                          hyper))
+    with ModelCalls("precompute_cross_kv") as hoisted:
+        (images, latents), paths["hypernetwork_txt2img_b1"], _ = guided_render(
+            f"txt2img with a hypernetwork DDIM {CG_STEPS} b1 (16 sites, k and v, hidden "
+            f"{HYPER_HIDDEN})", card,
+            lambda: txt2img(hbundle, spec, cfg=cfg, x_T=x_T),
+            [(CG_STEPS, ucfg, 64, 2, None)], 1, CG_STEPS, [2] * CG_STEPS)
+    check_image(images, (1, 512, 512, 3))
+    moved = rel_rmse(latents, plain)
+    print(f"phase18: (d) the hypernetwork render against the plain one of the same start: "
+          f"relRMSE {moved:.4e}; cross-attention k/v hoisted {hoisted.n} time(s) ({card})",
+          flush=True)
+    if hoisted.n != 1 or not moved > 0:
+        raise SmokeFailure(f"the hypernetwork render: k/v hoisted {hoisted.n} times, moved {moved}")
+
+    # (e) f32 checks at a 16x16 latent against CPU copies of the weights:
+    # one CLIP-guided eps (the UNet's eps inside the loss, the f32 decode,
+    # the ViT-B/32 guide) and one hypernetwork UNet eval
+    cpu = torch.device("cpu")
+    b32 = bundle.cast("float32")
+    vit_b_params = convert.clip_vision_params(
+        M.init_clip_vision(torch.Generator(device=dev).manual_seed(21), vit_b, dev), dev)
+    g = torch.Generator().manual_seed(22)
+    x16 = torch.randn((1, 16, 16, 4), generator=g)
+    e16 = torch.randn((1, 16, 16, 4), generator=g)
+    t16 = torch.tensor([601])
+    a_t = float(bundle.tables.alphas_cumprod[601])
+    cond = spec.factors[:1].clone()
+
+    def guided_eps(device):
+        to = (lambda a: a.to(device))
+        unet_p = _tree_map(to, b32.unet_params)
+        vae_p = _tree_map(to, bundle.vae_params)
+        vis_p = _tree_map(to, vit_b_params)
+
+        def eps_in_grad(x_):
+            return M.unet_apply(b32.unet_cfg, unet_p, x_, t16.to(device), cond.to(device))
+
+        guide = make_clip_guidance(lambda z: M.vae_decode(bundle.vae_cfg, vae_p, z), vit_b,
+                                   vis_p, text_b.to(device), cg, eps_in_grad_fn=eps_in_grad)
+        return guide(x16.to(device), e16.to(device), a_t).cpu()
+
+    reset_launches()
+    got = guided_eps(dev)
+    n = read_launches()
+    want = guided_eps(cpu)
+    rel = float((got - want).norm() / want.norm())
+    moved = float((want - e16).norm() / e16.norm())
+    print(f"phase18: (e) one CLIP-guided eps, f32 UNet and f32 VAE (TF32 off) at a 16x16 "
+          f"latent, ViT-B/32 guide, CUDA kernels (forward; plain-twin VJPs "
+          f"backward) vs the CPU port: rel L2 {rel:.3e} (tol {CG_CPU_TOL:.0e}); the correction "
+          f"moves eps by rel {moved:.3e}; launches K1 fused f32 {n['attention_f32_fused_sm90']}, "
+          f"K1 3xTF32 {n['attention_f32_sm90']}, K2 f32 {n['geglu_ff_f32_sm90']}, K3 "
+          f"{n['group_norm calls']} calls, K4 f32 {n['conv3x3_f32_sm90']} ({card})", flush=True)
+    if not rel <= CG_CPU_TOL or not moved > 0 or not n["group_norm calls"] == (
+            UNET_GN_CALLS + VAE_DECODE_GN_CALLS):
+        raise SmokeFailure(f"the f32 CLIP-guided eps: rel {rel}, moved {moved}, launches {n}")
+    del b32
+    h32 = hbundle.cast("float32")
+    x2 = torch.randn((2, 16, 16, 4), generator=g)
+    ctx2 = torch.randn((2, 77, ucfg.context_dim), generator=g)
+    t2 = torch.tensor([801, 801])
+    with torch.inference_mode():
+        got = M.unet_apply(h32.unet_cfg, h32.unet_params, x2.to(dev), t2.to(dev),
+                           ctx2.to(dev)).cpu()
+        want = M.unet_apply(h32.unet_cfg, _tree_map(lambda a: a.to(cpu), h32.unet_params), x2,
+                            t2, ctx2)
+        plain = M.unet_apply(h32.unet_cfg, _tree_map(lambda a: a.to(cpu), bundle.cast(
+            "float32").unet_params), x2, t2, ctx2)
+    rel = float((got - want).norm() / want.norm())
+    moved = float((want - plain).norm() / plain.norm())
+    print(f"phase18: (e) one f32 UNet eval with the hypernetwork, 16x16 latent b2 (TF32 off), "
+          f"CUDA kernels vs the CPU port: rel L2 {rel:.3e} (tol {HYPER_CPU_TOL:.0e}); the "
+          f"hypernetwork moves the output by rel {moved:.3e} ({card})", flush=True)
+    if not rel <= HYPER_CPU_TOL or not moved > 0:
+        raise SmokeFailure(f"the f32 hypernetwork UNet eval: rel {rel}, moved {moved}")
+    del bundle, hbundle, h32, vit_b_params
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -3481,6 +3802,7 @@ def main(argv=None) -> int:
     paths.update(phase15(dev, card, images[0]))
     paths.update(phase16(dev, card))
     paths.update(phase17(dev, card, images[0]))
+    paths.update(phase18(dev, card))
 
     kernels = []
     # "attention" and "conv3x3" count every body of K1 and K4: their own

@@ -13,7 +13,11 @@ with two changes of layout:
 Leaves may be numpy arrays, anything ``np.asarray`` accepts (JAX arrays,
 without importing jax here) or torch tensors, so the port's own random
 init and checkpoint loader (both build the JAX layout) go through the same
-function. :func:`tables_from` carries a bundle's diffusion tables across.
+function. A Python float leaf (a hypernetwork's ``multiplier``) becomes an
+f32 scalar tensor, as JAX puts it on the device; a ``dtype`` casts it with
+the rest, as the JAX bundle's ``cast`` does. The CLIP vision tower's bare
+``patch_embedding`` kernel (HWIO) becomes ``[D, 3, p, p]``
+(:func:`clip_vision_params`). :func:`tables_from` carries a bundle's diffusion tables across.
 """
 
 from __future__ import annotations
@@ -24,11 +28,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["to_port", "unet_params", "vae_params", "clip_params", "config_from", "tables_from"]
+__all__ = ["to_port", "unet_params", "vae_params", "clip_params", "clip_vision_params",
+           "config_from", "tables_from"]
 
 
 def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    if not isinstance(a, torch.Tensor):
+    if isinstance(a, float):
+        a = torch.tensor(a, dtype=torch.float32)
+    elif not isinstance(a, torch.Tensor):
         arr = np.asarray(a)
         if arr.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch twin
             a = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
@@ -71,6 +78,16 @@ def vae_params(tree, device="cpu", dtype: Optional[torch.dtype] = None):
 
 def clip_params(tree, device="cpu", dtype: Optional[torch.dtype] = None):
     return to_port(tree, device, dtype)
+
+
+def clip_vision_params(tree, device="cpu", dtype: Optional[torch.dtype] = None):
+    """The CLIP vision tower's tree: the HWIO patch-embedding kernel [p, p,
+    3, D] as ``F.conv2d``'s weight [D, 3, p, p], every other leaf as
+    :func:`to_port` converts it."""
+    out = to_port({k: v for k, v in tree.items() if k != "patch_embedding"}, device, dtype)
+    w = _leaf(tree["patch_embedding"], device, dtype)
+    out["patch_embedding"] = w.permute(3, 2, 0, 1).contiguous()
+    return out
 
 
 def config_from(cls, cfg, **overrides):

@@ -1,7 +1,7 @@
 """Classifier-free guidance for the port (with its DeepCache and
 attention-guided forms), the thresholders (``threshold.py``) its switches
-use, attention-saliency guidance (``attn_guidance.py``) and DAAM heat maps
-(``daam.py``)."""
+use, attention-saliency guidance (``attn_guidance.py``), DAAM heat maps
+(``daam.py``) and CLIP gradient guidance (``clip_guidance.py``)."""
 
 from complex_prompt_diffusion_tpu_torch.guidance.cfg import (
     GuidanceConfig,

@@ -1,12 +1,17 @@
-"""Model definitions of the port: CLIP text tower, UNet (with DeepCache's
+"""Model definitions of the port: CLIP text and vision towers, UNet (with DeepCache's
 pair of calls; tiled inference in ``tiled.py``), VAE (encoder and
 decoder)."""
 
 from complex_prompt_diffusion_tpu_torch.models import layers
 from complex_prompt_diffusion_tpu_torch.models.clip import (
+    CLIP_IMAGE_MEAN,
+    CLIP_IMAGE_STD,
     CLIPTextConfig,
+    CLIPVisionConfig,
     clip_text_apply,
+    clip_vision_apply,
     init_clip_text,
+    init_clip_vision,
 )
 from complex_prompt_diffusion_tpu_torch.models.unet import (
     UNetConfig,
@@ -30,6 +35,11 @@ __all__ = [
     "CLIPTextConfig",
     "clip_text_apply",
     "init_clip_text",
+    "CLIPVisionConfig",
+    "clip_vision_apply",
+    "init_clip_vision",
+    "CLIP_IMAGE_MEAN",
+    "CLIP_IMAGE_STD",
     "UNetConfig",
     "build_plan",
     "init_unet",

@@ -17,9 +17,13 @@ files with :func:`read_safetensors`, a reader of the format's own (an
 8-byte little-endian header length, a JSON header of dtype, shape and
 offsets, then the raw bytes), so no safetensors package is needed.
 
+``convert_clip_vision_hf`` reads the guide CLIP's vision tower from HF's
+``CLIPVisionModelWithProjection`` layout. ``attach_hypernetwork`` adds
+AUTOMATIC1111-style hypernetwork modules to the cross-attention sites of a
+UNet tree (the JAX package's numpy tree or the port's tensor tree).
 ``make_it_fit`` and ``zero_extend_input_conv`` are the weight surgery of
 the concat models' finetune seeding, on raw state dicts. Not ported yet:
-hypernetworks, the CLIP vision tower and the diffusers UNet layout.
+the diffusers UNet layout.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ __all__ = [
     "convert_vae",
     "convert_clip_hf",
     "convert_clip_openclip",
+    "convert_clip_vision_hf",
+    "attach_hypernetwork",
     "apply_ema_weights",
     "make_it_fit",
     "zero_extend_input_conv",
@@ -379,6 +385,124 @@ def convert_clip_openclip(
         )
     if f"{prefix}text_projection" in sd:
         params["text_projection"] = {"kernel": sd[f"{prefix}text_projection"]}
+    return params
+
+
+def convert_clip_vision_hf(cfg, sd: StateDict, prefix: str = "") -> Dict[str, Any]:
+    """HF ``CLIPVisionModelWithProjection`` layout (the guide CLIP's image
+    encoder); ``cfg``: ``CLIPVisionConfig``. The patch embedding's torch
+    conv weight [O, I, kh, kw] becomes the JAX package's HWIO kernel
+    (``convert.clip_vision_params`` makes it the port's [O, I, kh, kw]
+    again); the pre-LN is read under HF's spelling ``pre_layrnorm`` or
+    ``pre_layernorm``."""
+    v = f"{prefix}vision_model."
+    pre = f"{v}pre_layrnorm" if f"{v}pre_layrnorm.weight" in sd else f"{v}pre_layernorm"
+    params: Dict[str, Any] = {
+        "class_embedding": sd[f"{v}embeddings.class_embedding"],
+        "patch_embedding": np.transpose(sd[f"{v}embeddings.patch_embedding.weight"],
+                                        (2, 3, 1, 0)),
+        "position_embedding": sd[f"{v}embeddings.position_embedding.weight"],
+        "pre_ln": _norm(sd, pre),
+        "layers": [],
+        "post_ln": _norm(sd, f"{v}post_layernorm"),
+    }
+    for i in range(cfg.num_layers):
+        b = f"{v}encoder.layers.{i}"
+        params["layers"].append(
+            {
+                "ln1": _norm(sd, f"{b}.layer_norm1"),
+                "q": _linear(sd, f"{b}.self_attn.q_proj"),
+                "k": _linear(sd, f"{b}.self_attn.k_proj"),
+                "v": _linear(sd, f"{b}.self_attn.v_proj"),
+                "out": _linear(sd, f"{b}.self_attn.out_proj"),
+                "ln2": _norm(sd, f"{b}.layer_norm2"),
+                "fc1": _linear(sd, f"{b}.mlp.fc1"),
+                "fc2": _linear(sd, f"{b}.mlp.fc2"),
+            }
+        )
+    if f"{prefix}visual_projection.weight" in sd:
+        params["visual_projection"] = _linear(sd, f"{prefix}visual_projection", bias=False)
+    return params
+
+
+# --------------------------------------------------------------------------
+# hypernetworks
+# --------------------------------------------------------------------------
+
+
+def _hyper_by_dim(hyper_sd) -> Dict[int, Dict[str, Dict[str, Any]]]:
+    """{dim: {"k" | "v": {"linear1", "linear2"}}} from the nested layout
+    (linears as ``{"kernel": [in, out], "bias"}``) or the flat one
+    (``"<dim>.<k|v>.<linear1|linear2>.<weight|bias>"``, torch [out, in]
+    weights); a slot without both linears raises ValueError."""
+    by_dim: Dict[int, Dict[str, Dict[str, Any]]] = {}
+    for k, v in hyper_sd.items():
+        if isinstance(v, dict):
+            by_dim[int(k)] = v
+        else:
+            dim, kv, lin, kind = str(k).split(".")
+            slot = by_dim.setdefault(int(dim), {}).setdefault(kv, {}).setdefault(lin, {})
+            slot["kernel" if kind == "weight" else "bias"] = v.T if kind == "weight" else v
+    for dim, kvs in by_dim.items():
+        for kv, mlp in kvs.items():
+            missing = {"linear1", "linear2"} - set(mlp)
+            if missing:
+                raise ValueError(
+                    f"hypernetwork for dim {dim} slot {kv!r} is missing {sorted(missing)} "
+                    "(each slot needs linear1 + linear2 weight/bias pairs)"
+                )
+    return by_dim
+
+
+def _copy_tree(tree):
+    """The dicts and lists of a tree copied, its leaves shared."""
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_tree(v) for v in tree]
+    return tree
+
+
+def attach_hypernetwork(unet_params, hyper_sd, multiplier: float = 1.0):
+    """A new UNet tree with AUTOMATIC1111-style hypernetwork modules
+    ("hyper_k" / "hyper_v": ``{linear1, linear2, multiplier}``) on every
+    cross-attention site whose context width has weights in ``hyper_sd``
+    (:func:`_hyper_by_dim`'s layouts), as the JAX package attaches them.
+    The UNet applies ``z + linear2(linear1(z)) * multiplier`` to the
+    context before that site's k or v projection. On the JAX package's
+    tree the modules are added as given (the multiplier a Python float);
+    on the port's tensor tree they become tensors on the site's device in
+    f32 (the multiplier an f32 scalar, as ``convert.to_port`` makes it).
+    The input tree's leaves are shared, not copied."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import convert
+
+    by_dim = _hyper_by_dim(hyper_sd)
+    params = _copy_tree(unet_params)
+
+    def visit(blocks):
+        for block in blocks:
+            for layer in block if isinstance(block, list) else [block]:
+                if not isinstance(layer, dict) or "blocks" not in layer:
+                    continue
+                for tb in layer["blocks"]:
+                    attn2 = tb["attn2"]
+                    kernel = attn2["to_k"]["kernel"]
+                    dim = kernel.shape[0]
+                    for kv, name in (("k", "hyper_k"), ("v", "hyper_v")):
+                        if kv not in by_dim.get(dim, {}):
+                            continue
+                        mlp = by_dim[dim][kv]
+                        mod = {"linear1": mlp["linear1"], "linear2": mlp["linear2"],
+                               "multiplier": multiplier}
+                        if isinstance(kernel, torch.Tensor):
+                            mod = convert.to_port(mod, kernel.device, torch.float32)
+                        attn2[name] = mod
+
+    visit(params["input_blocks"])
+    visit([params["middle_block"]])
+    visit(params["output_blocks"])
     return params
 
 

@@ -18,9 +18,14 @@ reduction (``UNetConfig.tome_*``, ``ops/tome.py``) shrinks the large
 self-attention sites: ToDo pools their K/V (K1 with Sq != Skv), ToMe merges
 the sequence (K1 on the merged tokens; K2 too with ``tome_mlp``).
 
+Hypernetworks (``models/params.attach_hypernetwork``: "hyper_k" /
+"hyper_v" at an attention site) transform the context before the site's k
+or v projection, in the step and in :func:`precompute_cross_kv` alike, so
+the hoisted k/v equal the in-step projections.
+
 The up-path skip concat is a plain ``torch.cat``: the JAX package's split
 GroupNorm+conv over a virtual concat is gated to its TPU matmul-stats GN
-regime. Hypernetworks are not ported and raise NotImplementedError.
+regime.
 """
 
 from __future__ import annotations
@@ -331,11 +336,23 @@ def _apply_res(p, cfg: UNetConfig, h, emb, mode: str):
     return x + hh
 
 
+def _hyper(hp, z):
+    """A hypernetwork module's residual MLP: z + linear2(linear1(z)) *
+    multiplier."""
+    out = L.linear(hp["linear2"], L.linear(hp["linear1"], z))
+    return z + out * hp.get("multiplier", 1.0)
+
+
 def _cross_kv(p, ctx):
-    """Context k/v projections of one cross-attention site as one fused
-    [D, 2C] product (shared by the in-step path and precompute_cross_kv)."""
-    if "hyper_k" in p or "hyper_v" in p:
-        raise NotImplementedError("hypernetworks are not ported yet")
+    """Context k/v projections of one attention site, its hypernetwork
+    transforms included (shared by the in-step path and
+    precompute_cross_kv, so the hoisted cache equals the in-step
+    projections): one fused [D, 2C] product where k and v share the
+    context, else one product each."""
+    ctx_k = _hyper(p["hyper_k"], ctx) if "hyper_k" in p else ctx
+    ctx_v = _hyper(p["hyper_v"], ctx) if "hyper_v" in p else ctx
+    if ctx_k is not ctx_v:
+        return L.linear(p["to_k"], ctx_k), L.linear(p["to_v"], ctx_v)
     w = torch.cat([p["to_k"]["kernel"], p["to_v"]["kernel"]], dim=1)
     kv = L.linear({"kernel": w}, ctx)
     k, v = kv.chunk(2, dim=-1)
@@ -458,9 +475,7 @@ def _cross_attention(p, x, context, heads: int, kv=None, attn_route: str = "bsc"
         # Sq != Skv)
         q = L.linear(p["to_q"], x)
         k, v = _cross_kv(p, self_kv)
-    elif context is None:
-        if "hyper_k" in p or "hyper_v" in p:
-            raise NotImplementedError("hypernetworks are not ported yet")
+    elif context is None and "hyper_k" not in p and "hyper_v" not in p:
         s_len, c_dim = x.shape[1], x.shape[2]
         if attn_route == "cm" and s_len > 128 and s_len % 128 == 0 and c_dim % 128 == 0:
             # fused channel-major block: the qkv projection writes K5's
@@ -478,8 +493,9 @@ def _cross_attention(p, x, context, heads: int, kv=None, attn_route: str = "bsc"
         )
         q, k, v = L.linear({"kernel": w}, x).chunk(3, dim=-1)
     else:
+        # cross-attention, or self-attention with a hypernetwork on its k/v
         q = L.linear(p["to_q"], x)
-        k, v = _cross_kv(p, context)
+        k, v = _cross_kv(p, x if context is None else context)
     if collector is not None and context is not None:
         # DAAM capture: the explicit softmax, so the per-token maps exist;
         # f32 [B, heads, HW, L] probabilities, the output through them

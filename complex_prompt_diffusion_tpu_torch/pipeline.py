@@ -43,8 +43,11 @@ reduction (``tome_ratio``, ``tome_mode``: ToDo K/V pooling or ToMe merging
 at the large self-attention sites) and tiled inference (``unet_tile``,
 ``unet_tile_stride``, ``unet_tile_chunk``; ``models/tiled.py``). The "Log"
 sampler returns log-likelihoods [B] from ``sample_latents``, through the
-UNet's vector-Jacobian products (the kernels' backward rules). Not ported
-yet: CLIP guidance.
+UNet's vector-Jacobian products (the kernels' backward rules), and so does
+CLIP guidance (``sample_latents(clip_guidance=)``: the t family's eps
+corrected by the gradient of a guide CLIP's loss through the UNet, the VAE
+decode and the vision tower; ``guidance/clip_guidance.py``). The
+standalone CLIP-guided txt2img is ``pipeline_clip_guided.py``.
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ from complex_prompt_diffusion_tpu_torch.guidance import (
     make_uc_scale_schedule,
     stacked_context,
 )
+from complex_prompt_diffusion_tpu_torch.guidance.clip_guidance import make_clip_guidance
 from complex_prompt_diffusion_tpu_torch.models.tiled import make_tiled_unet
 from complex_prompt_diffusion_tpu_torch.prompts.tokenizer import get_tokenizer
 from complex_prompt_diffusion_tpu_torch.samplers import (
@@ -592,6 +596,7 @@ def sample_latents(
     step_callback=None,
     depth_mask=None,
     loglik_steps: Optional[int] = None,
+    clip_guidance=None,
 ) -> torch.Tensor:
     """Run the configured sampler with CFG; returns final latents f32
     [B, h, w, 4] (unscaled model space). ``generator`` (default: seeded from
@@ -631,18 +636,44 @@ def sample_latents(
     integrates with dopri5, the JAX package's route, or with the
     fixed-grid RK4 of ``loglik_steps`` steps when given (the port's
     ``sample_log_likelihood(steps=)``, which the JAX package's
-    ``sample_latents`` does not reach)."""
+    ``sample_latents`` does not reach).
+
+    ``clip_guidance``: (vision_cfg, vision_params, text_embedding,
+    ``ClipGuidanceConfig``) guides the t family (DDIM, PLMS) by a guide
+    CLIP's gradient, as the JAX package's ``eps_fn`` does: on every step
+    whose integer timestep divides by ``freq`` (uniform DDIM timesteps are
+    odd, so a ``freq`` >= 2 guides none of them) the CFG eps (after
+    attention guidance, when on) is corrected by
+    ``guidance/clip_guidance.py`` with the eps inside the loss re-run
+    through the UNet on the first ``factor_limit`` prompt factors (mask
+    times scale, ``depth_mask`` concatenated) under grad. The other
+    families ignore it, as in the JAX package. The cross-attention k/v are
+    not hoisted (the guided call has another batch and context), and
+    ``deepcache_interval`` >= 2 raises ValueError. The guided render runs
+    outside inference mode without grad, on copies of its input tensors;
+    only the guide's loss records a graph."""
+    if clip_guidance is not None and cfg.deepcache_interval >= 2:
+        raise ValueError(
+            "deepcache_interval is incompatible with CLIP guidance (the "
+            "guidance gradient re-runs the UNet outside the cached scan)"
+        )
+    family, sample_fn = get_sampler(cfg.sampler)
+    guided = clip_guidance is not None and family == "t"
     kw = dict(x_init=x_init, generator=generator, noises=noises, t_start=t_start,
-              step_callback=step_callback, depth_mask=depth_mask, loglik_steps=loglik_steps)
-    if get_sampler(cfg.sampler)[1] is not sample_log_likelihood:
+              step_callback=step_callback, depth_mask=depth_mask, loglik_steps=loglik_steps,
+              clip_guidance=clip_guidance if guided else None)
+    if sample_fn is not sample_log_likelihood:
         if loglik_steps is not None:
             raise ValueError(f"loglik_steps is the \"Log\" sampler's; got sampler "
                              f"{cfg.sampler!r}")
-        with torch.inference_mode():
-            return _sample_latents(bundle, spec, cfg, **kw)
-    # "Log" takes the UNet's VJP: grad mode, and no inference tensor (what
-    # encode_prompt and the other entry points return) where autograd saves one
-    with torch.inference_mode(False), torch.enable_grad():
+        if not guided:
+            with torch.inference_mode():
+                return _sample_latents(bundle, spec, cfg, **kw)
+    # "Log" takes the UNet's VJP, and CLIP guidance its guide's gradient:
+    # no inference tensor (what encode_prompt and the other entry points
+    # return) where autograd saves one; CLIP guidance records a graph only
+    # inside its guide
+    with torch.inference_mode(False), torch.set_grad_enabled(not guided):
         spec = GuidanceSpec(*(t.clone() for t in (spec.uncond, spec.factors, spec.scales,
                                                   spec.masks)))
         kw = {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()}
@@ -650,7 +681,7 @@ def sample_latents(
 
 
 def _sample_latents(bundle, spec, cfg, *, x_init, generator, noises, t_start, step_callback,
-                    depth_mask, loglik_steps) -> torch.Tensor:
+                    depth_mask, loglik_steps, clip_guidance) -> torch.Tensor:
     """:func:`sample_latents` in the grad mode its caller chose."""
     device = bundle.device
     depth_mask = _as_device_tensor(depth_mask, bundle)
@@ -685,9 +716,10 @@ def _sample_latents(bundle, spec, cfg, *, x_init, generator, noises, t_start, st
     gcfg = cfg.guidance
     # cross-attention k/v are loop-invariant: computed once per render,
     # except where the UNet sees another batch or context mid-step (tiles,
-    # attention guidance's unconditional pass), as in the JAX package
+    # attention guidance's unconditional pass, CLIP guidance's factor
+    # pass), as in the JAX package
     cross_kv = None
-    if not (cfg.unet_tile or gcfg.attn_guide):
+    if not (cfg.unet_tile or gcfg.attn_guide or clip_guidance is not None):
         cross_kv = M.precompute_cross_kv(ucfg, params, stacked_context(spec, x_T.shape[0]))
 
     def unet_eps(x, t, ctx):
@@ -762,6 +794,9 @@ def _sample_latents(bundle, spec, cfg, *, x_init, generator, noises, t_start, st
     if gcfg.attn_guide:
         eps_fn = _attn_guided_eps(eps_fn, unet_eps_t, to_eps, ucfg, params, spec, itables, gcfg,
                                   depth_mask)
+    if clip_guidance is not None:
+        eps_fn = _clip_guided_eps(eps_fn, unet_eps_t, bundle, spec, itables, clip_guidance,
+                                  depth_mask)
     kw = {"t_start": t_start} if sample_fn is sample_ddim else {}
     if dc_pair is not None:
         raw_full, raw_shallow = dc_pair
@@ -814,6 +849,47 @@ def _attn_guided_eps(base_eps, unet_eps, to_eps, ucfg, params, spec, itables, gc
                 unet_eps, unet_eps_skips, x, t, spec, uc_scale, (a_t[idx], s1m[idx]),
                 gcfg=gcfg, depth_mask=depth_mask, uc_blur_on=blur_on)
         return base_eps(x, t, uc_scale, blur_on)
+
+    return eps_fn
+
+
+def _clip_guided_eps(base_eps, unet_eps, bundle, spec, itables, clip_guidance, depth_mask):
+    """The t family's eps model under CLIP guidance (the JAX package's
+    ``eps_fn``): ``base_eps`` (CFG, or attention-guided CFG), then on the
+    steps whose integer timestep divides by ``freq`` the correction of
+    :func:`make_clip_guidance` with a_t from the table (idx = searchsorted,
+    as :func:`_t_index`) and the eps inside its loss re-run through
+    ``unet_eps`` on the first ``factor_limit`` factors, mask times scale.
+    The gate reads the step's timestep to the host: one sync an
+    evaluation."""
+    vision_cfg, vision_params, text_emb, cg_cfg = clip_guidance
+    a_t = np.asarray(itables.alphas_cumprod_t, np.float32)
+    k = min(max(int(cg_cfg.factor_limit), 1), spec.num_factors)
+    weights = spec.masks[:k, None] * spec.scales[:k].reshape(k, 1, 1, 1, 1)
+
+    def vae_dec(z):
+        return M.vae_decode(bundle.vae_cfg, bundle.vae_params, z)
+
+    def eps_fn(x, t, uc_scale, blur_on):
+        e_t = base_eps(x, t, uc_scale, blur_on)
+        idx, t_host = _t_index(itables, t)
+        if not (cg_cfg.freq > 0 and int(t_host) % max(cg_cfg.freq, 1) == 0):
+            return e_t
+
+        def factor_eps(x_):
+            b = x_.shape[0]
+            x_in = x_.repeat(k, 1, 1, 1)
+            if depth_mask is not None:
+                x_in = torch.cat([x_in, depth_mask.to(x_in.dtype).expand(
+                    x_in.shape[:3] + depth_mask.shape[-1:])], dim=-1)
+            t_in = torch.as_tensor(t, device=x_.device).reshape(1).expand(b * k)
+            ctx_in = spec.factors[:k].repeat_interleave(b, dim=0)
+            out = unet_eps(x_in, t_in, ctx_in)
+            return (weights * out.reshape((k, b) + tuple(out.shape[1:]))).sum(dim=0)
+
+        guide = make_clip_guidance(vae_dec, vision_cfg, vision_params, text_emb, cg_cfg,
+                                   LATENT_SCALE, eps_in_grad_fn=factor_eps)
+        return guide(x, e_t, a_t[idx])
 
     return eps_fn
 

@@ -8,6 +8,7 @@ Run from the repository root on a machine with the GPU::
         --vae float32
     python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --batch 4 --three-factor
     python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --train --batch 2
+    python -m complex_prompt_diffusion_tpu_torch.tools.profile_step --clip-guided
 
 Builds the SD-1.5 bundle with random weights (seed 0), renders 512x512 at
 ``--batch`` with DDIM and CFG 7.5 for a few warm-up steps, then times
@@ -34,6 +35,16 @@ the UNet's bf16 compute, a random context, Adan lr 1e-4. It times
 the kernels' backward rules recompute their plain twins, and the rest of
 the graph's own backward) and the optimizer update apart, and names the top
 device kernels of the backward.
+
+``--clip-guided`` profiles one CLIP-guided DDIM step at ``--batch``
+(``sample_latents(clip_guidance=)``'s eps model: a ViT-B/32 guide with
+random weights, a unit random text embedding, ``grad_scale`` 1; the VAE in
+f32, whatever ``--vae`` says): it times ``--steps`` steady guided steps
+without the profiler, then profiles the whole guided eps, and apart the
+CFG call, the guide's forward in three parts (the UNet's eps under grad,
+the f32 decode of the predicted x0, the resize, the vision tower and the
+loss) and its backward (``torch.autograd.grad`` with respect to the
+latents), each with its device busy time and idle share.
 """
 
 from __future__ import annotations
@@ -216,6 +227,97 @@ def _train(args, card: str) -> int:
     return 0
 
 
+def _clip_guided(args, card: str) -> int:
+    """The ``--clip-guided`` mode (see the module docstring)."""
+    import numpy as np
+
+    from complex_prompt_diffusion_tpu_torch import convert
+    from complex_prompt_diffusion_tpu_torch import schedules as S
+    from complex_prompt_diffusion_tpu_torch.guidance import GuidanceSpec
+    from complex_prompt_diffusion_tpu_torch.guidance.clip_guidance import (
+        ClipGuidanceConfig,
+        clip_normalize,
+        spherical_dist_loss,
+    )
+    from complex_prompt_diffusion_tpu_torch.pipeline import LATENT_SCALE, _clip_guided_eps
+    from complex_prompt_diffusion_tpu_torch.utils.resize import resize
+
+    dev = torch.device("cuda")
+    bundle = ModelBundle.random("sd15", seed=0, device=dev)
+    ucfg, params = bundle.unet_cfg, bundle.unet_params
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vcfg = M.CLIPVisionConfig.vit_b32()
+    vparams = convert.clip_vision_params(M.init_clip_vision(gen, vcfg, dev), dev)
+    text = torch.randn((vcfg.projection_dim,), generator=gen, device=dev)
+    text = text / text.norm()
+    cg = ClipGuidanceConfig(grad_scale=1.0)
+    spec = make_guidance_spec(bundle, "a photograph of an astronaut riding a horse")
+    spec = GuidanceSpec(*(a.clone() for a in (spec.uncond, spec.factors, spec.scales,
+                                              spec.masks)))
+    it = S.make_inference_tables(bundle.tables, 50)
+    idx = 40
+    t = torch.tensor(int(it.timesteps[idx]), device=dev)
+    a_t = np.float32(it.alphas_cumprod_t[idx])
+    x = torch.randn((args.batch, 64, 64, 4), generator=gen, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def unet(xx, tt, ctx):
+        return M.unet_apply(ucfg, params, xx, tt, ctx)
+
+    def cfg_call(xx, tt, uc, blur_on):
+        return cfg_epsilon(unet, xx, tt, spec, uc)
+
+    eps_fn = _clip_guided_eps(cfg_call, unet, bundle, spec, it, (vcfg, vparams, text, cg), None)
+
+    def profiled(label, fn):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        _breakdown(prof, label, wall, card)
+        return out
+
+    with torch.inference_mode(False), torch.no_grad():
+        for _ in range(2):
+            eps_fn(x, t, 7.5, False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            eps_fn(x, t, 7.5, False)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+        print(f"profile_step: SD-1.5 512x512 batch {args.batch}, one CLIP-guided DDIM step "
+              f"(CFG at UNet batch {2 * args.batch}, the guide's UNet at {args.batch}, f32 "
+              f"decode and ViT-B/32 under grad): {step_ms:.2f} ms per steady step without the "
+              f"profiler ({card})")
+        profiled("one guided step (the whole eps model)", lambda: eps_fn(x, t, 7.5, False))
+        profiled("CFG call", lambda: cfg_call(x, t, 7.5, False))
+        one = np.float32(1)
+        with torch.enable_grad():
+            xl = x.detach().clone().requires_grad_(True)
+            t_b = t.reshape(1).expand(args.batch)
+            ctx = spec.factors[:1].expand(args.batch, -1, -1)
+            eps = profiled("guide forward: UNet under grad", lambda: unet(xl, t_b, ctx))
+
+            def decode():
+                x0 = (xl - float(np.sqrt(one - a_t)) * eps) / float(np.sqrt(a_t))
+                return M.vae_decode(bundle.vae_cfg, bundle.vae_params, x0 / LATENT_SCALE)
+
+            img = profiled("guide forward: f32 decode under grad", decode)
+
+            def vision():
+                im = torch.clamp(img / 2.0 + 0.5, 0.0, 1.0)
+                im = resize(im, (im.shape[0], vcfg.image_size, vcfg.image_size, 3), "bilinear")
+                emb = M.clip_vision_apply(vcfg, vparams, clip_normalize(im))
+                return spherical_dist_loss(emb, text[None]).mean()
+
+            loss = profiled("guide forward: resize, vision tower, loss", vision)
+            profiled("guide backward (autograd.grad w.r.t. the latents)",
+                     lambda: torch.autograd.grad(loss, xl))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1)
@@ -229,6 +331,8 @@ def main(argv=None) -> int:
                     help="phase 14's 3-factor prompt with every guidance switch on")
     ap.add_argument("--train", action="store_true",
                     help="profile the training step (f32 master weights, bf16 compute, Adan)")
+    ap.add_argument("--clip-guided", action="store_true",
+                    help="profile one CLIP-guided DDIM step (ViT-B/32 guide, f32 decode)")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -238,6 +342,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.train:
         return _train(args, card)
+    if args.clip_guided:
+        return _clip_guided(args, card)
     dev = torch.device("cuda")
     bundle = ModelBundle.random("sd15", seed=0, device=dev).cast_vae(args.vae).cast(
         args.unet_dtype)

@@ -1,5 +1,6 @@
-"""``jax.image.resize`` for the port: the three methods the JAX package
-calls it with, on 2-D [H, W], [H, W, C] or NHWC tensors.
+"""``jax.image.resize`` for the port: the methods the JAX package calls it
+with, on 2-D [H, W], [H, W, C] or NHWC tensors ("linear" is JAX's alias
+of "bilinear").
 
 ``jax.image.resize`` antialiases whenever it scales down: its kernel is
 widened by the scale factor and renormalized at the borders, and upscales
@@ -9,7 +10,8 @@ without ``antialias`` it samples differently (bicubic a = -0.75, clamped
 borders, no widening) and misses by up to 0.4 on a 64 -> 8 downscale.
 "nearest" picks the pixel under each output's centre, which is
 ``mode="nearest-exact"`` (``mode="nearest"`` floors the source index
-instead)."""
+instead). The antialiased bilinear and bicubic modes have a backward on
+the CPU and on CUDA: CLIP guidance differentiates through the resize."""
 
 from __future__ import annotations
 
@@ -21,12 +23,13 @@ import torch.nn.functional as F
 __all__ = ["resize", "METHODS"]
 
 # jax.image.resize's method names -> F.interpolate's modes
-METHODS = {"nearest": "nearest-exact", "bilinear": "bilinear", "bicubic": "bicubic"}
+METHODS = {"nearest": "nearest-exact", "bilinear": "bilinear", "linear": "bilinear",
+           "bicubic": "bicubic"}
 
 
 def resize(x: torch.Tensor, shape: Sequence[int], method: str) -> torch.Tensor:
-    """``x`` resized to ``shape`` by ``method`` ("nearest", "bilinear" or
-    "bicubic") as ``jax.image.resize(x, shape, method)`` resizes it, in f32
+    """``x`` resized to ``shape`` by ``method`` ("nearest", "bilinear" (or
+    "linear") or "bicubic") as ``jax.image.resize(x, shape, method)`` resizes it, in f32
     on ``x``'s device. ``x`` is [H, W], [H, W, C] or [N, H, W, C]; only H and
     W may change."""
     if method not in METHODS:

@@ -150,26 +150,42 @@ def test_unet_sd2_style_config_branches():
 
 
 def test_unet_unported_options_raise(jax_bundle):
-    """``return_skips`` is ported (one skip an output block, after the
-    output); what still raises: a hypernetwork at a cross-attention site
-    and a CLIP layer other than "last" and "penultimate"."""
+    """The options this test once pinned as raising are ported and held to
+    the JAX package: ``return_skips`` (one skip an output block, after the
+    output); a hypernetwork at a cross-attention site (a k-slot module the
+    JAX package's ``attach_hypernetwork`` shape, the output within the
+    model tolerance of the JAX UNet's with the same module); a CLIP layer
+    name other than the four known ones encodes as "last" in both
+    packages."""
     cfg = convert.config_from(M.UNetConfig, jax_bundle.unet_cfg)
-    params = convert.unet_params(jax_bundle.unet_params)
-    x, t, ctx = map(torch.from_numpy, _unet_inputs(jax_bundle.unet_cfg, seed=5, n=1))
+    jp = jax.tree_util.tree_map(np.asarray, jax_bundle.unet_params)
+    params = convert.unet_params(jp)
+    xn, tn, cn = _unet_inputs(jax_bundle.unet_cfg, seed=5, n=1)
+    x, t, ctx = map(torch.from_numpy, (xn, tn, cn))
     out, skips = M.unet_apply(cfg, params, x, t, ctx, return_skips=True)
     assert len(skips) == len(M.build_plan(cfg)[2])
     torch.testing.assert_close(out, M.unet_apply(cfg, params, x, t, ctx), rtol=0, atol=0)
-    attn2 = params["input_blocks"][1][1]["blocks"][0]["attn2"]
-    attn2["hyper_k"] = {}
-    try:
-        with pytest.raises(NotImplementedError, match="hypernetworks"):
-            M.unet_apply(cfg, params, x, t, ctx)
-    finally:
-        del attn2["hyper_k"]
+    rng = _rng(6)
+    d = jax_bundle.unet_cfg.context_dim
+    hyper = {"linear1": {"kernel": rng.standard_normal((d, 8)).astype(np.float32) * 0.3,
+                         "bias": np.zeros(8, np.float32)},
+             "linear2": {"kernel": rng.standard_normal((8, d)).astype(np.float32) * 0.3,
+                         "bias": np.zeros(d, np.float32)},
+             "multiplier": 1.0}
+    jp["input_blocks"][1][1]["blocks"][0]["attn2"]["hyper_k"] = hyper
+    want = jax.jit(lambda p, *a: JM.unet_apply(jax_bundle.unet_cfg, p, *a))(jp, xn, tn, cn)
+    got = M.unet_apply(cfg, convert.unet_params(jp), x, t, ctx)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=MODEL_RTOL, atol=MODEL_ATOL)
+    assert float((got - out).abs().max()) > 1e-4
     ccfg = convert.config_from(M.CLIPTextConfig, jax_bundle.clip_cfg)
-    with pytest.raises(NotImplementedError, match="clip layer"):
-        M.clip_text_apply(ccfg, convert.clip_params(jax_bundle.clip_params),
-                          torch.zeros((1, 77), dtype=torch.long), layer="hidden3")
+    tokens = _rng(7).integers(0, ccfg.vocab_size, (1, 77)).astype(np.int32)
+    pclip = convert.clip_params(jax_bundle.clip_params)
+    got = M.clip_text_apply(ccfg, pclip, torch.from_numpy(tokens), layer="hidden3")
+    torch.testing.assert_close(got, M.clip_text_apply(ccfg, pclip, torch.from_numpy(tokens)),
+                               rtol=0, atol=0)
+    want = JM.clip_text_apply(jax_bundle.clip_cfg, jax_bundle.clip_params, tokens,
+                              layer="hidden3")
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=MODEL_RTOL, atol=MODEL_ATOL)
 
 
 def test_vae_decode(jax_bundle):

@@ -243,12 +243,33 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            prints s/step and peak memory; its UNet calls by batch and its
            K1-K4 launches equal what its calls' and decodes' forwards
            predict (``check_calls(f32_decodes=)``), so no backward launched
-           a kernel.
+           a kernel;
+  phase 19 animation, noise inversion and the rest of the VAE (after phase
+           18; phase 2's bundle rebuilt from seed 0: UNet bf16, VAE cast to
+           bf16; 512x512): (a) ``render_animation`` b1, 4 frames of DDIM 20
+           at strength 0.5 (later frames: t_start 10), CFG 7.5, angle, zoom
+           and pan keyframes, the perspective flip on the last frame, a 3D
+           warp over the Sobel depth of frame 0: each frame's warp, colour
+           match, encode, s/step and decode; its UNet calls (50 at UNet batch
+           2) and K1-K4 launches as ``unet_call_launches`` and its 4 decodes
+           and 3 encodes predict; the card's colour match and warps
+           (``utils/cv.py``) against the same functions on the CPU on the
+           same inputs (at least 99.9% of the values equal, none more than 1
+           level off); (b) ``find_noise_for_image`` of frame 0's latents over
+           21 ascending sigmas at CFG 2 (20 UNet calls = NFE); (c) the VQ
+           round trip at ``VAEConfig.sd()`` with 16384 codes (encode,
+           quantize, decode ms, peak memory, every code in range); (d)
+           ``vae_decode_tiled`` of a 128x128 latent (1024x1024, 9 tiles)
+           against the untiled decode (ms, peak memory, max abs and PSNR:
+           reported, not gated); (e) ``boost_depth`` of frame 0 with the
+           Sobel estimator (host). Phase 1 holds the untiled 1024x1024
+           decode's shapes (kernel_cases' "vae1024" group: K1's wide body at
+           S = 16384, K3 on its decoder planes).
 Phase 1's UNet groups come from ``kernel_cases.unet_call_groups``; a
 full-width UNet call whose K1-K4 shapes none of them holds fails its
 path's launch check (``check_held``).
 
-Each path of phases 2, 4 to 12 and 14 to 18 runs with every launch count set to 0
+Each path of phases 2, 4 to 12 and 14 to 19 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched (phase 12, render by render: K1's sm90 body 15 times, K2
 its plans' kernels for 16 calls, K3 61 calls and K4's sm90 body 22 times a
@@ -3749,6 +3770,279 @@ def phase18(dev, card: str) -> dict:
     return paths
 
 
+ANIM_FRAMES = 4  # frames of phase 19's render_animation
+ANIM_STEPS = 20  # its DDIM steps (frame 0 all of them, later frames t_start of them)
+ANIM_STRENGTH = 0.5  # its denoising strength: t_start = 10 of 20
+FIND_NOISE_STEPS = 20  # phase 19(b): UNet calls of find_noise_for_image (21 sigmas)
+VQ_CODES = 16384  # phase 19(c): the VQ codebook
+TILED_LATENT = 128  # phase 19(d): a 1024x1024 decode, 64-latent tiles every 48 (9 tiles)
+WARP_MIN_EQUAL = 0.999  # phase 19(a): the card's warps against the CPU's on the same inputs
+
+
+def check_vae_path(launches: dict, what: str, decodes: int, encodes: int, s: int,
+                   batch: int = 1) -> None:
+    """A bf16 VAE-only path: K3 on its Hopper body for ``decodes`` decodes
+    and ``encodes`` encodes, K1's wide body once each at S = ``s`` tokens,
+    and no UNet kernel (K1 sm90, K2, K4), f32 body, K5 or probe."""
+    check_gn(launches, 0, decodes, encodes, what)
+    check_wide(launches, decodes, batch, what, s=s, more=((encodes, batch),))
+    others = {n: launches[n] for n in ("attention_sm90", "geglu_ff", "conv3x3",
+                                       "attention_f32_sm90", "attention_f32_fused_sm90",
+                                       "conv3x3_f32_sm90", "geglu_ff_f32_sm90", "attention_cm")
+              + PROBES if launches[n]}
+    if others:
+        raise SmokeFailure(f"{what} launched kernels off its path: {others}")
+
+
+def timed(dev, fn):
+    """(fn(), seconds) with the device synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def phase19_warps_vs_cpu(dev, card: str, frames, keys, args_of) -> None:
+    """Each later frame's colour match, 3D and 2D warp on the card against
+    the same function on the CPU, each fed the CPU's input: at least
+    ``WARP_MIN_EQUAL`` of the values equal and none more than 1 level off."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import animation as A
+
+    worst = {}
+    for i in range(1, len(frames)):
+        args = args_of(i)
+        prev, init = torch.from_numpy(frames[i - 1]), torch.from_numpy(frames[0])
+        steps = (("match", lambda x: A.match_colors(x, init.to(x.device))),
+                 ("warp_3d", lambda x: A.do_3d_animation_step(x, i, keys, args)),
+                 ("warp_2d", lambda x: A.do_2d_animation_step(x, i, keys, args)))
+        x = prev
+        for name, fn in steps:
+            cpu = fn(x)
+            got = fn(x.to(dev)).cpu()
+            d = (got.short() - cpu.short()).abs()
+            equal, top = float((d == 0).float().mean()), int(d.max())
+            worst[name] = min(worst.get(name, (1.0, 0))[0], equal), max(worst.get(name, (1, 0))[1],
+                                                                      top)
+            if equal < WARP_MIN_EQUAL or top > 1:
+                raise SmokeFailure(f"phase19: frame {i}'s {name} on the card against the CPU: "
+                                   f"{equal:.6f} of the values equal, {top} levels at most")
+            x = cpu
+    print(f"phase19: (a) the card's colour match and warps against the CPU's on the same "
+          f"inputs (frames 1-{len(frames) - 1}): worst share equal / max levels "
+          + ", ".join(f"{k} {e:.6f} / {m}" for k, (e, m) in worst.items())
+          + f" (want >= {WARP_MIN_EQUAL}, <= 1) ({card})", flush=True)
+
+
+def phase19(dev, card: str) -> dict:
+    """Animation, noise inversion, the VQ first stage, the tiled VAE and
+    boosted depth at SD-1.5 full width (phase 2's bundle rebuilt from seed
+    0: UNet bf16, VAE cast to bf16): (a) ``render_animation`` 512x512 b1,
+    ANIM_FRAMES frames of DDIM ANIM_STEPS at strength ANIM_STRENGTH, angle /
+    zoom / pan keyframes, the perspective flip on the last frame, a 3D warp
+    over the Sobel depth of frame 0; (b) ``find_noise_for_image`` of frame
+    0's latents over 21 ascending sigmas at CFG 2; (c) the VQ round trip at
+    ``VAEConfig.sd()`` with VQ_CODES codes; (d) ``vae_decode_tiled`` of a
+    128x128 latent against the untiled decode; (e) ``boost_depth`` of frame
+    0 with the Sobel estimator. Returns the launch counts by path."""
+    import numpy as np
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import animation as A
+    from complex_prompt_diffusion_tpu_torch import convert
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch.depth import SobelDepthEstimator, boost_depth
+    from complex_prompt_diffusion_tpu_torch.guidance import make_denoiser, stacked_context
+    from complex_prompt_diffusion_tpu_torch.noise import find_noise_for_image
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        ModelBundle,
+        RenderConfig,
+        _sigma_schedule,
+        encode_image,
+        make_guidance_spec,
+    )
+    from complex_prompt_diffusion_tpu_torch.prompts import ComplexPrompt
+
+    paths = {}
+    t0 = time.perf_counter()
+    bundle = ModelBundle.random("sd15", seed=0, device=dev).cast_vae("bfloat16")
+    torch.cuda.synchronize()
+    ucfg = bundle.unet_cfg
+    print(f"phase19: SD-1.5 random bundle of phase 2 (seed 0; UNet bf16, VAE cast to bf16) "
+          f"rebuilt in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (a) render_animation: the flip switched on for the last frame and the
+    # depth map set from frame 0, both by the frame callback (the loop reads
+    # the args each frame)
+    last = ANIM_FRAMES - 1
+    args = A.AnimArgs(w=512, h=512, max_frames=ANIM_FRAMES, angle=f"0: (0), {last}: (6)",
+                      zoom=f"0: (1.0), {last}: (1.06)", pan_x=f"0: (0), {last}: (12)",
+                      pan_y=f"0: (0), {last}: (-8)", translation_z="0: (25)",
+                      rotation_3d_y="0: (1.5)", perspective_flip_theta="0: (5)",
+                      perspective_flip_phi="0: (-4)", perspective_flip_fv="0: (50)")
+    keys = A.KeyFrames(args)
+    depth0 = {}
+
+    def on_frame(i, img):
+        if i == 0:
+            depth0["map"] = SobelDepthEstimator().estimate(img) * 4.0 + 1.0
+            args.depth_map = depth0["map"]
+        args.flip_2d_perspective = i + 1 == last
+
+    def args_of(i):
+        return dataclasses.replace(args, depth_map=depth0["map"], flip_2d_perspective=i == last)
+
+    cfg = RenderConfig(steps=ANIM_STEPS, sampler="DDIM", width=512, height=512,
+                       guidance_scale=7.5, denoising_strength=ANIM_STRENGTH, seed=19)
+    prompt = ComplexPrompt(PROMPT16, bundle=bundle)
+    t_start = max(1, int((1 - ANIM_STRENGTH) * ANIM_STEPS))
+    n_calls = ANIM_STEPS + last * t_start
+    timings = []
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with ModelCalls("unet_apply") as calls:
+        frames, wall = timed(dev, lambda: A.render_animation(
+            bundle, lambda i: prompt, cfg, args, ANIM_FRAMES, warp_3d=True, coherance=0.98,
+            generator=torch.Generator(device=dev).manual_seed(19), frame_callback=on_frame,
+            timings=timings))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if calls.batches != [2] * n_calls:
+        raise SmokeFailure(f"phase19 (a): UNet calls at batches {calls.batches}, want {n_calls} "
+                           f"at 2")
+    check_unet_path(launches, ucfg, 2, n_calls, ANIM_FRAMES, last, "phase 19's render_animation")
+    for f in frames:
+        check_image(f[None], (1, 512, 512, 3))
+    paths["render_animation_b1"] = launches
+    per = unet_call_launches(ucfg, 64, 2)
+    for i, t in enumerate(timings):
+        steps = ANIM_STEPS if i == 0 else t_start
+        prep = "txt2img (no warp, colour match or encode)" if i == 0 else (
+            f"warp {1000 * (t['warp_3d'] + t['warp_2d']):.2f} ms (3D {1000 * t['warp_3d']:.2f}, "
+            f"2D {1000 * t['warp_2d']:.2f}{', perspective flip' if i == last else ''}), colour "
+            f"match {1000 * t['match']:.2f} ms, encode {1000 * t['encode']:.2f} ms")
+        print(f"phase19: (a) frame {i} on {card}: {prep}, {steps} DDIM steps "
+              f"{t['sample'] / steps:.4f} s/step, decode {1000 * t['decode']:.2f} ms", flush=True)
+    print(f"phase19: (a) render_animation 512x512 b1, {ANIM_FRAMES} frames, DDIM {ANIM_STEPS} "
+          f"(later frames t_start {t_start}), CFG 7.5, 2D + 3D warps, on {card}: {wall:.3f} s "
+          f"wall, peak memory {peak:.2f} GiB; {calls.n} UNet calls at UNet batch 2 (predicted "
+          f"{ANIM_STEPS} + {last} x {t_start}), {ANIM_FRAMES} decodes and {last} encodes (bf16); "
+          f"launches K1 sm90 {launches['attention_sm90']} (= {per['k1']} x {n_calls}), K1 wide "
+          f"{launches['attention_bf16_wide_sm90']}, K2 {launches['geglu_ff']} (= {per['k2']} x "
+          f"{n_calls}), K3 {launches['group_norm']} kernels for {launches['group_norm calls']} "
+          f"calls (= {UNET_GN_CALLS} x {n_calls} + {VAE_DECODE_GN_CALLS} x {ANIM_FRAMES} + "
+          f"{VAE_ENCODE_GN_CALLS} x {last}), K4 sm90 {launches['conv3x3_sm90']} (= "
+          f"{per['k4_sm90']} x {n_calls})", flush=True)
+    phase19_warps_vs_cpu(dev, card, frames, keys, args_of)
+
+    # (b) image -> noise: frame 0 encoded, 21 ascending sigmas (the Euler
+    # schedule reversed, from 0), CFG 2 at UNet batch 2, k/v hoisted
+    spec = make_guidance_spec(bundle, PROMPT16)
+    z0 = encode_image(bundle, frames[0])
+    sigmas = _sigma_schedule(bundle, RenderConfig(steps=FIND_NOISE_STEPS, sampler="Euler"))[::-1]
+    cross_kv = M.precompute_cross_kv(ucfg, bundle.unet_params, stacked_context(spec, 1))
+    _, den_fn = make_denoiser(
+        lambda x, t, c: M.unet_apply(ucfg, bundle.unet_params, x, t, c, cross_kv=cross_kv),
+        spec, model_sigmas=bundle.tables.sigmas)
+    reset_launches()
+    with ModelCalls("unet_apply") as calls:
+        x_n, wall = timed(dev, lambda: find_noise_for_image(den_fn, z0, sigmas, 2.0))
+    launches = read_launches()
+    check_latents(x_n, (1, 64, 64, 4))
+    if calls.batches != [2] * FIND_NOISE_STEPS:
+        raise SmokeFailure(f"phase19 (b): UNet calls at batches {calls.batches}, want "
+                           f"{FIND_NOISE_STEPS} at 2")
+    check_unet_path(launches, ucfg, 2, FIND_NOISE_STEPS, 0, 0, "phase 19's find_noise_for_image")
+    paths["find_noise_for_image_b1"] = launches
+    print(f"phase19: (b) find_noise_for_image of frame 0's latents, {len(sigmas)} sigmas "
+          f"{float(sigmas[0]):.3g} -> {float(sigmas[-1]):.4g}, CFG 2, on {card}: "
+          f"{calls.n} UNet calls (= NFE {len(sigmas) - 1}) at UNet batch 2, "
+          f"{wall / calls.n:.4f} s a call, {wall:.3f} s wall; the noise's std "
+          f"{float(x_n.std()):.3f} (sigma_max {float(sigmas[-1]):.3f})", flush=True)
+
+    # (c) the VQ round trip: SD's autoencoder widths, VQ_CODES codes, bf16
+    vq_cfg = dataclasses.replace(M.VAEConfig.sd(), dtype="bfloat16")
+    vq = convert.vae_params(M.init_vq_model(torch.Generator(device=dev).manual_seed(20),
+                                            M.VAEConfig.sd(), VQ_CODES, dev),
+                            dev, torch.bfloat16)
+    x = torch.as_tensor(frames[0], device=dev)[None].float() / 127.5 - 1.0
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        h, t_enc = timed(dev, lambda: M.vq_encode(vq_cfg, vq, x, quantize=False))
+        (z_q, loss, idx), t_q = timed(dev, lambda: M.vq_quantize(vq["quantize"], h))
+        out, t_dec = timed(dev, lambda: M.vq_decode(vq_cfg, vq, z_q))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    in_range = float(((idx >= 0) & (idx < VQ_CODES)).float().mean())
+    if tuple(out.shape) != (1, 512, 512, 3) or not bool(torch.isfinite(out).all()) \
+            or in_range != 1.0 or not bool(torch.isfinite(loss)):
+        raise SmokeFailure(f"phase19 (c): VQ output {tuple(out.shape)}, codes in range "
+                           f"{in_range}, loss {float(loss)}")
+    check_vae_path(launches, "phase 19's VQ round trip", 1, 1, 4096)
+    paths["vq_round_trip_b1"] = launches
+    print(f"phase19: (c) VQ round trip 512x512 b1 (VAEConfig.sd(), {VQ_CODES} codes, bf16 "
+          f"autoencoder, f32 distances) on {card}: encode {1000 * t_enc:.2f} ms, quantize "
+          f"{1000 * t_q:.2f} ms, decode {1000 * t_dec:.2f} ms, peak memory {peak:.2f} GiB; "
+          f"codes in range {100 * in_range:.1f}% ({int(idx.unique().numel())} distinct), loss "
+          f"{float(loss):.4g}", flush=True)
+    del vq, h, z_q, out
+
+    # (d) the tiled decode of a 1024x1024 canvas against the untiled one
+    from complex_prompt_diffusion_tpu_torch.models.vae import _tile_starts
+
+    side = 8 * TILED_LATENT
+    n_tiles = len(_tile_starts(TILED_LATENT, 64, 48)) ** 2
+    z = torch.randn((1, TILED_LATENT, TILED_LATENT, 4),
+                    generator=torch.Generator(device=dev).manual_seed(21), device=dev)
+    vcfg, vparams = bundle.vae_cfg, bundle.vae_params
+    rows = {}
+    for label, fn, decodes, s in (
+            ("tiled", lambda: M.vae_decode_tiled(vcfg, vparams, z, tile=64, overlap=16), n_tiles,
+             4096),
+            ("untiled", lambda: M.vae_decode(vcfg, vparams, z), 1, TILED_LATENT**2)):
+        reset_launches()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.inference_mode():
+            img, sec = timed(dev, fn)
+        launches = read_launches()
+        check_vae_path(launches, f"phase 19's {label} {side}x{side} decode", decodes, 0, s)
+        paths[f"vae_decode_{side}_{label}"] = launches
+        rows[label] = (img, sec, torch.cuda.max_memory_allocated(dev) / 2**30)
+    (a_img, a_s, a_peak), (b_img, b_s, b_peak) = rows["tiled"], rows["untiled"]
+    if tuple(a_img.shape) != (1, side, side, 3) or not bool(torch.isfinite(a_img).all()):
+        raise SmokeFailure(f"phase19 (d): tiled decode {tuple(a_img.shape)} or not finite")
+    a01, b01 = (a_img.clamp(-1, 1) + 1) / 2, (b_img.clamp(-1, 1) + 1) / 2
+    diff = (a01 - b01).abs()
+    mse = float(diff.pow(2).mean())
+    psnr = 10 * np.log10(1.0 / mse) if mse > 0 else float("inf")
+    print(f"phase19: (d) vae_decode_tiled {TILED_LATENT}x{TILED_LATENT} latent -> {side}x{side} "
+          f"(tile 64, overlap 16: {n_tiles} tiles, bf16) on {card}: {1000 * a_s:.2f} ms, peak "
+          f"memory {a_peak:.2f} GiB; untiled {1000 * b_s:.2f} ms, peak memory {b_peak:.2f} GiB "
+          f"(first calls of each); tiled against untiled on [0, 1]: max abs "
+          f"{float(diff.max()):.4f}, PSNR {psnr:.2f} dB (reported: tiling changes the result)",
+          flush=True)
+    del rows, a_img, b_img, a01, b01, diff
+
+    # (e) boosted depth of frame 0 (host numpy and CPU resizes)
+    t0 = time.perf_counter()
+    boosted = boost_depth(frames[0], SobelDepthEstimator(), base_size=128)
+    sec = time.perf_counter() - t0
+    if boosted.shape != (512, 512) or not np.isfinite(boosted).all():
+        raise SmokeFailure(f"phase19 (e): boost_depth gave {boosted.shape}")
+    print(f"phase19: (e) boost_depth of frame 0 (512x512, Sobel estimator, base 128, up to 16 "
+          f"patches) on the card's host: {sec:.2f} s wall, range [{boosted.min():.3f}, "
+          f"{boosted.max():.3f}] ({card})", flush=True)
+    del bundle
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -3803,6 +4097,7 @@ def main(argv=None) -> int:
     paths.update(phase16(dev, card))
     paths.update(phase17(dev, card, images[0]))
     paths.update(phase18(dev, card))
+    paths.update(phase19(dev, card))
 
     kernels = []
     # "attention" and "conv3x3" count every body of K1 and K4: their own

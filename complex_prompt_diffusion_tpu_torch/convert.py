@@ -67,13 +67,18 @@ def unet_params(tree, device="cpu", dtype: Optional[torch.dtype] = None):
     return to_port(tree, device, dtype)
 
 
-_VAE_KEYS = ("encoder", "decoder", "quant_conv", "post_quant_conv")
+_VAE_KEYS = ("encoder", "decoder", "quant_conv", "post_quant_conv", "quantize")
 
 
 def vae_params(tree, device="cpu", dtype: Optional[torch.dtype] = None):
-    """The AutoencoderKL tree: encoder, decoder, quant_conv and
-    post_quant_conv (a VQ tree's ``quantize`` codebook is not ported)."""
-    return to_port({k: tree[k] for k in _VAE_KEYS}, device, dtype)
+    """The first stage's tree: encoder, decoder, quant_conv and
+    post_quant_conv, and a VQ model's ``quantize`` codebook where the tree
+    has one (kept f32 whatever ``dtype``: ``vq_quantize`` measures
+    distances in f32)."""
+    out = to_port({k: tree[k] for k in _VAE_KEYS if k != "quantize"}, device, dtype)
+    if "quantize" in tree:
+        out["quantize"] = to_port(tree["quantize"], device, torch.float32)
+    return out
 
 
 def clip_params(tree, device="cpu", dtype: Optional[torch.dtype] = None):

@@ -1,6 +1,6 @@
 """Model definitions of the port: CLIP text and vision towers, UNet (with DeepCache's
 pair of calls; tiled inference in ``tiled.py``), VAE (encoder and
-decoder)."""
+decoder, the VQ first stage, tiled encode and decode)."""
 
 from complex_prompt_diffusion_tpu_torch.models import layers
 from complex_prompt_diffusion_tpu_torch.models.clip import (
@@ -26,8 +26,15 @@ from complex_prompt_diffusion_tpu_torch.models.vae import (
     DiagonalGaussian,
     VAEConfig,
     init_vae,
+    init_vq_model,
+    init_vq_quantizer,
     vae_decode,
+    vae_decode_tiled,
     vae_encode,
+    vae_encode_tiled,
+    vq_decode,
+    vq_encode,
+    vq_quantize,
 )
 
 __all__ = [
@@ -52,4 +59,11 @@ __all__ = [
     "init_vae",
     "vae_encode",
     "vae_decode",
+    "init_vq_quantizer",
+    "vq_quantize",
+    "init_vq_model",
+    "vq_encode",
+    "vq_decode",
+    "vae_decode_tiled",
+    "vae_encode_tiled",
 ]

@@ -1,4 +1,5 @@
-"""AutoencoderKL (the SD first stage) as plain functions on tensors.
+"""AutoencoderKL (the SD first stage), the VQ first stage and tiled
+encode / decode, as plain functions on tensors.
 
 Counterpart of ``complex_prompt_diffusion_tpu/models/vae.py``: the same
 config, parameter tree, ``DiagonalGaussian``, ``vae_encode`` and
@@ -8,6 +9,13 @@ ResnetBlock, single-head AttnBlock (through the K1 kernel at S = 4096 for
 512^2 images), ResnetBlock. Both run in ``cfg.dtype`` (f32, or bf16 after
 ``ModelBundle.cast_vae``) and return f32.
 
+The VQ first stage (``init_vq_model``, ``vq_encode``, ``vq_quantize``,
+``vq_decode``) is the same encoder and decoder with ``double_z`` off and a
+codebook between them (nearest code by |z|^2 - 2 z.e + |e|^2 in f32,
+straight-through gradients). ``vae_decode_tiled`` / ``vae_encode_tiled``
+run the decoder / encoder on overlapping tiles blended with a triangular
+window, bounding activation memory on large canvases.
+
 The 0.18215 latent scale factor is applied by callers, not here.
 """
 
@@ -16,13 +24,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from complex_prompt_diffusion_tpu_torch.models import layers as L
 from complex_prompt_diffusion_tpu_torch.ops import attention as mha
 
-__all__ = ["VAEConfig", "DiagonalGaussian", "init_vae", "vae_encode", "vae_decode"]
+__all__ = ["VAEConfig", "DiagonalGaussian", "init_vae", "vae_encode", "vae_decode",
+           "init_vq_quantizer", "vq_quantize", "init_vq_model", "vq_encode", "vq_decode",
+           "vae_decode_tiled", "vae_encode_tiled"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,9 +203,9 @@ def _downsample(p, x):
     return L.conv2d(p, x, stride=2, padding=0)
 
 
-def vae_encode(cfg: VAEConfig, params, x) -> DiagonalGaussian:
-    """Image [N,H,W,3] in [-1,1] -> posterior over latents [N,H/8,W/8,z]
-    (f32 moments)."""
+def _encoder(cfg: VAEConfig, params, x):
+    """The encoder trunk and quant_conv: image [N,H,W,3] -> f32 [N,H/8,W/8,
+    moments]."""
     x = x.to(cfg.compute_dtype)
     p = params["encoder"]
     h = L.conv2d(p["conv_in"], x)
@@ -210,8 +221,13 @@ def vae_encode(cfg: VAEConfig, params, x) -> DiagonalGaussian:
     h = _resnet(p["mid"]["block_2"], h)
     h = L.group_norm_silu_p(p["norm_out"], h, eps=1e-6)
     h = L.conv2d(p["conv_out"], h)
-    moments = L.conv2d(params["quant_conv"], h).float()
-    return DiagonalGaussian.from_moments(moments)
+    return L.conv2d(params["quant_conv"], h).float()
+
+
+def vae_encode(cfg: VAEConfig, params, x) -> DiagonalGaussian:
+    """Image [N,H,W,3] in [-1,1] -> posterior over latents [N,H/8,W/8,z]
+    (f32 moments)."""
+    return DiagonalGaussian.from_moments(_encoder(cfg, params, x))
 
 
 def vae_decode(cfg: VAEConfig, params, z):
@@ -233,3 +249,128 @@ def vae_decode(cfg: VAEConfig, params, z):
             h = L.conv2d(up["upsample"], L.upsample_nearest2x(h))
     h = L.group_norm_silu_p(p["norm_out"], h, eps=1e-6)
     return L.conv2d(p["conv_out"], h).float()
+
+
+# ---------------------------------------------------------------------------
+# VQModel (the VQ first stage)
+# ---------------------------------------------------------------------------
+
+
+def init_vq_quantizer(gen, n_embed: int, embed_dim: int, device="cpu"):
+    """The codebook {"embedding": [n_embed, embed_dim]}, uniform(-1/n, 1/n)
+    f32."""
+    bound = 1.0 / n_embed
+    emb = torch.empty((n_embed, embed_dim), dtype=torch.float32, device=device)
+    return {"embedding": emb.uniform_(-bound, bound, generator=gen)}
+
+
+def vq_quantize(params, z, beta: float = 0.25):
+    """Nearest-codebook quantization with straight-through gradients:
+    z [N, h, w, C] -> (z_q, loss, indices [N, h, w]). The distance is
+    |z|^2 - 2 z e^T + |e|^2 in f32 (the first code wins a tie); loss = beta
+    mean((sg(z_q) - z)^2) + mean((z_q - sg(z))^2); z_q = z + sg(z_q - z)."""
+    emb = params["embedding"].float()
+    z = z.float()
+    flat = z.reshape(-1, z.shape[-1])
+    d = ((flat**2).sum(dim=1, keepdim=True) - 2.0 * (flat @ emb.T)
+         + (emb**2).sum(dim=1)[None])
+    idx = torch.argmin(d, dim=1)
+    z_q = emb[idx].reshape(z.shape)
+    loss = beta * torch.mean((z_q.detach() - z) ** 2) + torch.mean((z_q - z.detach()) ** 2)
+    z_q = z + (z_q - z).detach()
+    return z_q, loss, idx.reshape(z.shape[:-1])
+
+
+def init_vq_model(gen, cfg: VAEConfig, n_embed: int = 16384, device="cpu"):
+    """Random VQModel params in the JAX package's layout: the autoencoder of
+    ``cfg`` with ``double_z`` off, quant_conv z_channels -> embed_dim,
+    post_quant_conv back, and the codebook ``quantize``."""
+    params = init_vae(gen, dataclasses.replace(cfg, double_z=False), device)
+    params["quant_conv"] = L.init_conv(gen, cfg.z_channels, cfg.embed_dim, 1, device=device)
+    params["post_quant_conv"] = L.init_conv(gen, cfg.embed_dim, cfg.z_channels, 1, device=device)
+    params["quantize"] = init_vq_quantizer(gen, n_embed, cfg.embed_dim, device)
+    return params
+
+
+def vq_encode(cfg: VAEConfig, params, x, quantize: bool = True):
+    """Encoder -> quant_conv (f32), then :func:`vq_quantize` with the
+    params' codebook: (z_q, loss, indices); the pre-quantization latents
+    when ``quantize`` is False."""
+    h = _encoder(cfg, params, x)
+    return vq_quantize(params["quantize"], h) if quantize else h
+
+
+def vq_decode(cfg: VAEConfig, params, z_q):
+    """The decoder on quantized latents (:func:`vae_decode`)."""
+    return vae_decode(cfg, params, z_q)
+
+
+# ---------------------------------------------------------------------------
+# Tiled encode / decode for large canvases
+# ---------------------------------------------------------------------------
+
+
+def _tile_weights(th: int, tw: int, device="cpu") -> torch.Tensor:
+    """The blending window [1, th, tw, 1] f32: the outer product of 0..1..0
+    triangles over the tile, clipped to [0.01, 0.5]."""
+    def ramp(n):
+        x = (np.arange(n) + 0.5) / n
+        return np.minimum(x, 1.0 - x) * 2.0
+
+    w = np.clip(np.outer(ramp(th), ramp(tw)), 0.01, 0.5)
+    return torch.as_tensor(w[None, :, :, None], dtype=torch.float32, device=device)
+
+
+def _tile_starts(n: int, tile: int, stride: int) -> list:
+    return sorted({min(y, max(n - tile, 0)) for y in range(0, n, stride)})
+
+
+def vae_decode_tiled(cfg: VAEConfig, params, z, tile: int = 64, overlap: int = 16):
+    """:func:`vae_decode` of latents [N, h, w, z] on ``tile`` x ``tile``
+    latent tiles every ``tile - overlap`` (the last tile flush with the
+    edge), each decoded on its own and blended by :func:`_tile_weights`
+    (weighted sum over the weights' sum). Latents no larger than a tile are
+    decoded whole. f32 [N, 8h, 8w, 3]."""
+    n, h, w, _ = z.shape
+    if h <= tile and w <= tile:
+        return vae_decode(cfg, params, z)
+    up = 2 ** (len(cfg.ch_mult) - 1)
+    stride = tile - overlap
+    out = torch.zeros((n, h * up, w * up, cfg.out_channels), dtype=torch.float32,
+                      device=z.device)
+    acc = torch.zeros((n, h * up, w * up, 1), dtype=torch.float32, device=z.device)
+    for y0 in _tile_starts(h, tile, stride):
+        for x0 in _tile_starts(w, tile, stride):
+            th, tw = min(tile, h - y0), min(tile, w - x0)
+            dec = vae_decode(cfg, params, z[:, y0:y0 + th, x0:x0 + tw])
+            wgt = _tile_weights(th * up, tw * up, z.device)
+            rows, cols = slice(y0 * up, (y0 + th) * up), slice(x0 * up, (x0 + tw) * up)
+            out[:, rows, cols] += dec * wgt
+            acc[:, rows, cols] += wgt
+    return out / torch.clamp(acc, min=1e-8)
+
+
+def vae_encode_tiled(cfg: VAEConfig, params, x, tile: int = 512, overlap: int = 128):
+    """:func:`vae_encode` on ``tile`` x ``tile`` image tiles every ``tile -
+    overlap``, the posterior means blended as :func:`vae_decode_tiled`
+    blends; returns ``DiagonalGaussian(mean, logvar = -30)`` (blending the
+    tiles' draws would decorrelate their noise). An image no larger than a
+    tile is encoded whole."""
+    n, h, w, _ = x.shape
+    if h <= tile and w <= tile:
+        return vae_encode(cfg, params, x)
+    down = 2 ** (len(cfg.ch_mult) - 1)
+    stride = tile - overlap
+    out = torch.zeros((n, h // down, w // down, cfg.embed_dim), dtype=torch.float32,
+                      device=x.device)
+    acc = torch.zeros((n, h // down, w // down, 1), dtype=torch.float32, device=x.device)
+    for y0 in _tile_starts(h, tile, stride):
+        for x0 in _tile_starts(w, tile, stride):
+            th, tw = min(tile, h - y0), min(tile, w - x0)
+            mean = vae_encode(cfg, params, x[:, y0:y0 + th, x0:x0 + tw]).mean
+            ly, lx, lh, lw = y0 // down, x0 // down, th // down, tw // down
+            wgt = _tile_weights(lh, lw, x.device)
+            out[:, ly:ly + lh, lx:lx + lw] += mean * wgt
+            acc[:, ly:ly + lh, lx:lx + lw] += wgt
+    mean = out / torch.clamp(acc, min=1e-8)
+    return DiagonalGaussian(mean, torch.full_like(mean, -30.0))

@@ -237,7 +237,8 @@ def kernel_cases(dev, kernels=None) -> list:
                                           "geglu_ff_f32_sm90", "group_norm", "conv3x3",
                                           "conv3x3_sm90", "conv3x3_f32_sm90", "attention_cm",
                                           "winograd", "probe_attention", "probe_groupnorm",
-                                          "probe_copy", "sd21"} | set(unet_call_groups()))
+                                          "probe_copy", "sd21", "vae1024"}
+                                         | set(unet_call_groups()))
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -504,6 +505,18 @@ def kernel_cases(dev, kernels=None) -> list:
                   rate="tf32x3")
         for shape, dt in (((4, 768, 768, 128), f32), ((1, 768, 768, 256), bf16)):
             gn_case(shape, dt, 1e-6)
+    if "vae1024" in want:
+        # the untiled bf16 decode of a 1024x1024 canvas (a 128x128 latent:
+        # chip_smoke's phase 19(d), against the tiled one): the mid-block at
+        # S = 16384 and its decoder's GroupNorm planes that the 512x512
+        # decode's cases above do not hold (its 128^2 x 512 and 512^2 x 256
+        # planes are theirs)
+        q, k, v = (randn(1, 16384, 512, dtype=bf16) for _ in range(3))
+        attn_case("bf16 B1 S16384 H1 d512", q, k, v, 1, "bfloat16", "attention_bf16_wide_sm90")
+        held = {(2 * side, c) for side, c in GN_DECODE_PLANES} & set(GN_DECODE_PLANES)
+        for side, c in GN_DECODE_PLANES:
+            if (2 * side, c) not in held:
+                gn_case((1, 2 * side, 2 * side, c), bf16, 1e-6)
     # every distinct K1-K4 shape of the UNet calls of each group of
     # unet_call_groups that no case before it has: K1's sm90 body at each
     # self-attention site K1 takes (views of one qkv projection; where ToDo

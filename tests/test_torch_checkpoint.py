@@ -632,13 +632,23 @@ def _imports(path: pathlib.Path):
 
 
 def test_port_imports_no_jax_safetensors_orbax_and_yaml_only_to_parse():
+    """No module of the port and no line of ``chip_smoke.py`` imports jax,
+    the JAX package, safetensors, orbax, lark, cv2 or skimage (the card's
+    machine has none of them: ``utils/cv.py`` replaces cv2); PyYAML only in
+    ``config.load_yaml_config``; PIL only inside ``utils/image.py``'s three
+    file functions."""
     files = sorted((ROOT / "complex_prompt_diffusion_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 40
+    pil = []
     for path in files:
         for mod, fn in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "safetensors", "orbax", "lark",
-                               "complex_prompt_diffusion_tpu"), (path, mod)
+                               "complex_prompt_diffusion_tpu", "cv2", "skimage"), (path, mod)
             if top == "yaml":
                 assert path.name == "config.py" and fn == "load_yaml_config", (path, fn)
+            if top == "PIL":
+                pil.append((path.relative_to(ROOT).as_posix(), fn))
+    image = "complex_prompt_diffusion_tpu_torch/utils/image.py"
+    assert sorted(pil) == [(image, "load_image"), (image, "load_mask"), (image, "save_image")], pil

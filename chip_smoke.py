@@ -264,12 +264,41 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            reported, not gated); (e) ``boost_depth`` of frame 0 with the
            Sobel estimator (host). Phase 1 holds the untiled 1024x1024
            decode's shapes (kernel_cases' "vae1024" group: K1's wide body at
-           S = 16384, K3 on its decoder planes).
+           S = 16384, K3 on its decoder planes);
+  phase 20 the port's last modules (after phase 19; phase 2's bundle rebuilt
+           from seed 0, bf16 VAE): (a) a random SD-1.5 UNet written as a
+           diffusers state dict (fp16, ``tools/synth_checkpoint.py``) and
+           read by ``params.convert_unet_diffusers``, against the same tree
+           under CompVis keys read by ``convert_unet``: the trees bit-equal
+           and the two txt2img renders (512x512 b1 DDIM 20, bf16 decode)
+           torch.equal; (b) T5 v1.1-large (24 layers, f32, TF32 off, random
+           weights) over [4, 77] tokens, its first row against the CPU port
+           (1e-4), and ``clip_t5_encode`` with SD-1.5's CLIP; (c) ``kl`` and
+           ``nll`` of the bf16 encoder's 512x512 posterior against the CPU on
+           the same moments; (d) two ranks spawned on cuda:0 (gloo, NCCL
+           refuses two ranks on one device; ``file://`` rendezvous): rank 0
+           builds the bundle and ``parallel.replicate`` broadcasts it; TP at
+           model 2 (``shard_bundle``): one bf16 UNet eval against the
+           unsharded one (2e-2), the same eval in f32 with the biases drawn
+           nonzero against the unsharded f32 eval (1e-4), and txt2img
+           512x512 b1 DDIM 10 against the one-rank render (relRMSE 0.1), 48
+           all-reduces a UNet call, each rank's K1-K4 launches as predicted
+           at 4 heads and half the hidden width; DP at data 2: each rank's
+           image of a b2 render, no all-reduce, torch.equal to the one-rank
+           b1 render of its x_T slice, the latents gathered through the
+           host. The ranks report their counts to the parent
+           (``launches_by_path``); a failed rank fails the spawn. Phase 1
+           holds a TP rank's shapes (kernel_cases' "tp2" and "tp4" groups:
+           K1 at B2 H4 and H2, S4096 / 1024 / 256, d40 / 80 / 160; K2 at
+           H4 = 640 / 1280 / 2560 and 320 / 640 / 1280; bf16 and f32).
+
+``python3 chip_smoke.py --ranks 4`` runs only phase 20 (d), on four NCCL
+ranks a card each: TP at model 4 and DP at data 4, with the same checks.
 Phase 1's UNet groups come from ``kernel_cases.unet_call_groups``; a
 full-width UNet call whose K1-K4 shapes none of them holds fails its
 path's launch check (``check_held``).
 
-Each path of phases 2, 4 to 12 and 14 to 19 runs with every launch count set to 0
+Each path of phases 2, 4 to 12 and 14 to 20 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched (phase 12, render by render: K1's sm90 body 15 times, K2
 its plans' kernels for 16 calls, K3 61 calls and K4's sm90 body 22 times a
@@ -738,19 +767,21 @@ def phase1(dev, card: str) -> dict:
                            ("bf16", "b1", GEGLU_B1_ROWS),
                            ("bf16", "2-factor b1", unet_batch_shapes(sd15, 64, 3)["ff"]),
                            ("bf16", "3-factor b1", unet_batch_shapes(sd15, 64, 4)["ff"]),
-                           ("bf16", "3-factor b4", unet_batch_shapes(sd15, 64, 16)["ff"])):
+                           ("bf16", "3-factor b4", unet_batch_shapes(sd15, 64, 16)["ff"]),
+                           ("bf16", "b1 tensor-parallel rank (model 2: half the hidden width)",
+                            unet_batch_shapes(sd15, 64, 2, model=2)["ff"])):
         # the 16 GEGLU FF calls of one CFG step (UNet batch 8 or 2; 3 for a
         # 2-factor prompt, 4 or 16 for a 3-factor one), by level
         sums = [0.0] * 3
-        for (m, c), n in zip(rows, GEGLU_B4_CALLS):
-            row = ff_rows.get(f"{dt} M{m} C{c} H4 {4 * c}")
+        for (m, c, *h4), n in zip(rows, GEGLU_B4_CALLS):
+            row = ff_rows.get(f"{dt} M{m} C{c} H4 {h4[0] if h4 else 4 * c}")
             if row is None:
                 break
             sums = [a + n * b for a, b in zip(sums, row)]
         else:
             print(f"phase1: the {sum(GEGLU_B4_CALLS)} {dt} GEGLU FF calls of a {step} CFG step "
                   f"({'/'.join(map(str, GEGLU_B4_CALLS))} over "
-                  f"{'/'.join(f'M{m}' for m, _ in rows)}): K2 {sums[0]:.4f} ms, plain twin "
+                  f"{'/'.join(f'M{r[0]}' for r in rows)}): K2 {sums[0]:.4f} ms, plain twin "
                   f"{sums[1]:.4f} ms, bound {sums[2]:.4f} ms ({100 * sums[2] / sums[0]:.1f}% of "
                   f"K2's time; {card})")
     for ub, step in ((8, "b4"), (2, "b1"), (1, "b1 unconditional"), (3, "2-factor b1"),
@@ -1378,7 +1409,8 @@ class ModelCalls:
 
 def check_unet_path(launches: dict, unet_cfg, ub: int, calls: int, decodes: int, encodes: int,
                     what: str, batch: int = 1, latent: int = 64,
-                    decode_dtype: str = "bfloat16", encode_batch: int = 1) -> None:
+                    decode_dtype: str = "bfloat16", encode_batch: int = 1,
+                    model: int = 1) -> None:
     """A bf16 path of ``calls`` UNet calls at UNet batch ``ub`` (a ``latent``
     x ``latent`` input), ``decodes`` decodes at ``batch`` and ``encodes``
     encodes at ``encode_batch``: K1's sm90 body, K2, K3 and K4 (its sm90
@@ -1386,11 +1418,12 @@ def check_unet_path(launches: dict, unet_cfg, ub: int, calls: int, decodes: int,
     times the calls (so none ran a plain twin); the VAE mid-block on K1's
     wide body once a bf16 decode and an encode, or on its 3xTF32 body once
     an f32 one (the VAE's ``decode_dtype``); nothing on the other f32
-    bodies, K5 or the probes."""
+    bodies, K5 or the probes. ``model``: a rank's calls under that many
+    tensor-parallel ranks (K1 on its heads, K2 on its hidden shard)."""
     from complex_prompt_diffusion_tpu_torch.ops.attention import f32_sm90_launches
 
-    check_held(unet_cfg, latent, ub, None, what)
-    per = unet_call_launches(unet_cfg, latent, ub)
+    check_held(unet_cfg, latent, ub, None, what, model)
+    per = unet_call_launches(unet_cfg, latent, ub, model=model)
     s = latent * latent  # the VAE mid-block's tokens
     f32_decode = decode_dtype == "float32"
     want_f32 = (decodes * f32_sm90_launches(batch, 1, s, s)
@@ -1832,14 +1865,16 @@ SD21_STEPS = 50  # DDIM steps of phase 13's b4 render
 SD21_K_STEPS = 20  # DPM++ 2M Karras steps of its b1 render
 
 
-def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16", deep_at=None) -> dict:
+def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16", deep_at=None,
+                       model: int = 1) -> dict:
     """What one UNet call of ``cfg`` on a ``latent`` x ``latent`` input at
     UNet batch ``ub`` launches, from its sites (``kernel_cases.unet_sites``,
-    the shallow pass's with ``deep_at``, token reduction as ``cfg`` sets it)
-    and the kernels' own rules: K1's sm90 body once at every self-attention
-    site above ``SHORT_KV`` keys, K2 the kernels of each FF site's plan at
-    its rows, K3 one call a GroupNorm, K4 the convs its gate admits (and of
-    those, the ones on its sm90 body)."""
+    the shallow pass's with ``deep_at``, token reduction as ``cfg`` sets it,
+    a rank's under ``model`` tensor-parallel ranks) and the kernels' own
+    rules: K1's sm90 body once at every self-attention site above
+    ``SHORT_KV`` keys, K2 the kernels of each FF site's plan at its rows
+    (and the rank's hidden width), K3 one call a GroupNorm, K4 the convs its
+    gate admits (and of those, the ones on its sm90 body)."""
     import torch
 
     from complex_prompt_diffusion_tpu_torch.models.layers import conv3x3_wanted
@@ -1848,13 +1883,13 @@ def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16", deep_
     from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_plan
     from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import unet_sites
 
-    sites = unet_sites(cfg, latent, deep_at)
+    sites = unet_sites(cfg, latent, deep_at, model)
     dt = getattr(torch, dtype)
     gated = [(s, c, co) for s, c, co in sites["conv"]
              if conv3x3_wanted(torch.empty((ub, s, s, c), device="meta"), (co, c, 3, 3))]
     return {"k1": sum(1 for _, skv, _, _ in sites["self_attn"] if skv > SHORT_KV),
-            "k2": sum(geglu_plan(ub * rows, ch, 4 * ch, dt).launches
-                      for rows, ch in sites["ff_rows"]),
+            "k2": sum(geglu_plan(ub * rows, ch, h4[0] if h4 else 4 * ch, dt).launches
+                      for rows, ch, *h4 in sites["ff_rows"]),
             "k3": sites["gn"], "k4": len(gated),
             "k4_sm90": sum(1 for _, c, co in gated if k4_body(dt, c, co) == "bf16_sm90")}
 
@@ -2638,7 +2673,7 @@ class UNetCallKinds:
             mod.unet_apply = self._inner
 
 
-def check_held(cfg, latent: int, ub: int, deep_at, what: str) -> None:
+def check_held(cfg, latent: int, ub: int, deep_at, what: str, model: int = 1) -> None:
     """Phase 1 held every K1-K4 shape of this UNet call to its plain twin
     (``kernel_cases.held_unet_shapes``, from ``unet_call_groups``): a
     full-width call (latent >= 64) at a shape no group has fails here. The
@@ -2651,7 +2686,7 @@ def check_held(cfg, latent: int, ub: int, deep_at, what: str) -> None:
 
     if latent < 64:
         return
-    missing = unet_shape_keys(cfg, latent, ub, deep_at) - held_unet_shapes()
+    missing = unet_shape_keys(cfg, latent, ub, deep_at, model) - held_unet_shapes()
     if missing:
         raise SmokeFailure(f"{what}: phase 1 holds no case at its UNet calls' shapes "
                            f"{sorted(missing)} (UNet batch {ub}, latent {latent}): add the call "
@@ -4043,10 +4078,407 @@ def phase19(dev, card: str) -> dict:
     return paths
 
 
+DIFF_STEPS = 20  # DDIM steps of phase 20's diffusers-keyed and CompVis-keyed renders
+RANK_STEPS = 10  # DDIM steps of its tensor- and data-parallel renders
+TP_SD15_ALL_REDUCES = 48  # all-reduces of a tensor-parallel SD-1.5 UNet call: 3 x 16 blocks
+RANK_EVAL_TOL = 2e-2  # one bf16 TP UNet eval against the one-rank eval: max |a - b| / max |b|
+RANK_F32_TOL = 1e-4  # the same eval in f32 (TF32 off, biases drawn nonzero): max |a - b| / max |b|
+RANK_RENDER_TOL = 0.1  # relRMSE of the bf16 TP render's latents against the one-rank ones
+T5_TOL = 1e-4  # the T5 encoder's row on the card against the CPU port (f32, TF32 off)
+KL_TOL = 1e-5  # kl / nll on the card against the CPU on the same moments (relative)
+
+
+def phase20_rank(rank: int, n: int, tmp: str, backend: str) -> None:
+    """One of phase 20's ``n`` ranks (``file://`` rendezvous in ``tmp``):
+    under gloo every rank on cuda:0 (NCCL refuses two ranks on one device),
+    under NCCL a card a rank. Runs :func:`phase20_rank_paths` and writes
+    what it found to ``tmp/rank<r>.json`` for the parent. An error ends the
+    process non-zero, which fails the parent's spawn."""
+    import torch
+    import torch.distributed as dist
+
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=n)
+    try:
+        out = phase20_rank_paths(rank, n, dev)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def with_biases(params, dev, seed: int):
+    """``params`` with every ``bias`` leaf drawn from N(0, 0.02^2) (a
+    generator on ``dev`` seeded with ``seed``, so every rank draws the
+    same): the init's zero biases would hide a bias added on every rank."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch.parallel.mesh import tree_map_with_path
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tree_map_with_path(
+        lambda path, a: (0.02 * torch.randn(a.shape, generator=gen, device=dev)).to(a.dtype)
+        if path[-1] == "bias" else a, params)
+
+
+def phase20_rank_paths(rank: int, n: int, dev) -> dict:
+    """A rank's share of phase 20 (d) on ``n`` ranks: rank 0 builds phase
+    2's SD-1.5 bundle (bf16 VAE) and ``replicate`` broadcasts it; then (TP)
+    ``shard_bundle`` over model n: one bf16 UNet eval against the
+    unsharded eval (RANK_EVAL_TOL), the same eval in f32 with the biases
+    drawn nonzero against the unsharded f32 eval (RANK_F32_TOL: a wrong
+    shard, a bias added on every rank or value and gate columns swapped,
+    moves it by far more), and txt2img 512x512 b1 DDIM RANK_STEPS against
+    the one-rank render of the same weights and x_T, the launches and
+    all-reduces of every UNet call; (DP) data n: the rank's image of a bn
+    txt2img (``shard_batch``), no all-reduce in a UNet call, torch.equal
+    to the one-rank b1 render of its x_T slice (the same shapes and
+    kernels), the gathered latents (``gather_batch``) equal to the gathered
+    one-rank renders; rank 0 times the one-rank bn render."""
+    import numpy as np
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch.guidance import stacked_context
+    from complex_prompt_diffusion_tpu_torch.parallel import (
+        gather_batch,
+        make_mesh,
+        replicate,
+        shard_batch,
+    )
+    from complex_prompt_diffusion_tpu_torch.parallel.tp import shard_bundle
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        ModelBundle,
+        RenderConfig,
+        decode_latents,
+        make_guidance_spec,
+        txt2img,
+    )
+
+    out = {}
+    t0 = time.perf_counter()
+    b = ModelBundle.random("sd15", seed=0, device=dev).cast_vae("bfloat16") if rank == 0 else None
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    b = replicate(make_mesh(), b, device=dev)
+    torch.cuda.synchronize()
+    out["build_s"], out["replicate_s"] = t1 - t0, time.perf_counter() - t1
+    ucfg = b.unet_cfg
+    gen = torch.Generator(device=dev)
+    cfg = RenderConfig(steps=RANK_STEPS, width=512, height=512, batch_size=1,
+                       guidance_scale=7.5, seed=25)
+
+    def render(bundle, cfg, x_T):
+        """txt2img's latents, its launches, its UNet calls' batches and
+        all-reduces."""
+        counts, batches = [], []
+        inner = M.unet_apply
+
+        def counted(c, p, x, *a, **kw):
+            shard = kw.get("shard")
+            before = shard.all_reduces if shard is not None else 0
+            res = inner(c, p, x, *a, **kw)
+            batches.append(int(x.shape[0]))
+            counts.append((shard.all_reduces if shard is not None else 0) - before)
+            return res
+
+        reset_launches()
+        M.unet_apply = counted
+        try:
+            (_, lat), sec = timed(dev, lambda: txt2img(bundle, PROMPT16, cfg=cfg, x_T=x_T,
+                                                       decode=False))
+        finally:
+            M.unet_apply = inner
+        return lat, read_launches(), batches, counts, sec
+
+    # (TP) model n
+    tmesh = make_mesh(model=n)
+    tb = shard_bundle(b, tmesh)
+    x_T = torch.randn((1, 64, 64, 4), generator=gen.manual_seed(25), device=dev)
+    spec = make_guidance_spec(b, PROMPT16)
+    x2 = torch.cat([x_T, x_T])
+    t = torch.full((2,), 981, device=dev)
+    ctx = stacked_context(spec, 1)
+    with torch.inference_mode():
+        tb.shard.all_reduces = 0
+        e_tp = M.unet_apply(ucfg, tb.unet_params, x2, t, ctx, shard=tb.shard)
+        e_one = M.unet_apply(ucfg, b.unet_params, x2, t, ctx)
+        out["eval_all_reduces"] = tb.shard.all_reduces
+        out["eval"] = list(rel_err(e_tp, e_one))
+        del e_tp, e_one
+        b32 = b.cast("float32")
+        b32 = dataclasses.replace(b32, unet_params=with_biases(b32.unet_params, dev, 28))
+        t32 = shard_bundle(b32, tmesh)
+        e_tp = M.unet_apply(b32.unet_cfg, t32.unet_params, x2, t, ctx, shard=t32.shard)
+        e_one = M.unet_apply(b32.unet_cfg, b32.unet_params, x2, t, ctx)
+        out["eval_f32"] = list(rel_err(e_tp, e_one))
+    del b32, t32, e_tp, e_one
+    torch.cuda.empty_cache()
+    lat, launches, batches, counts, sec = render(tb, cfg, x_T)
+    if batches != [2] * RANK_STEPS or counts != [TP_SD15_ALL_REDUCES] * RANK_STEPS:
+        raise SmokeFailure(f"rank {rank}'s TP render: UNet calls at batches {batches} with "
+                           f"all-reduces {counts}; want {RANK_STEPS} at batch 2 with "
+                           f"{TP_SD15_ALL_REDUCES} each")
+    check_unet_path(launches, ucfg, 2, RANK_STEPS, 0, 0, f"rank {rank}'s tensor-parallel render",
+                    model=n)
+    check_latents(lat, (1, 64, 64, 4))
+    ref, _, _, _, ref_sec = render(b, cfg, x_T)
+    out["tp"] = {"launches": launches, "s": sec, "one_rank_s": ref_sec,
+                 "rel_rmse": rel_rmse(lat, ref), "max_abs": float((lat - ref).abs().max()),
+                 "all_reduces": counts[0], "k2_per_call": unet_call_launches(ucfg, 64, 2,
+                                                                            model=n)["k2"]}
+    if (out["eval"][1] > RANK_EVAL_TOL or out["eval_f32"][1] > RANK_F32_TOL
+            or out["tp"]["rel_rmse"] > RANK_RENDER_TOL):
+        raise SmokeFailure(f"rank {rank}'s TP UNet eval (bf16 rel {out['eval'][1]:.3e}, tol "
+                           f"{RANK_EVAL_TOL}; f32 rel {out['eval_f32'][1]:.3e}, tol "
+                           f"{RANK_F32_TOL}) or render (relRMSE {out['tp']['rel_rmse']:.3e}, "
+                           f"tol {RANK_RENDER_TOL}) against one rank")
+    del tb
+    torch.cuda.empty_cache()
+
+    # (DP) data n: the bn render, one image a rank
+    dmesh = make_mesh(data=n)
+    db = shard_bundle(b, dmesh)
+    x_full = torch.randn((n, 64, 64, 4), generator=gen.manual_seed(26), device=dev)
+    x_mine = shard_batch(dmesh, x_full)
+    lat, launches, batches, counts, sec = render(db, cfg, x_mine)
+    if batches != [2] * RANK_STEPS or set(counts) != {0}:
+        raise SmokeFailure(f"rank {rank}'s DP render: UNet calls at batches {batches} with "
+                           f"all-reduces {counts}; want {RANK_STEPS} at batch 2, none")
+    check_unet_path(launches, ucfg, 2, RANK_STEPS, 0, 0, f"rank {rank}'s data-parallel render")
+    t2 = time.perf_counter()
+    lat_all = gather_batch(dmesh, lat)
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t2
+    ref, _, _, _, _ = render(b, cfg, x_mine)
+    ref_all = gather_batch(dmesh, ref)
+    img = decode_latents(b, lat)
+    check_image(img, (1, 512, 512, 3))
+    out["dp"] = {"launches": launches, "s": sec, "gather_s": gather_s,
+                 "equal": bool(torch.equal(lat, ref)),
+                 "gathered_equal": bool(torch.equal(lat_all, ref_all))}
+    if rank == 0:
+        _, _, _, _, out["dp"]["one_rank_bn_s"] = render(
+            b, dataclasses.replace(cfg, batch_size=n), x_full)
+    if not (out["dp"]["equal"] and out["dp"]["gathered_equal"]):
+        raise SmokeFailure(f"rank {rank}'s DP render differs from the one-rank b1 render of its "
+                           f"x_T slice (max |d| {float((lat - ref).abs().max()):.3e}; gathered "
+                           f"equal: {out['dp']['gathered_equal']})")
+    return out
+
+
+def phase20_ranks(n: int, backend: str, card: str) -> dict:
+    """Spawn :func:`phase20_rank` on ``n`` ranks and print what each found;
+    returns the launch counts of each rank's TP and DP renders by path."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="ranks-")
+    t0 = time.perf_counter()
+    try:
+        mp.start_processes(phase20_rank, args=(n, tmp, backend), nprocs=n, join=True,
+                           start_method="spawn")
+        ranks = []
+        for r in range(n):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    where = "cuda:0" if backend == "gloo" else f"{n} cards"
+    for r, res in enumerate(ranks):
+        tp, dp = res["tp"], res["dp"]
+        paths[f"tp{n}_rank{r}_txt2img_b1"] = tp["launches"]
+        paths[f"dp{n}_rank{r}_txt2img_b{n}"] = dp["launches"]
+        print(f"phase20: (d) rank {r} of {n} on {where} ({backend}; SD-1.5 built by rank 0 in "
+              f"{res['build_s']:.2f} s, replicated in {res['replicate_s']:.2f} s): TP model {n}: "
+              f"one UNet eval at UNet batch 2 against one rank: bf16 rel {res['eval'][1]:.3e} "
+              f"(tol {RANK_EVAL_TOL}), f32 with nonzero biases rel {res['eval_f32'][1]:.3e} "
+              f"(max |d| {res['eval_f32'][0]:.3e}, tol {RANK_F32_TOL}), "
+              f"{res['eval_all_reduces']} all-reduces; txt2img 512x512 b1 DDIM {RANK_STEPS} "
+              f"{tp['s'] / RANK_STEPS:.4f} s/step (one rank {tp['one_rank_s'] / RANK_STEPS:.4f}), "
+              f"latents relRMSE {tp['rel_rmse']:.3e} max |d| {tp['max_abs']:.3e} (tol "
+              f"{RANK_RENDER_TOL}), {tp['all_reduces']} all-reduces a UNet call, launches K1 sm90 "
+              f"{tp['launches']['attention_sm90']} ({8 // n} heads a site), K2 "
+              f"{tp['launches']['geglu_ff']} (= {tp['k2_per_call']} x {RANK_STEPS} at 1/{n} of "
+              f"the hidden width), K3 {tp['launches']['group_norm']}, K4 sm90 "
+              f"{tp['launches']['conv3x3_sm90']} (as predicted) ({card})", flush=True)
+        one = (f" (one rank, the whole b{n}: {dp['one_rank_bn_s'] / RANK_STEPS:.4f})"
+               if "one_rank_bn_s" in dp else "")
+        print(f"phase20: (d) rank {r}: DP data {n}: its image of a b{n} txt2img DDIM "
+              f"{RANK_STEPS} {dp['s'] / RANK_STEPS:.4f} s/step{one}, no all-reduce; torch.equal "
+              f"to the one-rank b1 render of its x_T slice, and the latents gathered "
+              f"({'via the host ' if backend == 'gloo' else ''}in "
+              f"{1000 * dp['gather_s']:.2f} ms) to the gathered one-rank renders ({card})",
+              flush=True)
+    print(f"phase20: (d) the {n} ranks took {wall:.1f} s wall (spawn included) ({card})",
+          flush=True)
+    return paths
+
+
+def phase20(dev, card: str) -> dict:
+    """The port's last modules at SD-1.5 full width (after phase 19): (a) a
+    random SD-1.5 UNet written as a diffusers state dict (fp16,
+    ``synth_checkpoint``), read by ``convert_unet_diffusers``, against the
+    same tree written under CompVis keys and read by ``convert_unet``: the
+    trees bit-equal, and txt2img 512x512 b1 DDIM DIFF_STEPS (bf16 VAE
+    decode) torch.equal between the two routes, K1-K4 launches as
+    predicted; (b) ``T5Config.v1_1_large`` (random weights, f32) over [4,
+    77] tokens, one row against the CPU port, and ``clip_t5_encode`` with
+    SD-1.5's CLIP; (c) ``kl`` / ``nll`` of the bf16 encoder's posterior of
+    (a)'s image against the CPU on the same moments; (d) two ranks on
+    cuda:0 (:func:`phase20_rank`), tensor-parallel at model 2 and
+    data-parallel at data 2. Returns the launch counts by path, the ranks'
+    too."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import convert
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch.models import embedders as E
+    from complex_prompt_diffusion_tpu_torch.models import params as PR
+    from complex_prompt_diffusion_tpu_torch.pipeline import (
+        ModelBundle,
+        RenderConfig,
+        _tree_map,
+        _unzero_kernels,
+        decode_latents,
+        txt2img,
+    )
+    from complex_prompt_diffusion_tpu_torch.tools import synth_checkpoint as SC
+    from complex_prompt_diffusion_tpu_torch.train.optimizers import tree_leaves
+
+    paths = {}
+    t_phase = time.perf_counter()
+    base = ModelBundle.random("sd15", seed=0, device=dev).cast_vae("bfloat16")
+    ucfg = base.unet_cfg
+
+    # (a) the diffusers layout against the CompVis one
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    tree = _unzero_kernels(gen, M.init_unet(gen, ucfg, dev))
+    routes = {}
+    for route, write, read in (
+            ("diffusers", SC.diffusers_unet_state_dict, PR.convert_unet_diffusers),
+            ("CompVis", SC.compvis_unet_state_dict,
+             lambda c, sd: PR.convert_unet(c, sd, prefix="model.diffusion_model."))):
+        sd = {k: v.numpy() for k, v in write(ucfg, tree, dtype=torch.float16).items()}
+        routes[route] = (len(sd), convert.unet_params(read(ucfg, sd), dev, torch.bfloat16))
+        del sd
+    del tree
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    bad = tree_mismatches(routes["diffusers"][1], routes["CompVis"][1])
+    if bad:
+        raise SmokeFailure(f"phase20 (a): the diffusers route's UNet tree differs from the "
+                           f"CompVis route's at {bad[:5]} ({len(bad)} leaves)")
+    cfg = RenderConfig(steps=DIFF_STEPS, width=512, height=512, batch_size=1,
+                       guidance_scale=7.5, seed=23)
+    lats = {}
+    for route, (n_keys, params) in routes.items():
+        bundle = dataclasses.replace(base, unet_params=params)
+        reset_launches()
+        with ModelCalls("unet_apply") as calls:
+            (_, lat), sec = timed(dev, lambda: txt2img(bundle, PROMPT16, cfg=cfg, decode=False))
+        images = decode_latents(bundle, lat)
+        launches = read_launches()
+        if calls.batches != [2] * DIFF_STEPS:
+            raise SmokeFailure(f"phase20 (a) {route}: UNet calls at batches {calls.batches}")
+        check_unet_path(launches, ucfg, 2, DIFF_STEPS, 1, 0, f"phase 20's {route}-keyed render")
+        check_image(images, (1, 512, 512, 3))
+        lats[route] = lat
+        paths[f"{route.lower()}_keyed_txt2img_b1"] = launches
+        print(f"phase20: (a) {route}-keyed SD-1.5 UNet ({n_keys} fp16 tensors) -> bundle, "
+              f"txt2img 512x512 b1 DDIM {DIFF_STEPS} + bf16 decode on {card}: "
+              f"{sec / DIFF_STEPS:.4f} s/step; launches K1 sm90 {launches['attention_sm90']}, K2 "
+              f"{launches['geglu_ff']}, K3 {launches['group_norm']}, K4 sm90 "
+              f"{launches['conv3x3_sm90']} (as predicted)", flush=True)
+        if route == "diffusers":
+            image = images[0]
+    if not torch.equal(lats["diffusers"], lats["CompVis"]):
+        raise SmokeFailure("phase20 (a): the diffusers-keyed render's latents differ from the "
+                           "CompVis-keyed render's")
+    print(f"phase20: (a) both trees bit-equal (written and converted in {convert_s:.2f} s) and "
+          f"the two renders' latents torch.equal ({card})", flush=True)
+    del routes, lats
+
+    # (b) T5 v1.1-large and the CLIP + T5 pair
+    t5cfg = E.T5Config.v1_1_large()
+    gen.manual_seed(24)
+    t5 = E.init_t5_encoder(gen, t5cfg, dev)
+    tokens = torch.randint(0, t5cfg.vocab_size, (4, 77), generator=gen, device=dev)
+    reset_launches()
+    with torch.inference_mode():
+        enc, first_s = timed(dev, lambda: E.t5_encode(t5cfg, t5, tokens))
+        enc, sec = timed(dev, lambda: E.t5_encode(t5cfg, t5, tokens))
+        clip_tokens = torch.as_tensor(base.tokenizer([PROMPT16, "a red cube", "", "a cat"]),
+                                      device=dev)
+        pair = E.clip_t5_encode(
+            lambda t: M.clip_text_apply(base.clip_cfg, base.clip_params, t),
+            lambda t: E.t5_encode(t5cfg, t5, t), clip_tokens, tokens)
+    launches = read_launches()
+    if any(launches.values()):  # plain PyTorch, as the JAX package's einsums
+        raise SmokeFailure(f"phase20 (b): the T5 and CLIP encoders launched port kernels: "
+                           f"{launches}")
+    cpu_row = E.t5_encode(t5cfg, _tree_map(lambda a: a.cpu(), t5), tokens[:1].cpu())
+    abs_err, rel = rel_err(enc[:1].cpu(), cpu_row)
+    shapes = [tuple(p.shape) for p in pair]
+    if (rel > T5_TOL or shapes != [(4, 77, 768), (4, 77, 1024)]
+            or not all(bool(torch.isfinite(p).all()) for p in pair)
+            or not torch.equal(pair[1], enc)):
+        raise SmokeFailure(f"phase20 (b): T5 row against the CPU rel {rel:.3e} (tol {T5_TOL}); "
+                           f"clip_t5_encode shapes {shapes}")
+    n_params = sum(a.numel() for a in tree_leaves(t5))
+    print(f"phase20: (b) T5 v1.1-large ({t5cfg.num_layers} layers, d_model {t5cfg.d_model}, "
+          f"{t5cfg.num_heads} heads, d_ff {t5cfg.d_ff}, {n_params / 1e6:.1f}M params, f32, TF32 "
+          f"off, random weights) over [4, 77] tokens on {card}: {1000 * sec:.2f} ms (first call "
+          f"{1000 * first_s:.2f} ms); row 0 against the CPU port max |d| {abs_err:.3e} (rel "
+          f"{rel:.3e}, tol {T5_TOL}); clip_t5_encode with SD-1.5's CLIP: {shapes}", flush=True)
+    del t5, enc, pair
+
+    # (c) the posterior's kl and nll at 512^2
+    x = torch.as_tensor(image, device=dev)[None].float() / 127.5 - 1.0
+    reset_launches()
+    with torch.inference_mode():
+        post = M.vae_encode(base.vae_cfg, base.vae_params, x)
+        sample = post.sample(torch.Generator(device=dev).manual_seed(27))
+        kl, nll = post.kl(), post.nll(sample)
+    launches = read_launches()
+    check_vae_path(launches, "phase 20's encode", 0, 1, 4096)
+    paths["kl_nll_encode_b1"] = launches
+    cpu = M.DiagonalGaussian(post.mean.cpu(), post.logvar.cpu())
+    kl_rel = abs(float(kl[0]) - float(cpu.kl()[0])) / abs(float(cpu.kl()[0]))
+    nll_rel = abs(float(nll[0]) - float(cpu.nll(sample.cpu())[0])) / abs(
+        float(cpu.nll(sample.cpu())[0]))
+    if tuple(kl.shape) != (1,) or tuple(nll.shape) != (1,) or max(kl_rel, nll_rel) > KL_TOL:
+        raise SmokeFailure(f"phase20 (c): kl {tuple(kl.shape)} rel {kl_rel:.3e}, nll "
+                           f"{tuple(nll.shape)} rel {nll_rel:.3e} (tol {KL_TOL})")
+    print(f"phase20: (c) DiagonalGaussian.kl / .nll of the bf16 encoder's 512x512 posterior "
+          f"(64x64x4) on {card}: kl {float(kl[0]):.6g}, nll {float(nll[0]):.6g}; against the "
+          f"CPU on the same moments rel {kl_rel:.3e} / {nll_rel:.3e} (tol {KL_TOL})", flush=True)
+    del base, post
+    torch.cuda.empty_cache()
+
+    # (d) two ranks on cuda:0
+    paths.update(phase20_ranks(2, "gloo", card))
+    print(f"phase20: {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
                     help="DDIM steps of the renders (phases 2, 4, 6 and 11)")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run only phase 20 (d), on this many NCCL ranks, a card each")
     args = ap.parse_args(argv)
 
     if not (ROOT / PKG / "csrc").is_dir():
@@ -4067,6 +4499,12 @@ def main(argv=None) -> int:
     print(f"phase0: kernels built (nvcc, unless this checkout had built them) and "
           f"loaded in {time.perf_counter() - t0:.2f} s ({card})", flush=True)
 
+    if args.ranks:
+        if args.ranks > torch.cuda.device_count():
+            raise SmokeFailure(f"--ranks {args.ranks}: {torch.cuda.device_count()} cards")
+        phase20_ranks(args.ranks, "nccl", card)
+        print(card)
+        return 0
     phase0_sass(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4098,6 +4536,7 @@ def main(argv=None) -> int:
     paths.update(phase17(dev, card, images[0]))
     paths.update(phase18(dev, card))
     paths.update(phase19(dev, card))
+    paths.update(phase20(dev, card))
 
     kernels = []
     # "attention" and "conv3x3" count every body of K1 and K4: their own

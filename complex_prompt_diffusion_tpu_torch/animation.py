@@ -325,6 +325,7 @@ def render_animation(
     keys: Optional[KeyFrames] = None,
     coherance: float = 0.98,
     diversity: float = 0.0,
+    seed: int = 0,
     warp_3d: bool = False,
     frame_callback: Optional[Callable] = None,
     generator: Optional[torch.Generator] = None,
@@ -350,8 +351,9 @@ def render_animation(
     ``sample_latents(x_init=x_t, t_start=t_start)``. Every frame is decoded
     (``decode_latents``).
 
-    Draws come from ``generator`` (default: seeded from ``cfg.seed``) on the
-    bundle's device unless injected: ``x_T``, and one entry a frame after
+    Draws come from ``generator`` (default: seeded from ``seed``, as the JAX
+    package's ``PRNGKey(seed)``; ``cfg.seed`` is not read) on the bundle's
+    device unless injected: ``x_T``, and one entry a frame after
     the first in ``pixel_noises`` ([H, W, 3]), ``encode_noises``,
     ``diversity_noises`` and ``latent_noises`` (latent-shaped). The
     diversity noise is drawn from a copy of the generator's state before
@@ -371,7 +373,7 @@ def render_animation(
     dev = bundle.device
     warp_dev = torch.device(device) if device is not None else dev
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(cfg.seed)
+        generator = torch.Generator(device=dev).manual_seed(seed)
     frames: List[np.ndarray] = []
     init_frame = prev = None
     clock = _Clock(warp_dev if timings is not None else None)

@@ -17,7 +17,8 @@ function. A Python float leaf (a hypernetwork's ``multiplier``) becomes an
 f32 scalar tensor, as JAX puts it on the device; a ``dtype`` casts it with
 the rest, as the JAX bundle's ``cast`` does. The CLIP vision tower's bare
 ``patch_embedding`` kernel (HWIO) becomes ``[D, 3, p, p]``
-(:func:`clip_vision_params`). :func:`tables_from` carries a bundle's diffusion tables across.
+(:func:`clip_vision_params`). :func:`embedder_params` carries the T5 and
+transformer text encoders' trees. :func:`tables_from` carries a bundle's diffusion tables across.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 __all__ = ["to_port", "unet_params", "vae_params", "clip_params", "clip_vision_params",
-           "config_from", "tables_from"]
+           "embedder_params", "config_from", "tables_from"]
 
 
 def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -93,6 +94,14 @@ def clip_vision_params(tree, device="cpu", dtype: Optional[torch.dtype] = None):
     w = _leaf(tree["patch_embedding"], device, dtype)
     out["patch_embedding"] = w.permute(3, 2, 0, 1).contiguous()
     return out
+
+
+def embedder_params(tree, device="cpu", dtype: Optional[torch.dtype] = None):
+    """A T5 encoder's or a transformer text encoder's tree
+    (``models/embedders.py``): the same layout in both packages (linears
+    ``[in, out]``, norms, the GRU gates' ``[3d, d]`` weights), every leaf
+    a tensor on ``device``."""
+    return to_port(tree, device, dtype)
 
 
 def config_from(cls, cfg, **overrides):

@@ -16,6 +16,7 @@ from complex_prompt_diffusion_tpu_torch.guidance.cfg import (
     sigma_to_t_cont,
     stacked_context,
 )
+from complex_prompt_diffusion_tpu_torch.guidance.threshold import THRESHOLDERS, get_thresholder
 
 __all__ = [
     "GuidanceConfig",
@@ -29,4 +30,6 @@ __all__ = [
     "stacked_context",
     "sigma_to_t_cont",
     "make_denoiser",
+    "THRESHOLDERS",
+    "get_thresholder",
 ]

@@ -182,7 +182,8 @@ class DiffusionModelManager:
                                          stacked_context(spec, z0.shape[0]))
 
         def unet_eps(x, t, ctx):
-            return M.unet_apply(b.unet_cfg, b.unet_params, x, t, ctx, cross_kv=cross_kv)
+            return M.unet_apply(b.unet_cfg, b.unet_params, x, t, ctx, cross_kv=cross_kv,
+                                shard=b.shard)
 
         eps_fn, _ = make_denoiser(unet_eps, spec, gcfg=cfg.guidance)
         if generator is None:

@@ -22,8 +22,11 @@ offsets, then the raw bytes), so no safetensors package is needed.
 AUTOMATIC1111-style hypernetwork modules to the cross-attention sites of a
 UNet tree (the JAX package's numpy tree or the port's tensor tree).
 ``make_it_fit`` and ``zero_extend_input_conv`` are the weight surgery of
-the concat models' finetune seeding, on raw state dicts. Not ported yet:
-the diffusers UNet layout.
+the concat models' finetune seeding, on raw state dicts.
+``convert_unet_diffusers`` reads a diffusers ``UNet2DConditionModel``
+state dict: :func:`diffusers_to_compvis_unet` relabels its keys to the
+CompVis layout, then :func:`convert_unet` maps them, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import mmap
+import re
 import struct
 from typing import Any, Dict, Mapping
 
@@ -44,6 +48,8 @@ __all__ = [
     "read_safetensors",
     "load_state_dict",
     "convert_unet",
+    "diffusers_to_compvis_unet",
+    "convert_unet_diffusers",
     "convert_vae",
     "convert_clip_hf",
     "convert_clip_openclip",
@@ -240,6 +246,106 @@ def convert_unet(
     if cfg.num_classes and f"{prefix}label_emb.weight" in sd:
         params["label_emb"] = {"embedding": sd[f"{prefix}label_emb.weight"]}
     return params
+
+
+# --------------------------------------------------------------------------
+# Diffusers UNet layout (UNet2DConditionModel): relabelled key by key to the
+# CompVis layout, then through convert_unet
+# --------------------------------------------------------------------------
+
+_DIFFUSERS_RES_MAP = {
+    "norm1": "in_layers.0",
+    "conv1": "in_layers.2",
+    "time_emb_proj": "emb_layers.1",
+    "norm2": "out_layers.0",
+    "conv2": "out_layers.3",
+    "conv_shortcut": "skip_connection",
+}
+
+
+def diffusers_to_compvis_unet(sd: StateDict, prefix: str = "") -> Dict[str, Array]:
+    """A diffusers ``UNet2DConditionModel`` state dict under CompVis
+    ``model.diffusion_model``-style keys (without that prefix); entries
+    under ``prefix`` only, when given. The values are passed through as
+    they are.
+
+    Blocks: input_blocks[0] is conv_in; down level i gives R resnets (and
+    attentions) at 1 + i (R + 1) + j and its downsampler at 1 + i (R + 1) +
+    R; an up level has R + 1 resnets, its upsampler an extra sublayer of
+    the level's last block (after the attention where the level has one).
+    Keys of no parameter the map knows (time_proj buffers) are dropped; a
+    dict with no ``down_blocks.*`` raises ValueError."""
+    if prefix:
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    r = -1  # layers_per_block, and the up levels with attention
+    up_attn_levels = set()
+    for k in sd:
+        m = re.match(r"down_blocks\.(\d+)\.resnets\.(\d+)\.", k)
+        if m:
+            r = max(r, int(m.group(2)) + 1)
+        m = re.match(r"up_blocks\.(\d+)\.attentions\.", k)
+        if m:
+            up_attn_levels.add(int(m.group(1)))
+    if r <= 0:
+        raise ValueError("not a diffusers UNet state_dict (no down_blocks.*)")
+
+    def res_key(base, rest):
+        head, _, tail = rest.partition(".")
+        return f"{base}.{_DIFFUSERS_RES_MAP[head]}.{tail}"
+
+    simple = {"conv_in.": "input_blocks.0.0", "time_embedding.linear_1.": "time_embed.0",
+              "time_embedding.linear_2.": "time_embed.2", "class_embedding.": "label_emb",
+              "conv_norm_out.": "out.0", "conv_out.": "out.2"}
+    out: Dict[str, Array] = {}
+    for k, v in sd.items():
+        parts = k.split(".")
+        head = next((h for h in simple if k.startswith(h)), None)
+        if head is not None:
+            nk = f"{simple[head]}.{parts[-1]}"
+        elif parts[0] in ("down_blocks", "up_blocks"):
+            i, kind, j = int(parts[1]), parts[2], int(parts[3])
+            rest = ".".join(parts[4:])
+            if parts[0] == "down_blocks":
+                block = f"input_blocks.{1 + i * (r + 1) + j}"
+                if kind == "resnets":
+                    nk = res_key(f"{block}.0", rest)
+                elif kind == "attentions":
+                    nk = f"{block}.1.{rest}"
+                elif kind == "downsamplers":
+                    nk = f"input_blocks.{1 + i * (r + 1) + r}.0.op.{parts[-1]}"
+                else:
+                    raise ValueError(f"unknown down_blocks entry {k!r}")
+            else:
+                block = f"output_blocks.{i * (r + 1) + j}"
+                if kind == "resnets":
+                    nk = res_key(f"{block}.0", rest)
+                elif kind == "attentions":
+                    nk = f"{block}.1.{rest}"
+                elif kind == "upsamplers":
+                    sub = 2 if i in up_attn_levels else 1
+                    nk = f"output_blocks.{i * (r + 1) + r}.{sub}.conv.{parts[-1]}"
+                else:
+                    raise ValueError(f"unknown up_blocks entry {k!r}")
+        elif parts[0] == "mid_block":
+            kind, j = parts[1], int(parts[2])
+            rest = ".".join(parts[3:])
+            if kind == "resnets":
+                nk = res_key(f"middle_block.{0 if j == 0 else 2}", rest)
+            elif kind == "attentions":
+                nk = f"middle_block.1.{rest}"
+            else:
+                raise ValueError(f"unknown mid_block entry {k!r}")
+        else:
+            continue  # no parameter (time_proj buffers and the like)
+        out[nk] = v
+    return out
+
+
+def convert_unet_diffusers(cfg: UNetConfig, sd: StateDict, prefix: str = "") -> Dict[str, Any]:
+    """A diffusers-layout UNet state dict as the UNet tree of ``cfg``'s
+    plan (:func:`diffusers_to_compvis_unet`, then :func:`convert_unet`)."""
+    return convert_unet(cfg, diffusers_to_compvis_unet(sd, prefix), prefix="")
 
 
 # --------------------------------------------------------------------------

@@ -9,8 +9,12 @@ reproduces that tile's output), and the folded sum is divided by the folded
 weights. Where the JAX package scans over the padded chunks, this is a loop
 with the same order of additions; padding tiles fold with weight 0.
 
-The multi-device form (``tiled_apply_sharded``, ``make_tiled_unet(mesh=)``)
-belongs to the port's multi-card work and raises NotImplementedError.
+The multi-rank form (``tiled_apply_sharded``, ``make_tiled_unet(mesh=)``)
+shards the tiles over a mesh axis of ``torch.distributed`` ranks: each rank
+folds its contiguous share of the padded tile list into its own canvas
+sums, and one all-reduce of the sums over the axis gives every rank the
+whole canvas (the JAX package's ``shard_map`` + ``psum``). No halo exchange:
+the taper and the normalisation handle the seams.
 """
 
 from __future__ import annotations
@@ -18,13 +22,10 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["tile_positions", "tile_window", "tiled_apply", "tiled_apply_sharded",
            "make_tiled_unet"]
-
-_NOT_YET = ("the multi-card tiled path (tiles sharded over a mesh) is not ported yet: it "
-            "belongs to the multi-card queue of the port")
-
 
 def tile_positions(size: int, tile: int, stride: int) -> Tuple[int, ...]:
     """Start offsets covering ``size`` with ``tile``-long windows every
@@ -91,19 +92,45 @@ def _fold_tiles(apply_fn, x, pos, valid, tile, win, chunk):
 
 
 def tiled_apply_sharded(apply_fn: Callable, x: torch.Tensor, tile: int,
-                        stride: Optional[int] = None, *, mesh=None, axis: str = "data",
-                        chunk: int = 1):
-    """The multi-card form: not ported yet."""
-    raise NotImplementedError(_NOT_YET)
+                        stride: Optional[int] = None, *, mesh, axis: str = "data",
+                        chunk: int = 1) -> torch.Tensor:
+    """:func:`tiled_apply` with the tiles sharded over the ``axis`` of
+    ``mesh`` (a ``torch.distributed`` ``DeviceMesh``; every rank of the axis
+    calls with the same ``x``): the tile list padded with weight-0 copies
+    to a multiple of ranks x ``chunk``, rank r folds the r-th contiguous
+    share, and the canvas sums are all-reduced over the axis (two all-reduces
+    a call: the weighted outputs and the weights). Equal to
+    :func:`tiled_apply` up to the order of the fold's additions."""
+    b, h, w, _ = x.shape
+    stride = stride or max(tile // 2, 1)
+    if tile >= h and tile >= w:
+        return apply_fn(x)
+    n_shards = int(mesh.size(mesh.mesh_dim_names.index(axis)))
+    rank = int(mesh.get_local_rank(axis))
+    ys = tile_positions(h, tile, stride)
+    xs = tile_positions(w, tile, stride)
+    pos = [(y0, x0) for y0 in ys for x0 in xs]
+    win = tile_window(tile, tile - stride, x.device)
+    n_live = len(pos)
+    while len(pos) % (n_shards * chunk):
+        pos.append(pos[-1])
+    valid = [1.0] * n_live + [0.0] * (len(pos) - n_live)
+    share = len(pos) // n_shards
+    lo = rank * share
+    acc, wsum = _fold_tiles(apply_fn, x, pos[lo:lo + share], valid[lo:lo + share], tile, win,
+                            chunk)
+    group = mesh.get_group(axis)
+    dist.all_reduce(acc, group=group)
+    dist.all_reduce(wsum, group=group)
+    return (acc / wsum).to(x.dtype)
 
 
 def make_tiled_unet(unet_apply_fn: Callable, tile: int, stride: Optional[int] = None,
                     chunk: int = 1, *, mesh=None, axis: str = "data"):
     """A (x, t, ctx) -> eps UNet call wrapped with spatial tiling: t and
     ctx repeated for the tiles of a chunk (tile-major, as the tiles are
-    stacked). ``mesh`` (the multi-card form) raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(_NOT_YET)
+    stacked). With ``mesh`` the tiles shard over its ``axis``
+    (:func:`tiled_apply_sharded`)."""
 
     def tiled(x, t, ctx):
         b = x.shape[0]
@@ -114,6 +141,8 @@ def make_tiled_unet(unet_apply_fn: Callable, tile: int, stride: Optional[int] = 
             ctx_r = ctx.repeat((reps,) + (1,) * (ctx.ndim - 1)) if ctx is not None else None
             return unet_apply_fn(xt, t_r, ctx_r)
 
+        if mesh is not None:
+            return tiled_apply_sharded(fn, x, tile, stride, mesh=mesh, axis=axis, chunk=chunk)
         return tiled_apply(fn, x, tile, stride, chunk=chunk)
 
     return tiled

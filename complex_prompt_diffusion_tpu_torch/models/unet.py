@@ -23,6 +23,21 @@ Hypernetworks (``models/params.attach_hypernetwork``: "hyper_k" /
 or v projection, in the step and in :func:`precompute_cross_kv` alike, so
 the hoisted k/v equal the in-step projections.
 
+Tensor parallelism (``unet_apply(..., shard=)``, a ``ops.sharding.ShardCtx``
+with the weights ``parallel.tp.shard_bundle`` split): an attention site
+whose heads divide by the model size runs K1 on the rank's heads (its
+q/k/v column shards, the hoisted k/v too) and its ``to_out`` row shard,
+then one all-reduce over the model group with the bias added once; a GEGLU
+FF whose hidden width divides runs K2 on the rank's hidden shard (value and
+gate columns in matching pairs) and one all-reduce with ``b2`` added once.
+Each split site's input passes ``ShardCtx.enter`` (its gradient summed over
+the model group) and its output ``ShardCtx.all_reduce``: Megatron's pair.
+Sites that do not divide keep their weights whole and run every head. The
+convs and GroupNorms stay replicated, unless ``conv_split`` (probe mode)
+splits the convs' input channels (one all-reduce a conv, bias once). Under
+a shard context the self-attention sites take the "bsc" route, as the JAX
+package's ``ShardCtx`` replaces ``use_pallas="cm"``.
+
 The up-path skip concat is a plain ``torch.cat``: the JAX package's split
 GroupNorm+conv over a virtual concat is gated to its TPU matmul-stats GN
 regime.
@@ -312,7 +327,21 @@ def init_unet(gen, cfg: UNetConfig, device="cpu"):
 # --------------------------------------------------------------------------
 
 
-def _apply_res(p, cfg: UNetConfig, h, emb, mode: str):
+def _conv(p, x, shard=None, stride: int = 1):
+    """``layers.conv2d``, or under ``shard.conv_split`` with a weight that
+    holds a Cin shard (narrower than x): the conv of this rank's channels of
+    x, summed over the model group with the bias once."""
+    w = p["weight"]
+    if shard is None or not shard.conv_split or w.shape[1] == x.shape[-1]:
+        return L.conv2d(p, x, stride=stride)
+    cin = w.shape[1]
+    r = shard.axis_rank(shard.model_axis)
+    part = L.conv2d({"weight": w, "bias": torch.zeros_like(p["bias"])},
+                    shard.enter(x)[..., r * cin:(r + 1) * cin], stride=stride)
+    return shard.all_reduce(part, bias=p["bias"])
+
+
+def _apply_res(p, cfg: UNetConfig, h, emb, mode: str, shard=None):
     x = h
     hh = L.group_norm_silu_p(p["in_norm"], h)
     if mode == "up":
@@ -321,7 +350,7 @@ def _apply_res(p, cfg: UNetConfig, h, emb, mode: str):
     elif mode == "down":
         hh = L.avg_pool2x(hh)
         x = L.avg_pool2x(x)
-    hh = L.conv2d(p["in_conv"], hh)
+    hh = _conv(p["in_conv"], hh, shard)
     emb_out = L.linear(p["emb"], L.silu(emb))[:, None, None, :]
     if cfg.use_scale_shift_norm:
         scale, shift = emb_out.chunk(2, dim=-1)
@@ -330,9 +359,9 @@ def _apply_res(p, cfg: UNetConfig, h, emb, mode: str):
     else:
         hh = hh + emb_out
         hh = L.group_norm_silu_p(p["out_norm"], hh)
-    hh = L.conv2d(p["out_conv"], hh)
+    hh = _conv(p["out_conv"], hh, shard)
     if "skip" in p:
-        x = L.conv2d(p["skip"], x)
+        x = _conv(p["skip"], x, shard)
     return x + hh
 
 
@@ -392,7 +421,7 @@ def deepcache_default_block(cfg: UNetConfig) -> int:
 
 
 def make_deepcache_unets(cfg: UNetConfig, params, block, *, cross_kv=None,
-                         batch_chunk: int = -1):
+                         batch_chunk: int = -1, shard=None):
     """The DeepCache pair of UNet calls (the JAX package's, one source for
     both sampler families):
 
@@ -406,7 +435,8 @@ def make_deepcache_unets(cfg: UNetConfig, params, block, *, cross_kv=None,
     shallow pass picks its sites). ``batch_chunk`` > 0 splits a wider batch
     into calls of at most that many (x, t, ctx, cross_kv and the deep
     feature sliced alike); <= 0 is one wide call. The output is the raw model output: a v-model's
-    conversion stays with the caller."""
+    conversion stays with the caller. ``shard``: the tensor-parallel
+    context of sharded ``params`` (:func:`unet_apply`)."""
     n_out = len(build_plan(cfg)[2])
     j0 = deepcache_default_block(cfg) if block is None else int(block)
     if not 0 <= j0 < n_out:
@@ -424,21 +454,22 @@ def make_deepcache_unets(cfg: UNetConfig, params, block, *, cross_kv=None,
             outs, deeps = [], []
             for sl in _slices(b):
                 o, d = unet_apply(cfg, params, x[sl], t[sl], ctx[sl], cross_kv=_kv_slice(sl),
-                                  return_deep_at=j0)
+                                  return_deep_at=j0, shard=shard)
                 outs.append(o)
                 deeps.append(d)
             return torch.cat(outs, dim=0), torch.cat(deeps, dim=0)
-        return unet_apply(cfg, params, x, t, ctx, cross_kv=cross_kv, return_deep_at=j0)
+        return unet_apply(cfg, params, x, t, ctx, cross_kv=cross_kv, return_deep_at=j0,
+                          shard=shard)
 
     def unet_shallow(x, t, ctx, deep):
         b = x.shape[0]
         if batch_chunk > 0 and b > batch_chunk:
             return torch.cat([
                 unet_apply(cfg, params, x[sl], t[sl], ctx[sl], cross_kv=_kv_slice(sl),
-                           deep_feature=deep[sl], deep_at=j0)
+                           deep_feature=deep[sl], deep_at=j0, shard=shard)
                 for sl in _slices(b)], dim=0)
         return unet_apply(cfg, params, x, t, ctx, cross_kv=cross_kv, deep_feature=deep,
-                          deep_at=j0)
+                          deep_at=j0, shard=shard)
 
     return unet_full, unet_shallow
 
@@ -466,7 +497,18 @@ def _shallow_cross_kv(cfg: UNetConfig, cross_kv, deep_at: int):
 
 
 def _cross_attention(p, x, context, heads: int, kv=None, attn_route: str = "bsc",
-                     collector=None, self_kv=None):
+                     collector=None, self_kv=None, shard=None):
+    tp = shard is not None and shard.splits_heads(heads)
+    if tp:
+        # this rank's heads: its q/k/v column shards and to_out row shard
+        heads //= shard.model_size
+        x, context, self_kv = (None if a is None else shard.enter(a)
+                               for a in (x, context, self_kv))
+        if collector is not None:
+            raise ValueError("collect_attn_maps needs every head's probabilities: a "
+                             "tensor-parallel UNet holds a share of them")
+    if shard is not None:
+        attn_route = "bsc"  # the JAX ShardCtx replaces use_pallas="cm"
     if kv is not None and context is not None:
         q = L.linear(p["to_q"], x)
         k, v = kv
@@ -512,7 +554,23 @@ def _cross_attention(p, x, context, heads: int, kv=None, attn_route: str = "bsc"
         out = torch.matmul(probs.to(vh.dtype), vh).transpose(1, 2).reshape(b, sq, inner)
     else:
         out = mha(q, k, v, heads)
+    if tp:  # row-parallel: the local product, one all-reduce, the bias once
+        return shard.all_reduce(torch.matmul(out, p["to_out"]["kernel"].to(out.dtype)),
+                                bias=p["to_out"]["bias"])
     return L.linear(p["to_out"], out)
+
+
+def _ff(ff, y, shard=None):
+    """The GEGLU FF through K2; with a shard context whose model size
+    divides the hidden width (4 C), K2 on this rank's hidden shard (its
+    value and gate columns, the matching rows of ``out``), then one
+    all-reduce with ``b2`` added once."""
+    w1, b1, w2, b2 = (ff["proj"]["kernel"], ff["proj"]["bias"], ff["out"]["kernel"],
+                      ff["out"]["bias"])
+    if shard is None or not shard.splits_hidden(4 * y.shape[-1]):
+        return geglu_ff(y, w1, b1, w2, b2)
+    return shard.all_reduce(geglu_ff(shard.enter(y), w1, b1, w2, torch.zeros_like(b2)),
+                            bias=b2)
 
 
 def _tome_sites(cfg: UNetConfig, hh: int, ww: int):
@@ -530,14 +588,15 @@ def _tome_sites(cfg: UNetConfig, hh: int, ww: int):
     return on, r
 
 
-def _apply_attn(p, cfg: UNetConfig, h, context, heads, dim_head, kv_iter=None, collector=None):
+def _apply_attn(p, cfg: UNetConfig, h, context, heads, dim_head, kv_iter=None, collector=None,
+                shard=None):
     n, hh_, ww_, c = h.shape
     inner = heads * dim_head
     x = L.group_norm_p(p["norm"], h, eps=1e-6)
     if cfg.use_linear_in_transformer:
         x = L.linear(p["proj_in"], x.reshape(n, hh_ * ww_, c))
     else:
-        x = L.conv2d(p["proj_in"], x).reshape(n, hh_ * ww_, inner)
+        x = _conv(p["proj_in"], x, shard).reshape(n, hh_ * ww_, inner)
     tome_on, tome_r = _tome_sites(cfg, hh_, ww_)
     route = cfg.attn_route
     for blk in p["blocks"]:
@@ -546,53 +605,52 @@ def _apply_attn(p, cfg: UNetConfig, h, context, heads, dim_head, kv_iter=None, c
         if tome_on and cfg.tome_mode == "downsample":
             xkv = tome.downsample_kv(xa, hh_, ww_, cfg.tome_sx, cfg.tome_sy)
             x = x + _cross_attention(blk["attn1"], xa, None, heads, attn_route=route,
-                                     self_kv=xkv)
+                                     self_kv=xkv, shard=shard)
         elif tome_r > 0:
             # one plan a block, from the block's input (ToMe-SD), reused by
             # the FF and cross-attention merges below
             plan = tome.build_merge(x, hh_, ww_, tome_r, cfg.tome_sx, cfg.tome_sy)
             out = _cross_attention(blk["attn1"], tome.tome_merge(plan, xa), None, heads,
-                                   attn_route=route)
+                                   attn_route=route, shard=shard)
             x = x + tome.tome_unmerge(plan, out)
         else:
-            x = x + _cross_attention(blk["attn1"], xa, None, heads, attn_route=route)
+            x = x + _cross_attention(blk["attn1"], xa, None, heads, attn_route=route,
+                                     shard=shard)
         kv = next(kv_iter) if (kv_iter is not None and context is not None) else None
         xc = L.layer_norm(blk["norm2"], x)
         if plan is not None and cfg.tome_crossattn and collector is None:
             out = _cross_attention(blk["attn2"], tome.tome_merge(plan, xc), context, heads,
-                                   kv=kv)
+                                   kv=kv, shard=shard)
             x = x + tome.tome_unmerge(plan, out)
         else:
             x = x + _cross_attention(blk["attn2"], xc, context, heads, kv=kv,
-                                     collector=collector)
+                                     collector=collector, shard=shard)
         y = L.layer_norm(blk["norm3"], x)
-        ff = blk["ff"]
-        ff_args = (ff["proj"]["kernel"], ff["proj"]["bias"], ff["out"]["kernel"],
-                   ff["out"]["bias"])
         if plan is not None and cfg.tome_mlp:
-            x = x + tome.tome_unmerge(plan, geglu_ff(tome.tome_merge(plan, y), *ff_args))
+            x = x + tome.tome_unmerge(plan, _ff(blk["ff"], tome.tome_merge(plan, y), shard))
         else:
-            x = x + geglu_ff(y, *ff_args)
+            x = x + _ff(blk["ff"], y, shard)
     if cfg.use_linear_in_transformer:
         x = L.linear(p["proj_out"], x).reshape(n, hh_, ww_, c)
     else:
-        x = L.conv2d(p["proj_out"], x.reshape(n, hh_, ww_, inner))
+        x = _conv(p["proj_out"], x.reshape(n, hh_, ww_, inner), shard)
     return x + h
 
 
-def _apply_block(block_plan, block_params, cfg, h, emb, context, kv_iter=None, collector=None):
+def _apply_block(block_plan, block_params, cfg, h, emb, context, kv_iter=None, collector=None,
+                 shard=None):
     for desc, p in zip(block_plan, block_params):
         kind = desc[0]
         if kind == "conv_in":
-            h = L.conv2d(p, h)
+            h = _conv(p, h, shard)
         elif kind == "res":
-            h = _apply_res(p, cfg, h, emb, desc[3])
+            h = _apply_res(p, cfg, h, emb, desc[3], shard)
         elif kind == "attn":
-            h = _apply_attn(p, cfg, h, context, desc[2], desc[3], kv_iter, collector)
+            h = _apply_attn(p, cfg, h, context, desc[2], desc[3], kv_iter, collector, shard)
         elif kind == "down":
-            h = L.conv2d(p, h, stride=2)
+            h = _conv(p, h, shard, stride=2)
         elif kind == "up":
-            h = L.conv2d(p, L.upsample_nearest2x(h))
+            h = _conv(p, L.upsample_nearest2x(h), shard)
         else:
             raise ValueError(kind)
     return h
@@ -617,6 +675,7 @@ def unet_apply(
     return_deep_at: Optional[int] = None,
     deep_feature=None,
     deep_at: Optional[int] = None,
+    shard=None,
 ):
     """Predict eps (or v) for latents ``x`` [N,H,W,C] at ``timesteps`` [N]
     with ``context`` [N, L, D]; returns f32 [N,H,W,out_channels], followed
@@ -642,6 +701,11 @@ def unet_apply(
     also for a shallow pass). The JAX package's ValueErrors: ``deep_feature``
     without ``deep_at``, ``deep_at`` out of range, the shallow pass with an
     aux interface, ``return_deep_at`` out of range.
+
+    ``shard``: the ``ops.sharding.ShardCtx`` of ``params`` sharded by
+    ``parallel.tp.shard_bundle`` (the module docstring says which sites
+    split); every rank of the model group calls with the same inputs and
+    gets the same output. Under it ``collect_attn_maps`` raises ValueError.
     """
     input_plan, middle_plan, output_plan = build_plan(cfg)
     dtype = cfg.compute_dtype
@@ -676,14 +740,15 @@ def unet_apply(
     keep_in = len(input_plan) - deep_at if shallow else len(input_plan)
     hs = []
     for block_plan, block_params in zip(input_plan[:keep_in], params["input_blocks"][:keep_in]):
-        h = _apply_block(block_plan, block_params, cfg, h, emb, context, kv_iter, collector)
+        h = _apply_block(block_plan, block_params, cfg, h, emb, context, kv_iter, collector,
+                         shard)
         hs.append(h)
     if shallow:
         h = deep_feature
         out_start = deep_at
     else:
         h = _apply_block(middle_plan, params["middle_block"], cfg, h, emb, context, kv_iter,
-                         collector)
+                         collector, shard)
         out_start = 0
 
     deep_out = None
@@ -700,12 +765,12 @@ def unet_apply(
             h = inject_feats[i]
         h = torch.cat([h, skip], dim=-1)
         h = _apply_block(output_plan[i], params["output_blocks"][i], cfg, h, emb, context,
-                         kv_iter, collector)
+                         kv_iter, collector, shard)
         if return_feats:
             feats_out.append(h)
 
     h = L.group_norm_silu_p(params["out"]["norm"], h)
-    out = L.conv2d(params["out"]["conv"], h).float()
+    out = _conv(params["out"]["conv"], h, shard).float()
 
     extras = []
     if return_skips:

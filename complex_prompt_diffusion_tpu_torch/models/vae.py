@@ -22,6 +22,7 @@ The 0.18215 latent scale factor is applied by callers, not here.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -93,6 +94,20 @@ class DiagonalGaussian:
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def kl(self) -> torch.Tensor:
+        """KL divergence to the standard normal, summed over the three
+        non-batch axes (H, W, C of the channels-last posterior): [B]."""
+        return 0.5 * torch.sum(self.mean**2 + torch.exp(self.logvar) - 1.0 - self.logvar,
+                               dim=(1, 2, 3))
+
+    def nll(self, sample: torch.Tensor) -> torch.Tensor:
+        """Negative log-likelihood of ``sample`` under the posterior,
+        summed over the three non-batch axes: [B]."""
+        logtwopi = math.log(2.0 * math.pi)
+        return 0.5 * torch.sum(
+            logtwopi + self.logvar + (sample - self.mean) ** 2 / torch.exp(self.logvar),
+            dim=(1, 2, 3))
 
 
 def _init_resnet(gen, cin, cout, device):

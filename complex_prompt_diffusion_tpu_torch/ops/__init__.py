@@ -67,6 +67,7 @@ from complex_prompt_diffusion_tpu_torch.ops.attention import (
     flash_attention,
     self_attention_cm,
 )
+from complex_prompt_diffusion_tpu_torch.ops.blur import gaussian_blur
 from complex_prompt_diffusion_tpu_torch.ops.conv import conv3x3, conv3x3_f32_sm90, conv3x3_sm90
 from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     group_norm,
@@ -144,5 +145,6 @@ __all__ = [
     "group_norm_silu",
     "group_norm_nhwc",
     "group_norm_plan",
+    "gaussian_blur",
     "KERNEL_WRAPPERS",
 ]

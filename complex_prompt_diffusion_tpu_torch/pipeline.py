@@ -157,7 +157,11 @@ def _device(device) -> torch.device:
 @dataclasses.dataclass
 class ModelBundle:
     """Configs and parameters of the three models, the tokenizer and the
-    diffusion tables, on one device."""
+    diffusion tables, on one device. ``shard``: the tensor-parallel context
+    (``ops.sharding.ShardCtx``) that ``parallel.tp.shard_bundle`` installs
+    beside the UNet config, with ``unet_params`` this rank's shards; every
+    UNet call of the entry points passes it on (``unet_apply(...,
+    shard=)``). It is not saved and no config sees it."""
 
     version: str
     unet_cfg: M.UNetConfig
@@ -171,6 +175,7 @@ class ModelBundle:
     device: torch.device
     parameterization: str = "eps"
     clip_layer: str = "last"
+    shard: Any = None
 
     @staticmethod
     def random(scale: str = "tiny", seed: int = 0, device="cuda") -> "ModelBundle":
@@ -712,8 +717,16 @@ def _sample_latents(bundle, spec, cfg, *, x_init, generator, noises, t_start, st
     else:
         x_T = initial_noise(bundle, cfg, generator, t_start)
 
-    ucfg, params = bundle.unet_cfg, bundle.unet_params
+    ucfg, params, shard = bundle.unet_cfg, bundle.unet_params, bundle.shard
     gcfg = cfg.guidance
+    # tiled inference on a bundle sharded over a data axis alone: the tiles
+    # shard over that axis (one canvas all-reduce a UNet call), each rank's
+    # UNet calls local (the JAX package's tile-mesh branch); tiles under
+    # tensor parallelism run every tile on every rank
+    tile_mesh = tile_axis = None
+    if (cfg.unet_tile and shard is not None and shard.axis_size(shard.data_axis) > 1
+            and shard.model_size == 1):
+        tile_mesh, tile_axis, shard = shard.mesh, shard.data_axis, None
     # cross-attention k/v are loop-invariant: computed once per render,
     # except where the UNet sees another batch or context mid-step (tiles,
     # attention guidance's unconditional pass, CLIP guidance's factor
@@ -723,17 +736,19 @@ def _sample_latents(bundle, spec, cfg, *, x_init, generator, noises, t_start, st
         cross_kv = M.precompute_cross_kv(ucfg, params, stacked_context(spec, x_T.shape[0]))
 
     def unet_eps(x, t, ctx):
-        return M.unet_apply(ucfg, params, x, t, ctx, cross_kv=cross_kv)
+        return M.unet_apply(ucfg, params, x, t, ctx, cross_kv=cross_kv, shard=shard)
 
     if cfg.unet_tile:
         unet_eps = make_tiled_unet(unet_eps, cfg.unet_tile, cfg.unet_tile_stride or None,
-                                   max(cfg.unet_tile_chunk, 1))
+                                   max(cfg.unet_tile_chunk, 1), mesh=tile_mesh,
+                                   axis=tile_axis or "data")
     dc_pair = None
     if cfg.deepcache_interval >= 2:
         # RenderConfig has checked the sampler (DEEPCACHE_SAMPLERS) and that
         # neither tiles nor attention guidance are on; one wide call, as the
         # JAX package's off its TPU (no batch chunking)
-        dc_pair = M.make_deepcache_unets(ucfg, params, cfg.deepcache_block, cross_kv=cross_kv)
+        dc_pair = M.make_deepcache_unets(ucfg, params, cfg.deepcache_block, cross_kv=cross_kv,
+                                         shard=shard)
     # the state before the first step: never read (step 0 is a full pass)
     dc_state0 = x_T.new_zeros(0) if dc_pair is not None else None
 
@@ -792,8 +807,8 @@ def _sample_latents(bundle, spec, cfg, *, x_init, generator, noises, t_start, st
     if bundle.parameterization == "v":
         eps_fn, _ = make_denoiser(unet_eps_t, spec, gcfg=gcfg, depth_mask=depth_mask)
     if gcfg.attn_guide:
-        eps_fn = _attn_guided_eps(eps_fn, unet_eps_t, to_eps, ucfg, params, spec, itables, gcfg,
-                                  depth_mask)
+        eps_fn = _attn_guided_eps(eps_fn, unet_eps_t, to_eps, ucfg, params, shard, spec, itables,
+                                  gcfg, depth_mask)
     if clip_guidance is not None:
         eps_fn = _clip_guided_eps(eps_fn, unet_eps_t, bundle, spec, itables, clip_guidance,
                                   depth_mask)
@@ -828,7 +843,8 @@ def _sample_latents(bundle, spec, cfg, *, x_init, generator, noises, t_start, st
     return x0
 
 
-def _attn_guided_eps(base_eps, unet_eps, to_eps, ucfg, params, spec, itables, gcfg, depth_mask):
+def _attn_guided_eps(base_eps, unet_eps, to_eps, ucfg, params, shard, spec, itables, gcfg,
+                     depth_mask):
     """The t family's eps model under attention-saliency guidance: on the
     last ``attn_guide_rounds`` table indices (idx = searchsorted(timesteps,
     t), as the JAX package gates) :func:`cfg_epsilon_attn_guided` with the
@@ -839,7 +855,7 @@ def _attn_guided_eps(base_eps, unet_eps, to_eps, ucfg, params, spec, itables, gc
     s1m = np.asarray(itables.sqrt_one_minus_alphas_cumprod_t, np.float32)
 
     def unet_eps_skips(x, t, ctx):
-        out, skips = M.unet_apply(ucfg, params, x, t, ctx, return_skips=True)
+        out, skips = M.unet_apply(ucfg, params, x, t, ctx, return_skips=True, shard=shard)
         return to_eps(out, x, t), skips
 
     def eps_fn(x, t, uc_scale, blur_on):

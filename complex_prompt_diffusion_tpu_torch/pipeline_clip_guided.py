@@ -146,7 +146,8 @@ def clip_guided_txt2img(
         x = torch.as_tensor(x_T, dtype=torch.float32, device=device).clone()
 
         def cond_loss(latents, t, a_t):
-            eps = M.unet_apply(ucfg, params, latents, t.reshape(1).expand(b), cond)
+            eps = M.unet_apply(ucfg, params, latents, t.reshape(1).expand(b), cond,
+                               shard=bundle.shard)
             fac = float(np.sqrt(one - a_t))
             pred_x0 = (latents - fac * eps) / float(np.sqrt(a_t))
             sample = pred_x0 * fac + latents * (1 - fac)  # the PNDM blend
@@ -169,7 +170,7 @@ def clip_guided_txt2img(
             t = timesteps[idx]
             a_t, a_prev = a_t_all[idx], a_prev_all[idx]
             out = M.unet_apply(ucfg, params, torch.cat([x, x]), t.reshape(1).expand(2 * b),
-                               ctx_cfg)
+                               ctx_cfg, shard=bundle.shard)
             e_u, e_c = out.chunk(2)
             e_t = e_u + gs * (e_c - e_u)
             with torch.enable_grad():

@@ -26,11 +26,19 @@ from complex_prompt_diffusion_tpu_torch.schedules.tables import (
     make_diffusion_tables,
     make_inference_tables,
 )
-from complex_prompt_diffusion_tpu_torch.schedules.timesteps import make_timesteps
+from complex_prompt_diffusion_tpu_torch.schedules.timesteps import (
+    jump_timesteps,
+    make_timesteps,
+    quad_timesteps,
+    uniform_timesteps,
+)
 
 __all__ = [
     "make_beta_schedule",
     "make_timesteps",
+    "uniform_timesteps",
+    "quad_timesteps",
+    "jump_timesteps",
     "DiffusionTables",
     "InferenceTables",
     "make_diffusion_tables",

@@ -64,7 +64,7 @@ GN_DECODE_PLANES = ((64, 512), (128, 512), (256, 256), (512, 256), (512, 128))
 SD21_LATENT = 96  # latent side of SD 2.1's 768x768 renders
 
 
-def unet_sites(cfg, latent: int, deep_at=None) -> dict:
+def unet_sites(cfg, latent: int, deep_at=None, model: int = 1) -> dict:
     """The kernel sites of one UNet call of config ``cfg`` on a ``latent`` x
     ``latent`` input, walking ``models.unet.build_plan`` as ``unet_apply``
     does: "attn", (plane side, channels, heads, head dim) of every
@@ -80,8 +80,12 @@ def unet_sites(cfg, latent: int, deep_at=None) -> dict:
     output, a transformer's norm, the out norm); "gn", their count.
     ``deep_at``: the DeepCache shallow pass resumed at that output block
     (the input blocks whose skips it pops, no middle block, the output
-    blocks from ``deep_at`` on)."""
+    blocks from ``deep_at`` on). ``model``: a rank's sites under tensor
+    parallelism over that many ranks (``ops.sharding.local_heads``: the
+    heads of "attn" and "self_attn"; "ff_rows" gain the rank's hidden width
+    H4, ``local_hidden``, as a third element)."""
     from complex_prompt_diffusion_tpu_torch.models.unet import _tome_sites, build_plan
+    from complex_prompt_diffusion_tpu_torch.ops.sharding import local_heads, local_hidden
 
     input_plan, middle_plan, output_plan = build_plan(cfg)
     sites = {"attn": [], "self_attn": [], "ff_rows": [], "conv": [], "gn_planes": []}
@@ -106,13 +110,16 @@ def unet_sites(cfg, latent: int, deep_at=None) -> dict:
                 sites["gn_planes"] += [(side, desc[1]), (side, desc[2])]
             elif kind == "attn":
                 s, (heads, d) = side * side, desc[2:4]
+                inner, heads = heads * d, local_heads(heads, model)
                 on, r = _tome_sites(cfg, side, side)
                 sq = skv = s - r
                 if on and cfg.tome_mode == "downsample":
                     skv = s // (cfg.tome_sx * cfg.tome_sy)
                 sites["attn"].append((side, desc[1], heads, d))
                 sites["self_attn"].append((sq, skv, heads, d))
-                sites["ff_rows"].append((s - r if cfg.tome_mlp else s, desc[1]))
+                ff = (s - r if cfg.tome_mlp else s, desc[1])
+                sites["ff_rows"].append(ff + (local_hidden(4 * inner, model),) if model > 1
+                                        else ff)
                 sites["gn_planes"].append((side, desc[1]))
             elif kind == "up":
                 sites["conv"].append((side, desc[1], desc[1]))
@@ -128,25 +135,27 @@ def unet_sites(cfg, latent: int, deep_at=None) -> dict:
     return sites
 
 
-def unet_batch_shapes(cfg, latent: int, ub: int, deep_at=None) -> dict:
+def unet_batch_shapes(cfg, latent: int, ub: int, deep_at=None, model: int = 1) -> dict:
     """Every distinct shape one bf16 UNet call of ``cfg`` on a ``latent`` x
     ``latent`` input at UNet batch ``ub`` gives K1-K4, from its sites
     (:func:`unet_sites`, ``deep_at`` for a shallow pass): "attn", (S,
     heads, head dim) of the self-attention sites K1 takes (above
     ``SHORT_KV`` keys) with Sq = Skv; "attn_kv", (Sq, Skv, heads, head dim)
     of those with Sq != Skv (ToDo's pooled K/V); "ff", (M, C) of the GEGLU
-    FFs (K2); "gn", (N, side, side, C) of the GroupNorms (K3); "conv",
-    (side, C, Co) of the convs K4's gate admits at this batch."""
+    FFs (K2; (M, C, H4) with the rank's hidden width under ``model`` > 1
+    tensor-parallel ranks, whose heads "attn" gives); "gn", (N, side, side,
+    C) of the GroupNorms (K3); "conv", (side, C, Co) of the convs K4's gate
+    admits at this batch."""
     from complex_prompt_diffusion_tpu_torch.models.layers import conv3x3_wanted
     from complex_prompt_diffusion_tpu_torch.ops.attention import SHORT_KV
 
-    sites = unet_sites(cfg, latent, deep_at)
+    sites = unet_sites(cfg, latent, deep_at, model)
     distinct = dict.fromkeys  # first-seen order, no repeats
     k1 = [site for site in sites["self_attn"] if site[1] > SHORT_KV]
     return {
         "attn": list(distinct((sq, heads, d) for sq, skv, heads, d in k1 if sq == skv)),
         "attn_kv": list(distinct(site for site in k1 if site[0] != site[1])),
-        "ff": list(distinct((ub * rows, ch) for rows, ch in sites["ff_rows"])),
+        "ff": list(distinct((ub * ff[0],) + ff[1:] for ff in sites["ff_rows"])),
         "gn": list(distinct((ub, side, side, c) for side, c in sites["gn_planes"])),
         "conv": list(distinct(
             (side, c, co) for side, c, co in sites["conv"]
@@ -162,8 +171,13 @@ def unet_call_groups() -> dict:
     step), 3 and 4 (a 2- and a 3-factor prompt at b1; a chunk of 2 tiles),
     8 (b4) and 16 (a 3-factor prompt at b4); SD 2.1 on its 96x96 latent and
     SD-2's 512^2 UNet at 8 and 2; ToDo (0.75) at 8 and 2; ToMe merge (0.75
-    and 0.3, with tome_mlp) at 2. ``chip_smoke.py`` fails a path whose UNet
-    calls bring a shape none of these has (:func:`held_unet_shapes`)."""
+    and 0.3, with tome_mlp) at 2; "tp2" and "tp4", a rank of SD-1.5
+    tensor-parallel over 2 and 4 ranks at UNet batch 2 (a fourth element:
+    the model size; K1 at 4 and 2 heads, K2 at a half and a quarter of the
+    hidden width; their K1 and K2 cases in f32 too, the shapes of the f32
+    tensor-parallel eval). ``chip_smoke.py`` fails a path
+    whose UNet calls bring a shape none of these has
+    (:func:`held_unet_shapes`)."""
     from complex_prompt_diffusion_tpu_torch.models import UNetConfig
 
     sd15 = UNetConfig.sd15()
@@ -174,14 +188,18 @@ def unet_call_groups() -> dict:
     groups["todo"] = [(todo, 64, ub) for ub in (8, 2)]
     groups["tome"] = [(dataclasses.replace(sd15, tome_ratio=ratio, tome_mode="merge",
                                            tome_mlp=True), 64, 2) for ratio in (0.75, 0.3)]
+    for model in (2, 4):
+        groups[f"tp{model}"] = [(sd15, 64, 2, model)]
     return groups
 
 
-def unet_shape_keys(cfg, latent: int, ub: int, deep_at=None) -> set:
-    """The K1-K4 shapes of one bf16 UNet call (:func:`unet_batch_shapes`)
-    as keys: ("k1", UNet batch, Sq, Skv, heads, head dim), ("k2", M, C),
-    ("k3", N, side, side, C), ("k4", UNet batch, side, C, Co)."""
-    shapes = unet_batch_shapes(cfg, latent, ub, deep_at)
+def unet_shape_keys(cfg, latent: int, ub: int, deep_at=None, model: int = 1) -> set:
+    """The K1-K4 shapes of one bf16 UNet call (:func:`unet_batch_shapes`;
+    a rank's under ``model`` tensor-parallel ranks) as keys: ("k1", UNet
+    batch, Sq, Skv, heads, head dim), ("k2", M, C) (("k2", M, C, H4) for a
+    rank's hidden shard), ("k3", N, side, side, C), ("k4", UNet batch,
+    side, C, Co)."""
+    shapes = unet_batch_shapes(cfg, latent, ub, deep_at, model)
     return ({("k1", ub, s, s, heads, d) for s, heads, d in shapes["attn"]}
             | {("k1", ub) + site for site in shapes["attn_kv"]}
             | {("k2",) + ff for ff in shapes["ff"]}
@@ -193,8 +211,9 @@ def unet_shape_keys(cfg, latent: int, ub: int, deep_at=None) -> set:
 def held_unet_shapes() -> frozenset:
     """The keys (:func:`unet_shape_keys`) of every UNet call of
     :func:`unet_call_groups`: the shapes phase 1 holds."""
-    return frozenset().union(*(unet_shape_keys(*call) for calls in unet_call_groups().values()
-                               for call in calls))
+    return frozenset().union(*(unet_shape_keys(cfg, latent, ub, model=rest[0] if rest else 1)
+                               for calls in unet_call_groups().values()
+                               for cfg, latent, ub, *rest in calls))
 
 
 class Case(NamedTuple):
@@ -320,17 +339,18 @@ def kernel_cases(dev, kernels=None) -> list:
     def tag(dt):
         return "bf16" if dt == bf16 else "f32"
 
-    def ff_case(kernel, m, c, dt):
+    def ff_case(kernel, m, c, dt, h4=None):
+        h4 = h4 or 4 * c  # a tensor-parallel rank's hidden shard is narrower
         x = randn(m, c, dtype=dt)
-        w1 = uniform(c, 8 * c, bound=c ** -0.5, dtype=dt)
-        b1 = uniform(8 * c, bound=c ** -0.5, dtype=dt)
-        w2 = uniform(4 * c, c, bound=(4 * c) ** -0.5, dtype=dt)
-        b2 = uniform(c, bound=(4 * c) ** -0.5, dtype=dt)
+        w1 = uniform(c, 2 * h4, bound=c ** -0.5, dtype=dt)
+        b1 = uniform(2 * h4, bound=c ** -0.5, dtype=dt)
+        w2 = uniform(h4, c, bound=h4 ** -0.5, dtype=dt)
+        b2 = uniform(c, bound=h4 ** -0.5, dtype=dt)
         a = (x, w1, b1, w2, b2)
-        cases.append(Case(kernel, f"{tag(dt)} M{m} C{c} H4 {4 * c}",
+        cases.append(Case(kernel, f"{tag(dt)} M{m} C{c} H4 {h4}",
                           lambda a=a: F2.geglu_ff(*a), lambda a=a: F2.geglu_ff_plain(*a),
-                          None, "bfloat16" if dt == bf16 else "float32", 24.0 * m * c * c,
-                          x.element_size() * (2 * m * c + 12 * c * c + 9 * c),
+                          None, "bfloat16" if dt == bf16 else "float32", 6.0 * m * c * h4,
+                          x.element_size() * (2 * m * c + 3 * c * h4 + 2 * h4 + c),
                           rate="tf32x3" if dt == f32 else None))
 
     # the replaced body beside each GroupNorm (a parent tree may lack its wrapper)
@@ -538,8 +558,9 @@ def kernel_cases(dev, kernels=None) -> list:
     for group, calls in unet_call_groups().items():
         if group not in want:
             continue
-        for cfg, latent, ub in calls:
-            shapes = unet_batch_shapes(cfg, latent, ub)
+        for cfg, latent, ub, *rest in calls:
+            shapes = (unet_batch_shapes(cfg, latent, ub, model=rest[0]) if rest
+                      else unet_batch_shapes(cfg, latent, ub))
             extra = [(64, 20, 64)] if group == "sd2_512" else []
             for s_, heads, d in shapes["attn"] + extra:
                 label = f"bf16 B{ub} S{s_} H{heads} d{d}"
@@ -552,9 +573,25 @@ def kernel_cases(dev, kernels=None) -> list:
                     q = randn(ub, sq, heads * d, dtype=bf16)
                     k, v = randn(ub, skv, 2 * heads * d, dtype=bf16).chunk(2, dim=-1)
                     attn_case(label, q, k, v, heads, "bfloat16", "attention_sm90")
-            for m, c in shapes["ff"]:
-                if new("geglu_ff", f"bf16 M{m} C{c} H4 {4 * c}"):
-                    ff_case("geglu_ff", m, c, bf16)
+            for m, c, *h4 in shapes["ff"]:
+                h4 = h4[0] if h4 else 4 * c
+                if new("geglu_ff", f"bf16 M{m} C{c} H4 {h4}"):
+                    ff_case("geglu_ff", m, c, bf16, h4)
+            if rest:  # a tensor-parallel rank's K1 and K2 in f32 (the 3xTF32 bodies)
+                for s_, heads, d in shapes["attn"]:
+                    label = f"f32 B{ub} S{s_} H{heads} d{d}"
+                    if new("attention", label):
+                        q, k, v = randn(ub, s_, 3 * heads * d, dtype=f32).chunk(3, dim=-1)
+                        attn_case(label, q, k, v, heads, "float32", "attention", None, "tf32x3")
+                for sq, skv, heads, d in shapes.get("attn_kv", ()):
+                    label = f"f32 B{ub} Sq{sq} Skv{skv} H{heads} d{d}"
+                    if new("attention", label):
+                        q = randn(ub, sq, heads * d, dtype=f32)
+                        k, v = randn(ub, skv, 2 * heads * d, dtype=f32).chunk(2, dim=-1)
+                        attn_case(label, q, k, v, heads, "float32", "attention", None, "tf32x3")
+                for m, c, h4 in shapes["ff"]:
+                    if new("geglu_ff_f32_sm90", f"f32 M{m} C{c} H4 {h4}"):
+                        ff_case("geglu_ff_f32_sm90", m, c, f32, h4)
             for shape in shapes["gn"]:
                 if new("group_norm", f"bf16 {'x'.join(map(str, shape))} silu"):
                     gn_case(shape, bf16, 1e-5)

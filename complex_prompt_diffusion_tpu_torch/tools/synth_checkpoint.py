@@ -1,7 +1,8 @@
-"""Write parameter trees as a CompVis Stable Diffusion checkpoint.
+"""Write parameter trees as a CompVis Stable Diffusion checkpoint, a
+diffusers UNet state dict or an HF T5 encoder state dict.
 
 Test tooling, not an entry point: the inverse of the key maps of
-``models/params.py``. From a UNet, a VAE and a CLIP text tower in the
+``models/params.py`` and ``models/embedders.py``. From a UNet, a VAE and a CLIP text tower in the
 JAX package's tree layout (conv kernels HWIO, linears ``[in, out]``, norms
 ``{scale, bias}``; numpy arrays or torch tensors on any device) it builds
 the state dict a CompVis checkpoint holds:
@@ -14,6 +15,11 @@ the state dict a CompVis checkpoint holds:
   * an OpenCLIP text tower under ``cond_stage_model.model.*`` (q, k and v
     packed into ``attn.in_proj_weight`` / ``in_proj_bias``), or an HF CLIP
     one under ``cond_stage_model.transformer.text_model.*``.
+
+:func:`diffusers_unet_state_dict` writes a UNet tree under a diffusers
+``UNet2DConditionModel``'s keys (what ``params.convert_unet_diffusers``
+reads), :func:`hf_t5_state_dict` a T5 encoder tree under an HF
+``T5EncoderModel``'s (what ``embedders.convert_t5_hf`` reads).
 
 :func:`write_checkpoint` saves it as a ``.ckpt`` (``{"state_dict": ...}``
 through ``torch.save``). The UNet may have any input width: the
@@ -33,7 +39,8 @@ import torch
 
 from complex_prompt_diffusion_tpu_torch.models.unet import UNetConfig, build_plan
 
-__all__ = ["state_dict", "write_checkpoint"]
+__all__ = ["state_dict", "compvis_unet_state_dict", "diffusers_unet_state_dict", "hf_t5_state_dict",
+           "write_checkpoint"]
 
 
 class _Writer:
@@ -65,15 +72,27 @@ class _Writer:
         self.put(prefix + ".bias", p["bias"])
 
 
-def _unet(w: _Writer, cfg: UNetConfig, p, prefix: str) -> None:
+# a ResBlock's CompVis names, and the diffusers names of the same layers
+_RES_COMPVIS = ("in_layers.0", "in_layers.2", "emb_layers.1", "out_layers.0", "out_layers.3",
+                "skip_connection")
+_RES_DIFFUSERS = ("norm1", "conv1", "time_emb_proj", "norm2", "conv2", "conv_shortcut")
+
+
+def _unet(w: _Writer, cfg: UNetConfig, p, prefix: str, diffusers: bool = False) -> None:
+    """The UNet tree under ``prefix``: CompVis keys, or with ``diffusers``
+    those of a diffusers ``UNet2DConditionModel`` (down / mid / up blocks,
+    one ``layers_per_block`` R: down level i's j-th block is CompVis input
+    block 1 + i (R + 1) + j, up level i's output block i (R + 1) + j)."""
+    res_names = _RES_DIFFUSERS if diffusers else _RES_COMPVIS
+
     def res(q, r):
-        w.norm(f"{q}.in_layers.0", r["in_norm"])
-        w.conv(f"{q}.in_layers.2", r["in_conv"])
-        w.linear(f"{q}.emb_layers.1", r["emb"])
-        w.norm(f"{q}.out_layers.0", r["out_norm"])
-        w.conv(f"{q}.out_layers.3", r["out_conv"])
+        w.norm(f"{q}.{res_names[0]}", r["in_norm"])
+        w.conv(f"{q}.{res_names[1]}", r["in_conv"])
+        w.linear(f"{q}.{res_names[2]}", r["emb"])
+        w.norm(f"{q}.{res_names[3]}", r["out_norm"])
+        w.conv(f"{q}.{res_names[4]}", r["out_conv"])
         if "skip" in r:
-            w.conv(f"{q}.skip_connection", r["skip"])
+            w.conv(f"{q}.{res_names[5]}", r["skip"])
 
     def transformer(q, t):
         w.norm(f"{q}.norm", t["norm"])
@@ -96,9 +115,9 @@ def _unet(w: _Writer, cfg: UNetConfig, p, prefix: str) -> None:
         if kind == "conv_in":
             w.conv(q, s)
         elif kind == "down":
-            w.conv(f"{q}.op", s)
+            w.conv(q if diffusers else f"{q}.op", s)
         elif kind == "up":
-            w.conv(f"{q}.conv", s)
+            w.conv(q if diffusers else f"{q}.conv", s)
         elif kind == "res":
             res(q, s)
         elif kind == "attn":
@@ -106,19 +125,43 @@ def _unet(w: _Writer, cfg: UNetConfig, p, prefix: str) -> None:
         else:
             raise ValueError(kind)
 
+    def diffusers_name(where: str, i: int, desc, j: int) -> str:
+        """The diffusers module of CompVis sublayer ``where``.i.j."""
+        kind = desc[0]
+        if where == "middle_block":
+            return {"res": f"mid_block.resnets.{j // 2}", "attn": "mid_block.attentions.0"}[kind]
+        if kind == "conv_in":
+            return "conv_in"
+        level, k = divmod(i - 1 if where == "input_blocks" else i, r + 1)
+        blocks = "down_blocks" if where == "input_blocks" else "up_blocks"
+        return {"res": f"{blocks}.{level}.resnets.{k}",
+                "attn": f"{blocks}.{level}.attentions.{k}",
+                "down": f"down_blocks.{level}.downsamplers.0.conv",
+                "up": f"up_blocks.{level}.upsamplers.0.conv"}[kind]
+
     input_plan, middle_plan, output_plan = build_plan(cfg)
-    w.linear(f"{prefix}time_embed.0", p["time_embed"]["lin1"])
-    w.linear(f"{prefix}time_embed.2", p["time_embed"]["lin2"])
+    if diffusers:
+        if len(set(cfg.res_blocks_per_level)) != 1:
+            raise ValueError("the diffusers layout has one layers_per_block; got "
+                             f"{cfg.res_blocks_per_level}")
+        r = cfg.res_blocks_per_level[0]
+    names = (("time_embedding.linear_1", "time_embedding.linear_2", "conv_norm_out", "conv_out",
+              "class_embedding.weight") if diffusers
+             else ("time_embed.0", "time_embed.2", "out.0", "out.2", "label_emb.weight"))
+    w.linear(f"{prefix}{names[0]}", p["time_embed"]["lin1"])
+    w.linear(f"{prefix}{names[1]}", p["time_embed"]["lin2"])
     for name, plan in (("input_blocks", input_plan), ("output_blocks", output_plan)):
         for i, (block, params) in enumerate(zip(plan, p[name])):
             for j, (desc, s) in enumerate(zip(block, params)):
-                sublayer(desc, f"{prefix}{name}.{i}.{j}", s)
+                q = diffusers_name(name, i, desc, j) if diffusers else f"{name}.{i}.{j}"
+                sublayer(desc, prefix + q, s)
     for j, (desc, s) in enumerate(zip(middle_plan, p["middle_block"])):
-        sublayer(desc, f"{prefix}middle_block.{j}", s)
-    w.norm(f"{prefix}out.0", p["out"]["norm"])
-    w.conv(f"{prefix}out.2", p["out"]["conv"])
+        q = diffusers_name("middle_block", 0, desc, j) if diffusers else f"middle_block.{j}"
+        sublayer(desc, prefix + q, s)
+    w.norm(f"{prefix}{names[2]}", p["out"]["norm"])
+    w.conv(f"{prefix}{names[3]}", p["out"]["conv"])
     if "label_emb" in p:
-        w.put(f"{prefix}label_emb.weight", p["label_emb"]["embedding"])
+        w.put(f"{prefix}{names[4]}", p["label_emb"]["embedding"])
 
 
 def _vae(w: _Writer, p, prefix: str) -> None:
@@ -225,6 +268,53 @@ def state_dict(
             w.sd["model_ema." + k[len("model."):].replace(".", "")] = v
         w.sd["model_ema.decay"] = torch.tensor(0.9999, dtype=torch.float32)
         w.sd["model_ema.num_updates"] = torch.tensor(0, dtype=torch.int32)
+    return w.sd
+
+
+def compvis_unet_state_dict(unet_cfg: UNetConfig, unet: Any, *,
+                            prefix: str = "model.diffusion_model.",
+                            dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """The UNet tree alone under CompVis keys (what :func:`state_dict`
+    writes for it), every tensor in ``dtype`` on the CPU:
+    ``models.params.convert_unet`` reads it back to the tree."""
+    w = _Writer(dtype)
+    _unet(w, unet_cfg, unet, prefix)
+    return w.sd
+
+
+def diffusers_unet_state_dict(unet_cfg: UNetConfig, unet: Any, *, prefix: str = "",
+                              dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """The UNet tree as a diffusers ``UNet2DConditionModel`` state dict
+    under ``prefix``, every tensor in ``dtype`` on the CPU:
+    ``models.params.convert_unet_diffusers`` reads it back to the tree."""
+    w = _Writer(dtype)
+    _unet(w, unet_cfg, unet, prefix, diffusers=True)
+    return w.sd
+
+
+def hf_t5_state_dict(t5, *, prefix: str = "encoder.",
+                     dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """A T5 encoder tree (``models.embedders.init_t5_encoder``'s layout) as
+    an HF ``T5EncoderModel`` state dict: ``shared.weight`` and its tied
+    ``{prefix}embed_tokens.weight``, the layer-0 relative attention bias,
+    every block's ``layer.0`` (layer_norm, SelfAttention q/k/v/o) and
+    ``layer.1`` (layer_norm, DenseReluDense wi_0/wi_1/wo), and
+    ``{prefix}final_layer_norm``; linears as torch ``[out, in]`` weights.
+    ``models.embedders.convert_t5_hf`` reads it back to the tree."""
+    w = _Writer(dtype)
+    w.put("shared.weight", t5["token_embedding"])
+    w.put(f"{prefix}embed_tokens.weight", t5["token_embedding"])
+    w.put(f"{prefix}block.0.layer.0.SelfAttention.relative_attention_bias.weight",
+          t5["relative_bias"])
+    for i, layer in enumerate(t5["layers"]):
+        b = f"{prefix}block.{i}.layer"
+        w.put(f"{b}.0.layer_norm.weight", layer["ln1"])
+        for n in ("q", "k", "v", "o"):
+            w.linear(f"{b}.0.SelfAttention.{n}", layer[n])
+        w.put(f"{b}.1.layer_norm.weight", layer["ln2"])
+        for n in ("wi_0", "wi_1", "wo"):
+            w.linear(f"{b}.1.DenseReluDense.{n}", layer[n])
+    w.put(f"{prefix}final_layer_norm.weight", t5["final_ln"])
     return w.sd
 
 

@@ -120,6 +120,7 @@ def make_train_step(
     parameterization: str = "eps",
     loss_type: str = "l2",
     elbo_weight: float = 0.0,
+    shard=None,
 ):
     """A functional train step ``(params, opt_state, batch, generator) ->
     (params, opt_state, loss)``. ``batch = {"latents": [B, h, w, 4],
@@ -128,10 +129,19 @@ def make_train_step(
     and the noise ~ N(0, 1) are drawn from ``generator`` on the latents'
     device, unless the step is given them (``t=``, ``noise=``: the tests
     pass the JAX package's draws). The new parameters are fresh tensors;
-    ``loss`` is detached."""
+    ``loss`` is detached (with ``shard``, this rank's loss: the mean over
+    its batch slice).
+
+    ``shard``: the ``ops.sharding.ShardCtx`` of tensor-parallel ``params``
+    (this rank's shards, ``parallel.tp.shard_unet_params``, the context's
+    ``specs`` set) and of this rank's slice of the batch along "data": the
+    UNet calls all-reduce over the model group with autograd through them
+    (Megatron's pair, ``ShardCtx.enter`` / ``all_reduce``, gives a model
+    rank its shards' whole gradients), and the gradients are averaged over
+    the data group (``parallel.tp.reduce_grads``) before the update."""
 
     def apply_fn(params, x, t, ctx):
-        return M.unet_apply(unet_cfg, params, x, t, ctx)
+        return M.unet_apply(unet_cfg, params, x, t, ctx, shard=shard)
 
     def train_step(params, opt_state, batch, generator=None, *, t=None, noise=None):
         x0, ctx = batch["latents"], batch["context"]
@@ -148,6 +158,10 @@ def make_train_step(
                             parameterization=parameterization, loss_type=loss_type,
                             elbo_weight=elbo_weight)
             grads = tree_unflatten(params, torch.autograd.grad(loss, leaves))
+        if shard is not None:
+            from complex_prompt_diffusion_tpu_torch.parallel.tp import reduce_grads
+
+            grads = reduce_grads(shard, grads)
         with torch.no_grad():
             updates, opt_state = optimizer.update(grads, opt_state, params)
             params = apply_updates(params, updates)

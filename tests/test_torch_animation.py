@@ -12,6 +12,7 @@ and a max of 4 levels. Each test says what it reached.
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -229,3 +230,26 @@ def test_render_animation_draws_from_its_generator():
                                generator=torch.Generator().manual_seed(s)) for s in (0, 0, 1)]
     assert all(np.array_equal(a, b) for a, b in zip(runs[0], runs[1]))
     assert not all(np.array_equal(a, b) for a, b in zip(runs[0], runs[2]))
+
+
+def test_render_animation_seeds_from_seed_as_jax():
+    """``seed=`` is JAX's parameter (``animation.py:326``, ``PRNGKey(seed)``):
+    the default generator is seeded from it, and ``cfg.seed`` is not read.
+    The numbers differ from JAX's (torch against JAX RNG); the seed's
+    source is what is pinned."""
+    assert inspect.signature(A.render_animation).parameters["seed"].default == 0
+    assert inspect.signature(JA.render_animation).parameters["seed"].default == 0
+    pb = P.ModelBundle.random("tiny", seed=0, device="cpu")
+    args = A.AnimArgs(w=8, h=8, max_frames=2, zoom="0: (1.05)")
+    prompt = ComplexPrompt("a corridor", bundle=pb)
+
+    def run(cfg_seed, **kw):
+        cfg = P.RenderConfig(steps=2, width=32, height=32, denoising_strength=0.5,
+                             seed=cfg_seed)
+        return A.render_animation(pb, lambda i: prompt, cfg, args, 2, device="cpu", **kw)
+
+    seeded = run(0, seed=7)
+    assert all(np.array_equal(a, b) for a, b in zip(
+        seeded, run(5, generator=torch.Generator().manual_seed(7))))
+    assert all(np.array_equal(a, b) for a, b in zip(seeded, run(11, seed=7)))
+    assert not all(np.array_equal(a, b) for a, b in zip(seeded, run(7)))

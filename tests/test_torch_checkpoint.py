@@ -640,6 +640,13 @@ def test_port_imports_no_jax_safetensors_orbax_and_yaml_only_to_parse():
     files = sorted((ROOT / "complex_prompt_diffusion_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 40
+    # the subpackages and modules of the last slice are in the scan
+    scanned = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"complex_prompt_diffusion_tpu_torch/parallel/mesh.py",
+            "complex_prompt_diffusion_tpu_torch/parallel/tp.py",
+            "complex_prompt_diffusion_tpu_torch/parallel/dryrun.py",
+            "complex_prompt_diffusion_tpu_torch/ops/sharding.py",
+            "complex_prompt_diffusion_tpu_torch/models/embedders.py"} <= scanned
     pil = []
     for path in files:
         for mod, fn in _imports(path):

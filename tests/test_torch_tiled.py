@@ -116,11 +116,34 @@ def test_make_tiled_unet_matches_jax(bundles):
     assert calls == [4, 4]  # 4 tiles, 2 a call, at batch 2 each
 
 
-def test_multi_card_form_raises():
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        T.make_tiled_unet(lambda *a: None, 8, mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        T.tiled_apply_sharded(lambda t: t, torch.zeros((1, 16, 16, 4)), 8, mesh=object())
+def test_multi_card_form_raises(tmp_path):
+    """The multi-rank form is ported (``tests/test_torch_parallel.py`` holds
+    it across spawned ranks): on a one-rank gloo mesh it equals
+    ``tiled_apply`` bit for bit, and a mesh without the axis raises
+    ValueError."""
+    import torch.distributed as dist
+
+    from complex_prompt_diffusion_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rv'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(data=1)
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 16, 16, 4))
+                             .astype(np.float32))
+
+        def fn(t):
+            return t * 2.0 + 1.0
+
+        assert torch.equal(T.tiled_apply_sharded(fn, x, 8, 4, mesh=mesh, chunk=2),
+                           T.tiled_apply(fn, x, 8, 4, chunk=2))
+        with pytest.raises(ValueError):
+            T.make_tiled_unet(lambda *a: a[0], 8, mesh=mesh, axis="tiles")(
+                x, torch.zeros(1), None)
+        with pytest.raises(ValueError):
+            T.tiled_apply_sharded(fn, x, 8, mesh=mesh, axis="tiles")
+    finally:
+        dist.destroy_process_group()
 
 
 TILED = [

@@ -221,8 +221,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            Adam iterations a step, CFG 7.5 at UNet batch 2): wall time, the
            table [20, 1, 77, 768] finite, the mean DDIM-step loss lowered;
            (d) the "Log" sampler through ``sample_latents``: RK4 4 steps at
-           512x512 b1 (16 VJPs) and dopri5 at a 16x16 latent (NFE
-           printed), finite log-likelihoods [B]. The kernels line names
+           512x512 b1 (16 VJPs) and dopri5 at a 16x16 latent over the
+           last 3 of 20 sigmas (NFE printed; the whole range, 1267 VJPs,
+           took 360 s), finite log-likelihoods [B]. The kernels line names
            each kernel's backward rule;
   phase 18 CLIP guidance and hypernetworks (after phase 17; phase 2's
            bundle rebuilt from seed 0: UNet bf16, VAE f32; 512x512): (a) the
@@ -290,7 +291,28 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            (``launches_by_path``); a failed rank fails the spawn. Phase 1
            holds a TP rank's shapes (kernel_cases' "tp2" and "tp4" groups:
            K1 at B2 H4 and H2, S4096 / 1024 / 256, d40 / 80 / 160; K2 at
-           H4 = 640 / 1280 / 2560 and 320 / 640 / 1280; bf16 and f32).
+           H4 = 640 / 1280 / 2560 and 320 / 640 / 1280; bf16 and f32);
+  phase 21 the JAX package's last forms (after phase 14, on phase 2's
+           bundle): (a) the exact subpixel upsample conv forced
+           (``layers._SUBPIXEL_UP = "1"``) against off: one bf16 UNet call
+           at UNet batch 2, the b1 decode in bf16 and in f32: relRMSE and
+           ms of each form, the forced calls' launches; (b) DPM-Solver
+           classifier guidance (``model_wrapper(guidance_type=
+           "classifier")``) on a 16x16 latent, the SD-1.5 UNet cast to f32
+           and a classifier on K4, K3 and K1: one guided eps (1e-4), its
+           guidance term and a 5-step DPM-Solver++ 2M sample (1e-3) against
+           the CPU, the launches the UNet calls and the classifier's
+           forwards predict, none in its backwards.
+
+The up path's skip concat is fused in every bf16 UNet call at UNet batch
+<= 4 (``models.unet.skip_cat_fused``): its 12 up-path GroupNorms run K3's
+two-source form (``group_norm_cat``: two kernels a call, counted into K3's
+61 calls a UNet call too) and its 12 in_convs two convs each (K4 28 a b1
+UNet call). Phase 1 holds the two-source form at every (Ca | Cb) pair of
+UNet batches 1 to 4 (its materialized port path, torch.cat + K3, and
+torch.cat + ``F.group_norm`` + ``F.silu`` beside it); phase 4 also samples
+with the fusion off and on, in turns, and prints both s/step; phase 17(a)
+differentiates the two-output form.
 
 ``python3 chip_smoke.py --ranks 4`` runs only phase 20 (d), on four NCCL
 ranks a card each: TP at model 4 and DP at data 4, with the same checks.
@@ -298,11 +320,11 @@ Phase 1's UNet groups come from ``kernel_cases.unet_call_groups``; a
 full-width UNet call whose K1-K4 shapes none of them holds fails its
 path's launch check (``check_held``).
 
-Each path of phases 2, 4 to 12 and 14 to 20 runs with every launch count set to 0
+Each path of phases 2, 4 to 12 and 14 to 21 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched (phase 12, render by render: K1's sm90 body 15 times, K2
-its plans' kernels for 16 calls, K3 61 calls and K4's sm90 body 22 times a
-UNet call, K3 30 calls and K1's wide body once a decode, K3 22 calls and
+its plans' kernels for 16 calls, K3 61 calls (12 of them two-source) and
+K4's sm90 body 28 times a UNet call, K3 30 calls and K1's wide body once a decode, K3 22 calls and
 K1's wide body once an encode, nothing on the f32 bodies, K5 or the
 probes): in phases 2, 4, 6 and 7 every UNet self-attention site on K1's
 sm90 body (phase 11: its fused 3xTF32 body), in phases 2, 4 and 6
@@ -319,7 +341,8 @@ reports what it launched) and none on its replaced body, and in phases 3 to
 scores, softmax and output kernels). Phase 13 predicts each count from
 the SD 2.1 config's sites and the kernels' plans (``unet_call_launches``):
 K1's sm90 body 16 times a UNet call at 768x768 (the middle block's 144
-tokens too), K4's sm90 body on the 11 convs of the 24^2 plane at batch 1
+tokens too), K4's sm90 body on the 14 convs of the 24^2 plane at batch 1 (11 and the
+3 split in_convs)
 and none at batch 4, the f32 mid-block's kernels by ``f32_sm90_launches``
 and the bf16 one's by ``bf16_wide_launches`` at S = 9216. Phase 17's and
 phase 18's forwards under grad launch what their UNet calls and decodes
@@ -334,6 +357,7 @@ beside it), the card's name and power limit (from nvidia-smi) and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -380,6 +404,12 @@ KERNELS = {
         "complex_prompt_diffusion_tpu/ops/groupnorm.py:142 _gn_stats_kernel; "
         "complex_prompt_diffusion_tpu/ops/groupnorm.py:175 _gn_stats2_kernel; "
         "complex_prompt_diffusion_tpu/ops/groupnorm.py:221 _gn_apply_kernel",
+    ),
+    "group_norm_cat": (
+        f"{PKG}/csrc/groupnorm_sm90.cu",
+        "complex_prompt_diffusion_tpu/ops/groupnorm.py:376 group_norm_silu_cat (XLA in the JAX "
+        "package: the UNet's up-path GroupNorm+SiLU over a virtual skip concat; K3's two-source "
+        "form on the card)",
     ),
     "conv3x3": (
         f"{PKG}/csrc/conv3x3.cu",
@@ -448,13 +478,14 @@ PROBES = ("winograd", "winograd_sm90", "winograd_f32_sm90", "probe_attention", "
 PHASE10_PROBES = PROBES[3:]
 # K1's, K2's f32, K4's, K5's and K6's Hopper bodies, counted inside
 # "attention", "geglu_ff", "conv3x3", "attention_cm" (K5's f32 body inside
-# its Hopper count) and "winograd"
+# its Hopper count) and "winograd"; K3's two-source form inside "group_norm"
 SM90 = {"attention_sm90": "attention", "attention_f32_sm90": "attention",
         "attention_f32_fused_sm90": "attention",
         "attention_bf16_wide_sm90": "attention", "conv3x3_sm90": "conv3x3",
         "conv3x3_f32_sm90": "conv3x3", "geglu_ff_f32_sm90": "geglu_ff",
         "attention_cm_sm90": "attention_cm", "attention_cm_f32_sm90": "attention_cm_sm90",
-        "winograd_sm90": "winograd", "winograd_f32_sm90": "winograd"}
+        "winograd_sm90": "winograd", "winograd_f32_sm90": "winograd",
+        "group_norm_cat": "group_norm"}
 # phase 1's K1 f32, K5 and K6 cases (kernels "attention", "attention_cm" and
 # "winograd", the routes) by the body they run
 K1_BODY = {"float32": "attention_f32_fused_sm90"}
@@ -478,7 +509,8 @@ TF32_FUNCTIONS = ("geglu_gemm_f32_sm90_kernel", "conv3x3_f32_sm90_kernel",
 LOADS_ONLY = re.compile(r"attention_sm90_kernelILi\d+ELi\d+ELi6E")
 # K3's, K8's (K3's kernels in K8's modes) and K9's kernels: every
 # instantiation must load by TMA (UTMALDG) or bulk copy (UBLKCP)
-BULK_FUNCTIONS = ("gn_slab_kernel", "gn_stats_kernel", "gn_apply_kernel", "copy_bulk_kernel")
+BULK_FUNCTIONS = ("gn_slab_kernel", "gn_stats_kernel", "gn_apply_kernel", "gn_cat_stats_kernel",
+                  "gn_cat_apply_kernel", "copy_bulk_kernel")
 # K8's instantiations with the tensor-core statistics (MMA = true: the slab
 # kernel <bf16, full, true>, the statistics kernel <bf16, true>) must hold
 # mma.sync (HMMA) or wgmma (HGMMA)
@@ -495,6 +527,9 @@ K_STEPS = 20  # steps of the k-diffusion paths (phases 7 and 8)
 UNET_SELF_ATTN_SITES = 15  # self-attention sites above S = 128 at 512x512: 5 a level
 UNET_CM_SITES = 10  # of them inside the cm gate (levels 1 and 2: C = 640, 1280)
 UNET_GN_CALLS = 61  # GroupNorms a UNet call (tools/kernel_cases.py: GN_B4_CALLS)
+# of them, on K3's two-source form where the up path is fused (bf16, UNet
+# batch <= 4): the 12 up-path ResBlocks' in_norms (kernel_cases.GN_CAT_CALLS)
+UNET_CAT_CALLS = 12
 VAE_DECODE_GN_CALLS = 30  # GroupNorms a VAE decode: mid-block 5, up levels 24, out 1
 VAE_ENCODE_GN_CALLS = 22  # a VAE encode: down levels 16, mid-block 5, out 1
 
@@ -587,9 +622,14 @@ def card_line() -> str:
 
 def rel_err(got, want) -> tuple:
     """(max |got - want|, that over max |want|); non-finite output, or
-    output of another shape, fails."""
+    output of another shape, fails. A pair of outputs (K3's two-source
+    form's halves) counts as its concatenation along the channels."""
     import torch
 
+    if isinstance(got, tuple):
+        got = torch.cat(got, dim=-1)
+    if isinstance(want, tuple):
+        want = torch.cat(want, dim=-1)
     got, want = got.float(), want.float()
     if got.shape != want.shape:
         raise SmokeFailure(f"output of shape {list(got.shape)}, want {list(want.shape)}")
@@ -649,6 +689,8 @@ def phase1(dev, card: str) -> dict:
 
     from complex_prompt_diffusion_tpu_torch import _build
     from complex_prompt_diffusion_tpu_torch.tools.hotcold import L2_BYTES, METHOD, graph_ms
+    from collections import Counter
+
     from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import (
         B1_UNET_CONV_COUNTS,
         B1_UNET_CONVS,
@@ -656,12 +698,15 @@ def phase1(dev, card: str) -> dict:
         GEGLU_B4_CALLS,
         GEGLU_ROWS,
         GN_B4_CALLS,
+        GN_CAT_CALLS,
+        GN_CAT_PLANES,
         GN_UNET_PLANES,
         HBM_BYTES_PER_S,
         PEAK_FLOPS,
         host_us,
         kernel_cases,
         unet_batch_shapes,
+        unet_sites,
     )
     from complex_prompt_diffusion_tpu_torch.models import UNetConfig
 
@@ -673,6 +718,8 @@ def phase1(dev, card: str) -> dict:
     conv_rows = {}  # the sm90 K4 cases: label -> (kernel, mma.sync body, library, bound) ms
     ff_rows = {}  # K2's cases: label -> (kernel, plain, bound) ms
     gn_rows = {}  # K3's cases: label -> (kernel, replaced body, library, bound) ms
+    # K3's two-source cases: label -> (kernel, materialized port path, library, bound) ms
+    cat_rows = {}
     print(f"phase1: kernel vs plain twin on {card} (times: {METHOD}, one input repeated, "
           f"L2 hot; bound = max(flops / peak, bytes / 3.35 TB/s); working set = those bytes, "
           f"'< L2' where it fits the 50 MB L2)")
@@ -708,11 +755,15 @@ def phase1(dev, card: str) -> dict:
             ff_rows[case.label] = (ms, plain_ms, bound_ms)
         elif case.kernel == "group_norm":
             gn_rows[case.label] = (ms, prior_ms, lib_ms, bound_ms)
+        elif case.kernel == "group_norm_cat":
+            cat_rows[case.label] = (ms, prior_ms, lib_ms, bound_ms)
         elif case.kernel == "winograd":
             k4 = conv_ms.get(case.label)
             lib_txt += f" K4={k4:.4f} ms" if k4 is not None else " K4=no case at this shape"
         l2 = " < L2" if case.nbytes < L2_BYTES else ""
-        prior_txt = (f" replaced body={prior_ms:.4f} ms (rel {prior_rel:.3e})"
+        prior_name = ("materialized (torch.cat + K3)" if case.kernel == "group_norm_cat"
+                      else "replaced body")
+        prior_txt = (f" {prior_name}={prior_ms:.4f} ms (rel {prior_rel:.3e})"
                      if prior_ms is not None else "")
         if case.rate == "tf32x3":  # the FMA rate's bound beside the 3xTF32 one
             fma_ms = max(case.flops / PEAK_FLOPS["float32"], case.nbytes / HBM_BYTES_PER_S) * 1e3
@@ -799,6 +850,35 @@ def phase1(dev, card: str) -> dict:
                   f"{ub}): K3 {sums[0]:.4f} ms, replaced body {sums[1]:.4f} ms, F.group_norm + "
                   f"F.silu {sums[2]:.4f} ms, bound {sums[3]:.4f} ms ("
                   f"{100 * sums[3] / sums[0]:.1f}% of K3's time; {card})")
+    fused_sites = unet_sites(sd15, 64, fused=True)
+    for ub, step in ((2, "b1"), (4, "3-factor b1"), (1, "b1 unconditional"), (3, "2-factor b1")):
+        # the same step with the up path fused: its 49 one-input GroupNorms
+        # and 12 on the two-source form (their materialized port path beside
+        # them: torch.cat, then K3), and its 28 convs inside K4's gate
+        plain = Counter(fused_sites["gn_planes"])
+        gn = [gn_rows.get(f"bf16 {ub}x{side}x{side}x{c} silu") for side, c in plain]
+        cat = [cat_rows.get(f"bf16 {ub}x{side}x{side}x{a}|{b} silu")
+               for side, a, b in GN_CAT_PLANES]
+        if None in gn or None in cat:
+            continue
+        one = [sum(n * r[i] for n, r in zip(plain.values(), gn)) for i in (0, 3)]
+        two = [sum(n * (r[i] or 0.0) for n, r in zip(GN_CAT_CALLS, cat)) for i in range(4)]
+        print(f"phase1: the {sum(plain.values()) + sum(GN_CAT_CALLS)} GroupNorms of a {step} CFG "
+              f"step (UNet batch {ub}) with the up path fused: K3 {one[0] + two[0]:.4f} ms (one "
+              f"input {one[0]:.4f} ms for {sum(plain.values())}, two-source form {two[0]:.4f} ms "
+              f"for {sum(GN_CAT_CALLS)}; those {sum(GN_CAT_CALLS)} materialized: torch.cat + K3 "
+              f"{two[1]:.4f} ms, torch.cat + F.group_norm + F.silu {two[2]:.4f} ms), bound "
+              f"{one[1] + two[3]:.4f} ms ({100 * (one[1] + two[3]) / (one[0] + two[0]):.1f}% of "
+              f"K3's time; {card})")
+        convs = Counter(c for c in fused_sites["conv"] if c[0] in (16, 32))
+        rows = [conv_rows.get(f"bf16 B{ub} {hw}x{hw} {c}->{co}") for hw, c, co in convs]
+        if None not in rows:
+            k4 = [sum(n * (r[i] or 0.0) for n, r in zip(convs.values(), rows)) for i in range(4)]
+            print(f"phase1: the {sum(convs.values())} bf16 convs of a UNet call at UNet batch "
+                  f"{ub} with the up path fused (the 12 in_convs split in two; 6 of them on "
+                  f"the 16^2 and 32^2 planes): sm90 K4 {k4[0]:.4f} ms, mma.sync body "
+                  f"{k4[1]:.4f} ms, cuDNN {k4[2]:.4f} ms, bound {k4[3]:.4f} ms "
+                  f"({100 * k4[3] / k4[0]:.1f}% of the kernel's time; {card})")
     lib = _build.kernel_library()
     base = torch.empty(2 * 32 * 32 * 640, dtype=torch.bfloat16, device=dev)
     ns = ctypes.c_double()
@@ -841,12 +921,13 @@ def reset_launches() -> None:
     for w in ops.KERNEL_WRAPPERS.values():
         w.launches = 0
     G.group_norm_nhwc.calls = G.group_norm_nhwc.planned = G.group_norm_prior.launches = 0
+    G.group_norm_silu_cat.calls = 0
 
 
 def read_launches() -> dict:
-    """Each wrapper's launches; and K3's calls, the kernels its plans
-    predicted, and the launches of its replaced body (which no path may
-    reach)."""
+    """Each wrapper's launches; and K3's calls (its two-source form's
+    among them, and on their own), the kernels its plans predicted, and the
+    launches of its replaced body (which no path may reach)."""
     from complex_prompt_diffusion_tpu_torch import ops
     from complex_prompt_diffusion_tpu_torch.ops import groupnorm as G
 
@@ -854,14 +935,18 @@ def read_launches() -> dict:
     out["group_norm calls"] = G.group_norm_nhwc.calls
     out["group_norm planned"] = G.group_norm_nhwc.planned
     out["group_norm_prior"] = G.group_norm_prior.launches
+    out["group_norm_cat calls"] = G.group_norm_silu_cat.calls
     return out
 
 
-def check_gn(launches: dict, unet_calls: int, decodes: int, encodes: int, what: str) -> None:
+def check_gn(launches: dict, unet_calls: int, decodes: int, encodes: int, what: str,
+             cat_calls: int = 0) -> None:
     """Every GroupNorm of a path on K3's Hopper body: as many calls as its
-    UNet calls, VAE decodes and encodes have, the kernels the library
-    reported equal to what the calls' plans predict, none on the replaced
-    body."""
+    UNet calls, VAE decodes and encodes have, ``cat_calls`` of them on the
+    two-source form (two kernels each; 12 a fused UNet call) and the rest
+    on one input, the kernels the library reported equal to what the calls'
+    plans predict, none on the replaced body."""
+    check_cat(launches, cat_calls, what)
     want = (UNET_GN_CALLS * unet_calls + VAE_DECODE_GN_CALLS * decodes
             + VAE_ENCODE_GN_CALLS * encodes)
     if (launches["group_norm calls"] != want or launches["group_norm"] <= 0
@@ -872,6 +957,17 @@ def check_gn(launches: dict, unet_calls: int, decodes: int, encodes: int, what: 
                            f"{launches['group_norm']} kernels launched against "
                            f"{launches['group_norm planned']} planned, the replaced body "
                            f"{launches['group_norm_prior']}")
+
+
+def check_cat(launches: dict, cat_calls: int, what: str) -> None:
+    """``cat_calls`` calls of K3's two-source form in a path, two kernels
+    each, and no other."""
+    if (launches["group_norm_cat calls"] != cat_calls
+            or launches["group_norm_cat"] != 2 * cat_calls):
+        raise SmokeFailure(f"K3's two-source form in {what}: "
+                           f"{launches['group_norm_cat calls']} calls, "
+                           f"{launches['group_norm_cat']} kernels: want {cat_calls} calls "
+                           f"(the fused up path's), two kernels each")
 
 
 def check_wide(launches: dict, calls: int, batch: int, what: str, s: int = 4096,
@@ -1006,23 +1102,29 @@ def phase3(bundle, dev, card: str) -> None:
             raise SmokeFailure(f"{what}: kernel path disagrees with the plain path: {rel:.3e}")
 
     # UNet: 16x16 latent (S = 256 self-attention reaches K1), uncond+cond;
-    # level 0 runs on the 16^2 plane, inside the conv gate: its 13 3x3 convs,
-    # conv_in (C = 4) and the out conv (Co = 4) among them, go through K4
+    # level 0 runs on the 16^2 plane, inside the conv gate: its 16 3x3 convs
+    # (13, the 3 up-path in_convs split in two by the fused skip concat),
+    # conv_in (C = 4) and the out conv (Co = 4) among them, go through K4;
+    # its 12 up-path GroupNorms through K3's two-source form, on both sides
     x = torch.randn((2, 16, 16, 4), generator=gen)
     t = torch.tensor([801, 801])
     ctx = torch.randn((2, 77, 768), generator=gen)
+    per = unet_call_launches(bundle.unet_cfg, 16, 2)
     reset_launches()
     with torch.inference_mode():
         got = M.unet_apply(bundle.unet_cfg, bundle.unet_params, x.to(dev), t.to(dev),
                            ctx.to(dev)).cpu()
-        n_conv = read_launches()["conv3x3"]
-        n_sm90 = read_launches()["conv3x3_sm90"]
+        n = read_launches()
         want = M.unet_apply(bundle.unet_cfg, to_cpu(bundle.unet_params), x, t, ctx)
-    if n_conv != 13 or n_sm90 != 11:
-        raise SmokeFailure(f"the 16x16 UNet eval launched K4 {n_conv} times, {n_sm90} on the "
-                           "sm90 body: want 13, all but conv_in (C = 4) and the out conv "
-                           "(Co = 4) on the sm90 body")
-    compare("UNet eps 16x16 latent b2, bf16 weights, 13 convs through K4", got, want, 5e-2)
+    if (n["conv3x3"] != per["k4"] or n["conv3x3_sm90"] != per["k4_sm90"]
+            or per["k4"] != UNET_CONVS_16_LATENT + 3 or per["k4_sm90"] != per["k4"] - 2):
+        raise SmokeFailure(f"the 16x16 UNet eval launched K4 {n['conv3x3']} times, "
+                           f"{n['conv3x3_sm90']} on the sm90 body: want {per['k4']} (13 and "
+                           f"the 3 split in_convs), all but conv_in (C = 4) and the out conv "
+                           f"(Co = 4) on the sm90 body")
+    check_gn(n, 1, 0, 0, "the 16x16 UNet eval", UNET_CAT_CALLS)
+    compare(f"UNet eps 16x16 latent b2, bf16 weights, {per['k4']} convs through K4, "
+            f"{UNET_CAT_CALLS} GroupNorms on K3's two-source form", got, want, 5e-2)
     # VAE decode in f32: 16x16 latent -> 128x128 image (mid attention S = 256;
     # the convs on the 16^2 and 32^2 planes through K4's f32 path)
     z = torch.randn((1, 16, 16, 4), generator=gen)
@@ -1084,18 +1186,22 @@ def phase4(bundle, dev, card: str, steps: int) -> dict:
 
     check_image(images, (1, 512, 512, 3))
     check_latents(latents, (1, 64, 64, 4))
-    for name in DDIM_PATH_KERNELS:
+    for name in DDIM_PATH_KERNELS + ("group_norm_cat",):
         if launches[name] <= 0:
             raise SmokeFailure(f"kernel {name} was not launched in the batch-1 render")
-    want = UNET_CONVS_PER_CALL_B1 * steps
-    if launches["conv3x3"] != want or launches["conv3x3_sm90"] != want:
+    per = unet_call_launches(bundle.unet_cfg, 64, 2)
+    want = per["k4_sm90"] * steps
+    if (launches["conv3x3"] != want or launches["conv3x3_sm90"] != want
+            or per["k4"] != UNET_CONVS_PER_CALL_B1 + 6 or per["k3_cat"] != UNET_CAT_CALLS):
         raise SmokeFailure(f"conv3x3 launched {launches['conv3x3']} times, the sm90 body "
-                           f"{launches['conv3x3_sm90']}: want {want}, all on the sm90 body")
+                           f"{launches['conv3x3_sm90']}: want {want} ({per['k4']} a step: "
+                           f"{UNET_CONVS_PER_CALL_B1} and the 6 split in_convs of the 16^2 and "
+                           f"32^2 planes), all on the sm90 body")
     if launches["attention_sm90"] != UNET_SELF_ATTN_SITES * steps:
         raise SmokeFailure(f"K1's sm90 body launched {launches['attention_sm90']} times, want "
                            f"{UNET_SELF_ATTN_SITES} x {steps}")
     check_geglu(launches, 1, steps, "the batch-1 render")
-    check_gn(launches, steps, 1, 0, "the batch-1 render")
+    check_gn(launches, steps, 1, 0, "the batch-1 render", UNET_CAT_CALLS * steps)
     check_wide(launches, 1, 1, "the batch-1 render")
     decode_attn = launches["attention"] - before["attention"]
     if bundle.vae_cfg.dtype != "bfloat16" or decode_attn != launches["attention_bf16_wide_sm90"]:
@@ -1107,9 +1213,113 @@ def phase4(bundle, dev, card: str, steps: int) -> dict:
           f"and first-call warm-up), {(t1 - t0) / steps:.4f} s/step, decode "
           f"{1000 * (t2 - t1):.2f} ms (first call), {1000 * (t3 - t2):.2f} ms (second), "
           f"peak memory {peak_gb:.2f} GiB")
-    print(f"phase4: launches {json.dumps(launches)} (conv3x3 = {UNET_CONVS_PER_CALL_B1} x "
-          f"{steps} steps; attention in the decode: {decode_attn} kernels, bf16 d=512)")
+    print(f"phase4: launches {json.dumps(launches)} (conv3x3 = {per['k4']} x {steps} steps; "
+          f"group_norm_cat = 2 kernels x {UNET_CAT_CALLS} x {steps}; attention in the decode: "
+          f"{decode_attn} kernels, bf16 d=512)")
+    phase4_fused_ab(bundle, cfg, card, steps, latents)
     return launches
+
+
+def split_once():
+    """A stand-in for ``models.unet._split_weight`` that copies each
+    weight's two halves once, in the weight's memory format, and keeps them
+    (with the weight) while the stand-in lives: the form phase 4 times
+    against the per-call views K4 and cuDNN copy at every call."""
+    import torch
+
+    kept = {}
+
+    def split(p, ca):
+        w = p["weight"]
+        hit = kept.get((id(w), ca))
+        if hit is None:
+            fmt = (torch.channels_last if w.is_contiguous(memory_format=torch.channels_last)
+                   else torch.contiguous_format)
+            hit = kept[(id(w), ca)] = (w, w[:, :ca].contiguous(memory_format=fmt),
+                                       w[:, ca:].contiguous(memory_format=fmt),
+                                       torch.zeros_like(p["bias"]))
+        return hit[1:]
+
+    return split
+
+
+def phase4_fused_ab(bundle, cfg, card: str, steps: int, latents) -> None:
+    """The batch-1 render's sampling with the up path's skip concat fused
+    (the default, K3's two-source form and the split convs over per-call
+    weight views), fused with the split weights copied once and kept
+    (:func:`split_once`), and materialized (``models.unet._FUSE_SKIP_CAT``
+    off: torch.cat, then K3 on the concat and one conv), in turns (off, on,
+    once, once, on, off): s/step and peak memory of each, their launches as
+    the UNet calls of each form predict, the forms' latents against each
+    other, and the device time of the per-call copies of the weight halves
+    (CUDA events)."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch.models import unet as U
+    from complex_prompt_diffusion_tpu_torch.pipeline import txt2img
+
+    per_call = U._split_weight
+    halves = {}  # (id, Ca) -> (weight, Ca): the split convs of the b1 UNet call
+
+    def recorded(p, ca):
+        halves.setdefault((id(p["weight"]), ca), (p["weight"], ca))
+        return per_call(p, ca)
+
+    secs = {"off": [], "on": [], "once": []}
+    peak = {"off": [], "on": [], "once": []}
+    out = {}
+    try:
+        for form in ("off", "on", "once", "once", "on", "off"):
+            U._FUSE_SKIP_CAT = form != "off"
+            if form == "once":
+                if U._split_weight in (recorded, per_call):  # the second turn keeps them
+                    U._split_weight = split_once()
+            else:  # the kept copies go before a turn that does not use them
+                U._split_weight = recorded if not halves else per_call
+            reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, lat = txt2img(bundle, "a watercolor painting of a lighthouse at dusk", cfg=cfg,
+                             decode=False)
+            torch.cuda.synchronize()
+            secs[form].append((time.perf_counter() - t0) / steps)
+            peak[form].append(torch.cuda.max_memory_allocated() / 2**30)
+            name = "materialized" if form == "off" else "fused"
+            check_unet_path(read_launches(), bundle.unet_cfg, 2, steps, 0, 0,
+                            f"the batch-1 sampling with the up path {name} ({form})")
+            out[form] = lat
+    finally:
+        U._FUSE_SKIP_CAT = True
+        U._split_weight = per_call
+    check_latents(out["off"], (1, 64, 64, 4))
+    rel = rel_err(out["on"], out["off"])[1]
+    same = torch.equal(out["on"], latents)
+    same_once = torch.equal(out["once"], out["on"])
+
+    def copy_halves():
+        for w, ca in halves.values():
+            w[:, :ca].contiguous()
+            w[:, ca:].contiguous()
+
+    copy_ms = event_ms(copy_halves, 10)
+    copy_gb = sum(2 * w.numel() * w.element_size() for w, _ in halves.values()) / 1e9
+
+    def two(form, vals, f):
+        return " / ".join(f.format(v) for v in vals[form])
+
+    print(f"phase4: b1 DDIM {steps} sampling on {card}, in turns off/on/once/once/on/off: up "
+          f"path fused (K3 two-source + split convs over per-call weight views) "
+          f"{two('on', secs, '{:.4f}')} s/step, peak {two('on', peak, '{:.3f}')} GiB; fused "
+          f"with the split weights copied once and kept {two('once', secs, '{:.4f}')} s/step, "
+          f"peak {two('once', peak, '{:.3f}')} GiB; materialized (torch.cat + K3 + one conv) "
+          f"{two('off', secs, '{:.4f}')} s/step, peak {two('off', peak, '{:.3f}')} GiB (incl. "
+          f"prompt encode); latents fused vs materialized max rel {rel:.3e} (bf16 arithmetic "
+          f"in another order; printed, not held); the fused latents equal the first render's "
+          f"bit for bit: {same}, the copied-once form's: {same_once}; the per-call copies "
+          f"of the {2 * len(halves)} weight halves of a UNet call: {copy_ms:.4f} ms (CUDA "
+          f"events, {copy_gb:.3f} GB read and written, bound {copy_gb / 3.35:.4f} ms at "
+          f"3.35 TB/s)", flush=True)
 
 
 def phase5(bundle, latents, images_f32, card: str) -> dict:
@@ -1169,16 +1379,17 @@ def phase6(bundle, image, card: str, steps: int) -> dict:
     for name in DDIM_PATH_KERNELS:
         if launches[name] <= 0:
             raise SmokeFailure(f"kernel {name} was not launched in img2img")
-    want = UNET_CONVS_PER_CALL_B1 * t_enc
+    per = unet_call_launches(bundle.unet_cfg, 64, 2)
+    want = per["k4_sm90"] * t_enc
     if launches["conv3x3"] != want or launches["conv3x3_sm90"] != want:
         raise SmokeFailure(f"img2img ran conv3x3 {launches['conv3x3']} times, the sm90 body "
-                           f"{launches['conv3x3_sm90']}: want {UNET_CONVS_PER_CALL_B1} x "
+                           f"{launches['conv3x3_sm90']}: want {per['k4_sm90']} x "
                            f"{t_enc} steps, all on the sm90 body")
     if launches["attention_sm90"] != UNET_SELF_ATTN_SITES * t_enc:
         raise SmokeFailure(f"K1's sm90 body launched {launches['attention_sm90']} times in "
                            f"img2img, want {UNET_SELF_ATTN_SITES} x {t_enc}")
     check_geglu(launches, 1, t_enc, "img2img")
-    check_gn(launches, t_enc, 1, 1, "img2img")
+    check_gn(launches, t_enc, 1, 1, "img2img", UNET_CAT_CALLS * t_enc)
     check_wide(launches, 2, 1, "img2img")
     print(f"phase6: img2img 512x512 b1 strength 0.75 DDIM {steps} ({t_enc} steps run) CFG "
           f"7.5, bf16 VAE encode and decode, on {card}: {t1 - t0:.3f} s end to end; "
@@ -1365,10 +1576,11 @@ def phase8(bundle, image, card: str, steps: int) -> dict:
     check_k5_bf16(launches, UNET_SELF_ATTN_SITES * n_run, "the k-family img2img")
     # K1: the encoder's and the decoder's d = 512 mid-blocks, nothing else
     check_wide(launches, 2, 1, "the k-family img2img under the kcanon route")
-    check_gn(launches, n_run, 1, 1, "the k-family img2img")
-    if launches["conv3x3_sm90"] < UNET_CONVS_PER_CALL_B1 * n_run or launches["attention_sm90"]:
+    check_gn(launches, n_run, 1, 1, "the k-family img2img", UNET_CAT_CALLS * n_run)
+    k4 = unet_call_launches(bundle.unet_cfg, 64, 2)["k4_sm90"]
+    if launches["conv3x3_sm90"] < k4 * n_run or launches["attention_sm90"]:
         raise SmokeFailure(f"conv3x3's sm90 body launched {launches['conv3x3_sm90']} times (want "
-                           f"at least {UNET_CONVS_PER_CALL_B1} x {n_run} steps), K1's "
+                           f"at least {k4} x {n_run} steps), K1's "
                            f"{launches['attention_sm90']} (want 0: K5 takes the UNet)")
     if launches["geglu_ff"] <= 0:
         raise SmokeFailure("kernel geglu_ff was not launched in the k-family img2img")
@@ -1432,10 +1644,10 @@ def check_unet_path(launches: dict, unet_cfg, ub: int, calls: int, decodes: int,
             "geglu_ff": per["k2"] * calls, "conv3x3": per["k4"] * calls,
             "conv3x3_sm90": per["k4_sm90"] * calls}
     got = {k: launches[k] for k in want}
-    if got != want or per["k3"] != UNET_GN_CALLS:
+    if got != want or per["k3"] != UNET_GN_CALLS or per["k3_cat"] not in (0, UNET_CAT_CALLS):
         raise SmokeFailure(f"{what} ({calls} UNet calls at UNet batch {ub}) launched {got}: want "
                            f"{want} ({per} a call)")
-    check_gn(launches, calls, decodes, encodes, what)
+    check_gn(launches, calls, decodes, encodes, what, per["k3_cat"] * calls)
     if f32_decode:
         check_wide(launches, 0, batch, what, s=s)
     else:
@@ -1873,24 +2085,28 @@ def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16", deep_
     a rank's under ``model`` tensor-parallel ranks) and the kernels' own
     rules: K1's sm90 body once at every self-attention site above
     ``SHORT_KV`` keys, K2 the kernels of each FF site's plan at its rows
-    (and the rank's hidden width), K3 one call a GroupNorm, K4 the convs its
-    gate admits (and of those, the ones on its sm90 body)."""
+    (and the rank's hidden width), K3 one call a GroupNorm ("k3_cat" of
+    them on its two-source form where the up path is fused at this batch
+    and dtype, ``models.unet.skip_cat_fused``), K4 the convs its gate admits
+    (and of those, the ones on its sm90 body; the fused up path's in_convs
+    split in two)."""
     import torch
 
     from complex_prompt_diffusion_tpu_torch.models.layers import conv3x3_wanted
+    from complex_prompt_diffusion_tpu_torch.models.unet import skip_cat_fused
     from complex_prompt_diffusion_tpu_torch.ops.attention import SHORT_KV
     from complex_prompt_diffusion_tpu_torch.ops.conv import k4_body
     from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_plan
     from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import unet_sites
 
-    sites = unet_sites(cfg, latent, deep_at, model)
     dt = getattr(torch, dtype)
+    sites = unet_sites(cfg, latent, deep_at, model, skip_cat_fused(ub, dt))
     gated = [(s, c, co) for s, c, co in sites["conv"]
              if conv3x3_wanted(torch.empty((ub, s, s, c), device="meta"), (co, c, 3, 3))]
     return {"k1": sum(1 for _, skv, _, _ in sites["self_attn"] if skv > SHORT_KV),
             "k2": sum(geglu_plan(ub * rows, ch, h4[0] if h4 else 4 * ch, dt).launches
                       for rows, ch, *h4 in sites["ff_rows"]),
-            "k3": sites["gn"], "k4": len(gated),
+            "k3": sites["gn"], "k3_cat": len(sites["gn_cat"]), "k4": len(gated),
             "k4_sm90": sum(1 for _, c, co in gated if k4_body(dt, c, co) == "bf16_sm90")}
 
 
@@ -2501,7 +2717,7 @@ def phase15(dev, card: str, image) -> dict:
               f"K1 fused f32 {n32['attention_f32_fused_sm90']} ({card})", flush=True)
         check_unet_path(n, bundle.unet_cfg, 2, 1, 0, 0, f"the 16x16 guided eps of the {label}",
                         latent=16)
-        k4 = unet_call_launches(bundle.unet_cfg, 16, 2)["k4"]
+        k4 = unet_call_launches(bundle.unet_cfg, 16, 2, "float32")["k4"]
         if (n32["conv3x3"] != k4 or n32["conv3x3_f32_sm90"] != k4 - 2 or n32["conv3x3_sm90"]
                 or n32["attention_sm90"]):
             raise SmokeFailure(f"the f32 16x16 guided eps of the {label} launched {n32}: want K4 "
@@ -2706,7 +2922,7 @@ def check_calls(launches: dict, what: str, calls, decodes: int = 0, batch: int =
 
     want = {"attention_sm90": 0, "geglu_ff": 0, "conv3x3": 0, "conv3x3_sm90": 0,
             "attention_f32_sm90": f32_decodes * f32_sm90_launches(batch, 1, s_decode, s_decode)}
-    gn = 0
+    gn = cat = 0
     for n, cfg, latent, ub, deep_at in calls:
         check_held(cfg, latent, ub, deep_at, what)
         per = unet_call_launches(cfg, latent, ub, deep_at=deep_at)
@@ -2714,9 +2930,11 @@ def check_calls(launches: dict, what: str, calls, decodes: int = 0, batch: int =
                        ("conv3x3_sm90", "k4_sm90")):
             want[key] += n * per[k]
         gn += n * per["k3"]
+        cat += n * per["k3_cat"]
     got = {k: launches[k] for k in want}
     if got != want:
         raise SmokeFailure(f"{what} launched {got}: want {want} from its UNet calls {calls}")
+    check_cat(launches, cat, what)
     want_gn = gn + VAE_DECODE_GN_CALLS * (decodes + f32_decodes)
     if (launches["group_norm calls"] != want_gn
             or launches["group_norm"] != launches["group_norm planned"]
@@ -3064,6 +3282,7 @@ NULL_STEPS = 20  # DDIM steps of phase 17's null-text inversion
 NULL_INNER = 5  # its Adam iterations a step
 TRAIN_STEPS = 3  # phase 17's SD-1.5 train steps
 LOGLIK_RK4_STEPS = 4  # its "Log" RK4 steps at 512x512 (4 VJPs a step)
+LOGLIK_DOPRI5_T_START = 3  # its dopri5 at a 16x16 latent: the last 3 of 20 sigmas (0.36 -> 0.03)
 GRAD_CPU_TOL = 1e-4  # phase 17(b): f32 loss and gradients at a 16x16 latent vs the CPU copies
 # the backward rule beside each kernel of the kernels line: the VJP of the
 # plain twin recomputed on the saved inputs (``_build.kernel_with_plain_vjp``)
@@ -3071,6 +3290,7 @@ GRAD_CPU_TOL = 1e-4  # phase 17(b): f32 loss and gradients at a 16x16 latent vs 
 BACKWARD = {"attention": "plain recompute (VJP of ops.attention.attention_plain)",
             "geglu_ff": "plain recompute (VJP of ops.mlp.geglu_ff_plain)",
             "group_norm": "plain recompute (VJP of ops.groupnorm.group_norm_plain)",
+            "group_norm_cat": "plain recompute (VJP of ops.groupnorm.group_norm_silu_cat_plain)",
             "conv3x3": "plain recompute (VJP of ops.conv.conv3x3_plain)",
             "attention_cm": "plain recompute (VJP of ops.attention.attention_dmajor_plain)",
             "winograd": "plain recompute (VJP of ops.probes.winograd.wino3x3_plain)"}
@@ -3083,7 +3303,7 @@ def grad_wiring_cases(dev) -> list:
     wide; K5 bf16 and f32 (the latter through its out_hdbs view); K2 bf16
     (f32 master weights) and f32; K3 bf16 and f32 with and without SiLU;
     K4 sm90 (its bias needs no gradient), f32 and generic; K6 bf16 and
-    f32."""
+    f32; K3's two-source form (two outputs)."""
     import importlib
 
     import torch
@@ -3148,6 +3368,12 @@ def grad_wiring_cases(dev) -> list:
         ("K2 f32", F2.geglu_ff, F2.geglu_ff_plain, ff(f32), (), F2.geglu_ff,
          F2.geglu_plan(2048, 320, 1280, f32).launches),
         gn(bf, False), gn(bf, True), gn(f32, False), gn(f32, True),
+        # the two-source form: two outputs, a cotangent each
+        ("K3 two-source bf16 SiLU (1280 | 640 at 16^2)", G.group_norm_silu_cat,
+         G.group_norm_silu_cat_plain,
+         (leaf((2, 16, 16, 1280), bf, 2.0), leaf((2, 16, 16, 640), bf, 2.0),
+          (1 + leaf(1920, f32, 0.1, grad=False)).requires_grad_(), leaf(1920, f32, 0.1)),
+         (32, 1e-5, True), G.group_norm_silu_cat, 2),
         ("K4 sm90 (f32 master weight; bias needs none)", C.conv3x3, C.conv3x3_plain,
          (leaf((2, 32, 32, 320), bf), conv_w(640, 320), leaf(640, f32, 0.1, grad=False)), (),
          C.conv3x3, 1),
@@ -3187,17 +3413,21 @@ def phase17_grads(dev, card: str) -> dict:
         n1 = counter.launches
         out = fn(*args, *rest)
         n2 = counter.launches
+        # a two-output entry (K3's two-source form) takes a cotangent each
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref_out if isinstance(ref_out, tuple) else (ref_out,)
         wrt = [a for a in args if a.requires_grad]
-        cot = torch.randn(out.shape, generator=g, device=dev).to(out.dtype)
-        got = torch.autograd.grad(out, wrt, cot, retain_graph=True)
-        none_ok = all(r is None for r, a in zip(out.grad_fn.apply(cot)[3:], args)
+        cot = [torch.randn(o.shape, generator=g, device=dev).to(o.dtype) for o in outs]
+        got = torch.autograd.grad(outs, wrt, cot, retain_graph=True)
+        none_ok = all(r is None for r, a in zip(outs[0].grad_fn.apply(*cot)[3:], args)
                       if not a.requires_grad)
         torch.cuda.synchronize()
         n3 = counter.launches
         want = torch.autograd.grad(twin(*args, *rest), wrt, cot)
         equal = all(a.dtype == x.dtype and torch.equal(a, b) for a, b, x in zip(got, want, wrt))
         ok = (n1 - n0 == planned and n2 - n1 == planned and n3 == n2 and none_ok and equal
-              and torch.equal(out, ref_out) and out.grad_fn is not None)
+              and all(torch.equal(o, r) for o, r in zip(outs, refs))
+              and outs[0].grad_fn is not None)
         print(f"phase17: (a) {label}: forward {n2 - n1} kernels under grad (planned {planned}), "
               f"backward 0 ({n3 - n2}); {len(wrt)} gradients torch.equal the plain twin's "
               f"{equal}, dtypes {[str(a.dtype)[6:] for a in got]}; None where none is needed "
@@ -3444,8 +3674,9 @@ def phase17_loglik(dev, card: str, bundle, sides=(512, 128)) -> dict:
     """(d): the "Log" sampler through ``sample_latents``: 512x512 b1 with
     the fixed-grid RK4 (LOGLIK_RK4_STEPS steps: 4 VJPs a step through the
     CFG UNet at batch 2), and dopri5 (its default) at a 16x16 latent at
-    full width with its NFE; finite log-likelihoods of shape [B]. ``sides``:
-    the two renders' pixel sides."""
+    full width with its NFE, over the last LOGLIK_DOPRI5_T_START steps of
+    the schedule (``t_start``); finite log-likelihoods of shape [B].
+    ``sides``: the two renders' pixel sides."""
     import torch
 
     from complex_prompt_diffusion_tpu_torch.pipeline import (
@@ -3457,15 +3688,16 @@ def phase17_loglik(dev, card: str, bundle, sides=(512, 128)) -> dict:
     spec = make_guidance_spec(bundle, PROMPT16)
     ucfg = bundle.unet_cfg
     out = {}
-    for label, side, steps in ((f"rk4_{sides[0]}", sides[0], LOGLIK_RK4_STEPS),
-                               (f"dopri5_{sides[1]}", sides[1], None)):
+    for label, side, steps, t_start in (
+            (f"rk4_{sides[0]}", sides[0], LOGLIK_RK4_STEPS, None),
+            (f"dopri5_{sides[1]}", sides[1], None, LOGLIK_DOPRI5_T_START)):
         cfg = RenderConfig(sampler="Log", width=side, height=side, steps=20, seed=3)
         reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with UNetCallKinds() as kinds:
             t0 = time.perf_counter()
-            ll = sample_latents(bundle, spec, cfg, loglik_steps=steps)
+            ll = sample_latents(bundle, spec, cfg, t_start=t_start, loglik_steps=steps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3475,7 +3707,8 @@ def phase17_loglik(dev, card: str, bundle, sides=(512, 128)) -> dict:
             raise SmokeFailure(f"Log RK4 {steps} steps made {nfe} UNet calls, want {4 * steps}")
         check_calls(launches, f"Log {label}", [(nfe, ucfg, side // 8, 2, None)])
         print(f"phase17: (d) \"Log\" through sample_latents, {side}x{side} b1, "
-              + (f"RK4 {steps} steps" if steps else "dopri5 (atol = rtol = 1e-4)")
+              + (f"RK4 {steps} steps" if steps else
+                 f"dopri5 (atol = rtol = 1e-4) over the last {t_start} of 20 steps")
               + f", CFG 7.5: {nfe} UNet VJPs (NFE) at UNet batch 2 in {wall:.3f} s "
               f"({wall / nfe:.4f} s a VJP), peak memory {peak:.2f} GiB with the bundle; "
               f"log-likelihood {[round(float(v), 3) for v in ll]} "
@@ -4078,6 +4311,222 @@ def phase19(dev, card: str) -> dict:
     return paths
 
 
+SUBPIXEL_REPS = 5  # phase 21(a): timed calls of each form, after one warm-up call
+# phase 21(a): relRMSE of the forced subpixel form against the conv of the
+# upsampled plane: bf16 (the summed taps rounded to bf16 once, each form's
+# bf16 rounding carried through the layers after it) and f32 (TF32 off:
+# only the order of f32 sums differs)
+SUBPIXEL_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+CLF_STEPS = 5  # phase 21(b): DPM-Solver++ 2M steps of the classifier-guided sample
+CLF_SCALE = 2.0  # its guidance scale
+CLF_TOL = 1e-4  # one f32 guided eps on the card against the CPU (TF32 off; 3xTF32 bodies)
+# the guidance term (scale x sigma x the classifier's gradient) and the
+# 5-step sample against the CPU: the gradient is the plain VJP's on the card,
+# of inputs the kernels computed (3xTF32, ~1e-6 of each layer's scale)
+CLF_GRAD_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def subpixel_forced():
+    """Forces the exact subpixel upsample conv (``models.layers.
+    _SUBPIXEL_UP = "1"``) inside the block and restores the flag after."""
+    from complex_prompt_diffusion_tpu_torch.models import layers as L
+
+    flag = L._SUBPIXEL_UP
+    L._SUBPIXEL_UP = "1"
+    try:
+        yield
+    finally:
+        L._SUBPIXEL_UP = flag
+
+
+def event_ms(fn, reps: int) -> float:
+    """Mean ms of ``reps`` calls of ``fn`` by CUDA events, after one call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase21_subpixel(bundle, dev, card: str) -> dict:
+    """(a) The exact subpixel upsample conv (``layers.conv3x3_after_upsample2x``,
+    which the JAX package takes by default on a TPU and the port only when
+    forced) against the conv of the upsampled plane: one SD-1.5 UNet call
+    in bf16 at UNet batch 2 (its three "up" convs), the b1 decode in bf16
+    and in f32 (its three upsamplers): relRMSE of forced against off, the
+    ms of each form (CUDA events), the forced call's launches (K4 without
+    the two up convs inside its gate, which the subpixel form takes as
+    matmuls)."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import models as M
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((2, 64, 64, 4), generator=gen, device=dev)
+    t = torch.tensor([801, 801], device=dev)
+    ctx = torch.randn((2, 77, 768), generator=gen, device=dev)
+    z = torch.randn((1, 64, 64, 4), generator=gen, device=dev)
+    vae16 = bundle.cast_vae("bfloat16")
+    ucfg = bundle.unet_cfg
+    calls = (
+        ("UNet call bf16 UNet batch 2", "bfloat16",
+         lambda: M.unet_apply(ucfg, bundle.unet_params, x, t, ctx),
+         lambda n: check_calls(n, "the UNet call with the subpixel up convs",
+                               [(1, ucfg, 64, 2, None)])),
+        ("b1 decode bf16", "bfloat16", lambda: M.vae_decode(vae16.vae_cfg, vae16.vae_params, z),
+         lambda n: check_vae_path(n, "the bf16 decode with the subpixel upsamplers", 1, 0, 4096)),
+        ("b1 decode f32", "float32", lambda: M.vae_decode(bundle.vae_cfg, bundle.vae_params, z),
+         lambda n: check_gn(n, 0, 1, 0, "the f32 decode with the subpixel upsamplers")),
+    )
+    paths = {}
+    with torch.inference_mode():
+        for label, dtype, fn, check in calls:
+            off = fn()
+            off_ms = event_ms(fn, SUBPIXEL_REPS)
+            with subpixel_forced():
+                reset_launches()
+                on = fn()
+                torch.cuda.synchronize()
+                launches = read_launches()
+                check(launches)
+                on_ms = event_ms(fn, SUBPIXEL_REPS)
+            rel = rel_rmse(on, off)
+            print(f"phase21: (a) {label}, subpixel upsample conv forced against off: relRMSE "
+                  f"{rel:.3e} (tol {SUBPIXEL_TOL[dtype]:.0e}), forced {on_ms:.3f} ms, off "
+                  f"{off_ms:.3f} ms (mean of {SUBPIXEL_REPS}, CUDA events; {card})", flush=True)
+            if not (rel <= SUBPIXEL_TOL[dtype] and bool(torch.isfinite(on).all())):
+                raise SmokeFailure(f"the subpixel form of the {label}: relRMSE {rel:.3e}")
+            paths[f"subpixel_{label.replace(' ', '_')}"] = launches
+    return paths
+
+
+def classifier_params(dev) -> dict:
+    """Phase 21(b)'s classifier: a 3x3 conv 4 -> 320, GroupNorm + SiLU, a
+    3x3 conv 320 -> 320 and self-attention over the 256 pixels of a 16x16
+    latent (8 heads of 40), in the port's layout, f32, from a seed."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import convert
+    from complex_prompt_diffusion_tpu_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(211)
+    tree = {"conv_in": L.init_conv(gen, 4, 320, 3), "norm": L.init_group_norm(320),
+            "conv": L.init_conv(gen, 320, 320, 3)}
+    for conv in (tree["conv_in"], tree["conv"]):
+        conv["bias"] = torch.rand(conv["bias"].shape, generator=gen) * 0.2 - 0.1
+    tree["norm"]["scale"] = 1 + 0.1 * torch.randn(320, generator=gen)
+    return convert.to_port(tree, device=dev)
+
+
+def classifier_guided_sample(unet_cfg, unet_params, clf, ns, x, ctx):
+    """DPM-Solver++ 2M over ``CLF_STEPS`` steps of the classifier-guided eps
+    (``model_wrapper(guidance_type="classifier")``: the UNet's eps at the
+    context ``ctx`` minus scale x sigma x the gradient of the classifier's
+    log-probability), and one guided eps and the unguided one at t = 0.5.
+    Returns (sample, guided eps, unguided eps, classifier calls)."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch.models import layers as L
+    from complex_prompt_diffusion_tpu_torch.ops import attention
+    from complex_prompt_diffusion_tpu_torch.samplers.solver import model_wrapper, sample_dpm_solver
+
+    calls = []
+
+    def model(x_, t_in, cond):
+        t_ = torch.full((x_.shape[0],), float(t_in), device=x_.device)
+        return M.unet_apply(unet_cfg, unet_params, x_, t_, ctx)
+
+    def classifier(x_, t_in, cond):
+        calls.append(1)
+        h = L.group_norm_silu_p(clf["norm"], L.conv2d(clf["conv_in"], x_))
+        s = L.conv2d(clf["conv"], h).reshape(x_.shape[0], -1, 320)
+        return attention(s, s, s, 8).mean(dim=(1, 2)) * cond * (1.0 + float(t_in) / 1000.0)
+
+    cond = torch.tensor(3.0, device=x.device)
+    guided = model_wrapper(model, ns, guidance_type="classifier", guidance_scale=CLF_SCALE,
+                           classifier_fn=classifier, condition=cond)
+    plain = model_wrapper(model, ns, condition=cond)
+    with torch.no_grad():
+        eps_g, eps_u = guided(x, 0.5), plain(x, 0.5)
+        sample = sample_dpm_solver(guided, x, ns, steps=CLF_STEPS, order=2)
+    return sample, eps_g, eps_u, len(calls)
+
+
+def phase21_classifier(bundle, dev, card: str) -> dict:
+    """(b) DPM-Solver classifier guidance (the JAX package's ``model_wrapper``
+    with ``guidance_type="classifier"``) on a 16x16 latent: the SD-1.5 UNet
+    cast to f32 and a classifier that runs K4 (its generic body on the
+    4-channel conv, its 3xTF32 body on 320 -> 320), K3 and K1 (the fused
+    3xTF32 body) forward, its gradient through their plain VJP rules; one
+    guided eps, its guidance term and a 5-step DPM-Solver++ 2M sample against
+    the same on CPU copies (TF32 off), the card's launches as the UNet calls
+    and the classifier's layers predict and no kernel in the backward."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch.pipeline import _tree_map
+    from complex_prompt_diffusion_tpu_torch.samplers.solver import NoiseScheduleVP
+
+    b32 = bundle.cast("float32")
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(212)
+    x = torch.randn((1, 16, 16, 4), generator=gen)
+    ctx = torch.randn((1, 77, 768), generator=gen)
+    ns = NoiseScheduleVP("discrete", alphas_cumprod=bundle.tables.alphas_cumprod)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = classifier_guided_sample(b32.unet_cfg, b32.unet_params, classifier_params(dev), ns,
+                                   x.to(dev), ctx.to(dev))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    got = [g.cpu() if isinstance(g, torch.Tensor) else g for g in got]
+    want = classifier_guided_sample(b32.unet_cfg, _tree_map(lambda a: a.to(cpu), b32.unet_params),
+                                    classifier_params(cpu), ns, x, ctx)
+    del b32
+    evals = CLF_STEPS + 2  # the guided and unguided evals at t = 0.5, then the sample's
+    per = unet_call_launches(bundle.unet_cfg, 16, 1, "float32")
+    clf_calls = got[3]
+    want_n = {"attention": evals * per["k1"] + clf_calls,
+              "conv3x3": evals * per["k4"] + 2 * clf_calls,
+              "group_norm calls": evals * UNET_GN_CALLS + clf_calls, "group_norm_cat": 0}
+    n = {k: launches[k] for k in want_n}
+    eps_rel = rel_err(got[1], want[1])[1]
+    term_rel = rel_err(got[1] - got[2], want[1] - want[2])[1]
+    sample_rel = rel_rmse(got[0], want[0])
+    ok = (n == want_n and clf_calls == want[3] == CLF_STEPS + 1 and eps_rel <= CLF_TOL
+          and term_rel <= CLF_GRAD_TOL and sample_rel <= CLF_GRAD_TOL
+          and launches["group_norm"] == launches["group_norm planned"])
+    print(f"phase21: (b) DPM-Solver++ 2M {CLF_STEPS} steps, classifier guidance (scale "
+          f"{CLF_SCALE}) on a 16x16 latent, SD-1.5 UNet f32 + a K4/K3/K1 classifier, on {card}: "
+          f"{secs:.3f} s; guided eps vs CPU rel {eps_rel:.3e} (tol {CLF_TOL:.0e}), guidance "
+          f"term rel {term_rel:.3e} and sample relRMSE {sample_rel:.3e} (tol "
+          f"{CLF_GRAD_TOL:.0e}); {clf_calls} classifier gradients; launches {n} (want "
+          f"{want_n}: {evals} UNet calls, the classifier's forwards, nothing in the backwards)",
+          flush=True)
+    if not ok:
+        raise SmokeFailure(f"phase21 (b): classifier guidance: launches {n} (want {want_n}), "
+                           f"{clf_calls} classifier calls, rel {eps_rel:.3e} / {term_rel:.3e} / "
+                           f"{sample_rel:.3e}")
+    return {"dpm_solver_classifier_guidance": launches}
+
+
+def phase21(bundle, dev, card: str) -> dict:
+    """The JAX package's last forms on the card: (a) the exact subpixel
+    upsample conv, forced, against off; (b) DPM-Solver classifier
+    guidance against its CPU twin."""
+    paths = phase21_subpixel(bundle, dev, card)
+    paths.update(phase21_classifier(bundle, dev, card))
+    return paths
+
+
 DIFF_STEPS = 20  # DDIM steps of phase 20's diffusers-keyed and CompVis-keyed renders
 RANK_STEPS = 10  # DDIM steps of its tensor- and data-parallel renders
 TP_SD15_ALL_REDUCES = 48  # all-reduces of a tensor-parallel SD-1.5 UNet call: 3 x 16 blocks
@@ -4521,6 +4970,7 @@ def main(argv=None) -> int:
     paths["img2img_b1_euler_a_kcanon"] = phase8(bundle16, images[0], card, K_STEPS)
     paths["samplers_b1"] = phase12(bundle16, images[0], card)
     paths.update(phase14(bundle16, images[0], card))
+    paths.update(phase21(bundle, dev, card))
     for name in PROBES:
         if any(p[name] for p in paths.values()):
             raise SmokeFailure(f"the probe {name} was launched in a render: no layer "
@@ -4557,9 +5007,13 @@ def main(argv=None) -> int:
         route = name
         while route in SM90:  # a Hopper body -> the wrapper that counts every body
             route = SM90[route]
-        entry["backward"] = BACKWARD.get(route, "none: a probe, as in the JAX package")
+        entry["backward"] = BACKWARD.get(name, BACKWARD.get(
+            route, "none: a probe, as in the JAX package"))
         if sm["replaced_ms"] is not None:
-            entry["replaced_body_ms"] = sm["replaced_ms"]
+            # K3's two-source form replaced no body: beside it, the
+            # materialized port path (torch.cat, then K3 on the concat)
+            key = "materialized_ms" if name == "group_norm_cat" else "replaced_body_ms"
+            entry[key] = sm["replaced_ms"]
         if name == "probe_attention":
             entry["sources"] = list(PROBE_ATTENTION_SOURCES)
         elif name == "probe_groupnorm":  # K3's kernels, in K8's modes

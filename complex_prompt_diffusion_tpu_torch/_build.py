@@ -110,6 +110,10 @@ _SIGNATURES = {
     # x, gamma, beta, y, parts, is_f32, N, HW, C, G, eps, silu, form, tiles,
     # int* kernels launched, stream
     "cpd_group_norm_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P),
+    # the two-source form: a, b, gamma, beta, ya, yb, parts, is_f32, N, HW,
+    # Ca, Cb, G, eps, silu, tiles, int* kernels launched, stream
+    "cpd_group_norm_cat_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                _P, _P),
     # int* bytes of a sample a slab block holds
     "cpd_group_norm_sm90_tile_max": (_P,),
     # x, w, bias, bias_is_f32, y, B, H, W, C, Co, stream
@@ -254,19 +258,20 @@ def refuse_grad(what: str, *tensors) -> None:
 
     The CUDA kernels write into fresh buffers through ctypes, so a body's
     output carries no ``grad_fn``: under grad mode, with an argument that
-    requires grad, a result would silently cut the graph. The six dispatch
+    requires grad, a result would silently cut the graph. The seven dispatch
     entries (``flash_attention``, ``attention_dmajor``, ``geglu_ff``,
-    ``group_norm_nhwc``, ``conv3x3``, ``wino3x3``) differentiate through
-    :func:`kernel_with_plain_vjp` and call their bodies with grad off, so
-    this raises only for a body or a probe (K7-K9, which have no backward
-    rule in the JAX package either) called directly."""
+    ``group_norm_nhwc``, ``group_norm_silu_cat``, ``conv3x3``, ``wino3x3``)
+    differentiate through :func:`kernel_with_plain_vjp` and call their
+    bodies with grad off, so this raises only for a body or a probe (K7-K9,
+    which have no backward rule in the JAX package either) called
+    directly."""
     if _grad_wanted(tensors):
         raise RuntimeError(
             f"{what} has no backward rule of its own: its CUDA output would carry no "
             "gradient. Differentiate through its dispatch entry (flash_attention, "
-            "attention_dmajor, geglu_ff, group_norm_nhwc, conv3x3, wino3x3), or call it "
-            "under torch.no_grad() or torch.inference_mode(), or on CPU tensors (the "
-            "differentiable plain twin)")
+            "attention_dmajor, geglu_ff, group_norm_nhwc, group_norm_silu_cat, conv3x3, "
+            "wino3x3), or call it under torch.no_grad() or torch.inference_mode(), or on "
+            "CPU tensors (the differentiable plain twin)")
 
 
 def _grad_wanted(tensors) -> bool:
@@ -290,14 +295,17 @@ def _plain_vjp_function():
             return kernel_fn(*tensors, *nondiff)
 
         @staticmethod
-        def backward(ctx, grad_out):
+        def backward(ctx, *grad_outs):
             needs = ctx.needs_input_grad[3:]
             with torch.enable_grad():
                 ins = [t.detach().requires_grad_(n) if t is not None else None
                        for t, n in zip(ctx.saved_tensors, needs)]
                 out = ctx.plain_fn(*ins, *ctx.nondiff)
+                outs = out if isinstance(out, tuple) else (out,)
+                pairs = [(o, g) for o, g in zip(outs, grad_outs) if g is not None]
                 wrt = [t for t, n in zip(ins, needs) if n]
-                grads = iter(torch.autograd.grad(out, wrt, grad_out, allow_unused=True))
+                grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                                 [g for _, g in pairs], allow_unused=True))
             return (None, None, None, *(next(grads) if n else None for n in needs))
 
     return KernelWithPlainVJP
@@ -314,7 +322,10 @@ def kernel_with_plain_vjp(kernel_fn, plain_fn, nondiff: tuple, *tensors):
     off, so the body's :func:`refuse_grad` stays quiet) and saves the
     inputs; its backward recomputes ``plain_fn`` on them under grad and
     returns ``torch.autograd.grad`` of it for the cotangent (``None`` for
-    an input that needs none, each gradient in its input's dtype). The
+    an input that needs none, each gradient in its input's dtype). A kernel
+    with several outputs returns them as a tuple, as ``plain_fn`` does; the
+    backward takes a cotangent for each and passes the pairs whose
+    cotangent is not ``None``. The
     backward launches no kernel: it is plain PyTorch (cuBLAS and cuDNN
     inside ``torch.matmul`` and the convs), as JAX's rule is XLA. Anywhere
     else the kernel runs alone. ``tensors`` may hold ``None``; ``nondiff``

@@ -45,6 +45,15 @@
 //     in tile order and normalizes its range, streamed through the same
 //     ring. 2 reads and 1 write, with SMs / N tiles a sample, so a batch-1
 //     plane fills the card.
+//   * Two-source form (two launches), for the UNet's up-path ResBlocks,
+//     whose GroupNorm+SiLU takes the hidden state and its skip as one
+//     virtual row [a | b] (the JAX package's group_norm_silu_cat): the
+//     split form with each ring stage filled by two bulk copies, P x Ca of
+//     a and P x Cb of b, the statistics one pass in f32 for both dtypes (as
+//     that function's), the output written as two tensors, so the concat
+//     never reaches device memory. Groups may straddle the boundary: a
+//     thread's 8 channels lie in one source (Ca % 8 == 0) and the fold sees
+//     the virtual channel index.
 //   * A third form, a sample resident in a thread-block cluster of up to 16
 //     blocks exchanging partials through distributed shared memory, lost to
 //     one of these two at every shape of the render on the H100 and was
@@ -94,4 +103,29 @@ extern "C" int cpd_group_norm_sm90(const void* x, const void* gamma, const void*
 extern "C" int cpd_group_norm_sm90_tile_max(int* bytes) {
   *bytes = kTileMax;
   return 0;
+}
+
+// The two-source form: a [N, HW, Ca] and b [N, HW, Cb] (contiguous, 16-byte
+// aligned, of one dtype: f32 if is_f32, else bf16) normalized as the rows
+// [a | b] into ya (like a) and yb (like b); gamma, beta: [Ca + Cb] of that
+// dtype. Ca, Cb > 0 and % 8 == 0, Ca + Cb <= 4096, (Ca + Cb) % G == 0, G <=
+// 256; `tiles` (1 .. HW) tiles a sample with `parts` N * tiles * G float2
+// of scratch. Sets *launched to the kernels it launched (2).
+extern "C" int cpd_group_norm_cat_sm90(const void* a, const void* b, const void* gamma,
+                                       const void* beta, void* ya, void* yb, void* parts,
+                                       int is_f32, int N, int HW, int Ca, int Cb, int G,
+                                       float eps, int silu, int tiles, int* launched,
+                                       void* stream) {
+  *launched = 0;
+  const int C = Ca + Cb;
+  if (Ca <= 0 || Cb <= 0 || Ca % kVec || Cb % kVec || tiles < 1 || tiles > HW ||
+      !gn_args_ok(a, ya, parts, N, HW, C, G, 0, tiles) ||
+      (reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(yb)) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_f32)
+    return launch_cat<float>(a, b, gamma, beta, ya, yb, parts, N, HW, Ca, Cb, G, eps, silu,
+                             tiles, launched, st);
+  return launch_cat<__nv_bfloat16>(a, b, gamma, beta, ya, yb, parts, N, HW, Ca, Cb, G, eps,
+                                   silu, tiles, launched, st);
 }

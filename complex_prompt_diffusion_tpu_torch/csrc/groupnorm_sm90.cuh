@@ -1,6 +1,8 @@
 // The body of K3 on Hopper (csrc/groupnorm_sm90.cu, whose notes give the
 // design): the slab form (gn_slab_kernel) and the split form
-// (gn_stats_kernel, gn_apply_kernel), and the host launch of either.
+// (gn_stats_kernel, gn_apply_kernel), and the host launch of either; at the
+// end the two-source form (gn_cat_stats_kernel, gn_cat_apply_kernel), the
+// split form over a virtual concat of two inputs.
 // groupnorm_sm90.cu launches them as K3; the probe K8 (probe_groupnorm.cu)
 // launches them in the modes of the TPU ablation scripts, the GnProbeMode
 // below, with the statistics' channel sums on the tensor cores (MMA), and
@@ -145,12 +147,13 @@ struct Acc {
   float a[kVec], b[kVec], n;
 };
 
-// add the q pixels of a chunk (its first pixel at `buf`, in shared memory)
-template <typename T>
+// add the q pixels of a chunk (its first pixel at `buf`, in shared memory);
+// ONE: one-pass sums whatever T is (the two-source form's f32 statistics)
+template <typename T, bool ONE = sizeof(T) == 2>
 __device__ __forceinline__ void accumulate(Acc& s, const T* buf, int q, int C, const Geo& g) {
   if (!g.on) return;
   const T* col = buf + kVec * g.j;
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (ONE) {
     for (int p = g.r; p < q; p += g.R) {
       float v[kVec];
       load8(col + p * C, v);
@@ -709,6 +712,55 @@ gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ parts, int HW, int
   }
 }
 
+// The consumers of an apply kernel (threads 32..; they alone call it)
+// merge one sample's split-form partials (`sp`: stat_tiles of them a group,
+// in tile order; F32 Chan's merge, else sums) into each group's (mean,
+// rstd) in stat[G]: slice sl of the tiles for group g, then the slices in
+// order. Two named barriers over the consumers.
+template <bool F32, bool RUNS>
+__device__ __forceinline__ void merge_stats(unsigned char* smem, const float2* __restrict__ sp,
+                                            int stat_tiles, int HW, int C, int G, int runs,
+                                            float eps, float2* stat) {
+  constexpr int kBatch = 8;  // partials a thread loads before it merges them
+  const int c = (int)threadIdx.x - 32;
+  float* sn = reinterpret_cast<float*>(smem + kAOff);
+  float* sa = sn + kConsumers;
+  float* sb = sa + kConsumers;
+  const int nsl = kConsumers / G;
+  const float cg = (float)(C / G);
+  if (c < nsl * G) {
+    const int g = c % G, sl = c / G;
+    const float2* pp = sp + g;
+    Part s{0.f, 0.f, 0.f};
+    for (int i0 = sl; i0 < stat_tiles; i0 += kBatch * nsl) {
+      float2 v[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = i0 + b * nsl;
+        if (i < stat_tiles) v[b] = pp[(long long)i * G];
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = i0 + b * nsl;
+        if (i < stat_tiles)
+          merge<F32>(s, Part{(float)tile_pixels<RUNS>(HW, runs, stat_tiles, i) * cg,
+                             v[b].x, v[b].y});
+      }
+    }
+    sn[c] = s.n;
+    sa[c] = s.a;
+    sb[c] = s.b;
+  }
+  cpd::named_barrier(1, kConsumers);
+  if (c < G) {
+    Part s{0.f, 0.f, 0.f};
+    for (int sl = 0; sl < nsl; ++sl)
+      merge<F32>(s, Part{sn[sl * G + c], sa[sl * G + c], sb[sl * G + c]});
+    stat[c] = finish<F32>(s, eps);
+  }
+  cpd::named_barrier(1, kConsumers);
+}
+
 // Split form, kernel 2: merge sample blockIdx.y's partials (stat_tiles of
 // them a group, in tile order), normalize tile blockIdx.x (RUNS: its share of
 // each of the `runs` runs; copy: no partials, the tile through f32 and back)
@@ -718,7 +770,6 @@ gn_apply_kernel(const T* __restrict__ x, const float2* __restrict__ parts,
                 const T* __restrict__ gamma, const T* __restrict__ beta, T* __restrict__ y,
                 int HW, int C, int G, int stat_tiles, int runs, float eps, int silu) {
   constexpr bool F32 = sizeof(T) == 4;
-  constexpr int kBatch = 8;  // partials a thread loads before it merges them
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kStages;
@@ -737,45 +788,8 @@ gn_apply_kernel(const T* __restrict__ x, const float2* __restrict__ parts,
   float mu[kVec], sc[kVec];
   if constexpr (MODE != kModeCopy) {
     load_affine(gamma, beta, 0, geo, ga, be);
-    // the consumers merge the partials: slice sl of the tiles for group g,
-    // then the slices in order
-    const int c = (int)threadIdx.x - 32;
-    float* sn = reinterpret_cast<float*>(smem + kAOff);
-    float* sa = sn + kConsumers;
-    float* sb = sa + kConsumers;
-    const int nsl = kConsumers / G;
-    const float cg = (float)(C / G);
-    if (c < nsl * G) {
-      const int g = c % G, sl = c / G;
-      const float2* pp = parts + (long long)n * stat_tiles * G + g;
-      Part s{0.f, 0.f, 0.f};
-      for (int i0 = sl; i0 < stat_tiles; i0 += kBatch * nsl) {
-        float2 v[kBatch];
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int i = i0 + b * nsl;
-          if (i < stat_tiles) v[b] = pp[(long long)i * G];
-        }
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int i = i0 + b * nsl;
-          if (i < stat_tiles)
-            merge<F32>(s, Part{(float)tile_pixels<RUNS>(HW, runs, stat_tiles, i) * cg,
-                               v[b].x, v[b].y});
-        }
-      }
-      sn[c] = s.n;
-      sa[c] = s.a;
-      sb[c] = s.b;
-    }
-    cpd::named_barrier(1, kConsumers);
-    if (c < G) {
-      Part s{0.f, 0.f, 0.f};
-      for (int sl = 0; sl < nsl; ++sl)
-        merge<F32>(s, Part{sn[sl * G + c], sa[sl * G + c], sb[sl * G + c]});
-      stat[c] = finish<F32>(s, eps);
-    }
-    cpd::named_barrier(1, kConsumers);
+    merge_stats<F32, RUNS>(smem, parts + (long long)n * stat_tiles * G, stat_tiles, HW, C, G,
+                           runs, eps, stat);
     int ge[kVec];
     channel_groups(C / G, geo, ge);
     channel_consts<T>(stat, ge, geo, ga, mu, sc, be);
@@ -866,6 +880,168 @@ int launch(const void* x, const void* gamma, const void* beta, void* y, void* pa
   gn_apply_kernel<T, MODE, RUNS><<<dim3(tiles, N), kThreads, smem, st>>>(
       xp, pp, gp, bp, yp, HW, C, G, tiles, runs, eps, silu);
   cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ++*launched;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Two-source form: GroupNorm(+SiLU) of the virtual row [a | b] (a [N, HW,
+// Ca], b [N, HW, Cb]) into ya and yb, with no [N, HW, Ca + Cb] concat in
+// device memory: the UNet's up-path ResBlocks, whose input is the hidden
+// state beside its skip (complex_prompt_diffusion_tpu/ops/groupnorm.py::
+// group_norm_silu_cat, which the JAX package computes in XLA). The split
+// form over two sources: each ring stage holds a chunk's q pixels of a (q x
+// Ca, at the stage's start) and of b (q x Cb, q Ca elements in), two bulk
+// copies on one full barrier; a thread keeps the 8 channels of the virtual
+// row its geometry gives it (Ca % 8 == 0, so they lie in one source) and
+// reads them from that source's region; the fold and the group of a channel
+// see the virtual index, so groups may straddle the a/b boundary.
+// Statistics are one pass in f32 whatever T is, (sum, sum of squares), as
+// the JAX function's matmul statistics are.
+
+// this thread's geometry in its own source: the column j counted from that
+// source's first channel; in_a: the source is a
+__device__ __forceinline__ Geo source_geo(const Geo& g, int Ca, bool& in_a) {
+  Geo s = g;
+  in_a = kVec * g.j < Ca;
+  if (!in_a) s.j -= Ca / kVec;
+  return s;
+}
+
+// Warp 0: lane 0 streams tile t's chunks of one sample's a (its pixel 0 at
+// `a`) and b through the ring
+template <typename T>
+__device__ __forceinline__ void produce_cat(const T* a, const T* b, T* ring, int HW, int tiles,
+                                            int t, int q, int Ca, int Cb, uint64_t* full,
+                                            uint64_t* empty) {
+  if ((threadIdx.x & 31) == 0) {
+    for_chunks<false>(HW, 1, tiles, t, q, [&](int i, int p, int np) {
+      const int s = i % kStages;
+      if (i >= kStages) cpd::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+      const uint32_t ba = (uint32_t)(np * Ca * (int)sizeof(T));
+      const uint32_t bb = (uint32_t)(np * Cb * (int)sizeof(T));
+      T* stage = ring + (long long)s * q * (Ca + Cb);
+      cpd::mbar_expect_tx(&full[s], ba + bb);
+      cpd::bulk_load(stage, a + (long long)p * Ca, ba, &full[s]);
+      cpd::bulk_load(stage + (long long)q * Ca, b + (long long)p * Cb, bb, &full[s]);
+    });
+  }
+  __syncwarp();
+}
+
+// kernel 1: the (sum, sum of squares) partials of tile blockIdx.x of sample
+// blockIdx.y, one a group
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+gn_cat_stats_kernel(const T* __restrict__ a, const T* __restrict__ b, float2* __restrict__ parts,
+                    int HW, int Ca, int Cb, int G) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kStages;
+  T* ring = reinterpret_cast<T*>(smem + kHeader);
+  const int C = Ca + Cb;
+  const int tiles = (int)gridDim.x, t = blockIdx.x, n = blockIdx.y;
+  const int P = tile_pixels<false>(HW, 1, tiles, t), q = ring_chunk(C, (int)sizeof(T));
+  init_ring(full, empty);
+  const Geo geo = geometry(C);
+  bool in_a;
+  const Geo src = source_geo(geo, Ca, in_a);
+  Acc acc;
+  zero(acc);
+  if (threadIdx.x < 32) {
+    produce_cat(a + (long long)n * HW * Ca, b + (long long)n * HW * Cb, ring, HW, tiles, t, q, Ca,
+                Cb, full, empty);
+  } else {
+    for_chunks<false>(HW, 1, tiles, t, q, [&](int i, int, int np) {
+      const int s = i % kStages;
+      cpd::mbar_wait(&full[s], (i / kStages) & 1);
+      const T* stage = ring + (long long)s * q * C;
+      if (in_a)
+        accumulate<T, true>(acc, stage, np, Ca, src);
+      else
+        accumulate<T, true>(acc, stage + (long long)q * Ca, np, Cb, src);
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) cpd::mbar_arrive(&empty[s]);
+    });
+  }
+  fold<false>(acc, smem, C, G, P, geo, parts + ((long long)n * tiles + t) * G);
+}
+
+// kernel 2: merge sample blockIdx.y's partials, normalize tile blockIdx.x's
+// pixels of a into ya and of b into yb
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+gn_cat_apply_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                    const float2* __restrict__ parts, const T* __restrict__ gamma,
+                    const T* __restrict__ beta, T* __restrict__ ya, T* __restrict__ yb, int HW,
+                    int Ca, int Cb, int G, float eps, int silu) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kStages;
+  float2* stat = reinterpret_cast<float2*>(smem + kStatOff);
+  T* ring = reinterpret_cast<T*>(smem + kHeader);
+  const int C = Ca + Cb;
+  const int tiles = (int)gridDim.x, t = blockIdx.x, n = blockIdx.y;
+  const int q = ring_chunk(C, (int)sizeof(T));
+  const long long base_a = (long long)n * HW * Ca, base_b = (long long)n * HW * Cb;
+  init_ring(full, empty);
+  if (threadIdx.x < 32) {
+    produce_cat(a + base_a, b + base_b, ring, HW, tiles, t, q, Ca, Cb, full, empty);
+    return;
+  }
+  const Geo geo = geometry(C);
+  float ga[kVec], be[kVec], mu[kVec], sc[kVec];
+  load_affine(gamma, beta, 0, geo, ga, be);
+  merge_stats<false, false>(smem, parts + (long long)n * tiles * G, tiles, HW, C, G, 1, eps,
+                            stat);
+  int ge[kVec];
+  channel_groups(C / G, geo, ge);
+  channel_consts<T>(stat, ge, geo, ga, mu, sc, be);
+  bool in_a;
+  const Geo src = source_geo(geo, Ca, in_a);
+  for_chunks<false>(HW, 1, tiles, t, q, [&](int i, int p, int np) {
+    const int s = i % kStages;
+    cpd::mbar_wait(&full[s], (i / kStages) & 1);
+    const T* stage = ring + (long long)s * q * C;
+    if (in_a)
+      normalize<T, kModeFull>(stage, ya + base_a + (long long)p * Ca, np, Ca, Ca, src, mu, sc, be,
+                              silu);
+    else
+      normalize<T, kModeFull>(stage + (long long)q * Ca, yb + base_b + (long long)p * Cb, np, Cb,
+                              Cb, src, mu, sc, be, silu);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) cpd::mbar_arrive(&empty[s]);
+  });
+}
+
+// The two kernels of one two-source call over `tiles` tiles a sample, with
+// `parts` N * tiles * G float2 of scratch; *launched counts them. The
+// caller has checked the arguments (cpd_group_norm_cat_sm90).
+template <typename T>
+int launch_cat(const void* a, const void* b, const void* gamma, const void* beta, void* ya,
+               void* yb, void* parts, int N, int HW, int Ca, int Cb, int G, float eps, int silu,
+               int tiles, int* launched, cudaStream_t st) {
+  static bool attrs = false;  // one card a process
+  if (!attrs) {
+    int err = set_attrs(gn_cat_stats_kernel<T>);
+    if (!err) err = set_attrs(gn_cat_apply_kernel<T>);
+    if (err) return err;
+    attrs = true;
+  }
+  const int es = (int)sizeof(T);
+  const int smem = kHeader + kStages * ring_chunk(Ca + Cb, es) * (Ca + Cb) * es;
+  const T* ap = static_cast<const T*>(a);
+  const T* bp = static_cast<const T*>(b);
+  float2* pp = static_cast<float2*>(parts);
+  gn_cat_stats_kernel<T><<<dim3(tiles, N), kThreads, smem, st>>>(ap, bp, pp, HW, Ca, Cb, G);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ++*launched;
+  gn_cat_apply_kernel<T><<<dim3(tiles, N), kThreads, smem, st>>>(
+      ap, bp, pp, static_cast<const T*>(gamma), static_cast<const T*>(beta), static_cast<T*>(ya),
+      static_cast<T*>(yb), HW, Ca, Cb, G, eps, silu);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   ++*launched;
   return 0;

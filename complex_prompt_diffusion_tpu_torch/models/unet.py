@@ -38,25 +38,44 @@ splits the convs' input channels (one all-reduce a conv, bias once). Under
 a shard context the self-attention sites take the "bsc" route, as the JAX
 package's ``ShardCtx`` replaces ``use_pallas="cm"``.
 
-The up-path skip concat is a plain ``torch.cat``: the JAX package's split
-GroupNorm+conv over a virtual concat is gated to its TPU matmul-stats GN
-regime.
+The up-path skip concat is virtual where the JAX package's gate admits it:
+each output block that starts with a ResBlock gets the pair (h, skip), and
+:func:`_apply_res` takes it without ``torch.cat`` where
+``CPD_TPU_FUSE_SKIP_CAT`` (read at import, "0" turns it off) holds, the
+ResBlock has a ``skip`` conv, the UNet batch is <= 4, the activations are
+<= 16-bit (``ops.groupnorm.prefers_mm_stats``) and the two dtypes agree:
+GroupNorm+SiLU through K3's two-source form, the in_conv and the 1x1 skip
+conv as two convs over the channel-split weights, summed
+(:func:`_apply_res_cat`). Elsewhere the pair is concatenated. Under a shard
+context the pair takes the same gate, as the JAX package's ``shard_bundle``
+UNet runs the same ``_apply_res`` under GSPMD: the two-source GroupNorm
+replicated, the split convs replicated, or under ``conv_split`` each rank's
+share of the virtual concat's input channels and one all-reduce a conv.
+The 3x3 conv after a nearest 2x upsample ("up") takes the exact subpixel
+form where ``layers.subpixel_up_wanted`` says.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.utils.weak
 
 from complex_prompt_diffusion_tpu_torch.models import layers as L
 from complex_prompt_diffusion_tpu_torch.ops import attention as mha
 from complex_prompt_diffusion_tpu_torch.ops import geglu_ff, self_attention_cm, tome
+from complex_prompt_diffusion_tpu_torch.ops import groupnorm as GN
+
+# import-time flag, as the JAX package's: "0" concatenates every up-path
+# skip; otherwise _apply_res takes the (h, skip) pair where its gate admits
+_FUSE_SKIP_CAT = os.environ.get("CPD_TPU_FUSE_SKIP_CAT", "1") != "0"
 
 __all__ = [
     "UNetConfig", "build_plan", "init_unet", "unet_apply", "precompute_cross_kv",
-    "deepcache_default_block", "make_deepcache_unets",
+    "deepcache_default_block", "make_deepcache_unets", "skip_cat_fused",
 ]
 
 
@@ -327,21 +346,86 @@ def init_unet(gen, cfg: UNetConfig, device="cpu"):
 # --------------------------------------------------------------------------
 
 
-def _conv(p, x, shard=None, stride: int = 1):
-    """``layers.conv2d``, or under ``shard.conv_split`` with a weight that
+def skip_cat_fused(batch: int, dtype) -> bool:
+    """Whether the up-path ResBlocks of a UNet call at UNet batch ``batch``
+    in ``dtype`` take the (h, skip) pair without the concat: the flag, the
+    batch and the dtype of :func:`_apply_res`'s gate (every up-path
+    ResBlock of the configs has a skip conv and mode "none"). The launch
+    counts of ``tools/kernel_cases`` read it."""
+    return (_FUSE_SKIP_CAT and batch <= 4
+            and GN.prefers_mm_stats(torch.empty((), dtype=dtype, device="meta")))
+
+
+def _conv_one(p, x, stride: int = 1, up: bool = False):
+    """``layers.conv2d`` of x, or with ``up`` of its nearest 2x upsample:
+    the exact subpixel form where ``layers.subpixel_up_wanted`` says."""
+    if not up:
+        return L.conv2d(p, x, stride=stride)
+    if L.subpixel_up_wanted(p["weight"].shape):
+        return L.conv3x3_after_upsample2x(p, x)
+    return L.conv2d(p, L.upsample_nearest2x(x))
+
+
+def _conv(p, x, shard=None, stride: int = 1, up: bool = False):
+    """:func:`_conv_one`, or under ``shard.conv_split`` with a weight that
     holds a Cin shard (narrower than x): the conv of this rank's channels of
     x, summed over the model group with the bias once."""
     w = p["weight"]
     if shard is None or not shard.conv_split or w.shape[1] == x.shape[-1]:
-        return L.conv2d(p, x, stride=stride)
+        return _conv_one(p, x, stride, up)
     cin = w.shape[1]
     r = shard.axis_rank(shard.model_axis)
-    part = L.conv2d({"weight": w, "bias": torch.zeros_like(p["bias"])},
-                    shard.enter(x)[..., r * cin:(r + 1) * cin], stride=stride)
+    part = _conv_one({"weight": w, "bias": torch.zeros_like(p["bias"])},
+                     shard.enter(x)[..., r * cin:(r + 1) * cin], stride, up)
     return shard.all_reduce(part, bias=p["bias"])
 
 
+def _split_weight(p, ca: int):
+    """The weight of conv params ``p`` cut at input channel ``ca`` (views:
+    K4 and cuDNN copy them into their operand layout at each call), and a
+    zero bias."""
+    w = p["weight"]
+    return w[:, :ca], w[:, ca:], torch.zeros_like(p["bias"])
+
+
+def _conv_split(p, a, b, shard=None):
+    """conv(concat([a, b], -1)) as two convs over the weight split along its
+    input channels, summed in the activations' dtype, the bias on a's: the
+    concat never materializes (the JAX package's ``_conv_split``). Each goes
+    through :func:`_conv` (K4 inside its gate, cuDNN outside). Under
+    ``shard.conv_split`` with a weight that holds a Cin shard of the virtual
+    concat: this rank's channels of a and of b by their columns of the
+    shard, summed, one all-reduce with the bias once."""
+    w = p["weight"]
+    ca = a.shape[-1]
+    if shard is not None and shard.conv_split and w.shape[1] != ca + b.shape[-1]:
+        lo = shard.axis_rank(shard.model_axis) * w.shape[1]
+        hi = lo + w.shape[1]
+        zero = {"bias": torch.zeros_like(p["bias"])}
+        part = None
+        if lo < ca:
+            part = L.conv2d({"weight": w[:, :min(hi, ca) - lo], **zero},
+                            shard.enter(a)[..., lo:min(hi, ca)])
+        if hi > ca:
+            yb = L.conv2d({"weight": w[:, max(lo, ca) - lo:], **zero},
+                          shard.enter(b)[..., max(lo, ca) - ca:hi - ca])
+            part = yb if part is None else part + yb
+        return shard.all_reduce(part, bias=p["bias"])
+    wa, wb, zero = _split_weight(p, ca)
+    return (_conv({"weight": wa, "bias": p["bias"]}, a, shard)
+            + _conv({"weight": wb, "bias": zero}, b, shard))
+
+
 def _apply_res(p, cfg: UNetConfig, h, emb, mode: str, shard=None):
+    if isinstance(h, tuple):
+        # the up path's (h, skip) pair: without the concat under the JAX
+        # package's gate, letter for letter (its matmul-stats GN regime,
+        # UNet batch <= 4)
+        a, b = h
+        if (mode == "none" and "skip" in p and a.dtype == b.dtype
+                and skip_cat_fused(a.shape[0], a.dtype)):
+            return _apply_res_cat(p, cfg, a, b, emb, shard)
+        h = torch.cat([a, b], dim=-1)
     x = h
     hh = L.group_norm_silu_p(p["in_norm"], h)
     if mode == "up":
@@ -351,6 +435,25 @@ def _apply_res(p, cfg: UNetConfig, h, emb, mode: str, shard=None):
         hh = L.avg_pool2x(hh)
         x = L.avg_pool2x(x)
     hh = _conv(p["in_conv"], hh, shard)
+    hh = _res_out(p, cfg, hh, emb, shard)
+    if "skip" in p:
+        x = _conv(p["skip"], x, shard)
+    return x + hh
+
+
+def _apply_res_cat(p, cfg: UNetConfig, a, b, emb, shard=None):
+    """A ResBlock over the virtual ``concat([a, b], -1)`` (the up path's
+    hidden state and skip) without the concat: GroupNorm+SiLU through K3's
+    two-source form, the in_conv and the 1x1 skip conv split along their
+    input channels (the JAX package's ``_apply_res_cat``)."""
+    ya, yb = GN.group_norm_silu_cat(a, b, p["in_norm"]["scale"], p["in_norm"]["bias"])
+    hh = _res_out(p, cfg, _conv_split(p["in_conv"], ya, yb, shard), emb, shard)
+    return _conv_split(p["skip"], a, b, shard) + hh
+
+
+def _res_out(p, cfg: UNetConfig, hh, emb, shard=None):
+    """A ResBlock after its in_conv: the timestep embedding, the out norm
+    (scale-shift or added), SiLU and the out conv."""
     emb_out = L.linear(p["emb"], L.silu(emb))[:, None, None, :]
     if cfg.use_scale_shift_norm:
         scale, shift = emb_out.chunk(2, dim=-1)
@@ -359,10 +462,7 @@ def _apply_res(p, cfg: UNetConfig, h, emb, mode: str, shard=None):
     else:
         hh = hh + emb_out
         hh = L.group_norm_silu_p(p["out_norm"], hh)
-    hh = _conv(p["out_conv"], hh, shard)
-    if "skip" in p:
-        x = _conv(p["skip"], x, shard)
-    return x + hh
+    return _conv(p["out_conv"], hh, shard)
 
 
 def _hyper(hp, z):
@@ -650,7 +750,7 @@ def _apply_block(block_plan, block_params, cfg, h, emb, context, kv_iter=None, c
         elif kind == "down":
             h = _conv(p, h, shard, stride=2)
         elif kind == "up":
-            h = _conv(p, L.upsample_nearest2x(h), shard)
+            h = _conv(p, h, shard, up=True)
         else:
             raise ValueError(kind)
     return h
@@ -763,7 +863,12 @@ def unet_apply(
             skip = inject_skips[i]
         if inject_feats is not None and i < inject_feats_stop:
             h = inject_feats[i]
-        h = torch.cat([h, skip], dim=-1)
+        if output_plan[i][0][0] == "res":
+            # the (h, skip) pair: _apply_res's gate decides between the
+            # fused and the materialized concat
+            h = (h, skip)
+        else:
+            h = torch.cat([h, skip], dim=-1)
         h = _apply_block(output_plan[i], params["output_blocks"][i], cfg, h, emb, context,
                          kv_iter, collector, shard)
         if return_feats:

@@ -14,7 +14,9 @@ and a plain PyTorch twin:
   * :func:`group_norm` / :func:`group_norm_silu` — NHWC GroupNorm(+SiLU)
     through K3 (``csrc/groupnorm_sm90.cu``: whole groups a block by TMA, or
     statistics and apply kernels over bulk-copied pixel rows; plan
-    :func:`group_norm_plan`).
+    :func:`group_norm_plan`); :func:`group_norm_silu_cat` over a virtual
+    ``concat([a, b], -1)`` through K3's two-source form (the UNet's up-path
+    ResBlocks).
   * :func:`conv3x3` — the 3x3 stride-1 conv through K4, for the convs
     ``models/layers.conv2d`` routes to it: bf16 with C and Co multiples of
     64 through its TMA + wgmma body (``csrc/conv3x3_sm90.cu``,
@@ -45,9 +47,9 @@ and a plain PyTorch twin:
     them.
 
 A wrapper runs the plain twin only for CPU tensors; for a CUDA tensor it
-launches its kernel or raises. The six dispatch entries (``flash_attention``,
-``attention_dmajor``, ``geglu_ff``, ``group_norm_nhwc``, ``conv3x3``,
-``probes.winograd.wino3x3``) are differentiable: under grad their forward
+launches its kernel or raises. The seven dispatch entries (``flash_attention``,
+``attention_dmajor``, ``geglu_ff``, ``group_norm_nhwc``, ``group_norm_silu_cat``,
+``conv3x3``, ``probes.winograd.wino3x3``) are differentiable: under grad their forward
 is the kernel and their backward the VJP of the plain twin recomputed on
 the saved inputs (``_build.kernel_with_plain_vjp``, the port of the JAX
 package's ``custom_vjp`` rules); the backward launches no kernel. The
@@ -74,6 +76,7 @@ from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     group_norm_nhwc,
     group_norm_plan,
     group_norm_silu,
+    group_norm_silu_cat,
 )
 from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_ff, geglu_ff_f32_sm90
 from complex_prompt_diffusion_tpu_torch.ops.probes.attention import attention_probe
@@ -95,7 +98,8 @@ from complex_prompt_diffusion_tpu_torch.ops.probes.winograd import (
 # "attention_cm_sm90" those of its Hopper bodies (both dtypes),
 # "attention_cm_f32_sm90" those of the f32 one (counts attention_dmajor keeps);
 # "winograd" counts every K6 kernel, "winograd_sm90" and "winograd_f32_sm90"
-# those of its bf16 and f32 Hopper bodies
+# those of its bf16 and f32 Hopper bodies; "group_norm" counts every K3
+# kernel, "group_norm_cat" those of its two-source form
 KERNEL_WRAPPERS = {
     "attention": flash_attention,
     "attention_sm90": attention_sm90,
@@ -105,6 +109,7 @@ KERNEL_WRAPPERS = {
     "geglu_ff": geglu_ff,
     "geglu_ff_f32_sm90": geglu_ff_f32_sm90,
     "group_norm": group_norm_nhwc,
+    "group_norm_cat": group_norm_silu_cat,
     "conv3x3": conv3x3,
     "conv3x3_sm90": conv3x3_sm90,
     "conv3x3_f32_sm90": conv3x3_f32_sm90,
@@ -143,6 +148,7 @@ __all__ = [
     "geglu_ff_f32_sm90",
     "group_norm",
     "group_norm_silu",
+    "group_norm_silu_cat",
     "group_norm_nhwc",
     "group_norm_plan",
     "gaussian_blur",

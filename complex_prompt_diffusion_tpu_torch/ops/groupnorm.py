@@ -10,6 +10,12 @@ clamped at 0) for <= 16-bit inputs, as in ``_gn_xla_mm`` and
 ``_gn_stats_kernel``; centered (two-pass) for f32, as in
 ``_gn_stats2_kernel``. The body this replaced (``csrc/groupnorm.cu``) stays
 callable as :func:`group_norm_prior`.
+
+:func:`group_norm_silu_cat` is GroupNorm(+SiLU) of ``concat([a, b], -1)``
+without the concat (the UNet's up-path ResBlocks, whose input is the hidden
+state beside its skip): on CUDA tensors K3's two-source form, on CPU tensors
+:func:`group_norm_silu_cat_plain`; its statistics are one pass in f32
+whatever the dtype, as the JAX function's are.
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ import torch
 from complex_prompt_diffusion_tpu_torch import _build
 
 __all__ = ["group_norm", "group_norm_silu", "group_norm_nhwc", "group_norm_plain",
-           "group_norm_plan", "GnPlan", "slab_groups", "group_norm_prior", "gn_splits"]
+           "group_norm_plan", "GnPlan", "slab_groups", "group_norm_prior", "gn_splits",
+           "prefers_mm_stats", "group_norm_silu_cat", "group_norm_silu_cat_plain",
+           "group_norm_cat_plan"]
 
 
 def group_norm_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
@@ -62,9 +70,10 @@ _MAX_GROUPS = 256
 
 class GnPlan(NamedTuple):
     """How K3 runs one call: ``form`` "slab" (one launch: a block holds
-    ``tiles`` whole groups of a sample) or "split" (a statistics and an
-    apply launch over ``tiles`` tiles a sample), and the kernels it
-    launches."""
+    ``tiles`` whole groups of a sample), "split" (a statistics and an
+    apply launch over ``tiles`` tiles a sample) or "cat" (the two-source
+    form's statistics and apply launches over ``tiles`` tiles a sample),
+    and the kernels it launches."""
 
     form: str
     tiles: int
@@ -147,10 +156,10 @@ def _split_parts(rows: int, device, stream: int):
     return buf
 
 
-def _nhwc_args(x, gamma, beta):
-    """x contiguous and 16-byte aligned; gamma and beta [C] contiguous in
-    x's dtype."""
-    c = x.shape[-1]
+def _nhwc_args(x, gamma, beta, c: Optional[int] = None):
+    """x contiguous and 16-byte aligned; gamma and beta [C] (x's channels,
+    or ``c``) contiguous in x's dtype."""
+    c = x.shape[-1] if c is None else c
     if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
         raise ValueError("gamma and beta must have shape [C]")
     x = x.contiguous()
@@ -259,3 +268,127 @@ def group_norm(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5):
 def group_norm_silu(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5):
     """Fused GroupNorm + SiLU (the ResBlock in_layers / out_layers prefix)."""
     return group_norm_nhwc(x, gamma, beta, num_groups, eps, silu=True)
+
+
+def prefers_mm_stats(x) -> bool:
+    """Whether the JAX package's GroupNorm dispatch takes its matmul-stats
+    path for ``x`` under its default "auto" (``_use_xla_mm(x, False)``):
+    <= 16-bit inputs. The UNet's gate for the two-source form reads it, as
+    the JAX package's does."""
+    return x.element_size() <= 2
+
+
+def group_norm_silu_cat_plain(a, b, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
+                              silu: bool = True):
+    """Plain PyTorch twin of :func:`group_norm_silu_cat`, the JAX function's
+    arithmetic: per-channel f32 sums and sums of squares of each input (one
+    pass, whatever the dtype: f32 inputs too, unlike
+    :func:`group_norm_plain`), summed into groups over the virtual channel
+    extent (a group may straddle the a/b boundary), var = max(E[x^2] -
+    mean^2, 0); each half normalized with its channels' statistics, gamma
+    and beta, rounded once to its dtype. Returns ``(ya, yb)``."""
+    n, h, w, ca = a.shape
+    cb = b.shape[-1]
+    c = ca + cb
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by {num_groups} groups")
+    af = a.float().reshape(n, h * w, ca)
+    bf = b.float().reshape(n, h * w, cb)
+    s1 = torch.cat([af.sum(dim=1), bf.sum(dim=1)], dim=-1)  # [N, C]
+    s2 = torch.cat([af.square().sum(dim=1), bf.square().sum(dim=1)], dim=-1)
+    cg = c // num_groups
+    count = float(h * w * cg)
+    mean = s1.reshape(n, num_groups, cg).sum(dim=-1) / count
+    ex2 = s2.reshape(n, num_groups, cg).sum(dim=-1) / count
+    rstd = torch.rsqrt(torch.clamp(ex2 - mean * mean, min=0.0) + eps)
+    mean_c = mean.repeat_interleave(cg, dim=-1)[:, None, None, :]  # [N, 1, 1, C]
+    rstd_c = rstd.repeat_interleave(cg, dim=-1)[:, None, None, :]
+
+    def norm(x, lo, hi):
+        y = (x.float() - mean_c[..., lo:hi]) * rstd_c[..., lo:hi]
+        y = y * gamma[lo:hi].float() + beta[lo:hi].float()
+        if silu:
+            y = y * torch.sigmoid(y)
+        return y.to(x.dtype)
+
+    return norm(a, 0, ca), norm(b, ca, c)
+
+
+@functools.lru_cache(maxsize=1024)
+def group_norm_cat_plan(n: int, hw: int, ca: int, cb: int, groups: int, sms: int) -> GnPlan:
+    """K3's two-source form for ``n`` samples of ``hw`` pixels x ``ca`` +
+    ``cb`` channels in ``groups`` groups on a card of ``sms`` SMs: the split
+    form's statistics and apply launches over ``sms // n`` tiles a sample
+    (one wave), as :func:`group_norm_plan`'s split form. Raises ValueError
+    where K3 cannot take the shape (Ca or Cb not a multiple of 8, C > 4096,
+    C % G, G > 256)."""
+    c = ca + cb
+    if (n <= 0 or hw <= 0 or ca <= 0 or cb <= 0 or ca % 8 or cb % 8 or c > _MAX_C
+            or c % groups or not 0 < groups <= _MAX_GROUPS):
+        raise ValueError(f"K3's two-source form takes Ca % 8 == Cb % 8 == 0, Ca + Cb <= "
+                         f"{_MAX_C}, C % G == 0, G <= {_MAX_GROUPS}; got N={n} HW={hw} Ca={ca} "
+                         f"Cb={cb} G={groups}")
+    return GnPlan("cat", max(1, min(sms // n, hw)), 2)
+
+
+def group_norm_silu_cat(a, b, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
+                        silu: bool = True):
+    """GroupNorm(+SiLU) of ``concat([a, b], -1)`` without materializing the
+    concat: returns ``(ya, yb)``, the normalized halves (the JAX package's
+    ``group_norm_silu_cat``). ``a`` [N, H, W, Ca] and ``b`` [N, H, W, Cb]
+    of one dtype; ``gamma``, ``beta`` [Ca + Cb]. CPU tensors run
+    :func:`group_norm_silu_cat_plain`; CUDA tensors (f32 or bf16) launch K3's
+    two-source form (``csrc/groupnorm_sm90.cu``, ``_group_norm_cat_sm90``)
+    as :func:`group_norm_cat_plan` plans it, or raise: a shape K3 cannot
+    take raises ValueError, with no concat behind the caller's back. Under
+    grad the backward is the VJP of the plain twin on the saved inputs.
+    Counts: ``group_norm_silu_cat.launches`` and ``.calls`` the form's own;
+    its launches, plans and calls also count into ``group_norm_nhwc``'s
+    (every K3 kernel)."""
+    if a.ndim != 4 or b.ndim != 4 or a.shape[:3] != b.shape[:3]:
+        raise ValueError(f"group_norm_silu_cat expects NHWC a and b over one grid, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    c = a.shape[-1] + b.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by {num_groups} groups")
+    if a.dtype != b.dtype:
+        raise TypeError(f"group_norm_silu_cat takes a and b of one dtype, got {a.dtype} and "
+                        f"{b.dtype}")
+    if not a.is_cuda:
+        return group_norm_silu_cat_plain(a, b, gamma, beta, num_groups, eps, silu)
+    if a.dtype not in _PRIOR_FNS:
+        raise TypeError(f"K3 supports float32 and bfloat16, got {a.dtype}")
+    return _build.kernel_with_plain_vjp(_group_norm_cat_sm90, group_norm_silu_cat_plain,
+                                        (num_groups, eps, silu), a, b, gamma, beta)
+
+
+def _group_norm_cat_sm90(a, b, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
+                         silu: bool = True):
+    """K3's two-source form on CUDA tensors that :func:`group_norm_silu_cat`
+    has checked."""
+    _build.refuse_grad("group_norm_silu_cat (K3)", a, b, gamma, beta)
+    n, h, w, ca = a.shape
+    cb = b.shape[-1]
+    plan = group_norm_cat_plan(n, h * w, ca, cb, num_groups, _sm_count(a.device.index))
+    a, gamma, beta = _nhwc_args(a, gamma, beta, ca + cb)
+    b = b.contiguous()
+    if b.data_ptr() % 16:
+        b = b.clone()
+    ya, yb = torch.empty_like(a), torch.empty_like(b)
+    stream = _build.stream_ptr(a.device)
+    parts = _split_parts(n * plan.tiles * num_groups, a.device, stream)
+    launched = ctypes.c_int(0)
+    err = _build.kernel_library().cpd_group_norm_cat_sm90(
+        a.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ya.data_ptr(),
+        yb.data_ptr(), parts.data_ptr(), int(a.dtype == torch.float32), n, h * w, ca, cb,
+        num_groups, float(eps), int(silu), plan.tiles, ctypes.addressof(launched), stream)
+    for fn in (group_norm_silu_cat, group_norm_nhwc):
+        fn.launches += launched.value
+        fn.calls += 1
+    group_norm_nhwc.planned += plan.launches
+    _build.check(err, "group_norm_silu_cat (K3)")
+    return ya, yb
+
+
+group_norm_silu_cat.launches = 0
+group_norm_silu_cat.calls = 0

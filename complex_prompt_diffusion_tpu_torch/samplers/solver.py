@@ -146,8 +146,10 @@ def model_wrapper(
 
     ``model(x, t_discrete, cond)``; the returned fn maps (x, t_continuous)
     -> eps prediction with guidance applied, ``t_continuous`` a host scalar.
-    Classifier guidance needs the classifier's gradient, which no kernel of
-    the port gives yet: it raises NotImplementedError."""
+    Classifier guidance: eps(x, t, None) - guidance_scale * sigma_t * the
+    gradient of ``classifier_fn(x, t_discrete, condition).sum()`` at x (a
+    leaf copy of x; where the classifier runs the port's layers on the
+    card, the gradient goes through the kernels' plain VJP rules)."""
     ns = noise_schedule
 
     def get_model_input_time(t_continuous):
@@ -174,10 +176,21 @@ def model_wrapper(
         if guidance_type == "uncond":
             return noise_pred(x, t_continuous, condition)
         if guidance_type == "classifier":
-            raise NotImplementedError(
-                "classifier guidance needs the classifier's gradient, and the "
-                "port's kernels have no backward yet"
-            )
+            if classifier_fn is None:
+                raise ValueError("classifier guidance requires classifier_fn")
+            t_input = get_model_input_time(t_continuous)
+            # a leaf copy of x, outside inference mode (the render loops run
+            # in it), so the classifier's graph is recorded; an inference
+            # tensor condition is copied out of it too (autograd may save it)
+            with torch.inference_mode(False), torch.enable_grad():
+                xx = x.detach().clone().requires_grad_(True)
+                cond = condition
+                if isinstance(cond, torch.Tensor) and cond.is_inference():
+                    cond = cond.clone()
+                (grad,) = torch.autograd.grad(classifier_fn(xx, t_input, cond).sum(), xx)
+            eps = noise_pred(x, t_continuous, None)
+            sigma_t = float(ns.marginal_std(t_continuous))
+            return eps - guidance_scale * sigma_t * grad
         if guidance_type == "classifier-free":
             if guidance_scale == 1.0 or unconditional_condition is None:
                 return noise_pred(x, t_continuous, condition)

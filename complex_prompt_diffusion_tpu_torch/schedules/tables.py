@@ -55,6 +55,12 @@ class DiffusionTables:
     def num_train_timesteps(self) -> int:
         return int(self.betas.shape[0])
 
+    def astype(self, dtype) -> "DiffusionTables":
+        """Every table cast to the numpy ``dtype`` (the JAX package's
+        ``DiffusionTables.astype``: numpy leaves)."""
+        return dataclasses.replace(self, **{f.name: np.asarray(getattr(self, f.name), dtype=dtype)
+                                            for f in dataclasses.fields(self)})
+
 
 @dataclasses.dataclass(frozen=True)
 class InferenceTables:

@@ -21,8 +21,9 @@ import torch.nn.functional as F
 
 __all__ = ["Case", "kernel_cases", "host_us", "unet_sites", "unet_batch_shapes", "PEAK_FLOPS",
            "HBM_BYTES_PER_S", "B1_UNET_CONVS", "B1_UNET_CONV_COUNTS", "GEGLU_ROWS",
-           "GEGLU_B4_CALLS", "GEGLU_B1_ROWS", "GN_UNET_PLANES", "GN_B4_CALLS", "GN_DECODE_PLANES", "SD21_LATENT",
-           "unet_call_groups", "unet_shape_keys", "held_unet_shapes"]
+           "GEGLU_B4_CALLS", "GEGLU_B1_ROWS", "GN_UNET_PLANES", "GN_B4_CALLS", "GN_DECODE_PLANES",
+           "GN_CAT_PLANES", "GN_CAT_CALLS", "SD21_LATENT", "unet_call_groups", "unet_shape_keys",
+           "held_unet_shapes"]
 
 _PKG = "complex_prompt_diffusion_tpu_torch"
 
@@ -57,6 +58,14 @@ GN_UNET_PLANES = ((64, 320), (64, 640), (64, 960), (32, 320), (32, 640), (32, 96
                   (32, 1920), (16, 640), (16, 1280), (16, 1920), (16, 2560), (8, 1280),
                   (8, 2560))
 GN_B4_CALLS = (13, 2, 1, 1, 11, 1, 1, 1, 1, 11, 1, 2, 12, 3)
+# (plane side, Ca, Cb) of the two-source GroupNorms of a fused UNet call (the
+# up path's hidden state beside its skip: models/unet.py skip_cat_fused, UNet
+# batch <= 4 in bf16), and how many of its 12 have that shape; they replace
+# the 12 concat planes of GN_UNET_PLANES (C = 960 .. 2560 and the up path's
+# 640 and 1280 ones)
+GN_CAT_PLANES = ((8, 1280, 1280), (16, 1280, 1280), (16, 1280, 640), (32, 1280, 640),
+                 (32, 640, 640), (32, 640, 320), (64, 640, 320), (64, 320, 320))
+GN_CAT_CALLS = (3, 2, 1, 1, 1, 1, 1, 2)
 # (plane side, C) of the VAE decoder's planes: the mid-block and the four up
 # levels (30 GroupNorms a decode, over these shapes)
 GN_DECODE_PLANES = ((64, 512), (128, 512), (256, 256), (512, 256), (512, 128))
@@ -64,7 +73,7 @@ GN_DECODE_PLANES = ((64, 512), (128, 512), (256, 256), (512, 256), (512, 128))
 SD21_LATENT = 96  # latent side of SD 2.1's 768x768 renders
 
 
-def unet_sites(cfg, latent: int, deep_at=None, model: int = 1) -> dict:
+def unet_sites(cfg, latent: int, deep_at=None, model: int = 1, fused: bool = False) -> dict:
     """The kernel sites of one UNet call of config ``cfg`` on a ``latent`` x
     ``latent`` input, walking ``models.unet.build_plan`` as ``unet_apply``
     does: "attn", (plane side, channels, heads, head dim) of every
@@ -74,10 +83,15 @@ def unet_sites(cfg, latent: int, deep_at=None, model: int = 1) -> dict:
     Skv = S / (tome_sx * tome_sy); ToMe: Sq = Skv = S - r); "ff_rows", (rows
     a sample, channels) of each GEGLU FF (S - r under ToMe's ``tome_mlp``);
     "conv", (plane side, C, Co) of every stride-1 3x3 conv (conv_in, a
-    ResBlock's two, the up convs after their 2x upsample, the out conv; the
-    down convs have stride 2); "gn_planes", (plane side, C) of every
-    GroupNorm (a ResBlock's in_norm over its input and out_norm over its
-    output, a transformer's norm, the out norm); "gn", their count.
+    ResBlock's two, the up convs after their 2x upsample unless
+    ``layers.subpixel_up_wanted`` takes them, the out conv; the down convs
+    have stride 2); "gn_planes", (plane side, C) of every GroupNorm (a
+    ResBlock's in_norm over its input and out_norm over its output, a
+    transformer's norm, the out norm); "gn", the count of K3 calls.
+    ``fused``: the up path's ResBlocks with a skip conv take the (h, skip)
+    pair (``models.unet.skip_cat_fused``): "gn_cat", (plane side, Ca, Cb) of
+    their in_norms on K3's two-source form (one call each, in "gn"), and
+    their in_conv as two convs (side, Ca, Co) and (side, Cb, Co).
     ``deep_at``: the DeepCache shallow pass resumed at that output block
     (the input blocks whose skips it pops, no middle block, the output
     blocks from ``deep_at`` on). ``model``: a rank's sites under tensor
@@ -87,15 +101,23 @@ def unet_sites(cfg, latent: int, deep_at=None, model: int = 1) -> dict:
     from complex_prompt_diffusion_tpu_torch.models.unet import _tome_sites, build_plan
     from complex_prompt_diffusion_tpu_torch.ops.sharding import local_heads, local_hidden
 
+    from complex_prompt_diffusion_tpu_torch.models.layers import subpixel_up_wanted
+
     input_plan, middle_plan, output_plan = build_plan(cfg)
-    sites = {"attn": [], "self_attn": [], "ff_rows": [], "conv": [], "gn_planes": []}
+    sites = {"attn": [], "self_attn": [], "ff_rows": [], "conv": [], "gn_planes": [],
+             "gn_cat": []}
     side = latent
     keep_in = len(input_plan) - deep_at if deep_at is not None else len(input_plan)
     start_out = deep_at if deep_at is not None else 0
+    skip_chans = []  # the channels each input block leaves for its output block
+    ch = cfg.model_channels
+    for block in input_plan:
+        ch = next((d[2] for d in reversed(block) if d[0] == "res"), ch)
+        skip_chans.append(ch)
 
-    def walk(block, run: bool):
+    def walk(block, run: bool, skip: int = 0):
         nonlocal side
-        for desc in block:
+        for j, desc in enumerate(block):
             kind = desc[0]
             if kind == "down":
                 side //= 2
@@ -105,6 +127,11 @@ def unet_sites(cfg, latent: int, deep_at=None, model: int = 1) -> dict:
                 continue
             if kind == "conv_in":
                 sites["conv"].append((side, cfg.in_channels, cfg.model_channels))
+            elif kind == "res" and fused and j == 0 and skip and desc[1] != desc[2]:
+                ca, co = desc[1] - skip, desc[2]
+                sites["conv"] += [(side, ca, co), (side, skip, co), (side, co, co)]
+                sites["gn_cat"].append((side, ca, skip))
+                sites["gn_planes"].append((side, co))
             elif kind == "res":
                 sites["conv"] += [(side, desc[1], desc[2]), (side, desc[2], desc[2])]
                 sites["gn_planes"] += [(side, desc[1]), (side, desc[2])]
@@ -121,35 +148,41 @@ def unet_sites(cfg, latent: int, deep_at=None, model: int = 1) -> dict:
                 sites["ff_rows"].append(ff + (local_hidden(4 * inner, model),) if model > 1
                                         else ff)
                 sites["gn_planes"].append((side, desc[1]))
-            elif kind == "up":
+            elif kind == "up" and not subpixel_up_wanted((desc[1], desc[1], 3, 3)):
                 sites["conv"].append((side, desc[1], desc[1]))
 
     for i, block in enumerate(input_plan):
         walk(block, i < keep_in)
     walk(middle_plan, deep_at is None)
     for i, block in enumerate(output_plan):
-        walk(block, i >= start_out)
+        walk(block, i >= start_out, skip_chans[len(input_plan) - 1 - i])
     sites["conv"].append((side, cfg.model_channels, cfg.out_channels))
     sites["gn_planes"].append((side, cfg.model_channels))
-    sites["gn"] = len(sites["gn_planes"])
+    sites["gn"] = len(sites["gn_planes"]) + len(sites["gn_cat"])
     return sites
 
 
-def unet_batch_shapes(cfg, latent: int, ub: int, deep_at=None, model: int = 1) -> dict:
+def unet_batch_shapes(cfg, latent: int, ub: int, deep_at=None, model: int = 1,
+                      fused=None) -> dict:
     """Every distinct shape one bf16 UNet call of ``cfg`` on a ``latent`` x
     ``latent`` input at UNet batch ``ub`` gives K1-K4, from its sites
-    (:func:`unet_sites`, ``deep_at`` for a shallow pass): "attn", (S,
+    (:func:`unet_sites`, ``deep_at`` for a shallow pass, ``fused`` the up
+    path's form: by default ``models.unet.skip_cat_fused``): "attn", (S,
     heads, head dim) of the self-attention sites K1 takes (above
     ``SHORT_KV`` keys) with Sq = Skv; "attn_kv", (Sq, Skv, heads, head dim)
     of those with Sq != Skv (ToDo's pooled K/V); "ff", (M, C) of the GEGLU
     FFs (K2; (M, C, H4) with the rank's hidden width under ``model`` > 1
     tensor-parallel ranks, whose heads "attn" gives); "gn", (N, side, side,
-    C) of the GroupNorms (K3); "conv", (side, C, Co) of the convs K4's gate
-    admits at this batch."""
+    C) of the GroupNorms (K3); "gn_cat", (N, side, side, Ca, Cb) of the
+    two-source ones (K3's two-source form); "conv", (side, C, Co) of the
+    convs K4's gate admits at this batch."""
     from complex_prompt_diffusion_tpu_torch.models.layers import conv3x3_wanted
+    from complex_prompt_diffusion_tpu_torch.models.unet import skip_cat_fused
     from complex_prompt_diffusion_tpu_torch.ops.attention import SHORT_KV
 
-    sites = unet_sites(cfg, latent, deep_at, model)
+    if fused is None:
+        fused = skip_cat_fused(ub, torch.bfloat16)
+    sites = unet_sites(cfg, latent, deep_at, model, fused)
     distinct = dict.fromkeys  # first-seen order, no repeats
     k1 = [site for site in sites["self_attn"] if site[1] > SHORT_KV]
     return {
@@ -157,6 +190,7 @@ def unet_batch_shapes(cfg, latent: int, ub: int, deep_at=None, model: int = 1) -
         "attn_kv": list(distinct(site for site in k1 if site[0] != site[1])),
         "ff": list(distinct((ub * ff[0],) + ff[1:] for ff in sites["ff_rows"])),
         "gn": list(distinct((ub, side, side, c) for side, c in sites["gn_planes"])),
+        "gn_cat": list(distinct((ub, side, side, ca, cb) for side, ca, cb in sites["gn_cat"])),
         "conv": list(distinct(
             (side, c, co) for side, c, co in sites["conv"]
             if conv3x3_wanted(torch.empty((ub, side, side, c), device="meta"), (co, c, 3, 3)))),
@@ -193,27 +227,40 @@ def unet_call_groups() -> dict:
     return groups
 
 
-def unet_shape_keys(cfg, latent: int, ub: int, deep_at=None, model: int = 1) -> set:
+def unet_shape_keys(cfg, latent: int, ub: int, deep_at=None, model: int = 1,
+                    fused=None) -> set:
     """The K1-K4 shapes of one bf16 UNet call (:func:`unet_batch_shapes`;
-    a rank's under ``model`` tensor-parallel ranks) as keys: ("k1", UNet
-    batch, Sq, Skv, heads, head dim), ("k2", M, C) (("k2", M, C, H4) for a
-    rank's hidden shard), ("k3", N, side, side, C), ("k4", UNet batch,
-    side, C, Co)."""
-    shapes = unet_batch_shapes(cfg, latent, ub, deep_at, model)
+    a rank's under ``model`` tensor-parallel ranks; the up path's form by
+    ``fused``) as keys: ("k1", UNet batch, Sq, Skv, heads, head dim), ("k2",
+    M, C) (("k2", M, C, H4) for a rank's hidden shard), ("k3", N, side,
+    side, C), ("k3cat", N, side, side, Ca, Cb), ("k4", UNet batch, side, C,
+    Co)."""
+    shapes = unet_batch_shapes(cfg, latent, ub, deep_at, model, fused)
     return ({("k1", ub, s, s, heads, d) for s, heads, d in shapes["attn"]}
             | {("k1", ub) + site for site in shapes["attn_kv"]}
             | {("k2",) + ff for ff in shapes["ff"]}
             | {("k3",) + gn for gn in shapes["gn"]}
+            | {("k3cat",) + gn for gn in shapes["gn_cat"]}
             | {("k4", ub) + conv for conv in shapes["conv"]})
 
 
 @functools.lru_cache(maxsize=None)
 def held_unet_shapes() -> frozenset:
     """The keys (:func:`unet_shape_keys`) of every UNet call of
-    :func:`unet_call_groups`: the shapes phase 1 holds."""
-    return frozenset().union(*(unet_shape_keys(cfg, latent, ub, model=rest[0] if rest else 1)
+    :func:`unet_call_groups`, with the up path materialized and, at the UNet
+    batches the fused gate admits, fused: the shapes phase 1 holds."""
+    return frozenset().union(*(unet_shape_keys(cfg, latent, ub, model=rest[0] if rest else 1,
+                                               fused=fused)
                                for calls in unet_call_groups().values()
-                               for cfg, latent, ub, *rest in calls))
+                               for cfg, latent, ub, *rest in calls
+                               for fused in _up_forms(ub)))
+
+
+def _up_forms(ub: int) -> tuple:
+    """The up path's forms a bf16 UNet call at UNet batch ``ub`` can take:
+    materialized, and fused where the gate's batch bound admits it (with
+    ``CPD_TPU_FUSE_SKIP_CAT`` on or off)."""
+    return (False, True) if ub <= 4 else (False,)
 
 
 class Case(NamedTuple):
@@ -538,11 +585,13 @@ def kernel_cases(dev, kernels=None) -> list:
             if (2 * side, c) not in held:
                 gn_case((1, 2 * side, 2 * side, c), bf16, 1e-6)
     # every distinct K1-K4 shape of the UNet calls of each group of
-    # unet_call_groups that no case before it has: K1's sm90 body at each
-    # self-attention site K1 takes (views of one qkv projection; where ToDo
-    # pools the K/V, q beside views of one kv projection), K2 at each FF's M
-    # (ToMe's merged rows under tome_mlp), K3 on every GroupNorm plane (its
-    # replaced body beside it), K4 on the convs its gate admits (the
+    # unet_call_groups, with the up path materialized and, at the UNet
+    # batches the fused gate admits, fused, that no case before it has: K1's
+    # sm90 body at each self-attention site K1 takes (views of one qkv
+    # projection; where ToDo pools the K/V, q beside views of one kv
+    # projection), K2 at each FF's M (ToMe's merged rows under tome_mlp), K3
+    # on every GroupNorm plane (its replaced body beside it) and its
+    # two-source form on every (Ca | Cb) pair, K4 on the convs its gate admits (the
     # mma.sync body beside its sm90 body). The "sd2_512" group adds K1 at
     # the middle block's 64 tokens (in a UNet call the short path takes
     # them: S <= SHORT_KV), then K4's generic body on the concat UNets'
@@ -555,12 +604,29 @@ def kernel_cases(dev, kernels=None) -> list:
         have.add((kernel, label))
         return fresh
 
+    def gn_cat_case(n, side, ca, cb):
+        # K3's two-source form (the port's fused up-path ResBlock), with the
+        # materialized port path it replaces beside it (torch.cat, then K3)
+        x = randn(n, side, side, ca + cb, dtype=bf16, scale=2.0) + 0.5
+        xa, xb = x[..., :ca].contiguous(), x[..., ca:].contiguous()
+        gamma = randn(ca + cb, dtype=bf16, scale=0.5) + 1.0
+        beta = randn(ca + cb, dtype=bf16, scale=0.5)
+        a = (xa, xb, gamma, beta, 32, 1e-5, True)
+        cases.append(Case(
+            "group_norm_cat", f"bf16 {n}x{side}x{side}x{ca}|{cb} silu",
+            lambda a=a: G.group_norm_silu_cat(*a), lambda a=a: G.group_norm_silu_cat_plain(*a),
+            lambda a=a: F.silu(F.group_norm(torch.cat(a[:2], dim=-1).permute(0, 3, 1, 2), 32,
+                                            a[2], a[3], a[5])),
+            "bfloat16", 10.0 * x.numel(), (2 * x.numel() + 2 * (ca + cb)) * 2,
+            lambda a=a: G.group_norm_nhwc(torch.cat(a[:2], dim=-1), *a[2:])))
+
     for group, calls in unet_call_groups().items():
         if group not in want:
             continue
-        for cfg, latent, ub, *rest in calls:
-            shapes = (unet_batch_shapes(cfg, latent, ub, model=rest[0]) if rest
-                      else unet_batch_shapes(cfg, latent, ub))
+        for (cfg, latent, ub, *rest), fused in ((call, fused) for call in calls
+                                                 for fused in _up_forms(call[2])):
+            shapes = unet_batch_shapes(cfg, latent, ub, model=rest[0] if rest else 1,
+                                       fused=fused)
             extra = [(64, 20, 64)] if group == "sd2_512" else []
             for s_, heads, d in shapes["attn"] + extra:
                 label = f"bf16 B{ub} S{s_} H{heads} d{d}"
@@ -595,6 +661,9 @@ def kernel_cases(dev, kernels=None) -> list:
             for shape in shapes["gn"]:
                 if new("group_norm", f"bf16 {'x'.join(map(str, shape))} silu"):
                     gn_case(shape, bf16, 1e-5)
+            for n, side, _, ca, cb in shapes.get("gn_cat", ()):
+                if new("group_norm_cat", f"bf16 {n}x{side}x{side}x{ca}|{cb} silu"):
+                    gn_cat_case(n, side, ca, cb)
             for side, c, co in shapes["conv"]:
                 kernel = "conv3x3_sm90" if C.k4_body(bf16, c, co) == "bf16_sm90" else "conv3x3"
                 if new(kernel, f"bf16 B{ub} {side}x{side} {c}->{co}"):

@@ -222,13 +222,16 @@ def test_ub1_group_holds_the_unconditional_guided_call(monkeypatch):
     the tensors small; on the CPU each wrapper runs its plain twin."""
     from complex_prompt_diffusion_tpu_torch.tools import kernel_cases as KC
 
-    shapes = KC.unet_batch_shapes(M.UNetConfig.sd15(), 64, 1)
+    shapes = KC.unet_batch_shapes(M.UNetConfig.sd15(), 64, 1, fused=False)
     assert sorted(shapes["conv"]) == sorted(KC.B1_UNET_CONVS)
+    # fused (the default at UNet batch 1): the split in_convs' shapes are among them
+    fused = KC.unet_batch_shapes(M.UNetConfig.sd15(), 64, 1)
+    assert set(fused["conv"]) < set(shapes["conv"]) and len(fused["gn_cat"]) == 8
     assert {n for n, *_ in shapes["gn"]} == {1} and shapes["ff"][0] == (4096, 320)
     assert KC.unet_call_groups()["ub1"] == [(M.UNetConfig.sd15(), 64, 1)]
     small = {"attn": [(256, 2, 8)], "ff": [(16, 16)], "gn": [(1, 8, 8, 64)],
              "conv": [(16, 64, 64), (16, 4, 64)]}
-    monkeypatch.setattr(KC, "unet_batch_shapes", lambda cfg, latent, ub: small)
+    monkeypatch.setattr(KC, "unet_batch_shapes", lambda cfg, latent, ub, **kw: small)
     cases = KC.kernel_cases("cpu", ["ub1"])
     assert [(c.kernel, c.label) for c in cases] == [
         ("attention_sm90", "bf16 B1 S256 H2 d8"), ("geglu_ff", "bf16 M16 C16 H4 64"),

@@ -119,9 +119,14 @@ def test_sd15_plan_sends_22_convs_per_unet_call_at_batch_1(monkeypatch):
     """The SD-1.5 UNet plan (4 levels, 2 res blocks each) at a 64x64
     latent and UNet batch 2 (CFG at batch 1), bf16: 8 down-path convs on
     the 32^2/16^2 planes, 12 up-path convs there and the 2 upsample convs
-    on 16^2 and 32^2. Narrow channels (32..128) and no attention keep it
-    small on the CPU; the conv sites depend on the plan alone."""
+    on 16^2 and 32^2, with the up path's skip concat materialized; fused
+    (the default) the 6 up-path in_convs there split in two over the
+    hidden state's and the skip's channels, 28 convs. Narrow channels
+    (32..128) and no attention keep it small on the CPU; the conv sites
+    depend on the plan alone."""
     import dataclasses
+
+    from complex_prompt_diffusion_tpu_torch.models import unet as U
 
     calls = []
     monkeypatch.setattr(L, "conv3x3", lambda x, w, b: calls.append(
@@ -133,9 +138,15 @@ def test_sd15_plan_sends_22_convs_per_unet_call_at_batch_1(monkeypatch):
     x = torch.randn((2, 64, 64, 4), generator=gen)
     ctx = torch.randn((2, 77, 64), generator=gen)
     with torch.inference_mode():
+        monkeypatch.setattr(U, "_FUSE_SKIP_CAT", False)
         out = M.unet_apply(cfg, params, x, torch.tensor([801, 801]), ctx)
+        materialized, calls[:] = list(calls), []
+        monkeypatch.setattr(U, "_FUSE_SKIP_CAT", True)
+        fused = M.unet_apply(cfg, params, x, torch.tensor([801, 801]), ctx)
     assert out.shape == x.shape and torch.isfinite(out).all()
-    assert len(calls) == 22
-    assert sorted({hw for hw, _, _ in calls}) == [16, 32]
+    assert len(materialized) == 22
+    assert sorted({hw for hw, _, _ in materialized}) == [16, 32]
     # the skip-concat inputs of the up path (SD-1.5 widths / 10)
-    assert {c for _, c, _ in calls} >= {192, 256, 96, 128}
+    assert {c for _, c, _ in materialized} >= {192, 256, 96, 128}
+    assert fused.shape == x.shape and torch.isfinite(fused).all()
+    assert len(calls) == 28 and not {c for _, c, _ in calls} & {192, 256, 96}

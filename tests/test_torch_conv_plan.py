@@ -95,10 +95,16 @@ def test_plan_rejects_what_the_sm90_body_does_not_take():
 def test_b1_unet_conv_shapes_and_counts_match_the_unet_plan(monkeypatch):
     """The (plane, C, Co) table the card's phase 1 sums over is the SD-1.5
     plan's: a UNet at a tenth of SD-1.5's widths, run at a 64x64 latent and
-    UNet batch 2, sends 22 convs to K4, whose shapes scaled by 10 are the
-    table's, as often as the table counts."""
+    UNet batch 2 with the up path's skip concat materialized, sends 22 convs
+    to K4, whose shapes scaled by 10 are the table's, as often as the table
+    counts; with the up path fused (the default) it sends the 28 of
+    ``kernel_cases.unet_sites(fused=True)`` inside K4's gate, every shape
+    among the table's."""
     import collections
     import dataclasses
+
+    from complex_prompt_diffusion_tpu_torch.models import unet as U
+    from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import unet_sites
 
     calls = []
     monkeypatch.setattr(L, "conv3x3", lambda x, w, b: calls.append(
@@ -107,11 +113,20 @@ def test_b1_unet_conv_shapes_and_counts_match_the_unet_plan(monkeypatch):
                               context_dim=64)
     gen = torch.Generator().manual_seed(0)
     params = convert.unet_params(M.init_unet(gen, cfg), dtype=torch.bfloat16)
+    args = (torch.randn((2, 64, 64, 4), generator=gen), torch.tensor([801, 801]),
+            torch.randn((2, 77, 64), generator=gen))
     with torch.inference_mode():
-        M.unet_apply(cfg, params, torch.randn((2, 64, 64, 4), generator=gen),
-                     torch.tensor([801, 801]), torch.randn((2, 77, 64), generator=gen))
-    assert collections.Counter(calls) == dict(zip(B1_UNET_CONVS, B1_UNET_CONV_COUNTS))
+        monkeypatch.setattr(U, "_FUSE_SKIP_CAT", False)
+        M.unet_apply(cfg, params, *args)
+        materialized, calls[:] = list(calls), []
+        monkeypatch.setattr(U, "_FUSE_SKIP_CAT", True)
+        M.unet_apply(cfg, params, *args)
+    assert collections.Counter(materialized) == dict(zip(B1_UNET_CONVS, B1_UNET_CONV_COUNTS))
     assert all(k4_body(torch.bfloat16, c, co) == "bf16_sm90" for _, c, co in B1_UNET_CONVS)
+    fused = collections.Counter(c for c in unet_sites(M.UNetConfig.sd15(), 64, fused=True)["conv"]
+                                if c[0] in (16, 32))
+    assert collections.Counter(calls) == fused and sum(fused.values()) == 28
+    assert set(fused) <= set(B1_UNET_CONVS)
 
 
 def _emulate(x, weight, bias, plan):

@@ -55,6 +55,8 @@ from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     group_norm_plain,
     group_norm_plan,
     group_norm_prior,
+    group_norm_silu_cat,
+    group_norm_silu_cat_plain,
     slab_groups,
 )
 from complex_prompt_diffusion_tpu_torch.ops.mlp import (
@@ -626,6 +628,39 @@ def test_group_norm_sm90_forms(dev, c, dtype, silu, form):
     assert _rel(got, group_norm_plain(x, gamma, beta, 32, 1e-6, silu)) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ca,cb", [(64, 32), (96, 128), (8, 24), (1280, 640), (640, 320),
+                                   (1280, 1280)])
+def test_group_norm_cat_sm90(dev, ca, cb, dtype, silu):
+    """K3's two-source form against its twin on a ragged 7 x 13 plane at
+    batch 2, groups straddling the a/b boundary (C/G = 3, 7, 60, 30) or not,
+    b a strided view (a skip as the UNet holds it), both dtypes, with and
+    without SiLU: two launches, counted into K3's totals too."""
+    g = _gen(dev, ca + cb)
+    x = (2 * torch.randn((2, 7, 13, ca + 2 * cb), generator=g, device=dev) + 0.5).to(dtype)
+    a, b = x[..., :ca].contiguous(), x[..., ca + cb:]
+    gamma = (1 + 0.5 * torch.randn(ca + cb, generator=g, device=dev)).to(dtype)
+    beta = (0.5 * torch.randn(ca + cb, generator=g, device=dev)).to(dtype)
+    before = (group_norm_silu_cat.launches, group_norm_silu_cat.calls, group_norm_nhwc.launches)
+    ya, yb = group_norm_silu_cat(a, b, gamma, beta, 32, 1e-5, silu)
+    assert (group_norm_silu_cat.launches, group_norm_silu_cat.calls, group_norm_nhwc.launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 2)
+    wa, wb = group_norm_silu_cat_plain(a, b, gamma, beta, 32, 1e-5, silu)
+    assert _rel(torch.cat([ya, yb], -1), torch.cat([wa, wb], -1)) <= TOL[dtype]
+
+
+def test_group_norm_cat_refuses_what_k3_cannot_take(dev):
+    """Ca not a multiple of 8: ValueError, no concat behind the caller's
+    back and no launch."""
+    x = torch.randn((2, 4, 4, 128), device=dev, dtype=torch.bfloat16)
+    before = group_norm_nhwc.launches
+    with pytest.raises(ValueError, match="two-source"):
+        group_norm_silu_cat(x[..., :60].contiguous(), x[..., 60:].contiguous(),
+                            torch.ones(128, device=dev), torch.zeros(128, device=dev), 32)
+    assert group_norm_nhwc.launches == before
+
+
 @pytest.mark.parametrize("groups,dtype", [(1, torch.bfloat16), (2, torch.bfloat16),
                                           (4, torch.bfloat16), (1, torch.float32),
                                           (2, torch.float32)])
@@ -861,9 +896,11 @@ def test_attention_sm90_raises_on_what_it_does_not_take(dev):
 
 
 def test_unet_conv_launches(dev):
-    """The tiny bf16 UNet at a 16x16 latent and batch 2 sends its 9 convs
-    on the 16^2 plane (conv_in 4 -> 32, the level-0 resblocks, the level-1
-    upsample conv, the out conv 32 -> 4) through K4, and no other."""
+    """The tiny bf16 UNet at a 16x16 latent and batch 2 sends its 11 convs
+    on the 16^2 plane (conv_in 4 -> 32, the level-0 resblocks, the two
+    level-0 up-path in_convs each split in two by the fused skip concat,
+    the level-1 upsample conv, the out conv 32 -> 4) through K4, and no
+    other."""
     from complex_prompt_diffusion_tpu_torch import models as M
     from complex_prompt_diffusion_tpu_torch.pipeline import ModelBundle
 
@@ -874,7 +911,7 @@ def test_unet_conv_launches(dev):
     before = conv3x3.launches
     with torch.inference_mode():
         M.unet_apply(bundle.unet_cfg, bundle.unet_params, x, torch.tensor([5, 5], device=dev), ctx)
-    assert conv3x3.launches == before + 9
+    assert conv3x3.launches == before + 11
 
 
 def test_bf16_vae_on_card_matches_plain_path(dev):

@@ -264,7 +264,8 @@ def test_shallow_pass_kernel_sites():
     launch predictions read, walks what the shallow pass runs: at SD-1.5's
     default split (9) the three level-0 input blocks and output blocks 9-11
     at 64x64: 5 self-attention sites, 16 GroupNorms, 12 convs (none in K4's
-    gate at this plane); the full walk is unchanged."""
+    gate at this plane; 15 with the up path fused, its three in_convs split);
+    the full walk is unchanged."""
     from complex_prompt_diffusion_tpu_torch import models as M
     from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import (
         unet_batch_shapes,
@@ -280,5 +281,10 @@ def test_shallow_pass_kernel_sites():
     assert {side for side, *_ in shallow["conv"]} == {64}
     assert unet_batch_shapes(cfg, 64, 8, deep_at=9) == {
         "attn": [(4096, 8, 40)], "attn_kv": [], "ff": [(32768, 320)],
-        "gn": [(8, 64, 64, 320), (8, 64, 64, 960), (8, 64, 64, 640)], "conv": []}
+        "gn": [(8, 64, 64, 320), (8, 64, 64, 960), (8, 64, 64, 640)], "gn_cat": [], "conv": []}
     assert len(unet_sites(cfg, 64, deep_at=0)["self_attn"]) == 15
+    # the fused up path of the shallow pass: output blocks 9-11 pop the
+    # level-0 skips (320 channels) beside hidden states of 640, 320, 320
+    fused = unet_sites(cfg, 64, deep_at=9, fused=True)
+    assert fused["gn_cat"] == [(64, 640, 320), (64, 320, 320), (64, 320, 320)]
+    assert fused["gn"] == 16 and len(fused["conv"]) == 15

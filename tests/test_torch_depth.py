@@ -313,7 +313,7 @@ def test_sd2_512_group_makes_each_new_case_once(monkeypatch):
 
     small = {"attn": [(256, 2, 8)], "ff": [(64, 16)], "gn": [(4, 8, 8, 64)],
              "conv": [(16, 64, 64)]}
-    monkeypatch.setattr(KC, "unet_batch_shapes", lambda cfg, latent, ub: small)
+    monkeypatch.setattr(KC, "unet_batch_shapes", lambda cfg, latent, ub, **kw: small)
     cases = KC.kernel_cases("cpu", ["sd2_512"])
     labels = [(c.kernel, c.label) for c in cases]
     assert labels == [

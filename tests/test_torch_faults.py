@@ -1,7 +1,7 @@
 """Five places where the port once departed from the JAX package without a
 word, each held here on the CPU:
 
-  * the kernels' CUDA outputs carry no ``grad_fn``: the six dispatch
+  * the kernels' CUDA outputs carry no ``grad_fn``: the seven dispatch
     entries differentiate through ``_build.kernel_with_plain_vjp`` (the
     kernel forward, the plain twin's VJP backward, as the JAX package's
     ``custom_vjp`` rules), and every body and probe refuses autograd when
@@ -70,7 +70,7 @@ def test_refuse_grad_raises_under_grad_and_lets_the_rest_through():
 
 
 # every wrapper that launches a kernel for CUDA tensors, with the name of its
-# library call; the six dispatch entries, with their call of the helper that
+# library call; the seven dispatch entries, with their call of the helper that
 # makes the kernel differentiable
 _VJP = "_build.kernel_with_plain_vjp("
 _LAUNCHERS = [
@@ -80,6 +80,7 @@ _LAUNCHERS = [
     (F2.geglu_ff, _VJP),
     (F2.geglu_ff_f32_sm90, "_build.kernel_library()"),
     (G.group_norm_nhwc, _VJP),
+    (G.group_norm_silu_cat, _VJP),
     (G.group_norm_prior, "_build.kernel_library()"),
     (A._attention_bf16_wide_sm90, "_build.kernel_library()"),
     (C.conv3x3_generic, "_build.kernel_library()"),
@@ -103,6 +104,7 @@ _LAUNCHERS = [
     (A._attention_dmajor_sm90, "_build.kernel_library()"),
     (F2.geglu_ff_bf16_sm90, "_build.kernel_library()"),
     (G._group_norm_sm90, "_build.kernel_library()"),
+    (G._group_norm_cat_sm90, "_build.kernel_library()"),
     (PW._wino3x3_cuda, "_build.kernel_library()"),
 ]
 

@@ -455,11 +455,14 @@ def test_ub3_group_holds_the_two_factor_inpaint_render(monkeypatch):
 
     shapes = KC.unet_batch_shapes(M.UNetConfig.sd_inpaint(), 64, 3)
     assert shapes == KC.unet_batch_shapes(M.UNetConfig.sd15(), 64, 3)
-    assert sorted(shapes["conv"]) == sorted(KC.B1_UNET_CONVS)
+    # the materialized up path's convs; fused (the default), a subset of them
+    assert sorted(KC.unet_batch_shapes(M.UNetConfig.sd_inpaint(), 64, 3, fused=False)["conv"]) == (
+        sorted(KC.B1_UNET_CONVS))
+    assert set(shapes["conv"]) < set(KC.B1_UNET_CONVS)
     assert {n for n, *_ in shapes["gn"]} == {3} and shapes["ff"][0] == (3 * 4096, 320)
     small = {"attn": [(256, 2, 8)], "ff": [(48, 16)], "gn": [(3, 8, 8, 64)],
              "conv": [(16, 64, 64), (16, 4, 64)]}
-    monkeypatch.setattr(KC, "unet_batch_shapes", lambda cfg, latent, ub: small)
+    monkeypatch.setattr(KC, "unet_batch_shapes", lambda cfg, latent, ub, **kw: small)
     cases = KC.kernel_cases("cpu", ["ub3"])
     assert [(c.kernel, c.label) for c in cases] == [
         ("attention_sm90", "bf16 B3 S256 H2 d8"), ("geglu_ff", "bf16 M48 C16 H4 64"),

@@ -318,20 +318,32 @@ def test_model_wrapper_matches_jax(schedules, model_type):
     uncond = np.random.default_rng(8).standard_normal(SHAPE).astype(np.float32)
 
     def model(xp):
+        # classifier guidance calls the model with no condition, as JAX's does
         tanh = jnp.tanh if xp is jnp else torch.tanh
-        return lambda x_, t, c: tanh(x_ * 0.3 + c) * (1.0 + t / 1000.0)
+        return lambda x_, t, c: tanh(x_ * 0.3 + (0.0 if c is None else c)) * (1.0 + t / 1000.0)
 
-    for guidance, scale in (("uncond", 1.0), ("classifier-free", 3.0)):
+    def classifier(xp):
+        # a toy log-probability: its gradient in x is cos(x c) c (1 + t / 1000)
+        sin = jnp.sin if xp is jnp else torch.sin
+        return lambda x_, t, c: sin(x_ * c) * (1.0 + t / 1000.0)
+
+    for guidance, scale in (("uncond", 1.0), ("classifier-free", 3.0), ("classifier", 2.0)):
         kw = dict(model_type=model_type, guidance_type=guidance, guidance_scale=scale)
         jf = JSol.model_wrapper(model(jnp), jns, condition=jnp.asarray(cond),
-                                unconditional_condition=jnp.asarray(uncond), **kw)
+                                unconditional_condition=jnp.asarray(uncond),
+                                classifier_fn=classifier(jnp), **kw)
         pf = Sol.model_wrapper(model(torch), pns, condition=torch.from_numpy(cond),
-                               unconditional_condition=torch.from_numpy(uncond), **kw)
+                               unconditional_condition=torch.from_numpy(uncond),
+                               classifier_fn=classifier(torch), **kw)
         for t in (0.02, 0.5, 0.97):
             _close(pf(torch.from_numpy(x), t), jf(jnp.asarray(x), jnp.float32(t)))
-    pf = Sol.model_wrapper(model(torch), pns, guidance_type="classifier")
-    with pytest.raises(NotImplementedError, match="backward"):
-        pf(torch.from_numpy(x), 0.5)
+    # without a classifier both packages raise the same ValueError
+    for wrapper, xs in ((Sol.model_wrapper(model(torch), pns, guidance_type="classifier"),
+                         torch.from_numpy(x)),
+                        (JSol.model_wrapper(model(jnp), jns, guidance_type="classifier"),
+                         jnp.asarray(x))):
+        with pytest.raises(ValueError, match="requires classifier_fn"):
+            wrapper(xs, 0.5)
 
 
 # --- UniPC ---------------------------------------------------------------------

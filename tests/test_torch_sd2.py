@@ -182,7 +182,10 @@ def test_unet_batch_shapes_cover_every_kernel_site(ub):
     levels; K2 at each level's M (``GEGLU_ROWS`` at UNet batch 8,
     ``GEGLU_B1_ROWS`` at 2); K3 on the 14 planes of ``GN_UNET_PLANES``,
     whose counts the sites' GroupNorm planes reproduce; K4 on the 10 shapes
-    of ``B1_UNET_CONVS`` at UNet batch <= 4 and on none above."""
+    of ``B1_UNET_CONVS`` at UNet batch <= 4 and on none above. That is the
+    materialized up path; the default form at UNet batch <= 4 is fused: K3's
+    two-source form on the 8 pairs of ``GN_CAT_PLANES`` in place of the
+    concat planes, K4 on the 6 of those shapes the split in_convs leave."""
     from collections import Counter
 
     from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import (
@@ -197,13 +200,18 @@ def test_unet_batch_shapes_cover_every_kernel_site(ub):
 
     cfg = M.UNetConfig.sd15()
     assert Counter(unet_sites(cfg, 64)["gn_planes"]) == dict(zip(GN_UNET_PLANES, GN_B4_CALLS))
-    shapes = unet_batch_shapes(cfg, 64, ub)
+    shapes = unet_batch_shapes(cfg, 64, ub, fused=False)
     assert shapes["attn"] == [(4096, 8, 40), (1024, 8, 80), (256, 8, 160)]
     assert shapes["ff"] == [(ub * s, c) for s, c in ((4096, 320), (1024, 640), (256, 1280),
                                                       (64, 1280))]
     assert shapes["ff"] == {8: list(GEGLU_ROWS[:4]), 2: list(GEGLU_B1_ROWS)}.get(ub, shapes["ff"])
     assert sorted(shapes["gn"]) == sorted((ub, s, s, c) for s, c in GN_UNET_PLANES)
     assert sorted(shapes["conv"]) == (sorted(B1_UNET_CONVS) if ub <= 4 else [])
+    default = unet_batch_shapes(cfg, 64, ub)
+    assert len(default["gn_cat"]) == (8 if ub <= 4 else 0)
+    assert len(default["conv"]) == (6 if ub <= 4 else 0)
+    assert set(default["conv"]) <= set(shapes["conv"])
+    assert default == shapes if ub > 4 else len(default["gn"]) == len(shapes["gn"]) - 8
 
 
 def test_kernel_cases_make_a_case_for_each_unet_batch_shape(monkeypatch):
@@ -215,7 +223,7 @@ def test_kernel_cases_make_a_case_for_each_unet_batch_shape(monkeypatch):
 
     small = {"attn": [(256, 2, 8)], "ff": [(64, 16)], "gn": [(4, 8, 8, 64)],
              "conv": [(16, 64, 64), (16, 4, 64)]}
-    monkeypatch.setattr(KC, "unet_batch_shapes", lambda cfg, latent, ub: small)
+    monkeypatch.setattr(KC, "unet_batch_shapes", lambda cfg, latent, ub, **kw: small)
     cases = KC.kernel_cases("cpu", ["ub4"])
     assert [(c.kernel, c.label) for c in cases] == [
         ("attention_sm90", "bf16 B4 S256 H2 d8"), ("geglu_ff", "bf16 M64 C16 H4 64"),

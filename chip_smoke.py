@@ -161,7 +161,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            eps): ``depth2img`` (Sobel depth) strength 0.75, DDIM 50, b1 with
            the bf16 VAE and b4 (four images, one depth map each) with the
            exact-f32 one; for each UNet, one guided eps on a 16x16 latent
-           with its concat channels (conv_in's C = 9 or 5 on K4's generic
+           with its concat channels (conv_in's C = 9 or 5 on K4's narrow-C
            body) against the CPU plain twins; (c) the native tokenizer
            built by the host C++ compiler, its ids equal to the Python BPE
            tokenizer's over a fixed corpus on a synthetic byte-level vocab
@@ -170,7 +170,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            at its UNet batch times its calls. Phase 1 holds SD-2's 512^2
            shapes too (kernel_cases' "sd2_512" group: K1 at head dim 64 and
            S = 4096, 1024, 256 at UNet batch 2 and 8, and at the middle
-           block's 64 tokens; K4's generic body on the concat UNets'
+           block's 64 tokens; K4's narrow-C body on the concat UNets'
            conv_in at a 32x32 latent, 9 -> 320 and 5 -> 320, bf16 and f32);
   phase 16 the UNet's opt-in modes (after phase 15, on phase 2's bundle
            rebuilt from seed 0: bf16 UNet, bf16 VAE, 512x512 unless said):
@@ -306,12 +306,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
 
 The up path's skip concat is fused in every bf16 UNet call at UNet batch
 <= 4 (``models.unet.skip_cat_fused``): its 12 up-path GroupNorms run K3's
-two-source form (``group_norm_cat``: two kernels a call, counted into K3's
-61 calls a UNet call too) and its 12 in_convs two convs each (K4 28 a b1
-UNet call). Phase 1 holds the two-source form at every (Ca | Cb) pair of
-UNet batches 1 to 4 (its materialized port path, torch.cat + K3, and
-torch.cat + ``F.group_norm`` + ``F.silu`` beside it); phase 4 also samples
-with the fusion off and on, in turns, and prints both s/step; phase 17(a)
+two-source form (``group_norm_cat``, counted into K3's 61 calls a UNet call
+too: its slab form, ``group_norm_cat_slab``, one kernel a call on the 7
+pairs of the 8^2, 16^2 and 32^2 (640 | 640) planes, its split form two on
+the other 5; ``group_norm_cat_plan``) and its 12 in_convs two convs each
+(K4 28 a b1 UNet call; the halves of the 16^2 and 32^2 in_convs read in
+place by K4's sm90 body). Phase 1 holds both forms at every (Ca | Cb) pair
+of UNet batches 1 to 4 (the replaced split form beside each slab
+case; the materialized port path, torch.cat + K3, and torch.cat +
+``F.group_norm`` + ``F.silu`` beside every case) and K4's narrow bodies
+(``conv3x3_narrow``: Co <= 8 or C <= 16) at every shape the paths launch
+them at (the replaced body, csrc/conv3x3.cu, beside each); phase 4 also
+samples with the fusion off and on, in turns, prints both s/step and the
+device time of the weight halves still copied a call; phase 17(a)
 differentiates the two-output form.
 
 ``python3 chip_smoke.py --ranks 4`` runs only phase 20 (d), on four NCCL
@@ -409,12 +416,22 @@ KERNELS = {
         f"{PKG}/csrc/groupnorm_sm90.cu",
         "complex_prompt_diffusion_tpu/ops/groupnorm.py:376 group_norm_silu_cat (XLA in the JAX "
         "package: the UNet's up-path GroupNorm+SiLU over a virtual skip concat; K3's two-source "
-        "form on the card)",
+        "form on the card, its split form where no slab fits)",
+    ),
+    "group_norm_cat_slab": (
+        f"{PKG}/csrc/groupnorm_sm90.cu",
+        "complex_prompt_diffusion_tpu/ops/groupnorm.py:376 group_norm_silu_cat (K3's two-source "
+        "slab form: one launch where the virtual row's groups of a sample fit a block)",
     ),
     "conv3x3": (
         f"{PKG}/csrc/conv3x3.cu",
         "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel (f32 with C % 32 or Co % 64 != 0; "
-        "bf16 with C or Co % 64 != 0)",
+        "bf16 with C or Co % 64 != 0; both with Co > 8 and C > 16)",
+    ),
+    "conv3x3_narrow": (
+        f"{PKG}/csrc/conv3x3_narrow.cu",
+        "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel (bf16 and f32 outside the Hopper "
+        "bodies' widths with Co <= 8 or C <= 16)",
     ),
     "conv3x3_sm90": (
         f"{PKG}/csrc/conv3x3_sm90.cu",
@@ -478,8 +495,10 @@ PROBES = ("winograd", "winograd_sm90", "winograd_f32_sm90", "probe_attention", "
 PHASE10_PROBES = PROBES[3:]
 # K1's, K2's f32, K4's, K5's and K6's Hopper bodies, counted inside
 # "attention", "geglu_ff", "conv3x3", "attention_cm" (K5's f32 body inside
-# its Hopper count) and "winograd"; K3's two-source form inside "group_norm"
-SM90 = {"attention_sm90": "attention", "attention_f32_sm90": "attention",
+# its Hopper count) and "winograd"; K3's two-source form inside "group_norm",
+# its slab form inside "group_norm_cat"; K4's narrow bodies inside "conv3x3"
+SM90 = {"group_norm_cat_slab": "group_norm_cat", "conv3x3_narrow": "conv3x3",
+        "attention_sm90": "attention", "attention_f32_sm90": "attention",
         "attention_f32_fused_sm90": "attention",
         "attention_bf16_wide_sm90": "attention", "conv3x3_sm90": "conv3x3",
         "conv3x3_f32_sm90": "conv3x3", "geglu_ff_f32_sm90": "geglu_ff",
@@ -510,7 +529,7 @@ LOADS_ONLY = re.compile(r"attention_sm90_kernelILi\d+ELi\d+ELi6E")
 # K3's, K8's (K3's kernels in K8's modes) and K9's kernels: every
 # instantiation must load by TMA (UTMALDG) or bulk copy (UBLKCP)
 BULK_FUNCTIONS = ("gn_slab_kernel", "gn_stats_kernel", "gn_apply_kernel", "gn_cat_stats_kernel",
-                  "gn_cat_apply_kernel", "copy_bulk_kernel")
+                  "gn_cat_apply_kernel", "gn_cat_slab_kernel", "copy_bulk_kernel")
 # K8's instantiations with the tensor-core statistics (MMA = true: the slab
 # kernel <bf16, full, true>, the statistics kernel <bf16, true>) must hold
 # mma.sync (HMMA) or wgmma (HGMMA)
@@ -518,6 +537,12 @@ MMA_STATS = re.compile(r"gn_slab_kernelI13__nv_bfloat16Li0ELb1E|"
                        r"gn_stats_kernelI13__nv_bfloat16Lb1E")
 
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |a - b| / max |b|
+# phase 1's names for the body beside a case, by the case's kernel
+PRIOR_NAMES = {"group_norm_cat_slab": "replaced body (the split two-source form)",
+               "conv3x3_narrow": "replaced body (csrc/conv3x3.cu)"}
+# the kernels whose cases phase 1 runs twice, the two outputs held to the
+# same bits (sums in a fixed order)
+REPEAT_BITS = ("group_norm_cat", "group_norm_cat_slab", "conv3x3_narrow")
 
 DDIM_PATH_KERNELS = ("attention", "geglu_ff", "group_norm", "conv3x3")  # phases 4 and 6
 UNET_CONVS_PER_CALL_B1 = 22  # 3x3 convs on the 16^2/32^2 planes at UNet batch 2
@@ -683,6 +708,16 @@ def phase0_sass(card: str) -> None:
                            f"with HMMA or HGMMA, got {mma or 'none built'}")
 
 
+def same_bits(a, b) -> bool:
+    """Whether two outputs of a kernel (a tensor, or a tuple of them) are
+    bit for bit the same."""
+    import torch
+
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
 def phase1(dev, card: str) -> dict:
     """Each kernel against its plain twin at its paths' shapes."""
     import torch
@@ -711,14 +746,15 @@ def phase1(dev, card: str) -> dict:
     from complex_prompt_diffusion_tpu_torch.models import UNetConfig
 
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                      "library_ms": 0.0, "replaced_ms": None,
+                      "library_ms": 0.0, "replaced_ms": None, "materialized_ms": None,
                       "by": {"bytes": 0.0, "operations": 0.0}}
                for name in KERNELS}
     conv_ms = {}  # K4's time by case label, printed beside K6's at the same shape
     conv_rows = {}  # the sm90 K4 cases: label -> (kernel, mma.sync body, library, bound) ms
     ff_rows = {}  # K2's cases: label -> (kernel, plain, bound) ms
     gn_rows = {}  # K3's cases: label -> (kernel, replaced body, library, bound) ms
-    # K3's two-source cases: label -> (kernel, materialized port path, library, bound) ms
+    # K3's two-source cases: label -> (kernel, materialized port path, library,
+    # bound, the replaced split form) ms
     cat_rows = {}
     print(f"phase1: kernel vs plain twin on {card} (times: {METHOD}, one input repeated, "
           f"L2 hot; bound = max(flops / peak, bytes / 3.35 TB/s); working set = those bytes, "
@@ -731,8 +767,11 @@ def phase1(dev, card: str) -> dict:
         # the replaced body computes the same function on the same inputs:
         # held to the same twin, so that its time is the same work's
         prior_rel = rel_err(case.prior(), want)[1] if case.prior is not None else None
+        # a repeat of the kernel gives the same bits (fixed-order sums)
+        same = same_bits(case.run(), got) if case.kernel in REPEAT_BITS else None
         del got, want
         prior_ms = graph_ms(case.prior) if case.prior is not None else None
+        mat_ms = graph_ms(case.materialized) if case.materialized is not None else None
         ms = graph_ms(case.run)
         plain_ms = graph_ms(case.plain)
         lib_ms = graph_ms(case.library) if case.library is not None else None
@@ -745,7 +784,7 @@ def phase1(dev, card: str) -> dict:
         tol = 1e-5 if case.rate == "tf32x3" else TOL[case.dtype]
         prior_tol = (TOL[case.dtype] if case.kernel in ("conv3x3_f32_sm90", "winograd")
                      else tol)
-        ok = rel <= tol and (prior_rel is None or prior_rel <= prior_tol)
+        ok = rel <= tol and (prior_rel is None or prior_rel <= prior_tol) and same is not False
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
         if case.kernel in ("conv3x3", "conv3x3_sm90", "conv3x3_f32_sm90"):
             conv_ms[case.label] = ms
@@ -755,16 +794,20 @@ def phase1(dev, card: str) -> dict:
             ff_rows[case.label] = (ms, plain_ms, bound_ms)
         elif case.kernel == "group_norm":
             gn_rows[case.label] = (ms, prior_ms, lib_ms, bound_ms)
-        elif case.kernel == "group_norm_cat":
-            cat_rows[case.label] = (ms, prior_ms, lib_ms, bound_ms)
+        elif case.kernel in ("group_norm_cat", "group_norm_cat_slab"):
+            cat_rows[case.label] = (ms, mat_ms, lib_ms, bound_ms,
+                                    ms if prior_ms is None else prior_ms)
         elif case.kernel == "winograd":
             k4 = conv_ms.get(case.label)
             lib_txt += f" K4={k4:.4f} ms" if k4 is not None else " K4=no case at this shape"
         l2 = " < L2" if case.nbytes < L2_BYTES else ""
-        prior_name = ("materialized (torch.cat + K3)" if case.kernel == "group_norm_cat"
-                      else "replaced body")
+        prior_name = PRIOR_NAMES.get(case.kernel, "replaced body")
         prior_txt = (f" {prior_name}={prior_ms:.4f} ms (rel {prior_rel:.3e})"
                      if prior_ms is not None else "")
+        if mat_ms is not None:
+            prior_txt += f" materialized (torch.cat + K3)={mat_ms:.4f} ms"
+        if same is not None:
+            prior_txt += f" same bits on a repeat: {same}"
         if case.rate == "tf32x3":  # the FMA rate's bound beside the 3xTF32 one
             fma_ms = max(case.flops / PEAK_FLOPS["float32"], case.nbytes / HBM_BYTES_PER_S) * 1e3
             lib_txt += f" bound at the f32 FMA rate={fma_ms:.4f} ms"
@@ -775,7 +818,8 @@ def phase1(dev, card: str) -> dict:
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SmokeFailure(f"{case.kernel} {case.label}: relative error {rel:.3e} (tol "
-                               f"{tol}; replaced body {prior_rel}, tol {prior_tol})")
+                               f"{tol}; replaced body {prior_rel}, tol {prior_tol}; same bits "
+                               f"on a repeat: {same})")
         body = {"attention": K1_BODY, "attention_cm": K5_BODY, "winograd": K6_BODY}.get(
             case.kernel)
         sm = summary[body[case.dtype] if body else case.kernel]
@@ -790,6 +834,8 @@ def phase1(dev, card: str) -> dict:
             sm["library_ms"] += lib_ms
         if prior_ms is not None:
             sm["replaced_ms"] = (sm["replaced_ms"] or 0.0) + prior_ms
+        if mat_ms is not None:
+            sm["materialized_ms"] = (sm["materialized_ms"] or 0.0) + mat_ms
         torch.cuda.empty_cache()
     for dt, ub, body, prior in (("bf16", 1, "sm90 K4", "mma.sync body"),
                                 ("bf16", 2, "sm90 K4", "mma.sync body"),
@@ -862,11 +908,12 @@ def phase1(dev, card: str) -> dict:
         if None in gn or None in cat:
             continue
         one = [sum(n * r[i] for n, r in zip(plain.values(), gn)) for i in (0, 3)]
-        two = [sum(n * (r[i] or 0.0) for n, r in zip(GN_CAT_CALLS, cat)) for i in range(4)]
+        two = [sum(n * (r[i] or 0.0) for n, r in zip(GN_CAT_CALLS, cat)) for i in range(5)]
         print(f"phase1: the {sum(plain.values()) + sum(GN_CAT_CALLS)} GroupNorms of a {step} CFG "
               f"step (UNet batch {ub}) with the up path fused: K3 {one[0] + two[0]:.4f} ms (one "
               f"input {one[0]:.4f} ms for {sum(plain.values())}, two-source form {two[0]:.4f} ms "
-              f"for {sum(GN_CAT_CALLS)}; those {sum(GN_CAT_CALLS)} materialized: torch.cat + K3 "
+              f"for {sum(GN_CAT_CALLS)}, its replaced body (the split form at every pair) "
+              f"{two[4]:.4f} ms; those {sum(GN_CAT_CALLS)} materialized: torch.cat + K3 "
               f"{two[1]:.4f} ms, torch.cat + F.group_norm + F.silu {two[2]:.4f} ms), bound "
               f"{one[1] + two[3]:.4f} ms ({100 * (one[1] + two[3]) / (one[0] + two[0]):.1f}% of "
               f"K3's time; {card})")
@@ -940,13 +987,13 @@ def read_launches() -> dict:
 
 
 def check_gn(launches: dict, unet_calls: int, decodes: int, encodes: int, what: str,
-             cat_calls: int = 0) -> None:
+             cat=(0, 0, 0)) -> None:
     """Every GroupNorm of a path on K3's Hopper body: as many calls as its
-    UNet calls, VAE decodes and encodes have, ``cat_calls`` of them on the
-    two-source form (two kernels each; 12 a fused UNet call) and the rest
-    on one input, the kernels the library reported equal to what the calls'
+    UNet calls, VAE decodes and encodes have, ``cat`` (:func:`cat_counts`)
+    of them on the two-source form (12 a fused UNet call) and the rest on
+    one input, the kernels the library reported equal to what the calls'
     plans predict, none on the replaced body."""
-    check_cat(launches, cat_calls, what)
+    check_cat(launches, cat, what)
     want = (UNET_GN_CALLS * unet_calls + VAE_DECODE_GN_CALLS * decodes
             + VAE_ENCODE_GN_CALLS * encodes)
     if (launches["group_norm calls"] != want or launches["group_norm"] <= 0
@@ -959,15 +1006,23 @@ def check_gn(launches: dict, unet_calls: int, decodes: int, encodes: int, what: 
                            f"{launches['group_norm_prior']}")
 
 
-def check_cat(launches: dict, cat_calls: int, what: str) -> None:
-    """``cat_calls`` calls of K3's two-source form in a path, two kernels
-    each, and no other."""
-    if (launches["group_norm_cat calls"] != cat_calls
-            or launches["group_norm_cat"] != 2 * cat_calls):
-        raise SmokeFailure(f"K3's two-source form in {what}: "
-                           f"{launches['group_norm_cat calls']} calls, "
-                           f"{launches['group_norm_cat']} kernels: want {cat_calls} calls "
-                           f"(the fused up path's), two kernels each")
+def cat_counts(per: dict, calls: int = 1) -> tuple:
+    """(calls, kernels, slab kernels) of K3's two-source form in ``calls``
+    UNet calls of ``per`` (:func:`unet_call_launches`)."""
+    return tuple(calls * per[k] for k in ("k3_cat", "k3_cat_launches", "k3_cat_slab"))
+
+
+def check_cat(launches: dict, cat, what: str) -> None:
+    """K3's two-source form in a path: ``cat`` = (calls, kernels, slab
+    kernels) as the calls' plans predict (:func:`cat_counts`: one launch a
+    slab call, two a split one), and no other."""
+    calls, kernels, slab = cat
+    got = (launches["group_norm_cat calls"], launches["group_norm_cat"],
+           launches["group_norm_cat_slab"])
+    if got != (calls, kernels, slab):
+        raise SmokeFailure(f"K3's two-source form in {what}: (calls, kernels, slab kernels) "
+                           f"{got}: want {(calls, kernels, slab)} (the fused up path's, by "
+                           f"group_norm_cat_plan)")
 
 
 def check_wide(launches: dict, calls: int, batch: int, what: str, s: int = 4096,
@@ -1117,12 +1172,14 @@ def phase3(bundle, dev, card: str) -> None:
         n = read_launches()
         want = M.unet_apply(bundle.unet_cfg, to_cpu(bundle.unet_params), x, t, ctx)
     if (n["conv3x3"] != per["k4"] or n["conv3x3_sm90"] != per["k4_sm90"]
-            or per["k4"] != UNET_CONVS_16_LATENT + 3 or per["k4_sm90"] != per["k4"] - 2):
+            or per["k4"] != UNET_CONVS_16_LATENT + 3 or per["k4_sm90"] != per["k4"] - 2
+            or n["conv3x3_narrow"] != per["k4_narrow"] or per["k4_narrow"] != 2):
         raise SmokeFailure(f"the 16x16 UNet eval launched K4 {n['conv3x3']} times, "
-                           f"{n['conv3x3_sm90']} on the sm90 body: want {per['k4']} (13 and "
-                           f"the 3 split in_convs), all but conv_in (C = 4) and the out conv "
-                           f"(Co = 4) on the sm90 body")
-    check_gn(n, 1, 0, 0, "the 16x16 UNet eval", UNET_CAT_CALLS)
+                           f"{n['conv3x3_sm90']} on the sm90 body, {n['conv3x3_narrow']} on "
+                           f"the narrow ones: want {per['k4']} (13 and the 3 split in_convs), "
+                           f"all but conv_in (C = 4) and the out conv (Co = 4) on the sm90 "
+                           f"body, those two on the narrow bodies")
+    check_gn(n, 1, 0, 0, "the 16x16 UNet eval", cat_counts(per))
     compare(f"UNet eps 16x16 latent b2, bf16 weights, {per['k4']} convs through K4, "
             f"{UNET_CAT_CALLS} GroupNorms on K3's two-source form", got, want, 5e-2)
     # VAE decode in f32: 16x16 latent -> 128x128 image (mid attention S = 256;
@@ -1186,7 +1243,7 @@ def phase4(bundle, dev, card: str, steps: int) -> dict:
 
     check_image(images, (1, 512, 512, 3))
     check_latents(latents, (1, 64, 64, 4))
-    for name in DDIM_PATH_KERNELS + ("group_norm_cat",):
+    for name in DDIM_PATH_KERNELS + ("group_norm_cat", "group_norm_cat_slab"):
         if launches[name] <= 0:
             raise SmokeFailure(f"kernel {name} was not launched in the batch-1 render")
     per = unet_call_launches(bundle.unet_cfg, 64, 2)
@@ -1201,7 +1258,7 @@ def phase4(bundle, dev, card: str, steps: int) -> dict:
         raise SmokeFailure(f"K1's sm90 body launched {launches['attention_sm90']} times, want "
                            f"{UNET_SELF_ATTN_SITES} x {steps}")
     check_geglu(launches, 1, steps, "the batch-1 render")
-    check_gn(launches, steps, 1, 0, "the batch-1 render", UNET_CAT_CALLS * steps)
+    check_gn(launches, steps, 1, 0, "the batch-1 render", cat_counts(per, steps))
     check_wide(launches, 1, 1, "the batch-1 render")
     decode_attn = launches["attention"] - before["attention"]
     if bundle.vae_cfg.dtype != "bfloat16" or decode_attn != launches["attention_bf16_wide_sm90"]:
@@ -1214,7 +1271,8 @@ def phase4(bundle, dev, card: str, steps: int) -> dict:
           f"{1000 * (t2 - t1):.2f} ms (first call), {1000 * (t3 - t2):.2f} ms (second), "
           f"peak memory {peak_gb:.2f} GiB")
     print(f"phase4: launches {json.dumps(launches)} (conv3x3 = {per['k4']} x {steps} steps; "
-          f"group_norm_cat = 2 kernels x {UNET_CAT_CALLS} x {steps}; attention in the decode: "
+          f"group_norm_cat = {per['k3_cat_launches']} kernels ({per['k3_cat_slab']} slab, "
+          f"{UNET_CAT_CALLS} calls) x {steps}; attention in the decode: "
           f"{decode_attn} kernels, bf16 d=512)")
     phase4_fused_ab(bundle, cfg, card, steps, latents)
     return launches
@@ -1256,18 +1314,39 @@ def phase4_fused_ab(bundle, cfg, card: str, steps: int, latents) -> None:
     import torch
 
     from complex_prompt_diffusion_tpu_torch.models import unet as U
+    from complex_prompt_diffusion_tpu_torch.models.layers import conv3x3_wanted
+    from complex_prompt_diffusion_tpu_torch.ops.conv import k4_body
     from complex_prompt_diffusion_tpu_torch.pipeline import txt2img
 
     per_call = U._split_weight
-    halves = {}  # (id, Ca) -> (weight, Ca): the split convs of the b1 UNet call
+    conv_split = U._conv_split
+    # (id, Ca) -> (weight, Ca, (a's half read in place, b's)): the split convs
+    # of the b1 UNet call; a half is read in place where its conv runs on a
+    # Hopper body of K4 (whose TMA map walks the slice), and copied by
+    # cuDNN (the 8^2 and 64^2 in_convs, the 1x1 skip convs) otherwise
+    halves = {}
+    operands = []  # the split conv's (a, b) while its halves are cut
+
+    def in_place(w, t):
+        return (w.shape[-1] == 3 and conv3x3_wanted(t, (w.shape[0], t.shape[-1], 3, 3))
+                and k4_body(t.dtype, t.shape[-1], w.shape[0]) in ("bf16_sm90", "f32_sm90"))
 
     def recorded(p, ca):
-        halves.setdefault((id(p["weight"]), ca), (p["weight"], ca))
+        w = p["weight"]
+        halves.setdefault((id(w), ca), (w, ca, tuple(in_place(w, t) for t in operands[-1])))
         return per_call(p, ca)
+
+    def split_conv(p, a, b, shard=None):
+        operands.append((a, b))
+        try:
+            return conv_split(p, a, b, shard)
+        finally:
+            operands.pop()
 
     secs = {"off": [], "on": [], "once": []}
     peak = {"off": [], "on": [], "once": []}
     out = {}
+    U._conv_split = split_conv
     try:
         for form in ("off", "on", "once", "once", "on", "off"):
             U._FUSE_SKIP_CAT = form != "off"
@@ -1292,18 +1371,29 @@ def phase4_fused_ab(bundle, cfg, card: str, steps: int, latents) -> None:
     finally:
         U._FUSE_SKIP_CAT = True
         U._split_weight = per_call
+        U._conv_split = conv_split
     check_latents(out["off"], (1, 64, 64, 4))
     rel = rel_err(out["on"], out["off"])[1]
     same = torch.equal(out["on"], latents)
     same_once = torch.equal(out["once"], out["on"])
 
-    def copy_halves():
-        for w, ca in halves.values():
-            w[:, :ca].contiguous()
-            w[:, ca:].contiguous()
+    def cut(w, ca):
+        return w[:, :ca], w[:, ca:]
 
-    copy_ms = event_ms(copy_halves, 10)
-    copy_gb = sum(2 * w.numel() * w.element_size() for w, _ in halves.values()) / 1e9
+    def copy_halves(every):
+        for w, ca, kept in halves.values():
+            for half, k in zip(cut(w, ca), kept):
+                if every or not k:
+                    half.contiguous()
+
+    def nbytes(every):
+        return sum(h.numel() * h.element_size() for w, ca, kept in halves.values()
+                   for h, k in zip(cut(w, ca), kept) if every or not k)
+
+    copied = sum(1 for *_, kept in halves.values() for k in kept if not k)
+    copy_ms = event_ms(lambda: copy_halves(False), 10)
+    all_ms = event_ms(lambda: copy_halves(True), 10)
+    copy_gb, all_gb = 2 * nbytes(False) / 1e9, 2 * nbytes(True) / 1e9
 
     def two(form, vals, f):
         return " / ".join(f.format(v) for v in vals[form])
@@ -1317,9 +1407,11 @@ def phase4_fused_ab(bundle, cfg, card: str, steps: int, latents) -> None:
           f"prompt encode); latents fused vs materialized max rel {rel:.3e} (bf16 arithmetic "
           f"in another order; printed, not held); the fused latents equal the first render's "
           f"bit for bit: {same}, the copied-once form's: {same_once}; the per-call copies "
-          f"of the {2 * len(halves)} weight halves of a UNet call: {copy_ms:.4f} ms (CUDA "
-          f"events, {copy_gb:.3f} GB read and written, bound {copy_gb / 3.35:.4f} ms at "
-          f"3.35 TB/s)", flush=True)
+          f"that remain, {copied} of the {2 * len(halves)} weight halves of a UNet call (the "
+          f"others read in place by K4's Hopper bodies): {copy_ms:.4f} ms (CUDA events, "
+          f"{copy_gb:.3f} GB read and written, bound {copy_gb / 3.35:.4f} ms at 3.35 TB/s); "
+          f"all {2 * len(halves)} copied, as before: {all_ms:.4f} ms ({all_gb:.3f} GB, bound "
+          f"{all_gb / 3.35:.4f} ms)", flush=True)
 
 
 def phase5(bundle, latents, images_f32, card: str) -> dict:
@@ -1389,7 +1481,7 @@ def phase6(bundle, image, card: str, steps: int) -> dict:
         raise SmokeFailure(f"K1's sm90 body launched {launches['attention_sm90']} times in "
                            f"img2img, want {UNET_SELF_ATTN_SITES} x {t_enc}")
     check_geglu(launches, 1, t_enc, "img2img")
-    check_gn(launches, t_enc, 1, 1, "img2img", UNET_CAT_CALLS * t_enc)
+    check_gn(launches, t_enc, 1, 1, "img2img", cat_counts(per, t_enc))
     check_wide(launches, 2, 1, "img2img")
     print(f"phase6: img2img 512x512 b1 strength 0.75 DDIM {steps} ({t_enc} steps run) CFG "
           f"7.5, bf16 VAE encode and decode, on {card}: {t1 - t0:.3f} s end to end; "
@@ -1576,8 +1668,9 @@ def phase8(bundle, image, card: str, steps: int) -> dict:
     check_k5_bf16(launches, UNET_SELF_ATTN_SITES * n_run, "the k-family img2img")
     # K1: the encoder's and the decoder's d = 512 mid-blocks, nothing else
     check_wide(launches, 2, 1, "the k-family img2img under the kcanon route")
-    check_gn(launches, n_run, 1, 1, "the k-family img2img", UNET_CAT_CALLS * n_run)
-    k4 = unet_call_launches(bundle.unet_cfg, 64, 2)["k4_sm90"]
+    per = unet_call_launches(bundle.unet_cfg, 64, 2)
+    check_gn(launches, n_run, 1, 1, "the k-family img2img", cat_counts(per, n_run))
+    k4 = per["k4_sm90"]
     if launches["conv3x3_sm90"] < k4 * n_run or launches["attention_sm90"]:
         raise SmokeFailure(f"conv3x3's sm90 body launched {launches['conv3x3_sm90']} times (want "
                            f"at least {k4} x {n_run} steps), K1's "
@@ -1642,12 +1735,12 @@ def check_unet_path(launches: dict, unet_cfg, ub: int, calls: int, decodes: int,
                 + encodes * f32_sm90_launches(encode_batch, 1, s, s)) if f32_decode else 0
     want = {"attention_sm90": per["k1"] * calls, "attention_f32_sm90": want_f32,
             "geglu_ff": per["k2"] * calls, "conv3x3": per["k4"] * calls,
-            "conv3x3_sm90": per["k4_sm90"] * calls}
+            "conv3x3_sm90": per["k4_sm90"] * calls, "conv3x3_narrow": per["k4_narrow"] * calls}
     got = {k: launches[k] for k in want}
     if got != want or per["k3"] != UNET_GN_CALLS or per["k3_cat"] not in (0, UNET_CAT_CALLS):
         raise SmokeFailure(f"{what} ({calls} UNet calls at UNet batch {ub}) launched {got}: want "
                            f"{want} ({per} a call)")
-    check_gn(launches, calls, decodes, encodes, what, per["k3_cat"] * calls)
+    check_gn(launches, calls, decodes, encodes, what, cat_counts(per, calls))
     if f32_decode:
         check_wide(launches, 0, batch, what, s=s)
     else:
@@ -2087,15 +2180,18 @@ def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16", deep_
     ``SHORT_KV`` keys, K2 the kernels of each FF site's plan at its rows
     (and the rank's hidden width), K3 one call a GroupNorm ("k3_cat" of
     them on its two-source form where the up path is fused at this batch
-    and dtype, ``models.unet.skip_cat_fused``), K4 the convs its gate admits
-    (and of those, the ones on its sm90 body; the fused up path's in_convs
-    split in two)."""
+    and dtype, ``models.unet.skip_cat_fused``; "k3_cat_launches" their
+    kernels and "k3_cat_slab" those on its slab form, by
+    ``group_norm_cat_plan``), K4 the convs its gate admits (and of those,
+    the ones on its sm90 body and on its narrow bodies; the fused up path's
+    in_convs split in two)."""
     import torch
 
     from complex_prompt_diffusion_tpu_torch.models.layers import conv3x3_wanted
     from complex_prompt_diffusion_tpu_torch.models.unet import skip_cat_fused
     from complex_prompt_diffusion_tpu_torch.ops.attention import SHORT_KV
     from complex_prompt_diffusion_tpu_torch.ops.conv import k4_body
+    from complex_prompt_diffusion_tpu_torch.ops.groupnorm import group_norm_cat_plan
     from complex_prompt_diffusion_tpu_torch.ops.mlp import geglu_plan
     from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import unet_sites
 
@@ -2103,11 +2199,16 @@ def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16", deep_
     sites = unet_sites(cfg, latent, deep_at, model, skip_cat_fused(ub, dt))
     gated = [(s, c, co) for s, c, co in sites["conv"]
              if conv3x3_wanted(torch.empty((ub, s, s, c), device="meta"), (co, c, 3, 3))]
+    # the form, not its tiles, sets the launches: the card's SM count is not needed
+    cat = [group_norm_cat_plan(ub, s * s, ca, cb, 32, 132, dt) for s, ca, cb in sites["gn_cat"]]
     return {"k1": sum(1 for _, skv, _, _ in sites["self_attn"] if skv > SHORT_KV),
             "k2": sum(geglu_plan(ub * rows, ch, h4[0] if h4 else 4 * ch, dt).launches
                       for rows, ch, *h4 in sites["ff_rows"]),
-            "k3": sites["gn"], "k3_cat": len(sites["gn_cat"]), "k4": len(gated),
-            "k4_sm90": sum(1 for _, c, co in gated if k4_body(dt, c, co) == "bf16_sm90")}
+            "k3": sites["gn"], "k3_cat": len(cat),
+            "k3_cat_launches": sum(p.launches for p in cat),
+            "k3_cat_slab": sum(p.launches for p in cat if p.form == "slab"), "k4": len(gated),
+            "k4_sm90": sum(1 for _, c, co in gated if k4_body(dt, c, co) == "bf16_sm90"),
+            "k4_narrow": sum(1 for _, c, co in gated if k4_body(dt, c, co) == "narrow")}
 
 
 def scratch_dir(need_bytes: int) -> str:
@@ -2921,16 +3022,18 @@ def check_calls(launches: dict, what: str, calls, decodes: int = 0, batch: int =
     from complex_prompt_diffusion_tpu_torch.ops.attention import f32_sm90_launches
 
     want = {"attention_sm90": 0, "geglu_ff": 0, "conv3x3": 0, "conv3x3_sm90": 0,
+            "conv3x3_narrow": 0,
             "attention_f32_sm90": f32_decodes * f32_sm90_launches(batch, 1, s_decode, s_decode)}
-    gn = cat = 0
+    gn = 0
+    cat = (0, 0, 0)
     for n, cfg, latent, ub, deep_at in calls:
         check_held(cfg, latent, ub, deep_at, what)
         per = unet_call_launches(cfg, latent, ub, deep_at=deep_at)
         for key, k in (("attention_sm90", "k1"), ("geglu_ff", "k2"), ("conv3x3", "k4"),
-                       ("conv3x3_sm90", "k4_sm90")):
+                       ("conv3x3_sm90", "k4_sm90"), ("conv3x3_narrow", "k4_narrow")):
             want[key] += n * per[k]
         gn += n * per["k3"]
-        cat += n * per["k3_cat"]
+        cat = tuple(a + b for a, b in zip(cat, cat_counts(per, n)))
     got = {k: launches[k] for k in want}
     if got != want:
         raise SmokeFailure(f"{what} launched {got}: want {want} from its UNet calls {calls}")
@@ -3368,12 +3471,20 @@ def grad_wiring_cases(dev) -> list:
         ("K2 f32", F2.geglu_ff, F2.geglu_ff_plain, ff(f32), (), F2.geglu_ff,
          F2.geglu_plan(2048, 320, 1280, f32).launches),
         gn(bf, False), gn(bf, True), gn(f32, False), gn(f32, True),
-        # the two-source form: two outputs, a cotangent each
-        ("K3 two-source bf16 SiLU (1280 | 640 at 16^2)", G.group_norm_silu_cat,
+        # the two-source form: two outputs, a cotangent each; its slab form
+        # at 16^2 (one launch), its split form at 32^2 (two)
+        ("K3 two-source bf16 SiLU (1280 | 640 at 16^2, slab)", G.group_norm_silu_cat,
          G.group_norm_silu_cat_plain,
          (leaf((2, 16, 16, 1280), bf, 2.0), leaf((2, 16, 16, 640), bf, 2.0),
           (1 + leaf(1920, f32, 0.1, grad=False)).requires_grad_(), leaf(1920, f32, 0.1)),
-         (32, 1e-5, True), G.group_norm_silu_cat, 2),
+         (32, 1e-5, True), G.group_norm_silu_cat,
+         G.group_norm_cat_plan(2, 256, 1280, 640, 32, 132).launches),
+        ("K3 two-source bf16 SiLU (640 | 320 at 32^2, split)", G.group_norm_silu_cat,
+         G.group_norm_silu_cat_plain,
+         (leaf((2, 32, 32, 640), bf, 2.0), leaf((2, 32, 32, 320), bf, 2.0),
+          (1 + leaf(960, f32, 0.1, grad=False)).requires_grad_(), leaf(960, f32, 0.1)),
+         (32, 1e-5, True), G.group_norm_silu_cat,
+         G.group_norm_cat_plan(2, 1024, 640, 320, 32, 132).launches),
         ("K4 sm90 (f32 master weight; bias needs none)", C.conv3x3, C.conv3x3_plain,
          (leaf((2, 32, 32, 320), bf), conv_w(640, 320), leaf(640, f32, 0.1, grad=False)), (),
          C.conv3x3, 1),
@@ -3381,6 +3492,11 @@ def grad_wiring_cases(dev) -> list:
          (leaf((2, 16, 16, 640)), conv_w(640, 640), leaf(640, f32, 0.1)), (), C.conv3x3, 1),
         ("K4 generic bf16", C.conv3x3, C.conv3x3_plain,
          (leaf((2, 16, 16, 40), bf), conv_w(320, 40), leaf(320, f32, 0.1)), (), C.conv3x3, 1),
+        ("K4 narrow-C bf16 (conv_in)", C.conv3x3, C.conv3x3_plain,
+         (leaf((2, 16, 16, 4), bf), conv_w(320, 4), leaf(320, f32, 0.1)), (), C.conv3x3_narrow,
+         1),
+        ("K4 narrow-Co f32 (out conv)", C.conv3x3, C.conv3x3_plain,
+         (leaf((2, 16, 16, 320)), conv_w(4, 320), leaf(4, f32, 0.1)), (), C.conv3x3_narrow, 1),
         ("K6 bf16", W.wino3x3, wino_twin, (leaf((2, 16, 16, 640), bf), hwio(640, 640),
                                            leaf(640, f32, 0.1)), (), W.wino3x3,
          W.wino3x3_plan(2, 16, 16, 640, 640).launches),
@@ -5010,10 +5126,11 @@ def main(argv=None) -> int:
         entry["backward"] = BACKWARD.get(name, BACKWARD.get(
             route, "none: a probe, as in the JAX package"))
         if sm["replaced_ms"] is not None:
-            # K3's two-source form replaced no body: beside it, the
-            # materialized port path (torch.cat, then K3 on the concat)
-            key = "materialized_ms" if name == "group_norm_cat" else "replaced_body_ms"
-            entry[key] = sm["replaced_ms"]
+            entry["replaced_body_ms"] = sm["replaced_ms"]
+        if sm["materialized_ms"] is not None:
+            # K3's two-source forms: beside them, the materialized port path
+            # (torch.cat, then K3 on the concat)
+            entry["materialized_ms"] = sm["materialized_ms"]
         if name == "probe_attention":
             entry["sources"] = list(PROBE_ATTENTION_SOURCES)
         elif name == "probe_groupnorm":  # K3's kernels, in K8's modes

@@ -111,23 +111,29 @@ _SIGNATURES = {
     # int* kernels launched, stream
     "cpd_group_norm_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P),
     # the two-source form: a, b, gamma, beta, ya, yb, parts, is_f32, N, HW,
-    # Ca, Cb, G, eps, silu, tiles, int* kernels launched, stream
+    # Ca, Cb, G, eps, silu, form, tiles, int* kernels launched, stream
     "cpd_group_norm_cat_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                                _P, _P),
+                                _I, _P, _P),
+    # box_px, Ca, kc, esize, int* bytes of a two-source slab box
+    "cpd_group_norm_cat_box_bytes": (_I, _I, _I, _I, _P),
     # int* bytes of a sample a slab block holds
     "cpd_group_norm_sm90_tile_max": (_P,),
     # x, w, bias, bias_is_f32, y, B, H, W, C, Co, stream
     "cpd_conv3x3_bf16": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     # x, w, bias, y, B, H, W, C, Co, stream
     "cpd_conv3x3_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, w, bias, bias_is_f32, y, workspace, B, H, W, C, Co, then the plan
-    # (wt, ht, splits, steps_per_split), stream
-    "cpd_conv3x3_sm90_bf16": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+    # x, w, bias, bias_is_f32, y, workspace, B, H, W, C, Co, the weight's
+    # channel stride Cw, then the plan (wt, ht, splits, steps_per_split),
+    # stream
+    "cpd_conv3x3_sm90_bf16": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P),
-    # K4's f32 body: x, w, bias, y, workspace, B, H, W, C, Co, then the plan
-    # (wt, ht, splits, steps_per_split), stream
-    "cpd_conv3x3_f32_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # K4's f32 body: x, w, bias, y, workspace, B, H, W, C, Co, Cw, then the
+    # plan (wt, ht, splits, steps_per_split), stream
+    "cpd_conv3x3_f32_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _P),
+    # K4's narrow bodies: x, w, bias, bias_is_f32, is_f32, y, B, H, W, C, Co,
+    # stream
+    "cpd_conv3x3_narrow": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P),
     # iters, double* ns per encode, a device address to map
     "cpd_tmap_encode_bench": (_I, _P, _P),
     # the probes. K7: cpd_attention_bf16's arguments up to scale, then mode,

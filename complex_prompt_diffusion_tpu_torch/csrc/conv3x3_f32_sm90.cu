@@ -30,9 +30,10 @@
 //     h0 + dy - 1, b), 128-byte swizzle: a pixel's 32 channels are one
 //     128-byte row, and TMA's zero fill outside the tensor is the 'same'
 //     padding. The consumers split A's fragments in registers.
-//   * B: a 2-D box {32, 128} of the weight matrix, K-major as it lies (rows
-//     past Co zero-filled), split element by element into hi and lo tiles
-//     (split_kmajor).
+//   * B: a 3-D box {32, 1, 128} of the weight viewed as [Co, 9, Cw] (Cw >= C
+//     its channel stride: a channel slice of a wider weight is read in
+//     place), K-major as it lies (rows past Co zero-filled), split element
+//     by element into hi and lo tiles (split_kmajor).
 //   * The rest is tf32x3::consume_unit: a 4-stage ring fed by one producer
 //     thread, two consumer warpgroups of 64 pixels, three wgmma m64n128k8
 //     .tf32 products a step of 8 from a fresh accumulator per run of
@@ -126,7 +127,7 @@ conv3x3_f32_sm90_kernel(const __grid_constant__ CUtensorMap tmx,
           unsigned char* st = ring + s * STAGE;
           cpd::mbar_expect_tx(&full[s], STAGE);
           cpd::tma_load_4d(st, &tmx, &full[s], c0, w0 + dx - 1, h0 + dy - 1, b);
-          cpd::tma_load_2d(st + A_BYTES, &tmw, &full[s], tap * p.C + c0, nt * BN);
+          cpd::tma_load_3d(st + A_BYTES, &tmw, &full[s], c0, tap, nt * BN);
         }
       }
     }
@@ -210,18 +211,22 @@ int sm_count() {
 
 }  // namespace
 
-// x: [B, H, W, C] f32, w: [Co, 3, 3, C] f32 (row-major [Co, 9C]), bias: [Co]
-// f32; y: [B, H, W, Co] f32; ws: splits x B*H*W x Co f32 when splits > 1
-// (else unused). All contiguous, 16-byte aligned. C % 32 == 0, Co % 64 == 0.
+// x: [B, H, W, C] f32, w: [Co, 3, 3, C] f32 with strides (9 Cw, 3 Cw, Cw, 1)
+// (row-major [Co, 9C] when Cw == C; a channel slice of a [Co, Cw, 3, 3]
+// channels_last weight, read in place, otherwise), bias: [Co] f32; y: [B,
+// H, W, Co] f32; ws: splits x B*H*W x Co f32 when splits > 1 (else unused).
+// x, y, ws contiguous; x, w 16-byte aligned. C % 32 == 0, Co % 64 == 0, Cw
+// >= C, Cw % 4 == 0.
 // The plan: a unit is wt x ht pixels (wt * ht == 128) by 128 channels, K is
 // cut into `splits` runs of steps_per_split k-steps of (tap, 32 channels),
 // every run non-empty; accumulators fold every tx::kFold k-steps. Launches
 // the GEMM, and the reduce when K is split.
 extern "C" int cpd_conv3x3_f32_sm90(const void* x, const void* w, const void* bias, void* y,
-                                    void* ws, int B, int H, int W, int C, int Co, int wt, int ht,
-                                    int splits, int steps_per_split, void* stream) {
+                                    void* ws, int B, int H, int W, int C, int Co, int Cw, int wt,
+                                    int ht, int splits, int steps_per_split, void* stream) {
   const int ksteps = 9 * (C / BK);
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % BK || Co % 64 || wt * ht != BM ||
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % BK || Co % 64 || Cw < C ||
+      Cw % 4 || wt * ht != BM ||
       wt > 256 || ht > 256 || splits < 1 || steps_per_split < 1 ||
       (long long)splits * steps_per_split < ksteps ||
       (long long)(splits - 1) * steps_per_split >= ksteps ||
@@ -238,8 +243,9 @@ extern "C" int cpd_conv3x3_f32_sm90(const void* x, const void* w, const void* bi
       {(uint64_t)C * 4, (uint64_t)W * C * 4, (uint64_t)H * W * C * 4},
       {(uint32_t)BK, (uint32_t)wt, (uint32_t)ht, 1u});
   if (err) return err;
-  err = cpd::encode_f32_map<2>(&tmw, w, {(uint64_t)9 * C, (uint64_t)Co}, {(uint64_t)9 * C * 4},
-                               {(uint32_t)BK, (uint32_t)BN});
+  err = cpd::encode_f32_map<3>(&tmw, w, {(uint64_t)C, 9, (uint64_t)Co},
+                               {(uint64_t)Cw * 4, (uint64_t)9 * Cw * 4},
+                               {(uint32_t)BK, 1u, (uint32_t)BN});
   if (err) return err;
   auto kernel = conv3x3_f32_sm90_kernel;
   static bool attr_set = false;  // one card a process

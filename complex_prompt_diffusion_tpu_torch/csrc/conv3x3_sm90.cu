@@ -28,8 +28,12 @@
 //     address math in the threads. With the 128-byte swizzle a pixel's 64
 //     channels are one 128-byte row, so the box lands as the K-major
 //     [128][64] tile that wgmma reads through a descriptor.
-//   * B: a 2-D TMA box {64, 128} of the weight matrix (K-major already);
-//     rows past Co are zero-filled.
+//   * B: a 3-D TMA box {64, 1, 128} of the weight viewed as [Co, 9, Cw]
+//     (channel, tap, output channel; Cw >= C the weight's channel stride),
+//     i.e. 64 channels of one tap for 128 output channels, K-major already;
+//     rows past Co are zero-filled. Cw > C reads a channel slice of a wider
+//     weight in place (the UNet's split in_convs take the two halves of one
+//     [Co, Ca + Cb, 3, 3] weight: no copy of either a call).
 //   * A ring of STAGES stages (32 KB each) with full and empty mbarriers:
 //     one producer thread issues the loads, two consumer warpgroups each run
 //     wgmma m64n128k16 on 64 of the 128 rows, one wgmma group in flight
@@ -118,7 +122,7 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
         const int dy = tap / 3, dx = tap - 3 * (tap / 3);
         cpd::mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
         cpd::tma_load_4d(sA + s * A_BYTES, &tx, &full[s], c0, w0 + dx - 1, h0 + dy - 1, b);
-        cpd::tma_load_2d(sB + s * B_BYTES, &tw, &full[s], tap * p.C + c0, n0);
+        cpd::tma_load_3d(sB + s * B_BYTES, &tw, &full[s], c0, tap, n0);
       }
     }
     return;
@@ -227,18 +231,21 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tw, const void* bias, void*
 
 }  // namespace
 
-// x: [B, H, W, C] bf16, w: [Co, 3, 3, C] bf16 (row-major [Co, 9C]), bias:
-// [Co] bf16, or f32 when bias_is_f32; y: [B, H, W, Co] bf16; ws: splits x
-// B*H*W x Co f32 when splits > 1 (else unused). All contiguous, 16-byte
-// aligned. C % 64 == 0, Co % 64 == 0. The plan: a tile is wt x ht pixels
-// (wt * ht == 128), K is cut into `splits` runs of steps_per_split k-steps
-// of (tap, 64 channels); every run non-empty.
+// x: [B, H, W, C] bf16, w: [Co, 3, 3, C] bf16 with strides (9 Cw, 3 Cw, Cw,
+// 1) (row-major [Co, 9C] when Cw == C; a channel slice of a [Co, Cw, 3, 3]
+// channels_last weight otherwise), bias: [Co] bf16, or f32 when
+// bias_is_f32; y: [B, H, W, Co] bf16; ws: splits x B*H*W x Co f32 when
+// splits > 1 (else unused). x, y, ws contiguous; x, w 16-byte aligned. C %
+// 64 == 0, Co % 64 == 0, Cw >= C, Cw % 8 == 0. The plan: a tile is wt x ht
+// pixels (wt * ht == 128), K is cut into `splits` runs of steps_per_split
+// k-steps of (tap, 64 channels); every run non-empty.
 extern "C" int cpd_conv3x3_sm90_bf16(const void* x, const void* w, const void* bias,
                                      int bias_is_f32, void* y, void* ws, int B, int H, int W,
-                                     int C, int Co, int wt, int ht, int splits,
+                                     int C, int Co, int Cw, int wt, int ht, int splits,
                                      int steps_per_split, void* stream) {
   const int ksteps = 9 * (C / BK);
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % BK || Co % 64 || wt * ht != BM ||
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % BK || Co % 64 || Cw < C ||
+      Cw % 8 || wt * ht != BM ||
       wt > 256 || ht > 256 || splits < 1 || steps_per_split < 1 ||
       (long long)splits * steps_per_split < ksteps ||
       (long long)(splits - 1) * steps_per_split >= ksteps ||
@@ -252,8 +259,9 @@ extern "C" int cpd_conv3x3_sm90_bf16(const void* x, const void* w, const void* b
       {(uint64_t)C * 2, (uint64_t)W * C * 2, (uint64_t)H * W * C * 2},
       {(uint32_t)BK, (uint32_t)wt, (uint32_t)ht, 1u});
   if (err) return err;
-  err = cpd::encode_bf16_map<2>(&tw, w, {(uint64_t)9 * C, (uint64_t)Co}, {(uint64_t)9 * C * 2},
-                                {(uint32_t)BK, (uint32_t)BN});
+  err = cpd::encode_bf16_map<3>(&tw, w, {(uint64_t)C, 9, (uint64_t)Co},
+                                {(uint64_t)Cw * 2, (uint64_t)9 * Cw * 2},
+                                {(uint32_t)BK, 1u, (uint32_t)BN});
   if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bias_is_f32 ? launch<float>(tx, tw, bias, y, ws, p, splits, st)

@@ -54,6 +54,18 @@
 //     never reaches device memory. Groups may straddle the boundary: a
 //     thread's 8 channels lie in one source (Ca % 8 == 0) and the fold sees
 //     the virtual channel index.
+//   * Two-source slab form (one launch), where the virtual row's groups of
+//     a sample fit a block by the slab form's rule (cat_box_bytes: the one
+//     block straddling the boundary takes each box as a box of a and a box
+//     of b in two regions): the three 8^2 and three 16^2 pairs of the
+//     UNet's up path and 32^2 (640 | 640) at UNet batch 2 and 4. The
+//     split two-source form, always two launches and the plane read twice,
+//     took 1.5-1.8x torch.cat + the one-input slab on the 8^2 and 16^2
+//     pairs on the H100: it is what the plan runs where no slab fits, and
+//     the replaced body that phase 1 times beside the slab. The slab form took
+//     those pairs to 0.0047-0.0084 ms at UNet batch 2, under torch.cat + K3
+//     at each; a block that straddles the boundary runs 1.2-1.4x one that
+//     does not (PERF.md section 6).
 //   * A third form, a sample resident in a thread-block cluster of up to 16
 //     blocks exchanging partials through distributed shared memory, lost to
 //     one of these two at every shape of the render on the H100 and was
@@ -109,23 +121,41 @@ extern "C" int cpd_group_norm_sm90_tile_max(int* bytes) {
 // aligned, of one dtype: f32 if is_f32, else bf16) normalized as the rows
 // [a | b] into ya (like a) and yb (like b); gamma, beta: [Ca + Cb] of that
 // dtype. Ca, Cb > 0 and % 8 == 0, Ca + Cb <= 4096, (Ca + Cb) % G == 0, G <=
-// 256; `tiles` (1 .. HW) tiles a sample with `parts` N * tiles * G float2
-// of scratch. Sets *launched to the kernels it launched (2).
+// 256. form 0: the split form over `tiles` (1 .. HW) tiles a sample with
+// `parts` N * tiles * G float2 of scratch (two launches); form 1: the slab
+// form, `tiles` groups a block (launch_cat_slab's rule; one launch, `parts`
+// unread). Sets *launched to the kernels it launched.
 extern "C" int cpd_group_norm_cat_sm90(const void* a, const void* b, const void* gamma,
                                        const void* beta, void* ya, void* yb, void* parts,
                                        int is_f32, int N, int HW, int Ca, int Cb, int G,
-                                       float eps, int silu, int tiles, int* launched,
+                                       float eps, int silu, int form, int tiles, int* launched,
                                        void* stream) {
   *launched = 0;
   const int C = Ca + Cb;
-  if (Ca <= 0 || Cb <= 0 || Ca % kVec || Cb % kVec || tiles < 1 || tiles > HW ||
-      !gn_args_ok(a, ya, parts, N, HW, C, G, 0, tiles) ||
+  if (Ca <= 0 || Cb <= 0 || Ca % kVec || Cb % kVec || !gn_args_ok(a, ya, parts, N, HW, C, G,
+                                                                  form, tiles) ||
       (reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(yb)) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (form == 1)
+    return is_f32 ? launch_cat_slab<float>(a, b, gamma, beta, ya, yb, N, HW, Ca, Cb, G, eps,
+                                           silu, tiles, launched, st)
+                  : launch_cat_slab<__nv_bfloat16>(a, b, gamma, beta, ya, yb, N, HW, Ca, Cb, G,
+                                                   eps, silu, tiles, launched, st);
   if (is_f32)
     return launch_cat<float>(a, b, gamma, beta, ya, yb, parts, N, HW, Ca, Cb, G, eps, silu,
                              tiles, launched, st);
   return launch_cat<__nv_bfloat16>(a, b, gamma, beta, ya, yb, parts, N, HW, Ca, Cb, G, eps,
                                    silu, tiles, launched, st);
+}
+
+// *bytes: the most bytes a two-source slab box of box_px pixels takes at
+// kc channels a block with the boundary at Ca (cat_box_bytes; ops/
+// groupnorm.py keeps the same rule), for the card test that holds the two
+// rules together
+extern "C" int cpd_group_norm_cat_box_bytes(int box_px, int Ca, int kc, int esize, int* bytes) {
+  if (box_px <= 0 || kc <= 0 || Ca <= 0 || (esize != 2 && esize != 4))
+    return (int)cudaErrorInvalidValue;
+  *bytes = cat_box_bytes(box_px, Ca, kc, esize);
+  return 0;
 }

@@ -1,8 +1,9 @@
 // The body of K3 on Hopper (csrc/groupnorm_sm90.cu, whose notes give the
 // design): the slab form (gn_slab_kernel) and the split form
 // (gn_stats_kernel, gn_apply_kernel), and the host launch of either; at the
-// end the two-source form (gn_cat_stats_kernel, gn_cat_apply_kernel), the
-// split form over a virtual concat of two inputs.
+// end the two-source forms over a virtual concat of two inputs: the split
+// form (gn_cat_stats_kernel, gn_cat_apply_kernel) and the slab form
+// (gn_cat_slab_kernel).
 // groupnorm_sm90.cu launches them as K3; the probe K8 (probe_groupnorm.cu)
 // launches them in the modes of the TPU ablation scripts, the GnProbeMode
 // below, with the statistics' channel sums on the tensor cores (MMA), and
@@ -1013,6 +1014,147 @@ gn_cat_apply_kernel(const T* __restrict__ a, const T* __restrict__ b,
     __syncwarp();
     if ((threadIdx.x & 31) == 0) cpd::mbar_arrive(&empty[s]);
   });
+}
+
+// The two-source slab form (one launch): the slab form's block over the
+// virtual row [a | b]. Block (blockIdx.x, blockIdx.y) holds the virtual
+// channels c0 .. c0 + kc - 1 (k whole groups) of sample blockIdx.y, all HW
+// pixels: its first ka of them lie in a (ka = min(kc, Ca - c0), 0 past the
+// boundary) and the other kb = kc - ka in b, so a block that straddles the
+// boundary takes each box as two TMA boxes, {ka, box_px} of a and {kb,
+// box_px} of b, into two regions (rows of ka and of kb channels) that share
+// the box's mbarrier. Maps: ta / tb boxes of kc channels (the blocks inside
+// one source), ta2 / tb2 boxes of Ca % kc and kc - Ca % kc channels (the one
+// straddling block; copies of ta / tb where none straddles). A thread's 8
+// channels lie in one region (Ca % 8 == 0, kc % 8 == 0); it reads them
+// there, and the fold and the group of a channel see the virtual index.
+// One-pass f32 statistics for both dtypes, as the split two-source form.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+gn_cat_slab_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                   const __grid_constant__ CUtensorMap ta2,
+                   const __grid_constant__ CUtensorMap tb2, const T* __restrict__ gamma,
+                   const T* __restrict__ beta, T* __restrict__ ya, T* __restrict__ yb, int HW,
+                   int Ca, int Cb, int kc, int cg, int box_px, float eps, int silu) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float2* part = reinterpret_cast<float2*>(smem + kPartOff);
+  float2* stat = reinterpret_cast<float2*>(smem + kStatOff);
+  const int n = blockIdx.y, c0 = blockIdx.x * kc, k = kc / cg;
+  const int ka = min(kc, max(Ca - c0, 0)), kb = kc - ka;
+  const int nbox = (HW + box_px - 1) / box_px;
+  const int es = (int)sizeof(T);
+  const int a_bytes = ka ? box_bytes(box_px, ka, es) : 0;
+  const int stride = a_bytes + (kb ? box_bytes(box_px, kb, es) : 0);
+  auto box_a = [&](int b) { return reinterpret_cast<T*>(smem + kHeader + b * stride); };
+  auto box_b = [&](int b) { return reinterpret_cast<T*>(smem + kHeader + b * stride + a_bytes); };
+  if (threadIdx.x == 0) {  // the loads go out before the block's first barrier
+    for (int b = 0; b < nbox; ++b) cpd::mbar_init(&bars[b], 1);
+    cpd::fence_barrier_init();
+    const bool straddle = ka && kb;
+    for (int b = 0; b < nbox; ++b) {
+      cpd::mbar_expect_tx(&bars[b], (uint32_t)(box_px * kc * es));
+      if (ka) cpd::tma_load_3d(box_a(b), straddle ? &ta2 : &ta, &bars[b], c0, b * box_px, n);
+      if (kb) cpd::tma_load_3d(box_b(b), straddle ? &tb2 : &tb, &bars[b], c0 + ka - Ca,
+                               b * box_px, n);
+    }
+  }
+  __syncthreads();  // the barriers are initialised for the threads that wait on them
+  const Geo geo = geometry(kc);
+  bool in_a;
+  const Geo src = source_geo(geo, ka, in_a);
+  const int ld = in_a ? ka : kb;
+  float ga[kVec], be[kVec];
+  load_affine(gamma, beta, c0, geo, ga, be);
+  int ge[kVec];
+  channel_groups(cg, geo, ge);
+  float mu[kVec], sc[kVec];
+  const float count = (float)HW * (float)cg;
+  Acc acc;
+  zero(acc);
+  if (threadIdx.x >= 32) {
+    for (int b = 0; b < nbox; ++b) {
+      cpd::mbar_wait(&bars[b], 0);
+      accumulate<T, true>(acc, in_a ? box_a(b) : box_b(b), min(box_px, HW - b * box_px), ld,
+                          src);
+    }
+  }
+  if (k <= kFewGroups) {
+    fold_few<false>(acc, smem, ge, k, count, eps, geo, stat);
+  } else {
+    fold<false>(acc, smem, kc, k, HW, geo, part);
+    if ((int)threadIdx.x < k) {
+      const float2 v = part[threadIdx.x];
+      stat[threadIdx.x] = finish<false>(Part{count, v.x, v.y}, eps);
+    }
+    __syncthreads();
+  }
+  channel_consts<T>(stat, ge, geo, ga, mu, sc, be);
+  for (int b = 0; b < nbox; ++b) {
+    const long long pix = (long long)n * HW + b * box_px;
+    if (in_a)
+      normalize<T, kModeFull>(box_a(b), ya + pix * Ca + c0, min(box_px, HW - b * box_px), ka,
+                              Ca, src, mu, sc, be, silu);
+    else
+      normalize<T, kModeFull>(box_b(b), yb + pix * Cb + (c0 + ka - Ca),
+                              min(box_px, HW - b * box_px), kb, Cb, src, mu, sc, be, silu);
+  }
+}
+
+// bytes of shared memory one TMA box of the two-source slab form takes at
+// its widest block (the one straddling the boundary, if any, lays its box
+// out as two 128-byte aligned regions); ops/groupnorm.py: cat_slab_groups
+// keeps the same rule
+__host__ __device__ __forceinline__ int cat_box_bytes(int box_px, int Ca, int kc, int esize) {
+  const int ka = Ca % kc;
+  return ka ? box_bytes(box_px, ka, esize) + box_bytes(box_px, kc - ka, esize)
+            : box_bytes(box_px, kc, esize);
+}
+
+// The one launch of a two-source slab call, `kgroups` groups a block
+// (dividing G; their kc channels a multiple of 8 and at most 256, the HW
+// pixels in at most 32 boxes of at most kTileMax bytes by cat_box_bytes).
+// *launched counts it. The caller has checked the other arguments.
+template <typename T>
+int launch_cat_slab(const void* a, const void* b, const void* gamma, const void* beta, void* ya,
+                    void* yb, int N, int HW, int Ca, int Cb, int G, float eps, int silu,
+                    int kgroups, int* launched, cudaStream_t st) {
+  static bool attrs = false;  // one card a process
+  if (!attrs) {
+    const int err = set_attrs(gn_cat_slab_kernel<T>);
+    if (err) return err;
+    attrs = true;
+  }
+  const int es = (int)sizeof(T), C = Ca + Cb;
+  if (G % kgroups) return (int)cudaErrorInvalidValue;
+  const int kc = kgroups * (C / G), box_px = HW < 256 ? HW : 256;
+  const int nbox = (HW + box_px - 1) / box_px;
+  const long long bytes = (long long)nbox * cat_box_bytes(box_px, Ca, kc, es);
+  if (kc % kVec || kc > 256 || nbox > kMaxBoxes || bytes > kTileMax)
+    return (int)cudaErrorInvalidValue;
+  const CUtensorMapDataType dt =
+      es == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // a [N, HW, Ca] and b [N, HW, Cb] as (channels, HW, N), boxes {w, box_px, 1}
+  auto encode = [&](CUtensorMap* m, const void* base, int ch, int w) {
+    const uint64_t dims[3] = {(uint64_t)ch, (uint64_t)HW, (uint64_t)N};
+    const uint64_t strides[2] = {(uint64_t)ch * es, (uint64_t)HW * ch * es};
+    const uint32_t box[3] = {(uint32_t)w, (uint32_t)box_px, 1u};
+    return cpd::encode_map<3>(m, dt, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  };
+  CUtensorMap ta, tb, ta2, tb2;
+  const int ka = Ca % kc;
+  int err = encode(&ta, a, Ca, kc < Ca ? kc : Ca);
+  if (!err) err = encode(&tb, b, Cb, kc < Cb ? kc : Cb);
+  if (!err) err = ka ? encode(&ta2, a, Ca, ka) : encode(&ta2, a, Ca, kc < Ca ? kc : Ca);
+  if (!err) err = ka ? encode(&tb2, b, Cb, kc - ka) : encode(&tb2, b, Cb, kc < Cb ? kc : Cb);
+  if (err) return err;
+  gn_cat_slab_kernel<T><<<dim3(G / kgroups, N), kThreads, kHeader + (int)bytes, st>>>(
+      ta, tb, ta2, tb2, static_cast<const T*>(gamma), static_cast<const T*>(beta),
+      static_cast<T*>(ya), static_cast<T*>(yb), HW, Ca, Cb, kc, C / G, box_px, eps, silu);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ++*launched;
+  return 0;
 }
 
 // The two kernels of one two-source call over `tiles` tiles a sample, with

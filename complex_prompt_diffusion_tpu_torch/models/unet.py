@@ -382,8 +382,8 @@ def _conv(p, x, shard=None, stride: int = 1, up: bool = False):
 
 def _split_weight(p, ca: int):
     """The weight of conv params ``p`` cut at input channel ``ca`` (views:
-    K4 and cuDNN copy them into their operand layout at each call), and a
-    zero bias."""
+    K4's Hopper bodies read them in place, cuDNN copies them into its
+    operand layout at each call), and a zero bias."""
     w = p["weight"]
     return w[:, :ca], w[:, ca:], torch.zeros_like(p["bias"])
 

@@ -16,13 +16,16 @@ and a plain PyTorch twin:
     statistics and apply kernels over bulk-copied pixel rows; plan
     :func:`group_norm_plan`); :func:`group_norm_silu_cat` over a virtual
     ``concat([a, b], -1)`` through K3's two-source form (the UNet's up-path
-    ResBlocks).
+    ResBlocks: a slab of the virtual row's groups a block, or the split
+    form; plan :func:`group_norm_cat_plan`).
   * :func:`conv3x3` — the 3x3 stride-1 conv through K4, for the convs
     ``models/layers.conv2d`` routes to it: bf16 with C and Co multiples of
     64 through its TMA + wgmma body (``csrc/conv3x3_sm90.cu``,
     :func:`conv3x3_sm90`), f32 with C % 32 == 0 and Co % 64 == 0 through its
     3xTF32 body (``csrc/conv3x3_f32_sm90.cu``, :func:`conv3x3_f32_sm90`),
-    the rest through ``csrc/conv3x3.cu``.
+    Co <= 8 or C <= 16 through its narrow bodies
+    (``csrc/conv3x3_narrow.cu``, :func:`conv3x3_narrow`), the rest through
+    ``csrc/conv3x3.cu``.
   * :func:`self_attention_cm` and the kcanon route of :func:`attention` —
     attention over operands whose sequence axis is contiguous, through K5
     (wrapper :func:`attention_dmajor`): bf16 on its TMA + wgmma body
@@ -70,9 +73,15 @@ from complex_prompt_diffusion_tpu_torch.ops.attention import (
     self_attention_cm,
 )
 from complex_prompt_diffusion_tpu_torch.ops.blur import gaussian_blur
-from complex_prompt_diffusion_tpu_torch.ops.conv import conv3x3, conv3x3_f32_sm90, conv3x3_sm90
+from complex_prompt_diffusion_tpu_torch.ops.conv import (
+    conv3x3,
+    conv3x3_f32_sm90,
+    conv3x3_narrow,
+    conv3x3_sm90,
+)
 from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     group_norm,
+    group_norm_cat_slab_count,
     group_norm_nhwc,
     group_norm_plan,
     group_norm_silu,
@@ -110,9 +119,11 @@ KERNEL_WRAPPERS = {
     "geglu_ff_f32_sm90": geglu_ff_f32_sm90,
     "group_norm": group_norm_nhwc,
     "group_norm_cat": group_norm_silu_cat,
+    "group_norm_cat_slab": group_norm_cat_slab_count,
     "conv3x3": conv3x3,
     "conv3x3_sm90": conv3x3_sm90,
     "conv3x3_f32_sm90": conv3x3_f32_sm90,
+    "conv3x3_narrow": conv3x3_narrow,
     "attention_cm": attention_dmajor,
     "attention_cm_sm90": attention_cm_sm90_count,
     "attention_cm_f32_sm90": attention_cm_f32_sm90_count,
@@ -144,11 +155,13 @@ __all__ = [
     "conv3x3",
     "conv3x3_sm90",
     "conv3x3_f32_sm90",
+    "conv3x3_narrow",
     "geglu_ff",
     "geglu_ff_f32_sm90",
     "group_norm",
     "group_norm_silu",
     "group_norm_silu_cat",
+    "group_norm_cat_slab_count",
     "group_norm_nhwc",
     "group_norm_plan",
     "gaussian_blur",

@@ -14,8 +14,17 @@ routes each by dtype and shape (:func:`k4_body`) to one of K4's bodies:
     the exact decode's on small planes): :func:`conv3x3_f32_sm90`, the same
     implicit GEMM of three TF32 products a product on wgmma
     (``csrc/conv3x3_f32_sm90.cu``), with the plan's f32 form;
+  * Co <= 8 or C <= 16 (the UNet's conv_in and out conv, the VAE's conv_in
+    and encoder conv_out), both dtypes: :func:`conv3x3_narrow`, a narrow-Co
+    body (K split over warps, a fixed-order fold) and a narrow-C body (the
+    neighbourhood and the weights resident in shared memory), in
+    ``csrc/conv3x3_narrow.cu``;
   * every other shape: :func:`conv3x3_generic`, the mma.sync / FMA body
-    (``csrc/conv3x3.cu``).
+    (``csrc/conv3x3.cu``), which the narrow bodies replaced at their widths.
+
+The Hopper bodies read the weight in place, a channel slice of a wider
+channels_last weight too (the UNet's split in_convs): their TMA map walks
+[Co, 9, Cw] with the slice's channel stride Cw.
 """
 
 from __future__ import annotations
@@ -30,11 +39,13 @@ import torch.nn.functional as F
 from complex_prompt_diffusion_tpu_torch import _build
 
 __all__ = ["conv3x3", "conv3x3_plain", "conv3x3_supported", "conv3x3_sm90",
-           "conv3x3_f32_sm90", "conv3x3_generic", "conv3x3_plan", "Conv3x3Plan", "k4_body"]
+           "conv3x3_f32_sm90", "conv3x3_narrow", "conv3x3_generic", "conv3x3_plan",
+           "Conv3x3Plan", "k4_body"]
 
 SM90_BM, SM90_BN, SM90_BK = 128, 128, 64  # the sm90 body's tile: pixels, channels, k-step
 F32_BK = 32  # the f32 body's k-step: one tap and 32 channels (a 128-byte row)
 SM90_SMS = 132  # H100 SXM; one block an SM (128 KB of shared memory each)
+NARROW_CO, NARROW_C = 8, 16  # the widths csrc/conv3x3_narrow.cu takes: Co <= 8 or C <= 16
 # The split-K cost model of conv3x3_plan, in microseconds on an H100 80GB
 # HBM3 (700 W), fitted to a sweep of splits 1-8 over the ten batch-1 UNet
 # shapes (PERF.md section 6): a 128 x 128 x 64 k-step of one block
@@ -98,7 +109,7 @@ def conv3x3(x, weight, bias):
     if not x.is_cuda:
         return conv3x3_plain(x, weight, bias)
     body = {"bf16_sm90": conv3x3_sm90, "f32_sm90": conv3x3_f32_sm90,
-            "generic": conv3x3_generic}[k4_body(x.dtype, c, co)]
+            "narrow": conv3x3_narrow, "generic": conv3x3_generic}[k4_body(x.dtype, c, co)]
     return _build.kernel_with_plain_vjp(functools.partial(_conv3x3_counted, body),
                                         conv3x3_plain, (), x, weight, bias)
 
@@ -126,14 +137,19 @@ def _check_shapes(x, weight, bias):
 
 
 def _hopper_operands(x, weight, plan, what):
-    """A Hopper body's launch operands: x contiguous, the weight as the
-    row-major [Co, 9C] matrix in x's dtype (channels_last weights as they
-    lie), both 16-byte aligned (TMA), the output and the split-K partials
-    (f32) when the plan splits."""
+    """A Hopper body's launch operands: x contiguous; the weight in x's
+    dtype as [Co, 3, 3, C] with its channel stride Cw: a channels_last
+    weight, or a channel slice of a wider one (Cw > C: the UNet's split
+    in_convs), as it lies (the TMA map walks [Co, 9, Cw]), anything else
+    (or a Cw that is not a multiple of 16 bytes) copied to the contiguous
+    layout (Cw = C); both 16-byte aligned (TMA); the output and the split-K
+    partials (f32) when the plan splits."""
     x = x.contiguous()
     wt = weight.to(x.dtype).permute(0, 2, 3, 1)  # [Co, 3, 3, C]
-    if not wt.is_contiguous():
-        wt = wt.contiguous()
+    cw = wt.stride(2)
+    if (wt.stride(3) != 1 or wt.stride(1) != 3 * cw or wt.stride(0) != 9 * cw
+            or cw < wt.shape[3] or cw * wt.element_size() % 16):
+        wt, cw = wt.contiguous(), wt.shape[3]
     for name, t in (("x", x), ("weight", wt)):
         if t.data_ptr() % 16:
             raise ValueError(f"{what} needs a 16-byte aligned {name} (TMA)")
@@ -142,15 +158,52 @@ def _hopper_operands(x, weight, plan, what):
     y = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
     ws = (torch.empty((plan.splits, b * h * w, co), dtype=torch.float32, device=x.device)
           if plan.splits > 1 else y)
-    return x, wt, y, ws
+    return x, wt, cw, y, ws
+
+
+def conv3x3_narrow(x, weight, bias):
+    """K4's narrow bodies (``csrc/conv3x3_narrow.cu``) on a CUDA bf16 or f32
+    x [B, H, W, C] whose conv has Co <= 8 (the narrow-Co body) or C <= 16
+    (the narrow-C body); anything else raises. Products exact and summed in
+    f32 in a fixed order, the bias added in f32, one rounding: the same
+    bits on every run. CPU tensors run :func:`conv3x3_plain` after the same
+    checks. ``conv3x3_narrow.launches`` counts its launches (one a call)."""
+    if x.ndim != 4:
+        raise ValueError(f"conv3x3_narrow expects NHWC, got shape {tuple(x.shape)}")
+    b, h, w, c, co = _check_shapes(x, weight, bias)
+    if co > NARROW_CO and c > NARROW_C:
+        raise ValueError(f"conv3x3_narrow takes Co <= {NARROW_CO} or C <= {NARROW_C}; got C={c}, "
+                         f"Co={co}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K4 supports bfloat16 and float32 activations, got {x.dtype}")
+    if not x.is_cuda:
+        return conv3x3_plain(x, weight, bias)
+    _build.refuse_grad("conv3x3 (K4, narrow body)", x, weight, bias)
+    x = x.contiguous()
+    wt = weight.to(x.dtype).permute(0, 2, 3, 1).contiguous()  # [Co, 3, 3, C]
+    if not (x.dtype == torch.bfloat16 and bias.dtype == torch.bfloat16):
+        bias = bias.to(torch.float32)
+    bias = bias.contiguous()
+    y = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
+    err = _build.kernel_library().cpd_conv3x3_narrow(
+        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), int(bias.dtype == torch.float32),
+        int(x.dtype == torch.float32), y.data_ptr(), b, h, w, c, co, _build.stream_ptr(x.device))
+    _build.check(err, "conv3x3 (K4, narrow body)")
+    conv3x3_narrow.launches += 1
+    return y
+
+
+conv3x3_narrow.launches = 0
 
 
 def conv3x3_generic(x, weight, bias):
     """K4's body for any C and Co (``csrc/conv3x3.cu``: bf16 on the tensor
-    cores with mma.sync, its first design; f32 with exact FMAs, the body
-    :func:`conv3x3_f32_sm90` replaced where it takes the shape) for CUDA
-    tensors, :func:`conv3x3_plain` for CPU ones.
-    ``conv3x3_generic.launches`` counts its launches."""
+    cores with mma.sync, its first design; f32 with exact FMAs), for the
+    widths no other body takes, and the replaced body that phase 1 times beside
+    the narrow bodies at theirs (and beside :func:`conv3x3_sm90` and
+    :func:`conv3x3_f32_sm90` at theirs), for CUDA tensors;
+    :func:`conv3x3_plain` for CPU ones. ``conv3x3_generic.launches`` counts
+    its launches."""
     b, h, w, c = x.shape
     co = weight.shape[0]
     if not x.is_cuda:
@@ -186,13 +239,18 @@ def k4_body(dtype, c: int, co: int) -> str:
     """The route of :func:`conv3x3`: ``"bf16_sm90"`` for bf16 with C and Co
     multiples of 64 (a k-step is one tap and 64 channels, one 128-byte TMA
     row), ``"f32_sm90"`` for f32 with C % 32 == 0 (32 f32 channels a row)
-    and Co % 64 == 0, ``"generic"`` for the other bf16 and f32 shapes;
-    raises for any other dtype (f16)."""
+    and Co % 64 == 0; of the other bf16 and f32 shapes ``"narrow"`` for Co
+    <= 8 or C <= 16, ``"generic"`` for the rest; raises for any other
+    dtype (f16)."""
     if dtype == torch.bfloat16:
-        return "bf16_sm90" if c % 64 == 0 and co % 64 == 0 else "generic"
-    if dtype == torch.float32:
-        return "f32_sm90" if c % F32_BK == 0 and co % 64 == 0 else "generic"
-    raise TypeError(f"K4 supports bfloat16 and float32 activations, got {dtype}")
+        if c % 64 == 0 and co % 64 == 0:
+            return "bf16_sm90"
+    elif dtype == torch.float32:
+        if c % F32_BK == 0 and co % 64 == 0:
+            return "f32_sm90"
+    else:
+        raise TypeError(f"K4 supports bfloat16 and float32 activations, got {dtype}")
+    return "narrow" if co <= NARROW_CO or c <= NARROW_C else "generic"
 
 
 class Conv3x3Plan(NamedTuple):
@@ -279,10 +337,10 @@ def conv3x3_sm90(x, weight, bias, splits: Optional[int] = None):
     if bias.dtype != torch.bfloat16:
         bias = bias.to(torch.float32)
     bias = bias.contiguous()
-    x, wt, y, ws = _hopper_operands(x, weight, plan, "conv3x3_sm90")
+    x, wt, cw, y, ws = _hopper_operands(x, weight, plan, "conv3x3_sm90")
     err = _build.kernel_library().cpd_conv3x3_sm90_bf16(
         x.data_ptr(), wt.data_ptr(), bias.data_ptr(), int(bias.dtype == torch.float32),
-        y.data_ptr(), ws.data_ptr(), b, h, w, c, co, plan.wt, plan.ht, plan.splits,
+        y.data_ptr(), ws.data_ptr(), b, h, w, c, co, cw, plan.wt, plan.ht, plan.splits,
         plan.steps_per_split, _build.stream_ptr(x.device))
     _build.check(err, "conv3x3 (K4, sm90 body)")
     conv3x3_sm90.launches += 1
@@ -310,10 +368,10 @@ def conv3x3_f32_sm90(x, weight, bias, splits: Optional[int] = None):
         return conv3x3_plain(x, weight, bias)
     _build.refuse_grad("conv3x3 (K4, f32 body)", x, weight, bias)
     bias = bias.to(torch.float32).contiguous()
-    x, wt, y, ws = _hopper_operands(x, weight, plan, "conv3x3_f32_sm90")
+    x, wt, cw, y, ws = _hopper_operands(x, weight, plan, "conv3x3_f32_sm90")
     err = _build.kernel_library().cpd_conv3x3_f32_sm90(
         x.data_ptr(), wt.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(), b, h, w, c,
-        co, plan.wt, plan.ht, plan.splits, plan.steps_per_split,
+        co, cw, plan.wt, plan.ht, plan.splits, plan.steps_per_split,
         _build.stream_ptr(x.device))
     _build.check(err, "conv3x3 (K4, f32 body)")
     conv3x3_f32_sm90.launches += 1

@@ -13,9 +13,10 @@ callable as :func:`group_norm_prior`.
 
 :func:`group_norm_silu_cat` is GroupNorm(+SiLU) of ``concat([a, b], -1)``
 without the concat (the UNet's up-path ResBlocks, whose input is the hidden
-state beside its skip): on CUDA tensors K3's two-source form, on CPU tensors
-:func:`group_norm_silu_cat_plain`; its statistics are one pass in f32
-whatever the dtype, as the JAX function's are.
+state beside its skip): on CUDA tensors K3's two-source form, its slab
+(one launch) or split form as :func:`group_norm_cat_plan` picks, on CPU
+tensors :func:`group_norm_silu_cat_plain`; its statistics are one pass in
+f32 whatever the dtype, as the JAX function's are.
 """
 
 from __future__ import annotations
@@ -27,11 +28,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from complex_prompt_diffusion_tpu_torch import _build
+from complex_prompt_diffusion_tpu_torch.ops.attention import LaunchCount
 
 __all__ = ["group_norm", "group_norm_silu", "group_norm_nhwc", "group_norm_plain",
            "group_norm_plan", "GnPlan", "slab_groups", "group_norm_prior", "gn_splits",
            "prefers_mm_stats", "group_norm_silu_cat", "group_norm_silu_cat_plain",
-           "group_norm_cat_plan"]
+           "group_norm_cat_plan", "cat_slab_groups", "cat_box_bytes",
+           "group_norm_cat_slab_count"]
 
 
 def group_norm_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
@@ -69,11 +72,10 @@ _MAX_GROUPS = 256
 
 
 class GnPlan(NamedTuple):
-    """How K3 runs one call: ``form`` "slab" (one launch: a block holds
-    ``tiles`` whole groups of a sample), "split" (a statistics and an
-    apply launch over ``tiles`` tiles a sample) or "cat" (the two-source
-    form's statistics and apply launches over ``tiles`` tiles a sample),
-    and the kernels it launches."""
+    """How K3 runs one call, of one input or of two (the two-source form):
+    ``form`` "slab" (one launch: a block holds ``tiles`` whole groups of a
+    sample) or "split" (a statistics and an apply launch over ``tiles``
+    tiles a sample), and the kernels it launches."""
 
     form: str
     tiles: int
@@ -117,6 +119,32 @@ def slab_groups(hw: int, c: int, groups: int, esize: int) -> list:
             if groups % k == 0 and k * cg % 8 == 0 and k * cg <= _SLAB_MAX_C
             and nbox <= _SLAB_MAX_BOXES
             and nbox * -(-box * k * cg * esize // 128) * 128 <= _TILE_BYTES]
+
+
+def cat_slab_groups(hw: int, ca: int, cb: int, groups: int, esize: int) -> list:
+    """The group counts k a block of the two-source slab form can hold, the
+    groups of the virtual row [a | b] (Ca + Cb channels), fewest first:
+    :func:`slab_groups`'s k whose boxes also fit where a block straddles
+    the boundary (Ca % (k C/G) != 0: that block takes each box as a box of
+    a and a box of b, each 128-byte aligned; ``csrc/groupnorm_sm90.cuh``
+    cat_box_bytes)."""
+    c = ca + cb
+    box = min(hw, 256)
+    return [k for k in slab_groups(hw, c, groups, esize)
+            if -(-hw // box) * cat_box_bytes(box, ca, k * (c // groups), esize) <= _TILE_BYTES]
+
+
+def cat_box_bytes(box_px: int, ca: int, kc: int, esize: int) -> int:
+    """Shared-memory bytes of one TMA box of ``box_px`` pixels at the widest
+    block of the two-source slab form, ``kc`` channels a block with the
+    a/b boundary at ``ca``: the block that straddles it (Ca % kc != 0) lays
+    the box out as two 128-byte aligned regions, Ca % kc channels of a and
+    the rest of b (``csrc/groupnorm_sm90.cuh`` cat_box_bytes)."""
+    def box_bytes(ch):
+        return -(-box_px * ch * esize // 128) * 128
+
+    ka = ca % kc
+    return box_bytes(ka) + box_bytes(kc - ka) if ka else box_bytes(kc)
 
 
 def gn_splits(n: int, hw: int, c: int, num_groups: int, sms: int) -> int:
@@ -315,36 +343,44 @@ def group_norm_silu_cat_plain(a, b, gamma, beta, num_groups: int = 32, eps: floa
 
 
 @functools.lru_cache(maxsize=1024)
-def group_norm_cat_plan(n: int, hw: int, ca: int, cb: int, groups: int, sms: int) -> GnPlan:
+def group_norm_cat_plan(n: int, hw: int, ca: int, cb: int, groups: int, sms: int,
+                        dtype=torch.bfloat16) -> GnPlan:
     """K3's two-source form for ``n`` samples of ``hw`` pixels x ``ca`` +
-    ``cb`` channels in ``groups`` groups on a card of ``sms`` SMs: the split
-    form's statistics and apply launches over ``sms // n`` tiles a sample
-    (one wave), as :func:`group_norm_plan`'s split form. Raises ValueError
-    where K3 cannot take the shape (Ca or Cb not a multiple of 8, C > 4096,
-    C % G, G > 256)."""
+    ``cb`` channels in ``groups`` groups (``dtype`` float32 or bfloat16) on
+    a card of ``sms`` SMs, by :func:`group_norm_plan`'s rule over the
+    virtual row: slab (one launch) where whole groups of a sample fit a
+    block (:func:`cat_slab_groups`), the fewest groups a block whose blocks
+    run in one wave; else split, the statistics and apply launches over
+    ``sms // n`` tiles a sample. Raises ValueError where K3 cannot take the
+    shape (Ca or Cb not a multiple of 8, C > 4096, C % G, G > 256)."""
     c = ca + cb
     if (n <= 0 or hw <= 0 or ca <= 0 or cb <= 0 or ca % 8 or cb % 8 or c > _MAX_C
             or c % groups or not 0 < groups <= _MAX_GROUPS):
         raise ValueError(f"K3's two-source form takes Ca % 8 == Cb % 8 == 0, Ca + Cb <= "
                          f"{_MAX_C}, C % G == 0, G <= {_MAX_GROUPS}; got N={n} HW={hw} Ca={ca} "
                          f"Cb={cb} G={groups}")
-    return GnPlan("cat", max(1, min(sms // n, hw)), 2)
+    slab = cat_slab_groups(hw, ca, cb, groups, 2 if dtype == torch.bfloat16 else 4)
+    if slab:
+        return GnPlan("slab", next((k for k in slab if n * groups // k <= sms), slab[-1]), 1)
+    return GnPlan("split", max(1, min(sms // n, hw)), 2)
 
 
 def group_norm_silu_cat(a, b, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
-                        silu: bool = True):
+                        silu: bool = True, plan: Optional[GnPlan] = None):
     """GroupNorm(+SiLU) of ``concat([a, b], -1)`` without materializing the
     concat: returns ``(ya, yb)``, the normalized halves (the JAX package's
     ``group_norm_silu_cat``). ``a`` [N, H, W, Ca] and ``b`` [N, H, W, Cb]
     of one dtype; ``gamma``, ``beta`` [Ca + Cb]. CPU tensors run
     :func:`group_norm_silu_cat_plain`; CUDA tensors (f32 or bf16) launch K3's
     two-source form (``csrc/groupnorm_sm90.cu``, ``_group_norm_cat_sm90``)
-    as :func:`group_norm_cat_plan` plans it, or raise: a shape K3 cannot
-    take raises ValueError, with no concat behind the caller's back. Under
-    grad the backward is the VJP of the plain twin on the saved inputs.
-    Counts: ``group_norm_silu_cat.launches`` and ``.calls`` the form's own;
-    its launches, plans and calls also count into ``group_norm_nhwc``'s
-    (every K3 kernel)."""
+    in the form :func:`group_norm_cat_plan` picks (``plan`` runs another:
+    the tests, and phase 1's replaced body, the split form at every shape), or
+    raise: a shape K3 cannot take raises ValueError, with no concat behind
+    the caller's back. Under grad the backward is the VJP of the plain twin
+    on the saved inputs. Counts: ``group_norm_silu_cat.launches`` and
+    ``.calls`` the form's own, ``group_norm_cat_slab_count.launches`` its
+    slab launches; its launches, plans and calls also count into
+    ``group_norm_nhwc``'s (every K3 kernel)."""
     if a.ndim != 4 or b.ndim != 4 or a.shape[:3] != b.shape[:3]:
         raise ValueError(f"group_norm_silu_cat expects NHWC a and b over one grid, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -358,33 +394,41 @@ def group_norm_silu_cat(a, b, gamma, beta, num_groups: int = 32, eps: float = 1e
         return group_norm_silu_cat_plain(a, b, gamma, beta, num_groups, eps, silu)
     if a.dtype not in _PRIOR_FNS:
         raise TypeError(f"K3 supports float32 and bfloat16, got {a.dtype}")
-    return _build.kernel_with_plain_vjp(_group_norm_cat_sm90, group_norm_silu_cat_plain,
-                                        (num_groups, eps, silu), a, b, gamma, beta)
+    return _build.kernel_with_plain_vjp(functools.partial(_group_norm_cat_sm90, plan=plan),
+                                        group_norm_silu_cat_plain, (num_groups, eps, silu),
+                                        a, b, gamma, beta)
 
 
 def _group_norm_cat_sm90(a, b, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
-                         silu: bool = True):
+                         silu: bool = True, plan: Optional[GnPlan] = None):
     """K3's two-source form on CUDA tensors that :func:`group_norm_silu_cat`
-    has checked."""
+    has checked, in the form ``plan`` (default :func:`group_norm_cat_plan`'s)
+    names."""
     _build.refuse_grad("group_norm_silu_cat (K3)", a, b, gamma, beta)
     n, h, w, ca = a.shape
     cb = b.shape[-1]
-    plan = group_norm_cat_plan(n, h * w, ca, cb, num_groups, _sm_count(a.device.index))
+    if plan is None:
+        plan = group_norm_cat_plan(n, h * w, ca, cb, num_groups, _sm_count(a.device.index),
+                                   a.dtype)
     a, gamma, beta = _nhwc_args(a, gamma, beta, ca + cb)
     b = b.contiguous()
     if b.data_ptr() % 16:
         b = b.clone()
     ya, yb = torch.empty_like(a), torch.empty_like(b)
     stream = _build.stream_ptr(a.device)
-    parts = _split_parts(n * plan.tiles * num_groups, a.device, stream)
+    parts = (_split_parts(n * plan.tiles * num_groups, a.device, stream)
+             if plan.form == "split" else None)
     launched = ctypes.c_int(0)
     err = _build.kernel_library().cpd_group_norm_cat_sm90(
         a.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ya.data_ptr(),
-        yb.data_ptr(), parts.data_ptr(), int(a.dtype == torch.float32), n, h * w, ca, cb,
-        num_groups, float(eps), int(silu), plan.tiles, ctypes.addressof(launched), stream)
+        yb.data_ptr(), None if parts is None else parts.data_ptr(),
+        int(a.dtype == torch.float32), n, h * w, ca, cb, num_groups, float(eps), int(silu),
+        _FORMS[plan.form], plan.tiles, ctypes.addressof(launched), stream)
     for fn in (group_norm_silu_cat, group_norm_nhwc):
         fn.launches += launched.value
         fn.calls += 1
+    if plan.form == "slab":
+        group_norm_cat_slab_count.launches += launched.value
     group_norm_nhwc.planned += plan.launches
     _build.check(err, "group_norm_silu_cat (K3)")
     return ya, yb
@@ -392,3 +436,5 @@ def _group_norm_cat_sm90(a, b, gamma, beta, num_groups: int = 32, eps: float = 1
 
 group_norm_silu_cat.launches = 0
 group_norm_silu_cat.calls = 0
+# the two-source form's slab launches (also in group_norm_silu_cat.launches)
+group_norm_cat_slab_count = LaunchCount()

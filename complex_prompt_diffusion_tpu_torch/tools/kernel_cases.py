@@ -280,6 +280,9 @@ class Case(NamedTuple):
     # the PEAK_FLOPS entry of the units that do the work, where it is not
     # the dtype's
     rate: Optional[str] = None
+    # K3's two-source form: the materialized port path it replaces (torch.cat,
+    # then K3 on the concat), timed beside it; None elsewhere
+    materialized: Optional[Callable] = None
 
     def bound(self):
         """(least ms the card could take, "bytes" or "operations")."""
@@ -416,9 +419,15 @@ def kernel_cases(dev, kernels=None) -> list:
             (2 * x.numel() + 2 * shape[-1]) * x.element_size(),
             (lambda a=a: gn_prior(*a)) if gn_prior else None))
 
-    # K4's replaced mma.sync / FMA body beside its Hopper bodies (a parent
-    # tree may lack it)
+    # K4's replaced mma.sync / FMA body beside its Hopper and narrow bodies
+    # (a parent tree may lack it)
     generic = getattr(C, "conv3x3_generic", None)
+
+    def k4_case_kernel(dt, c, co):
+        # a case's kernel name: the body K4's route takes (a parent tree
+        # without the narrow bodies routes those widths to "generic")
+        return {"bf16_sm90": "conv3x3_sm90", "f32_sm90": "conv3x3_f32_sm90",
+                "narrow": "conv3x3_narrow"}.get(C.k4_body(dt, c, co), "conv3x3")
 
     def conv_case(kernel, b, hw, c, co, dt):
         x = randn(b, hw, hw, c, dtype=dt)
@@ -464,9 +473,25 @@ def kernel_cases(dev, kernels=None) -> list:
         shapes += [("conv3x3_f32_sm90", 2, hw, c, co, f32) for hw, c, co in B1_UNET_CONVS]
         shapes += [("conv3x3_f32_sm90", 1, 32, 512, 512, f32)]
     if "conv3x3" in want:
-        # the FMA body's own shapes: an f32 UNet's conv_in and out conv on a
-        # 16^2 latent (phase 11's UNet eval)
-        shapes += [("conv3x3", 2, 16, 4, 320, f32), ("conv3x3", 2, 16, 320, 4, f32)]
+        # K4's narrow bodies at the shapes the paths launch them at, each with
+        # the body they replaced there (csrc/conv3x3.cu) beside it: the
+        # UNet's conv_in and out conv on a 16^2 latent at UNet batch 2 (phases
+        # 3, 11, 15, 17 and 18) and 1 (phase 21), and on a 32^2 one (a 256^2
+        # render); the concat UNets' conv_in on a 16^2 latent (phase 15); the
+        # VAE decoder's conv_in and the encoder's conv_out on a 16^2 latent
+        # (phases 3 and 11) and a 32^2 one; the default (tiny) bundle's
+        # conv_in and out conv (phase 11). Then K4's generic body at the tiny
+        # bundle's widths, the shapes it still takes (phase 11)
+        for dt in (bf16, f32):
+            for b, hw in ((2, 16), (2, 32), (1, 16)):
+                shapes += [("conv3x3_narrow", b, hw, 4, 320, dt),
+                           ("conv3x3_narrow", b, hw, 320, 4, dt)]
+            shapes += [("conv3x3_narrow", 2, 16, c, 320, dt) for c in (9, 5)]
+            for hw in (16, 32):
+                shapes += [("conv3x3_narrow", 1, hw, 4, 512, dt),
+                           ("conv3x3_narrow", 1, hw, 512, 8, dt)]
+        shapes += [("conv3x3_narrow", 4, 16, 4, 32, f32), ("conv3x3_narrow", 4, 16, 32, 4, f32),
+                   ("conv3x3", 4, 16, 32, 32, f32), ("conv3x3", 4, 16, 96, 32, f32)]
     for shape in shapes:
         conv_case(*shape)
     if "attention_cm" in want:
@@ -605,20 +630,29 @@ def kernel_cases(dev, kernels=None) -> list:
         return fresh
 
     def gn_cat_case(n, side, ca, cb):
-        # K3's two-source form (the port's fused up-path ResBlock), with the
-        # materialized port path it replaces beside it (torch.cat, then K3)
+        # K3's two-source form (the port's fused up-path ResBlock) in the form
+        # its plan picks (the slab form's cases are "group_norm_cat_slab"),
+        # with the body it replaced (the split form, which the plan runs where no
+        # slab fits) beside a slab case, and the materialized port path
+        # beside every case (torch.cat, then K3)
         x = randn(n, side, side, ca + cb, dtype=bf16, scale=2.0) + 0.5
         xa, xb = x[..., :ca].contiguous(), x[..., ca:].contiguous()
         gamma = randn(ca + cb, dtype=bf16, scale=0.5) + 1.0
         beta = randn(ca + cb, dtype=bf16, scale=0.5)
         a = (xa, xb, gamma, beta, 32, 1e-5, True)
+        slab = G.group_norm_cat_plan(n, side * side, ca, cb, 32, 132).form == "slab"
+        split = (G.GnPlan("split", max(1, min(G._sm_count(x.device.index or 0) // n,
+                                              side * side)), 2)
+                 if slab and x.is_cuda else None)
         cases.append(Case(
-            "group_norm_cat", f"bf16 {n}x{side}x{side}x{ca}|{cb} silu",
+            "group_norm_cat_slab" if slab else "group_norm_cat",
+            f"bf16 {n}x{side}x{side}x{ca}|{cb} silu",
             lambda a=a: G.group_norm_silu_cat(*a), lambda a=a: G.group_norm_silu_cat_plain(*a),
             lambda a=a: F.silu(F.group_norm(torch.cat(a[:2], dim=-1).permute(0, 3, 1, 2), 32,
                                             a[2], a[3], a[5])),
             "bfloat16", 10.0 * x.numel(), (2 * x.numel() + 2 * (ca + cb)) * 2,
-            lambda a=a: G.group_norm_nhwc(torch.cat(a[:2], dim=-1), *a[2:])))
+            (lambda a=a: G.group_norm_silu_cat(*a, plan=split)) if split else None,
+            materialized=lambda a=a: G.group_norm_nhwc(torch.cat(a[:2], dim=-1), *a[2:])))
 
     for group, calls in unet_call_groups().items():
         if group not in want:
@@ -665,13 +699,13 @@ def kernel_cases(dev, kernels=None) -> list:
                 if new("group_norm_cat", f"bf16 {n}x{side}x{side}x{ca}|{cb} silu"):
                     gn_cat_case(n, side, ca, cb)
             for side, c, co in shapes["conv"]:
-                kernel = "conv3x3_sm90" if C.k4_body(bf16, c, co) == "bf16_sm90" else "conv3x3"
+                kernel = k4_case_kernel(bf16, c, co)
                 if new(kernel, f"bf16 B{ub} {side}x{side} {c}->{co}"):
                     conv_case(kernel, ub, side, c, co, bf16)
         if group == "sd2_512":
             for c in (9, 5):
                 for dt in (bf16, f32):
-                    conv_case("conv3x3", 2, 32, c, 320, dt)
+                    conv_case(k4_case_kernel(dt, c, 320), 2, 32, c, 320, dt)
     # the probes (imported here: a source tree without them runs the cases
     # above); each at a shape of its TPU script, the tools/probe_*.py rows
     # time every variant

@@ -236,7 +236,7 @@ def test_ub1_group_holds_the_unconditional_guided_call(monkeypatch):
     assert [(c.kernel, c.label) for c in cases] == [
         ("attention_sm90", "bf16 B1 S256 H2 d8"), ("geglu_ff", "bf16 M16 C16 H4 64"),
         ("group_norm", "bf16 1x8x8x64 silu"), ("conv3x3_sm90", "bf16 B1 16x16 64->64"),
-        ("conv3x3", "bf16 B1 16x16 4->64")]
+        ("conv3x3_narrow", "bf16 B1 16x16 4->64")]
     for case in cases:
         torch.testing.assert_close(case.run(), case.plain(), rtol=0, atol=0)
 

@@ -85,8 +85,8 @@ def test_plan_rejects_what_the_sm90_body_does_not_take():
         conv3x3_plan(2, 16, 16, 64, 64, splits=10)  # 9 k-steps
     assert k4_body(torch.bfloat16, 320, 640) == "bf16_sm90"
     assert k4_body(torch.float32, 320, 640) == "f32_sm90"  # K4's f32 body, not this one
-    assert k4_body(torch.bfloat16, 4, 320) == "generic"
-    assert k4_body(torch.bfloat16, 320, 4) == "generic"
+    assert k4_body(torch.bfloat16, 4, 320) == "narrow"
+    assert k4_body(torch.bfloat16, 320, 4) == "narrow"
     x = torch.zeros(1, 8, 8, 64)
     with pytest.raises(ValueError):  # the body is bf16 only
         conv3x3_sm90(x, torch.zeros(64, 64, 3, 3), torch.zeros(64))
@@ -205,6 +205,97 @@ def test_plan_emulation_split_counts_agree():
     for s in (2, 3, 9):
         got = _emulate(xt, wt, p["bias"], conv3x3_plan(1, 16, 16, 64, 64, s)).float()
         assert float((got - one).abs().max()) <= 2 ** -7 * float(one.abs().max())
+
+
+def _emulate_narrow_co(x, weight, bias, warps=8):
+    """What K4's narrow-Co kernel computes, in its order: K = 9C cut into
+    segments of one tap and 32 lanes x VEC channels (VEC: a 16-byte vector,
+    1 where C is not a multiple of it), segment s summed by warp s % 8, each
+    lane's VEC products in turn; the 32 lanes folded by a shuffle tree
+    (lane l += lane l ^ o, o = 16 .. 1), the warps' sums in warp order, the
+    bias in f32, one rounding."""
+    b, h, w, c = x.shape
+    co = weight.shape[0]
+    vec = 16 // x.element_size()
+    vec = vec if c % vec == 0 else 1
+    seg = 32 * vec
+    segs = -(-c // seg)
+    xp = torch.nn.functional.pad(x.float(), (0, seg * segs - c, 1, 1, 1, 1))
+    wm = torch.nn.functional.pad(weight.float().permute(0, 2, 3, 1).reshape(co, 9, c),
+                                 (0, seg * segs - c))
+    acc = torch.zeros((b, h, w, warps, 32, co))
+    for s in range(9 * segs):
+        tap, j = divmod(s, segs)
+        dy, dx = divmod(tap, 3)
+        xs = xp[:, dy:dy + h, dx:dx + w, j * seg:(j + 1) * seg].reshape(b, h, w, 32, 1, vec)
+        ws = wm[:, tap, j * seg:(j + 1) * seg].reshape(co, 32, vec).permute(1, 0, 2)
+        prod = xs * ws  # [b, h, w, 32 lanes, co, vec]
+        for v in range(vec):
+            acc[:, :, :, s % warps] += prod[..., v]
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., torch.arange(32) ^ o, :]
+    y = acc[..., 0, 0, :]
+    for wi in range(1, warps):
+        y = y + acc[..., wi, 0, :]
+    return (y + bias.float()).to(x.dtype)
+
+
+def _emulate_narrow_c(x, weight, bias):
+    """What K4's narrow-C kernel computes, in its order: for each output
+    pixel and channel, the f32 products of its 3 x 3 x C neighbourhood
+    (zero outside the plane) summed over the kernel row dy, then the
+    channel, then the column dx; then the bias in f32, one rounding."""
+    b, h, w, c = x.shape
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    wf = weight.float()
+    y = torch.zeros((b, h, w, weight.shape[0]))
+    for dy in range(3):
+        for ch in range(c):
+            for dx in range(3):
+                y = y + xp[:, dy:dy + h, dx:dx + w, ch:ch + 1] * wf[:, ch, dy, dx]
+    return (y + bias.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,c,co", [
+    (2, 16, 16, 320, 4),   # the UNet's out conv on a 16^2 latent
+    (1, 8, 8, 512, 8),     # the VAE encoder's conv_out
+    (2, 10, 12, 40, 3),    # C a multiple of neither vector: scalar loads
+    (2, 16, 16, 4, 320),   # the UNet's conv_in
+    (1, 8, 16, 9, 70),     # the inpaint UNet's conv_in, Co past one 64-channel block
+    (3, 5, 7, 16, 64),     # the widest narrow C, a ragged plane
+])
+def test_narrow_emulation_matches_pallas_kernel(b, h, w, c, co, dtype):
+    """K4's narrow route at the widths it takes, and an emulation of each
+    narrow kernel's summation order against the JAX package's Pallas conv
+    kernel in interpret mode; the wrapper on CPU tensors is the plain twin."""
+    from complex_prompt_diffusion_tpu_torch.ops.conv import NARROW_C, NARROW_CO, conv3x3_narrow
+
+    tdt = getattr(torch, dtype)
+    assert k4_body(tdt, c, co) == "narrow" and (co <= NARROW_CO or c <= NARROW_C)
+    x, k, bias = _inputs(b, h, w, c, co, seed=c + 3 * co + h)
+    xj = jnp.asarray(x, dtype)
+    want = np.asarray(jax_conv3x3(xj, jnp.asarray(k), jnp.asarray(bias), True), np.float32)
+    p = convert.to_port({"kernel": k, "bias": bias})
+    xt = torch.from_numpy(np.array(xj, np.float32)).to(tdt)
+    wt = p["weight"].to(tdt)
+    emulate = _emulate_narrow_co if co <= NARROW_CO else _emulate_narrow_c
+    got = emulate(xt, wt, p["bias"]).float().numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() <= TOL[dtype]
+    assert torch.equal(conv3x3_narrow(xt, wt, p["bias"]), conv3x3_plain(xt, wt, p["bias"]))
+
+
+def test_narrow_route_refuses_wide_convs():
+    """The narrow bodies take Co <= 8 or C <= 16 and nothing else; K4's
+    route sends them only those (the Hopper bodies keep their widths)."""
+    from complex_prompt_diffusion_tpu_torch.ops.conv import conv3x3_narrow
+
+    x = torch.zeros(1, 8, 8, 32)
+    with pytest.raises(ValueError, match="narrow"):
+        conv3x3_narrow(x, torch.zeros(32, 32, 3, 3), torch.zeros(32))
+    for dt in (torch.bfloat16, torch.float32):
+        assert k4_body(dt, 17, 9) == "generic" and k4_body(dt, 16, 9) == "narrow"
+        assert k4_body(dt, 64, 8) == "narrow" and k4_body(dt, 640, 640) != "narrow"
 
 
 @pytest.mark.parametrize("dtype,d,body", [

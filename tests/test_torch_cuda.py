@@ -43,14 +43,24 @@ from complex_prompt_diffusion_tpu_torch.ops.conv import (
     conv3x3,
     conv3x3_f32_sm90,
     conv3x3_generic,
+    conv3x3_narrow,
     conv3x3_plain,
     conv3x3_plan,
     conv3x3_sm90,
+    k4_body,
 )
-from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import B1_UNET_CONVS, GEGLU_ROWS
+from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import (
+    B1_UNET_CONVS,
+    GEGLU_ROWS,
+    GN_CAT_PLANES,
+)
 from complex_prompt_diffusion_tpu_torch.ops.groupnorm import (
     _TILE_BYTES,
     GnPlan,
+    cat_box_bytes,
+    cat_slab_groups,
+    group_norm_cat_plan,
+    group_norm_cat_slab_count,
     group_norm_nhwc,
     group_norm_plain,
     group_norm_plan,
@@ -636,18 +646,106 @@ def test_group_norm_cat_sm90(dev, ca, cb, dtype, silu):
     """K3's two-source form against its twin on a ragged 7 x 13 plane at
     batch 2, groups straddling the a/b boundary (C/G = 3, 7, 60, 30) or not,
     b a strided view (a skip as the UNet holds it), both dtypes, with and
-    without SiLU: two launches, counted into K3's totals too."""
+    without SiLU: the launches of the form its plan picks (1 slab, 2
+    split), counted into K3's totals too, and the split form forced where
+    the plan took the slab."""
     g = _gen(dev, ca + cb)
     x = (2 * torch.randn((2, 7, 13, ca + 2 * cb), generator=g, device=dev) + 0.5).to(dtype)
     a, b = x[..., :ca].contiguous(), x[..., ca + cb:]
     gamma = (1 + 0.5 * torch.randn(ca + cb, generator=g, device=dev)).to(dtype)
     beta = (0.5 * torch.randn(ca + cb, generator=g, device=dev)).to(dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = group_norm_cat_plan(2, 91, ca, cb, 32, sms, dtype)
     before = (group_norm_silu_cat.launches, group_norm_silu_cat.calls, group_norm_nhwc.launches)
     ya, yb = group_norm_silu_cat(a, b, gamma, beta, 32, 1e-5, silu)
     assert (group_norm_silu_cat.launches, group_norm_silu_cat.calls, group_norm_nhwc.launches) == (
-        before[0] + 2, before[1] + 1, before[2] + 2)
+        before[0] + plan.launches, before[1] + 1, before[2] + plan.launches)
     wa, wb = group_norm_silu_cat_plain(a, b, gamma, beta, 32, 1e-5, silu)
     assert _rel(torch.cat([ya, yb], -1), torch.cat([wa, wb], -1)) <= TOL[dtype]
+    if plan.form == "slab":
+        sa, sb = group_norm_silu_cat(a, b, gamma, beta, 32, 1e-5, silu,
+                                     plan=GnPlan("split", 5, 2))
+        assert _rel(torch.cat([sa, sb], -1), torch.cat([wa, wb], -1)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("side,ca,cb", GN_CAT_PLANES)
+def test_group_norm_cat_at_the_unet_pairs(dev, side, ca, cb, n):
+    """K3's two-source form at every (Ca | Cb) pair of the fused up path at
+    UNet batch 2 and 4, bf16 with SiLU, b a strided view: the slab form on
+    the 8^2 and 16^2 pairs and 32^2 (640 | 640), the split form elsewhere;
+    within 8e-3 of the twin, the plan's launches (the slab's on its own
+    counter too), the same bits twice; the replaced body (the split form)
+    forced beside each slab, within the same bound."""
+    g = _gen(dev, side + ca + n)
+    x = (2 * torch.randn((n, side, side, ca + 2 * cb), generator=g, device=dev) + 0.5).to(
+        torch.bfloat16)
+    a, b = x[..., :ca].contiguous(), x[..., ca + cb:]
+    gamma = (1 + 0.5 * torch.randn(ca + cb, generator=g, device=dev)).to(torch.bfloat16)
+    beta = (0.5 * torch.randn(ca + cb, generator=g, device=dev)).to(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = group_norm_cat_plan(n, side * side, ca, cb, 32, sms)
+    slab = side <= 16 or (ca, cb) == (640, 640)
+    assert plan.form == ("slab" if slab else "split")
+    before = (group_norm_silu_cat.launches, group_norm_cat_slab_count.launches)
+    ya, yb = group_norm_silu_cat(a, b, gamma, beta)
+    assert (group_norm_silu_cat.launches, group_norm_cat_slab_count.launches) == (
+        before[0] + plan.launches, before[1] + (1 if slab else 0))
+    want = torch.cat(group_norm_silu_cat_plain(a, b, gamma, beta), -1)
+    assert _rel(torch.cat([ya, yb], -1), want) <= 8e-3
+    ya2, yb2 = group_norm_silu_cat(a, b, gamma, beta)
+    assert torch.equal(ya, ya2) and torch.equal(yb, yb2)
+    if slab:
+        split = GnPlan("split", min(sms // n, side * side), 2)
+        assert _rel(torch.cat(group_norm_silu_cat(a, b, gamma, beta, plan=split), -1),
+                    want) <= 8e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ca,cb,h,w", [(1280, 640, 16, 16), (640, 320, 8, 8), (64, 32, 7, 13),
+                                       (96, 128, 5, 9), (80, 48, 20, 15)])
+def test_group_norm_cat_slab_straddling(dev, ca, cb, h, w, dtype):
+    """The slab form at every groups-a-block count its rule admits, blocks
+    straddling the a/b boundary (a box of each source) or not, one TMA box
+    or two (20 x 15: 256 + 44 pixels), both dtypes: within 8e-3 (bf16) and
+    1e-4 (f32) of the twin, whose statistics are one pass in f32 for both."""
+    g = _gen(dev, ca + cb + h)
+    x = (2 * torch.randn((2, h, w, ca + cb), generator=g, device=dev) + 0.5).to(dtype)
+    a, b = x[..., :ca].contiguous(), x[..., ca:].contiguous()
+    gamma = (1 + 0.5 * torch.randn(ca + cb, generator=g, device=dev)).to(dtype)
+    beta = (0.5 * torch.randn(ca + cb, generator=g, device=dev)).to(dtype)
+    want = torch.cat(group_norm_silu_cat_plain(a, b, gamma, beta), -1)
+    ks = cat_slab_groups(h * w, ca, cb, 32, x.element_size())
+    assert ks
+    for k in ks:
+        got = torch.cat(group_norm_silu_cat(a, b, gamma, beta, plan=GnPlan("slab", k, 1)), -1)
+        assert _rel(got, want) <= (8e-3 if dtype == torch.bfloat16 else 1e-4), k
+
+
+def test_cat_slab_rule_is_the_kernels(dev):
+    """``ops.groupnorm.cat_box_bytes`` (the plan's rule) equals the
+    kernel's cat_box_bytes at every box, boundary and block width the UNet
+    pairs and a ragged grid give, and a slab the rule refuses is refused by
+    the kernel too (no launch, an error)."""
+    import ctypes
+
+    from complex_prompt_diffusion_tpu_torch import _build
+
+    lib = _build.kernel_library()
+    out = ctypes.c_int(0)
+    for box in (25, 64, 91, 256):
+        for ca in (8, 40, 320, 640, 1280):
+            for kc in (8, 24, 40, 120, 160, 256):
+                for es in (2, 4):
+                    _build.check(lib.cpd_group_norm_cat_box_bytes(box, ca, kc, es,
+                                                                  ctypes.addressof(out)), "rule")
+                    assert out.value == cat_box_bytes(box, ca, kc, es), (box, ca, kc, es)
+    x = torch.randn((1, 32, 32, 1920), device=dev, dtype=torch.bfloat16)
+    assert not cat_slab_groups(1024, 1280, 640, 32, 2)
+    with pytest.raises(RuntimeError, match="launch"):
+        group_norm_silu_cat(x[..., :1280].contiguous(), x[..., 1280:].contiguous(),
+                            torch.ones(1920, device=dev), torch.zeros(1920, device=dev),
+                            plan=GnPlan("slab", 2, 1))
 
 
 def test_group_norm_cat_refuses_what_k3_cannot_take(dev):
@@ -803,6 +901,77 @@ def test_conv3x3_f32_ragged(dev, c, co):
     assert _rel(got, conv3x3_plain(x, w, b)) <= TOL[torch.float32]
     x16, w16 = x.to(torch.bfloat16), w.to(torch.bfloat16)
     assert _rel(conv3x3(x16, w16, b), conv3x3_plain(x16, w16, b)) <= TOL[torch.bfloat16]
+
+
+# phase 1's narrow cases: (batch, plane side, C, Co)
+NARROW_CASES = [(2, 16, 4, 320), (2, 16, 320, 4), (2, 32, 4, 320), (2, 32, 320, 4),
+                (1, 16, 4, 320), (1, 16, 320, 4), (2, 16, 9, 320), (2, 16, 5, 320),
+                (1, 16, 4, 512), (1, 16, 512, 8), (1, 32, 4, 512), (1, 32, 512, 8),
+                (4, 16, 4, 32), (4, 16, 32, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hw,c,co", NARROW_CASES)
+def test_conv3x3_narrow_at_the_phase1_cases(dev, b, hw, c, co, dtype):
+    """K4's narrow bodies at every shape phase 1 times them at, through the
+    route: one launch of the narrow body, the twin within bf16's tolerance
+    or f32's, the same bits twice; the body they replaced there within
+    the same tolerance."""
+    x, wt, bias = _conv_inputs(dev, b, hw, hw, c, co, b + hw + c + co)
+    x, wt = x.to(dtype), wt.to(dtype)
+    assert k4_body(dtype, c, co) == "narrow"
+    before, before_n = conv3x3.launches, conv3x3_narrow.launches
+    got = conv3x3(x, wt, bias)
+    assert conv3x3.launches == before + 1 and conv3x3_narrow.launches == before_n + 1
+    want = conv3x3_plain(x, wt, bias)
+    assert got.dtype == dtype and _rel(got, want) <= TOL[dtype]
+    assert torch.equal(got, conv3x3(x, wt, bias))
+    assert _rel(conv3x3_generic(x, wt, bias), want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("b,h,w,c,co", [(2, 10, 12, 4, 4), (3, 9, 20, 7, 100),
+                                        (1, 5, 7, 16, 70), (2, 10, 12, 13, 8),
+                                        (2, 11, 13, 40, 3), (1, 8, 8, 2, 1),
+                                        (2, 7, 33, 96, 5)])
+def test_conv3x3_narrow_ragged(dev, b, h, w, c, co):
+    """The narrow bodies on ragged planes (W not a multiple of a row
+    segment, pixel blocks crossing rows and images), C not a multiple of a
+    16-byte vector (scalar loads), Co past one 64-channel block: bf16 with
+    a bf16 and an f32 bias, and f32, each within its dtype's tolerance."""
+    g = _gen(dev, b * h + c + co)
+    x = torch.randn((b, h, w, c), generator=g, device=dev)
+    wt = ((torch.rand((co, c, 3, 3), generator=g, device=dev) * 2 - 1) * (9 * c) ** -0.5
+          ).contiguous(memory_format=torch.channels_last)
+    bias = torch.rand(co, generator=g, device=dev) * 0.2 - 0.1
+    for dt, bdt in ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+                    (torch.float32, torch.float32)):
+        xs, ws, bs = x.to(dt), wt.to(dt), bias.to(bdt)
+        got = conv3x3_narrow(xs, ws, bs)
+        assert got.shape == (b, h, w, co) and got.dtype == dt
+        assert _rel(got, conv3x3_plain(xs, ws, bs)) <= TOL[dt], (dt, bdt)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw,ca,cb,co", [(16, 1280, 640, 1280), (32, 640, 320, 640),
+                                         (16, 64, 128, 64)])
+def test_conv3x3_sliced_weight_read_in_place(dev, hw, ca, cb, co, dtype):
+    """The split in_convs' weight halves (channel slices of one channels_last
+    [Co, Ca + Cb, 3, 3] weight) through K4's Hopper body of the dtype, read
+    in place: each half within the twin's tolerance on the same slice (bf16
+    2e-2; f32 1e-5, three TF32 products), and the same bits as the same
+    body on a contiguous copy of the half."""
+    x, wt, bias = _conv_inputs(dev, 2, hw, hw, ca + cb, co, hw + ca + cb)
+    x, wt, bias = x.to(dtype), wt.to(dtype), bias.to(dtype)
+    body = conv3x3_sm90 if dtype == torch.bfloat16 else conv3x3_f32_sm90
+    for xs, ws in ((x[..., :ca].contiguous(), wt[:, :ca]), (x[..., ca:].contiguous(), wt[:, ca:])):
+        assert not ws.is_contiguous(memory_format=torch.channels_last)
+        before = body.launches
+        got = conv3x3(xs, ws, bias)
+        assert body.launches == before + 1
+        tol = TOL[dtype] if dtype == torch.bfloat16 else 1e-5
+        assert _rel(got, conv3x3_plain(xs, ws, bias)) <= tol
+        copied = ws.contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, conv3x3(xs, copied, bias))
 
 
 def _conv_inputs(dev, b, h, w, c, co, seed):

@@ -305,7 +305,7 @@ def test_sd2_512_shapes_add_only_k1_at_head_dim_64():
 
 def test_sd2_512_group_makes_each_new_case_once(monkeypatch):
     """The "sd2_512" group: one case a K1 shape at each UNet batch, K1 at
-    64 tokens, and K4's generic body at 9 -> 320 and 5 -> 320 on a 32^2
+    64 tokens, and K4's narrow bodies at 9 -> 320 and 5 -> 320 on a 32^2
     plane in bf16 and f32; a shape another group already has is not
     repeated. Small stand-in shapes keep the tensors small; on the CPU each
     wrapper runs its plain twin."""
@@ -322,8 +322,8 @@ def test_sd2_512_group_makes_each_new_case_once(monkeypatch):
         ("conv3x3_sm90", "bf16 B2 16x16 64->64"),
         ("attention_sm90", "bf16 B8 S256 H2 d8"), ("attention_sm90", "bf16 B8 S64 H20 d64"),
         ("conv3x3_sm90", "bf16 B8 16x16 64->64"),
-        ("conv3x3", "bf16 B2 32x32 9->320"), ("conv3x3", "f32 B2 32x32 9->320"),
-        ("conv3x3", "bf16 B2 32x32 5->320"), ("conv3x3", "f32 B2 32x32 5->320")]
+        ("conv3x3_narrow", "bf16 B2 32x32 9->320"), ("conv3x3_narrow", "f32 B2 32x32 9->320"),
+        ("conv3x3_narrow", "bf16 B2 32x32 5->320"), ("conv3x3_narrow", "f32 B2 32x32 5->320")]
     for case in cases:
         torch.testing.assert_close(case.run(), case.plain(), rtol=0, atol=0)
     assert cases[-1].library is not None and cases[-1].bound()[0] > 0

@@ -84,6 +84,7 @@ _LAUNCHERS = [
     (G.group_norm_prior, "_build.kernel_library()"),
     (A._attention_bf16_wide_sm90, "_build.kernel_library()"),
     (C.conv3x3_generic, "_build.kernel_library()"),
+    (C.conv3x3_narrow, "_build.kernel_library()"),
     (C.conv3x3_sm90, "_build.kernel_library()"),
     (C.conv3x3_f32_sm90, "_build.kernel_library()"),
     (PW.wino3x3, _VJP),

@@ -467,6 +467,6 @@ def test_ub3_group_holds_the_two_factor_inpaint_render(monkeypatch):
     assert [(c.kernel, c.label) for c in cases] == [
         ("attention_sm90", "bf16 B3 S256 H2 d8"), ("geglu_ff", "bf16 M48 C16 H4 64"),
         ("group_norm", "bf16 3x8x8x64 silu"), ("conv3x3_sm90", "bf16 B3 16x16 64->64"),
-        ("conv3x3", "bf16 B3 16x16 4->64")]
+        ("conv3x3_narrow", "bf16 B3 16x16 4->64")]
     for case in cases:
         torch.testing.assert_close(case.run(), case.plain(), rtol=0, atol=0)

@@ -68,21 +68,23 @@ def test_k2_body_by_dtype(c, h4):
 
 @pytest.mark.parametrize("c,co", K4_WIDTHS)
 def test_k4_body_by_dtype_and_width(c, co):
-    assert C.k4_body(bf16, c, co) == ("bf16_sm90" if c % 64 == 0 and co % 64 == 0
-                                      else "generic")
-    assert C.k4_body(f32, c, co) == ("f32_sm90" if c % 32 == 0 and co % 64 == 0
-                                     else "generic")
+    rest = "narrow" if co <= 8 or c <= 16 else "generic"
+    assert C.k4_body(bf16, c, co) == ("bf16_sm90" if c % 64 == 0 and co % 64 == 0 else rest)
+    assert C.k4_body(f32, c, co) == ("f32_sm90" if c % 32 == 0 and co % 64 == 0 else rest)
     with pytest.raises(TypeError):
         C.k4_body(f16, c, co)
 
 
 def test_k4_f32_body_takes_the_unet_convs_and_not_the_narrow_ones():
     """All 22 convs of a batch-1 SD-1.5 UNet call go to the f32 body, the
-    UNet's conv_in (C = 4) and out conv (Co = 4), the VAE's conv_out (Co =
-    3) and the tiny widths' Co = 32 to the FMA body."""
+    UNet's conv_in (C = 4) and out conv (Co = 4), the VAE's conv_in (C = 4)
+    and conv_out (Co = 3) to the narrow bodies, and the tiny widths' Co =
+    32 to the FMA body."""
     assert all(C.k4_body(f32, c, co) == "f32_sm90" for _, c, co in B1_UNET_CONVS)
     assert C.k4_body(f32, 512, 512) == "f32_sm90"
-    for c, co in ((4, 320), (320, 4), (128, 3), (4, 512), (32, 32), (64, 32)):
+    for c, co in ((4, 320), (320, 4), (128, 3), (4, 512)):
+        assert C.k4_body(f32, c, co) == "narrow"
+    for c, co in ((32, 32), (64, 32)):
         assert C.k4_body(f32, c, co) == "generic"
 
 

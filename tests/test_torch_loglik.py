@@ -27,8 +27,13 @@ from complex_prompt_diffusion_tpu_torch.samplers import registry as R
 # log-likelihoods in nats of O(1e2): sums over every element of f32 terms
 # and the integrators' f32 steps, max |a - b| / max |b|
 LL_TOL = 1e-5
-# the tiny UNet's whole adaptive integration (dozens of CFG UNet VJPs in f32)
-PIPE_TOL = 1e-4
+# the tiny UNet's whole adaptive integration (dozens of CFG UNet VJPs in
+# f32): against a float64 run of the port (the bundle, the spec and the
+# integrator in float64, the same x_T and probe: -269.65408) JAX's f32
+# estimate lies 8.7e-5 off and the port's 5.6e-5 to 1.3e-4 (by thread
+# count), on either side, so two f32 estimates may differ by their sum,
+# 2.2e-4 (one run measured 1.43e-4 between them)
+PIPE_TOL = 3e-4
 
 
 def _jden(x, s, uc):

@@ -217,7 +217,7 @@ def test_unet_batch_shapes_cover_every_kernel_site(ub):
 def test_kernel_cases_make_a_case_for_each_unet_batch_shape(monkeypatch):
     """The "ub4" group makes one case a shape of ``unet_batch_shapes``, on
     the kernel its route takes (K4's sm90 body where C and Co are multiples
-    of 64, else its generic one); on the CPU each wrapper runs its plain
+    of 64, its narrow bodies at C = 4); on the CPU each wrapper runs its plain
     twin. Small stand-in shapes keep the tensors small."""
     from complex_prompt_diffusion_tpu_torch.tools import kernel_cases as KC
 
@@ -228,6 +228,6 @@ def test_kernel_cases_make_a_case_for_each_unet_batch_shape(monkeypatch):
     assert [(c.kernel, c.label) for c in cases] == [
         ("attention_sm90", "bf16 B4 S256 H2 d8"), ("geglu_ff", "bf16 M64 C16 H4 64"),
         ("group_norm", "bf16 4x8x8x64 silu"), ("conv3x3_sm90", "bf16 B4 16x16 64->64"),
-        ("conv3x3", "bf16 B4 16x16 4->64")]
+        ("conv3x3_narrow", "bf16 B4 16x16 4->64")]
     for case in cases:
         torch.testing.assert_close(case.run(), case.plain(), rtol=0, atol=0)

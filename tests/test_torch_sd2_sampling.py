@@ -17,7 +17,7 @@ from complex_prompt_diffusion_tpu import models as JM
 from complex_prompt_diffusion_tpu import pipeline as JP
 from complex_prompt_diffusion_tpu_torch import pipeline as P
 
-from _sd2_tiny import LATENT, NEGATIVE, PIXELS, PROMPT, SIDE, _close
+from _sd2_tiny import LATENT, NEGATIVE, PIXELS, PROMPT, SIDE, _close, _close_scaled
 from _sd2_tiny import eps_bundles, v_bundles  # noqa: F401 (fixtures: registered by the import)
 from _one_thread import one_torch_thread  # noqa: F401 (an autouse fixture: registered by the import)
 
@@ -150,7 +150,7 @@ def test_eps_bundle_unchanged(eps_bundles, sampler, kw):
                              x_init=jnp.asarray(x_T))
     got = P.sample_latents(pb, P.make_guidance_spec(pb, PROMPT, NEGATIVE), pcfg,
                            x_init=torch.from_numpy(x_T))
-    _close(got, want)
+    _close_scaled(got, want)
 
 
 def test_v_bundle_txt2img_decodes_as_jax(v_bundles):

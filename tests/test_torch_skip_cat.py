@@ -138,12 +138,104 @@ def test_group_norm_silu_cat_bad_channels_raise_in_both_packages():
 
 
 def test_group_norm_cat_plan_takes_every_sd15_cat_shape():
-    """Every (Ca | Cb) of the SD-1.5 up path at UNet batch 2 and 4: two
-    launches over SMs / N tiles a sample (at most the plane's pixels)."""
+    """Every (Ca | Cb) of the SD-1.5 up path at UNet batch 2 and 4: the slab
+    form (one launch, one group a block, two at C/G = 60) on the three 8^2
+    and three 16^2 pairs and 32^2 (640 | 640); the split form (two launches
+    over SMs / N tiles a sample) on 32^2 (1280 | 640) and (640 | 320) and
+    the 64^2 pairs, whose slabs do not fit a block."""
     for side, ca, cb in KC.GN_CAT_PLANES:
         for n in (2, 4):
             plan = G.group_norm_cat_plan(n, side * side, ca, cb, 32, 132)
-            assert plan == G.GnPlan("cat", min(132 // n, side * side), 2)
+            if side <= 16 or (side, ca, cb) == (32, 640, 640):
+                want = G.GnPlan("slab", 2 if (ca + cb) == 1920 else 1, 1)
+            else:
+                want = G.GnPlan("split", min(132 // n, side * side), 2)
+            assert plan == want, (side, ca, cb, n)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("side,ca,cb", KC.GN_CAT_PLANES)
+def test_group_norm_cat_plan_is_the_one_input_plan_of_the_concat(side, ca, cb, n):
+    """At every pair of the SD-1.5 up path, in both dtypes, the two-source
+    plan is the one-input plan of the materialized concat (the same form,
+    groups a block or tiles, and launches): a straddling block's two
+    regions take no more room than its box there."""
+    for dtype in (torch.bfloat16, torch.float32):
+        cat = G.group_norm_cat_plan(n, side * side, ca, cb, 32, 132, dtype)
+        one = G.group_norm_plan(n, side * side, ca + cb, 32, dtype, 132)
+        assert cat == one
+
+
+@pytest.mark.parametrize("hw,ca,cb,esize,straddles", [
+    (256, 1280, 640, 2, True),   # 16^2, C/G = 60, two groups a block: 80 | 40 channels
+    (64, 640, 320, 2, True),     # 8^2, C/G = 30, four groups a block: 40 | 80
+    (256, 1280, 1280, 2, False),  # C/G = 80: the boundary falls between blocks
+    (25, 1280, 640, 2, True),    # 5^2: boxes of 25 pixels, 80 | 40 channels round up apart
+    (25, 1280, 640, 4, True),
+])
+def test_cat_slab_rule_sees_straddling_groups(hw, ca, cb, esize, straddles):
+    """The two-source slab rule over the virtual row: the block that
+    straddles the boundary takes each box as two 128-byte aligned regions,
+    which can take more room than one box of its channels; the rule keeps a
+    k only where those boxes fit, a subset of the one-input rule's."""
+    c = ca + cb
+    box = min(hw, 256)
+    one = G.slab_groups(hw, c, 32, esize)
+    cat = G.cat_slab_groups(hw, ca, cb, 32, esize)
+    assert set(cat) <= set(one) and cat == sorted(cat)
+    for k in one:
+        kc = k * (c // 32)
+        def bb(ch):
+            return -(-box * ch * esize // 128) * 128
+
+        ka = ca % kc
+        got = G.cat_box_bytes(box, ca, kc, esize)
+        assert got == (bb(ka) + bb(kc - ka) if ka else bb(kc)) >= bb(kc)
+        assert (k in cat) == (-(-hw // box) * got <= G._TILE_BYTES)
+    k = cat[0]
+    assert (ca % (k * (c // 32)) != 0) == straddles
+
+
+@pytest.mark.parametrize("ub", [1, 2, 3, 4])
+def test_chip_smoke_predicts_the_two_source_launches(ub):
+    """``chip_smoke.unet_call_launches`` counts the two-source form's
+    kernels by its plans: at UNet batch 1-4 the 7 pairs on 8^2 and 16^2
+    planes and 32^2 (640 | 640) take one slab launch each, the other 5 two
+    split launches: 17 kernels for the 12 calls, 7 of them slab ones."""
+    per = _chip_smoke().unet_call_launches(M.UNetConfig.sd15(), 64, ub)
+    assert (per["k3_cat"], per["k3_cat_launches"], per["k3_cat_slab"]) == (12, 17, 7)
+    assert per["k4_narrow"] == 0  # conv_in and out conv on the 64^2 plane: cuDNN
+    per16 = _chip_smoke().unet_call_launches(M.UNetConfig.sd15(), 16, ub)
+    assert per16["k4_narrow"] == 2  # a 16^2 latent: conv_in (C = 4), out conv (Co = 4)
+    assert (per16["k3_cat"], per16["k3_cat_slab"]) == (12, per16["k3_cat_launches"])
+
+
+def test_hopper_operands_read_a_weight_slice_in_place():
+    """K4's Hopper bodies take a channel slice of a channels_last weight as
+    it lies (the UNet's split in_convs): the operand is a view of the
+    weight (same address), with the full weight's channel stride, in both
+    dtypes; a weight in the default (OIHW) layout is copied once into the
+    kernels' [Co, 3, 3, C] layout."""
+    from complex_prompt_diffusion_tpu_torch.ops import conv as C
+
+    for dtype in (torch.bfloat16, torch.float32):
+        w = torch.randn(64, 192, 3, 3).to(dtype).contiguous(memory_format=torch.channels_last)
+        p = {"weight": w, "bias": torch.zeros(64)}
+        wa, wb, _ = U._split_weight(p, 128)
+        for ws, lo in ((wa, 0), (wb, 128)):
+            c = ws.shape[1]
+            x = torch.randn(1, 8, 8, c).to(dtype)
+            plan = C.conv3x3_plan(1, 8, 8, c, 64, dtype=dtype)
+            _, wt, cw, _, _ = C._hopper_operands(x, ws, plan, "test")
+            assert wt.data_ptr() == ws.data_ptr() == w.data_ptr() + lo * w.element_size()
+            assert cw == 192 and tuple(wt.shape) == (64, 3, 3, c)
+            assert torch.equal(wt.permute(0, 3, 1, 2), ws)
+        wc = torch.randn(64, 64, 3, 3).to(dtype)
+        x = torch.randn(1, 8, 8, 64).to(dtype)
+        _, wt, cw, _, _ = C._hopper_operands(x, wc, C.conv3x3_plan(1, 8, 8, 64, 64, dtype=dtype),
+                                             "test")
+        assert cw == 64 and wt.is_contiguous() and wt.data_ptr() != wc.data_ptr()
+        assert torch.equal(wt.permute(0, 3, 1, 2), wc)
 
 
 def _plain_pair(a, b, w, k):

@@ -93,8 +93,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            fused 3xTF32 body), then the f32 decode: seconds to image,
            s/step, decode ms, peak memory; and a short txt2img of the
            default bundle, ``ModelBundle.random()`` with no arguments (the
-           tiny config, f32 UNet: K4's FMA body at its narrow widths), a
-           path of its own;
+           tiny config, f32 UNet: K4's 3xTF32 body at 32 -> 32 and 96 -> 32,
+           its narrow bodies at conv_in and the out conv, none on the
+           generic body), a path of its own;
   phase 12 the sampler zoo (run after phase 8, on phase 2's bundle with the
            bf16 VAE): txt2img at 512x512, batch 1, CFG 7.5, 20 steps, once
            with each of PLMS, DPM-Solver++ multistep order 2, singlestep
@@ -302,7 +303,27 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports only
            and a classifier on K4, K3 and K1: one guided eps (1e-4), its
            guidance term and a 5-step DPM-Solver++ 2M sample (1e-3) against
            the CPU, the launches the UNet calls and the classifier's
-           forwards predict, none in its backwards.
+           forwards predict, none in its backwards;
+  phase 22 a UNet at CompVis LDM-VQ-4's widths (after phase 20; the
+           celebahq-ldm-vq-4.yaml UNet params typed into this script and
+           mapped by ``config.unet_config_from_yaml``: 224 / 448 / 672 / 896
+           channels, up-path concats 672 .. 1792, head dim 32, 3 channels
+           on a 64x64 latent, no context; random weights from seed 22): (a)
+           one bf16 UNet call at UNet batch 2 (up path fused) and one f32
+           call at UNet batch 1 against the plain twins on CPU copies (TF32
+           off; 5e-2, 1e-4); (b) DDIM 20 steps at batch 4 in bf16, timed
+           cold (s/step, peak memory); (c) every path's launches as its
+           calls predict (``check_ldm``: K1 twice a self-attention site,
+           attn2 attending to its own tokens; K4's 28 (bf16) or 22 (f32)
+           gated convs a call, C or Co 32 mod 64 among them, all on the
+           Hopper body of the dtype, none on the generic one); (d) K6 on the
+           20 ResBlock convs of the 32^2 and 16^2 planes in both dtypes
+           against K4 and the f32 twin, none on its first body, timed as
+           phase 9 times its convs. Phase 1 holds its shapes (kernel_cases'
+           "ldm_vq4" group at UNet batch 2 and 4; K4 f32 at UNet batch 1 and
+           2; K6 at 32x32 672->448, 16x16 448->672 and 672->672) with the
+           PR-2 body (``csrc/conv3x3.cu``) beside each K4 case and the conv
+           sums of each call.
 
 The up path's skip concat is fused in every bf16 UNet call at UNet batch
 <= 4 (``models.unet.skip_cat_fused``): its 12 up-path GroupNorms run K3's
@@ -327,7 +348,7 @@ Phase 1's UNet groups come from ``kernel_cases.unet_call_groups``; a
 full-width UNet call whose K1-K4 shapes none of them holds fails its
 path's launch check (``check_held``).
 
-Each path of phases 2, 4 to 12 and 14 to 21 runs with every launch count set to 0
+Each path of phases 2, 4 to 12 and 14 to 22 runs with every launch count set to 0
 just before it and read just after, and fails unless the kernels it must
 run were launched (phase 12, render by render: K1's sm90 body 15 times, K2
 its plans' kernels for 16 calls, K3 61 calls (12 of them two-source) and
@@ -364,6 +385,7 @@ beside it), the card's name and power limit (from nvidia-smi) and
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -425,8 +447,8 @@ KERNELS = {
     ),
     "conv3x3": (
         f"{PKG}/csrc/conv3x3.cu",
-        "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel (f32 with C % 32 or Co % 64 != 0; "
-        "bf16 with C or Co % 64 != 0; both with Co > 8 and C > 16)",
+        "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel (bf16 with C % 8 != 0, f32 with C % "
+        "4 != 0; both with Co > 8 and C > 16)",
     ),
     "conv3x3_narrow": (
         f"{PKG}/csrc/conv3x3_narrow.cu",
@@ -435,11 +457,13 @@ KERNELS = {
     ),
     "conv3x3_sm90": (
         f"{PKG}/csrc/conv3x3_sm90.cu",
-        "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel (bf16, C % 64 == Co % 64 == 0)",
+        "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel (bf16, C % 8 == 0, any Co; Co > 8 "
+        "and C > 16)",
     ),
     "conv3x3_f32_sm90": (
         f"{PKG}/csrc/conv3x3_f32_sm90.cu",
-        "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel (f32, C % 32 == Co % 64 == 0)",
+        "complex_prompt_diffusion_tpu/ops/conv.py:38 _kernel (f32, C % 4 == 0, any Co; Co > 8 "
+        "and C > 16)",
     ),
     "attention_cm_sm90": (
         f"{PKG}/csrc/attention_cm_sm90.cu",
@@ -453,18 +477,18 @@ KERNELS = {
     ),
     "winograd": (
         f"{PKG}/csrc/winograd.cu",
-        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel (f32 with C % 32 or "
-        "Co % 64 != 0; bf16 with C or Co % 64 != 0)",
+        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel (bf16 with C % 8 != "
+        "0, f32 with C % 4 != 0)",
     ),
     "winograd_sm90": (
         f"{PKG}/csrc/winograd_sm90.cu",
-        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel (bf16, C % 64 == "
-        "Co % 64 == 0)",
+        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel (bf16, C % 8 == 0, "
+        "any Co)",
     ),
     "winograd_f32_sm90": (
         f"{PKG}/csrc/winograd_f32_sm90.cu",
-        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel (f32, C % 32 == "
-        "Co % 64 == 0)",
+        "complex_prompt_diffusion_tpu/ops/probes/winograd.py:82 _wino_kernel (f32, C % 4 == 0, "
+        "any Co)",
     ),
     "probe_attention": (
         f"{PKG}/csrc/probe_attention.cu",  # with the sources in PROBE_ATTENTION_SOURCES
@@ -740,6 +764,7 @@ def phase1(dev, card: str) -> dict:
         PEAK_FLOPS,
         host_us,
         kernel_cases,
+        ldm_vq4_config,
         unet_batch_shapes,
         unet_sites,
     )
@@ -916,7 +941,8 @@ def phase1(dev, card: str) -> dict:
               f"{two[4]:.4f} ms; those {sum(GN_CAT_CALLS)} materialized: torch.cat + K3 "
               f"{two[1]:.4f} ms, torch.cat + F.group_norm + F.silu {two[2]:.4f} ms), bound "
               f"{one[1] + two[3]:.4f} ms ({100 * (one[1] + two[3]) / (one[0] + two[0]):.1f}% of "
-              f"K3's time; {card})")
+              f"K3's time; the {sum(GN_CAT_CALLS)} two-source calls' {two[3]:.4f} ms, "
+              f"{100 * two[3] / two[0]:.1f}% of theirs; {card})")
         convs = Counter(c for c in fused_sites["conv"] if c[0] in (16, 32))
         rows = [conv_rows.get(f"bf16 B{ub} {hw}x{hw} {c}->{co}") for hw, c, co in convs]
         if None not in rows:
@@ -926,6 +952,22 @@ def phase1(dev, card: str) -> dict:
                   f"the 16^2 and 32^2 planes): sm90 K4 {k4[0]:.4f} ms, mma.sync body "
                   f"{k4[1]:.4f} ms, cuDNN {k4[2]:.4f} ms, bound {k4[3]:.4f} ms "
                   f"({100 * k4[3] / k4[0]:.1f}% of the kernel's time; {card})")
+    ldm = ldm_vq4_config()
+    for dt, ub, fused in (("bf16", 2, True), ("bf16", 4, True), ("f32", 1, False),
+                          ("f32", 2, False)):
+        # phase 22's UNet calls at CompVis LDM-VQ-4's widths: the convs K4's
+        # gate admits (the 32^2 and 16^2 planes), each shape times its count
+        convs = Counter(c for c in unet_sites(ldm, 64, fused=fused)["conv"] if c[0] in (16, 32))
+        rows = [conv_rows.get(f"{dt} B{ub} {hw}x{hw} {c}->{co}") for hw, c, co in convs]
+        if None in rows:
+            continue
+        k4 = [sum(n * (r[i] or 0.0) for n, r in zip(convs.values(), rows)) for i in range(4)]
+        off = sum(n for (_, c, co), n in convs.items() if c % 64 or co % 64)
+        print(f"phase1: the {sum(convs.values())} {dt} convs of an LDM-VQ-4 widths UNet call at "
+              f"UNet batch {ub} (up path {'fused' if fused else 'materialized'}; {off} with C or "
+              f"Co off the 64-channel tile): K4's Hopper body {k4[0]:.4f} ms, the PR-2 body "
+              f"(csrc/conv3x3.cu) {k4[1]:.4f} ms, cuDNN {k4[2]:.4f} ms, bound {k4[3]:.4f} ms "
+              f"({100 * k4[3] / k4[0]:.1f}% of the kernel's time; {card})")
     lib = _build.kernel_library()
     base = torch.empty(2 * 32 * 32 * 640, dtype=torch.bfloat16, device=dev)
     ns = ctypes.c_double()
@@ -1894,6 +1936,15 @@ def phase9(bundle, dev, card: str) -> dict:
     K6's Hopper body, in f32 on its 3xTF32 body (and against the plain twin
     at 1e-5, TF32 off); then the 20 convs of each dtype timed on both of
     K6's bodies, through K4 and through cuDNN; returns its launch counts."""
+    return winograd_probe("phase9", "the UNet's", bundle.unet_cfg, bundle.unet_params, dev, card)
+
+
+def winograd_probe(tag: str, what: str, unet_cfg, unet_params, dev, card: str) -> dict:
+    """Phase 9's probe of K6 on the ResBlock convs of ``unet_cfg``'s 32^2 and
+    16^2 planes (a 64x64 latent) at UNet batch 2, with ``unet_params``'
+    weights, printed under ``tag``: K6 against K4 in both dtypes (none on
+    K6's first body), the f32 body against its twin, the convs timed on
+    K6's bodies, K4 and cuDNN; returns its launch counts."""
     import torch
     import torch.nn.functional as F
 
@@ -1911,9 +1962,9 @@ def phase9(bundle, dev, card: str) -> dict:
     # (plane side, conv params) of every ResBlock conv, walking the plan from
     # a 64x64 latent
     convs, hw = [], 64
-    input_plan, _, output_plan = M.build_plan(bundle.unet_cfg)
-    blocks = list(zip(input_plan, bundle.unet_params["input_blocks"])) + list(
-        zip(output_plan, bundle.unet_params["output_blocks"]))
+    input_plan, _, output_plan = M.build_plan(unet_cfg)
+    blocks = list(zip(input_plan, unet_params["input_blocks"])) + list(
+        zip(output_plan, unet_params["output_blocks"]))
     for plan, params in blocks:
         for desc, p in zip(plan, params):
             if desc[0] == "res":
@@ -1982,12 +2033,12 @@ def phase9(bundle, dev, card: str) -> dict:
             }
     for dt in ("bf16", "f32"):
         t = times[dt]
-        print(f"phase9: Winograd probe on the UNet's {n} ResBlock convs of the 32^2 and 16^2 "
+        print(f"{tag}: Winograd probe on {what} {n} ResBlock convs of the 32^2 and 16^2 "
               f"planes (UNet batch 2) in {dt}, U made ahead, on {card}: "
               f"{', '.join(f'{k} {v:.4f} ms' for k, v in t.items())}; Hopper / first body "
               f"{t['K6 Hopper body'] / t['K6 first body']:.3f}, / K4 "
               f"{t['K6 Hopper body'] / t['K4']:.3f} ({METHOD})")
-    print(f"phase9: worst rel L2 vs K4 {worst['bf16']:.3e} (bf16), {worst['f32']:.3e} (f32) (tol "
+    print(f"{tag}: worst rel L2 vs K4 {worst['bf16']:.3e} (bf16), {worst['f32']:.3e} (f32) (tol "
           f"2e-2); f32 body vs its plain twin {worst['f32 twin']:.3e} (tol 1e-5, TF32 off); "
           f"launches {json.dumps(launches)} ({card})")
     return launches
@@ -2156,10 +2207,12 @@ def phase11(dev, card: str, steps: int) -> dict:
     check_latents(latents, (2, 16, 16, 4))
     if (default.unet_cfg.dtype != "float32" or n["geglu_ff_f32_sm90"] <= 0
             or n["geglu_ff"] != n["geglu_ff_f32_sm90"] or n["conv3x3_f32_sm90"] <= 0
-            or n["conv3x3"] <= n["conv3x3_f32_sm90"] or n["conv3x3_sm90"]):
+            or n["conv3x3_narrow"] <= 0 or n["conv3x3_sm90"]
+            or n["conv3x3"] != n["conv3x3_f32_sm90"] + n["conv3x3_narrow"]):
         raise SmokeFailure(f"the default bundle (UNet {default.unet_cfg.dtype}) rendered with "
-                           f"launches {n}: want K2 on its f32 body and K4 on its f32 bodies "
-                           f"(the 3xTF32 one, and the FMA one at the narrow widths)")
+                           f"launches {n}: want K2 on its f32 body and K4 on its 3xTF32 body "
+                           f"(32 -> 32, 96 -> 32 among its convs) and its narrow bodies (conv_in, "
+                           f"the out conv), none on the generic body")
     print(f"phase11: ModelBundle.random() (no arguments: tiny, UNet {default.unet_cfg.dtype}, on "
           f"{default.device}) txt2img 128x128 b2 4 steps: images {tuple(images.shape)} "
           f"{images.dtype}; launches {json.dumps(n)} ({card})")
@@ -2183,8 +2236,9 @@ def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16", deep_
     and dtype, ``models.unet.skip_cat_fused``; "k3_cat_launches" their
     kernels and "k3_cat_slab" those on its slab form, by
     ``group_norm_cat_plan``), K4 the convs its gate admits (and of those,
-    the ones on its sm90 body and on its narrow bodies; the fused up path's
-    in_convs split in two)."""
+    the ones on its sm90 body, its f32 body, its narrow bodies and its
+    generic body, by ``k4_body``; the fused up path's in_convs split in
+    two)."""
     import torch
 
     from complex_prompt_diffusion_tpu_torch.models.layers import conv3x3_wanted
@@ -2199,6 +2253,7 @@ def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16", deep_
     sites = unet_sites(cfg, latent, deep_at, model, skip_cat_fused(ub, dt))
     gated = [(s, c, co) for s, c, co in sites["conv"]
              if conv3x3_wanted(torch.empty((ub, s, s, c), device="meta"), (co, c, 3, 3))]
+    bodies = collections.Counter(k4_body(dt, c, co) for _, c, co in gated)
     # the form, not its tiles, sets the launches: the card's SM count is not needed
     cat = [group_norm_cat_plan(ub, s * s, ca, cb, 32, 132, dt) for s, ca, cb in sites["gn_cat"]]
     return {"k1": sum(1 for _, skv, _, _ in sites["self_attn"] if skv > SHORT_KV),
@@ -2207,8 +2262,8 @@ def unet_call_launches(cfg, latent: int, ub: int, dtype: str = "bfloat16", deep_
             "k3": sites["gn"], "k3_cat": len(cat),
             "k3_cat_launches": sum(p.launches for p in cat),
             "k3_cat_slab": sum(p.launches for p in cat if p.form == "slab"), "k4": len(gated),
-            "k4_sm90": sum(1 for _, c, co in gated if k4_body(dt, c, co) == "bf16_sm90"),
-            "k4_narrow": sum(1 for _, c, co in gated if k4_body(dt, c, co) == "narrow")}
+            "k4_sm90": bodies["bf16_sm90"], "k4_f32": bodies["f32_sm90"],
+            "k4_narrow": bodies["narrow"], "k4_generic": bodies["generic"]}
 
 
 def scratch_dir(need_bytes: int) -> str:
@@ -2771,7 +2826,7 @@ def phase15(dev, card: str, image) -> dict:
         copies of the same weights: in bf16, the UNet's output (both
         branches) at phases 3 and 13's bf16 UNet tolerance, 5e-2; with the
         UNet cast to f32 (TF32 off; conv_in and the out conv on K4's
-        generic f32 body, the other convs on its 3xTF32 body), the guided
+        narrow bodies, the other convs on its 3xTF32 body), the guided
         eps at 1e-4. The bf16 guided eps is printed, not held: CFG 7.5
         multiplies the two branches' difference, a small part of an eps on
         these random weights (printed), and with it their bf16 rounding,
@@ -3490,8 +3545,8 @@ def grad_wiring_cases(dev) -> list:
          C.conv3x3, 1),
         ("K4 f32", C.conv3x3, C.conv3x3_plain,
          (leaf((2, 16, 16, 640)), conv_w(640, 640), leaf(640, f32, 0.1)), (), C.conv3x3, 1),
-        ("K4 generic bf16", C.conv3x3, C.conv3x3_plain,
-         (leaf((2, 16, 16, 40), bf), conv_w(320, 40), leaf(320, f32, 0.1)), (), C.conv3x3, 1),
+        ("K4 generic bf16 (C % 8 != 0)", C.conv3x3, C.conv3x3_plain,
+         (leaf((2, 16, 16, 20), bf), conv_w(320, 20), leaf(320, f32, 0.1)), (), C.conv3x3, 1),
         ("K4 narrow-C bf16 (conv_in)", C.conv3x3, C.conv3x3_plain,
          (leaf((2, 16, 16, 4), bf), conv_w(320, 4), leaf(320, f32, 0.1)), (), C.conv3x3_narrow,
          1),
@@ -4579,7 +4634,7 @@ def classifier_guided_sample(unet_cfg, unet_params, clf, ns, x, ctx):
 def phase21_classifier(bundle, dev, card: str) -> dict:
     """(b) DPM-Solver classifier guidance (the JAX package's ``model_wrapper``
     with ``guidance_type="classifier"``) on a 16x16 latent: the SD-1.5 UNet
-    cast to f32 and a classifier that runs K4 (its generic body on the
+    cast to f32 and a classifier that runs K4 (its narrow-C body on the
     4-channel conv, its 3xTF32 body on 320 -> 320), K3 and K1 (the fused
     3xTF32 body) forward, its gradient through their plain VJP rules; one
     guided eps, its guidance term and a 5-step DPM-Solver++ 2M sample against
@@ -5038,6 +5093,159 @@ def phase20(dev, card: str) -> dict:
     return paths
 
 
+# phase 22: a UNet at the widths of CompVis latent-diffusion's
+# configs/latent-diffusion/celebahq-ldm-vq-4.yaml (ffhq-ldm-vq-4.yaml and
+# lsun_bedrooms-ldm-vq-4.yaml set the same), model.params.unet_config.params:
+# 3 channels in and out on a 64x64 latent, unconditional
+LDM_VQ4_UNET = {"image_size": 64, "in_channels": 3, "out_channels": 3, "model_channels": 224,
+                "attention_resolutions": [8, 4, 2], "num_res_blocks": 2,
+                "channel_mult": [1, 2, 3, 4], "num_head_channels": 32}
+LDM_STEPS = 20  # DDIM steps of phase 22 (b), at batch 4
+LDM_TOL = {"bfloat16": 5e-2, "float32": 1e-4}  # rel L2 vs the CPU twins (phases 3 and 11's)
+
+
+def check_ldm(launches: dict, cfg, ub: int, calls: int, what: str) -> dict:
+    """``calls`` no-context UNet calls of ``cfg`` (LDM-VQ-4's widths, its
+    dtype) at UNet batch ``ub`` on a 64x64 latent: K1 twice a transformer
+    whose self-attention has more than SHORT_KV keys (with no context its
+    attn2 attends to its own tokens too) on the body of the dtype (sm90,
+    fused 3xTF32); K2 its plans' kernels on its body; K3 a call a GroupNorm
+    (the fused up path's on its two-source form) with the kernels its plans
+    predict; K4 every conv its gate admits, all on the Hopper body of the
+    dtype and none on the generic or narrow ones: the counts
+    ``unet_call_launches`` predicts, by ``k4_body``. Returns the prediction
+    of one call."""
+    per = unet_call_launches(cfg, 64, ub, cfg.dtype)
+    f32 = cfg.dtype == "float32"
+    k1, k2, k4 = 2 * per["k1"] * calls, per["k2"] * calls, per["k4"] * calls
+    want = {"attention": k1, "attention_sm90": 0 if f32 else k1,
+            "attention_f32_fused_sm90": k1 if f32 else 0, "geglu_ff": k2,
+            "geglu_ff_f32_sm90": k2 if f32 else 0, "conv3x3": k4,
+            "conv3x3_sm90": 0 if f32 else k4, "conv3x3_f32_sm90": k4 if f32 else 0,
+            "conv3x3_narrow": 0, "group_norm calls": per["k3"] * calls,
+            "attention_f32_sm90": 0, "attention_bf16_wide_sm90": 0, "attention_cm": 0}
+    want.update({p: 0 for p in PROBES})
+    got = {k: launches[k] for k in want}
+    body = "k4_f32" if f32 else "k4_sm90"
+    if got != want or per["k4_generic"] or per[body] != per["k4"] or not per["k4"]:
+        raise SmokeFailure(f"{what} launched {got}: want {want} ({per} a call: every gated conv "
+                           f"on K4's Hopper body of the dtype, none on its generic body)")
+    check_cat(launches, cat_counts(per, calls), what)
+    if (launches["group_norm"] != launches["group_norm planned"]
+            or launches["group_norm_prior"]):
+        raise SmokeFailure(f"K3 in {what}: {launches['group_norm']} kernels against "
+                           f"{launches['group_norm planned']} planned, the replaced body "
+                           f"{launches['group_norm_prior']}")
+    return per
+
+
+def phase22(dev, card: str) -> dict:
+    """A UNet at CompVis LDM-VQ-4's widths (224 / 448 / 672 / 896; the
+    params typed above, mapped by ``config.unet_config_from_yaml``), random
+    weights from seed 22, no context: (a) one bf16 UNet call at UNet batch
+    2 (the up path fused) and one f32 call at UNet batch 1 on a 64x64
+    latent against the plain twins on CPU copies (TF32 off); (b) DDIM 20
+    steps at batch 4 in bf16 with the UNet as eps, timed cold; (c) each
+    path's launches as ``check_ldm`` predicts them: every conv K4's gate
+    admits (C and Co 32 mod 64 among them) on a Hopper body, none on the
+    generic one; (d) K6 on the 20 ResBlock convs of the 32^2 and 16^2
+    planes in both dtypes (phase 9's probe), none on its first body.
+    Returns the launches of each path."""
+    import torch
+
+    from complex_prompt_diffusion_tpu_torch import config, convert
+    from complex_prompt_diffusion_tpu_torch import models as M
+    from complex_prompt_diffusion_tpu_torch import schedules as S
+    from complex_prompt_diffusion_tpu_torch.pipeline import _tree_map, _unzero_kernels
+    from complex_prompt_diffusion_tpu_torch.samplers.ddim import sample_ddim
+    from complex_prompt_diffusion_tpu_torch.tools.kernel_cases import ldm_vq4_config
+    from complex_prompt_diffusion_tpu_torch.train.optimizers import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg16 = config.unet_config_from_yaml(LDM_VQ4_UNET)
+    if cfg16 != ldm_vq4_config() or cfg16.dtype != "bfloat16" or cfg16.context_dim is not None:
+        raise SmokeFailure(f"LDM-VQ-4's UNet config {cfg16} is not phase 1's ldm_vq4 group's")
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    raw = with_biases(_unzero_kernels(gen, M.init_unet(gen, cfg32, dev)), dev, 22)
+    params = {"bfloat16": convert.unet_params(raw, dev, torch.bfloat16),
+              "float32": convert.unet_params(raw, dev, torch.float32)}
+    del raw
+    n_params = sum(a.numel() for a in tree_leaves(params["float32"]))
+    cpu = torch.device("cpu")
+    cgen = torch.Generator().manual_seed(22)
+    paths = {}
+
+    # (a) one call of each dtype against the plain twins on CPU copies
+    for cfg, ub in ((cfg16, 2), (cfg32, 1)):
+        x = torch.randn((ub, 64, 64, 3), generator=cgen)
+        t = torch.tensor([801, 301][:ub])
+        reset_launches()
+        with torch.inference_mode():
+            got = M.unet_apply(cfg, params[cfg.dtype], x.to(dev), t.to(dev), None)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            got = got.float().cpu()
+            want = M.unet_apply(cfg, _tree_map(lambda a: a.to(cpu), params[cfg.dtype]), x, t,
+                                None).float()
+        what = f"the {cfg.dtype} LDM-VQ-4 UNet call at UNet batch {ub}"
+        per = check_ldm(launches, cfg, ub, 1, what)
+        if tuple(got.shape) != (ub, 64, 64, 3) or not bool(torch.isfinite(got).all()):
+            raise SmokeFailure(f"{what}: output {tuple(got.shape)}, finite "
+                               f"{bool(torch.isfinite(got).all())}")
+        rel = float((got - want).norm() / want.norm())
+        print(f"phase22: (a) LDM-VQ-4 widths UNet ({n_params / 1e6:.1f} M params, no context) "
+              f"{cfg.dtype} at UNet batch {ub} on a 64x64 latent, CUDA kernels vs CPU plain twins "
+              f"(TF32 off): rel L2 {rel:.3e} (tol {LDM_TOL[cfg.dtype]:.0e}); K4 {per['k4']} "
+              f"convs all on its {'f32' if cfg.dtype == 'float32' else 'bf16'} Hopper body "
+              f"(generic 0), K1 {2 * per['k1']}, K2 {per['k2']} kernels, K3 {per['k3']} calls "
+              f"({per['k3_cat']} two-source) ({card})", flush=True)
+        if not rel <= LDM_TOL[cfg.dtype]:
+            raise SmokeFailure(f"{what}: the kernel path disagrees with the plain path: {rel:.3e}")
+        paths[f"ldm_vq4_unet_{cfg.dtype}_ub{ub}"] = launches
+
+    # (b) DDIM 20 steps at batch 4, bf16, unconditional, from the first call
+    itab = S.make_inference_tables(S.make_diffusion_tables(), LDM_STEPS, eta=0.0)
+    x_T = torch.randn((4, 64, 64, 3), generator=torch.Generator(device=dev).manual_seed(23),
+                      device=dev)
+
+    def eps(x, t, uc_scale, blur=None):
+        t = torch.as_tensor(t, device=dev).reshape(-1).expand(x.shape[0])
+        return M.unet_apply(cfg16, params["bfloat16"], x, t, None).float()
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        x0, traj = sample_ddim(eps, x_T, itab, torch.ones(LDM_STEPS))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    per = check_ldm(launches, cfg16, 4, LDM_STEPS, "phase 22's DDIM sampling")
+    check_latents(x0, (4, 64, 64, 3))
+    if traj.shape[0] != LDM_STEPS:
+        raise SmokeFailure(f"phase 22's DDIM trajectory has {traj.shape[0]} steps")
+    print(f"phase22: (b) LDM-VQ-4 widths DDIM {LDM_STEPS} steps b4 bf16 (UNet batch 4, up path "
+          f"fused, no context) on {card}: {secs / LDM_STEPS:.4f} s/step cold (the first step's "
+          f"warm-up included), {secs:.3f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; x0 mean "
+          f"{float(x0.mean()):.5f} std {float(x0.std()):.5f}; K4 {launches['conv3x3']} convs = "
+          f"{per['k4']} x {LDM_STEPS}, all {launches['conv3x3_sm90']} on its sm90 body, 0 on the "
+          f"generic one; launches {json.dumps(launches)}", flush=True)
+    paths["ldm_vq4_ddim_b4"] = launches
+
+    # (d) K6 on the ResBlock convs of the 32^2 and 16^2 planes
+    paths["winograd_probe_ldm_vq4_convs"] = winograd_probe(
+        "phase22 (d)", "the LDM-VQ-4 widths UNet's", cfg16, params["bfloat16"], dev, card)
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase22: {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -5103,6 +5311,7 @@ def main(argv=None) -> int:
     paths.update(phase18(dev, card))
     paths.update(phase19(dev, card))
     paths.update(phase20(dev, card))
+    paths.update(phase22(dev, card))
 
     kernels = []
     # "attention" and "conv3x3" count every body of K1 and K4: their own

@@ -90,11 +90,11 @@ _SIGNATURES = {
     # x, u, bias, y, B, H, W, C, Co, stream
     "cpd_wino3x3_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cpd_wino3x3_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, u, bias, y, workspace, B, H, W, C, Co, then the plan (tw, splits,
-    # chunks_per_split), int* kernels launched, stream
-    "cpd_wino3x3_sm90_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # x, u, bias, y, workspace, B, H, W, C, Co, U's row stride Cu, then the
+    # plan (tw, splits, chunks_per_split), int* kernels launched, stream
+    "cpd_wino3x3_sm90_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # K6's f32 Hopper body: the same arguments (x, u, bias and y in f32)
-    "cpd_wino3x3_f32_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    "cpd_wino3x3_f32_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # x, w1, b1, w2, b2, hidden, out, ws1, ws2, M, C, H4, then the plan (bn1,
     # splits1, steps1, bn2, splits2, steps2), int* kernels launched, stream
     "cpd_geglu_ff_sm90_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -4,12 +4,14 @@
 //
 // Replaces the TPU kernel complex_prompt_diffusion_tpu/ops/conv.py::_kernel
 // in f32 (nine shifted [M, C] x [C, Co] matmuls, f32 accumulation, the bias
-// added in f32) for the convs ops/conv.py routes here: C % 32 == 0 and Co %
-// 64 == 0, among them all 22 3x3 convs of a batch-1 f32 UNet call (UNet
-// batch 2 on the 32^2 and 16^2 planes, C 320 .. 2560, Co 640 or 1280) and the
-// exact decode's convs on a 16^2 or 32^2 plane. conv3x3.cu's FMA body
-// (conv3x3_f32_kernel) keeps the other f32 shapes (C = 4, Co = 3 or 4, the
-// tiny config's narrow widths) and is the body this one replaced.
+// added in f32) for the convs ops/conv.py routes here: C % 4 == 0 and any
+// Co (past the narrow bodies' Co <= 8 or C <= 16), among them all 22 3x3
+// convs of a batch-1 f32 UNet call (UNet batch 2 on the 32^2 and 16^2 planes,
+// C 320 .. 2560, Co 640 or 1280), the exact decode's convs on a 16^2 or 32^2
+// plane, the convs of a UNet at CompVis LDM-VQ-4's widths (Co = 672 on the
+// 16^2 plane) and the tiny config's 32 -> 32 and 96 -> 32. conv3x3.cu's FMA
+// body (conv3x3_f32_kernel) keeps the f32 widths with C % 4 != 0 and is the
+// body this one replaced.
 //
 // Layouts (as the bf16 body, conv3x3_sm90.cu): x NHWC [B, H, W, C]; the
 // weight a row-major [Co, 9C] matrix with column (dy * 3 + dx) * C + c (the
@@ -23,16 +25,19 @@
 // columns a stage. Three TF32 products a product run at 495 / 3 TFLOP/s:
 // 0.029 ms there. Design:
 //   * GEMM view M x Co x 9C, K in (tap, channel) order in k-steps of one
-//     tap and 32 channels (one 128-byte row of f32). A unit is 128 pixels
+//     tap and 32 channels (one 128-byte row of f32): 9 ceil(C / 32) of them,
+//     a tap's last chunk partly past C where C % 32 != 0. A unit is 128 pixels
 //     of one image (a Wt x Ht rectangle: 32 x 4 at W = 32, 16 x 8 at W = 16,
 //     8 x 16 else) by 128 output channels, for one K split.
 //   * A: one 4-D TMA box {32 channels, Wt, Ht, 1} at (c0, w0 + dx - 1,
 //     h0 + dy - 1, b), 128-byte swizzle: a pixel's 32 channels are one
 //     128-byte row, and TMA's zero fill outside the tensor is the 'same'
-//     padding. The consumers split A's fragments in registers.
+//     padding, and, per dimension, zeros for the channels >= C of a tap's
+//     last chunk. The consumers split A's fragments in registers.
 //   * B: a 3-D box {32, 1, 128} of the weight viewed as [Co, 9, Cw] (Cw >= C
 //     its channel stride: a channel slice of a wider weight is read in
-//     place), K-major as it lies (rows past Co zero-filled), split element
+//     place), K-major as it lies (rows past Co and channels >= C
+//     zero-filled, whatever Cw > C holds there), split element
 //     by element into hi and lo tiles (split_kmajor).
 //   * The rest is tf32x3::consume_unit: a 4-stage ring fed by one producer
 //     thread, two consumer warpgroups of 64 pixels, three wgmma m64n128k8
@@ -68,7 +73,7 @@ struct Plan {
   int B, H, W, C, Co;
   int wt, ht;  // the pixel rectangle of a unit (wt * ht == BM)
   int tiles_w, tiles_h, m_tiles, n_tiles;
-  int ksteps;  // 9 * C / 32
+  int ksteps;  // 9 * ceil(C / 32)
   int splits, steps_per_split;
 };
 
@@ -97,7 +102,7 @@ conv3x3_f32_sm90_kernel(const __grid_constant__ CUtensorMap tmx,
   uint64_t* full = reinterpret_cast<uint64_t*>(sbuf + SPLIT_BYTES);
   uint64_t* empty = full + STAGES;
   const int units = p.m_tiles * p.n_tiles * p.splits;
-  const int chunks = p.C / BK;
+  const int chunks = (p.C + BK - 1) / BK;  // a tap's k-steps, the last partly past C
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -166,12 +171,22 @@ conv3x3_f32_sm90_kernel(const __grid_constant__ CUtensorMap tmx,
         const int col = nt * BN + j * 8 + 2 * t4;
         if (col >= p.Co) continue;
         const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-        if (p.splits == 1)
-          *reinterpret_cast<float2*>(y + pix * p.Co + col) =
-              make_float2(v0 + bias[col], v1 + bias[col + 1]);
-        else
-          *reinterpret_cast<float2*>(ws + ((long long)split * M + pix) * p.Co + col) =
-              make_float2(v0, v1);
+        if ((p.Co & 1) == 0) {  // col + 1 < Co, and the pair is 8-byte aligned
+          if (p.splits == 1)
+            *reinterpret_cast<float2*>(y + pix * p.Co + col) =
+                make_float2(v0 + bias[col], v1 + bias[col + 1]);
+          else
+            *reinterpret_cast<float2*>(ws + ((long long)split * M + pix) * p.Co + col) =
+                make_float2(v0, v1);
+        } else {  // an odd Co: element by element, the column past Co dropped
+          for (int e = 0; e < 2 && col + e < p.Co; ++e) {
+            const float v = e ? v1 : v0;
+            if (p.splits == 1)
+              y[pix * p.Co + col + e] = v + bias[col + e];
+            else
+              ws[((long long)split * M + pix) * p.Co + col + e] = v;
+          }
+        }
       }
     }
   }
@@ -198,6 +213,18 @@ __global__ void conv3x3_f32_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
+// The same for Co % 4 != 0, element by element
+__global__ void conv3x3_f32_reduce1_kernel(const float* __restrict__ ws,
+                                           const float* __restrict__ bias, float* __restrict__ y,
+                                           long long n, int Co, int splits) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float acc = ws[i];
+    for (int s = 1; s < splits; ++s) acc += ws[s * n + i];
+    y[i] = acc + bias[(int)(i % Co)];
+  }
+}
+
 int sm_count() {
   static int n = [] {
     int dev = 0, v = 0;
@@ -215,18 +242,18 @@ int sm_count() {
 // (row-major [Co, 9C] when Cw == C; a channel slice of a [Co, Cw, 3, 3]
 // channels_last weight, read in place, otherwise), bias: [Co] f32; y: [B,
 // H, W, Co] f32; ws: splits x B*H*W x Co f32 when splits > 1 (else unused).
-// x, y, ws contiguous; x, w 16-byte aligned. C % 32 == 0, Co % 64 == 0, Cw
-// >= C, Cw % 4 == 0.
+// x, y, ws contiguous; x, w 16-byte aligned. C % 4 == 0 (the maps' 16-byte
+// strides), any Co, Cw >= C, Cw % 4 == 0.
 // The plan: a unit is wt x ht pixels (wt * ht == 128) by 128 channels, K is
-// cut into `splits` runs of steps_per_split k-steps of (tap, 32 channels),
-// every run non-empty; accumulators fold every tx::kFold k-steps. Launches
+// cut into `splits` runs of steps_per_split of the 9 ceil(C / 32) k-steps of
+// (tap, 32 channels), every run non-empty; accumulators fold every tx::kFold k-steps. Launches
 // the GEMM, and the reduce when K is split.
 extern "C" int cpd_conv3x3_f32_sm90(const void* x, const void* w, const void* bias, void* y,
                                     void* ws, int B, int H, int W, int C, int Co, int Cw, int wt,
                                     int ht, int splits, int steps_per_split, void* stream) {
-  const int ksteps = 9 * (C / BK);
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % BK || Co % 64 || Cw < C ||
-      Cw % 4 || wt * ht != BM ||
+  const int ksteps = 9 * ((C + BK - 1) / BK);
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 4 || Cw < C || Cw % 4 ||
+      wt * ht != BM ||
       wt > 256 || ht > 256 || splits < 1 || steps_per_split < 1 ||
       (long long)splits * steps_per_split < ksteps ||
       (long long)(splits - 1) * steps_per_split >= ksteps ||
@@ -262,10 +289,18 @@ extern "C" int cpd_conv3x3_f32_sm90(const void* x, const void* w, const void* bi
                                       static_cast<float*>(y), static_cast<float*>(ws), p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  const long long n4 = (long long)B * H * W * Co / 4;
-  const int blocks = (int)min((n4 + 255) / 256, (long long)sms * 8);
-  conv3x3_f32_reduce_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(ws),
-                                                    static_cast<const float*>(bias),
-                                                    static_cast<float*>(y), n4, Co, splits);
+  const long long n = (long long)B * H * W * Co;
+  if (Co % 4 == 0) {
+    const long long n4 = n / 4;
+    const int blocks = (int)min((n4 + 255) / 256, (long long)sms * 8);
+    conv3x3_f32_reduce_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(ws),
+                                                      static_cast<const float*>(bias),
+                                                      static_cast<float*>(y), n4, Co, splits);
+  } else {
+    const int blocks = (int)min((n + 255) / 256, (long long)sms * 8);
+    conv3x3_f32_reduce1_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(ws),
+                                                       static_cast<const float*>(bias),
+                                                       static_cast<float*>(y), n, Co, splits);
+  }
   return (int)cudaGetLastError();
 }

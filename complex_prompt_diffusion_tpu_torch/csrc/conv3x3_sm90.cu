@@ -4,9 +4,11 @@
 // Replaces the TPU kernel complex_prompt_diffusion_tpu/ops/conv.py::_kernel
 // (nine shifted [M, C] x [C, Co] matmuls over an H-padded flat plane, f32
 // accumulation, the bias added in f32, one rounding) for the bf16 convs with
-// C % 64 == 0 and Co % 64 == 0 that ops/conv.py routes here: all 22 3x3 convs
-// of a batch-1 UNet call (UNet batch 2 on the 32^2 and 16^2 planes, C 320 ..
-// 2560, Co 640 or 1280). csrc/conv3x3.cu keeps the other shapes (C = 4, f32).
+// C % 8 == 0 and any Co that ops/conv.py routes here (past the narrow bodies'
+// Co <= 8 or C <= 16): all 22 3x3 convs of a batch-1 SD-1.5 UNet call (UNet
+// batch 2 on the 32^2 and 16^2 planes, C 320 .. 2560, Co 640 or 1280) and
+// those of a UNet at CompVis LDM-VQ-4's widths (C 224 .. 1568, Co 224 .. 896,
+// with C % 64 == 32). csrc/conv3x3.cu keeps the bf16 widths with C % 8 != 0.
 //
 // Layouts: x NHWC [B, H, W, C]; the weight a row-major [Co, 9C] matrix with
 // column (dy * 3 + dx) * C + c (the port's [Co, C, 3, 3] weight in
@@ -19,19 +21,24 @@
 // thread computing tap, halo predicate and address of every 16-byte chunk)
 // ran 2.3-4.1x slower than cuDNN. Design:
 //   * GEMM view M x Co x 9C, K ordered (tap, channel) in k-steps of one tap
-//     and 64 channels. An output tile is BM = 128 pixels of one image, a
+//     and 64 channels: 9 ceil(C / 64) of them, a tap's last chunk partly
+//     past C where C % 64 != 0. An output tile is BM = 128 pixels of one image, a
 //     Wt x Ht rectangle (32 x 4 at W = 32, 16 x 8 at W = 16, 8 x 16 else),
 //     by BN = 128 output channels.
 //   * A: one 4-D TMA box {64 channels, Wt, Ht, 1} at (c0, w0 + dx - 1,
 //     h0 + dy - 1, b) over x. TMA zero-fills coordinates outside the tensor,
 //     which is exactly the 'same' padding: no masks, no padded copy, no
-//     address math in the threads. With the 128-byte swizzle a pixel's 64
+//     address math in the threads. The fill is per dimension, so the
+//     channels >= C of a tap's last chunk land as zeros too (never the next
+//     pixel's channels): a width off the 64-channel tile costs one partly
+//     zero k-step a tap, not another body. With the 128-byte swizzle a pixel's 64
 //     channels are one 128-byte row, so the box lands as the K-major
 //     [128][64] tile that wgmma reads through a descriptor.
 //   * B: a 3-D TMA box {64, 1, 128} of the weight viewed as [Co, 9, Cw]
 //     (channel, tap, output channel; Cw >= C the weight's channel stride),
 //     i.e. 64 channels of one tap for 128 output channels, K-major already;
-//     rows past Co are zero-filled. Cw > C reads a channel slice of a wider
+//     rows past Co and channels >= C (even where Cw > C holds a neighbour's
+//     channels there) are zero-filled. Cw > C reads a channel slice of a wider
 //     weight in place (the UNet's split in_convs take the two halves of one
 //     [Co, Ca + Cb, 3, 3] weight: no copy of either a call).
 //   * A ring of STAGES stages (32 KB each) with full and empty mbarriers:
@@ -68,7 +75,7 @@ struct Plan {
   int B, H, W, C, Co;
   int wt, ht;       // the pixel rectangle of a tile (wt * ht == BM)
   int tiles_w, tiles_h;
-  int ksteps;       // 9 * C / 64
+  int ksteps;       // 9 * ceil(C / 64)
   int steps_per_split;
 };
 
@@ -96,7 +103,7 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
   const int k_begin = split * p.steps_per_split;
   const int k_end = min(p.ksteps, k_begin + p.steps_per_split);
   const int nsteps = k_end - k_begin;
-  const int chunks = p.C / BK;
+  const int chunks = (p.C + BK - 1) / BK;  // a tap's k-steps, the last partly past C
 
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
@@ -169,12 +176,22 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
       const int col = n0 + j * 8 + 2 * t4;
       if (col >= p.Co) continue;
       const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-      if (gridDim.z == 1) {
-        *reinterpret_cast<uint32_t*>(y + pix * p.Co + col) =
-            cpd::pack_bf16(v0 + cpd::to_f32(bias[col]), v1 + cpd::to_f32(bias[col + 1]));
-      } else {
-        *reinterpret_cast<float2*>(ws + ((long long)split * M + pix) * p.Co + col) =
-            make_float2(v0, v1);
+      if ((p.Co & 1) == 0) {  // col + 1 < Co, and the pair is 4-byte aligned
+        if (gridDim.z == 1) {
+          *reinterpret_cast<uint32_t*>(y + pix * p.Co + col) =
+              cpd::pack_bf16(v0 + cpd::to_f32(bias[col]), v1 + cpd::to_f32(bias[col + 1]));
+        } else {
+          *reinterpret_cast<float2*>(ws + ((long long)split * M + pix) * p.Co + col) =
+              make_float2(v0, v1);
+        }
+      } else {  // an odd Co: element by element, the column past Co dropped
+        for (int e = 0; e < 2 && col + e < p.Co; ++e) {
+          const float v = e ? v1 : v0;
+          if (gridDim.z == 1)
+            y[pix * p.Co + col + e] = cpd::from_f32<bf16>(v + cpd::to_f32(bias[col + e]));
+          else
+            ws[((long long)split * M + pix) * p.Co + col + e] = v;
+        }
       }
     }
   }
@@ -205,6 +222,21 @@ __global__ void conv3x3_splitk_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
+// The same for Co % 4 != 0, element by element: y[i] = bf16(sum over splits
+// of ws[s][i] + bias[i % Co])
+template <typename BiasT>
+__global__ void conv3x3_splitk_reduce1_kernel(const float* __restrict__ ws,
+                                              const BiasT* __restrict__ bias,
+                                              bf16* __restrict__ y, long long n, int Co,
+                                              int splits) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float acc = ws[i];
+    for (int s = 1; s < splits; ++s) acc += ws[s * n + i];
+    y[i] = cpd::from_f32<bf16>(acc + cpd::to_f32(bias[(int)(i % Co)]));
+  }
+}
+
 template <typename BiasT>
 int launch(const CUtensorMap& tx, const CUtensorMap& tw, const void* bias, void* y, void* ws,
            const Plan& p, int splits, cudaStream_t stream) {
@@ -221,11 +253,19 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tw, const void* bias, void*
                                           static_cast<bf16*>(y), static_cast<float*>(ws), p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const long long n4 = (long long)p.B * p.H * p.W * p.Co / 4;
-  const int blocks = (int)min((n4 + 255) / 256, 132LL * 8);
-  conv3x3_splitk_reduce_kernel<BiasT><<<blocks, 256, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<const BiasT*>(bias), static_cast<bf16*>(y), n4,
-      p.Co, splits);
+  const long long n = (long long)p.B * p.H * p.W * p.Co;
+  if (p.Co % 4 == 0) {
+    const long long n4 = n / 4;
+    const int blocks = (int)min((n4 + 255) / 256, 132LL * 8);
+    conv3x3_splitk_reduce_kernel<BiasT><<<blocks, 256, 0, stream>>>(
+        static_cast<const float*>(ws), static_cast<const BiasT*>(bias), static_cast<bf16*>(y), n4,
+        p.Co, splits);
+  } else {
+    const int blocks = (int)min((n + 255) / 256, 132LL * 8);
+    conv3x3_splitk_reduce1_kernel<BiasT><<<blocks, 256, 0, stream>>>(
+        static_cast<const float*>(ws), static_cast<const BiasT*>(bias), static_cast<bf16*>(y), n,
+        p.Co, splits);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -236,16 +276,17 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tw, const void* bias, void*
 // channels_last weight otherwise), bias: [Co] bf16, or f32 when
 // bias_is_f32; y: [B, H, W, Co] bf16; ws: splits x B*H*W x Co f32 when
 // splits > 1 (else unused). x, y, ws contiguous; x, w 16-byte aligned. C %
-// 64 == 0, Co % 64 == 0, Cw >= C, Cw % 8 == 0. The plan: a tile is wt x ht
-// pixels (wt * ht == 128), K is cut into `splits` runs of steps_per_split
-// k-steps of (tap, 64 channels); every run non-empty.
+// 8 == 0 (the maps' 16-byte strides), any Co, Cw >= C, Cw % 8 == 0. The
+// plan: a tile is wt x ht pixels (wt * ht == 128), K is cut into `splits`
+// runs of steps_per_split of the 9 ceil(C / 64) k-steps of (tap, 64
+// channels); every run non-empty.
 extern "C" int cpd_conv3x3_sm90_bf16(const void* x, const void* w, const void* bias,
                                      int bias_is_f32, void* y, void* ws, int B, int H, int W,
                                      int C, int Co, int Cw, int wt, int ht, int splits,
                                      int steps_per_split, void* stream) {
-  const int ksteps = 9 * (C / BK);
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % BK || Co % 64 || Cw < C ||
-      Cw % 8 || wt * ht != BM ||
+  const int ksteps = 9 * ((C + BK - 1) / BK);
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 8 || Cw < C || Cw % 8 ||
+      wt * ht != BM ||
       wt > 256 || ht > 256 || splits < 1 || steps_per_split < 1 ||
       (long long)splits * steps_per_split < ksteps ||
       (long long)(splits - 1) * steps_per_split >= ksteps ||

@@ -1,12 +1,14 @@
 // K6 on Hopper in f32: the 3x3 stride-1 'same' convolution + bias via
-// Winograd F(2x2,3x3), NHWC, for C % 32 == 0 and Co % 64 == 0, its products
+// Winograd F(2x2,3x3), NHWC, for C % 4 == 0 and any Co, its products
 // as three TF32 products each on wgmma (tf32x3.cuh).
 //
 // Replaces the TPU kernel complex_prompt_diffusion_tpu/ops/probes/
 // winograd.py::_wino_kernel (an opt-in probe that no layer dispatches, here
 // as there) in f32 for the shapes ops/probes/winograd.py routes here
-// (k6_body): every ResBlock conv of the UNet; winograd.cu (the first body:
-// exact FMAs on the CUDA cores, single-buffered) keeps the other f32 widths
+// (k6_body): every ResBlock conv of the SD-1.5 UNet and of a UNet at CompVis
+// LDM-VQ-4's widths (224 .. 896 channels, C % 32 == 0 or not); winograd.cu
+// (the first body: exact FMAs on the CUDA cores, single-buffered) keeps the
+// f32 widths with C % 4 != 0
 // and is the body this one replaced. Same arithmetic as the first body, all
 // in f32: V = B^T d B of each 4x4 input patch; the 16 products M_ij = V_ij
 // [tiles, C] x U_ij [C, Co] (U = G g G^T, [16, C, Co] f32, made by the
@@ -20,7 +22,11 @@
 // winograd_sm90.cu, with the 3xTF32 pieces of K4's f32 body):
 //   * A block owns 64 tiles (a tw x th rectangle of one image: 16 x 4, 8 x 8
 //     or 4 x 16, from the plan) by 128 output channels, and walks its split
-//     of C in chunks of 32 channels (one 128-byte row of f32).
+//     of C in chunks of 32 channels (one 128-byte row of f32): ceil(C / 32)
+//     of them, the last partly past C where C % 32 != 0. TMA fills the
+//     patch's and U's channels >= C with zeros (per dimension), so that
+//     chunk adds nothing past C; U's rows past Co are zeros too, and the
+//     epilogue and the reduce store n < Co only.
 //   * Input patch: one 4-D TMA box {32 channels, 2 tw + 2, 2 th + 2, 1} over
 //     x a chunk; TMA's zero fill outside the plane is the 'same' padding.
 //   * V in f32 is 8 KB a position, 128 KB a chunk, and twice that split
@@ -95,7 +101,7 @@ struct WPlan {
   int TH, TW;              // tiles of a plane: H / 2, W / 2
   int tw, th;              // the tile rectangle of a block (tw * th == 64)
   int rects_w, rects_h;    // rectangles along a plane
-  int kchunks;             // C / 32
+  int kchunks;             // ceil(C / 32)
   int chunks_per_split;
 };
 
@@ -290,10 +296,15 @@ wino3x3_f32_sm90_kernel(const __grid_constant__ CUtensorMap tmx,
   // its barrier; thread 0 issues it once the warpgroup has split load i -
   // USTAGES out of that stage (named barrier 2 + cw)
   const int total_u = nk * 16;
+  // a box wholly past Co (Co <= n0 + 64: the second warpgroup of the last
+  // block) loads the block's first columns instead: its products land in
+  // columns the epilogue does not store, and no TMA box lies wholly
+  // outside the tensor
+  const int u_col = n0 + 64 * cw < p.Co ? n0 + 64 * cw : n0;
   auto load_u = [&](int i) {
     const int s = i % USTAGES;
     cpd::mbar_expect_tx(&my_full[s], U_BOX);
-    cpd::tma_load_3d(my_u + s * U_BOX, &tmu, &my_full[s], n0 + 64 * cw, (kb + i / 16) * KC,
+    cpd::tma_load_3d(my_u + s * U_BOX, &tmu, &my_full[s], u_col, (kb + i / 16) * KC,
                      i % 16);
   };
   if (ct == 0) {
@@ -373,12 +384,22 @@ wino3x3_f32_sm90_kernel(const __grid_constant__ CUtensorMap tmx,
       for (int q = 0; q < 4; ++q) {
         const long long pix = ((long long)b * p.H + 2 * ti + (q >> 1)) * p.W + 2 * tj + (q & 1);
         const float v0 = acc[q][4 * j + 2 * half], v1 = acc[q][4 * j + 2 * half + 1];
-        if (gridDim.z == 1)
-          *reinterpret_cast<float2*>(y + pix * p.Co + col) =
-              make_float2(v0 + bias[col], v1 + bias[col + 1]);
-        else
-          *reinterpret_cast<float2*>(ws + ((long long)split * M + pix) * p.Co + col) =
-              make_float2(v0, v1);
+        if ((p.Co & 1) == 0) {  // col + 1 < Co, and the pair is 8-byte aligned
+          if (gridDim.z == 1)
+            *reinterpret_cast<float2*>(y + pix * p.Co + col) =
+                make_float2(v0 + bias[col], v1 + bias[col + 1]);
+          else
+            *reinterpret_cast<float2*>(ws + ((long long)split * M + pix) * p.Co + col) =
+                make_float2(v0, v1);
+        } else {  // an odd Co: element by element, the column past Co dropped
+          for (int e = 0; e < 2 && col + e < p.Co; ++e) {
+            const float v = e ? v1 : v0;
+            if (gridDim.z == 1)
+              y[pix * p.Co + col + e] = v + bias[col + e];
+            else
+              ws[((long long)split * M + pix) * p.Co + col + e] = v;
+          }
+        }
       }
     }
   }
@@ -406,23 +427,37 @@ __global__ void wino3x3_f32_sm90_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
+// The same for Co % 4 != 0, element by element
+__global__ void wino3x3_f32_sm90_reduce1_kernel(const float* __restrict__ ws, const float* __restrict__ bias,
+                                float* __restrict__ y, long long n, int Co, int splits) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float acc = ws[i];
+    for (int s = 1; s < splits; ++s) acc += ws[s * n + i];
+    y[i] = acc + bias[(int)(i % Co)];
+  }
+}
+
 }  // namespace
 
 // x: [B, H, W, C] f32; u: [16, C, Co] f32 (U = G g G^T, position i*4+j
-// major); bias: [Co] f32; y: [B, H, W, Co] f32; ws: splits x B*H*W x Co f32
-// when splits > 1 (else unused). All contiguous, 16-byte aligned. C % 32 ==
-// 0, Co % 64 == 0, H and W even and >= 8. The plan (ops/probes/winograd.py:
-// wino3x3_plan(..., float32)): a block's rectangle is tw x (64 / tw) tiles,
-// tw in {4, 8, 16}; C's 32-channel chunks are cut into `splits` runs of
-// chunks_per_split, every run non-empty. Sets *launched to the kernels
-// launched (1, or 2 with the reduction).
+// major) with row stride Cu >= Co (the wrapper pads a width to Cu % 4 ==
+// 0); bias: [Co] f32; y: [B, H, W, Co] f32; ws: splits x B*H*W x Co f32 when
+// splits > 1 (else unused). x, y, ws contiguous; x, u 16-byte aligned. C % 4
+// == 0 (the maps' 16-byte strides), any Co, H and W even and >= 8. The plan
+// (ops/probes/winograd.py: wino3x3_plan(..., float32)): a block's rectangle
+// is tw x (64 / tw) tiles, tw in {4, 8, 16}; C's ceil(C / 32) 32-channel
+// chunks are cut into `splits` runs of chunks_per_split, every run
+// non-empty. Sets *launched to the kernels launched (1, or 2 with the
+// reduction).
 extern "C" int cpd_wino3x3_f32_sm90(const void* x, const void* u, const void* bias, void* y,
-                                    void* ws, int B, int H, int W, int C, int Co, int tw,
-                                    int splits, int chunks_per_split, int* launched,
+                                    void* ws, int B, int H, int W, int C, int Co, int Cu,
+                                    int tw, int splits, int chunks_per_split, int* launched,
                                     void* stream) {
   *launched = 0;
-  const int kchunks = C / KC;
-  if (B <= 0 || H < 8 || W < 8 || H % 2 || W % 2 || C <= 0 || C % KC || Co <= 0 || Co % 64 ||
+  const int kchunks = (C + KC - 1) / KC;
+  if (B <= 0 || H < 8 || W < 8 || H % 2 || W % 2 || C <= 0 || C % 4 || Co <= 0 || Cu < Co ||
+      Cu % 4 ||
       (tw != 4 && tw != 8 && tw != 16) || splits < 1 || chunks_per_split < 1 ||
       (long long)splits * chunks_per_split < kchunks ||
       (long long)(splits - 1) * chunks_per_split >= kchunks ||
@@ -443,7 +478,7 @@ extern "C" int cpd_wino3x3_f32_sm90(const void* x, const void* u, const void* bi
   if (err) return err;
   err = cpd::encode_map<3>(&tmu, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, u,
                            {(uint64_t)Co, (uint64_t)C, 16},
-                           {(uint64_t)Co * 4, (uint64_t)C * Co * 4}, {64u, (uint32_t)KC, 1u},
+                           {(uint64_t)Cu * 4, (uint64_t)C * Cu * 4}, {64u, (uint32_t)KC, 1u},
                            CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err) return err;
   static bool attr_set = false;  // one card a process
@@ -462,11 +497,17 @@ extern "C" int cpd_wino3x3_f32_sm90(const void* x, const void* u, const void* bi
   if (e != cudaSuccess) return (int)e;
   *launched = 1;
   if (splits == 1) return 0;
-  const long long n4 = (long long)B * H * W * Co / 4;
-  const int blocks = (int)min((n4 + 255) / 256, 132LL * 8);
-  wino3x3_f32_sm90_reduce_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(ws),
-                                                         static_cast<const float*>(bias),
-                                                         static_cast<float*>(y), n4, Co, splits);
+  const long long n = (long long)B * H * W * Co;
+  if (Co % 4 == 0) {
+    const long long n4 = n / 4;
+    const int blocks = (int)min((n4 + 255) / 256, 132LL * 8);
+    wino3x3_f32_sm90_reduce_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(ws),
+        static_cast<const float*>(bias), static_cast<float*>(y), n4, Co, splits);
+  } else {
+    const int blocks = (int)min((n + 255) / 256, 132LL * 8);
+    wino3x3_f32_sm90_reduce1_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(ws),
+        static_cast<const float*>(bias), static_cast<float*>(y), n, Co, splits);
+  }
   e = cudaGetLastError();
   if (e == cudaSuccess) *launched = 2;
   return (int)e;

@@ -19,24 +19,23 @@ and a plain PyTorch twin:
     ResBlocks: a slab of the virtual row's groups a block, or the split
     form; plan :func:`group_norm_cat_plan`).
   * :func:`conv3x3` — the 3x3 stride-1 conv through K4, for the convs
-    ``models/layers.conv2d`` routes to it: bf16 with C and Co multiples of
-    64 through its TMA + wgmma body (``csrc/conv3x3_sm90.cu``,
-    :func:`conv3x3_sm90`), f32 with C % 32 == 0 and Co % 64 == 0 through its
-    3xTF32 body (``csrc/conv3x3_f32_sm90.cu``, :func:`conv3x3_f32_sm90`),
-    Co <= 8 or C <= 16 through its narrow bodies
-    (``csrc/conv3x3_narrow.cu``, :func:`conv3x3_narrow`), the rest through
-    ``csrc/conv3x3.cu``.
+    ``models/layers.conv2d`` routes to it: Co <= 8 or C <= 16 through its
+    narrow bodies (``csrc/conv3x3_narrow.cu``, :func:`conv3x3_narrow`), the
+    other bf16 convs with C % 8 == 0 through its TMA + wgmma body
+    (``csrc/conv3x3_sm90.cu``, :func:`conv3x3_sm90`), the other f32 convs
+    with C % 4 == 0 through its 3xTF32 body (``csrc/conv3x3_f32_sm90.cu``,
+    :func:`conv3x3_f32_sm90`), the rest through ``csrc/conv3x3.cu``.
   * :func:`self_attention_cm` and the kcanon route of :func:`attention` —
     attention over operands whose sequence axis is contiguous, through K5
     (wrapper :func:`attention_dmajor`): bf16 on its TMA + wgmma body
     (``csrc/attention_cm_sm90.cu``), f32 on its 3xTF32 body
     (``csrc/attention_cm_f32_sm90.cu``).
   * ``probes.winograd.wino3x3`` — the Winograd F(2x2,3x3) conv through K6,
-    an opt-in probe that no layer dispatches: bf16 with C and Co multiples
-    of 64 through its TMA + wgmma body (``csrc/winograd_sm90.cu``,
-    ``wino3x3_sm90``), f32 with C % 32 == 0 and Co % 64 == 0 through its
-    3xTF32 body (``csrc/winograd_f32_sm90.cu``, ``wino3x3_f32_sm90``), the
-    rest through ``csrc/winograd.cu`` (``wino3x3_prior``).
+    an opt-in probe that no layer dispatches: bf16 with C % 8 == 0 through
+    its TMA + wgmma body (``csrc/winograd_sm90.cu``, ``wino3x3_sm90``), f32
+    with C % 4 == 0 through its 3xTF32 body (``csrc/winograd_f32_sm90.cu``,
+    ``wino3x3_f32_sm90``), any Co; the rest through ``csrc/winograd.cu``
+    (``wino3x3_prior``).
   * ``probes.attention``, ``probes.groupnorm``, ``probes.stream`` — the
     probes of the TPU tuning scripts: K1's and K5's Hopper loops and the
     fused f32 body with pieces of the work removed (K7,

@@ -7,20 +7,27 @@ place), the bias ``[Co]``. ``models/layers.conv2d`` decides which convs come
 here (the JAX package's batch and plane-size gate); :func:`conv3x3` then
 routes each by dtype and shape (:func:`k4_body`) to one of K4's bodies:
 
-  * bf16 with C % 64 == 0 and Co % 64 == 0 (every 3x3 conv of the batch-1
-    UNet): :func:`conv3x3_sm90`, TMA + wgmma (``csrc/conv3x3_sm90.cu``),
-    with the tile and split-K plan of :func:`conv3x3_plan`;
-  * f32 with C % 32 == 0 and Co % 64 == 0 (the same convs of an f32 UNet,
-    the exact decode's on small planes): :func:`conv3x3_f32_sm90`, the same
-    implicit GEMM of three TF32 products a product on wgmma
-    (``csrc/conv3x3_f32_sm90.cu``), with the plan's f32 form;
   * Co <= 8 or C <= 16 (the UNet's conv_in and out conv, the VAE's conv_in
     and encoder conv_out), both dtypes: :func:`conv3x3_narrow`, a narrow-Co
     body (K split over warps, a fixed-order fold) and a narrow-C body (the
     neighbourhood and the weights resident in shared memory), in
     ``csrc/conv3x3_narrow.cu``;
-  * every other shape: :func:`conv3x3_generic`, the mma.sync / FMA body
-    (``csrc/conv3x3.cu``), which the narrow bodies replaced at their widths.
+  * the other bf16 convs with C % 8 == 0 (every 3x3 conv of the SD-1.5
+    UNet's 16^2 and 32^2 planes, and of a UNet at CompVis LDM-VQ-4's widths,
+    224 .. 1568 channels): :func:`conv3x3_sm90`, TMA + wgmma
+    (``csrc/conv3x3_sm90.cu``), with the tile and split-K plan of
+    :func:`conv3x3_plan`;
+  * the other f32 convs with C % 4 == 0 (the same convs of an f32 UNet, the
+    exact decode's on small planes, the tiny config's): :func:`conv3x3_f32_sm90`,
+    the same implicit GEMM of three TF32 products a product on wgmma
+    (``csrc/conv3x3_f32_sm90.cu``), with the plan's f32 form;
+  * the rest (bf16 C % 8 != 0, f32 C % 4 != 0, past the narrow widths):
+    :func:`conv3x3_generic`, the mma.sync / FMA body (``csrc/conv3x3.cu``),
+    which the other bodies replaced at their widths.
+
+A Hopper body's k-step is one tap and 64 channels (f32: 32), one 128-byte
+TMA row; a width off that tile costs one partly zero k-step a tap (TMA fills
+the channels past C with zeros) and a last output tile partly past Co.
 
 The Hopper bodies read the weight in place, a channel slice of a wider
 channels_last weight too (the UNet's split in_convs): their TMA map walks
@@ -44,6 +51,8 @@ __all__ = ["conv3x3", "conv3x3_plain", "conv3x3_supported", "conv3x3_sm90",
 
 SM90_BM, SM90_BN, SM90_BK = 128, 128, 64  # the sm90 body's tile: pixels, channels, k-step
 F32_BK = 32  # the f32 body's k-step: one tap and 32 channels (a 128-byte row)
+# the channel multiple a Hopper body takes: its TMA maps' strides of 16 bytes
+SM90_ALIGN = {torch.bfloat16: 8, torch.float32: 4}
 SM90_SMS = 132  # H100 SXM; one block an SM (128 KB of shared memory each)
 NARROW_CO, NARROW_C = 8, 16  # the widths csrc/conv3x3_narrow.cu takes: Co <= 8 or C <= 16
 # The split-K cost model of conv3x3_plan, in microseconds on an H100 80GB
@@ -142,13 +151,14 @@ def _hopper_operands(x, weight, plan, what):
     weight, or a channel slice of a wider one (Cw > C: the UNet's split
     in_convs), as it lies (the TMA map walks [Co, 9, Cw]), anything else
     (or a Cw that is not a multiple of 16 bytes) copied to the contiguous
-    layout (Cw = C); both 16-byte aligned (TMA); the output and the split-K
+    layout (Cw = C), as is a slice that does not start on 16 bytes; both
+    16-byte aligned (TMA); the output and the split-K
     partials (f32) when the plan splits."""
     x = x.contiguous()
     wt = weight.to(x.dtype).permute(0, 2, 3, 1)  # [Co, 3, 3, C]
     cw = wt.stride(2)
     if (wt.stride(3) != 1 or wt.stride(1) != 3 * cw or wt.stride(0) != 9 * cw
-            or cw < wt.shape[3] or cw * wt.element_size() % 16):
+            or cw < wt.shape[3] or cw * wt.element_size() % 16 or wt.data_ptr() % 16):
         wt, cw = wt.contiguous(), wt.shape[3]
     for name, t in (("x", x), ("weight", wt)):
         if t.data_ptr() % 16:
@@ -199,8 +209,9 @@ conv3x3_narrow.launches = 0
 def conv3x3_generic(x, weight, bias):
     """K4's body for any C and Co (``csrc/conv3x3.cu``: bf16 on the tensor
     cores with mma.sync, its first design; f32 with exact FMAs), for the
-    widths no other body takes, and the replaced body that phase 1 times beside
-    the narrow bodies at theirs (and beside :func:`conv3x3_sm90` and
+    widths no other body takes (bf16 C % 8 != 0, f32 C % 4 != 0, past the
+    narrow widths), and the replaced body that phase 1 times beside the
+    narrow bodies at theirs (and beside :func:`conv3x3_sm90` and
     :func:`conv3x3_f32_sm90` at theirs), for CUDA tensors;
     :func:`conv3x3_plain` for CPU ones. ``conv3x3_generic.launches`` counts
     its launches."""
@@ -236,29 +247,27 @@ conv3x3_generic.launches = 0
 
 
 def k4_body(dtype, c: int, co: int) -> str:
-    """The route of :func:`conv3x3`: ``"bf16_sm90"`` for bf16 with C and Co
-    multiples of 64 (a k-step is one tap and 64 channels, one 128-byte TMA
-    row), ``"f32_sm90"`` for f32 with C % 32 == 0 (32 f32 channels a row)
-    and Co % 64 == 0; of the other bf16 and f32 shapes ``"narrow"`` for Co
-    <= 8 or C <= 16, ``"generic"`` for the rest; raises for any other
-    dtype (f16)."""
-    if dtype == torch.bfloat16:
-        if c % 64 == 0 and co % 64 == 0:
-            return "bf16_sm90"
-    elif dtype == torch.float32:
-        if c % F32_BK == 0 and co % 64 == 0:
-            return "f32_sm90"
-    else:
+    """The route of :func:`conv3x3`: ``"narrow"`` for Co <= 8 or C <= 16;
+    of the other shapes ``"bf16_sm90"`` for bf16 with C % 8 == 0 and
+    ``"f32_sm90"`` for f32 with C % 4 == 0 (their TMA maps' 16-byte
+    strides; any Co), ``"generic"`` for the rest (bf16 C = 20, say); raises
+    for any other dtype (f16)."""
+    if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K4 supports bfloat16 and float32 activations, got {dtype}")
-    return "narrow" if co <= NARROW_CO or c <= NARROW_C else "generic"
+    if co <= NARROW_CO or c <= NARROW_C:
+        return "narrow"
+    if c % SM90_ALIGN[dtype] == 0:
+        return "bf16_sm90" if dtype == torch.bfloat16 else "f32_sm90"
+    return "generic"
 
 
 class Conv3x3Plan(NamedTuple):
     """How a Hopper body covers a conv: output tiles of ``wt x ht = 128``
-    pixels of one image by 128 channels, ``ksteps = 9C / 64`` reduction
-    steps of (tap, 64 channels) (f32: ``9C / 32`` of 32 channels) cut into
-    ``splits`` runs of ``steps_per_split`` (the last may be shorter, none
-    is empty)."""
+    pixels of one image by 128 channels (``n_tiles = ceil(Co / 128)``, the
+    last partly past Co), ``ksteps = 9 ceil(C / 64)`` reduction steps of
+    (tap, 64 channels) (f32: ``9 ceil(C / 32)`` of 32 channels; a tap's last
+    step partly past C) cut into ``splits`` runs of ``steps_per_split``
+    (the last may be shorter, none is empty)."""
 
     wt: int
     ht: int
@@ -279,8 +288,8 @@ class Conv3x3Plan(NamedTuple):
 def conv3x3_plan(b: int, h: int, w: int, c: int, co: int,
                  splits: Optional[int] = None, dtype=torch.bfloat16) -> Conv3x3Plan:
     """The tile and split-K plan a Hopper body runs for x [b, h, w, c] of
-    ``dtype`` (bf16: the sm90 body; f32: the f32 body) and ``co`` output
-    channels. Tiles are 32 x 4 pixels where W % 32 == 0, 16 x 8
+    ``dtype`` (bf16: the sm90 body, C % 8 == 0; f32: the f32 body, C % 4 ==
+    0) and ``co`` output channels (any). Tiles are 32 x 4 pixels where W % 32 == 0, 16 x 8
     where W % 16 == 0, else 8 x 16 (TMA zero-fills what falls outside the
     plane). ``splits`` (default: chosen here) divides the k-steps among
     blocks: the choice minimises the modelled time, waves of blocks on 132
@@ -290,15 +299,16 @@ def conv3x3_plan(b: int, h: int, w: int, c: int, co: int,
     plans every step, and its steps wait on the host."""
     f32 = dtype == torch.float32
     bk = F32_BK if f32 else SM90_BK
-    if c % bk or co % 64:
-        raise ValueError(f"the {'f32' if f32 else 'sm90'} conv needs C % {bk} == 0 and Co % 64 "
-                         f"== 0; got C={c}, Co={co}")
+    align = SM90_ALIGN[torch.float32 if f32 else torch.bfloat16]
+    if c <= 0 or c % align or co <= 0:
+        raise ValueError(f"the {'f32' if f32 else 'sm90'} conv needs C % {align} == 0 and Co > 0; "
+                         f"got C={c}, Co={co}")
     wt = 32 if w % 32 == 0 else 16 if w % 16 == 0 else 8
     ht = SM90_BM // wt
     tiles_w, tiles_h = -(-w // wt), -(-h // ht)
     m_tiles = b * tiles_h * tiles_w
     n_tiles = -(-co // SM90_BN)
-    ksteps = 9 * c // bk
+    ksteps = 9 * -(-c // bk)
     tiles = m_tiles * n_tiles
     if splits is None:
         partial_bytes = 4.0 * b * h * w * co
@@ -320,7 +330,7 @@ def conv3x3_plan(b: int, h: int, w: int, c: int, co: int,
 
 def conv3x3_sm90(x, weight, bias, splits: Optional[int] = None):
     """K4's TMA + wgmma body (``csrc/conv3x3_sm90.cu``) on a CUDA bf16 x
-    [B, H, W, C] with C % 64 == 0 and Co % 64 == 0; anything else raises.
+    [B, H, W, C] with C % 8 == 0 (any Co); anything else raises.
     ``splits`` forces the split-K count of :func:`conv3x3_plan` (the tests
     compare counts). Bits do not depend on the run: the splits are summed
     in a fixed order. CPU tensors run :func:`conv3x3_plain` after the same
@@ -352,8 +362,8 @@ conv3x3_sm90.launches = 0
 
 def conv3x3_f32_sm90(x, weight, bias, splits: Optional[int] = None):
     """K4's f32 body (``csrc/conv3x3_f32_sm90.cu``: TMA + wgmma, three TF32
-    products a product, exact f32) on a CUDA f32 x [B, H, W, C] with C % 32
-    == 0 and Co % 64 == 0; anything else raises. ``splits`` forces the
+    products a product, exact f32) on a CUDA f32 x [B, H, W, C] with C % 4
+    == 0 (any Co); anything else raises. ``splits`` forces the
     split-K count of :func:`conv3x3_plan` (the tests and
     ``tools/conv_splits.py``). Bits do not depend on the run: the splits are
     summed in a fixed order. CPU tensors run :func:`conv3x3_plain` after

@@ -15,14 +15,17 @@ dispatches it: ``models/layers.conv2d`` never calls it.
     f32 and writes NHWC. The transformed tiles never reach device memory.
 
 :func:`wino3x3` routes CUDA tensors by a shape rule (:func:`k6_body`):
-bf16 with C and Co multiples of 64 (every ResBlock conv of the UNet) to
-:func:`wino3x3_sm90` (``csrc/winograd_sm90.cu``: TMA + wgmma, the split of
-:func:`wino3x3_plan`), f32 with C % 32 == 0 and Co % 64 == 0 (the same
-convs) to :func:`wino3x3_f32_sm90` (``csrc/winograd_f32_sm90.cu``: TMA +
-wgmma, each product as three TF32 products, the split of
-``wino3x3_plan(..., dtype=float32)``), everything else to
-:func:`wino3x3_prior` (``csrc/winograd.cu``, the first body: mma.sync for
-bf16, exact FMAs for f32).
+bf16 with C % 8 == 0 (every ResBlock conv of the SD-1.5 UNet and of a UNet
+at CompVis LDM-VQ-4's widths, 224 .. 896 channels) to :func:`wino3x3_sm90`
+(``csrc/winograd_sm90.cu``: TMA + wgmma, the split of
+:func:`wino3x3_plan`), f32 with C % 4 == 0 (the same convs) to
+:func:`wino3x3_f32_sm90` (``csrc/winograd_f32_sm90.cu``: TMA + wgmma, each
+product as three TF32 products, the split of ``wino3x3_plan(...,
+dtype=float32)``), any Co; everything else to :func:`wino3x3_prior`
+(``csrc/winograd.cu``, the first body: mma.sync for bf16, exact FMAs for
+f32). A Hopper body's chunk is 64 channels (f32: 32), one 128-byte TMA row;
+a width off that tile costs one partly zero chunk (TMA fills the channels
+past C with zeros) and a last block partly past Co.
 
 Numerics: the weight transform's halves are exact in bf16 and f32; in bf16
 the rounding of V and U gives about 5e-3 relative deviation from the direct
@@ -40,6 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from complex_prompt_diffusion_tpu_torch import _build
+# the channel multiple a Hopper body takes (K4's rule: the TMA maps' 16-byte
+# strides), for C and U's row stride
+from complex_prompt_diffusion_tpu_torch.ops.conv import SM90_ALIGN
 
 __all__ = ["wino3x3", "wino3x3_plain", "wino3x3_supported", "winograd_weights", "wino3x3_sm90",
            "wino3x3_f32_sm90", "wino3x3_prior", "wino3x3_plan", "Wino3x3Plan", "k6_body"]
@@ -115,17 +121,17 @@ def wino3x3_plain(x, u, bias):
 
 
 def k6_body(dtype, c: int, co: int) -> str:
-    """The route of :func:`wino3x3`: ``"bf16_sm90"`` for bf16 with C % 64 ==
-    0 (a chunk is 64 channels, one 128-byte TMA row) and Co % 64 == 0 (U's
-    boxes are 64 output channels wide), ``"f32_sm90"`` for f32 with C % 32
-    == 0 (a chunk is 32 f32 channels, one 128-byte TMA row) and Co % 64 ==
-    0, ``"prior"`` (the first body) for the other bf16 and f32 shapes;
-    raises for any other dtype (f16)."""
-    if dtype == torch.bfloat16:
-        return "bf16_sm90" if c % SM90_KC == 0 and co % 64 == 0 else "prior"
-    if dtype == torch.float32:
-        return "f32_sm90" if c % F32_KC == 0 and co % 64 == 0 else "prior"
-    raise TypeError(f"K6 supports bfloat16 and float32 activations, got {dtype}")
+    """The route of :func:`wino3x3`: ``"bf16_sm90"`` for bf16 with C % 8 ==
+    0, ``"f32_sm90"`` for f32 with C % 4 == 0 (the input map's 16-byte
+    strides; chunks of 64 or 32 channels, the last partly past C; U's boxes
+    of 64 output channels, the last partly past Co: any Co), ``"prior"``
+    (the first body) for the other bf16 and f32 shapes; raises for any
+    other dtype (f16)."""
+    if dtype not in SM90_ALIGN:
+        raise TypeError(f"K6 supports bfloat16 and float32 activations, got {dtype}")
+    if c % SM90_ALIGN[dtype]:
+        return "prior"
+    return "bf16_sm90" if dtype == torch.bfloat16 else "f32_sm90"
 
 
 SM90_BT, SM90_BN, SM90_KC = 64, 128, 64  # the Hopper body's block: tiles, channels, chunk
@@ -156,10 +162,11 @@ _MAX_SPLITS = 16
 
 class Wino3x3Plan(NamedTuple):
     """How the Hopper body covers a conv: blocks of ``tw x th = 64`` output
-    tiles (2x2 pixels each) of one image by 128 output channels; the C / 64
-    chunks cut into ``splits`` runs of ``chunks_per_split`` (the last may be
-    shorter, none is empty); ``launches`` kernels (the reduction with more
-    than one split)."""
+    tiles (2x2 pixels each) of one image by 128 output channels (the last
+    partly past Co); the ceil(C / 64) chunks (f32: ceil(C / 32), the last
+    partly past C) cut into ``splits`` runs of ``chunks_per_split`` (the
+    last may be shorter, none is empty); ``launches`` kernels (the
+    reduction with more than one split)."""
 
     tw: int
     th: int
@@ -177,7 +184,8 @@ class Wino3x3Plan(NamedTuple):
         return 1 if self.splits == 1 else 2
 
     def c_range(self, split: int) -> range:
-        """The input channels split ``split`` reduces over."""
+        """The chunk channels split ``split`` reduces over (past C in the
+        last chunk: channels the kernel reads as zeros)."""
         lo = split * self.chunks_per_split
         hi = min(self.kchunks, lo + self.chunks_per_split)
         return range(lo * self.kc, hi * self.kc)
@@ -196,8 +204,9 @@ class Wino3x3Plan(NamedTuple):
 def wino3x3_plan(b: int, h: int, w: int, c: int, co: int,
                  splits: Optional[int] = None, dtype=torch.bfloat16) -> Wino3x3Plan:
     """The block and split plan a Hopper body runs for x [b, h, w, c] of
-    ``dtype`` (bf16: :func:`wino3x3_sm90`, 64-channel chunks; f32:
-    :func:`wino3x3_f32_sm90`, 32-channel chunks) and ``co`` output channels.
+    ``dtype`` (bf16: :func:`wino3x3_sm90`, C % 8 == 0, 64-channel chunks;
+    f32: :func:`wino3x3_f32_sm90`, C % 4 == 0, 32-channel chunks) and ``co``
+    output channels (any).
     Rectangles are 16 x 4 tiles where W / 2 >= 16, 8 x 8 where W / 2 >= 8,
     else 4 x 16 (TMA zero-fills what falls outside the plane). ``splits``
     (default: chosen here) divides the chunks among blocks: the choice
@@ -205,8 +214,9 @@ def wino3x3_plan(b: int, h: int, w: int, c: int, co: int,
     block, plus, with more than one split, the reduce pass (a launch and the
     f32 partials written and read); the smaller count wins a tie."""
     kc = F32_KC if dtype == torch.float32 else SM90_KC
-    if c % kc or co % 64:
-        raise ValueError(f"the Hopper Winograd body needs C % {kc} == 0 and Co % 64 == 0; got "
+    align = SM90_ALIGN[torch.float32 if dtype == torch.float32 else torch.bfloat16]
+    if c <= 0 or c % align or co <= 0:
+        raise ValueError(f"the Hopper Winograd body needs C % {align} == 0 and Co > 0; got "
                          f"C={c}, Co={co}")
     if h % 2 or w % 2 or h < 8 or w < 8:
         raise ValueError(f"the Hopper Winograd body needs even H, W >= 8; got {h}x{w}")
@@ -216,7 +226,7 @@ def wino3x3_plan(b: int, h: int, w: int, c: int, co: int,
     rects_w, rects_h = -(-tw_tiles // tw), -(-th_tiles // th)
     m_blocks = b * rects_h * rects_w
     n_blocks = -(-co // SM90_BN)
-    kchunks = c // kc
+    kchunks = -(-c // kc)
     blocks = m_blocks * n_blocks
     if splits is None:
         partial_bytes = 4.0 * b * h * w * co
@@ -299,7 +309,7 @@ wino3x3.launches = 0
 
 def wino3x3_sm90(x, kernel, bias, u=None, splits: Optional[int] = None):
     """K6's TMA + wgmma body (``csrc/winograd_sm90.cu``) on a CUDA bf16 x
-    with C % 64 == 0 and Co % 64 == 0; anything else raises. ``splits``
+    with C % 8 == 0 (any Co); anything else raises. ``splits``
     forces the split count of :func:`wino3x3_plan` (the tests compare
     counts); the splits are summed in a fixed order, so the bits do not
     depend on the run. CPU tensors run :func:`wino3x3_plain` after the same
@@ -309,8 +319,8 @@ def wino3x3_sm90(x, kernel, bias, u=None, splits: Optional[int] = None):
     b, h, w, c = x.shape
     co = kernel.shape[3]
     if x.dtype != torch.bfloat16 or k6_body(x.dtype, c, co) != "bf16_sm90":
-        raise ValueError(f"wino3x3_sm90 takes bf16 with C % 64 == 0 and Co % 64 == 0; got "
-                         f"{x.dtype} C={c} Co={co}")
+        raise ValueError(f"wino3x3_sm90 takes bf16 with C % 8 == 0; got {x.dtype} C={c} "
+                         f"Co={co}")
     plan = wino3x3_plan(b, h, w, c, co, splits)
     if not x.is_cuda:
         return wino3x3_plain(x, u, bias)
@@ -326,8 +336,8 @@ wino3x3_sm90.launches = 0
 def wino3x3_f32_sm90(x, kernel, bias, u=None, splits: Optional[int] = None):
     """K6's f32 TMA + wgmma body (``csrc/winograd_f32_sm90.cu``: each
     product as three TF32 products, hi and lo split in the kernel, so its
-    result holds the f32 twin to ~1e-6) on a CUDA f32 x with C % 32 == 0
-    and Co % 64 == 0; anything else raises. ``splits`` forces the split
+    result holds the f32 twin to ~1e-6) on a CUDA f32 x with C % 4 == 0
+    (any Co); anything else raises. ``splits`` forces the split
     count of ``wino3x3_plan(..., dtype=float32)``; the splits are summed in
     a fixed order, so the bits do not depend on the run. CPU tensors run
     :func:`wino3x3_plain` after the same checks.
@@ -337,8 +347,8 @@ def wino3x3_f32_sm90(x, kernel, bias, u=None, splits: Optional[int] = None):
     b, h, w, c = x.shape
     co = kernel.shape[3]
     if x.dtype != torch.float32 or k6_body(x.dtype, c, co) != "f32_sm90":
-        raise ValueError(f"wino3x3_f32_sm90 takes f32 with C % 32 == 0 and Co % 64 == 0; got "
-                         f"{x.dtype} C={c} Co={co}")
+        raise ValueError(f"wino3x3_f32_sm90 takes f32 with C % 4 == 0; got {x.dtype} C={c} "
+                         f"Co={co}")
     plan = wino3x3_plan(b, h, w, c, co, splits, torch.float32)
     if not x.is_cuda:
         return wino3x3_plain(x, u, bias)
@@ -371,11 +381,14 @@ wino3x3_prior.launches = 0
 
 def _launch_sm90(lib, x, u, bias, plan):
     """(y, kernels launched) of the Hopper body of x's dtype (bf16 or f32)
-    on checked CUDA tensors."""
+    on checked CUDA tensors. U's rows are padded with zero columns to a
+    multiple of 16 bytes where Co is not (its TMA map's stride); the kernel
+    reads Co of them."""
     b, h, w, c = x.shape
     co = u.shape[2]
     x = x.contiguous()
-    u = u.contiguous()
+    cu = -(-co // SM90_ALIGN[x.dtype]) * SM90_ALIGN[x.dtype]
+    u = u.contiguous() if cu == co else F.pad(u, (0, cu - co))
     bias = bias.to(torch.float32).contiguous()
     for name, t in (("x", x), ("u", u)):
         if t.data_ptr() % 16:
@@ -387,7 +400,7 @@ def _launch_sm90(lib, x, u, bias, plan):
     f32 = x.dtype == torch.float32
     fn = lib.cpd_wino3x3_f32_sm90 if f32 else lib.cpd_wino3x3_sm90_bf16
     err = fn(x.data_ptr(), u.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(), b, h, w, c,
-             co, plan.tw, plan.splits, plan.chunks_per_split, ctypes.byref(launched),
+             co, cu, plan.tw, plan.splits, plan.chunks_per_split, ctypes.byref(launched),
              _build.stream_ptr(x.device))
     _build.check(err, f"Winograd conv3x3 (K6, {'f32 ' if f32 else ''}Hopper body)")
     return y, launched.value

@@ -23,7 +23,7 @@ __all__ = ["Case", "kernel_cases", "host_us", "unet_sites", "unet_batch_shapes",
            "HBM_BYTES_PER_S", "B1_UNET_CONVS", "B1_UNET_CONV_COUNTS", "GEGLU_ROWS",
            "GEGLU_B4_CALLS", "GEGLU_B1_ROWS", "GN_UNET_PLANES", "GN_B4_CALLS", "GN_DECODE_PLANES",
            "GN_CAT_PLANES", "GN_CAT_CALLS", "SD21_LATENT", "unet_call_groups", "unet_shape_keys",
-           "held_unet_shapes"]
+           "held_unet_shapes", "LDM_VQ4_UNET", "ldm_vq4_config", "LDM_VQ4_WINO_CONVS"]
 
 _PKG = "complex_prompt_diffusion_tpu_torch"
 
@@ -71,6 +71,26 @@ GN_CAT_CALLS = (3, 2, 1, 1, 1, 1, 1, 2)
 GN_DECODE_PLANES = ((64, 512), (128, 512), (256, 256), (512, 256), (512, 128))
 
 SD21_LATENT = 96  # latent side of SD 2.1's 768x768 renders
+
+# The UNet params of CompVis latent-diffusion's
+# configs/latent-diffusion/celebahq-ldm-vq-4.yaml (ffhq-ldm-vq-4.yaml and
+# lsun_bedrooms-ldm-vq-4.yaml set the same): model.params.unet_config.params.
+# Widths 224 / 448 / 672 / 896, up-path concats 672 .. 1792; 224, 672, 1120
+# and 1568 are 32 mod 64. A 64x64 latent of 3 channels, no context.
+LDM_VQ4_UNET = {"image_size": 64, "in_channels": 3, "out_channels": 3, "model_channels": 224,
+                "attention_resolutions": [8, 4, 2], "num_res_blocks": 2,
+                "channel_mult": [1, 2, 3, 4], "num_head_channels": 32}
+# K6's phase-1 cases at those widths, (plane side, C, Co) at UNet batch 2:
+# ResBlock convs of the 32^2 and 16^2 planes
+LDM_VQ4_WINO_CONVS = ((32, 672, 448), (16, 448, 672), (16, 672, 672))
+
+
+def ldm_vq4_config(dtype: str = "bfloat16"):
+    """The port's UNetConfig of :data:`LDM_VQ4_UNET` (``config.
+    unet_config_from_yaml``) in ``dtype``."""
+    from complex_prompt_diffusion_tpu_torch import config
+
+    return dataclasses.replace(config.unet_config_from_yaml(LDM_VQ4_UNET), dtype=dtype)
 
 
 def unet_sites(cfg, latent: int, deep_at=None, model: int = 1, fused: bool = False) -> dict:
@@ -209,7 +229,9 @@ def unet_call_groups() -> dict:
     tensor-parallel over 2 and 4 ranks at UNet batch 2 (a fourth element:
     the model size; K1 at 4 and 2 heads, K2 at a half and a quarter of the
     hidden width; their K1 and K2 cases in f32 too, the shapes of the f32
-    tensor-parallel eval). ``chip_smoke.py`` fails a path
+    tensor-parallel eval); "ldm_vq4", a UNet at CompVis LDM-VQ-4's widths
+    (:data:`LDM_VQ4_UNET`, no context) on its 64x64 latent at UNet batch 2
+    and 4. ``chip_smoke.py`` fails a path
     whose UNet calls bring a shape none of these has
     (:func:`held_unet_shapes`)."""
     from complex_prompt_diffusion_tpu_torch.models import UNetConfig
@@ -224,6 +246,7 @@ def unet_call_groups() -> dict:
                                            tome_mlp=True), 64, 2) for ratio in (0.75, 0.3)]
     for model in (2, 4):
         groups[f"tp{model}"] = [(sd15, 64, 2, model)]
+    groups["ldm_vq4"] = [(ldm_vq4_config(), 64, ub) for ub in (2, 4)]
     return groups
 
 
@@ -437,13 +460,45 @@ def kernel_cases(dev, kernels=None) -> list:
         a = (x, w, bias)
         m = b * hw * hw
         cases.append(Case(
-            kernel, f"{tag(dt)} B{b} {hw}x{hw} {c}->{co}",
+            kernel, f"{'bf16' if dt == bf16 else 'f32'} B{b} {hw}x{hw} {c}->{co}",
             lambda a=a: C.conv3x3(*a), lambda a=a: C.conv3x3_plain(*a),
             lambda a=a: F.conv2d(a[0].permute(0, 3, 1, 2), a[1], a[2], padding=1),
             "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 9 * c,
             x.element_size() * (m * c + 9 * c * co + m * co + co),
             (lambda a=a: generic(*a)) if kernel != "conv3x3" and generic else None,
             "tf32x3" if kernel == "conv3x3_f32_sm90" else None))
+
+    def wino_cases(shapes):
+        # K6 at (b, plane side, C, Co, dtype), U made once, outside the timed
+        # call, as a caller with fixed weights would; the library call is the
+        # direct conv (cuDNN). Each case runs the Hopper body of its dtype (the
+        # f32 one bound at the rate of three TF32 products) with the first
+        # body beside it. (A parent tree may lack the Hopper bodies and their
+        # wrappers; the labels are the parent's, so that tree_ab compares the
+        # same cases.)
+        wino_prior = getattr(W, "wino3x3_prior", None)
+        k6_body = getattr(W, "k6_body", None)
+        for b, hw, c, co, dt in shapes:
+            x = randn(b, hw, hw, c, dtype=dt)
+            k = uniform(3, 3, c, co, bound=(9 * c) ** -0.5, dtype=dt)
+            bias = uniform(co, bound=0.1, dtype=dt)
+            u = W.winograd_weights(k).to(dt)
+            w_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            a = (x, k, bias, u)
+            m = b * hw * hw
+            f32_sm90 = k6_body is not None and k6_body(dt, c, co) == "f32_sm90"
+            # a parent tree without k6_body routes by its sm90_takes (bf16 only)
+            sm90 = wino_prior is not None and (k6_body(dt, c, co) != "prior" if k6_body
+                                               else W.sm90_takes(dt, c, co))
+            cases.append(Case(
+                "winograd", f"{'bf16' if dt == bf16 else 'f32'} B{b} {hw}x{hw} {c}->{co}",
+                lambda a=a: W.wino3x3(*a), lambda a=a: W.wino3x3_plain(a[0], a[3], a[2]),
+                lambda x=x, w=w_oihw, bias=bias: F.conv2d(x.permute(0, 3, 1, 2), w, bias,
+                                                          padding=1),
+                "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 4 * c,
+                x.element_size() * (m * c + 16 * c * co + m * co) + 4 * co,
+                (lambda a=a: wino_prior(*a[:3], u=a[3])) if sm90 else None,
+                "tf32x3" if f32_sm90 else None))
 
     ff_dtypes = [(bf16, "geglu_ff")] if "geglu_ff" in want else []
     if "geglu_ff_f32_sm90" in want:
@@ -480,8 +535,9 @@ def kernel_cases(dev, kernels=None) -> list:
         # render); the concat UNets' conv_in on a 16^2 latent (phase 15); the
         # VAE decoder's conv_in and the encoder's conv_out on a 16^2 latent
         # (phases 3 and 11) and a 32^2 one; the default (tiny) bundle's
-        # conv_in and out conv (phase 11). Then K4's generic body at the tiny
-        # bundle's widths, the shapes it still takes (phase 11)
+        # conv_in and out conv (phase 11). Then the tiny bundle's 32 -> 32 and
+        # 96 -> 32 (phase 11), which the f32 Hopper body takes (Co a quarter of
+        # its n-tile) with the generic body beside them
         for dt in (bf16, f32):
             for b, hw in ((2, 16), (2, 32), (1, 16)):
                 shapes += [("conv3x3_narrow", b, hw, 4, 320, dt),
@@ -490,8 +546,8 @@ def kernel_cases(dev, kernels=None) -> list:
             for hw in (16, 32):
                 shapes += [("conv3x3_narrow", 1, hw, 4, 512, dt),
                            ("conv3x3_narrow", 1, hw, 512, 8, dt)]
-        shapes += [("conv3x3_narrow", 4, 16, 4, 32, f32), ("conv3x3_narrow", 4, 16, 32, 4, f32),
-                   ("conv3x3", 4, 16, 32, 32, f32), ("conv3x3", 4, 16, 96, 32, f32)]
+        shapes += [("conv3x3_narrow", 4, 16, 4, 32, f32), ("conv3x3_narrow", 4, 16, 32, 4, f32)]
+        shapes += [(k4_case_kernel(f32, c, 32), 4, 16, c, 32, f32) for c in (32, 96)]
     for shape in shapes:
         conv_case(*shape)
     if "attention_cm" in want:
@@ -550,40 +606,11 @@ def kernel_cases(dev, kernels=None) -> list:
                 *kcanon(2, 1000, 1336, 320, bf16), True, "bfloat16")
     if "winograd" in want:
         # K6 at the batch-1 render's square convs (UNet batch 2), two with C
-        # != Co, one batch-8 shape and an f32 one; U is made once, outside
-        # the timed call, as a caller with fixed weights would. The library
-        # call is the direct conv (cuDNN); K4's cases above time the same
-        # shapes. Each case runs the Hopper body of its dtype (the f32 one
-        # bound at the rate of three TF32 products) with the first body
-        # beside it. (A parent tree may lack the Hopper bodies and their
-        # wrappers; the labels are the parent's, so that tree_ab compares the
-        # same cases.)
-        wino_prior = getattr(W, "wino3x3_prior", None)
-        k6_body = getattr(W, "k6_body", None)
-        shapes = [(2, 32, 640, 640, bf16), (2, 32, 1280, 1280, bf16), (2, 16, 1280, 1280, bf16),
-                  (8, 32, 640, 640, bf16), (2, 32, 960, 640, bf16), (2, 16, 2560, 1280, bf16),
-                  (1, 32, 512, 512, f32)]
-        for b, hw, c, co, dt in shapes:
-            x = randn(b, hw, hw, c, dtype=dt)
-            k = uniform(3, 3, c, co, bound=(9 * c) ** -0.5, dtype=dt)
-            bias = uniform(co, bound=0.1, dtype=dt)
-            u = W.winograd_weights(k).to(dt)
-            w_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            a = (x, k, bias, u)
-            m = b * hw * hw
-            f32_sm90 = k6_body is not None and k6_body(dt, c, co) == "f32_sm90"
-            # a parent tree without k6_body routes by its sm90_takes (bf16 only)
-            sm90 = wino_prior is not None and (k6_body(dt, c, co) != "prior" if k6_body
-                                               else W.sm90_takes(dt, c, co))
-            cases.append(Case(
-                "winograd", f"{'bf16' if dt == bf16 else 'f32'} B{b} {hw}x{hw} {c}->{co}",
-                lambda a=a: W.wino3x3(*a), lambda a=a: W.wino3x3_plain(a[0], a[3], a[2]),
-                lambda x=x, w=w_oihw, bias=bias: F.conv2d(x.permute(0, 3, 1, 2), w, bias,
-                                                          padding=1),
-                "bfloat16" if dt == bf16 else "float32", 2.0 * m * co * 4 * c,
-                x.element_size() * (m * c + 16 * c * co + m * co) + 4 * co,
-                (lambda a=a: wino_prior(*a[:3], u=a[3])) if sm90 else None,
-                "tf32x3" if f32_sm90 else None))
+        # != Co, one batch-8 shape and an f32 one; K4's cases above time the
+        # same shapes
+        wino_cases([(2, 32, 640, 640, bf16), (2, 32, 1280, 1280, bf16),
+                    (2, 16, 1280, 1280, bf16), (8, 32, 640, 640, bf16), (2, 32, 960, 640, bf16),
+                    (2, 16, 2560, 1280, bf16), (1, 32, 512, 512, f32)])
     if "sd21" in want:
         # SD 2.1 at 768x768 (a 96x96 latent), beside its UNet calls (the
         # group's entry in unet_call_groups, below): the VAE mid-block at S =
@@ -619,7 +646,7 @@ def kernel_cases(dev, kernels=None) -> list:
     # two-source form on every (Ca | Cb) pair, K4 on the convs its gate admits (the
     # mma.sync body beside its sm90 body). The "sd2_512" group adds K1 at
     # the middle block's 64 tokens (in a UNet call the short path takes
-    # them: S <= SHORT_KV), then K4's generic body on the concat UNets'
+    # them: S <= SHORT_KV), then K4's narrow-C body on the concat UNets'
     # conv_in at a 256x256 render (a 32x32 latent, UNet batch 2): 9 -> 320
     # (inpaint) and 5 -> 320 (depth), bf16 and f32
     have = {(c.kernel, c.label) for c in cases}
@@ -769,6 +796,26 @@ def kernel_cases(dev, kernels=None) -> list:
                     lambda a=a: PS.stream_copy(*a), lambda a=a: PS.stream_copy_plain(*a),
                     lambda x=x, y=y: y.copy_(x), "bfloat16", 0.0, 2.0 * x.numel() * 2,
                     (lambda a=a: copy_prior(*a)) if copy_prior else None))
+    # the cases added last (so that the ones above draw the inputs they drew
+    # before, and tree_ab compares their bits with a parent's)
+    if "conv3x3" in want:
+        # K4's generic body at widths only it takes: bf16 C = 20 (phase 17's
+        # grad case), f32 C = 18
+        conv_case(k4_case_kernel(bf16, 20, 320), 2, 16, 20, 320, bf16)
+        conv_case(k4_case_kernel(f32, 18, 320), 2, 16, 18, 320, f32)
+    if "conv3x3_f32_sm90" in want:
+        # an f32 UNet call at CompVis LDM-VQ-4's widths (224 .. 1568 channels,
+        # C or Co off the 32- and 128-channel tiles) at UNet batch 1 and 2
+        ldm32 = ldm_vq4_config("float32")
+        for ub in (1, 2):
+            for hw, c, co in unet_batch_shapes(ldm32, 64, ub, fused=False)["conv"]:
+                conv_case("conv3x3_f32_sm90", ub, hw, c, co, f32)
+    if "winograd" in want and "ldm_vq4" in want:
+        # K6 at CompVis LDM-VQ-4's ResBlock widths (UNet batch 2, both
+        # dtypes; C = 672 and Co = 672 off its 64-channel chunk and
+        # 128-channel block), after K4's cases at the same shapes
+        wino_cases([(2, hw, c, co, dt) for dt in (bf16, f32)
+                    for hw, c, co in LDM_VQ4_WINO_CONVS])
     return cases
 
 

@@ -2,14 +2,15 @@
 emulation of what the kernel computes under that plan.
 
 ``conv3x3_plan`` decides the output tiles (a Wt x Ht rectangle of one
-image's pixels by 128 channels) and the runs of (tap, 64-channel) k-steps
-each block sums; the card runs exactly that plan. Here the plan must cover
+image's pixels by 128 channels, the last partly past Co) and the runs of
+(tap, 64-channel) k-steps each block sums (ceil(C / 64) a tap, the last
+partly past C); the card runs exactly that plan. Here the plan must cover
 every output pixel and channel once and every k-step in exactly one split,
 and an emulation of the kernel's data movement (the TMA box of each k-step,
-zero-filled outside the plane; the splits summed in split order; the bias
-added in f32; one rounding) must agree with the JAX package's Pallas conv
-kernel in interpret mode. The attention half: which K1 body each
-(dtype, head dim) goes to.
+zero-filled outside the plane and past C and Co; the splits summed in split
+order; the bias added in f32; one rounding) must agree with the JAX
+package's Pallas conv kernel in interpret mode. The attention half: which
+K1 body each (dtype, head dim) goes to.
 """
 
 import jax.numpy as jnp
@@ -42,6 +43,12 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 RAGGED = [(b, hw, hw, c, co) for b, hw, c, co in (
     (1, 8, 64, 64), (2, 24, 128, 192), (3, 40, 64, 64), (4, 8, 192, 128), (2, 40, 128, 192))]
+# widths off the 64-channel tile: a tap's last k-step partly past C, the last
+# n-tile partly past Co (CompVis LDM-VQ-4's UNet: 224, 672, 1120 and 1568 ==
+# 32 mod 64; its 32^2 convs into 448; narrow-ish and odd widths)
+REMAINDER = [(b, hw, hw, c, co) for b, hw, c, co in (
+    (2, 16, 96, 72), (2, 16, 224, 672), (2, 16, 672, 672), (2, 32, 1120, 448), (4, 32, 1568, 672),
+    (1, 16, 24, 200), (2, 8, 40, 9), (1, 24, 200, 131))]
 
 
 def _coverage(b, h, w, c, co, plan):
@@ -63,10 +70,15 @@ def _coverage(b, h, w, c, co, plan):
 
 
 @pytest.mark.parametrize("b,h,w,c,co", [(2, hw, hw, c, co) for hw, c, co in B1_UNET_CONVS]
-                         + RAGGED)
+                         + RAGGED + REMAINDER)
 def test_plan_covers_every_output_and_k_step_once(b, h, w, c, co):
     plan = conv3x3_plan(b, h, w, c, co)
-    assert plan.wt * plan.ht == 128 and plan.ksteps == 9 * c // BK
+    assert plan.wt * plan.ht == 128 and plan.ksteps == 9 * -(-c // BK)
+    assert plan.n_tiles == -(-co // 128)
+    # a tap's last k-step covers the channels C - (C - 1) % 64 - 1 .. C - 1 (all
+    # 64 where C % 64 == 0), the last n-tile Co - 128 (n_tiles - 1) of 128
+    assert c - BK * (plan.ksteps // 9 - 1) == (c % BK or BK)
+    assert co - 128 * (plan.n_tiles - 1) == (co % 128 or 128)
     assert all(len(plan.k_range(s)) > 0 for s in range(plan.splits))
     pix, chan, steps = _coverage(b, h, w, c, co, plan)
     assert (pix == 1).all() and (chan == 1).all() and (steps == 1).all()
@@ -78,11 +90,18 @@ def test_plan_covers_every_output_and_k_step_once(b, h, w, c, co):
 
 def test_plan_rejects_what_the_sm90_body_does_not_take():
     with pytest.raises(ValueError):
-        conv3x3_plan(2, 16, 16, 40, 64)  # C % 64 != 0
+        conv3x3_plan(2, 16, 16, 20, 64)  # C % 8 != 0: the maps' 16-byte strides
+    assert conv3x3_plan(2, 16, 16, 36, 64, dtype=torch.float32).ksteps == 18  # f32: C % 4 == 0
     with pytest.raises(ValueError):
-        conv3x3_plan(2, 16, 16, 64, 96)  # Co % 64 != 0
+        conv3x3_plan(2, 16, 16, 38, 64, dtype=torch.float32)  # C % 4 != 0
+    with pytest.raises(ValueError):
+        conv3x3_plan(2, 16, 16, 64, 0)  # no output channel
     with pytest.raises(ValueError):
         conv3x3_plan(2, 16, 16, 64, 64, splits=10)  # 9 k-steps
+    with pytest.raises(ValueError):
+        conv3x3_plan(2, 16, 16, 40, 64, splits=10)  # 9 k-steps, the one chunk partly past C
+    assert conv3x3_plan(2, 16, 16, 40, 96).ksteps == 9  # C % 64 != 0, Co % 64 != 0: taken
+    assert k4_body(torch.bfloat16, 20, 64) == "generic"  # what neither Hopper body takes
     assert k4_body(torch.bfloat16, 320, 640) == "bf16_sm90"
     assert k4_body(torch.float32, 320, 640) == "f32_sm90"  # K4's f32 body, not this one
     assert k4_body(torch.bfloat16, 4, 320) == "narrow"
@@ -90,6 +109,26 @@ def test_plan_rejects_what_the_sm90_body_does_not_take():
     x = torch.zeros(1, 8, 8, 64)
     with pytest.raises(ValueError):  # the body is bf16 only
         conv3x3_sm90(x, torch.zeros(64, 64, 3, 3), torch.zeros(64))
+
+
+@pytest.mark.parametrize("c,co,bf16_body,f32_body", [
+    (224, 448, "bf16_sm90", "f32_sm90"), (672, 672, "bf16_sm90", "f32_sm90"),
+    (1120, 448, "bf16_sm90", "f32_sm90"), (1568, 672, "bf16_sm90", "f32_sm90"),
+    (448, 224, "bf16_sm90", "f32_sm90"), (96, 32, "bf16_sm90", "f32_sm90"),  # the tiny config
+    (20, 320, "generic", "f32_sm90"),   # C % 8 != 0: neither bf16 Hopper map takes it
+    (18, 320, "generic", "generic"),    # C % 4 != 0 too
+    (4, 224, "narrow", "narrow"), (224, 3, "narrow", "narrow"), (16, 672, "narrow", "narrow"),
+    (24, 9, "bf16_sm90", "f32_sm90"),   # past the narrow widths, an odd Co
+])
+def test_k4_route_at_remainder_widths(c, co, bf16_body, f32_body):
+    """K4's route at CompVis LDM-VQ-4's widths (C and Co == 32 mod 64), at C
+    = 20 and at the narrow widths: the Hopper bodies take every C % 8 (f32:
+    % 4) past the narrow widths, with a plan for it."""
+    assert k4_body(torch.bfloat16, c, co) == bf16_body
+    assert k4_body(torch.float32, c, co) == f32_body
+    for dt, body in ((torch.bfloat16, bf16_body), (torch.float32, f32_body)):
+        if body.endswith("sm90"):
+            assert conv3x3_plan(2, 16, 16, c, co, dtype=dt).n_tiles == -(-co // 128)
 
 
 def test_b1_unet_conv_shapes_and_counts_match_the_unet_plan(monkeypatch):
@@ -136,12 +175,13 @@ def _emulate(x, weight, bias, plan):
     split order; the bias in f32; one rounding to x's dtype."""
     b, h, w, c = x.shape
     co = weight.shape[0]
-    chunks = c // BK
+    chunks = -(-c // BK)
+    cp = chunks * BK  # the channels the boxes reach, zeros past C (TMA's fill)
     # x zero-padded past every edge a box can reach: xp[1 + i] = x[i]
-    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, plan.wt + 1, 1, plan.ht + 1))
-    wmat = weight.float().permute(0, 2, 3, 1).reshape(co, 9 * c)  # [Co, 9C], (tap, c)
-    wpad = torch.zeros((plan.n_tiles * 128, 9 * c))
-    wpad[:co] = wmat
+    xp = torch.nn.functional.pad(x.float(), (0, cp - c, 1, plan.wt + 1, 1, plan.ht + 1))
+    # [Co, 9, C] (tap, c) zero-filled past C in each tap and past Co
+    wpad = torch.zeros((plan.n_tiles * 128, 9, cp))
+    wpad[:co, :, :c] = weight.float().permute(0, 2, 3, 1).reshape(co, 9, c)
     y = torch.zeros((b, h, w, co))
     for mt in range(plan.m_tiles):
         tw, rest = mt % plan.tiles_w, mt // plan.tiles_w
@@ -157,7 +197,7 @@ def _emulate(x, weight, bias, plan):
                     # the box at (c0, w0 + dx - 1, h0 + dy - 1, b), zero outside
                     box = xp[bi, h0 + dy:h0 + dy + plan.ht, w0 + dx:w0 + dx + plan.wt,
                              c0:c0 + BK]
-                    wbox = wpad[nt * 128:(nt + 1) * 128, tap * c + c0:tap * c + c0 + BK]
+                    wbox = wpad[nt * 128:(nt + 1) * 128, tap, c0:c0 + BK]
                     part += box.reshape(-1, BK) @ wbox.t()
                 total = part if total is None else total + part
             tile = total.reshape(plan.ht, plan.wt, 128)
@@ -181,6 +221,9 @@ def _inputs(b, h, w, c, co, seed):
     (2, 16, 16, 64, 128, 1),    # 16 x 8 tiles, two per image
     (2, 24, 24, 128, 192, 3),   # W % 16 != 0: 8 x 16 tiles; Co = 192: half an n-tile
     (1, 40, 40, 64, 64, 4),     # 5 x 3 tiles, the last row of tiles ragged
+    (2, 16, 16, 96, 72, 5),     # C % 64 == 32: each tap's second k-step half zeros; Co 72
+    (2, 16, 16, 224, 672, 2),   # LDM-VQ-4's width: 6 n-tiles, the last 32 wide
+    (1, 8, 8, 40, 9, None),     # one k-step a tap, 24 of its channels past C; an odd Co
 ])
 def test_plan_emulation_matches_pallas_kernel(b, h, w, c, co, splits, dtype):
     x, k, bias = _inputs(b, h, w, c, co, seed=c + co + h)

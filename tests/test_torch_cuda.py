@@ -387,8 +387,8 @@ def test_conv3x3_f32_sm90_raises_on_what_it_does_not_take(dev):
     x, wt, bias = _conv_f32_inputs(dev, 1, 8, 8, 64, 64, 1)
     with pytest.raises(ValueError):  # bf16
         conv3x3_f32_sm90(x.to(torch.bfloat16), wt, bias)
-    with pytest.raises(ValueError):  # C % 32 != 0
-        conv3x3_f32_sm90(x[..., :40].contiguous(), wt[:, :40].contiguous(), bias)
+    with pytest.raises(ValueError):  # C % 4 != 0
+        conv3x3_f32_sm90(x[..., :38].contiguous(), wt[:, :38].contiguous(), bias)
     flat = torch.empty(1 + x.numel(), device=dev)
     shifted = flat[1:].view(x.shape)  # 4 bytes past a 16-byte boundary
     shifted.copy_(x)
@@ -868,9 +868,9 @@ def test_group_norm_split_planes(dev, dtype):
 @pytest.mark.parametrize("co", [4, 320, 640, 1280])
 @pytest.mark.parametrize("c", [4, 40, 320])
 def test_conv3x3_ragged(dev, c, co):
-    """K4 on a 10x12 plane (M = 240, not a multiple of its 64-row tile):
-    C = 4 takes the element-wise gather, C = 40 splits 32-column k-tiles
-    across taps, Co = 4 leaves most of a 64-channel tile empty."""
+    """K4 on a 10x12 plane (M = 240, not a multiple of its tiles): C = 4 and
+    Co = 4 take the narrow bodies, C = 40 the sm90 body's one partly zero
+    k-step a tap, Co = 320 a half-empty last n-tile."""
     g = _gen(dev, c + co)
     x = torch.randn((2, 10, 12, c), generator=g, device=dev).to(torch.bfloat16)
     w = (torch.rand((co, c, 3, 3), generator=g, device=dev) * 2 - 1) / (3 * c ** 0.5)
@@ -974,6 +974,99 @@ def test_conv3x3_sliced_weight_read_in_place(dev, hw, ca, cb, co, dtype):
         assert torch.equal(got, conv3x3(xs, copied, bias))
 
 
+# widths off the Hopper bodies' tiles: C off the 64-channel k-step (bf16;
+# f32: 32, except 96 and 224 and 672, which are f32 multiples of it), Co
+# off the 128-channel n-tile; 224 and 672 are CompVis LDM-VQ-4's
+REMAINDER_C = (24, 40, 96, 224, 672)
+REMAINDER_CO = (24, 72, 200, 672)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("co", REMAINDER_CO + (131,))
+@pytest.mark.parametrize("c", REMAINDER_C)
+def test_conv3x3_hopper_bodies_at_remainder_widths(dev, c, co, dtype):
+    """K4's Hopper body of the dtype at C and Co off its tiles (a tap's last
+    k-step partly past C, the last n-tile partly past Co; Co = 131 odd: the
+    element stores and the element-wise reduce), through the route (one
+    launch of the Hopper body, none of the generic one) and at forced split
+    counts: the twin within bf16's 2e-2 or 1e-5 in f32 (three TF32
+    products), the same bits on a repeat; the PR-2 body it replaced there
+    within the dtype's tolerance."""
+    x, wt, bias = _conv_inputs(dev, 2, 16, 16, c, co, 3 * c + co)
+    x, wt, bias = x.to(dtype), wt.to(dtype), bias.to(dtype)
+    body = conv3x3_sm90 if dtype == torch.bfloat16 else conv3x3_f32_sm90
+    tol = TOL[dtype] if dtype == torch.bfloat16 else 1e-5
+    want = conv3x3_plain(x, wt, bias)
+    before = (conv3x3.launches, body.launches, conv3x3_generic.launches)
+    got = conv3x3(x, wt, bias)
+    assert (conv3x3.launches, body.launches, conv3x3_generic.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert got.shape == (2, 16, 16, co) and _rel(got, want) <= tol
+    assert torch.equal(got, conv3x3(x, wt, bias))
+    ksteps = conv3x3_plan(2, 16, 16, c, co, dtype=dtype).ksteps
+    for s_ in sorted({1, 2, 5, ksteps} & set(range(1, ksteps + 1))):
+        forced = body(x, wt, bias, splits=s_)
+        assert _rel(forced, want) <= tol, s_
+        assert torch.equal(forced, body(x, wt, bias, splits=s_)), s_
+    assert _rel(conv3x3_generic(x, wt, bias), want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ca,cb,co", [(96, 40, 72), (224, 672, 448), (672, 224, 448),
+                                      (896, 672, 672)])
+def test_conv3x3_remainder_halves_read_in_place_ignore_their_neighbours(dev, ca, cb, co, dtype):
+    """A split in_conv's half read in place at a width off the k-step: the
+    TMA map stops at the half's C, so the neighbouring half's channels,
+    which the last k-step's box would reach, read as zeros. Here those
+    channels hold 1e4 and the result is still the twin's on the half alone
+    (and a contiguous copy's bits)."""
+    x, wt, bias = _conv_inputs(dev, 2, 16, 16, ca + cb, co, ca + 3 * cb)
+    x, wt, bias = x.to(dtype), wt.to(dtype), bias.to(dtype)
+    body = conv3x3_sm90 if dtype == torch.bfloat16 else conv3x3_f32_sm90
+    tol = TOL[dtype] if dtype == torch.bfloat16 else 1e-5
+    for half, loud in ((slice(0, ca), slice(ca, None)), (slice(ca, None), slice(0, ca))):
+        w = wt.clone(memory_format=torch.channels_last)
+        w[:, loud] = 1e4
+        ws, xs = w[:, half], x[..., half].contiguous()
+        assert not ws.is_contiguous(memory_format=torch.channels_last)
+        before = body.launches
+        got = conv3x3(xs, ws, bias)
+        assert body.launches == before + 1
+        assert _rel(got, conv3x3_plain(xs, ws, bias)) <= tol, half
+        assert torch.equal(got, conv3x3(xs, ws.contiguous(memory_format=torch.channels_last),
+                                        bias)), half
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("co", REMAINDER_CO + (131,))
+@pytest.mark.parametrize("c", REMAINDER_C)
+def test_wino3x3_hopper_bodies_at_remainder_widths(dev, c, co, dtype):
+    """K6's Hopper body of the dtype at C and Co off its 64- (f32: 32-)
+    channel chunk and 128-channel block (Co = 131: U padded to a 16-byte
+    row, the element stores and reduce), through the route with the kernels
+    its plan predicts (none on the first body) and at every split count:
+    the twin within 2e-2 (bf16) or 1e-5 (f32), the same bits on a repeat."""
+    x, k, bias, _ = _wino_case(dev, 2, 16, 16, c, co, 5 * c + co)
+    x, k, bias = x.to(dtype), k.to(dtype), bias.to(dtype)
+    if dtype == torch.float32:
+        x = x + 0.01 * torch.randn(x.shape, generator=_gen(dev, c), device=dev)
+    u = winograd_weights(k).to(dtype)
+    body = wino3x3_sm90 if dtype == torch.bfloat16 else wino3x3_f32_sm90
+    tol = TOL[dtype] if dtype == torch.bfloat16 else 1e-5
+    want = wino3x3_plain(x, u, bias)
+    plan = wino3x3_plan(2, 16, 16, c, co, dtype=dtype)
+    before = (wino3x3.launches, body.launches, wino3x3_prior.launches)
+    got = wino3x3(x, k, bias, u=u)
+    assert (wino3x3.launches, body.launches, wino3x3_prior.launches) == (
+        before[0] + plan.launches, before[1] + plan.launches, before[2])
+    assert got.shape == (2, 16, 16, co) and _rel(got, want) <= tol
+    assert torch.equal(got, wino3x3(x, k, bias, u=u))
+    for s_ in sorted({1, 2, plan.kchunks} & set(range(1, plan.kchunks + 1))):
+        forced = body(x, k, bias, u=u, splits=s_)
+        assert _rel(forced, want) <= tol, s_
+        assert torch.equal(forced, body(x, k, bias, u=u, splits=s_)), s_
+
+
 def _conv_inputs(dev, b, h, w, c, co, seed):
     g = _gen(dev, seed)
     x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
@@ -1022,9 +1115,9 @@ def test_conv3x3_sm90_raises_on_what_it_does_not_take(dev):
     x, wt, bias = _conv_inputs(dev, 1, 8, 8, 64, 64, 1)
     with pytest.raises(ValueError):  # f32
         conv3x3_sm90(x.float(), wt.float(), bias.float())
-    x40, w40, b40 = _conv_inputs(dev, 1, 8, 8, 40, 64, 2)
-    with pytest.raises(ValueError):  # C % 64 != 0
-        conv3x3_sm90(x40, w40, b40)
+    x20, w20, b20 = _conv_inputs(dev, 1, 8, 8, 20, 64, 2)
+    with pytest.raises(ValueError):  # C % 8 != 0
+        conv3x3_sm90(x20, w20, b20)
     flat = torch.empty(1 + x.numel(), dtype=torch.bfloat16, device=dev)
     shifted = flat[1:].view(x.shape)  # 2 bytes past a 16-byte boundary
     shifted.copy_(x)
@@ -1404,8 +1497,8 @@ def test_wino3x3_raises_on_what_it_does_not_take(dev):
         wino3x3(x, k, torch.zeros(16, device=dev))
     with pytest.raises(TypeError):
         wino3x3(x.half(), k.half(), torch.zeros(16, device=dev))
-    with pytest.raises(ValueError):  # f32 needs Co % 4 == 0
-        wino3x3(x.float(), k.float()[..., :6], torch.zeros(6, device=dev))
+    with pytest.raises(ValueError):  # f32 off the Hopper body (C % 4 != 0) needs Co % 4 == 0
+        wino3x3(x.float()[..., :10], k.float()[:, :, :10, :6], torch.zeros(6, device=dev))
 
 
 def _wino_case(dev, b, h, w, c, co, seed):
@@ -1461,8 +1554,8 @@ def test_wino3x3_sm90_raises_on_what_it_does_not_take(dev):
     x, k, bias, _ = _wino_case(dev, 1, 8, 8, 64, 64, 3)
     with pytest.raises(ValueError):  # f32: the first body's
         wino3x3_sm90(x.float(), k.float(), bias.float())
-    with pytest.raises(ValueError):  # C % 64 != 0
-        wino3x3_sm90(x[..., :32], k[:, :, :32], bias)
+    with pytest.raises(ValueError):  # C % 8 != 0
+        wino3x3_sm90(x[..., :20], k[:, :, :20], bias)
 
 
 def _wino_f32_case(dev, b, h, w, c, co, seed):
@@ -1509,13 +1602,11 @@ def test_wino3x3_f32_sm90_raises_on_what_it_does_not_take(dev):
     x, k, bias, _ = _wino_f32_case(dev, 1, 8, 8, 64, 64, 3)
     with pytest.raises(ValueError):  # bf16: the other Hopper body's
         wino3x3_f32_sm90(x.bfloat16(), k.bfloat16(), bias.bfloat16())
-    with pytest.raises(ValueError):  # C % 32 != 0
-        wino3x3_f32_sm90(x[..., :48], k[:, :, :48], bias)
-    with pytest.raises(ValueError):  # Co % 64 != 0
-        wino3x3_f32_sm90(x, k[..., :32], bias[:32])
+    with pytest.raises(ValueError):  # C % 4 != 0
+        wino3x3_f32_sm90(x[..., :50], k[:, :, :50], bias)
     # the route leaves those f32 widths to the first body
     before = (wino3x3_f32_sm90.launches, wino3x3_prior.launches)
-    wino3x3(x[..., :48], k[:, :, :48], bias)
+    wino3x3(x[..., :50], k[:, :, :50], bias)
     assert (wino3x3_f32_sm90.launches, wino3x3_prior.launches) == (before[0], before[1] + 1)
 
 

@@ -53,7 +53,10 @@ K2_WIDTHS = [(320, 1280), (640, 2560), (1280, 5120), (32, 128), (64, 256)]
 K4_WIDTHS = sorted({(c, co) for _, c, co in B1_UNET_CONVS} | {
     (4, 320), (320, 4), (4, 512), (512, 512), (512, 256), (256, 256), (256, 128), (128, 128),
     (128, 3), (3, 128), (128, 256), (256, 512), (512, 8), (4, 32), (32, 32), (32, 64),
-    (64, 64), (96, 32), (64, 32), (32, 4), (3, 32), (32, 8)})
+    (64, 64), (96, 32), (64, 32), (32, 4), (3, 32), (32, 8)} | {
+    # CompVis LDM-VQ-4's UNet (224 .. 1568 channels), and widths no body but
+    # the generic one takes (C % 8 != 0 in bf16, C % 4 != 0 in f32)
+    (224, 448), (448, 448), (672, 672), (1120, 448), (1568, 672), (20, 320), (18, 72), (40, 9)})
 
 
 @pytest.mark.parametrize("c,h4", K2_WIDTHS)
@@ -68,9 +71,10 @@ def test_k2_body_by_dtype(c, h4):
 
 @pytest.mark.parametrize("c,co", K4_WIDTHS)
 def test_k4_body_by_dtype_and_width(c, co):
-    rest = "narrow" if co <= 8 or c <= 16 else "generic"
-    assert C.k4_body(bf16, c, co) == ("bf16_sm90" if c % 64 == 0 and co % 64 == 0 else rest)
-    assert C.k4_body(f32, c, co) == ("f32_sm90" if c % 32 == 0 and co % 64 == 0 else rest)
+    narrow = co <= 8 or c <= 16
+    assert C.k4_body(bf16, c, co) == (
+        "narrow" if narrow else "bf16_sm90" if c % 8 == 0 else "generic")
+    assert C.k4_body(f32, c, co) == ("narrow" if narrow else "f32_sm90" if c % 4 == 0 else "generic")
     with pytest.raises(TypeError):
         C.k4_body(f16, c, co)
 
@@ -79,13 +83,15 @@ def test_k4_f32_body_takes_the_unet_convs_and_not_the_narrow_ones():
     """All 22 convs of a batch-1 SD-1.5 UNet call go to the f32 body, the
     UNet's conv_in (C = 4) and out conv (Co = 4), the VAE's conv_in (C = 4)
     and conv_out (Co = 3) to the narrow bodies, and the tiny widths' Co =
-    32 to the FMA body."""
+    32 to the f32 body too (a partial n-tile); only C % 4 != 0 past the
+    narrow widths reaches the FMA body."""
     assert all(C.k4_body(f32, c, co) == "f32_sm90" for _, c, co in B1_UNET_CONVS)
     assert C.k4_body(f32, 512, 512) == "f32_sm90"
     for c, co in ((4, 320), (320, 4), (128, 3), (4, 512)):
         assert C.k4_body(f32, c, co) == "narrow"
-    for c, co in ((32, 32), (64, 32)):
-        assert C.k4_body(f32, c, co) == "generic"
+    for c, co in ((32, 32), (64, 32), (96, 32)):
+        assert C.k4_body(f32, c, co) == "f32_sm90"
+    assert C.k4_body(f32, 18, 32) == "generic"
 
 
 def _kernel_smem(src: str) -> int:
@@ -135,16 +141,18 @@ def test_geglu_f32_plan(m, c):
 
 
 @pytest.mark.parametrize("b,hw,c,co", [(2, hw, c, co) for hw, c, co in B1_UNET_CONVS]
-                         + [(1, 32, 512, 512), (1, 16, 512, 512), (2, 24, 64, 192)])
+                         + [(1, 32, 512, 512), (1, 16, 512, 512), (2, 24, 64, 192)]
+                         + [(1, 16, 672, 672), (1, 32, 672, 672), (4, 16, 32, 32), (4, 16, 96, 32),
+                            (2, 16, 20, 9)])
 def test_conv3x3_f32_plan(b, hw, c, co):
     plan = C.conv3x3_plan(b, hw, hw, c, co, dtype=f32)
     assert plan is C.conv3x3_plan(b, hw, hw, c, co, dtype=f32)
-    assert plan.ksteps == 9 * c // C.F32_BK and plan.wt * plan.ht == 128
+    assert plan.ksteps == 9 * -(-c // C.F32_BK) and plan.wt * plan.ht == 128
     assert 1 <= plan.splits <= min(16, plan.ksteps)
     assert plan.m_tiles == b * plan.tiles_h * plan.tiles_w and plan.n_tiles == -(-co // 128)
     assert _steps_once(plan)
     with pytest.raises(ValueError):
-        C.conv3x3_plan(b, hw, hw, c + 16, co, dtype=f32)  # C % 32 != 0
+        C.conv3x3_plan(b, hw, hw, c + 2, co, dtype=f32)  # C % 4 != 0
 
 
 def _emulate_f32(x, weight, bias, plan):
@@ -155,11 +163,11 @@ def _emulate_f32(x, weight, bias, plan):
     b, h, w, c = x.shape
     co = weight.shape[0]
     bk = C.F32_BK
-    chunks = c // bk
-    xp = torch.nn.functional.pad(x, (0, 0, 1, plan.wt + 1, 1, plan.ht + 1))
-    wmat = weight.permute(0, 2, 3, 1).reshape(co, 9 * c)
-    wpad = torch.zeros((plan.n_tiles * 128, 9 * c))
-    wpad[:co] = wmat
+    chunks = -(-c // bk)
+    cp = chunks * bk  # the channels the boxes reach, zeros past C (TMA's fill)
+    xp = torch.nn.functional.pad(x, (0, cp - c, 1, plan.wt + 1, 1, plan.ht + 1))
+    wpad = torch.zeros((plan.n_tiles * 128, 9, cp))  # zeros past C in a tap, past Co
+    wpad[:co, :, :c] = weight.permute(0, 2, 3, 1).reshape(co, 9, c)
     y = torch.zeros((b, h, w, co))
     for mt in range(plan.m_tiles):
         tw, rest = mt % plan.tiles_w, mt // plan.tiles_w
@@ -174,7 +182,7 @@ def _emulate_f32(x, weight, bias, plan):
                     dy, dx = tap // 3, tap % 3
                     box = xp[bi, h0 + dy:h0 + dy + plan.ht, w0 + dx:w0 + dx + plan.wt,
                              c0:c0 + bk]
-                    wbox = wpad[nt * 128:(nt + 1) * 128, tap * c + c0:tap * c + c0 + bk]
+                    wbox = wpad[nt * 128:(nt + 1) * 128, tap, c0:c0 + bk]
                     part += box.reshape(-1, bk) @ wbox.t()
                 total = part if total is None else total + part
             tile = total.reshape(plan.ht, plan.wt, 128)
@@ -205,6 +213,9 @@ def _rel(got, want):
     (2, 16, 16, 32, 128, 1),    # 16 x 8 tiles, one 32-channel chunk a tap
     (2, 24, 24, 96, 192, 5),    # 8 x 16 tiles; Co = 192: half an n-tile; runs across taps
     (1, 16, 16, 64, 64, 18),    # every k-step its own split
+    (4, 16, 16, 96, 32, None),  # the tiny config's 96 -> 32: one n-tile a quarter full
+    (1, 16, 16, 40, 72, 4),     # C % 32 == 8: each tap's second k-step 24 zeros
+    (1, 8, 8, 20, 9, 2),        # one k-step a tap, 12 of its channels past C; an odd Co
 ])
 def test_f32_plan_emulation_matches_pallas_kernel(b, h, w, c, co, splits):
     x, k, bias = _conv_inputs(b, h, w, c, co, seed=c + co + h)
@@ -258,7 +269,7 @@ def test_geglu_f32_on_cpu_matches_pallas_ff_kernel(c):
 
 def test_f32_wrappers_check_before_the_device():
     """The f32 bodies' wrappers refuse what their kernels do not take on CPU
-    tensors too: another dtype, inconsistent shapes, C % 32 != 0."""
+    tensors too: another dtype, inconsistent shapes, C % 4 != 0."""
     x, w1, b1, w2, b2 = map(torch.from_numpy, _ff_inputs(8, 32, seed=1))
     with pytest.raises(TypeError):
         F2.geglu_ff_f32_sm90(x.to(bf16), w1, b1, w2, b2)
@@ -269,7 +280,7 @@ def test_f32_wrappers_check_before_the_device():
     with pytest.raises(ValueError):
         C.conv3x3_f32_sm90(xc.to(bf16), w, torch.zeros(64))
     with pytest.raises(ValueError):
-        C.conv3x3_f32_sm90(xc[..., :40], w[:, :40], torch.zeros(64))  # C % 32 != 0
+        C.conv3x3_f32_sm90(xc[..., :38], w[:, :38], torch.zeros(64))  # C % 4 != 0
 
 
 def test_f32_tiny_unet_matches_jax():

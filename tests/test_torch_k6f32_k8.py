@@ -1,12 +1,13 @@
 """K6's f32 Hopper body and K8 on K3's Hopper forms, on the CPU.
 
-K6 (the Winograd conv probe) routes f32 convs with C % 32 == 0 and Co % 64
-== 0 to a 3xTF32 wgmma body (``csrc/winograd_f32_sm90.cu``) under the plan
+K6 (the Winograd conv probe) routes f32 convs with C % 4 == 0 (any Co) to a
+3xTF32 wgmma body (``csrc/winograd_f32_sm90.cu``) under the plan
 ``wino3x3_plan(..., dtype=float32)``. Here: the route rule at every width
 and dtype; the plan's coverage (every tile in one block, every input
 channel in one split); a torch emulation of what the body computes under
 that plan (the patch of each 32-channel chunk zero-filled outside the
-plane, V = B^T d B rows first, each position's product over the chunk
+plane and past C, U's rows past C and columns past Co zero, V = B^T d B
+rows first, each position's product over the chunk
 folded into the four output sums, the splits summed in split order, the
 bias added in f32) and the f32 twin, both against the JAX package's Pallas
 kernel in interpret mode.
@@ -55,11 +56,11 @@ SMS = 132
 
 # ---- K6: the f32 route and plan ----
 
-@pytest.mark.parametrize("c", [8, 24, 32, 64, 96, 320, 640, 1280, 2560])
-@pytest.mark.parametrize("co", [4, 8, 64, 96, 128, 640, 1280])
+@pytest.mark.parametrize("c", [8, 20, 24, 32, 64, 96, 224, 320, 640, 672, 1280, 2560, 18])
+@pytest.mark.parametrize("co", [4, 8, 64, 96, 128, 640, 672, 1280, 9])
 def test_k6_body_by_dtype_and_width(c, co):
-    assert W.k6_body(bf16, c, co) == ("bf16_sm90" if c % 64 == 0 and co % 64 == 0 else "prior")
-    assert W.k6_body(f32, c, co) == ("f32_sm90" if c % 32 == 0 and co % 64 == 0 else "prior")
+    assert W.k6_body(bf16, c, co) == ("bf16_sm90" if c % 8 == 0 else "prior")
+    assert W.k6_body(f32, c, co) == ("f32_sm90" if c % 4 == 0 else "prior")
     with pytest.raises(TypeError):
         W.k6_body(f16, c, co)
 
@@ -68,19 +69,25 @@ def test_k6_f32_body_takes_every_resblock_conv_of_phase_9():
     for hw, c, co in B1_UNET_CONVS:
         assert W.k6_body(f32, c, co) == "f32_sm90"
     assert W.k6_body(f32, 512, 512) == "f32_sm90"  # phase 1's B1 32^2 512->512
-    assert W.k6_body(f32, 4, 320) == W.k6_body(f32, 320, 4) == "prior"
+    # no narrow carve-out: a probe, it takes every C % 4 (one partly zero chunk)
+    assert W.k6_body(f32, 4, 320) == W.k6_body(f32, 320, 4) == "f32_sm90"
+    assert W.k6_body(f32, 6, 320) == "prior"
 
 
 _F32_PLANES = [(2, hw, hw, c, co) for hw, c, co in B1_UNET_CONVS]
 _F32_PLANES += [(1, 32, 32, 512, 512), (1, 8, 8, 32, 64), (3, 10, 14, 128, 64),
                 (1, 20, 12, 64, 192), (2, 64, 64, 320, 320)]
+# CompVis LDM-VQ-4's widths (224 .. 896, 672 == 0 mod 32 and 224 too) and
+# widths off the 32-channel chunk: the last chunk partly past C
+_F32_PLANES += [(1, 16, 16, 224, 672), (1, 32, 32, 672, 448), (2, 8, 8, 40, 72),
+                (1, 8, 8, 20, 9), (2, 16, 16, 100, 200)]
 
 
 @pytest.mark.parametrize("b,h,w,c,co", _F32_PLANES)
 def test_wino3x3_f32_plan_covers_every_tile_and_channel_once(b, h, w, c, co):
     plan = W.wino3x3_plan(b, h, w, c, co, dtype=f32)
     assert plan is W.wino3x3_plan(b, h, w, c, co, dtype=f32)  # cached
-    assert plan.kc == W.F32_KC == 32 and plan.kchunks == c // 32
+    assert plan.kc == W.F32_KC == 32 and plan.kchunks == -(-c // 32)
     assert plan.tw * plan.th == W.SM90_BT and plan.tw in (4, 8, 16)
     hits = {}
     for block in range(plan.m_blocks):
@@ -95,7 +102,8 @@ def test_wino3x3_f32_plan_covers_every_tile_and_channel_once(b, h, w, c, co):
         p = W.wino3x3_plan(b, h, w, c, co, splits, f32)
         ranges = [p.c_range(s) for s in range(p.splits)]
         assert all(len(r) > 0 and len(r) % 32 == 0 for r in ranges)
-        assert [ch for r in ranges for ch in r] == list(range(c))  # once each, in split order
+        # once each, in split order; the last chunk's channels past C are TMA's zeros
+        assert [ch for r in ranges for ch in r] == list(range(32 * p.kchunks))
         assert p.launches == (1 if p.splits == 1 else 2)
         assert 1 <= p.splits <= min(16 if splits is None else splits, p.kchunks)
     # the f32 patch box of a block fits the kernel's buffer: 34 x 10 pixels of 32 f32
@@ -103,15 +111,18 @@ def test_wino3x3_f32_plan_covers_every_tile_and_channel_once(b, h, w, c, co):
 
 
 def test_wino3x3_f32_plan_refuses_what_the_body_does_not_take():
-    for args in ((2, 16, 16, 48, 128), (2, 16, 16, 64, 96), (2, 6, 16, 64, 64)):
+    for args in ((2, 16, 16, 50, 128), (2, 16, 16, 64, 0), (2, 6, 16, 64, 64)):
         with pytest.raises(ValueError):
             W.wino3x3_plan(*args, dtype=f32)
     with pytest.raises(ValueError):  # 2 chunks of 32 channels
         W.wino3x3_plan(2, 16, 16, 64, 64, splits=3, dtype=f32)
-    # 96 channels: the f32 body's 3 chunks, not a bf16 width
+    # 96 channels: the f32 body's 3 chunks, the bf16 body's 2 (the last half zeros)
     assert W.wino3x3_plan(2, 16, 16, 96, 64, dtype=f32).kchunks == 3
+    assert W.wino3x3_plan(2, 16, 16, 96, 64).kchunks == 2
+    # 36 channels: f32 takes it (C % 4 == 0), bf16 does not (C % 8 != 0)
+    assert W.wino3x3_plan(2, 16, 16, 36, 64, dtype=f32).kchunks == 2
     with pytest.raises(ValueError):
-        W.wino3x3_plan(2, 16, 16, 96, 64)
+        W.wino3x3_plan(2, 16, 16, 36, 64)
 
 
 def _butterfly(a0, a1, a2, a3):
@@ -129,7 +140,9 @@ def _emulate_f32(x, u, bias, plan):
     at = W._AT
     rows_px = 2 * plan.rects_h * plan.th + 2
     cols_px = 2 * plan.rects_w * plan.tw + 2
-    xp = F.pad(x, (0, 0, 1, cols_px - w - 1, 1, rows_px - h - 1))
+    cp = plan.kchunks * plan.kc  # the chunks' channels, zeros past C (TMA's fill)
+    xp = F.pad(x, (0, cp - c, 1, cols_px - w - 1, 1, rows_px - h - 1))
+    u = F.pad(u, (0, 0, 0, cp - c))
     y = torch.zeros((b, h, w, co))
     for block in range(plan.m_blocks):
         tiles = plan.tiles(block)
@@ -220,6 +233,22 @@ def test_f32_emulation_split_counts_agree_with_the_twin():
         assert _rel(_emulate_f32(x, u, bias, plan).numpy(), want.numpy()) <= F32_TOL
 
 
+@pytest.mark.parametrize("b,h,w,c,co,splits", [
+    (1, 8, 8, 40, 72, None), (2, 16, 16, 100, 200, 2), (1, 16, 16, 224, 136, 3),
+    (1, 8, 8, 20, 9, 1)])
+def test_f32_emulation_at_remainder_widths_matches_the_twin(b, h, w, c, co, splits):
+    """Widths off the 32-channel chunk and the 128-channel block (C = 224 is
+    LDM-VQ-4's level 0): the last chunk's channels past C read as zeros on
+    both operands, the last block's columns past Co are not written; the
+    emulation gives the twin's values at every split count."""
+    x, k, bias = map(torch.from_numpy, _wino_inputs(b, h, w, c, co, seed=c + co))
+    u = W.winograd_weights(k)
+    plan = W.wino3x3_plan(b, h, w, c, co, splits, f32)
+    assert plan.kchunks * 32 > c or plan.n_blocks * 128 > co
+    want = W.wino3x3_plain(x, u, bias)
+    assert _rel(_emulate_f32(x, u, bias, plan).numpy(), want.numpy()) <= F32_TOL
+
+
 def test_f32_wrapper_checks_on_the_cpu_and_launches_nothing():
     x, k, bias = map(torch.from_numpy, _wino_inputs(1, 8, 8, 64, 64, seed=6))
     counts = (W.wino3x3.launches, W.wino3x3_f32_sm90.launches, W.wino3x3_prior.launches)
@@ -227,10 +256,12 @@ def test_f32_wrapper_checks_on_the_cpu_and_launches_nothing():
     assert torch.equal(W.wino3x3_f32_sm90(x, k, bias, u=u, splits=2), W.wino3x3_plain(x, u, bias))
     with pytest.raises(ValueError):  # bf16: the other Hopper body's
         W.wino3x3_f32_sm90(x.bfloat16(), k.bfloat16(), bias.bfloat16())
-    with pytest.raises(ValueError):  # C % 32 != 0
-        W.wino3x3_f32_sm90(x[..., :48], k[:, :, :48], bias)
-    with pytest.raises(ValueError):  # Co % 64 != 0
-        W.wino3x3_f32_sm90(x, k[..., :32], bias[:32])
+    with pytest.raises(ValueError):  # C % 4 != 0
+        W.wino3x3_f32_sm90(x[..., :50], k[:, :, :50], bias)
+    # C % 32 != 0 and Co % 64 != 0: taken (a partly zero chunk, a partial block)
+    u48 = W.winograd_weights(k[:, :, :48, :40])
+    assert torch.equal(W.wino3x3_f32_sm90(x[..., :48], k[:, :, :48, :40], bias[:40]),
+                       W.wino3x3_plain(x[..., :48], u48, bias[:40]))
     with pytest.raises(ValueError):  # more splits than chunks
         W.wino3x3_f32_sm90(x, k, bias, splits=3)
     assert (W.wino3x3.launches, W.wino3x3_f32_sm90.launches, W.wino3x3_prior.launches) == counts

@@ -113,11 +113,18 @@ _WINO_PLANES = [(2, hw, hw, c, co) for hw, c, co in B1_UNET_CONVS]  # phase 9's 
 _WINO_PLANES += [(8, 32, 32, 640, 640), (2, 32, 32, 1280, 1280), (1, 8, 8, 128, 128),
                  (3, 10, 14, 128, 64), (1, 20, 12, 64, 192), (2, 64, 64, 320, 320),
                  (1, 36, 20, 192, 128)]
+# widths off the 64-channel chunk and the 128-channel block: CompVis
+# LDM-VQ-4's ResBlock convs (224 .. 896 channels, 672 == 32 mod 64) and
+# narrower odd ones; the last chunk partly past C, the last block past Co
+_WINO_REMAINDER = [(2, 16, 16, 224, 672), (2, 32, 32, 672, 448), (2, 16, 16, 448, 672),
+                   (2, 16, 16, 672, 672), (1, 8, 8, 96, 72), (2, 16, 16, 24, 200),
+                   (1, 8, 8, 40, 9)]
 
 
-@pytest.mark.parametrize("b,h,w,c,co", _WINO_PLANES)
+@pytest.mark.parametrize("b,h,w,c,co", _WINO_PLANES + _WINO_REMAINDER)
 def test_wino3x3_plan_covers_every_tile_and_channel_once(b, h, w, c, co):
     plan = W.wino3x3_plan(b, h, w, c, co)
+    assert plan.kchunks == -(-c // W.SM90_KC) and plan.n_blocks == -(-co // W.SM90_BN)
     assert plan.tw * plan.th == W.SM90_BT and plan.tw in (4, 8, 16)
     tiles = {}
     for block in range(plan.m_blocks):
@@ -128,7 +135,9 @@ def test_wino3x3_plan_covers_every_tile_and_channel_once(b, h, w, c, co):
     assert plan.n_blocks * W.SM90_BN >= co > (plan.n_blocks - 1) * W.SM90_BN
     ranges = [plan.c_range(s) for s in range(plan.splits)]
     assert all(len(r) > 0 for r in ranges)
-    assert sorted(ch for r in ranges for ch in r) == list(range(c))
+    # every chunk channel once, C .. of the last chunk read as TMA's zeros
+    assert sorted(ch for r in ranges for ch in r) == list(range(plan.kchunks * W.SM90_KC))
+    assert plan.kchunks * W.SM90_KC - c == -c % W.SM90_KC
     assert plan.launches == (1 if plan.splits == 1 else 2)
     # the patch box of a block fits the kernel's buffer and TMA's box limits
     pw, ph = 2 * plan.tw + 2, 2 * plan.th + 2
@@ -153,7 +162,7 @@ def test_wino3x3_plan_splits_where_blocks_are_few():
     assert big.m_blocks * big.n_blocks == 160 and big.splits <= 2
 
 
-@pytest.mark.parametrize("args", [(2, 16, 16, 96, 128), (2, 16, 16, 128, 96), (2, 6, 16, 128, 128),
+@pytest.mark.parametrize("args", [(2, 16, 16, 20, 128), (2, 16, 16, 128, 0), (2, 6, 16, 128, 128),
                                   (2, 16, 15, 128, 128)])
 def test_wino3x3_plan_refuses_what_the_body_does_not_take(args):
     with pytest.raises(ValueError):
@@ -167,13 +176,16 @@ def test_wino3x3_mirrors_match_the_c_source():
     assert (int(k["BT"]), int(k["BN"]), int(k["KC"])) == (W.SM90_BT, W.SM90_BN, W.SM90_KC)
     text = (CSRC / "winograd_sm90.cu").read_text()
     assert "tw != 4 && tw != 8 && tw != 16" in text  # the rectangles the plan picks
-    assert "C % KC" in text and "Co % 64" in text  # takes what k6_body routes there
+    assert "C % 8" in text and "Cu < Co" in text  # takes what k6_body routes there: any Co
+    assert "(C + KC - 1) / KC" in text  # the last chunk partly past C
 
 
 def test_wino3x3_routes_by_the_stated_shape_rule():
     bf, f32 = torch.bfloat16, torch.float32
     assert W.k6_body(bf, 640, 1280) == W.k6_body(bf, 64, 64) == "bf16_sm90"
-    assert W.k6_body(bf, 96, 128) == W.k6_body(bf, 128, 96) == "prior"
+    assert W.k6_body(bf, 96, 128) == W.k6_body(bf, 128, 96) == "bf16_sm90"  # any remainder
+    assert W.k6_body(bf, 20, 128) == W.k6_body(f32, 18, 128) == "prior"  # off the 16-byte maps
+    assert W.k6_body(f32, 20, 72) == "f32_sm90"
     assert W.k6_body(f32, 640, 640) == "f32_sm90"  # f32 goes to its own Hopper body
     for hw, c, co in B1_UNET_CONVS:  # every ResBlock conv of phase 9 takes the Hopper body
         assert W.k6_body(bf, c, co) == "bf16_sm90"
@@ -214,7 +226,7 @@ def test_wino3x3_bodies_refuse_what_they_refused():
             fn(x, k, bias, u=W.winograd_weights(k))  # U in f32 for a bf16 x
         with pytest.raises(ValueError):
             fn(x, k[:, :, :32], bias)  # a kernel of another C
-    x96, k96, b96 = _wino_inputs(1, 8, 8, 96, 64, torch.bfloat16)
-    with pytest.raises(ValueError):  # C % 64 != 0: not the Hopper body's
-        W.wino3x3_sm90(x96, k96, b96)
-    assert W.wino3x3_prior(x96, k96, b96).shape == (1, 8, 8, 64)
+    x20, k20, b20 = _wino_inputs(1, 8, 8, 20, 64, torch.bfloat16)
+    with pytest.raises(ValueError):  # C % 8 != 0: not the Hopper body's
+        W.wino3x3_sm90(x20, k20, b20)
+    assert W.wino3x3_prior(x20, k20, b20).shape == (1, 8, 8, 64)

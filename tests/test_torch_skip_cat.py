@@ -238,6 +238,36 @@ def test_hopper_operands_read_a_weight_slice_in_place():
         assert torch.equal(wt.permute(0, 3, 1, 2), wc)
 
 
+@pytest.mark.parametrize("dtype,ca,cb,in_place", [
+    (torch.bfloat16, 672, 224, True),   # CompVis LDM-VQ-4's (672 | 224) -> 448 in_conv
+    (torch.bfloat16, 896, 672, True),
+    (torch.float32, 100, 36, True),     # f32: 400 bytes, a multiple of 16
+    (torch.bfloat16, 20, 24, False),    # b's half starts 40 bytes in: not TMA-aligned
+    (torch.float32, 18, 20, False),     # a row of 38 f32 channels: not a 16-byte stride
+])
+def test_split_halves_off_the_tile_are_read_in_place_where_tma_can(dtype, ca, cb, in_place):
+    """A half whose width is off the Hopper bodies' 64- (f32: 32-) channel
+    k-step is read in place like any other when its start and the weight's
+    channel stride are multiples of 16 bytes (the kernel's map stops at the
+    half's C, so the neighbour's channels past it read as zeros); a half
+    that is not is copied to its own contiguous layout."""
+    from complex_prompt_diffusion_tpu_torch.ops import conv as C
+
+    w = torch.randn(48, ca + cb, 3, 3).to(dtype).contiguous(memory_format=torch.channels_last)
+    wa, wb, _ = U._split_weight({"weight": w, "bias": torch.zeros(48)}, ca)
+    for ws, lo in ((wa, 0), (wb, ca)):
+        c = ws.shape[1]
+        x = torch.randn(1, 8, 8, c).to(dtype)
+        plan = C.conv3x3_plan(1, 8, 8, c + (-c % C.SM90_ALIGN[dtype]), 48, dtype=dtype)
+        if c % C.SM90_ALIGN[dtype]:
+            continue  # the route sends this half to the generic body, which copies
+        _, wt, cw, _, _ = C._hopper_operands(x, ws, plan, "test")
+        here = in_place or lo == 0 and (ca + cb) * w.element_size() % 16 == 0
+        assert (wt.data_ptr() == w.data_ptr() + lo * w.element_size()) == here
+        assert cw == (ca + cb if here else c) and wt.data_ptr() % 16 == 0
+        assert torch.equal(wt.permute(0, 3, 1, 2), ws)
+
+
 def _plain_pair(a, b, w, k):
     """A two-output stand-in for a kernel and its twin: (a w + b, a * b k)."""
     return a * w + b, a * b * k
